@@ -1,0 +1,128 @@
+"""Carry a model's parameters across from the JAX package's layout.
+
+The input is a flat dict of numpy arrays keyed by the JAX model's tree
+path (``embed_tokens``, ``blocks.0.attn.qkv_proj.wq``, ...) plus the HF
+config dict; the output is the port's :class:`Model` holding the same
+numbers, so both packages can be run on one set of weights. The kind of
+each linear follows from its leaves: ``wq`` is int8, ``weight`` is
+dense, ``centroids`` is a codebook layer whose geometry comes from the
+config's ``quantization_config``. bf16 arrays are taken by bit pattern.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from vptq_tpu_torch.config import QuantizationConfig
+from vptq_tpu_torch.layers.dense import DenseLinear
+from vptq_tpu_torch.layers.runtime import Int8Linear
+from vptq_tpu_torch.layers.vqlinear import VQLinear
+from vptq_tpu_torch.models.llama import (
+    Attention,
+    Block,
+    Mlp,
+    Model,
+    ModelConfig,
+)
+from vptq_tpu_torch.models.loader import resolve_device
+from vptq_tpu_torch.ops.packing import to_index_plane
+
+__all__ = ["convert_params"]
+
+
+def _tensor(a: np.ndarray) -> torch.Tensor:
+    a = np.array(a)  # writable copy
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
+def convert_params(
+    params: Dict[str, np.ndarray], hf_config: dict, device=None
+) -> Model:
+    """The port's Model, on CUDA unless ``device`` says otherwise."""
+    device = resolve_device(device)
+    cfg = ModelConfig.from_hf_dict(hf_config)
+    qcfg = QuantizationConfig.from_dict(
+        hf_config.get("quantization_config", {})
+    )
+
+    def get(name) -> Optional[torch.Tensor]:
+        a = params.get(name)
+        return None if a is None else _tensor(a).to(device)
+
+    def plane(name, num_centroids):
+        t = get(name)
+        if t is None:
+            return None
+        # the JAX planes are uint8 or uint16 arrays
+        return to_index_plane(t.to(torch.int64), num_centroids)
+
+    def linear(prefix: str, hf_prefix: str):
+        if f"{prefix}.wq" in params:
+            return Int8Linear(
+                get(f"{prefix}.wq"),
+                get(f"{prefix}.scales"),
+                get(f"{prefix}.bias"),
+            )
+        if f"{prefix}.weight" in params:
+            return DenseLinear(get(f"{prefix}.weight"), get(f"{prefix}.bias"))
+        if f"{prefix}.centroids" in params:
+            lc = qcfg.lookup(hf_prefix)
+            inv_perm = get(f"{prefix}.inv_perm")
+            return VQLinear(
+                centroids=get(f"{prefix}.centroids"),
+                ids=plane(f"{prefix}.ids", lc.num_main_centroids),
+                res_centroids=get(f"{prefix}.res_centroids"),
+                res_ids=plane(f"{prefix}.res_ids", lc.num_main_res_centroids),
+                outlier_centroids=get(f"{prefix}.outlier_centroids"),
+                outlier_ids=plane(
+                    f"{prefix}.outlier_ids", lc.num_outlier_centroids
+                ),
+                inv_perm=(
+                    None if inv_perm is None else inv_perm.to(torch.int64)
+                ),
+                weight_scale=get(f"{prefix}.weight_scale"),
+                weight_bias=get(f"{prefix}.weight_bias"),
+                bias=get(f"{prefix}.bias"),
+                cfg=lc,
+            )
+        return None
+
+    blocks = []
+    for i in range(cfg.num_hidden_layers):
+        b, hf = f"blocks.{i}", f"model.layers.{i}"
+        attn = Attention(
+            **{
+                name: linear(f"{b}.attn.{name}", f"{hf}.self_attn.{name}")
+                for name in (
+                    "q_proj", "k_proj", "v_proj", "o_proj", "qkv_proj"
+                )
+            }
+        )
+        mlp = Mlp(
+            **{
+                name: linear(f"{b}.mlp.{name}", f"{hf}.mlp.{name}")
+                for name in (
+                    "gate_proj", "up_proj", "down_proj", "gate_up_proj"
+                )
+            }
+        )
+        blocks.append(
+            Block(
+                input_layernorm=get(f"{b}.input_layernorm"),
+                attn=attn,
+                post_attention_layernorm=get(f"{b}.post_attention_layernorm"),
+                mlp=mlp,
+            )
+        )
+    return Model(
+        embed_tokens=get("embed_tokens"),
+        blocks=blocks,
+        norm=get("norm"),
+        lm_head=linear("lm_head", "lm_head"),
+        cfg=cfg,
+    )

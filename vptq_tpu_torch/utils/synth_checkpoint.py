@@ -1,0 +1,188 @@
+"""Write synthetic VPTQ checkpoints in the community on-disk format.
+
+Port of ``vptq_tpu/utils/synth_checkpoint.py`` for dense Llama: packed
+int32 index streams, uint16-viewed-as-int16 perms and indices, and the
+``quantization_config`` block in config.json. For one seed it writes
+the same tensors as the JAX package's writer. Packing is word-wise
+(``ops/packing.py``), which keeps a checkpoint at Llama-3.1-8B width
+to seconds per layer.
+"""
+
+from __future__ import annotations
+
+import json
+from pathlib import Path
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from vptq_tpu_torch.config import VQLinearConfig
+from vptq_tpu_torch.models.llama import ModelConfig
+from vptq_tpu_torch.models.loader import write_safetensors
+from vptq_tpu_torch.ops.packing import pack_index
+from vptq_tpu_torch.utils.synth import make_config, make_numpy_planes
+
+__all__ = ["tiny_model_config", "write_synthetic_checkpoint"]
+
+
+def tiny_model_config(**overrides) -> ModelConfig:
+    defaults = dict(
+        vocab_size=256,
+        hidden_size=64,
+        intermediate_size=128,
+        num_hidden_layers=2,
+        num_attention_heads=4,
+        num_key_value_heads=2,
+        head_dim=16,
+        rms_norm_eps=1e-5,
+        rope_theta=10000.0,
+        tie_word_embeddings=True,
+        model_type="llama",
+    )
+    defaults.update(overrides)
+    return ModelConfig(**defaults)
+
+
+def _layer_tensors(
+    prefix: str, cfg: VQLinearConfig, seed: int, dtype, std: float
+) -> Dict[str, np.ndarray]:
+    """Tensors of one quantized linear, checkpoint-format."""
+    planes = make_numpy_planes(cfg, seed=seed, dtype=dtype, std=std)
+    c, k, v = cfg.num_codebooks, cfg.num_main_centroids, cfg.vector_len
+    view = np.float16 if cfg.indices_as_float else np.int16
+
+    out: Dict[str, np.ndarray] = {}
+    out[f"{prefix}.centroids.weight"] = planes["centroids"].reshape(c, k * v)
+    if cfg.is_indice_packed:
+        res = planes["res_ids"]
+        out[f"{prefix}.indices"] = pack_index(
+            torch.from_numpy(planes["ids"].astype(np.int64)),
+            cfg.index_bits,
+            None if res is None else torch.from_numpy(res.astype(np.int64)),
+            cfg.res_index_bits,
+        ).numpy()
+    else:
+        out[f"{prefix}.indices"] = planes["ids"].astype(np.uint16).view(view)
+        if planes["res_ids"] is not None:
+            out[f"{prefix}.res_indices"] = (
+                planes["res_ids"].astype(np.uint16).view(view)
+            )
+    if planes["res_centroids"] is not None:
+        kr = cfg.num_main_res_centroids
+        out[f"{prefix}.res_centroids.weight"] = planes[
+            "res_centroids"
+        ].reshape(c, kr * v)
+    if planes["outlier_centroids"] is not None:
+        ko, vo = cfg.num_outlier_centroids, cfg.outlier_vector_len
+        out[f"{prefix}.outlier_centroids.weight"] = planes[
+            "outlier_centroids"
+        ].reshape(1, ko * vo)
+        out[f"{prefix}.outlier_indices"] = (
+            planes["outlier_ids"].astype(np.uint16).view(view)
+        )
+    if planes["perm"] is not None:
+        out[f"{prefix}.perm"] = planes["perm"].view(np.int16)
+    if planes["weight_scale"] is not None:
+        out[f"{prefix}.weight_scale"] = planes["weight_scale"].astype(dtype)
+        out[f"{prefix}.weight_bias"] = planes["weight_bias"].astype(dtype)
+    if planes["bias"] is not None:
+        out[f"{prefix}.bias"] = planes["bias"].astype(dtype)
+    return out
+
+
+def write_synthetic_checkpoint(
+    path: str,
+    model_cfg: Optional[ModelConfig] = None,
+    vq_kwargs: Optional[dict] = None,
+    seed: int = 0,
+    dtype=np.float16,
+    std: float = 0.5,
+) -> Path:
+    """Create ``path`` with config.json + model.safetensors.
+
+    ``vq_kwargs`` override :func:`make_config` geometry (in/out features
+    are filled in per projection). ``std`` is the codebook spread: the
+    JAX package's 0.5 grows the residual stream over many wide layers,
+    so a deep full-width model passes a smaller one.
+    """
+    mc = model_cfg or tiny_model_config()
+    if mc.is_mla or mc.num_local_experts or mc.model_type != "llama":
+        raise NotImplementedError("the port writes dense Llama checkpoints")
+    vq_kwargs = dict(vq_kwargs or {})
+    root = Path(path)
+    root.mkdir(parents=True, exist_ok=True)
+
+    rng = np.random.default_rng(seed)
+    h = mc.hidden_size
+    q_out = mc.num_attention_heads * mc.head_dim
+    kv_out = mc.num_key_value_heads * mc.head_dim
+    inter = mc.intermediate_size
+    proj_shapes = {
+        "self_attn.q_proj": (h, q_out),
+        "self_attn.k_proj": (h, kv_out),
+        "self_attn.v_proj": (h, kv_out),
+        "self_attn.o_proj": (q_out, h),
+        "mlp.gate_proj": (h, inter),
+        "mlp.up_proj": (h, inter),
+        "mlp.down_proj": (inter, h),
+    }
+
+    tensors: Dict[str, np.ndarray] = {}
+    config_for_layers: Dict[str, dict] = {}
+    for i in range(mc.num_hidden_layers):
+        for name, (in_f, out_f) in proj_shapes.items():
+            prefix = f"model.layers.{i}.{name}"
+            cfg = make_config(
+                in_features=in_f, out_features=out_f, **vq_kwargs
+            )
+            tensors.update(
+                _layer_tensors(
+                    prefix, cfg, seed=int(rng.integers(1 << 31)),
+                    dtype=dtype, std=std,
+                )
+            )
+            config_for_layers[prefix] = cfg.to_dict()
+        for norm in ("input_layernorm", "post_attention_layernorm"):
+            tensors[f"model.layers.{i}.{norm}.weight"] = (
+                np.ones(h, dtype=dtype)
+                + 0.01 * rng.standard_normal(h).astype(dtype)
+            )
+
+    tensors["model.embed_tokens.weight"] = (
+        0.02 * rng.standard_normal((mc.vocab_size, h))
+    ).astype(dtype)
+    tensors["model.norm.weight"] = np.ones(h, dtype=dtype)
+    if not mc.tie_word_embeddings:
+        tensors["lm_head.weight"] = (
+            0.02 * rng.standard_normal((mc.vocab_size, h))
+        ).astype(dtype)
+
+    write_safetensors(tensors, root / "model.safetensors")
+
+    hf_config = {
+        "architectures": ["LlamaForCausalLM"],
+        "model_type": mc.model_type,
+        "vocab_size": mc.vocab_size,
+        "hidden_size": mc.hidden_size,
+        "intermediate_size": mc.intermediate_size,
+        "num_hidden_layers": mc.num_hidden_layers,
+        "num_attention_heads": mc.num_attention_heads,
+        "num_key_value_heads": mc.num_key_value_heads,
+        "head_dim": mc.head_dim,
+        "rms_norm_eps": mc.rms_norm_eps,
+        "rope_theta": mc.rope_theta,
+        "attention_bias": False,
+        "max_position_embeddings": mc.max_position_embeddings,
+        "tie_word_embeddings": mc.tie_word_embeddings,
+        "torch_dtype": "float16" if dtype == np.float16 else "bfloat16",
+        "quantization_config": {
+            "quant_method": "vptq",
+            "config_for_layers": config_for_layers,
+        },
+    }
+    if mc.rope_scaling is not None:
+        hf_config["rope_scaling"] = dict(mc.rope_scaling)
+    with open(root / "config.json", "w") as f:
+        json.dump(hf_config, f, indent=2)
+    return root
