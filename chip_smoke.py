@@ -6,29 +6,40 @@
 Needs one CUDA device, ``nvcc`` and ``nvidia-smi``; exits non-zero
 without them, or when any phase fails. Phases:
 
-1. build every CUDA kernel of the port from ``vptq_tpu_torch/csrc``;
-2. K1 ``w8_matmul`` at the four linear shapes of Llama-3.1-8B (group
-   2048), at T=1 (decode) and T=128 and T=512 (the prefill buckets the
-   three requests use): the kernel held against
-   its plain version ``w8_matmul_reference`` on the card, then timed
-   with CUDA events (L2 flushed before each launch) beside the plain
-   version and a ``torch.matmul`` yardstick;
-3. end to end: a synthetic VPTQ checkpoint of Llama-3.1-8B geometry
-   (``v8-k65536-0``: vector 8, 65536 centroids, no residual, norm and
-   perm on, packed indices) written by the port's own writer, loaded by
-   ``AutoModelForCausalLM.from_pretrained`` (int8, cuda), three greedy
-   requests of 16, 128 and 512 prompt tokens and 32 new tokens each,
-   with K1's launch count checked against the forward calls, finite
-   logits, and the first prompt's prefill logits held against the same
-   model run through ``w8_matmul_reference``; then one decode step's
-   wall time against the device time of its kernels (``torch.profiler``).
+1. build every CUDA kernel of the port from ``vptq_tpu_torch/csrc`` (K1
+   ``w8_matmul``, K2 ``w4_matmul``, K3 ``w2_matmul``, K4 ``w3_matmul``),
+   one ``nvcc`` each, all at once;
+2. each kernel at the four linear shapes of Llama-3.1-8B, on layers its
+   format's encoder makes on the card from a random weight (K1 group
+   2048, K3 group 64), at T=1 (decode) and T=128 and T=512 (the prefill
+   buckets the requests use): the kernel held against its plain version
+   on the card, then timed with CUDA events (L2 flushed before each
+   launch) beside the plain version and a ``torch.matmul`` yardstick;
+3. the int4, int3 and int2 encoders on the card against the same
+   encoders on the CPU, byte for byte, on one 4096 x 4096 synthetic
+   weight (the CPU encoders are held to the JAX package's numpy bytes by
+   the CPU tests);
+4. end to end, once per format (int8, int4, int3, int2): one synthetic
+   VPTQ checkpoint of Llama-3.1-8B geometry (``v8-k65536-0``: vector 8,
+   65536 centroids, no residual, norm and perm on, packed indices),
+   written once by the port's own writer, loaded by
+   ``AutoModelForCausalLM.from_pretrained(runtime_format=...)`` on cuda;
+   three greedy requests of 16, 128 and 512 prompt tokens and 32 new
+   tokens each, with every kernel's launch count set to 0 before and
+   checked after (the format's kernel 4 per layer per forward call, the
+   others 0), finite logits, and the first prompt's prefill logits held
+   against the same model run through the plain version; then one
+   decode step's wall time against the device time of its kernels
+   (``torch.profiler``). The int8 run also checks that a 1024-token
+   fresh prefill refuses (K8 is not ported).
 
-The line before the last is a JSON object with one record per measured
-kernel; the last line is ``{"ok": true, "device": {...}}``.
+The line before the last is a JSON object with one record per kernel at
+T=1 and T=512; the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import importlib
 import json
 import math
 import shutil
@@ -74,15 +85,21 @@ V8_K65536 = dict(
 # codebook spread that keeps 32 synthetic layers' activations finite
 SMOKE_STD = 0.02
 
-# K1 against its plain version: |kernel - plain| <= RTOL*|plain| +
+# a kernel against its plain version: |kernel - plain| <= RTOL*|plain| +
 # ATOL_FRAC*max|plain|. Both sum f32 products of the same bf16 inputs
-# and differ only in summation order before the final bf16 rounding,
-# so one bf16 ulp (2^-8 relative) is the expected gap; this is tighter
-# than tests/test_runtime.py's rtol 2e-2, atol 5e-3*max|y|.
+# and exact levels, scale each group's f32 partial, and differ only in
+# summation order before the final bf16 rounding, so one bf16 ulp
+# (2^-8 relative) is the expected gap; this is tighter than
+# tests/test_runtime.py's rtol 2e-2, atol 5e-3*max|y|.
 RTOL, ATOL_FRAC = 1e-2, 1e-3
-# prefill logits through K1 vs through the plain version, 32 layers in
-# bf16: max |diff| <= LOGIT_TOL * max|logits|
+# prefill logits through a kernel vs through its plain version, 32
+# layers in bf16: max |diff| <= LOGIT_TOL * max|logits|
 LOGIT_TOL = 5e-2
+# runtime format -> the kernel that carries every decoder linear
+FORMAT_KERNEL = {
+    "int8": "w8_matmul", "int4": "w4_matmul", "int3": "w3_matmul",
+    "int2": "w2_matmul",
+}
 
 
 def _sh(cmd) -> str:
@@ -149,11 +166,30 @@ def k1_shapes(cfg: dict):
     ]
 
 
-def phase_k1(device, shapes, tokens=(1, 128, 512), iters=20, seed=0):
-    """K1 at each shape and token count: agreement, times and bound."""
-    from vptq_tpu_torch.layers.runtime import pick_group
-    from vptq_tpu_torch.ops.w8_matmul import w8_matmul, w8_matmul_reference
+def kernel_fns(name):
+    """(kernel wrapper, plain version) of one kernel module."""
+    mod = importlib.import_module(f"vptq_tpu_torch.ops.{name}")
+    return getattr(mod, name), getattr(mod, f"{name}_reference")
 
+
+def make_layer(name, gen, out_f, in_f, device):
+    """The runtime layer that kernel ``name``'s format encoder makes from
+    one random f32 (out, in) weight on ``device`` (K1 group from
+    ``pick_group``, K3 group 64, the padding the encoders apply)."""
+    from vptq_tpu_torch.layers import runtime as rt
+
+    fmt = next(f for f, k in FORMAT_KERNEL.items() if k == name)
+    w = torch.randn((out_f, in_f), generator=gen, device=device) * SMOKE_STD
+    return getattr(rt, f"_encode_{fmt}")(w, None)
+
+
+def phase_kernel(name, device, shapes, tokens=(1, 128, 512), iters=20,
+                 seed=0):
+    """One kernel at each shape and token count: agreement with its
+    plain version, times and bound."""
+    from vptq_tpu_torch.layers.runtime import linear_exact_weight
+
+    fn, ref = kernel_fns(name)
     gen = torch.Generator(device=device).manual_seed(seed)
     cuda = torch.device(device).type == "cuda"
     # 1 GiB overwritten before each timed launch evicts the 50 MB L2,
@@ -164,119 +200,142 @@ def phase_k1(device, shapes, tokens=(1, 128, 512), iters=20, seed=0):
         if cuda else None
     )
     rows = []
-    for name, out_f, in_f in shapes:
-        group = pick_group(in_f)
-        in_p = -(-in_f // group) * group
-        wq = torch.randint(
-            -127, 128, (out_f, in_p), generator=gen, device=device,
-            dtype=torch.int8,
-        )
-        scales = (
-            torch.rand(
-                (in_p // group, out_f), generator=gen, device=device
-            ) + 0.5
-        ) * 1e-2
-        w_bf16 = (
-            wq.float().reshape(out_f, -1, group) * scales.t()[:, :, None]
-        ).reshape(out_f, in_p).to(torch.bfloat16)
+    for shape, out_f, in_f in shapes:
+        layer = make_layer(name, gen, out_f, in_f, device)
+        args = tuple(layer.buffers())
+        w_bf16 = linear_exact_weight(layer).to(torch.bfloat16)
+        in_p = w_bf16.shape[1]
+        arg_bytes = sum(a.numel() * a.element_size() for a in args)
         for t in tokens:
             x = torch.randn(
                 (t, in_p), generator=gen, device=device
             ).to(torch.bfloat16)
-            launches = w8_matmul.launches
-            y = w8_matmul(x, wq, scales)
-            ref = w8_matmul_reference(x, wq, scales)
+            launches = fn.launches
+            y = fn(x, *args)
+            want = ref(x, *args)
             _sync(device)
-            if w8_matmul.launches != launches + (1 if cuda else 0):
-                raise AssertionError("w8_matmul did not count its launch")
-            if y.shape != ref.shape or y.dtype != ref.dtype:
+            if fn.launches != launches + (1 if cuda else 0):
+                raise AssertionError(f"{name} did not count its launch")
+            if y.shape != want.shape or y.dtype != want.dtype:
                 raise AssertionError(
-                    f"K1 {name} T={t}: shape or dtype differs"
+                    f"{name} {shape} T={t}: shape or dtype differs"
                 )
-            yf, rf = y.float(), ref.float()
+            yf, rf = y.float(), want.float()
             err = (yf - rf).abs()
             limit = RTOL * rf.abs() + ATOL_FRAC * rf.abs().max()
-            ok = bool(torch.all(err <= limit))
-            ok = ok and bool(torch.isfinite(yf).all())
-            if not ok:
+            if not (bool(torch.all(err <= limit))
+                    and bool(torch.isfinite(yf).all())):
                 raise AssertionError(
-                    f"K1 {name} T={t}: max |err| {err.max().item():.4g} "
-                    "outside the tolerance"
+                    f"{name} {shape} T={t}: max |err| "
+                    f"{err.max().item():.4g} outside the tolerance"
                 )
-            ms = time_ms(
-                lambda: w8_matmul(x, wq, scales), device, iters, flush
-            )
+            ms = time_ms(lambda: fn(x, *args), device, iters, flush)
             plain_ms = time_ms(
-                lambda: w8_matmul_reference(x, wq, scales), device,
-                max(iters // 4, 1), flush,
+                lambda: ref(x, *args), device, max(iters // 4, 1), flush
             )
             library_ms = time_ms(
                 lambda: torch.matmul(x, w_bf16.t()), device, iters, flush
             )
             # each input read once, the output written once
-            nbytes = (
-                t * in_p * 2 + out_f * in_p + scales.numel() * 4
-                + t * out_f * 2
-            )
+            nbytes = t * in_p * 2 + arg_bytes + t * out_f * 2
             flops = 2 * t * out_f * in_p
             bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
             ops_ms = flops / PEAK_BF16_FLOPS * 1e3
             rows.append(dict(
-                shape=name, T=t, out=out_f, in_p=in_p, group=group,
+                kernel=name, shape=shape, T=t, out=out_f, in_p=in_p,
+                group=getattr(layer, "group", 128),
                 bytes=nbytes, flops=flops,
                 bound_ms=max(bytes_ms, ops_ms),
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations",
                 ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                 max_abs_err=err.max().item(),
             ))
-            print("K1 " + json.dumps(rows[-1]))
-        del wq, scales, w_bf16
+            print(f"{name} " + json.dumps(rows[-1]))
+        del layer, args, w_bf16
     return rows
 
 
-def phase_e2e(device, cfg: dict, vq_kwargs: dict, prompt_lens=(16, 128, 512),
-              new_tokens=32, max_seq=2048, seed=0, std=SMOKE_STD):
-    """Checkpoint → from_pretrained → three greedy requests; checked."""
-    from vptq_tpu_torch import AutoModelForCausalLM
-    from vptq_tpu_torch.layers import runtime
-    from vptq_tpu_torch.models.llama import forward, init_cache
-    from vptq_tpu_torch.ops.w8_matmul import w8_matmul, w8_matmul_reference
+def phase_encoders(device, out_f=4096, in_f=4096, seed=0):
+    """int4 / int3 / int2 encodings of one synthetic weight on ``device``
+    against the same encoders on the CPU, byte for byte. The weight is
+    built the VQ way (8-vectors gathered from a 4096-entry codebook), so
+    it repeats values as a dequantized checkpoint does."""
+    from vptq_tpu_torch.layers import runtime as rt
+
+    rng = np.random.default_rng(seed)
+    codebook = (rng.standard_normal((4096, 8)) * SMOKE_STD).astype(np.float32)
+    ids = rng.integers(0, 4096, (out_f, in_f // 8))
+    w = torch.from_numpy(codebook[ids].reshape(out_f, in_f))
+    result = {}
+    for fmt in ("int4", "int3", "int2"):
+        encode = getattr(rt, f"_encode_{fmt}")
+        t0 = time.perf_counter()
+        got = encode(w.to(device), None)
+        _sync(device)
+        card_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        want = encode(w, None)
+        cpu_s = time.perf_counter() - t0
+        for (name, g), (_, wnt) in zip(
+            got.named_buffers(), want.named_buffers()
+        ):
+            if not torch.equal(g.cpu().view(torch.uint8),
+                               wnt.view(torch.uint8)):
+                raise AssertionError(
+                    f"{fmt} {name}: the card's bytes differ from the CPU's"
+                )
+        result[fmt] = dict(card_s=card_s, cpu_s=cpu_s)
+        print(f"encoder {fmt} " + json.dumps(result[fmt]))
+    return result
+
+
+def write_checkpoint(cfg: dict, vq_kwargs: dict, seed=0, std=SMOKE_STD):
+    """The synthetic checkpoint every format loads; returns (dir, s)."""
     from vptq_tpu_torch.utils.synth_checkpoint import (
         tiny_model_config,
         write_synthetic_checkpoint,
     )
 
-    result = {}
     path = tempfile.mkdtemp(prefix="vptq_smoke_")
-    try:
-        t0 = time.perf_counter()
-        write_synthetic_checkpoint(
-            path, tiny_model_config(**cfg), vq_kwargs=vq_kwargs, seed=seed,
-            std=std,
-        )
-        result["write_s"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        engine = AutoModelForCausalLM.from_pretrained(
-            path, device=device, max_seq=max_seq
-        )
-        _sync(device)
-        result["load_s"] = time.perf_counter() - t0
-    finally:
-        shutil.rmtree(path, ignore_errors=True)
+    t0 = time.perf_counter()
+    write_synthetic_checkpoint(
+        path, tiny_model_config(**cfg), vq_kwargs=vq_kwargs, seed=seed,
+        std=std,
+    )
+    return path, time.perf_counter() - t0
+
+
+def phase_e2e(device, path, fmt: str, vocab: int,
+              prompt_lens=(16, 128, 512), new_tokens=32, max_seq=2048,
+              seed=0):
+    """from_pretrained(runtime_format=fmt) → three greedy requests;
+    launch counts, logits and a decode step checked."""
+    from vptq_tpu_torch import AutoModelForCausalLM
+    from vptq_tpu_torch.layers import runtime
+    from vptq_tpu_torch.models.llama import forward, init_cache
+
+    name = FORMAT_KERNEL[fmt]
+    fns = {k: kernel_fns(k)[0] for k in FORMAT_KERNEL.values()}
+    cuda = torch.device(device).type == "cuda"
+    result = dict(format=fmt, kernel=name)
+    t0 = time.perf_counter()
+    engine = AutoModelForCausalLM.from_pretrained(
+        path, runtime_format=fmt, device=device, max_seq=max_seq
+    )
+    _sync(device)
+    result["load_s"] = time.perf_counter() - t0
 
     model, gen = engine.model, engine.generator
     per_forward = 4 * model.cfg.num_hidden_layers
     rng = np.random.default_rng(seed)
-    prompts = [
-        rng.integers(0, cfg["vocab_size"], n).tolist() for n in prompt_lens
-    ]
-    cuda = torch.device(device).type == "cuda"
+    prompts = [rng.integers(0, vocab, n).tolist() for n in prompt_lens]
 
     requests = []
     launches = 0
     for prompt in prompts:
         stamps = []
-        w8_matmul.launches = 0
+        for f in fns.values():
+            f.launches = 0
         t0 = time.perf_counter()
         out = engine.generate(
             prompt, max_new_tokens=new_tokens,
@@ -284,30 +343,30 @@ def phase_e2e(device, cfg: dict, vq_kwargs: dict, prompt_lens=(16, 128, 512),
         )
         _sync(device)
         t_end = time.perf_counter()
-        n_launch = w8_matmul.launches
+        counts = {k: f.launches for k, f in fns.items()}
         chunks = math.ceil(len(prompt) / gen.prompt_buckets[-1])
         forwards = chunks + len(out) - 1
-        expected = per_forward * forwards if cuda else 0
-        if n_launch != expected:
+        expected = {k: 0 for k in fns}
+        expected[name] = per_forward * forwards if cuda else 0
+        if counts != expected:
             raise AssertionError(
-                f"K1 launched {n_launch} times, expected {expected} "
+                f"{fmt}: launches {counts}, expected {expected} "
                 f"({forwards} forward calls)"
             )
-        in_vocab = all(0 <= t < cfg["vocab_size"] for t in out)
-        if len(out) != new_tokens or not in_vocab:
+        if len(out) != new_tokens or not all(0 <= t < vocab for t in out):
             raise AssertionError(f"bad tokens {out}")
-        launches += n_launch
+        launches += counts[name]
         requests.append(dict(
-            prompt=len(prompt), new=len(out), k1_launches=n_launch,
+            prompt=len(prompt), new=len(out), launches=counts[name],
             ttft_s=stamps[0] - t0,
             decode_tok_s=(len(out) - 1) / (t_end - stamps[0]),
         ))
-        print("request " + json.dumps(requests[-1]))
+        print(f"request {fmt} " + json.dumps(requests[-1]))
     result["requests"] = requests
-    result["k1_launches"] = launches
+    result["launches"] = launches
 
-    # logits: finite for every prompt; the first through K1 and through
-    # the plain version
+    # logits: finite for every prompt; the first through the kernel and
+    # through its plain version
     def prefill(prompt):
         bucket = next(b for b in gen.prompt_buckets if len(prompt) <= b)
         tokens = torch.zeros((1, bucket), dtype=torch.int64)
@@ -323,20 +382,25 @@ def phase_e2e(device, cfg: dict, vq_kwargs: dict, prompt_lens=(16, 128, 512),
     for prompt in prompts:
         if not bool(torch.isfinite(prefill(prompt)).all()):
             raise AssertionError(
-                f"non-finite logits for a {len(prompt)}-token prompt"
+                f"{fmt}: non-finite logits for a {len(prompt)}-token prompt"
             )
     got = prefill(prompts[0])
-    with mock.patch.object(runtime, "w8_matmul", w8_matmul_reference):
+    with mock.patch.object(runtime, name, kernel_fns(name)[1]):
         want = prefill(prompts[0])
     diff = (got - want).abs().max().item()
     scale = want.abs().max().item()
     result["logits_max_abs_diff"] = diff
     result["logits_max_abs"] = scale
     if not diff <= LOGIT_TOL * scale:
-        raise AssertionError(f"prefill logits differ by {diff} (max {scale})")
+        raise AssertionError(
+            f"{fmt}: prefill logits differ by {diff} (max {scale})"
+        )
 
     if cuda:
-        result["decode_step"] = decode_breakdown(model, gen, prompts[0])
+        result["decode_step"] = decode_breakdown(
+            model, gen, prompts[0], fns[name].trace_tags
+        )
+    if cuda and fmt == "int8":
         # K8 (flash attention) is not ported: a long fresh prefill must
         # refuse rather than run a plain fallback
         cache = init_cache(model.cfg, 1, max_seq, gen.dtype, device)
@@ -353,13 +417,16 @@ def phase_e2e(device, cfg: dict, vq_kwargs: dict, prompt_lens=(16, 128, 512),
         else:
             raise AssertionError("a 1024-token fresh prefill did not raise")
     del engine, model
+    if cuda:
+        torch.cuda.empty_cache()
     return result
 
 
-def decode_breakdown(model, gen, prompt, steps=8):
+def decode_breakdown(model, gen, prompt, tags, steps=8):
     """Wall time of one batch-1 decode step (host clock, synchronized)
     against the device time of the kernels it runs (``torch.profiler``
-    CUDA activity, taken over the same steps run again)."""
+    CUDA activity, taken over the same steps run again); ``tags`` pick
+    the format's own kernels by name."""
     from torch.profiler import ProfilerActivity, profile
 
     from vptq_tpu_torch.models.llama import forward, init_cache
@@ -388,11 +455,14 @@ def decode_breakdown(model, gen, prompt, steps=8):
         if e.device_type == torch.autograd.DeviceType.CUDA
     ]
     busy_ms = sum(e.device_time_total for e in kernels) / 1e3 / steps
-    k1_ms = sum(
-        e.device_time_total for e in kernels if "w8_gem" in e.name
+    kernel_ms = sum(
+        e.device_time_total for e in kernels
+        if all(tag in e.name for tag in tags)
     ) / 1e3 / steps
+    if not kernel_ms > 0:
+        raise AssertionError(f"no kernel named {tags} in the decode trace")
     out = dict(
-        wall_ms=wall_ms, device_busy_ms=busy_ms, k1_ms=k1_ms,
+        wall_ms=wall_ms, device_busy_ms=busy_ms, kernel_ms=kernel_ms,
         kernels_per_step=len(kernels) / steps,
         idle_share=1.0 - busy_ms / wall_ms,
     )
@@ -400,30 +470,32 @@ def decode_breakdown(model, gen, prompt, steps=8):
     return out
 
 
-def kernel_records(rows, launches):
-    """The contract's per-kernel records: K1 at decode and at prefill,
-    each summed over one layer's four linears."""
+def kernel_records(rows, launches, tokens=(1, 512)):
+    """The contract's per-kernel records: each kernel at decode and at
+    prefill, summed over one layer's four linears. ``launches`` maps a
+    kernel to its count on its format's main path."""
     out = []
-    for t in sorted({r["T"] for r in rows}):
-        sel = [r for r in rows if r["T"] == t]
-        bytes_ms = sum(r["bytes"] for r in sel) / PEAK_BYTES_PER_S * 1e3
-        ops_ms = sum(r["flops"] for r in sel) / PEAK_BF16_FLOPS * 1e3
-        out.append({
-            "name": f"w8_matmul (T={t}, one layer's 4 linears)",
-            "route": "cuda",
-            "source": "vptq_tpu_torch/csrc/w8_matmul.cu",
-            "replaces": "vptq_tpu/ops/pallas_gemm.py:58",
-            "launches": launches,
-            "max_abs_err": max(r["max_abs_err"] for r in sel),
-            "ms": sum(r["ms"] for r in sel),
-            "plain_ms": sum(r["plain_ms"] for r in sel),
-            "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "library_ms": sum(r["library_ms"] for r in sel),
-            "library": "torch.matmul of bf16 x with the dequantized bf16 "
-                       "weight: a yardstick that reads twice the weight "
-                       "bytes; the port never calls it",
-        })
+    for name in dict.fromkeys(r["kernel"] for r in rows):
+        for t in tokens:
+            sel = [r for r in rows if r["kernel"] == name and r["T"] == t]
+            bytes_ms = sum(r["bytes"] for r in sel) / PEAK_BYTES_PER_S * 1e3
+            ops_ms = sum(r["flops"] for r in sel) / PEAK_BF16_FLOPS * 1e3
+            out.append({
+                "name": f"{name} (T={t}, one layer's 4 linears)",
+                "route": "cuda",
+                "source": f"vptq_tpu_torch/csrc/{name}.cu",
+                "replaces": kernel_fns(name)[0].replaces,
+                "launches": launches[name],
+                "max_abs_err": max(r["max_abs_err"] for r in sel),
+                "ms": sum(r["ms"] for r in sel),
+                "plain_ms": sum(r["plain_ms"] for r in sel),
+                "bound_ms": max(bytes_ms, ops_ms),
+                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                "library_ms": sum(r["library_ms"] for r in sel),
+                "library": "torch.matmul of bf16 x with the dequantized "
+                           "bf16 weight: a yardstick that reads a bf16 "
+                           "weight; the port never calls it",
+            })
     return out
 
 
@@ -451,13 +523,25 @@ def main() -> int:
 
     device = "cuda"
     print(
-        f"K1 vs plain tolerance: |err| <= {RTOL} * |plain| + {ATOL_FRAC} * "
-        f"max|plain|; prefill logits: max|diff| <= {LOGIT_TOL} * max|logit|"
+        f"kernel vs plain tolerance: |err| <= {RTOL} * |plain| + "
+        f"{ATOL_FRAC} * max|plain|; prefill logits: max|diff| <= "
+        f"{LOGIT_TOL} * max|logit|"
     )
-    rows = phase_k1(device, k1_shapes(LLAMA31_8B))
-    e2e = phase_e2e(device, LLAMA31_8B, V8_K65536)
-    print("e2e " + json.dumps(e2e))
-    print(json.dumps({"kernels": kernel_records(rows, e2e["k1_launches"])}))
+    rows = []
+    for name in FORMAT_KERNEL.values():
+        rows += phase_kernel(name, device, k1_shapes(LLAMA31_8B))
+    phase_encoders(device)
+    path, write_s = write_checkpoint(LLAMA31_8B, V8_K65536)
+    print(f"checkpoint write: {write_s:.2f} s")
+    launches = {}
+    try:
+        for fmt, name in FORMAT_KERNEL.items():
+            e2e = phase_e2e(device, path, fmt, LLAMA31_8B["vocab_size"])
+            print("e2e " + json.dumps(e2e))
+            launches[name] = e2e["launches"]
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
+    print(json.dumps({"kernels": kernel_records(rows, launches)}))
     print(json.dumps({
         "ok": True,
         "device": {

@@ -7,6 +7,11 @@ from vptq_tpu_torch.config import VQLinearConfig
 from vptq_tpu_torch.layers.vqlinear import VQLinear
 from vptq_tpu_torch.ops.packing import to_index_plane
 
+# The tests run in several worker processes at once on a few cores; torch's
+# default of one thread per core in every worker oversubscribes them, and
+# the many small ops of these tiny models then run tens of times slower.
+torch.set_num_threads(1)
+
 # tiny GQA Llama: 2 layers, width 64, 4 heads over 2 KV heads
 TINY = dict(
     vocab_size=256, hidden_size=64, intermediate_size=128,

@@ -60,7 +60,13 @@ class AutoModelForCausalLM:
         **_ignored,
     ) -> Engine:
         """Load a local checkpoint directory; ``device`` defaults to CUDA
-        and raises when no CUDA device is present."""
+        and raises when no CUDA device is present.
+
+        ``runtime_format``: "int8" (K1), "int4" (K2), "int3" (K4) or
+        "int2" (K3) re-encode every quantized linear for its hand-written
+        kernel; "bf16" dequantizes to bf16; "codebook" keeps the VQ
+        layers. The calibrated "int*-mixed" formats raise (not ported).
+        """
         model = load_model(
             pretrained_model_name_or_path,
             dtype=dtype,

@@ -3,10 +3,13 @@
 The input is a flat dict of numpy arrays keyed by the JAX model's tree
 path (``embed_tokens``, ``blocks.0.attn.qkv_proj.wq``, ...) plus the HF
 config dict; the output is the port's :class:`Model` holding the same
-numbers, so both packages can be run on one set of weights. The kind of
-each linear follows from its leaves: ``wq`` is int8, ``weight`` is
-dense, ``centroids`` is a codebook layer whose geometry comes from the
-config's ``quantization_config``. bf16 arrays are taken by bit pattern.
+numbers, so both packages can be run on one set of weights. The flat
+dict keeps no class names, so the kind of each linear follows from its
+leaves: ``wq2`` and ``wq1`` are int3; ``wq`` is int8, int4 or int2 by
+the dtype and shape of its ``scales`` (see :func:`_packed_kind`);
+``weight`` is dense; ``centroids`` is a codebook layer whose geometry
+comes from the config's ``quantization_config``. bf16 arrays are taken
+by bit pattern.
 """
 
 from __future__ import annotations
@@ -18,7 +21,12 @@ import torch
 
 from vptq_tpu_torch.config import QuantizationConfig
 from vptq_tpu_torch.layers.dense import DenseLinear
-from vptq_tpu_torch.layers.runtime import Int8Linear
+from vptq_tpu_torch.layers.runtime import (
+    Int2Linear,
+    Int3Linear,
+    Int4Linear,
+    Int8Linear,
+)
 from vptq_tpu_torch.layers.vqlinear import VQLinear
 from vptq_tpu_torch.models.llama import (
     Attention,
@@ -28,7 +36,8 @@ from vptq_tpu_torch.models.llama import (
     ModelConfig,
 )
 from vptq_tpu_torch.models.loader import resolve_device
-from vptq_tpu_torch.ops.packing import to_index_plane
+from vptq_tpu_torch.ops.packing import INT4_GROUP, to_index_plane
+from vptq_tpu_torch.ops.w2_matmul import W2_GROUPS
 
 __all__ = ["convert_params"]
 
@@ -38,6 +47,32 @@ def _tensor(a: np.ndarray) -> torch.Tensor:
     if a.dtype.name == "bfloat16":
         return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
     return torch.from_numpy(a)
+
+
+def _packed_kind(prefix: str, wq: np.ndarray, scales: np.ndarray):
+    """The layer class of a ``wq`` + ``scales`` pair; raises unless
+    exactly one format fits.
+
+    int8: f32 scales (in_p / g, out) with in_p = wq.shape[1];
+    int4: bf16 scales (in_p / 128, out) with in_p = 2·wq.shape[1];
+    int2: bf16 scales (out, in_p / g), g ∈ {64, 128}, in_p = 4·wq.shape[1].
+    """
+    out_f, n = wq.shape
+    s0, s1 = scales.shape
+    kinds = []
+    if scales.dtype == np.float32 and s1 == out_f and s0 and n % s0 == 0:
+        kinds.append(Int8Linear)
+    if scales.dtype.name == "bfloat16":
+        if (s0, s1) == (2 * n // INT4_GROUP, out_f):
+            kinds.append(Int4Linear)
+        if s0 == out_f and s1 and 4 * n % s1 == 0 and 4 * n // s1 in W2_GROUPS:
+            kinds.append(Int2Linear)
+    if len(kinds) != 1:
+        raise ValueError(
+            f"{prefix}: cannot tell the format of wq {wq.shape} with "
+            f"{scales.dtype} scales {scales.shape}"
+        )
+    return kinds[0]
 
 
 def convert_params(
@@ -62,8 +97,18 @@ def convert_params(
         return to_index_plane(t.to(torch.int64), num_centroids)
 
     def linear(prefix: str, hf_prefix: str):
+        if f"{prefix}.wq2" in params:
+            return Int3Linear(
+                get(f"{prefix}.wq2"),
+                get(f"{prefix}.wq1"),
+                get(f"{prefix}.scales"),
+                get(f"{prefix}.bias"),
+            )
         if f"{prefix}.wq" in params:
-            return Int8Linear(
+            kind = _packed_kind(
+                prefix, params[f"{prefix}.wq"], params[f"{prefix}.scales"]
+            )
+            return kind(
                 get(f"{prefix}.wq"),
                 get(f"{prefix}.scales"),
                 get(f"{prefix}.bias"),

@@ -1,14 +1,24 @@
-"""Runtime weight formats: the int8 and bf16 re-encodings of VPTQ layers.
+"""Runtime weight formats: the dense re-encodings of VPTQ layers.
 
-Port of the int8/bf16 part of ``vptq_tpu/layers/runtime.py``. The
-loader reconstructs each layer's exact weight once (a torch gather on
-the load device) and re-encodes it:
+Port of ``vptq_tpu/layers/runtime.py`` without the calibrated mixed
+layers. The loader reconstructs each layer's exact weight once (a torch
+gather on the load device) and re-encodes it:
 
-  * ``int8``  per-(row, in-group) scaled int8, run by the K1 kernel
-    (``ops/w8_matmul.py``). ``wq`` and ``scales`` are byte-equal to the
-    JAX package's encoding.
+  * ``int8``  per-(row, in-group) scaled int8, run by K1
+    (``ops/w8_matmul.py``).
+  * ``int4``  split-half packed int4, per-(row, 128-column) bf16 scales
+    from an MSE grid search, run by K2 (``ops/w4_matmul.py``).
+  * ``int3``  2-bit plane + sign plane, per-(row, 128-column) bf16
+    scales, run by K4 (``ops/w3_matmul.py``).
+  * ``int2``  quarter-split 2-bit codes on the half-offset grid
+    ``(c + 0.5)·s``, per-(row, 64-column) bf16 scales, run by K3
+    (``ops/w2_matmul.py``).
   * ``bf16``  the exact weight rounded to bf16, run by ``torch.matmul``.
   * ``codebook`` keep the compressed :class:`VQLinear`.
+
+Every encoding is byte-equal to the JAX package's numpy encoder.
+Blocked (``shards > 1``) encodings for tensor parallelism are not
+ported: on one device they would compute wrong outputs, so they raise.
 """
 
 from __future__ import annotations
@@ -20,23 +30,52 @@ from torch import nn
 
 from vptq_tpu_torch.layers.dense import DenseLinear
 from vptq_tpu_torch.layers.vqlinear import VQLinear
+from vptq_tpu_torch.ops.packing import (
+    INT4_GROUP,
+    W2_BLOCK,
+    W2_GROUP,
+    pack_int2,
+    pack_int3,
+    pack_int4,
+    quantize_int2,
+    quantize_int3,
+    quantize_int4,
+    unpack_int2,
+    unpack_int3,
+    unpack_int4,
+)
 from vptq_tpu_torch.ops.quant_matmul import layer_weight
+from vptq_tpu_torch.ops.w2_matmul import w2_matmul
+from vptq_tpu_torch.ops.w3_matmul import w3_matmul
+from vptq_tpu_torch.ops.w4_matmul import w4_matmul
 from vptq_tpu_torch.ops.w8_matmul import w8_matmul
 
 __all__ = [
+    "Int2Linear",
+    "Int3Linear",
+    "Int4Linear",
     "Int8Linear",
     "RUNTIME_FORMATS",
+    "dense_to_int4",
     "dense_to_int8",
     "fuse_block",
     "fuse_linears",
     "fuse_model",
+    "int2_weight",
+    "int3_weight",
+    "int4_weight",
+    "int8_weight",
+    "linear_exact_weight",
     "pick_group",
     "to_bf16",
+    "to_int2",
+    "to_int3",
+    "to_int4",
     "to_int8",
     "to_runtime",
 ]
 
-RUNTIME_FORMATS = ("int8", "bf16", "codebook")
+RUNTIME_FORMATS = ("int8", "int4", "int3", "int2", "bf16", "codebook")
 
 # Scale-group width along in_features, chosen per layer: the largest
 # whose zero-padding waste stays small.
@@ -78,13 +117,130 @@ class Int8Linear(nn.Module):
         return self.wq.shape[0]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        in_padded = self.wq.shape[1]
-        if x.shape[-1] != in_padded:
-            x = nn.functional.pad(x, (0, in_padded - x.shape[-1]))
-        out = w8_matmul(x, self.wq, self.scales)
-        if self.bias is not None:
-            out = out + self.bias.to(out.dtype)
-        return out
+        return _add_bias(
+            w8_matmul(_pad_to(x, self.wq.shape[1]), self.wq, self.scales),
+            self.bias,
+        )
+
+
+def _pad_to(x: torch.Tensor, in_padded: int) -> torch.Tensor:
+    """Zero-pad activations to the encoder's padded in_features (zeros
+    contribute nothing to the products)."""
+    if x.shape[-1] != in_padded:
+        x = nn.functional.pad(x, (0, in_padded - x.shape[-1]))
+    return x
+
+
+def _add_bias(out: torch.Tensor, bias: Optional[torch.Tensor]):
+    return out if bias is None else out + bias.to(out.dtype)
+
+
+class Int4Linear(nn.Module):
+    """Packed int4 weights + per-(128-column group, row) bf16 scales.
+
+    Nibble layout: :func:`~vptq_tpu_torch.ops.packing.pack_int4`;
+    ``scales`` is (in_padded // 128, out), transposed like int8's.
+    """
+
+    def __init__(
+        self,
+        wq: torch.Tensor,  # (out, in_padded // 2) int8
+        scales: torch.Tensor,  # (in_padded // 128, out) bf16
+        bias: Optional[torch.Tensor] = None,
+    ):
+        super().__init__()
+        self.register_buffer("wq", wq)
+        self.register_buffer("scales", scales)
+        self.register_buffer("bias", bias)
+
+    @property
+    def in_padded(self) -> int:
+        return self.wq.shape[1] * 2
+
+    @property
+    def out_features(self) -> int:
+        return self.wq.shape[0]
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return _add_bias(
+            w4_matmul(_pad_to(x, self.in_padded), self.wq, self.scales),
+            self.bias,
+        )
+
+
+class Int3Linear(nn.Module):
+    """Plane-packed int3 weights + per-(row, 128-column) bf16 scales.
+
+    Plane layout: :func:`~vptq_tpu_torch.ops.packing.pack_int3`;
+    ``scales`` is out-major, (out, in_padded // 128), unlike int4's.
+    """
+
+    def __init__(
+        self,
+        wq2: torch.Tensor,  # (out, in_padded // 4) int8, low two bits
+        wq1: torch.Tensor,  # (out, in_padded // 8) int8, sign bits
+        scales: torch.Tensor,  # (out, in_padded // 128) bf16
+        bias: Optional[torch.Tensor] = None,
+    ):
+        super().__init__()
+        self.register_buffer("wq2", wq2)
+        self.register_buffer("wq1", wq1)
+        self.register_buffer("scales", scales)
+        self.register_buffer("bias", bias)
+
+    @property
+    def in_padded(self) -> int:
+        return self.wq2.shape[1] * 4
+
+    @property
+    def out_features(self) -> int:
+        return self.wq2.shape[0]
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return _add_bias(
+            w3_matmul(
+                _pad_to(x, self.in_padded), self.wq2, self.wq1, self.scales
+            ),
+            self.bias,
+        )
+
+
+class Int2Linear(nn.Module):
+    """Plane-packed int2 codes + per-(row, group) bf16 scales.
+
+    The level is ``(c + 0.5)·s`` with c ∈ [−2, 1]. Plane layout:
+    :func:`~vptq_tpu_torch.ops.packing.pack_int2`; ``scales`` is
+    out-major, (out, in_padded // group), group 64 or 128.
+    """
+
+    def __init__(
+        self,
+        wq: torch.Tensor,  # (out, in_padded // 4) int8
+        scales: torch.Tensor,  # (out, in_padded // group) bf16
+        bias: Optional[torch.Tensor] = None,
+    ):
+        super().__init__()
+        self.register_buffer("wq", wq)
+        self.register_buffer("scales", scales)
+        self.register_buffer("bias", bias)
+
+    @property
+    def in_padded(self) -> int:
+        return self.wq.shape[1] * 4
+
+    @property
+    def group(self) -> int:
+        return self.in_padded // self.scales.shape[1]
+
+    @property
+    def out_features(self) -> int:
+        return self.wq.shape[0]
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return _add_bias(
+            w2_matmul(_pad_to(x, self.in_padded), self.wq, self.scales),
+            self.bias,
+        )
 
 
 def _exact_weight(layer: VQLinear) -> torch.Tensor:
@@ -94,6 +250,11 @@ def _exact_weight(layer: VQLinear) -> torch.Tensor:
     package does, so this equals ``vptq_tpu``'s ``_exact_weight``.
     """
     return layer_weight(layer, torch.float32)
+
+
+def _pad_columns(w: torch.Tensor, pad_to: int) -> torch.Tensor:
+    pad = (-w.shape[1]) % pad_to
+    return nn.functional.pad(w, (0, pad)) if pad else w
 
 
 def _encode_int8(
@@ -106,9 +267,7 @@ def _encode_int8(
     divide, as ``np.round`` does in the JAX package's encoder.
     """
     group = group or pick_group(w.shape[1])
-    pad = (-w.shape[1]) % group
-    if pad:
-        w = nn.functional.pad(w, (0, pad))
+    w = _pad_columns(w, group)
     out_f, in_p = w.shape
     g = w.reshape(out_f, in_p // group, group)
     absmax = g.abs().amax(dim=-1)  # (out, n_groups)
@@ -137,6 +296,131 @@ def dense_to_int8(
     return _encode_int8(layer.weight.to(torch.float32), layer.bias, group)
 
 
+def _no_blocks(shards: int) -> None:
+    if shards > 1:
+        raise NotImplementedError(
+            "blocked (shards > 1) encodings only mean something after "
+            "tensor-parallel placement, which is not ported"
+        )
+
+
+def _encode_int4(
+    w: torch.Tensor, bias: Optional[torch.Tensor], shards: int = 1
+) -> Int4Linear:
+    """f32 (out, in) weight → :class:`Int4Linear` on the same device,
+    in_features zero-padded to a multiple of 2048."""
+    _no_blocks(shards)
+    q, scale = quantize_int4(_pad_columns(w, 2048))
+    return Int4Linear(
+        wq=pack_int4(q),
+        scales=scale.t().contiguous().to(torch.bfloat16),
+        bias=bias,
+    )
+
+
+def _encode_int3(
+    w: torch.Tensor, bias: Optional[torch.Tensor], shards: int = 1
+) -> Int3Linear:
+    """f32 (out, in) weight → :class:`Int3Linear` on the same device,
+    in_features zero-padded to a multiple of 2048."""
+    _no_blocks(shards)
+    q, scale = quantize_int3(_pad_columns(w, 2048))
+    wq2, wq1 = pack_int3(q)
+    return Int3Linear(
+        wq2=wq2, wq1=wq1, scales=scale.to(torch.bfloat16), bias=bias
+    )
+
+
+def _encode_int2(
+    w: torch.Tensor, bias: Optional[torch.Tensor], shards: int = 1,
+    group: int = W2_GROUP,
+) -> Int2Linear:
+    """f32 (out, in) weight → :class:`Int2Linear` on the same device,
+    in_features zero-padded to a multiple of 1024."""
+    _no_blocks(shards)
+    q, scale = quantize_int2(_pad_columns(w, W2_BLOCK), group=group)
+    return Int2Linear(
+        wq=pack_int2(q), scales=scale.to(torch.bfloat16), bias=bias
+    )
+
+
+def to_int4(layer: VQLinear) -> Int4Linear:
+    """Exact dequant → per-(row, 128-column) int4 re-encode."""
+    return _encode_int4(_exact_weight(layer), layer.bias)
+
+
+def to_int3(layer: VQLinear) -> Int3Linear:
+    """Exact dequant → per-(row, 128-column) int3 plane re-encode."""
+    return _encode_int3(_exact_weight(layer), layer.bias)
+
+
+def to_int2(layer: VQLinear) -> Int2Linear:
+    """Exact dequant → per-(row, 64-column) half-offset int2 re-encode."""
+    return _encode_int2(_exact_weight(layer), layer.bias)
+
+
+def dense_to_int4(layer: DenseLinear) -> Int4Linear:
+    """Re-encode an unquantized linear to int4."""
+    return _encode_int4(layer.weight.to(torch.float32), layer.bias)
+
+
+def _scaled(levels: torch.Tensor, scales: torch.Tensor, group: int):
+    """levels (out, in_p) f32 times out-major scales (out, in_p / group)."""
+    out_f, in_p = levels.shape
+    return (
+        levels.reshape(out_f, -1, group) * scales.to(torch.float32)[:, :, None]
+    ).reshape(out_f, in_p)
+
+
+def int8_weight(layer: Int8Linear) -> torch.Tensor:
+    """Exact f32 dequant of the int8 layout."""
+    return _scaled(
+        layer.wq.to(torch.float32), layer.scales.t(), layer.group
+    )
+
+
+def int4_weight(layer: Int4Linear) -> torch.Tensor:
+    """Exact f32 dequant of the packed int4 layout."""
+    return _scaled(
+        unpack_int4(layer.wq).to(torch.float32), layer.scales.t(), INT4_GROUP
+    )
+
+
+def int3_weight(layer: Int3Linear) -> torch.Tensor:
+    """Exact f32 dequant of the plane-packed int3 layout."""
+    return _scaled(
+        unpack_int3(layer.wq2, layer.wq1).to(torch.float32), layer.scales,
+        INT4_GROUP,
+    )
+
+
+def int2_weight(layer: Int2Linear) -> torch.Tensor:
+    """Exact f32 dequant of the plane-packed int2 layout."""
+    return _scaled(
+        unpack_int2(layer.wq).to(torch.float32) + 0.5, layer.scales,
+        layer.group,
+    )
+
+
+_EXACT_WEIGHT = {
+    VQLinear: _exact_weight,
+    Int8Linear: int8_weight,
+    Int4Linear: int4_weight,
+    Int3Linear: int3_weight,
+    Int2Linear: int2_weight,
+    DenseLinear: lambda layer: layer.weight.to(torch.float32),
+}
+
+
+def linear_exact_weight(
+    layer, logical_in: Optional[int] = None
+) -> torch.Tensor:
+    """Exact f32 dequant of any linear, cut to the logical in_features
+    (drops the encoder's zero-padding)."""
+    w = _EXACT_WEIGHT[type(layer)](layer)
+    return w if logical_in is None else w[:, :logical_in]
+
+
 def to_bf16(layer: VQLinear) -> DenseLinear:
     return DenseLinear(
         weight=_exact_weight(layer).to(torch.bfloat16), bias=layer.bias
@@ -149,9 +433,13 @@ def to_runtime(layer, fmt: str):
         raise ValueError(f"unknown runtime format {fmt!r}")
     if not isinstance(layer, VQLinear) or fmt == "codebook":
         return layer  # dense stays dense
-    if fmt == "int8":
-        return to_int8(layer)
-    return to_bf16(layer)
+    return _TO_FORMAT[fmt](layer)
+
+
+_TO_FORMAT = {
+    "int8": to_int8, "int4": to_int4, "int3": to_int3, "int2": to_int2,
+    "bf16": to_bf16,
+}
 
 
 def _fused_bias(linears):
@@ -165,34 +453,34 @@ def _fused_bias(linears):
     ])
 
 
+# the arrays of each fusable layer type, and the dim of each that runs
+# along out_features: the int8 / int4 scales are stored transposed
+_OUT_DIM = {
+    Int8Linear: {"wq": 0, "scales": 1},
+    Int4Linear: {"wq": 0, "scales": 1},
+    Int3Linear: {"wq2": 0, "wq1": 0, "scales": 0},
+    Int2Linear: {"wq": 0, "scales": 0},
+    DenseLinear: {"weight": 0},
+}
+
+
 def fuse_linears(linears):
     """Concatenate same-input linears into one (row-wise), or None.
 
-    q|k|v and gate|up become single matmuls. All inputs must share
-    in_features, type and (for int8) scale group.
+    q|k|v and gate|up become single matmuls. All inputs must share a
+    type and every array's other dim (in_features, scale groups);
+    codebook layers are not fused.
     """
-    first = linears[0]
-    if any(type(m) is not type(first) for m in linears):
+    kind = type(linears[0])
+    if kind not in _OUT_DIM or any(type(m) is not kind for m in linears):
         return None
-    if isinstance(first, Int8Linear):
-        if any(
-            m.wq.shape[1] != first.wq.shape[1] or m.group != first.group
-            for m in linears
-        ):
+    arrays = {}
+    for name, dim in _OUT_DIM[kind].items():
+        parts = [getattr(m, name) for m in linears]
+        if any(p.shape[1 - dim] != parts[0].shape[1 - dim] for p in parts):
             return None
-        return Int8Linear(
-            wq=torch.cat([m.wq for m in linears], dim=0),
-            scales=torch.cat([m.scales for m in linears], dim=1),
-            bias=_fused_bias(linears),
-        )
-    if isinstance(first, DenseLinear):
-        if any(m.weight.shape[1] != first.weight.shape[1] for m in linears):
-            return None
-        return DenseLinear(
-            weight=torch.cat([m.weight for m in linears], dim=0),
-            bias=_fused_bias(linears),
-        )
-    return None  # codebook layers are not fused
+        arrays[name] = torch.cat(parts, dim=dim)
+    return kind(**arrays, bias=_fused_bias(linears))
 
 
 def fuse_block(block):

@@ -77,6 +77,8 @@ _SAFETENSORS_DTYPES = {
     "BOOL": torch.bool,
 }
 _SAFETENSORS_CODES = {v: k for k, v in _SAFETENSORS_DTYPES.items()}
+# the JAX loader's calibrated formats (mixed int8 outlier sites)
+CALIBRATED_FORMATS = ("int4-mixed", "int3-mixed", "int2-mixed")
 
 
 def resolve_device(device=None) -> torch.device:
@@ -304,13 +306,22 @@ def load_model(
     """Load a local VPTQ HF checkpoint directory into a :class:`Model`.
 
     ``runtime_format``: "codebook" keeps the compressed VQ layers;
-    "int8" / "bf16" re-encode each layer once (``layers/runtime.py``).
+    "int8", "int4", "int3", "int2" and "bf16" re-encode each layer once
+    (``layers/runtime.py``), leaving dense layers such as the lm_head
+    as they are. The calibrated "int4-mixed", "int3-mixed" and
+    "int2-mixed" raise: they need GPTQ calibration, not ported yet.
     ``fuse`` merges q|k|v and gate|up (dense formats only).
     ``quantize_lm_head`` re-encodes the dense lm_head to int8 too.
     ``device``: CUDA unless given; the weights are normalized and
     re-encoded there, layer by layer.
     """
     device = resolve_device(device)
+    if runtime_format in CALIBRATED_FORMATS:
+        raise NotImplementedError(
+            f"runtime_format {runtime_format!r} is encoded by GPTQ "
+            "calibration (ROADMAP M15), which is not ported; plain "
+            "round-to-nearest would be a different model"
+        )
     if runtime_format not in RUNTIME_FORMATS:
         raise ValueError(f"unknown runtime format {runtime_format!r}")
     root = Path(checkpoint_dir)

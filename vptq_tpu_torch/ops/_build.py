@@ -4,7 +4,8 @@ Each ``vptq_tpu_torch/csrc/<name>.cu`` exposes a plain C interface and
 is compiled by ``nvcc`` for Hopper (``sm_90a``) into
 ``build/vptq_tpu_torch/lib<name>.so`` at the repository root, then
 loaded with ``ctypes``. No PyTorch header is included, so a build takes
-seconds, not minutes. A library is rebuilt when its source is newer.
+seconds, not minutes. A library is rebuilt when its source, or a
+header of ``csrc/`` (``lowbit.cuh``, the skeleton of K2–K4), is newer.
 Nothing is built when a module is imported: the first launch builds.
 """
 
@@ -24,7 +25,7 @@ _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "vptq_tpu_torch"
 # every kernel source of the port; chip_smoke.py builds all of them
-SOURCES = ("w8_matmul",)
+SOURCES = ("w8_matmul", "w4_matmul", "w2_matmul", "w3_matmul")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -55,7 +56,10 @@ def _paths(name: str) -> Tuple[Path, Path]:
 
 def _stale(name: str) -> bool:
     src, lib = _paths(name)
-    return not lib.exists() or src.stat().st_mtime > lib.stat().st_mtime
+    if not lib.exists():
+        return True
+    newest = max(p.stat().st_mtime for p in (src, *SRC_DIR.glob("*.cuh")))
+    return newest > lib.stat().st_mtime
 
 
 def build(names: Iterable[str] = SOURCES, force: bool = False

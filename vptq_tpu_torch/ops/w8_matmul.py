@@ -12,21 +12,11 @@ CPU. ``w8_matmul.launches`` counts kernel launches.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
-from vptq_tpu_torch.ops import _build
+from vptq_tpu_torch.ops.scaled_matmul import grouped_reference, launch
 
 __all__ = ["w8_matmul", "w8_matmul_reference"]
-
-_OUT_CODES = {torch.bfloat16: 0, torch.float32: 1}
-_SIGNATURES = {
-    "vptq_w8_matmul": (
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
-        ctypes.c_int,
-    ),
-}
 
 
 def _check(x: torch.Tensor, wq: torch.Tensor, scales: torch.Tensor) -> int:
@@ -63,17 +53,9 @@ def w8_matmul_reference(
     group; the result is cast to ``out_dtype`` (default ``x.dtype``).
     """
     group = _check(x, wq, scales)
-    out_f, in_p = wq.shape
-    out_dtype = out_dtype or x.dtype
-    lead = x.shape[:-1]
-    xb = x.reshape(-1, in_p).to(torch.bfloat16).to(torch.float32)
-    w = wq.to(torch.float32)
-    acc = None
-    for g in range(in_p // group):
-        cols = slice(g * group, (g + 1) * group)
-        part = torch.matmul(xb[:, cols], w[:, cols].t()) * scales[g][None, :]
-        acc = part if acc is None else acc + part
-    return acc.to(out_dtype).reshape(*lead, out_f)
+    return grouped_reference(
+        x, wq.to(torch.float32), scales.t(), group, out_dtype
+    )
 
 
 def w8_matmul(
@@ -91,37 +73,19 @@ def w8_matmul(
     group = _check(x, wq, scales)
     if x.device.type == "cpu":
         return w8_matmul_reference(x, wq, scales, out_dtype)
-    if x.device.type != "cuda":
-        raise ValueError(f"w8_matmul runs on cuda or cpu, not {x.device}")
-    if wq.device != x.device or scales.device != x.device:
-        raise ValueError("x, wq and scales must be on one device")
-    if not (wq.is_contiguous() and scales.is_contiguous()):
-        raise ValueError("wq and scales must be contiguous")
     if group % 32:
         raise ValueError(f"scale group {group} must be a multiple of 32")
-    out_dtype = out_dtype or x.dtype
-    if out_dtype not in _OUT_CODES:
-        raise ValueError(f"unsupported output dtype {out_dtype}")
-    out_f, in_p = wq.shape
-    lead = x.shape[:-1]
-    x2 = x.reshape(-1, in_p).to(torch.bfloat16).contiguous()
-    tokens = x2.shape[0]
-    y = torch.empty(tokens, out_f, dtype=out_dtype, device=x.device)
-    if tokens == 0:
-        return y.reshape(*lead, out_f)
-    if x2.data_ptr() % 16 or wq.data_ptr() % 16:
-        raise ValueError("x and wq must be 16-byte aligned")
-    lib = _build.load("w8_matmul", _SIGNATURES)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.vptq_w8_matmul(
-            x2.data_ptr(), wq.data_ptr(), scales.data_ptr(), y.data_ptr(),
-            tokens, out_f, in_p, group, _OUT_CODES[out_dtype], stream,
-        )
-    if err:
-        raise RuntimeError(f"w8_matmul kernel launch failed: CUDA error {err}")
+    y = launch(
+        "w8_matmul", "vptq_w8_matmul", x, (wq, scales), (group,),
+        wq.shape[0], wq.shape[1], out_dtype,
+    )
     w8_matmul.launches += 1
-    return y.reshape(*lead, out_f)
+    return y
 
 
 w8_matmul.launches = 0
+# the TPU kernel this one replaces
+w8_matmul.replaces = "vptq_tpu/ops/pallas_gemm.py:58"
+# the word of its CUDA kernels' names (w8_gemv, w8_gemm) that picks
+# them out of a profiler trace
+w8_matmul.trace_tags = ("w8_gem",)
