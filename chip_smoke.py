@@ -7,19 +7,29 @@ Needs one CUDA device, ``nvcc`` and ``nvidia-smi``; exits non-zero
 without them, or when any phase fails. Phases:
 
 1. build every CUDA kernel of the port from ``vptq_tpu_torch/csrc`` (K1
-   ``w8_matmul``, K2 ``w4_matmul``, K3 ``w2_matmul``, K4 ``w3_matmul``),
-   one ``nvcc`` each, all at once;
+   ``w8_matmul``, K2 ``w4_matmul``, K3 ``w2_matmul``, K4 ``w3_matmul``,
+   and the MoE kernels K6a ``w8_matmul_expert``, K5a ``w8_matmul_pairs``,
+   K6b ``w4_matmul_expert``, K5b ``w4_matmul_pairs``), one ``nvcc`` each,
+   all at once;
 2. each kernel at the four linear shapes of Llama-3.1-8B, on layers its
    format's encoder makes on the card from a random weight (K1 group
    2048, K3 group 64), at T=1 (decode) and T=128 and T=512 (the prefill
    buckets the requests use): the kernel held against its plain version
    on the card, then timed with CUDA events (L2 flushed before each
    launch) beside the plain version and a ``torch.matmul`` yardstick;
-3. the int4, int3 and int2 encoders on the card against the same
+3. the MoE kernels at Mixtral-8x7B's two expert shapes (gate_up
+   28672 x 4096, down 4096 x 14336) on stacks of 8 experts that the int8
+   and int4 encoders make on the card: K6a / K6b at T=1, 128 and 512 (one
+   expert, the last of the stack), K5a / K5b at P=2 (one token's top-2)
+   and P=16 (8 tokens' top-2) pairs, each against its plain version and
+   timed like phase 2, the bound counting the distinct experts read;
+   yardsticks ``torch.matmul`` with one expert's dequantized bf16 weight
+   and ``torch.bmm`` over the gathered experts;
+4. the int4, int3 and int2 encoders on the card against the same
    encoders on the CPU, byte for byte, on one 4096 x 4096 synthetic
    weight (the CPU encoders are held to the JAX package's numpy bytes by
    the CPU tests);
-4. end to end, once per format (int8, int4, int3, int2): one synthetic
+5. end to end, once per format (int8, int4, int3, int2): one synthetic
    VPTQ checkpoint of Llama-3.1-8B geometry (``v8-k65536-0``: vector 8,
    65536 centroids, no residual, norm and perm on, packed indices),
    written once by the port's own writer, loaded by
@@ -31,14 +41,24 @@ without them, or when any phase fails. Phases:
    against the same model run through the plain version; then one
    decode step's wall time against the device time of its kernels
    (``torch.profiler``). The int8 run also checks that a 1024-token
-   fresh prefill refuses (K8 is not ported).
+   fresh prefill refuses (K8 is not ported);
+6. end to end in int8 and in int4 on one synthetic checkpoint of
+   Mixtral-8x7B-v0.1 geometry (full width, 8 experts, top-2; depth as
+   ``MIXTRAL_8X7B`` says), the same three requests: per layer and forward
+   call 2 launches of K1 / K2 (qkv, o), per layer and decode step 2 of
+   K5, per layer and prefill chunk 16 of K6, every other kernel 0; the
+   first prompt's prefill logits, and one decode step's, through the
+   kernels against the plain versions; the profiled decode steps must
+   hold no device-to-host copy (the expert ids stay on the card).
 
 The line before the last is a JSON object with one record per kernel at
-T=1 and T=512; the last line is ``{"ok": true, "device": {...}}``.
+T=1 and T=512 (pairs kernels: P=2 and P=16); the last line is
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import importlib
 import json
 import math
@@ -77,6 +97,23 @@ LLAMA31_8B = dict(
     max_position_embeddings=131072,
     tie_word_embeddings=False,
 )
+# mistralai's public Mixtral-8x7B-v0.1 config.json (sliding_window null)
+MIXTRAL_8X7B = dict(
+    model_type="mixtral",
+    vocab_size=32000,
+    hidden_size=4096,
+    intermediate_size=14336,
+    num_hidden_layers=32,
+    num_attention_heads=32,
+    num_key_value_heads=8,
+    head_dim=128,
+    rms_norm_eps=1e-5,
+    rope_theta=1e6,
+    max_position_embeddings=32768,
+    num_local_experts=8,
+    num_experts_per_tok=2,
+    tie_word_embeddings=False,
+)
 # VPTQ-community v8-k65536-0 geometry
 V8_K65536 = dict(
     vector_len=8, num_centroids=65536, num_res_centroids=-1,
@@ -100,6 +137,12 @@ FORMAT_KERNEL = {
     "int8": "w8_matmul", "int4": "w4_matmul", "int3": "w3_matmul",
     "int2": "w2_matmul",
 }
+# runtime format -> the (expert, pairs) kernels of its stacked MoE experts
+MOE_KERNELS = {
+    "int8": ("w8_matmul_expert", "w8_matmul_pairs"),
+    "int4": ("w4_matmul_expert", "w4_matmul_pairs"),
+}
+ALL_KERNELS = (*FORMAT_KERNEL.values(), *sum(MOE_KERNELS.values(), ()))
 
 
 def _sh(cmd) -> str:
@@ -183,6 +226,51 @@ def make_layer(name, gen, out_f, in_f, device):
     return getattr(rt, f"_encode_{fmt}")(w, None)
 
 
+def flush_buffer(device):
+    """1 GiB overwritten before each timed launch evicts the 50 MB L2, and
+    keeps the card busy (~0.3 ms) while the host enqueues the timed call,
+    so host overhead does not open a gap inside the events."""
+    if torch.device(device).type != "cuda":
+        return None
+    return torch.empty(1 << 30, dtype=torch.uint8, device=device)
+
+
+def check_and_time(name, label, call, plain, library, nbytes, flops, device,
+                   iters, flush):
+    """One kernel call against its plain version on the same inputs, then
+    the times of both and of the library yardstick beside the bound for
+    ``nbytes`` moved and ``flops`` done."""
+    fn = kernel_fns(name)[0]
+    cuda = torch.device(device).type == "cuda"
+    launches = fn.launches
+    y = call()
+    want = plain()
+    _sync(device)
+    if fn.launches != launches + (1 if cuda else 0):
+        raise AssertionError(f"{name} did not count its launch")
+    if y.shape != want.shape or y.dtype != want.dtype:
+        raise AssertionError(f"{name} {label}: shape or dtype differs")
+    yf, rf = y.float(), want.float()
+    err = (yf - rf).abs()
+    limit = RTOL * rf.abs() + ATOL_FRAC * rf.abs().max()
+    if not (bool(torch.all(err <= limit))
+            and bool(torch.isfinite(yf).all())):
+        raise AssertionError(
+            f"{name} {label}: max |err| {err.max().item():.4g} outside "
+            "the tolerance"
+        )
+    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    ops_ms = flops / PEAK_BF16_FLOPS * 1e3
+    return dict(
+        bytes=nbytes, flops=flops, bound_ms=max(bytes_ms, ops_ms),
+        bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+        ms=time_ms(call, device, iters, flush),
+        plain_ms=time_ms(plain, device, max(iters // 4, 1), flush),
+        library_ms=time_ms(library, device, iters, flush),
+        max_abs_err=err.max().item(),
+    )
+
+
 def phase_kernel(name, device, shapes, tokens=(1, 128, 512), iters=20,
                  seed=0):
     """One kernel at each shape and token count: agreement with its
@@ -191,14 +279,7 @@ def phase_kernel(name, device, shapes, tokens=(1, 128, 512), iters=20,
 
     fn, ref = kernel_fns(name)
     gen = torch.Generator(device=device).manual_seed(seed)
-    cuda = torch.device(device).type == "cuda"
-    # 1 GiB overwritten before each timed launch evicts the 50 MB L2,
-    # and keeps the card busy (~0.3 ms) while the host enqueues the
-    # timed call, so host overhead does not open a gap inside the events
-    flush = (
-        torch.empty(1 << 30, dtype=torch.uint8, device=device)
-        if cuda else None
-    )
+    flush = flush_buffer(device)
     rows = []
     for shape, out_f, in_f in shapes:
         layer = make_layer(name, gen, out_f, in_f, device)
@@ -210,48 +291,116 @@ def phase_kernel(name, device, shapes, tokens=(1, 128, 512), iters=20,
             x = torch.randn(
                 (t, in_p), generator=gen, device=device
             ).to(torch.bfloat16)
-            launches = fn.launches
-            y = fn(x, *args)
-            want = ref(x, *args)
-            _sync(device)
-            if fn.launches != launches + (1 if cuda else 0):
-                raise AssertionError(f"{name} did not count its launch")
-            if y.shape != want.shape or y.dtype != want.dtype:
-                raise AssertionError(
-                    f"{name} {shape} T={t}: shape or dtype differs"
-                )
-            yf, rf = y.float(), want.float()
-            err = (yf - rf).abs()
-            limit = RTOL * rf.abs() + ATOL_FRAC * rf.abs().max()
-            if not (bool(torch.all(err <= limit))
-                    and bool(torch.isfinite(yf).all())):
-                raise AssertionError(
-                    f"{name} {shape} T={t}: max |err| "
-                    f"{err.max().item():.4g} outside the tolerance"
-                )
-            ms = time_ms(lambda: fn(x, *args), device, iters, flush)
-            plain_ms = time_ms(
-                lambda: ref(x, *args), device, max(iters // 4, 1), flush
-            )
-            library_ms = time_ms(
-                lambda: torch.matmul(x, w_bf16.t()), device, iters, flush
-            )
-            # each input read once, the output written once
-            nbytes = t * in_p * 2 + arg_bytes + t * out_f * 2
-            flops = 2 * t * out_f * in_p
-            bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
-            ops_ms = flops / PEAK_BF16_FLOPS * 1e3
             rows.append(dict(
-                kernel=name, shape=shape, T=t, out=out_f, in_p=in_p,
-                group=getattr(layer, "group", 128),
-                bytes=nbytes, flops=flops,
-                bound_ms=max(bytes_ms, ops_ms),
-                bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-                ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                max_abs_err=err.max().item(),
+                kernel=name, shape=shape, unit="T", T=t, out=out_f,
+                in_p=in_p, group=getattr(layer, "group", 128),
+                **check_and_time(
+                    name, f"{shape} T={t}",
+                    lambda: fn(x, *args), lambda: ref(x, *args),
+                    lambda: torch.matmul(x, w_bf16.t()),
+                    # each input read once, the output written once
+                    t * in_p * 2 + arg_bytes + t * out_f * 2,
+                    2 * t * out_f * in_p, device, iters, flush,
+                ),
             ))
             print(f"{name} " + json.dumps(rows[-1]))
         del layer, args, w_bf16
+    return rows
+
+
+def moe_shapes(cfg: dict):
+    """(name, out, in) of the two stacked expert weights of a MoE layer."""
+    h, inter = cfg["hidden_size"], cfg["intermediate_size"]
+    return [("gate_up", 2 * inter, h), ("down", h, inter)]
+
+
+def phase_moe_kernels(fmt, device, shapes, n_experts=8, tokens=(1, 128, 512),
+                      pairs=(2, 16), top_k=2, iters=20, seed=0):
+    """The expert (K6) and pairs (K5) kernels of ``fmt`` at each shape, on
+    a stack of ``n_experts`` that the format's encoder makes on ``device``:
+    the expert kernel on the stack's last expert at each token count, the
+    pairs kernel on the top-``top_k`` ids of P / ``top_k`` tokens (distinct
+    per token, drawn from ``seed``)."""
+    from vptq_tpu_torch.layers.runtime import (
+        linear_exact_weight,
+        stack_experts,
+    )
+    from vptq_tpu_torch.models.llama import Mlp
+
+    e_name, p_name = MOE_KERNELS[fmt]
+    (e_fn, e_ref), (p_fn, p_ref) = kernel_fns(e_name), kernel_fns(p_name)
+    dense = FORMAT_KERNEL[fmt]
+    gen = torch.Generator(device=device).manual_seed(seed)
+    cpu_gen = torch.Generator().manual_seed(seed)
+    flush = flush_buffer(device)
+    rows = []
+    for shape, out_f, in_f in shapes:
+        layers = [
+            make_layer(dense, gen, out_f, in_f, device)
+            for _ in range(n_experts)
+        ]
+        # the dequantized experts, for the library yardsticks only
+        w_bf16 = torch.stack([
+            linear_exact_weight(m).to(torch.bfloat16) for m in layers
+        ])
+        group = getattr(layers[0], "group", 128)
+        # stack_experts stacks gate_up and down alike: one call, same layers
+        stacked = stack_experts([Mlp(None, None, m, m) for m in layers])
+        wq, scales = stacked.down_wq, stacked.down_scales
+        del layers, stacked
+        in_p = w_bf16.shape[2]
+        slab = (wq[0].numel() * wq.element_size()
+                + scales[0].numel() * scales.element_size())
+        last = torch.tensor(n_experts - 1, dtype=torch.int32, device=device)
+        w_last = w_bf16[n_experts - 1]
+        for t in tokens:
+            x = torch.randn(
+                (t, in_p), generator=gen, device=device
+            ).to(torch.bfloat16)
+            rows.append(dict(
+                kernel=e_name, shape=shape, unit="T", T=t, out=out_f,
+                in_p=in_p, group=group, experts=n_experts, distinct=1,
+                **check_and_time(
+                    e_name, f"{shape} T={t}",
+                    lambda: e_fn(x, wq, scales, last),
+                    lambda: e_ref(x, wq, scales, last),
+                    lambda: torch.matmul(x, w_last.t()),
+                    # x, one expert's slab and its id read, y written
+                    t * in_p * 2 + slab + 4 + t * out_f * 2,
+                    2 * t * out_f * in_p, device, iters, flush,
+                ),
+            ))
+            print(f"{e_name} " + json.dumps(rows[-1]))
+        for n_pairs in pairs:
+            ids = torch.cat([
+                torch.randperm(n_experts, generator=cpu_gen)[:top_k]
+                for _ in range(n_pairs // top_k)
+            ])
+            distinct = len(set(ids.tolist()))
+            ids = ids.to(device=device, dtype=torch.int32)
+            ids64 = ids.to(torch.int64)
+            x = torch.randn(
+                (n_pairs, in_p), generator=gen, device=device
+            ).to(torch.bfloat16)
+            rows.append(dict(
+                kernel=p_name, shape=shape, unit="P", T=n_pairs, out=out_f,
+                in_p=in_p, group=group, experts=n_experts, distinct=distinct,
+                **check_and_time(
+                    p_name, f"{shape} P={n_pairs}",
+                    lambda: p_fn(x, wq, scales, ids),
+                    lambda: p_ref(x, wq, scales, ids),
+                    lambda: torch.bmm(
+                        x[:, None, :],
+                        w_bf16.index_select(0, ids64).transpose(1, 2),
+                    ),
+                    # each distinct expert's slab counted once, however
+                    # many pairs pick it
+                    n_pairs * (in_p * 2 + 4 + out_f * 2) + distinct * slab,
+                    2 * n_pairs * out_f * in_p, device, iters, flush,
+                ),
+            ))
+            print(f"{p_name} " + json.dumps(rows[-1]))
+        del wq, scales, w_bf16, w_last
     return rows
 
 
@@ -305,19 +454,69 @@ def write_checkpoint(cfg: dict, vq_kwargs: dict, seed=0, std=SMOKE_STD):
     return path, time.perf_counter() - t0
 
 
+def expected_launches(cfg, fmt: str, prompt_len: int, new_tokens: int,
+                      buckets) -> dict:
+    """Launches of every kernel in one request on the card: the prompt in
+    bucket-padded chunks, then one forward call per further token. A MoE
+    block sends a call of at most 64 tokens through the pairs kernel
+    twice, and a longer one through the expert kernel 2·E times."""
+    from vptq_tpu_torch.models.llama import _MOE_FAST_MAX_TOKENS
+    from vptq_tpu_torch.serving.generate import _pad_bucket
+
+    layers = cfg.num_hidden_layers
+    calls = [
+        _pad_bucket(min(buckets[-1], prompt_len - done), buckets)
+        for done in range(0, prompt_len, buckets[-1])
+    ] + [1] * (new_tokens - 1)
+    expected = dict.fromkeys(ALL_KERNELS, 0)
+    if not cfg.num_local_experts:
+        expected[FORMAT_KERNEL[fmt]] = 4 * layers * len(calls)
+        return expected
+    expert, pairs = MOE_KERNELS[fmt]
+    fast = sum(n <= _MOE_FAST_MAX_TOKENS for n in calls)
+    expected[FORMAT_KERNEL[fmt]] = 2 * layers * len(calls)
+    expected[pairs] = 2 * layers * fast
+    expected[expert] = (
+        2 * cfg.num_local_experts * layers * (len(calls) - fast)
+    )
+    return expected
+
+
+@contextlib.contextmanager
+def plain_versions(fmt: str):
+    """Every kernel the model reaches in ``fmt`` swapped for its plain
+    version, for the comparisons only."""
+    from vptq_tpu_torch.layers import runtime
+    from vptq_tpu_torch.models import llama
+
+    name = FORMAT_KERNEL[fmt]
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(
+            mock.patch.object(runtime, name, kernel_fns(name)[1])
+        )
+        if fmt in MOE_KERNELS:
+            expert, pairs = MOE_KERNELS[fmt]
+            stack.enter_context(mock.patch.dict(
+                llama._EXPERT_MATMUL, {fmt: kernel_fns(expert)[1]}
+            ))
+            stack.enter_context(mock.patch.dict(
+                llama._PAIRS_MATMUL, {fmt: kernel_fns(pairs)[1]}
+            ))
+        yield
+
+
 def phase_e2e(device, path, fmt: str, vocab: int,
               prompt_lens=(16, 128, 512), new_tokens=32, max_seq=2048,
               seed=0):
     """from_pretrained(runtime_format=fmt) → three greedy requests;
-    launch counts, logits and a decode step checked."""
+    launch counts, logits and a decode step checked. Serves a dense
+    Llama or a Mixtral checkpoint, as ``path`` holds."""
     from vptq_tpu_torch import AutoModelForCausalLM
-    from vptq_tpu_torch.layers import runtime
     from vptq_tpu_torch.models.llama import forward, init_cache
 
-    name = FORMAT_KERNEL[fmt]
-    fns = {k: kernel_fns(k)[0] for k in FORMAT_KERNEL.values()}
+    fns = {k: kernel_fns(k)[0] for k in ALL_KERNELS}
     cuda = torch.device(device).type == "cuda"
-    result = dict(format=fmt, kernel=name)
+    result = dict(format=fmt)
     t0 = time.perf_counter()
     engine = AutoModelForCausalLM.from_pretrained(
         path, runtime_format=fmt, device=device, max_seq=max_seq
@@ -326,12 +525,17 @@ def phase_e2e(device, path, fmt: str, vocab: int,
     result["load_s"] = time.perf_counter() - t0
 
     model, gen = engine.model, engine.generator
-    per_forward = 4 * model.cfg.num_hidden_layers
+    moe = bool(model.cfg.num_local_experts)
+    on_path = (FORMAT_KERNEL[fmt], *(MOE_KERNELS[fmt] if moe else ()))
+    result["kernels"] = list(on_path)
+    result["layers"] = model.cfg.num_hidden_layers
+    if cuda:
+        result["weights_gb"] = torch.cuda.memory_allocated(device) / 1e9
     rng = np.random.default_rng(seed)
     prompts = [rng.integers(0, vocab, n).tolist() for n in prompt_lens]
 
     requests = []
-    launches = 0
+    launches = dict.fromkeys(on_path, 0)
     for prompt in prompts:
         stamps = []
         for f in fns.values():
@@ -344,20 +548,24 @@ def phase_e2e(device, path, fmt: str, vocab: int,
         _sync(device)
         t_end = time.perf_counter()
         counts = {k: f.launches for k, f in fns.items()}
-        chunks = math.ceil(len(prompt) / gen.prompt_buckets[-1])
-        forwards = chunks + len(out) - 1
-        expected = {k: 0 for k in fns}
-        expected[name] = per_forward * forwards if cuda else 0
+        expected = expected_launches(
+            model.cfg, fmt, len(prompt), len(out), gen.prompt_buckets
+        )
+        if not cuda:
+            expected = dict.fromkeys(expected, 0)
         if counts != expected:
             raise AssertionError(
-                f"{fmt}: launches {counts}, expected {expected} "
-                f"({forwards} forward calls)"
+                f"{fmt}: launches {counts}, expected {expected}"
             )
+        if cuda and not all(counts[k] > 0 for k in on_path):
+            raise AssertionError(f"{fmt}: a kernel of the path never ran")
         if len(out) != new_tokens or not all(0 <= t < vocab for t in out):
             raise AssertionError(f"bad tokens {out}")
-        launches += counts[name]
+        for k in on_path:
+            launches[k] += counts[k]
         requests.append(dict(
-            prompt=len(prompt), new=len(out), launches=counts[name],
+            prompt=len(prompt), new=len(out),
+            launches={k: counts[k] for k in on_path},
             ttft_s=stamps[0] - t0,
             decode_tok_s=(len(out) - 1) / (t_end - stamps[0]),
         ))
@@ -365,9 +573,10 @@ def phase_e2e(device, path, fmt: str, vocab: int,
     result["requests"] = requests
     result["launches"] = launches
 
-    # logits: finite for every prompt; the first through the kernel and
-    # through its plain version
-    def prefill(prompt):
+    # logits: finite for every prompt; the first prompt's, and those of
+    # one decode step after it (a MoE prefill never reaches the pairs
+    # kernels), through the kernels and through their plain versions
+    def logits_of(prompt, decode=False):
         bucket = next(b for b in gen.prompt_buckets if len(prompt) <= b)
         tokens = torch.zeros((1, bucket), dtype=torch.int64)
         tokens[0, : len(prompt)] = torch.tensor(prompt)
@@ -377,30 +586,41 @@ def phase_e2e(device, path, fmt: str, vocab: int,
                 model, tokens.to(device), cache, dtype=gen.dtype,
                 fresh_prefill=True,
             )
-        return logits[0, : len(prompt)]
+            out = [logits[0, : len(prompt)]]
+            if decode:
+                cache.lengths = [len(prompt)]
+                step = torch.tensor([prompt[:1]], dtype=torch.int64)
+                logits, _ = forward(
+                    model, step.to(device), cache, dtype=gen.dtype
+                )
+                out.append(logits[0])
+        return out
 
     for prompt in prompts:
-        if not bool(torch.isfinite(prefill(prompt)).all()):
+        if not bool(torch.isfinite(logits_of(prompt)[0]).all()):
             raise AssertionError(
                 f"{fmt}: non-finite logits for a {len(prompt)}-token prompt"
             )
-    got = prefill(prompts[0])
-    with mock.patch.object(runtime, name, kernel_fns(name)[1]):
-        want = prefill(prompts[0])
-    diff = (got - want).abs().max().item()
-    scale = want.abs().max().item()
-    result["logits_max_abs_diff"] = diff
-    result["logits_max_abs"] = scale
-    if not diff <= LOGIT_TOL * scale:
-        raise AssertionError(
-            f"{fmt}: prefill logits differ by {diff} (max {scale})"
-        )
+    got = logits_of(prompts[0], decode=True)
+    with plain_versions(fmt):
+        want = logits_of(prompts[0], decode=True)
+    for what, g, w in zip(("prefill", "decode"), got, want):
+        diff = (g - w).abs().max().item()
+        scale = w.abs().max().item()
+        result[f"{what}_logits_max_abs_diff"] = diff
+        result[f"{what}_logits_max_abs"] = scale
+        if not (diff <= LOGIT_TOL * scale and bool(torch.isfinite(g).all())):
+            raise AssertionError(
+                f"{fmt}: {what} logits differ by {diff} (max {scale})"
+            )
 
     if cuda:
+        # a decode step never reaches the expert kernels
+        in_decode = [k for k in on_path if not k.endswith("_expert")]
         result["decode_step"] = decode_breakdown(
-            model, gen, prompts[0], fns[name].trace_tags
+            model, gen, prompts[0], {k: fns[k].trace_tags for k in in_decode}
         )
-    if cuda and fmt == "int8":
+    if cuda and fmt == "int8" and not moe:
         # K8 (flash attention) is not ported: a long fresh prefill must
         # refuse rather than run a plain fallback
         cache = init_cache(model.cfg, 1, max_seq, gen.dtype, device)
@@ -422,11 +642,14 @@ def phase_e2e(device, path, fmt: str, vocab: int,
     return result
 
 
-def decode_breakdown(model, gen, prompt, tags, steps=8):
+def decode_breakdown(model, gen, prompt, tags: dict, steps=8):
     """Wall time of one batch-1 decode step (host clock, synchronized)
     against the device time of the kernels it runs (``torch.profiler``
-    CUDA activity, taken over the same steps run again); ``tags`` pick
-    the format's own kernels by name."""
+    CUDA activity, taken over the same steps run again); ``tags`` maps
+    each kernel of the path to the words that pick its CUDA kernels by
+    name. The steps read nothing back, so the trace must hold no
+    device-to-host copy: a routing decision read on the host would be
+    one."""
     from torch.profiler import ProfilerActivity, profile
 
     from vptq_tpu_torch.models.llama import forward, init_cache
@@ -450,38 +673,69 @@ def decode_breakdown(model, gen, prompt, tags, steps=8):
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             run(steps)
-    kernels = [
+    events = [
         e for e in prof.events()
         if e.device_type == torch.autograd.DeviceType.CUDA
     ]
-    busy_ms = sum(e.device_time_total for e in kernels) / 1e3 / steps
-    kernel_ms = sum(
-        e.device_time_total for e in kernels
-        if all(tag in e.name for tag in tags)
-    ) / 1e3 / steps
-    if not kernel_ms > 0:
-        raise AssertionError(f"no kernel named {tags} in the decode trace")
+    to_host = [e.name for e in events if "dtoh" in e.name.lower()]
+    if to_host:
+        raise AssertionError(
+            f"{len(to_host)} device-to-host copies in {steps} decode "
+            f"steps: {to_host[:3]}"
+        )
+    busy_ms = sum(e.device_time_total for e in events) / 1e3 / steps
+    kernel_ms = {
+        name: sum(
+            e.device_time_total for e in events
+            if all(tag in e.name for tag in words)
+        ) / 1e3 / steps
+        for name, words in tags.items()
+    }
+    for name, ms in kernel_ms.items():
+        if not ms > 0:
+            raise AssertionError(
+                f"no kernel named {tags[name]} in the decode trace"
+            )
     out = dict(
         wall_ms=wall_ms, device_busy_ms=busy_ms, kernel_ms=kernel_ms,
-        kernels_per_step=len(kernels) / steps,
-        idle_share=1.0 - busy_ms / wall_ms,
+        kernels_per_step=len(events) / steps,
+        idle_share=1.0 - busy_ms / wall_ms, device_to_host_copies=0,
     )
     print("decode step " + json.dumps(out))
     return out
 
 
-def kernel_records(rows, launches, tokens=(1, 512)):
+# what the rows of one kernel, summed, stand for in its record
+RECORD_OF = {
+    "_expert": "one expert's gate_up and down",
+    "_pairs": "one layer's gate_up and down",
+}
+LIBRARY_OF = {
+    "_expert": "torch.matmul of bf16 x with the one expert's dequantized "
+               "bf16 weight",
+    "_pairs": "torch.bmm of bf16 x over the dequantized bf16 experts "
+              "gathered by the ids (index_select)",
+}
+
+
+def kernel_records(rows, launches, tokens=(1, 512), pairs=(2, 16)):
     """The contract's per-kernel records: each kernel at decode and at
-    prefill, summed over one layer's four linears. ``launches`` maps a
-    kernel to its count on its format's main path."""
+    prefill (pairs kernels: at two pair counts), summed over one layer's
+    linears. ``launches`` maps a kernel to its count on the main paths
+    that run it."""
     out = []
     for name in dict.fromkeys(r["kernel"] for r in rows):
-        for t in tokens:
+        kind = name[name.rfind("_"):]
+        for t in pairs if kind == "_pairs" else tokens:
             sel = [r for r in rows if r["kernel"] == name and r["T"] == t]
             bytes_ms = sum(r["bytes"] for r in sel) / PEAK_BYTES_PER_S * 1e3
             ops_ms = sum(r["flops"] for r in sel) / PEAK_BF16_FLOPS * 1e3
+            what = RECORD_OF.get(kind, "one layer's 4 linears")
+            library = LIBRARY_OF.get(
+                kind, "torch.matmul of bf16 x with the dequantized bf16 weight"
+            )
             out.append({
-                "name": f"{name} (T={t}, one layer's 4 linears)",
+                "name": f"{name} ({sel[0]['unit']}={t}, {what})",
                 "route": "cuda",
                 "source": f"vptq_tpu_torch/csrc/{name}.cu",
                 "replaces": kernel_fns(name)[0].replaces,
@@ -492,9 +746,8 @@ def kernel_records(rows, launches, tokens=(1, 512)):
                 "bound_ms": max(bytes_ms, ops_ms),
                 "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
                 "library_ms": sum(r["library_ms"] for r in sel),
-                "library": "torch.matmul of bf16 x with the dequantized "
-                           "bf16 weight: a yardstick that reads a bf16 "
-                           "weight; the port never calls it",
+                "library": library + ": a yardstick that reads bf16 "
+                           "weights; the port never calls it",
             })
     return out
 
@@ -530,17 +783,25 @@ def main() -> int:
     rows = []
     for name in FORMAT_KERNEL.values():
         rows += phase_kernel(name, device, k1_shapes(LLAMA31_8B))
+    for fmt in MOE_KERNELS:
+        rows += phase_moe_kernels(fmt, device, moe_shapes(MIXTRAL_8X7B))
     phase_encoders(device)
-    path, write_s = write_checkpoint(LLAMA31_8B, V8_K65536)
-    print(f"checkpoint write: {write_s:.2f} s")
-    launches = {}
-    try:
-        for fmt, name in FORMAT_KERNEL.items():
-            e2e = phase_e2e(device, path, fmt, LLAMA31_8B["vocab_size"])
-            print("e2e " + json.dumps(e2e))
-            launches[name] = e2e["launches"]
-    finally:
-        shutil.rmtree(path, ignore_errors=True)
+    launches = dict.fromkeys(ALL_KERNELS, 0)
+    for label, cfg, formats in (
+        ("Llama-3.1-8B", LLAMA31_8B, FORMAT_KERNEL),
+        ("Mixtral-8x7B", MIXTRAL_8X7B, MOE_KERNELS),
+    ):
+        path, write_s = write_checkpoint(cfg, V8_K65536)
+        print(f"checkpoint write {label} "
+              f"({cfg['num_hidden_layers']} layers): {write_s:.2f} s")
+        try:
+            for fmt in formats:
+                e2e = phase_e2e(device, path, fmt, cfg["vocab_size"])
+                print(f"e2e {label} " + json.dumps(e2e))
+                for name, n in e2e["launches"].items():
+                    launches[name] += n
+        finally:
+            shutil.rmtree(path, ignore_errors=True)
     print(json.dumps({"kernels": kernel_records(rows, launches)}))
     print(json.dumps({
         "ok": True,

@@ -20,10 +20,27 @@ from torch_port import LLAMA3_SCALING, TINY, VQ
 import chip_smoke
 from vptq_tpu_torch import AutoModelForCausalLM
 from vptq_tpu_torch.convert import convert_params
+from vptq_tpu_torch.ops import _build
 from vptq_tpu_torch.ops.w2_matmul import w2_matmul, w2_matmul_reference
 from vptq_tpu_torch.ops.w3_matmul import w3_matmul, w3_matmul_reference
 from vptq_tpu_torch.ops.w4_matmul import w4_matmul, w4_matmul_reference
+from vptq_tpu_torch.ops.w4_matmul_expert import (
+    w4_matmul_expert,
+    w4_matmul_expert_reference,
+)
+from vptq_tpu_torch.ops.w4_matmul_pairs import (
+    w4_matmul_pairs,
+    w4_matmul_pairs_reference,
+)
 from vptq_tpu_torch.ops.w8_matmul import w8_matmul, w8_matmul_reference
+from vptq_tpu_torch.ops.w8_matmul_expert import (
+    w8_matmul_expert,
+    w8_matmul_expert_reference,
+)
+from vptq_tpu_torch.ops.w8_matmul_pairs import (
+    w8_matmul_pairs,
+    w8_matmul_pairs_reference,
+)
 from vptq_tpu_torch.utils.synth_checkpoint import (
     tiny_model_config,
     write_synthetic_checkpoint,
@@ -52,7 +69,7 @@ def test_port_imports_no_jax_and_no_vptq_tpu():
         [sys.executable, "-c", _IMPORT_ALL], cwd=ROOT, env=env,
         capture_output=True, text=True, timeout=120, check=True,
     ).stdout.split(maxsplit=1)
-    assert int(out[0]) >= 25  # every module of the package was imported
+    assert int(out[0]) >= 29  # every module of the package was imported
     assert out[1].strip() == "[]"
 
 
@@ -93,12 +110,31 @@ def test_chip_smoke_phases_on_cpu():
         rows += chip_smoke.phase_kernel(name, "cpu", shapes, tokens=(1, 20),
                                         iters=1)
     assert len(rows) == 16 and all(r["max_abs_err"] == 0.0 for r in rows)
-    records = chip_smoke.kernel_records(rows, dict.fromkeys(kernels, 0),
-                                        tokens=(1, 20))
+    for fmt in chip_smoke.MOE_KERNELS:
+        rows += chip_smoke.phase_moe_kernels(
+            fmt, "cpu", shapes, n_experts=4, tokens=(1, 20), pairs=(2, 6),
+            iters=1,
+        )
+    moe_rows = rows[16:]
+    assert len(moe_rows) == 16
+    assert all(r["max_abs_err"] == 0.0 for r in moe_rows)
+    # one token's top-2 are two experts; three tokens' pick at most four
+    assert [r["distinct"] for r in moe_rows if r["T"] == 2] == [2] * 4
+    assert all(2 <= r["distinct"] <= 4 for r in moe_rows if r["T"] == 6)
+    assert chip_smoke.ALL_KERNELS == tuple(dict.fromkeys(
+        r["kernel"] for r in rows))
+    records = chip_smoke.kernel_records(
+        rows, dict.fromkeys(chip_smoke.ALL_KERNELS, 0), tokens=(1, 20),
+        pairs=(2, 6),
+    )
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
-    assert len(records) == 8 and all(keys <= set(r) for r in records)
+    assert len(records) == 16 and all(keys <= set(r) for r in records)
     assert all((ROOT / r["source"]).exists() for r in records)
+    assert [r["name"] for r in records if "pairs" in r["name"]] == [
+        f"{k} (P={p}, one layer's gate_up and down)"
+        for k in ("w8_matmul_pairs", "w4_matmul_pairs") for p in (2, 6)
+    ]
     json.dumps(records)
 
     enc = chip_smoke.phase_encoders("cpu", out_f=16, in_f=1024)
@@ -114,10 +150,55 @@ def test_chip_smoke_phases_on_cpu():
                 new_tokens=4, max_seq=64,
             )
             assert [r["prompt"] for r in e2e["requests"]] == [5, 20, 40]
-            assert e2e["launches"] == 0  # the CPU runs the plain versions
-            assert e2e["logits_max_abs_diff"] == 0.0
+            # the CPU runs the plain versions
+            assert e2e["launches"] == {chip_smoke.FORMAT_KERNEL[fmt]: 0}
+            assert e2e["prefill_logits_max_abs_diff"] == 0.0
+            assert e2e["decode_logits_max_abs_diff"] == 0.0
     finally:
         shutil.rmtree(path, ignore_errors=True)
+
+    cfg = dict(TINY, tie_word_embeddings=False, model_type="mixtral",
+               num_local_experts=4, num_experts_per_tok=2)
+    path, _ = chip_smoke.write_checkpoint(cfg, VQ)
+    try:
+        for fmt, moe_kernels in chip_smoke.MOE_KERNELS.items():
+            e2e = chip_smoke.phase_e2e(
+                "cpu", path, fmt, TINY["vocab_size"], prompt_lens=(5, 70),
+                new_tokens=3, max_seq=128,
+            )
+            assert e2e["kernels"] == [
+                chip_smoke.FORMAT_KERNEL[fmt], *moe_kernels]
+            assert set(e2e["launches"].values()) == {0}
+            assert e2e["prefill_logits_max_abs_diff"] == 0.0
+            assert e2e["decode_logits_max_abs_diff"] == 0.0
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
+
+
+def test_expected_launches_of_a_request():
+    """The counts the smoke holds each request to: per layer and forward
+    call 4 of the format's kernel (dense) or 2 (MoE: qkv, o); per layer
+    2 of the pairs kernel for a call of at most 64 tokens and 2·E of the
+    expert kernel for a longer one."""
+    buckets = [128, 512, 2048]
+    dense = tiny_model_config(num_hidden_layers=3)
+    got = chip_smoke.expected_launches(dense, "int4", 16, 32, buckets)
+    assert got.pop("w4_matmul") == 4 * 3 * 32 and set(got.values()) == {0}
+    moe = tiny_model_config(num_hidden_layers=3, model_type="mixtral",
+                            num_local_experts=8, num_experts_per_tok=2)
+    for prompt in (16, 128, 512):
+        got = chip_smoke.expected_launches(moe, "int8", prompt, 32, buckets)
+        assert got.pop("w8_matmul") == 2 * 3 * 32
+        assert got.pop("w8_matmul_pairs") == 2 * 3 * 31
+        assert got.pop("w8_matmul_expert") == 16 * 3 * 1
+        assert set(got.values()) == {0}
+    # a prompt over the largest bucket is two prefill chunks; a bucket of
+    # at most 64 tokens takes the pairs kernel in its prefill too
+    got = chip_smoke.expected_launches(moe, "int4", 2050, 2, buckets)
+    assert (got["w4_matmul"], got["w4_matmul_expert"],
+            got["w4_matmul_pairs"]) == (2 * 3 * 3, 16 * 3 * 2, 2 * 3 * 1)
+    got = chip_smoke.expected_launches(moe, "int4", 10, 2, [64])
+    assert (got["w4_matmul_expert"], got["w4_matmul_pairs"]) == (0, 2 * 3 * 2)
 
 
 def test_k1_shapes_of_llama31_8b():
@@ -127,24 +208,46 @@ def test_k1_shapes_of_llama31_8b():
     ]
 
 
-@pytest.mark.parametrize("name", sorted(chip_smoke.FORMAT_KERNEL.values()))
+def test_moe_shapes_of_mixtral_8x7b():
+    assert chip_smoke.moe_shapes(chip_smoke.MIXTRAL_8X7B) == [
+        ("gate_up", 28672, 4096), ("down", 4096, 14336),
+    ]
+    cfg = tiny_model_config(**chip_smoke.MIXTRAL_8X7B)
+    assert (cfg.num_local_experts, cfg.num_experts_per_tok) == (8, 2)
+    assert cfg.sliding_window is None
+
+
+@pytest.mark.parametrize("name", sorted(chip_smoke.ALL_KERNELS))
 def test_kernel_names_its_tpu_kernel_and_trace_tags(name):
     """A wrapper's ``replaces`` points at the Pallas kernel body it ports,
-    and its ``trace_tags`` occur in its CUDA sources."""
+    and its ``trace_tags`` occur in its CUDA sources. No two kernels'
+    tags pick the same CUDA kernel names."""
     fn, _ = chip_smoke.kernel_fns(name)
     path, line = fn.replaces.split(":")
     body = (ROOT / path).read_text().splitlines()[int(line) - 1]
-    assert body.startswith(f"def _{name.split('_')[0]}_kernel("), body
-    src = (ROOT / "vptq_tpu_torch/csrc" / f"{name}.cu").read_text()
-    if "lowbit.cuh" in src:
-        src += (ROOT / "vptq_tpu_torch/csrc/lowbit.cuh").read_text()
+    # _w8_kernel, _w8e_kernel (expert), _w8p_kernel (pairs)
+    base, _, kind = name.partition("_matmul")
+    assert body.startswith(f"def _{base}{kind[1:2]}_kernel("), body
+    csrc = ROOT / "vptq_tpu_torch/csrc"
+    src = (csrc / f"{name}.cu").read_text()
+    assert f'extern "C" int vptq_{name}(' in src
+    # the headers it includes, and theirs
+    for _ in range(2):
+        for header in sorted(csrc.glob("*.cuh")):
+            if f'#include "{header.name}"' in src:
+                src += header.read_text()
     assert all(tag in src for tag in fn.trace_tags)
+    assert name in _build.SOURCES
+    others = [chip_smoke.kernel_fns(k)[0].trace_tags
+              for k in chip_smoke.ALL_KERNELS if k != name]
+    assert all(set(fn.trace_tags) - set(tags) and set(tags) - set(fn.trace_tags)
+               for tags in others)
 
 
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU: K1-K4 are CUDA kernels")
+        pytest.skip("needs an NVIDIA GPU: K1-K6 are CUDA kernels")
     return torch.device("cuda")
 
 
@@ -207,6 +310,153 @@ def test_lowbit_kernel_matches_plain_version(cuda, kernel, tokens, out_dtype):
         got.float(), want.float(), rtol=rtol,
         atol=rtol * want.float().abs().max().item(),
     )
+
+
+def _stacked_case(fmt, gen, device, n_experts=5, out_f=200, in_p=2048):
+    """Stacked experts of random codes with an odd number of rows."""
+    if fmt == "int8":
+        wq = torch.randint(-127, 128, (n_experts, out_f, in_p), generator=gen,
+                           device=device, dtype=torch.int8)
+        scales = torch.rand((n_experts, in_p // 512, out_f), generator=gen,
+                            device=device) * 1e-2
+        return (w8_matmul_expert, w8_matmul_expert_reference,
+                w8_matmul_pairs, w8_matmul_pairs_reference, wq, scales)
+    wq = torch.randint(-128, 128, (n_experts, out_f, in_p // 2),
+                       generator=gen, device=device, dtype=torch.int8)
+    scales = (torch.rand((n_experts, in_p // 128, out_f), generator=gen,
+                         device=device) * 1e-2).to(torch.bfloat16)
+    return (w4_matmul_expert, w4_matmul_expert_reference,
+            w4_matmul_pairs, w4_matmul_pairs_reference, wq, scales)
+
+
+def _assert_kernel_close(got, want, out_dtype):
+    # both sum exact products in f32 per group: in f32 only the summation
+    # order differs; in bf16, one ulp of the final rounding
+    rtol = 1e-5 if out_dtype == torch.float32 else 1e-2
+    torch.testing.assert_close(
+        got.float(), want.float(), rtol=rtol,
+        atol=rtol * want.float().abs().max().item(),
+    )
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("tokens", [1, 3, 16, 17, 40, 130])
+@pytest.mark.parametrize("fmt", ["int8", "int4"])
+def test_expert_kernel_matches_plain_version(cuda, fmt, tokens, out_dtype):
+    """K6a / K6b on every expert of a stack, the last included, with the
+    id on the card; an id outside the stack is clamped into it."""
+    gen = torch.Generator(device=cuda).manual_seed(tokens)
+    fn, ref, _, _, wq, scales = _stacked_case(fmt, gen, cuda)
+    x = torch.randn((tokens, 2048), generator=gen, device=cuda)
+    ids = torch.arange(5, dtype=torch.int32, device=cuda)
+    before = fn.launches
+    for e in range(5):
+        got = fn(x, wq, scales, ids[e], out_dtype=out_dtype)
+        want = ref(x, wq, scales, ids[e], out_dtype=out_dtype)
+        assert got.shape == (tokens, 200) and got.dtype == out_dtype
+        _assert_kernel_close(got, want, out_dtype)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 5
+    beyond = fn(x, wq, scales, torch.tensor(9, device=cuda),
+                out_dtype=out_dtype)
+    assert torch.equal(beyond, fn(x, wq, scales, ids[4], out_dtype=out_dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ids", [
+    [4], [0, 4], [2, 2, 2, 2], [0, 1, 2, 3, 4], [4, 0, 3, 3, 1, 4, 0, 2] * 4,
+    list(range(5)) * 26,
+])
+@pytest.mark.parametrize("fmt", ["int8", "int4"])
+def test_pairs_kernel_matches_plain_version(cuda, fmt, ids, out_dtype):
+    """K5a / K5b: one pair, repeated ids, all-distinct ids, the last
+    expert, and more pairs (130) than a decode step of 64 tokens makes."""
+    gen = torch.Generator(device=cuda).manual_seed(len(ids))
+    _, _, fn, ref, wq, scales = _stacked_case(fmt, gen, cuda)
+    x = torch.randn((len(ids), 2048), generator=gen, device=cuda)
+    experts = torch.tensor(ids, device=cuda)
+    before = fn.launches
+    got = fn(x, wq, scales, experts, out_dtype=out_dtype)
+    want = ref(x, wq, scales, experts, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    assert got.shape == (len(ids), 200) and got.dtype == out_dtype
+    _assert_kernel_close(got, want, out_dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["int8", "int4"])
+def test_moe_kernels_run_on_the_current_stream(cuda, fmt):
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    e_fn, e_ref, p_fn, p_ref, wq, scales = _stacked_case(fmt, gen, cuda)
+    x = torch.randn((4, 2048), generator=gen, device=cuda)
+    experts = torch.tensor([1, 4, 4, 0], device=cuda)
+    torch.cuda.synchronize()
+    stream = torch.cuda.Stream()
+    with torch.cuda.stream(stream):
+        got_e = e_fn(x, wq, scales, experts[1])
+        got_p = p_fn(x, wq, scales, experts)
+    stream.synchronize()
+    _assert_kernel_close(got_e, e_ref(x, wq, scales, experts[1]),
+                         torch.float32)
+    _assert_kernel_close(got_p, p_ref(x, wq, scales, experts), torch.float32)
+
+
+@pytest.mark.cuda
+def test_moe_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    e_fn, _, p_fn, _, wq, scales = _stacked_case("int8", gen, cuda)
+    x = torch.randn((2, 2048), generator=gen, device=cuda)
+    with pytest.raises(ValueError, match="one device"):
+        e_fn(x, wq, scales, torch.tensor(0))
+    with pytest.raises(ValueError, match="one device"):
+        p_fn(x, wq.cpu(), scales, torch.tensor([0, 1], device=cuda))
+    with pytest.raises(ValueError, match="contiguous"):
+        e_fn(x, wq.transpose(1, 2).contiguous().transpose(1, 2), scales,
+             torch.tensor(0, device=cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["int8", "int4"])
+def test_mixtral_decode_reads_nothing_back(cuda, tmp_path, fmt):
+    """A Mixtral decode step on the card: launch counts of the three
+    kernels, and no synchronizing call (the expert ids stay on the card)."""
+    from vptq_tpu_torch.models.llama import forward, init_cache
+    from vptq_tpu_torch.models.loader import load_model
+
+    write_synthetic_checkpoint(
+        tmp_path,
+        tiny_model_config(**TINY, tie_word_embeddings=False,
+                          model_type="mixtral", num_local_experts=4,
+                          num_experts_per_tok=2),
+        vq_kwargs=VQ, seed=0,
+    )
+    model = load_model(str(tmp_path), runtime_format=fmt, device=cuda)
+    cache = init_cache(model.cfg, 1, 256, torch.bfloat16, cuda)
+    dense, (expert, pairs) = (
+        chip_smoke.kernel_fns(chip_smoke.FORMAT_KERNEL[fmt])[0],
+        [chip_smoke.kernel_fns(k)[0] for k in chip_smoke.MOE_KERNELS[fmt]],
+    )
+    prompt = torch.arange(70, device=cuda)[None]
+    tok = torch.ones((1, 1), dtype=torch.int64, device=cuda)
+    with torch.inference_mode():
+        forward(model, prompt, cache, fresh_prefill=True)  # builds, warms up
+        forward(model, tok, cache)
+        torch.cuda.synchronize()
+        counts = [f.launches for f in (dense, expert, pairs)]
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            logits, _ = forward(model, tok, cache)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        forward(model, prompt, cache)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(logits).all())
+    layers, experts = 2, 4
+    assert [f.launches - n for f, n in zip((dense, expert, pairs), counts)] == [
+        2 * layers * 2, 2 * experts * layers, 2 * layers]
 
 
 @pytest.mark.cuda

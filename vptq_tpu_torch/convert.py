@@ -8,8 +8,10 @@ dict keeps no class names, so the kind of each linear follows from its
 leaves: ``wq2`` and ``wq1`` are int3; ``wq`` is int8, int4 or int2 by
 the dtype and shape of its ``scales`` (see :func:`_packed_kind`);
 ``weight`` is dense; ``centroids`` is a codebook layer whose geometry
-comes from the config's ``quantization_config``. bf16 arrays are taken
-by bit pattern.
+comes from the config's ``quantization_config``. A Mixtral block's
+``mlp`` holds ``router``, ``experts.<e>`` and, after fusion, ``stacked``,
+whose format (int8 or int4) follows from its scales as a ``wq``'s does.
+bf16 arrays are taken by bit pattern.
 """
 
 from __future__ import annotations
@@ -34,12 +36,27 @@ from vptq_tpu_torch.models.llama import (
     Mlp,
     Model,
     ModelConfig,
+    MoeMlp,
+    StackedExperts,
 )
 from vptq_tpu_torch.models.loader import resolve_device
 from vptq_tpu_torch.ops.packing import INT4_GROUP, to_index_plane
 from vptq_tpu_torch.ops.w2_matmul import W2_GROUPS
 
 __all__ = ["convert_params"]
+
+
+# the JAX Mlp's fields and their names in a dense and in a Mixtral
+# checkpoint (fused gate_up has no checkpoint name of its own: a fused
+# layer is never a codebook layer, which alone is looked up by name)
+_HF_MLP = {
+    "gate_proj": "gate_proj", "up_proj": "up_proj", "down_proj": "down_proj",
+    "gate_up_proj": "gate_up_proj",
+}
+_HF_EXPERT = {
+    "gate_proj": "w1", "up_proj": "w3", "down_proj": "w2",
+    "gate_up_proj": "gate_up_proj",
+}
 
 
 def _tensor(a: np.ndarray) -> torch.Tensor:
@@ -73,6 +90,26 @@ def _packed_kind(prefix: str, wq: np.ndarray, scales: np.ndarray):
             f"{scales.dtype} scales {scales.shape}"
         )
     return kinds[0]
+
+
+def _stacked_format(prefix: str, params: Dict[str, np.ndarray]) -> str:
+    """"int8" or "int4" for the leaves of a JAX ``StackedExperts``, by the
+    rule of :func:`_packed_kind` on each of its two weights; raises
+    unless both fit the same one format."""
+    kinds = {
+        _packed_kind(
+            f"{prefix}.{name}",
+            params[f"{prefix}.{name}_wq"][0],
+            params[f"{prefix}.{name}_scales"][0],
+        )
+        for name in ("gate_up", "down")
+    }
+    fmt = {Int8Linear: "int8", Int4Linear: "int4"}.get(
+        kinds.pop() if len(kinds) == 1 else None
+    )
+    if fmt is None:
+        raise ValueError(f"{prefix}: stacked experts are int8 or int4")
+    return fmt
 
 
 def convert_params(
@@ -137,6 +174,37 @@ def convert_params(
             )
         return None
 
+    def dense_mlp(prefix: str, hf_prefix: str, hf_names: dict) -> Mlp:
+        return Mlp(
+            **{
+                name: linear(f"{prefix}.{name}", f"{hf_prefix}.{hf_name}")
+                for name, hf_name in hf_names.items()
+            }
+        )
+
+    def moe_mlp(prefix: str, hf_prefix: str) -> MoeMlp:
+        stacked = None
+        if f"{prefix}.stacked.gate_up_wq" in params:
+            sp = f"{prefix}.stacked"
+            stacked = StackedExperts(
+                get(f"{sp}.gate_up_wq"), get(f"{sp}.gate_up_scales"),
+                get(f"{sp}.down_wq"), get(f"{sp}.down_scales"),
+                fmt=_stacked_format(sp, params),
+            )
+        n_experts = 0 if stacked is not None else cfg.num_local_experts
+        return MoeMlp(
+            router=linear(f"{prefix}.router", f"{hf_prefix}.gate"),
+            experts=[
+                dense_mlp(
+                    f"{prefix}.experts.{e}", f"{hf_prefix}.experts.{e}",
+                    _HF_EXPERT,
+                )
+                for e in range(n_experts)
+            ],
+            num_experts_per_tok=cfg.num_experts_per_tok,
+            stacked=stacked,
+        )
+
     blocks = []
     for i in range(cfg.num_hidden_layers):
         b, hf = f"blocks.{i}", f"model.layers.{i}"
@@ -148,14 +216,10 @@ def convert_params(
                 )
             }
         )
-        mlp = Mlp(
-            **{
-                name: linear(f"{b}.mlp.{name}", f"{hf}.mlp.{name}")
-                for name in (
-                    "gate_proj", "up_proj", "down_proj", "gate_up_proj"
-                )
-            }
-        )
+        if cfg.num_local_experts:
+            mlp = moe_mlp(f"{b}.mlp", f"{hf}.block_sparse_moe")
+        else:
+            mlp = dense_mlp(f"{b}.mlp", f"{hf}.mlp", _HF_MLP)
         blocks.append(
             Block(
                 input_layernorm=get(f"{b}.input_layernorm"),

@@ -4,7 +4,10 @@
 // two − 4·sign ∈ [−4, 3]) and s one bf16 scale per (row, group of G
 // natural columns). Each format is a policy (w4_matmul.cu, w2_matmul.cu,
 // w3_matmul.cu) that says how its bytes unpack; this header holds the
-// loops.
+// loops. A second policy (expert_select.cuh) says which weight a launch
+// reads: the whole one, or, for the MoE kernels K6b w4_matmul_expert and
+// K5b w4_matmul_pairs, one expert of a stacked (E, out, ...) weight
+// picked by an id the block reads from device memory.
 //
 // The arithmetic is the TPU kernels': x is rounded to bf16, every level is
 // exact in f32 and bf16, the products of one group are summed in f32, the
@@ -23,10 +26,14 @@
 //   planes kPlanes byte planes; position k of row o of plane i is byte
 //          base[i] + o·row_bytes[i] + off[i] + k
 //   scales bf16, scale of row o and group g at s[o·row_stride + g·group_stride]
+//   ids    int32 in device memory, with a stacked weight: expert e's slab
+//          of plane i starts e·out·row_bytes[i] bytes after base[i], its
+//          scales e·out·(in_p / G) after s
 //   y      (T, out) bf16 / f32
 //
 // Two kernels, picked by T:
-//  * gemv (T <= 16): each warp owns kRows rows; lane l streams positions
+//  * gemv (T <= 16; a pairs launch runs it at T = 1 on a grid of (row
+//    tiles, pairs), row p of x against expert ids[p]): each warp owns kRows rows; lane l streams positions
 //    16l … 16l+15 of a 512-position chunk with one 16-byte load per plane
 //    and row, while x for that chunk (all P parts) is staged in shared
 //    memory, never x whole (at the down shape and T = 16 it is 458 KB).
@@ -49,6 +56,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "expert_select.cuh"
+
 namespace lowbit {
 
 constexpr int kWarps = 8;
@@ -60,6 +69,12 @@ struct Planes {
   const uint8_t* base[kMaxPlanes];
   int row_bytes[kMaxPlanes];
   int off[kMaxPlanes];
+};
+
+// ids of a stacked weight: null for sel::Whole
+struct Ids {
+  const int* ids;
+  int n_experts;
 };
 
 struct Scales {
@@ -113,17 +128,34 @@ __device__ __forceinline__ void load_planes(uint32_t (&w)[P::kPlanes][4],
   P::prep(w);
 }
 
+// Move the planes and scales to the slab of the expert that pair p picks.
+template <class P, int G>
+__device__ __forceinline__ void select_expert(Planes& pl, Scales& sc,
+                                              const Ids& ids, int p, int out,
+                                              int in_p) {
+  const size_t e = sel::expert_of(ids.ids, ids.n_experts, p);
+#pragma unroll
+  for (int i = 0; i < P::kPlanes; ++i) pl.base[i] += e * out * pl.row_bytes[i];
+  sc.s += e * out * (in_p / G);
+}
+
 // --------------------------------------------------------------------
 // decode: T <= 16
 
-template <class P, int TP, int kRows, int G, typename OutT>
+template <class P, class Sel, int TP, int kRows, int G, typename OutT>
 __global__ void __launch_bounds__(kThreads)
-    gemv(const __nv_bfloat16* __restrict__ x, Planes pl, Scales sc,
+    gemv(const __nv_bfloat16* __restrict__ x, Planes pl, Scales sc, Ids ids,
          OutT* __restrict__ y, int T, int out, int in_p, int L) {
   constexpr int kParts = P::kParts;
   constexpr int kSet = G / 16;  // lanes that share one group
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  const int pair = sel::pair_of<Sel>();
+  if (Sel::kIds) select_expert<P, G>(pl, sc, ids, pair, out, in_p);
+  if (Sel::kPairs) {
+    x += (size_t)pair * in_p;
+    y += (size_t)pair * out;
+  }
 
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -247,14 +279,16 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-template <class P, int G, typename OutT>
+template <class P, class Sel, int G, typename OutT>
 __global__ void __launch_bounds__(kThreads)
-    gemm(const __nv_bfloat16* __restrict__ x, Planes pl, Scales sc,
+    gemm(const __nv_bfloat16* __restrict__ x, Planes pl, Scales sc, Ids ids,
          OutT* __restrict__ y, int T, int out, int in_p, int L) {
+  static_assert(!Sel::kPairs, "a pairs launch runs the T = 1 gemv");
   constexpr int kParts = P::kParts;
   constexpr int kSlabs = G / BK;  // slabs per group
   __shared__ __align__(16) __nv_bfloat16 xs[BM][LDS];
   __shared__ __align__(16) __nv_bfloat16 ws[BN][LDS];
+  if (Sel::kIds) select_expert<P, G>(pl, sc, ids, 0, out, in_p);
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -391,15 +425,17 @@ __global__ void __launch_bounds__(kThreads)
 // --------------------------------------------------------------------
 // launch
 
-template <class P, int TP, int G, typename OutT>
+// pairs: the grid's second dimension (1 unless the launch is a pairs launch)
+template <class P, class Sel, int TP, int G, typename OutT>
 cudaError_t launch_gemv(const __nv_bfloat16* x, const Planes& pl,
-                        const Scales& sc, OutT* y, int T, int out, int in_p,
-                        int L, cudaStream_t stream) {
+                        const Scales& sc, const Ids& ids, OutT* y, int T,
+                        int pairs, int out, int in_p, int L,
+                        cudaStream_t stream) {
   // fewer rows per warp where the 3-plane format and many tokens would
   // spill registers
   constexpr int kRows =
       TP <= 2 ? (P::kPlanes == 1 ? 4 : 2) : (TP <= 8 && P::kPlanes == 1 ? 2 : 1);
-  auto kernel = gemv<P, TP, kRows, G, OutT>;
+  auto kernel = gemv<P, Sel, TP, kRows, G, OutT>;
   const size_t smem =
       (size_t)TP * P::kParts * kChunk * sizeof(__nv_bfloat16);
   if (smem > 48 * 1024) {
@@ -408,40 +444,47 @@ cudaError_t launch_gemv(const __nv_bfloat16* x, const Planes& pl,
     if (e != cudaSuccess) return e;
   }
   const int rows_per_block = kWarps * kRows;
-  dim3 grid((out + rows_per_block - 1) / rows_per_block);
-  kernel<<<grid, kThreads, smem, stream>>>(x, pl, sc, y, T, out, in_p, L);
+  dim3 grid((out + rows_per_block - 1) / rows_per_block, pairs);
+  kernel<<<grid, kThreads, smem, stream>>>(x, pl, sc, ids, y, T, out, in_p, L);
   return cudaGetLastError();
 }
 
-template <class P, int G, typename OutT>
+template <class P, class Sel, int G, typename OutT>
 cudaError_t launch_typed(const void* x, const Planes& pl, const Scales& sc,
-                         void* y, int T, int out, int in_p,
+                         const Ids& ids, void* y, int T, int out, int in_p,
                          cudaStream_t stream) {
   const auto* xb = static_cast<const __nv_bfloat16*>(x);
   auto* yo = static_cast<OutT*>(y);
   const int L = in_p / P::kParts;
   if (L % G || L % 16) return cudaErrorInvalidValue;
-  if (T <= 1) return launch_gemv<P, 1, G, OutT>(xb, pl, sc, yo, T, out, in_p, L, stream);
-  if (T <= 2) return launch_gemv<P, 2, G, OutT>(xb, pl, sc, yo, T, out, in_p, L, stream);
-  if (T <= 4) return launch_gemv<P, 4, G, OutT>(xb, pl, sc, yo, T, out, in_p, L, stream);
-  if (T <= 8) return launch_gemv<P, 8, G, OutT>(xb, pl, sc, yo, T, out, in_p, L, stream);
-  if (T <= 16) return launch_gemv<P, 16, G, OutT>(xb, pl, sc, yo, T, out, in_p, L, stream);
-  dim3 grid((out + BN - 1) / BN, (T + BM - 1) / BM);
-  gemm<P, G, OutT><<<grid, kThreads, 0, stream>>>(xb, pl, sc, yo, T, out,
-                                                  in_p, L);
-  return cudaGetLastError();
+  if constexpr (Sel::kPairs) {
+    // T pairs, each one row of x through its own expert
+    if (T > 65535) return cudaErrorInvalidValue;
+    return launch_gemv<P, Sel, 1, G, OutT>(xb, pl, sc, ids, yo, 1, T, out, in_p, L, stream);
+  } else {
+    if (T <= 1) return launch_gemv<P, Sel, 1, G, OutT>(xb, pl, sc, ids, yo, T, 1, out, in_p, L, stream);
+    if (T <= 2) return launch_gemv<P, Sel, 2, G, OutT>(xb, pl, sc, ids, yo, T, 1, out, in_p, L, stream);
+    if (T <= 4) return launch_gemv<P, Sel, 4, G, OutT>(xb, pl, sc, ids, yo, T, 1, out, in_p, L, stream);
+    if (T <= 8) return launch_gemv<P, Sel, 8, G, OutT>(xb, pl, sc, ids, yo, T, 1, out, in_p, L, stream);
+    if (T <= 16) return launch_gemv<P, Sel, 16, G, OutT>(xb, pl, sc, ids, yo, T, 1, out, in_p, L, stream);
+    dim3 grid((out + BN - 1) / BN, (T + BM - 1) / BM);
+    gemm<P, Sel, G, OutT><<<grid, kThreads, 0, stream>>>(xb, pl, sc, ids, yo,
+                                                         T, out, in_p, L);
+    return cudaGetLastError();
+  }
 }
 
 // out_dtype: 0 = bf16, 1 = f32
-template <class P, int G>
+template <class P, int G, class Sel = sel::Whole>
 int launch(const void* x, const Planes& pl, const Scales& sc, void* y, int T,
-           int out, int in_p, int out_dtype, void* stream) {
+           int out, int in_p, int out_dtype, void* stream,
+           const Ids& ids = Ids{nullptr, 0}) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (out_dtype) {
     case 0:
-      return (int)launch_typed<P, G, __nv_bfloat16>(x, pl, sc, y, T, out, in_p, s);
+      return (int)launch_typed<P, Sel, G, __nv_bfloat16>(x, pl, sc, ids, y, T, out, in_p, s);
     case 1:
-      return (int)launch_typed<P, G, float>(x, pl, sc, y, T, out, in_p, s);
+      return (int)launch_typed<P, Sel, G, float>(x, pl, sc, ids, y, T, out, in_p, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -17,6 +17,8 @@ gather on the load device) and re-encodes it:
   * ``codebook`` keep the compressed :class:`VQLinear`.
 
 Every encoding is byte-equal to the JAX package's numpy encoder.
+:func:`fuse_block` also stacks the int8 or int4 experts of a Mixtral MoE
+block (:func:`stack_experts`) for the expert and pairs kernels K6 and K5.
 Blocked (``shards > 1``) encodings for tensor parallelism are not
 ported: on one device they would compute wrong outputs, so they raise.
 """
@@ -30,6 +32,7 @@ from torch import nn
 
 from vptq_tpu_torch.layers.dense import DenseLinear
 from vptq_tpu_torch.layers.vqlinear import VQLinear
+from vptq_tpu_torch.models.llama import Mlp, MoeMlp, StackedExperts
 from vptq_tpu_torch.ops.packing import (
     INT4_GROUP,
     W2_BLOCK,
@@ -67,6 +70,7 @@ __all__ = [
     "int8_weight",
     "linear_exact_weight",
     "pick_group",
+    "stack_experts",
     "to_bf16",
     "to_int2",
     "to_int3",
@@ -483,24 +487,71 @@ def fuse_linears(linears):
     return kind(**arrays, bias=_fused_bias(linears))
 
 
+def _fuse_gate_up(mlp: Mlp) -> None:
+    """Fuse one Mlp's gate|up (in place), where its layers fuse."""
+    if mlp.gate_up_proj is None and mlp.gate_proj is not None:
+        fused = fuse_linears([mlp.gate_proj, mlp.up_proj])
+        if fused is not None:
+            mlp.gate_up_proj = fused
+            mlp.gate_proj = mlp.up_proj = None
+
+
+def stack_experts(experts) -> Optional[StackedExperts]:
+    """The stacked weights of gate|up-fused experts, or None unless they
+    are one family (all :class:`Int8Linear` or all :class:`Int4Linear`)
+    without biases and of equal shapes."""
+    gus = [e.gate_up_proj for e in experts]
+    downs = [e.down_proj for e in experts]
+    if all(isinstance(m, Int4Linear) for m in gus + downs):
+        fmt = "int4"
+    elif all(isinstance(m, Int8Linear) for m in gus + downs):
+        fmt = "int8"
+    else:
+        return None
+    if any(m.bias is not None for m in gus + downs):
+        return None
+    for family in (gus, downs):
+        if any(
+            m.wq.shape != family[0].wq.shape
+            or m.scales.shape != family[0].scales.shape
+            for m in family
+        ):
+            return None
+    return StackedExperts(
+        gate_up_wq=torch.stack([m.wq for m in gus]),
+        gate_up_scales=torch.stack([m.scales for m in gus]),
+        down_wq=torch.stack([m.wq for m in downs]),
+        down_scales=torch.stack([m.scales for m in downs]),
+        fmt=fmt,
+    )
+
+
 def fuse_block(block):
-    """Fuse one block's q|k|v and gate|up projections (in place)."""
+    """Fuse one block's q|k|v and gate|up projections (in place), and
+    stack a MoE block's experts for the expert and pairs kernels."""
     attn, mlp = block.attn, block.mlp
     if attn.qkv_proj is None and attn.q_proj is not None:
         fused = fuse_linears([attn.q_proj, attn.k_proj, attn.v_proj])
         if fused is not None:
             attn.qkv_proj = fused
             attn.q_proj = attn.k_proj = attn.v_proj = None
-    if mlp.gate_up_proj is None and mlp.gate_proj is not None:
-        fused = fuse_linears([mlp.gate_proj, mlp.up_proj])
-        if fused is not None:
-            mlp.gate_up_proj = fused
-            mlp.gate_proj = mlp.up_proj = None
+    if isinstance(mlp, MoeMlp):
+        for expert in mlp.experts:
+            _fuse_gate_up(expert)
+        if mlp.stacked is None and len(mlp.experts):
+            mlp.stacked = stack_experts(mlp.experts)
+            if mlp.stacked is not None:
+                # the per-expert copies go, so the expert weights exist
+                # once on the device: both MoE paths read the stack
+                mlp.experts = nn.ModuleList()
+    else:
+        _fuse_gate_up(mlp)
     return block
 
 
 def fuse_model(model):
-    """Fuse q|k|v and gate|up projections across all blocks (in place)."""
+    """Fuse q|k|v and gate|up projections and stack MoE experts across
+    all blocks (in place)."""
     for block in model.blocks:
         fuse_block(block)
     return model

@@ -1,10 +1,14 @@
-"""Llama decoder stack (dense Llama 2/3), in torch.
+"""Llama decoder stack (dense Llama 2/3 and Mixtral MoE), in torch.
 
-Port of the dense-Llama part of ``vptq_tpu/models/llama.py``: RMSNorm,
-RoPE (default and llama3 scaling), GQA attention over a per-layer KV
-cache, SwiGLU, with every projection a runtime linear. Modules hold the
-weights; :func:`forward` is the function the JAX package jits. There is
-no autograd on this path.
+Port of the dense-Llama and Mixtral parts of ``vptq_tpu/models/llama.py``:
+RMSNorm, RoPE (default and llama3 scaling), GQA attention over a
+per-layer KV cache, SwiGLU, with every projection a runtime linear, and
+the sparse MoE block (f32 router, top-k, softmax over the top-k) whose
+stacked int8 / int4 experts run through the expert kernels K6 (every
+expert on every token, for more than 64 tokens) or the pairs kernels K5
+(the selected experts only, in decode). Modules hold the weights;
+:func:`forward` is the function the JAX package jits. There is no
+autograd on this path.
 
 The KV cache is updated in place (JAX's is functional). Its lengths are
 host integers: every shape and trip count that depends on them (the
@@ -22,6 +26,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from vptq_tpu_torch.ops.w4_matmul_expert import w4_matmul_expert
+from vptq_tpu_torch.ops.w4_matmul_pairs import w4_matmul_pairs
+from vptq_tpu_torch.ops.w8_matmul_expert import w8_matmul_expert
+from vptq_tpu_torch.ops.w8_matmul_pairs import w8_matmul_pairs
+
 __all__ = [
     "Attention",
     "Block",
@@ -29,6 +38,8 @@ __all__ = [
     "Mlp",
     "Model",
     "ModelConfig",
+    "MoeMlp",
+    "StackedExperts",
     "forward",
     "init_cache",
 ]
@@ -43,9 +54,10 @@ _DECODE_BLOCK = 256
 class ModelConfig:
     """Static architecture config, parsed from HF ``config.json``.
 
-    The dense-Llama fields of the JAX package's config, plus the ones
-    that mark a family the port does not run yet (MoE, MLA, qkv bias,
-    sliding window), so the loader can refuse such a checkpoint.
+    The dense-Llama and Mixtral fields of the JAX package's config, plus
+    the ones that mark a family the port does not run yet (DeepSeek's
+    MoE, MLA, qkv bias, sliding window), so the loader can refuse such a
+    checkpoint.
     """
 
     vocab_size: int
@@ -63,6 +75,7 @@ class ModelConfig:
     max_position_embeddings: int = 4096
     attention_bias: bool = False
     num_local_experts: int = 0
+    num_experts_per_tok: int = 0
     n_routed_experts: int = 0
     kv_lora_rank: int = 0
     sliding_window: Optional[int] = None
@@ -89,6 +102,7 @@ class ModelConfig:
             max_position_embeddings=d.get("max_position_embeddings", 4096),
             attention_bias=d.get("attention_bias", d.get("qkv_bias", False)),
             num_local_experts=d.get("num_local_experts", 0),
+            num_experts_per_tok=d.get("num_experts_per_tok", 0),
             n_routed_experts=d.get("n_routed_experts") or 0,
             kv_lora_rank=d.get("kv_lora_rank") or 0,
             sliding_window=(
@@ -194,6 +208,68 @@ class Mlp(nn.Module):
         self.gate_proj, self.up_proj = gate_proj, up_proj
         self.down_proj = down_proj
         self.gate_up_proj = gate_up_proj
+
+
+class StackedExperts(nn.Module):
+    """The experts of one MoE block stacked along a leading expert dim,
+    in the int8 or the int4 runtime layout.
+
+    Built by ``layers/runtime.py:stack_experts`` when every expert is a
+    fused gate|up + down pair of one family. Both MoE paths read these
+    arrays through kernels that pick an expert's slab by an id on the
+    device (K6 ``w{8,4}_matmul_expert``, K5 ``w{8,4}_matmul_pairs``), so
+    the weights exist once.
+    """
+
+    def __init__(
+        self,
+        # int8: wq (E, out, in_p) int8, scales (E, in_p / group, out) f32;
+        # int4: wq (E, out, in_p / 2) nibbles, scales (E, in_p / 128, out)
+        # bf16; gate_up has out = 2*inter, down has out = hidden
+        gate_up_wq: torch.Tensor,
+        gate_up_scales: torch.Tensor,
+        down_wq: torch.Tensor,
+        down_scales: torch.Tensor,
+        fmt: str = "int8",
+    ):
+        super().__init__()
+        if fmt not in ("int8", "int4"):
+            raise ValueError(f"experts stack in int8 or int4, not {fmt!r}")
+        self.register_buffer("gate_up_wq", gate_up_wq)
+        self.register_buffer("gate_up_scales", gate_up_scales)
+        self.register_buffer("down_wq", down_wq)
+        self.register_buffer("down_scales", down_scales)
+        self.fmt = fmt
+        # the id each K6 launch reads, made once: a new tensor per launch
+        # would be a host-to-device copy per expert and layer
+        self.register_buffer(
+            "expert_ids",
+            torch.arange(
+                gate_up_wq.shape[0], dtype=torch.int32,
+                device=gate_up_wq.device,
+            ),
+            persistent=False,
+        )
+
+
+class MoeMlp(nn.Module):
+    """Mixtral-style sparse MoE block: softmax router + top-k experts.
+
+    More than 64 tokens (every prefill bucket) evaluate every expert on
+    every token, mixed by a routing weight that is zero outside the
+    top-k; fewer (decode) take the selected-experts path when ``stacked``
+    is present. ``experts`` is empty then: ``fuse_block`` drops the
+    per-expert copies, and both paths read the stacked arrays.
+    """
+
+    def __init__(
+        self, router, experts, num_experts_per_tok: int = 2, stacked=None
+    ):
+        super().__init__()
+        self.router = router  # hidden -> num_experts
+        self.experts = nn.ModuleList(experts)
+        self.num_experts_per_tok = num_experts_per_tok
+        self.stacked = stacked
 
 
 class Block(nn.Module):
@@ -392,7 +468,152 @@ def _cache_and_attend(
     return out.permute(0, 3, 1, 2, 4).reshape(batch, seq, nh * dv)
 
 
-def _mlp(mlp: Mlp, x: torch.Tensor) -> torch.Tensor:
+# The selected-experts path runs when a call holds at most this many
+# tokens: each token reads k experts' bytes, so a batch whose n·k nears E
+# is better served by the all-experts path, which reads each expert once.
+_MOE_FAST_MAX_TOKENS = 64
+
+_EXPERT_MATMUL = {"int8": w8_matmul_expert, "int4": w4_matmul_expert}
+_PAIRS_MATMUL = {"int8": w8_matmul_pairs, "int4": w4_matmul_pairs}
+
+
+def _padded_in(wq: torch.Tensor, fmt: str) -> int:
+    return wq.shape[2] * (2 if fmt == "int4" else 1)
+
+
+def _pad_rows(x2: torch.Tensor, in_p: int) -> torch.Tensor:
+    if x2.shape[-1] != in_p:
+        x2 = F.pad(x2, (0, in_p - x2.shape[-1]))
+    return x2
+
+
+def _expert_matmul(x2, wq, scales, e, fmt="int8"):
+    """(T, in) rows through expert ``e`` (a one-element int32 tensor on
+    the device) of stacked (E, out, in[/2]) weights: K6. The JAX package
+    chunks T at 512 for its kernel's VMEM; rows are independent, and the
+    kernels here take any T."""
+    return _EXPERT_MATMUL[fmt](
+        _pad_rows(x2, _padded_in(wq, fmt)), wq, scales, e
+    )
+
+
+def _pairs_matmul(x_pairs, wq, scales, experts, fmt="int8"):
+    """(P, in) rows through their per-row experts of a stacked weight, one
+    launch for all (token, top-k) pairs of a MoE step: K5."""
+    return _PAIRS_MATMUL[fmt](
+        _pad_rows(x_pairs, _padded_in(wq, fmt)), wq, scales, experts
+    )
+
+
+def _moe_fast(
+    stacked: StackedExperts,
+    x: torch.Tensor,  # (..., hidden)
+    top_ids: torch.Tensor,  # (..., k) int
+    top_w: torch.Tensor,  # (..., k) f32
+) -> torch.Tensor:
+    """The selected experts only: all n·k (token, expert) pairs through
+    two launches (gate_up, down), each pair reading its expert's bytes."""
+    lead, hidden = x.shape[:-1], x.shape[-1]
+    k = top_ids.shape[-1]
+    xf = x.reshape(-1, hidden)
+    n = xf.shape[0]
+    ids = top_ids.reshape(n * k).to(torch.int32)
+    x_pairs = xf.repeat_interleave(k, dim=0)  # (n*k, hidden)
+    gu = _pairs_matmul(
+        x_pairs, stacked.gate_up_wq, stacked.gate_up_scales, ids, stacked.fmt
+    )
+    gate, up = gu.chunk(2, dim=-1)
+    down = _pairs_matmul(
+        F.silu(gate) * up, stacked.down_wq, stacked.down_scales, ids,
+        stacked.fmt,
+    )  # (n*k, hidden)
+    out = torch.sum(
+        down.reshape(n, k, hidden).to(torch.float32)
+        * top_w.reshape(n, k, 1).to(torch.float32),
+        dim=1,
+    )
+    return out.reshape(*lead, hidden).to(x.dtype)
+
+
+def _stacked_expert_mlp(stacked: StackedExperts, x2, e: int):
+    """Expert ``e``'s SwiGLU MLP on (T, hidden) rows from the stacked
+    weights (the all-experts path)."""
+    eid = stacked.expert_ids[e]
+    gu = _expert_matmul(
+        x2, stacked.gate_up_wq, stacked.gate_up_scales, eid, stacked.fmt
+    )
+    gate, up = gu.chunk(2, dim=-1)
+    return _expert_matmul(
+        F.silu(gate) * up, stacked.down_wq, stacked.down_scales, eid,
+        stacked.fmt,
+    )
+
+
+def _moe_dense_mix(moe_experts, stacked, x, mix):
+    """Every expert on every token, mixed in f32 by (..., E) routing
+    weights, summed in expert order. Per-expert modules when present
+    (formats that do not stack), else the stacked arrays."""
+    if len(moe_experts):
+        out = torch.zeros_like(x, dtype=torch.float32)
+        for e, expert in enumerate(moe_experts):
+            out = out + mix[..., e: e + 1] * _mlp(expert, x).to(torch.float32)
+        return out
+    lead, hidden = x.shape[:-1], x.shape[-1]
+    x2 = x.reshape(-1, hidden)
+    mix2 = mix.reshape(-1, mix.shape[-1]).to(torch.float32)
+    out = torch.zeros(
+        (x2.shape[0], hidden), dtype=torch.float32, device=x.device
+    )
+    for e in range(stacked.gate_up_wq.shape[0]):
+        d = _stacked_expert_mlp(stacked, x2, e)[:, :hidden]
+        out = out + mix2[:, e: e + 1] * d.to(torch.float32)
+    return out.reshape(*lead, hidden)
+
+
+def _route_moe(
+    x: torch.Tensor,  # (..., hidden)
+    top_ids: torch.Tensor,  # (..., k) int
+    top_w: torch.Tensor,  # (..., k) f32
+    num_experts: int,
+    experts,
+    stacked: Optional[StackedExperts],
+) -> torch.Tensor:
+    """Send routed tokens to experts: the selected-experts path for few
+    tokens, every expert otherwise."""
+    n_tokens = x.numel() // x.shape[-1]
+    if stacked is not None and n_tokens <= _MOE_FAST_MAX_TOKENS:
+        return _moe_fast(stacked, x, top_ids, top_w)
+    # scatter the normalized weights back to a dense (..., E) mix (the
+    # top-k ids of a token are distinct)
+    mix = torch.zeros(
+        (*top_ids.shape[:-1], num_experts), dtype=torch.float32,
+        device=x.device,
+    ).scatter_(-1, top_ids, top_w.to(torch.float32))
+    return _moe_dense_mix(experts, stacked, x, mix).to(x.dtype)
+
+
+def _top_k(logits: torch.Tensor, k: int):
+    """The k largest logits and their ids, ties to the lower id as
+    ``jax.lax.top_k`` resolves them (``torch.topk`` promises no order,
+    and in bf16 the router's logits tie often: another expert would be
+    another model)."""
+    order = torch.sort(logits, dim=-1, descending=True, stable=True)
+    return order.values[..., :k], order.indices[..., :k]
+
+
+def _moe_mlp(moe: MoeMlp, x: torch.Tensor) -> torch.Tensor:
+    # router in f32 (HF MixtralSparseMoeBlock does the same)
+    logits = moe.router(x).to(torch.float32)  # (..., E)
+    top_w, top_ids = _top_k(logits, moe.num_experts_per_tok)
+    top_w = torch.softmax(top_w, dim=-1)  # normalize over the top-k
+    return _route_moe(
+        x, top_ids, top_w, logits.shape[-1], moe.experts, moe.stacked
+    )
+
+
+def _mlp(mlp, x: torch.Tensor) -> torch.Tensor:
+    if isinstance(mlp, MoeMlp):
+        return _moe_mlp(mlp, x)
     if mlp.gate_up_proj is not None:
         gate, up = mlp.gate_up_proj(x).chunk(2, dim=-1)
     else:

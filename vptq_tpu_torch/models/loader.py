@@ -1,6 +1,7 @@
 """HF checkpoint ingestion: VPTQ safetensors → runtime modules.
 
-Port of ``vptq_tpu/models/loader.py`` for dense Llama on one device.
+Port of ``vptq_tpu/models/loader.py`` for dense Llama and Mixtral on one
+device.
 The safetensors format is read directly (8-byte header length, JSON
 header, raw little-endian bytes; bf16 included) with ``torch.frombuffer``
 on a memory map, so no package beyond torch is needed. Each quantized
@@ -44,6 +45,7 @@ from vptq_tpu_torch.models.llama import (
     Mlp,
     Model,
     ModelConfig,
+    MoeMlp,
 )
 from vptq_tpu_torch.ops.packing import (
     to_index_plane,
@@ -278,8 +280,10 @@ def _linear(
 
 def _check_supported(cfg: ModelConfig) -> None:
     missing = []
-    if cfg.num_local_experts or cfg.n_routed_experts:
-        missing.append("MoE")
+    if cfg.n_routed_experts:
+        missing.append("DeepSeek's MoE")
+    if cfg.num_local_experts and cfg.model_type != "mixtral":
+        missing.append(f"MoE of model_type {cfg.model_type!r}")
     if cfg.is_mla:
         missing.append("MLA attention")
     if cfg.attention_bias:
@@ -290,7 +294,7 @@ def _check_supported(cfg: ModelConfig) -> None:
         missing.append("the Phi-3 fused checkpoint layout")
     if missing:
         raise NotImplementedError(
-            "vptq_tpu_torch runs dense Llama only; not ported yet: "
+            "vptq_tpu_torch runs dense Llama and Mixtral; not ported yet: "
             + ", ".join(missing)
         )
 
@@ -310,7 +314,9 @@ def load_model(
     (``layers/runtime.py``), leaving dense layers such as the lm_head
     as they are. The calibrated "int4-mixed", "int3-mixed" and
     "int2-mixed" raise: they need GPTQ calibration, not ported yet.
-    ``fuse`` merges q|k|v and gate|up (dense formats only).
+    ``fuse`` merges q|k|v and gate|up (dense formats only) and stacks
+    the experts of a Mixtral checkpoint (int8 and int4), layer by layer,
+    so one layer's experts exist twice at most.
     ``quantize_lm_head`` re-encodes the dense lm_head to int8 too.
     ``device``: CUDA unless given; the weights are normalized and
     re-encoded there, layer by layer.
@@ -342,6 +348,33 @@ def load_model(
     def norm_weight(name):
         return state.pop(name).to(device).to(torch.float32)
 
+    def moe_mlp(p):
+        # Mixtral layout: block_sparse_moe.gate + experts.E.w1/w3/w2
+        # (w1 = gate, w3 = up, w2 = down); the router stays a plain linear
+        experts = []
+        for e in range(model_cfg.num_local_experts):
+            ep = f"{p}.block_sparse_moe.experts.{e}"
+            experts.append(
+                Mlp(
+                    gate_proj=lin(f"{ep}.w1"),
+                    up_proj=lin(f"{ep}.w3"),
+                    down_proj=lin(f"{ep}.w2"),
+                )
+            )
+        return MoeMlp(
+            router=lin(f"{p}.block_sparse_moe.gate"),
+            experts=experts,
+            num_experts_per_tok=model_cfg.num_experts_per_tok,
+        )
+
+    def dense_mlp(p):
+        return Mlp(
+            gate_proj=lin(f"{p}.mlp.gate_proj"),
+            up_proj=lin(f"{p}.mlp.up_proj"),
+            down_proj=lin(f"{p}.mlp.down_proj"),
+        )
+
+    make_mlp = moe_mlp if model_cfg.num_local_experts else dense_mlp
     blocks = []
     for i in range(model_cfg.num_hidden_layers):
         p = f"model.layers.{i}"
@@ -356,11 +389,7 @@ def load_model(
             post_attention_layernorm=norm_weight(
                 f"{p}.post_attention_layernorm.weight"
             ),
-            mlp=Mlp(
-                gate_proj=lin(f"{p}.mlp.gate_proj"),
-                up_proj=lin(f"{p}.mlp.up_proj"),
-                down_proj=lin(f"{p}.mlp.down_proj"),
-            ),
+            mlp=make_mlp(p),
         )
         if fuse and runtime_format != "codebook":
             fuse_block(block)

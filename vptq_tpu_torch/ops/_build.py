@@ -5,7 +5,9 @@ is compiled by ``nvcc`` for Hopper (``sm_90a``) into
 ``build/vptq_tpu_torch/lib<name>.so`` at the repository root, then
 loaded with ``ctypes``. No PyTorch header is included, so a build takes
 seconds, not minutes. A library is rebuilt when its source, or a
-header of ``csrc/`` (``lowbit.cuh``, the skeleton of K2–K4), is newer.
+header of ``csrc/`` (``lowbit.cuh``, the skeleton of K2–K4; ``w8.cuh``
+and ``w4.cuh``, the loops the MoE kernels share with K1 and K2;
+``expert_select.cuh``), is newer.
 Nothing is built when a module is imported: the first launch builds.
 """
 
@@ -25,7 +27,11 @@ _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "vptq_tpu_torch"
 # every kernel source of the port; chip_smoke.py builds all of them
-SOURCES = ("w8_matmul", "w4_matmul", "w2_matmul", "w3_matmul")
+SOURCES = (
+    "w8_matmul", "w4_matmul", "w2_matmul", "w3_matmul",
+    "w8_matmul_expert", "w8_matmul_pairs",
+    "w4_matmul_expert", "w4_matmul_pairs",
+)
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

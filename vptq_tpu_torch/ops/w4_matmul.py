@@ -80,5 +80,6 @@ w4_matmul.launches = 0
 # the TPU kernel this one replaces
 w4_matmul.replaces = "vptq_tpu/ops/pallas_gemm.py:445"
 # words of the demangled names of its CUDA kernels (lowbit.cuh's, with
-# the policy W4 of csrc/w4_matmul.cu) that pick them out of a trace
-w4_matmul.trace_tags = ("lowbit", "W4")
+# the policies W4 of csrc/w4.cuh and sel::Whole) that pick them out of a
+# trace
+w4_matmul.trace_tags = ("lowbit", "W4", "Whole")

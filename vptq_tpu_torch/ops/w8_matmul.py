@@ -2,8 +2,9 @@
 
 Port of ``vptq_tpu/ops/pallas_gemm.py:58-190`` (``_w8_kernel``, entry
 ``w8_matmul``). The kernel is hand-written CUDA for Hopper in
-``vptq_tpu_torch/csrc/w8_matmul.cu``, built by ``ops/_build.py`` and
-called through ``ctypes`` on PyTorch's current stream.
+``vptq_tpu_torch/csrc/w8_matmul.cu`` (loops in ``csrc/w8.cuh``), built
+by ``ops/_build.py`` and called through ``ctypes`` on PyTorch's current
+stream.
 
 :func:`w8_matmul` launches it for CUDA tensors, and runs the plain
 version :func:`w8_matmul_reference` only for tensors that lie on the
@@ -86,6 +87,6 @@ def w8_matmul(
 w8_matmul.launches = 0
 # the TPU kernel this one replaces
 w8_matmul.replaces = "vptq_tpu/ops/pallas_gemm.py:58"
-# the word of its CUDA kernels' names (w8_gemv, w8_gemm) that picks
-# them out of a profiler trace
-w8_matmul.trace_tags = ("w8_gem",)
+# words of the demangled names of its CUDA kernels (w8.cuh's w8_gemv and
+# w8_gemm, with the policy sel::Whole) that pick them out of a trace
+w8_matmul.trace_tags = ("w8_gem", "Whole")

@@ -1,16 +1,21 @@
 """Write synthetic VPTQ checkpoints in the community on-disk format.
 
-Port of ``vptq_tpu/utils/synth_checkpoint.py`` for dense Llama: packed
+Port of ``vptq_tpu/utils/synth_checkpoint.py`` for dense Llama and the
+Mixtral layout (a router and per-expert w1 / w3 / w2): packed
 int32 index streams, uint16-viewed-as-int16 perms and indices, and the
 ``quantization_config`` block in config.json. For one seed it writes
 the same tensors as the JAX package's writer. Packing is word-wise
-(``ops/packing.py``), which keeps a checkpoint at Llama-3.1-8B width
-to seconds per layer.
+(``ops/packing.py``) and the linears, each drawn from a seed of its own,
+are made by a few threads at once (numpy and torch release the
+interpreter lock), which keeps a checkpoint at Llama-3.1-8B width to a
+second or two per layer.
 """
 
 from __future__ import annotations
 
 import json
+import os
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict, Optional
 
@@ -107,8 +112,11 @@ def write_synthetic_checkpoint(
     so a deep full-width model passes a smaller one.
     """
     mc = model_cfg or tiny_model_config()
-    if mc.is_mla or mc.num_local_experts or mc.model_type != "llama":
-        raise NotImplementedError("the port writes dense Llama checkpoints")
+    moe = mc.num_local_experts > 0
+    if mc.is_mla or mc.model_type != ("mixtral" if moe else "llama"):
+        raise NotImplementedError(
+            "the port writes dense Llama and Mixtral checkpoints"
+        )
     vq_kwargs = dict(vq_kwargs or {})
     root = Path(path)
     root.mkdir(parents=True, exist_ok=True)
@@ -123,26 +131,32 @@ def write_synthetic_checkpoint(
         "self_attn.k_proj": (h, kv_out),
         "self_attn.v_proj": (h, kv_out),
         "self_attn.o_proj": (q_out, h),
-        "mlp.gate_proj": (h, inter),
-        "mlp.up_proj": (h, inter),
-        "mlp.down_proj": (inter, h),
     }
+    if moe:
+        for e in range(mc.num_local_experts):
+            proj_shapes[f"block_sparse_moe.experts.{e}.w1"] = (h, inter)
+            proj_shapes[f"block_sparse_moe.experts.{e}.w3"] = (h, inter)
+            proj_shapes[f"block_sparse_moe.experts.{e}.w2"] = (inter, h)
+    else:
+        proj_shapes["mlp.gate_proj"] = (h, inter)
+        proj_shapes["mlp.up_proj"] = (h, inter)
+        proj_shapes["mlp.down_proj"] = (inter, h)
 
     tensors: Dict[str, np.ndarray] = {}
     config_for_layers: Dict[str, dict] = {}
+    linears = []  # (prefix, cfg, seed), in the order the seeds are drawn
     for i in range(mc.num_hidden_layers):
         for name, (in_f, out_f) in proj_shapes.items():
             prefix = f"model.layers.{i}.{name}"
             cfg = make_config(
                 in_features=in_f, out_features=out_f, **vq_kwargs
             )
-            tensors.update(
-                _layer_tensors(
-                    prefix, cfg, seed=int(rng.integers(1 << 31)),
-                    dtype=dtype, std=std,
-                )
-            )
+            linears.append((prefix, cfg, int(rng.integers(1 << 31))))
             config_for_layers[prefix] = cfg.to_dict()
+        if moe:
+            tensors[f"model.layers.{i}.block_sparse_moe.gate.weight"] = (
+                0.02 * rng.standard_normal((mc.num_local_experts, h))
+            ).astype(dtype)
         for norm in ("input_layernorm", "post_attention_layernorm"):
             tensors[f"model.layers.{i}.{norm}.weight"] = (
                 np.ones(h, dtype=dtype)
@@ -158,10 +172,20 @@ def write_synthetic_checkpoint(
             0.02 * rng.standard_normal((mc.vocab_size, h))
         ).astype(dtype)
 
+    with ThreadPoolExecutor(max_workers=min(8, os.cpu_count() or 1)) as pool:
+        for made in pool.map(
+            lambda job: _layer_tensors(
+                job[0], job[1], seed=job[2], dtype=dtype, std=std
+            ),
+            linears,
+        ):
+            tensors.update(made)
     write_safetensors(tensors, root / "model.safetensors")
 
     hf_config = {
-        "architectures": ["LlamaForCausalLM"],
+        "architectures": [
+            "MixtralForCausalLM" if moe else "LlamaForCausalLM"
+        ],
         "model_type": mc.model_type,
         "vocab_size": mc.vocab_size,
         "hidden_size": mc.hidden_size,
@@ -174,6 +198,8 @@ def write_synthetic_checkpoint(
         "rope_theta": mc.rope_theta,
         "attention_bias": False,
         "max_position_embeddings": mc.max_position_embeddings,
+        "num_local_experts": mc.num_local_experts,
+        "num_experts_per_tok": mc.num_experts_per_tok,
         "tie_word_embeddings": mc.tie_word_embeddings,
         "torch_dtype": "float16" if dtype == np.float16 else "bfloat16",
         "quantization_config": {
