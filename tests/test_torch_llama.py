@@ -98,10 +98,10 @@ def test_rope_frequencies_match():
 
 def test_loader_refuses_unported_families(tmp_path):
     write_synthetic_checkpoint(
-        tmp_path, tiny_model_config(**TINY), vq_kwargs=VQ, seed=1,
-        qkv_bias=True,
+        tmp_path, tiny_model_config(**TINY, model_type="phi3"), vq_kwargs=VQ,
+        seed=1,
     )
     from vptq_tpu_torch.models.loader import load_model
 
-    with pytest.raises(NotImplementedError, match="qkv bias"):
+    with pytest.raises(NotImplementedError, match="Phi-3"):
         load_model(str(tmp_path), device="cpu")

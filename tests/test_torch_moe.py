@@ -579,7 +579,7 @@ def _edit_config(path, **changes):
 
 
 @pytest.mark.parametrize("changes,match", [
-    (dict(sliding_window=32), "sliding-window"),
+    (dict(model_type="phi3"), "Phi-3"),
     (dict(n_routed_experts=4), "DeepSeek"),
     (dict(kv_lora_rank=16), "MLA"),
     (dict(model_type="phimoe"), "phimoe"),

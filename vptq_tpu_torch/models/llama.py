@@ -1,8 +1,11 @@
-"""Llama decoder stack (dense Llama 2/3 and Mixtral MoE), in torch.
+"""Llama decoder stack (dense Llama 2/3, Mistral, Qwen2 and Mixtral MoE),
+in torch.
 
 Port of the dense-Llama and Mixtral parts of ``vptq_tpu/models/llama.py``:
 RMSNorm, RoPE (default and llama3 scaling), GQA attention over a
-per-layer KV cache, SwiGLU, with every projection a runtime linear, and
+per-layer KV cache (a fresh prefill of 1024 tokens or more through the
+flash-attention kernel K8; Mistral's sliding window in the masks), SwiGLU,
+with every projection a runtime linear (Qwen2's q/k/v carry a bias), and
 the sparse MoE block (f32 router, top-k, softmax over the top-k) whose
 stacked int8 / int4 experts run through the expert kernels K6 (every
 expert on every token, for more than 64 tokens) or the pairs kernels K5
@@ -26,6 +29,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from vptq_tpu_torch.ops.flash_attention import flash_attention
 from vptq_tpu_torch.ops.w4_matmul_expert import w4_matmul_expert
 from vptq_tpu_torch.ops.w4_matmul_pairs import w4_matmul_pairs
 from vptq_tpu_torch.ops.w8_matmul_expert import w8_matmul_expert
@@ -44,8 +48,9 @@ __all__ = [
     "init_cache",
 ]
 
-# a fresh prefill this long takes the flash-attention kernel (K8) in
-# the JAX package on a TPU; the port has not ported K8 yet
+# a fresh prefill this long (and no sliding window) takes the
+# flash-attention kernel K8, as in the JAX package on a TPU; shorter
+# chunks and chunks at an offset take _cache_and_attend
 _FLASH_MIN_SEQ = 1024
 _DECODE_BLOCK = 256
 
@@ -54,9 +59,9 @@ _DECODE_BLOCK = 256
 class ModelConfig:
     """Static architecture config, parsed from HF ``config.json``.
 
-    The dense-Llama and Mixtral fields of the JAX package's config, plus
-    the ones that mark a family the port does not run yet (DeepSeek's
-    MoE, MLA, qkv bias, sliding window), so the loader can refuse such a
+    The dense-Llama, Mistral, Qwen2 and Mixtral fields of the JAX
+    package's config, plus the ones that mark a family the port does not
+    run yet (DeepSeek's MoE, MLA), so the loader can refuse such a
     checkpoint.
     """
 
@@ -339,12 +344,6 @@ def _attention(
     batch, seq, _ = x.shape
     nh, nkv = cfg.num_attention_heads, cfg.num_key_value_heads
     hd = cfg.head_dim
-    if fresh_prefill and seq >= _FLASH_MIN_SEQ and x.is_cuda:
-        raise NotImplementedError(
-            f"a fresh prefill of {seq} >= {_FLASH_MIN_SEQ} tokens takes the "
-            "flash-attention kernel K8 (vptq_tpu/models/llama.py:577), "
-            "which vptq_tpu_torch has not ported yet"
-        )
     if attn.qkv_proj is not None:
         q, k, v = torch.split(
             attn.qkv_proj(x), [nh * hd, nkv * hd, nkv * hd], dim=-1
@@ -354,9 +353,19 @@ def _attention(
     q = apply_rope(q.reshape(batch, seq, nh, hd), cos, sin)
     k = apply_rope(k.reshape(batch, seq, nkv, hd), cos, sin)
     v = v.reshape(batch, seq, nkv, hd)
-    out = _cache_and_attend(
-        block_idx, q, k, v, cache, offsets, scale=hd ** -0.5
-    )
+    if (
+        fresh_prefill
+        and seq >= _FLASH_MIN_SEQ
+        and cfg.sliding_window is None
+    ):
+        # fused causal attention over the fresh chunk only (offset 0), in
+        # the activation dtype; v stays a view into the fused q|k|v row
+        _insert_kv(block_idx, k, v, cache)
+        out = flash_attention(q, k, v, hd ** -0.5)
+    else:
+        out = _cache_and_attend(
+            block_idx, q, k, v, cache, offsets, cfg, scale=hd ** -0.5
+        )
     return attn.o_proj(out.to(x.dtype))
 
 
@@ -366,6 +375,7 @@ def _decode_attend_blocks(
     v_cache: torch.Tensor,  # (B, T, KV, Dv)
     lengths: List[int],  # host: new token already inserted at lengths[b]
     offsets: torch.Tensor,  # (B,) the same on the device
+    cfg: ModelConfig,
     scale: float,
     block: int = _DECODE_BLOCK,
 ) -> torch.Tensor:
@@ -392,7 +402,12 @@ def _decode_attend_blocks(
     # scores (B, KV, G, n_blocks, block)
     sc = torch.einsum("bkgd,bntkd->bkgnt", qf, kb) * scale
     t_ids = torch.arange(live, device=q.device).reshape(n_blocks, block)
-    valid = (t_ids[None] <= offsets[:, None, None])[:, None, None]
+    valid = t_ids[None] <= offsets[:, None, None]
+    if cfg.sliding_window is not None:
+        valid = valid & (
+            t_ids[None] > offsets[:, None, None] - cfg.sliding_window
+        )
+    valid = valid[:, None, None]
     sc = sc.masked_fill(~valid, -math.inf)
     m_blk = sc.amax(dim=-1)
     # guard fully-masked blocks (their max stays -inf)
@@ -436,6 +451,7 @@ def _cache_and_attend(
     v: torch.Tensor,  # (B, S, KV, Dv)
     cache: KVCache,
     offsets: torch.Tensor,
+    cfg: ModelConfig,
     scale: float,
 ) -> torch.Tensor:
     """Insert k/v at each sequence's offset and run masked attention."""
@@ -446,7 +462,7 @@ def _cache_and_attend(
     max_seq = k_cache.shape[1]
     if seq == 1 and max_seq >= _DECODE_BLOCK and max_seq % _DECODE_BLOCK == 0:
         return _decode_attend_blocks(
-            q, k_cache, v_cache, cache.lengths, offsets, scale
+            q, k_cache, v_cache, cache.lengths, offsets, cfg, scale
         )
     group = nh // nkv
     # only the live prefix: later positions are masked for every query
@@ -460,6 +476,10 @@ def _cache_and_attend(
     t_ids = torch.arange(live, device=q.device)
     q_pos = offsets[:, None] + torch.arange(seq, device=q.device)[None, :]
     mask = t_ids[None, None, :] <= q_pos[:, :, None]  # (B, S, T)
+    if cfg.sliding_window is not None:
+        mask = mask & (
+            t_ids[None, None, :] > q_pos[:, :, None] - cfg.sliding_window
+        )
     scores = scores.masked_fill(~mask[:, None, None], -math.inf)
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum(

@@ -286,15 +286,12 @@ def _check_supported(cfg: ModelConfig) -> None:
         missing.append(f"MoE of model_type {cfg.model_type!r}")
     if cfg.is_mla:
         missing.append("MLA attention")
-    if cfg.attention_bias:
-        missing.append("qkv bias (Qwen2)")
-    if cfg.sliding_window is not None:
-        missing.append("sliding-window attention")
     if cfg.model_type in ("phi3", "phi3_v", "phimoe"):
         missing.append("the Phi-3 fused checkpoint layout")
     if missing:
         raise NotImplementedError(
-            "vptq_tpu_torch runs dense Llama and Mixtral; not ported yet: "
+            "vptq_tpu_torch runs dense Llama, Mistral, Qwen2 and Mixtral; "
+            "not ported yet: "
             + ", ".join(missing)
         )
 

@@ -6,8 +6,9 @@ is compiled by ``nvcc`` for Hopper (``sm_90a``) into
 loaded with ``ctypes``. No PyTorch header is included, so a build takes
 seconds, not minutes. A library is rebuilt when its source, or a
 header of ``csrc/`` (``lowbit.cuh``, the skeleton of K2–K4; ``w8.cuh``
-and ``w4.cuh``, the loops the MoE kernels share with K1 and K2;
-``expert_select.cuh``), is newer.
+and ``w4.cuh``, the loops the MoE kernels share with K1 and K2, and the
+fragment helpers K7 takes from ``w8.cuh``; ``expert_select.cuh``), is
+newer.
 Nothing is built when a module is imported: the first launch builds.
 """
 
@@ -31,6 +32,7 @@ SOURCES = (
     "w8_matmul", "w4_matmul", "w2_matmul", "w3_matmul",
     "w8_matmul_expert", "w8_matmul_pairs",
     "w4_matmul_expert", "w4_matmul_pairs",
+    "flash_attention", "bf16_matmul",
 )
 
 NVCC_FLAGS = (

@@ -1,7 +1,8 @@
 """Write synthetic VPTQ checkpoints in the community on-disk format.
 
-Port of ``vptq_tpu/utils/synth_checkpoint.py`` for dense Llama and the
-Mixtral layout (a router and per-expert w1 / w3 / w2): packed
+Port of ``vptq_tpu/utils/synth_checkpoint.py`` for the dense Llama
+layout (Llama, Mistral, and Qwen2 with its q/k/v bias) and the Mixtral
+layout (a router and per-expert w1 / w3 / w2): packed
 int32 index streams, uint16-viewed-as-int16 perms and indices, and the
 ``quantization_config`` block in config.json. For one seed it writes
 the same tensors as the JAX package's writer. Packing is word-wise
@@ -29,6 +30,14 @@ from vptq_tpu_torch.ops.packing import pack_index
 from vptq_tpu_torch.utils.synth import make_config, make_numpy_planes
 
 __all__ = ["tiny_model_config", "write_synthetic_checkpoint"]
+
+# the model types the writer knows, and their HF architecture names
+_ARCHITECTURES = {
+    "llama": "LlamaForCausalLM",
+    "mistral": "MistralForCausalLM",
+    "qwen2": "Qwen2ForCausalLM",
+    "mixtral": "MixtralForCausalLM",
+}
 
 
 def tiny_model_config(**overrides) -> ModelConfig:
@@ -102,20 +111,29 @@ def write_synthetic_checkpoint(
     vq_kwargs: Optional[dict] = None,
     seed: int = 0,
     dtype=np.float16,
+    qkv_bias: bool = False,
     std: float = 0.5,
 ) -> Path:
     """Create ``path`` with config.json + model.safetensors.
 
     ``vq_kwargs`` override :func:`make_config` geometry (in/out features
-    are filled in per projection). ``std`` is the codebook spread: the
+    are filled in per projection). ``qkv_bias`` gives q_proj, k_proj and
+    v_proj a bias, as Qwen2 has. ``std`` is the codebook spread: the
     JAX package's 0.5 grows the residual stream over many wide layers,
-    so a deep full-width model passes a smaller one.
+    so a deep full-width model passes a smaller one. A ``sliding_window``
+    of ``model_cfg`` goes into config.json (the JAX package's writer
+    leaves it out).
     """
     mc = model_cfg or tiny_model_config()
     moe = mc.num_local_experts > 0
-    if mc.is_mla or mc.model_type != ("mixtral" if moe else "llama"):
+    if (
+        mc.is_mla
+        or mc.model_type not in _ARCHITECTURES
+        or moe != (mc.model_type == "mixtral")
+    ):
         raise NotImplementedError(
-            "the port writes dense Llama and Mixtral checkpoints"
+            "the port writes dense Llama, Mistral, Qwen2 and Mixtral "
+            "checkpoints"
         )
     vq_kwargs = dict(vq_kwargs or {})
     root = Path(path)
@@ -148,8 +166,12 @@ def write_synthetic_checkpoint(
     for i in range(mc.num_hidden_layers):
         for name, (in_f, out_f) in proj_shapes.items():
             prefix = f"model.layers.{i}.{name}"
+            has_bias = qkv_bias and name in (
+                "self_attn.q_proj", "self_attn.k_proj", "self_attn.v_proj",
+            )
             cfg = make_config(
-                in_features=in_f, out_features=out_f, **vq_kwargs
+                in_features=in_f, out_features=out_f, bias=has_bias,
+                **vq_kwargs
             )
             linears.append((prefix, cfg, int(rng.integers(1 << 31))))
             config_for_layers[prefix] = cfg.to_dict()
@@ -183,9 +205,7 @@ def write_synthetic_checkpoint(
     write_safetensors(tensors, root / "model.safetensors")
 
     hf_config = {
-        "architectures": [
-            "MixtralForCausalLM" if moe else "LlamaForCausalLM"
-        ],
+        "architectures": [_ARCHITECTURES[mc.model_type]],
         "model_type": mc.model_type,
         "vocab_size": mc.vocab_size,
         "hidden_size": mc.hidden_size,
@@ -196,7 +216,7 @@ def write_synthetic_checkpoint(
         "head_dim": mc.head_dim,
         "rms_norm_eps": mc.rms_norm_eps,
         "rope_theta": mc.rope_theta,
-        "attention_bias": False,
+        "attention_bias": qkv_bias,
         "max_position_embeddings": mc.max_position_embeddings,
         "num_local_experts": mc.num_local_experts,
         "num_experts_per_tok": mc.num_experts_per_tok,
@@ -209,6 +229,8 @@ def write_synthetic_checkpoint(
     }
     if mc.rope_scaling is not None:
         hf_config["rope_scaling"] = dict(mc.rope_scaling)
+    if mc.sliding_window is not None:
+        hf_config["sliding_window"] = mc.sliding_window
     with open(root / "config.json", "w") as f:
         json.dump(hf_config, f, indent=2)
     return root
