@@ -10,8 +10,9 @@ without them, or when any phase fails. Phases:
    ``w8_matmul``, K2 ``w4_matmul``, K3 ``w2_matmul``, K4 ``w3_matmul``,
    the MoE kernels K6a ``w8_matmul_expert``, K5a ``w8_matmul_pairs``,
    K6b ``w4_matmul_expert``, K5b ``w4_matmul_pairs``, K8
-   ``flash_attention`` and K7 ``bf16_matmul``), one ``nvcc`` each, all at
-   once;
+   ``flash_attention``, K7 ``bf16_matmul`` and the probes P1/P2
+   ``w4_probe_matmul``, ``w4_i32x8_matmul``, ``w4_raw_probe`` and P3
+   ``vq_smallk_matmul``), one ``nvcc`` each, all at once;
 2. each of K1-K4 at the four linear shapes of Llama-3.1-8B, on layers its
    format's encoder makes on the card from a random weight (K1 group
    2048, K3 group 64), at T=1 (decode) and T=128 and T=512 (prefill
@@ -32,6 +33,15 @@ without them, or when any phase fails. Phases:
    timed like phase 2, the bound counting the distinct experts read;
    yardsticks ``torch.matmul`` with one expert's dequantized bf16 weight
    and ``torch.bmm`` over the gathered experts;
+   then the probes, which no layer calls: every mode of P1 / P2 (prod,
+   shift28, fma16, fma16f32, t8, g256; i32x8; s8dot, cvtonly) with K2
+   beside them at the probe scripts' four Llama-2-7B decode shapes (T=1),
+   P3 at 22016 x 4096 (v 4 and 8, fused and onehot-only, k 256 and k 200,
+   where the ids past the codebook must add 0), each against its
+   plain version and timed like phase 2 (yardstick ``torch.matmul`` on the
+   dequantized or gathered bf16 weight), and the scripts' own checks at
+   T=3 (fma16, shift28, P3's ``--check`` and the same with k 200) against
+   the plain versions and the scripts' f32 products;
 4. the int4, int3 and int2 encoders on the card against the same
    encoders on the CPU, byte for byte, on one 4096 x 4096 synthetic
    weight (the CPU encoders are held to the JAX package's numpy bytes by
@@ -70,8 +80,8 @@ without them, or when any phase fails. Phases:
    must count 0.
 
 The line before the last is a JSON object with one record per kernel at
-T=1 and T=512 (pairs kernels: P=2 and P=16; K8: S=1024 and S=2048); the
-last line is
+T=1 and T=512 (pairs kernels: P=2 and P=16; K8: S=1024 and S=2048; each
+probe mode at gate_up T=1, 0 launches on the main path); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -93,6 +103,7 @@ import torch
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense, at 700 W).
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_BF16_FLOPS = 989e12
+PEAK_INT8_OPS = 1979e12
 
 # Meta's public Llama-3.1-8B config.json
 LLAMA31_8B = dict(
@@ -193,8 +204,14 @@ MOE_KERNELS = {
     "int4": ("w4_matmul_expert", "w4_matmul_pairs"),
 }
 FLASH, BF16 = "flash_attention", "bf16_matmul"
+# the int4-unpack probes P1 / P2 and the small-codebook VQ probe P3: no
+# layer calls them (0 launches on every main path); the probe phase does
+PROBE_KERNELS = (
+    "w4_probe_matmul", "w4_i32x8_matmul", "w4_raw_probe", "vq_smallk_matmul",
+)
 ALL_KERNELS = (
     *FORMAT_KERNEL.values(), *sum(MOE_KERNELS.values(), ()), FLASH, BF16,
+    *PROBE_KERNELS,
 )
 # K8 against its plain version: max |err| <= FLASH_TOL * max|plain|. Both
 # sum f32 products of the same bf16 inputs, keep max and sum in f32, round
@@ -214,31 +231,6 @@ def _sh(cmd) -> str:
 def _sync(device):
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize(device)
-
-
-def time_ms(fn, device, iters: int, flush=None) -> float:
-    """Mean ms of ``fn()``: CUDA events around each call on the card
-    (after warm-up, with ``flush`` overwritten before each call), the
-    host clock on the CPU."""
-    fn()
-    _sync(device)
-    total = 0.0
-    for _ in range(iters):
-        if flush is not None:
-            flush.zero_()
-        if torch.device(device).type == "cuda":
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            fn()
-            end.record()
-            end.synchronize()
-            total += start.elapsed_time(end)
-        else:
-            t0 = time.perf_counter()
-            fn()
-            total += (time.perf_counter() - t0) * 1e3
-    return total / iters
 
 
 def phase_build() -> float:
@@ -286,21 +278,15 @@ def make_layer(name, gen, out_f, in_f, device):
     return getattr(rt, f"_encode_{fmt}")(w, None)
 
 
-def flush_buffer(device):
-    """1 GiB overwritten before each timed launch evicts the 50 MB L2, and
-    keeps the card busy (~0.3 ms) while the host enqueues the timed call,
-    so host overhead does not open a gap inside the events."""
-    if torch.device(device).type != "cuda":
-        return None
-    return torch.empty(1 << 30, dtype=torch.uint8, device=device)
-
-
 def check_and_time(name, label, call, plain, library, nbytes, flops, device,
-                   iters, flush, rtol=RTOL, atol_frac=ATOL_FRAC):
+                   iters, flush, rtol=RTOL, atol_frac=ATOL_FRAC,
+                   peak_ops=PEAK_BF16_FLOPS):
     """One kernel call against its plain version on the same inputs
     (|err| <= rtol * |plain| + atol_frac * max|plain|), then the times of
     both and of the library yardstick beside the bound for ``nbytes``
-    moved and ``flops`` done."""
+    moved and ``flops`` done at ``peak_ops`` a second."""
+    from vptq_tpu_torch.examples.kernel_bench import time_ms
+
     fn = kernel_fns(name)[0]
     cuda = torch.device(device).type == "cuda"
     launches = fn.launches
@@ -321,7 +307,7 @@ def check_and_time(name, label, call, plain, library, nbytes, flops, device,
             "the tolerance"
         )
     bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
-    ops_ms = flops / PEAK_BF16_FLOPS * 1e3
+    ops_ms = flops / peak_ops * 1e3
     return dict(
         bytes=nbytes, flops=flops, bound_ms=max(bytes_ms, ops_ms),
         bound_by="bytes" if bytes_ms >= ops_ms else "operations",
@@ -337,6 +323,7 @@ def phase_kernel(name, device, shapes, tokens=(1, 128, 512), iters=20,
     """One kernel at each shape and token count: agreement with its
     plain version, times and bound. ``in_record``: whether the rows go
     into the kernel's record (one model's layer) or stand alone."""
+    from vptq_tpu_torch.examples.kernel_bench import flush_buffer
     from vptq_tpu_torch.layers.runtime import linear_exact_weight
 
     fn, ref = kernel_fns(name)
@@ -375,6 +362,8 @@ def phase_bf16(device, shapes, tokens=(1, 128, 512), iters=20, seed=0):
     """K7 at each shape and token count on a random bf16 weight against
     its plain version; the yardstick is ``torch.matmul`` on the same
     tensors."""
+    from vptq_tpu_torch.examples.kernel_bench import flush_buffer
+
     fn, ref = kernel_fns(BF16)
     gen = torch.Generator(device=device).manual_seed(seed)
     flush = flush_buffer(device)
@@ -419,6 +408,8 @@ def phase_flash(device, cases=FLASH_CASES, iters=20, seed=0):
     yardstick is ``scaled_dot_product_attention`` on the same tensors,
     which the port never calls."""
     import torch.nn.functional as F
+
+    from vptq_tpu_torch.examples.kernel_bench import flush_buffer
 
     fn, ref = kernel_fns(FLASH)
     gen = torch.Generator(device=device).manual_seed(seed)
@@ -475,6 +466,7 @@ def phase_moe_kernels(fmt, device, shapes, n_experts=8, tokens=(1, 128, 512),
     the expert kernel on the stack's last expert at each token count, the
     pairs kernel on the top-``top_k`` ids of P / ``top_k`` tokens (distinct
     per token, drawn from ``seed``)."""
+    from vptq_tpu_torch.examples.kernel_bench import flush_buffer
     from vptq_tpu_torch.layers.runtime import (
         linear_exact_weight,
         stack_experts,
@@ -556,6 +548,214 @@ def phase_moe_kernels(fmt, device, shapes, n_experts=8, tokens=(1, 128, 512),
             print(f"{p_name} " + json.dumps(rows[-1]))
         del wq, scales, w_bf16, w_last
     return rows
+
+
+# the decode shapes of one Llama-2-7B layer as the probe scripts hard-code
+# them (examples/w4_wall_candidates.py, w4_unpack_ablation.py): (name, out,
+# in); P3 runs the first of them (examples/vq_smallk_probe.py)
+PROBE_SHAPES = (
+    ("gate_up", 22016, 4096),
+    ("down", 4096, 12288),
+    ("qkv", 12288, 4096),
+    ("o", 4096, 4096),
+)
+
+
+def phase_probes(device, shapes=PROBE_SHAPES, iters=20, seed=0,
+                 cases=True):
+    """P1, P2 and P3 at decode (T = 1) on random codes made on ``device``:
+    every mode of ``w4_probe_matmul`` (x in f32 where the mode reads it so),
+    ``w4_i32x8_matmul``, both ``w4_raw_probe`` modes and K2 ``w4_matmul``
+    beside them at each shape; ``vq_smallk_matmul`` at the first shape, v 4
+    and 8, fused and onehot-only, k 256 (the records) and k 200 (ids past
+    the codebook, which must add 0). Each against its plain version and
+    timed beside its bound; the yardstick is ``torch.matmul`` on the
+    dequantized (P3: gathered) bf16 weight of the same function, which the
+    port never calls. ``cases``: also the scripts' own checks at T = 3
+    (:func:`probe_cases`)."""
+    from vptq_tpu_torch.examples.kernel_bench import flush_buffer
+    from vptq_tpu_torch.ops.packing import unpack_int4
+    from vptq_tpu_torch.ops.vq_smallk_matmul import vq_smallk_weight
+    from vptq_tpu_torch.ops.w4_i32x8_matmul import i32x8_levels
+    from vptq_tpu_torch.ops.w4_probe_matmul import F32_X_MODES, W4_PROBE_MODES
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    flush = flush_buffer(device)
+    bf16 = torch.bfloat16
+    rows = []
+
+    def add(name, mode, shape, x, out_f, in_f, call, plain, library, flops,
+            in_record, reads, extra=(), y_size=2, **kw):
+        """One row; bytes: the tensors in ``reads``, each read once, and the
+        output of ``y_size`` bytes a value, written once."""
+        fn = kernel_fns(name)[0]
+        nbytes = sum(t.numel() * t.element_size() for t in reads)
+        nbytes += x.shape[0] * out_f * y_size
+        rows.append(dict(
+            kernel=name, mode=mode, shape=shape, unit="T", T=x.shape[0],
+            out=out_f, in_p=in_f, in_record=in_record,
+            replaces=getattr(fn, "bodies", {}).get(mode.split()[-1],
+                                                   fn.replaces),
+            **dict(extra),
+            **check_and_time(name, f"{mode} {shape} T={x.shape[0]}", call,
+                             plain, library, nbytes, flops, device, iters,
+                             flush, **kw),
+        ))
+        print(f"{name} " + json.dumps(rows[-1]))
+
+    for shape, out_f, in_f in shapes:
+        first = shape == shapes[0][0]
+        wq8 = torch.randint(-120, 120, (out_f, in_f // 2), generator=gen,
+                            device=device, dtype=torch.int8)
+        wq32 = torch.randint(-2 ** 31, 2 ** 31 - 1, (out_f, in_f // 8),
+                             generator=gen, device=device, dtype=torch.int32)
+        scales = (0.005 * (1 + torch.rand((in_f // 128, out_f), generator=gen,
+                                          device=device))).to(bf16)
+        x = torch.randn((1, in_f), generator=gen, device=device).to(bf16)
+        flops = 2 * out_f * in_f
+        w = _dequant(unpack_int4(wq8), scales)
+        for mode in (*W4_PROBE_MODES, "w4_matmul"):
+            xm = x.float() if mode in F32_X_MODES else x
+            name = "w4_matmul" if mode == "w4_matmul" else "w4_probe_matmul"
+            fn, ref = kernel_fns(name)
+            args = (xm, wq8, scales) + ((mode,) if name != "w4_matmul" else ())
+            # g256 reads every other scale row
+            s_read = scales[::2] if mode == "g256" else scales
+            add(name, mode, shape, xm, out_f, in_f,
+                lambda f=fn, a=args: f(*a, out_dtype=bf16),
+                lambda f=ref, a=args: f(*a, out_dtype=bf16),
+                lambda: torch.matmul(x, w.t()), flops,
+                first and name != "w4_matmul", (xm, wq8, s_read))
+        fn, ref = kernel_fns("w4_i32x8_matmul")
+        w = _dequant(i32x8_levels(wq32), scales)
+        add("w4_i32x8_matmul", "i32x8", shape, x, out_f, in_f,
+            lambda: fn(x, wq32, scales), lambda: ref(x, wq32, scales),
+            lambda: torch.matmul(x, w.t()), flops, first, (x, wq32, scales))
+        fn, ref = kernel_fns("w4_raw_probe")
+        # the raw bytes times scale row 0, against columns [0, in/2) of x
+        w = (wq8.to(torch.float32) * scales[0].to(torch.float32)[:, None]
+             ).to(bf16)
+        xh = x[:, : in_f // 2].contiguous()
+        for mode, xm in (("s8dot", xh.to(torch.int8)), ("cvtonly", xh)):
+            add("w4_raw_probe", mode, shape, xm, out_f, in_f,
+                lambda a=xm, m=mode: fn(a, wq8, scales, m, out_dtype=bf16),
+                lambda a=xm, m=mode: ref(a, wq8, scales, m, out_dtype=bf16),
+                lambda: torch.matmul(xh, w.t()), flops // 2, first,
+                (xm, wq8, scales[0]),
+                peak_ops=PEAK_INT8_OPS if mode == "s8dot" else PEAK_BF16_FLOPS)
+        del w, wq8, wq32, scales
+
+    fn, ref = kernel_fns("vq_smallk_matmul")
+    shape, out_f, in_f = shapes[0]
+    x = torch.randn((1, in_f), generator=gen, device=device).to(bf16)
+    for v in (4, 8):
+        ids = torch.randint(0, 256, (out_f, in_f // v), generator=gen,
+                            device=device, dtype=torch.uint8)
+        cb256 = (torch.randn((256, v), generator=gen, device=device) * 0.02
+                 ).to(bf16)
+        # k 256: the record; k 200: the ids >= k, about a fifth, must add 0
+        for k in (256, 200):
+            cb = cb256[:k].contiguous()
+            for onehot in (False, True):
+                if onehot:
+                    # the same function in one call: the first column of
+                    # each v-vector of x against the ids that hit the codebook
+                    xl = x[:, ::v].contiguous()
+                    w = (ids.to(torch.int64) < k).to(bf16)
+                    reads, flops = (xl, ids), 2 * out_f * in_f // v
+                else:
+                    xl, w = x, vq_smallk_weight(ids, cb).to(bf16)
+                    reads, flops = (x, ids, cb), 2 * out_f * in_f
+                add("vq_smallk_matmul",
+                    f"v{v} {'' if k == 256 else f'k{k} '}"
+                    f"{'onehot_only' if onehot else 'fused'}", shape, x,
+                    out_f, in_f,
+                    lambda i=ids, c=cb, vv=v, oh=onehot: fn(x, i, c, vv, oh),
+                    lambda i=ids, c=cb, vv=v, oh=onehot: ref(x, i, c, vv, oh),
+                    lambda a=xl, b=w: torch.matmul(a, b.t()), flops,
+                    k == 256, reads)
+                del w
+        del ids, cb, cb256
+    if cases:
+        probe_cases(device, add)
+    return rows
+
+
+def _dequant(levels, scales, group=128):
+    """bf16 (out, in) weight of exact levels and (in/group, out) scales: the
+    probe yardsticks' operand."""
+    s = scales.to(torch.float32).t().repeat_interleave(group, dim=1)
+    return (levels.to(torch.float32) * s).to(torch.bfloat16)
+
+
+# the probe scripts' fma16 and shift28 checks print max |err| / max |want|
+# against the f32 product of f32 x and scales; with both rounded to bf16
+# that is about 2^-8
+SCRIPT_REL_TOL = 2e-2
+
+
+def probe_cases(device, add):
+    """The probe scripts' own correctness cases at T = 3 through ``add``
+    (phase_probes'), each mode held against its plain version and its
+    script's f32 product: fma16 and fma16f32 on ``check_fma16_exact``'s
+    bytes, prod / shift28 / t8 on the shift28 check's and g256 there against
+    its plain version only (the script checks shift28), within
+    ``SCRIPT_REL_TOL``; P3 on ``--check`` and on the same with k 200 (ids
+    past the codebook) in f32, within the script's limit 0.05·max|want| +
+    0.05. The yardstick is ``torch.matmul`` on the script's f32 weight in
+    bf16."""
+    from vptq_tpu_torch.examples import vq_smallk_probe as vq
+    from vptq_tpu_torch.examples import w4_unpack_ablation as ua
+    from vptq_tpu_torch.examples import w4_wall_candidates as wc
+    from vptq_tpu_torch.ops.packing import pack_int4
+
+    bf16, f32 = torch.bfloat16, torch.float32
+
+    def on(a, dtype=None):
+        t = torch.from_numpy(np.ascontiguousarray(a)).to(device)
+        return t if dtype is None else t.to(dtype)
+
+    def run(name, mode, label, xs, w_ref, args, want, limit, f32_x=False,
+            out_dtype=bf16):
+        fn, ref = kernel_fns(name)
+        x = on(xs, f32 if f32_x else bf16)
+        got = fn(x, *args, out_dtype=out_dtype).float().cpu().numpy()
+        err = float(np.abs(got - want).max())
+        if limit is not None and not err <= limit:
+            raise AssertionError(
+                f"{name} {mode} {label}: max |err| {err} against the "
+                f"script's f32 product, over {limit}")
+        w, xb = on(w_ref, bf16), on(xs, bf16)
+        add(name, mode, label, x, w.shape[0], w.shape[1],
+            lambda: fn(x, *args, out_dtype=out_dtype),
+            lambda: ref(x, *args, out_dtype=out_dtype),
+            lambda: torch.matmul(xb, w.t()), 2 * x.shape[0] * w.numel(),
+            False, (x, *(a for a in args if isinstance(a, torch.Tensor))),
+            extra=dict(script_err=err, script_limit=limit),
+            y_size=torch.finfo(out_dtype).bits // 8,
+            **(dict(rtol=0.0, atol_frac=1e-5) if out_dtype == f32 else {}))
+
+    xs, b, s, w_ref = wc.fma16_case()
+    want = xs @ w_ref
+    rel = SCRIPT_REL_TOL * float(np.abs(want).max())
+    for mode in ("fma16", "fma16f32"):
+        run("w4_probe_matmul", mode, "check_fma16_exact", xs, w_ref.T,
+            (on(b), on(s, bf16), mode), want, rel, f32_x=mode == "fma16f32")
+    xs, q, s, w_ref = ua.shift28_case()
+    want = xs @ w_ref
+    rel = SCRIPT_REL_TOL * float(np.abs(want).max())
+    wq = pack_int4(torch.from_numpy(q)).to(device)
+    for mode in ("prod", "shift28", "t8", "g256"):
+        run("w4_probe_matmul", mode, "shift28 check", xs, w_ref.T,
+            (wq, on(s, bf16), mode), want, None if mode == "g256" else rel,
+            f32_x=mode == "t8")
+    for k in (256, 200):
+        xs, ids, cb, w = vq.check_case(k)
+        want = xs @ w.T
+        run("vq_smallk_matmul", "v8 fused", f"--check k={k}", xs, w,
+            (on(ids), on(cb), 8, False), want,
+            0.05 * float(np.abs(want).max()) + 0.05, f32_x=True,
+            out_dtype=f32)
 
 
 def phase_encoders(device, out_f=4096, in_f=4096, seed=0):
@@ -956,16 +1156,25 @@ LIBRARY_OF = {
            "enable_gqa=True) on the same q, k, v",
     BF16: "torch.matmul of the same bf16 x and w",
 }
+PROBE_LIBRARY = (
+    "torch.matmul of bf16 x with the bf16 weight of the same function (the "
+    "dequantized levels; P3: the gathered codebook vectors; onehot-only: x's "
+    "first column of each vector against the ids' hits): a yardstick that "
+    "reads bf16 weights"
+)
 
 
 def kernel_records(rows, launches, tokens=(1, 512), pairs=(2, 16),
                    seqs=(1024, 2048)):
     """The contract's per-kernel records: each kernel at decode and at
     prefill (pairs kernels: at two pair counts; K8: at two lengths),
-    summed over one layer's linears. ``launches`` maps a kernel to its
-    count on the main paths that run it."""
+    summed over one layer's linears; each probe (rows with a mode) once
+    per mode at its record row. ``launches`` maps a kernel to its count on
+    the main paths that run it."""
     out = []
     rows = [r for r in rows if r.get("in_record", True)]
+    probes = [r for r in rows if "mode" in r]
+    rows = [r for r in rows if "mode" not in r]
     for name in dict.fromkeys(r["kernel"] for r in rows):
         kind = name if name in (FLASH, BF16) else name[name.rfind("_"):]
         points = {"_pairs": pairs, FLASH: seqs}.get(kind, tokens)
@@ -992,6 +1201,19 @@ def kernel_records(rows, launches, tokens=(1, 512), pairs=(2, 16),
                 "library_ms": sum(r["library_ms"] for r in sel),
                 "library": library + "; the port never calls it",
             })
+    for r in probes:
+        out.append({
+            "name": f"{r['kernel']} {r['mode']} (T={r['T']}, {r['shape']} "
+                    f"{r['out']}x{r['in_p']}: the probe scripts' Llama-2-7B "
+                    "shape)",
+            "route": "cuda",
+            "source": f"vptq_tpu_torch/csrc/{r['kernel']}.cu",
+            "replaces": r["replaces"],
+            "launches": launches[r["kernel"]],
+            **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                 "bound_by", "library_ms")},
+            "library": PROBE_LIBRARY + "; the port never calls it",
+        })
     return out
 
 
@@ -1036,6 +1258,9 @@ def main() -> int:
     rows += phase_flash(device)
     for fmt in MOE_KERNELS:
         rows += phase_moe_kernels(fmt, device, moe_shapes(MIXTRAL_8X7B))
+    t0 = time.perf_counter()
+    rows += phase_probes(device)
+    print(f"probe phase: {time.perf_counter() - t0:.2f} s")
     phase_encoders(device)
     launches = dict.fromkeys(ALL_KERNELS, 0)
     # (label, config, formats, what phase_e2e and the writer get beside)

@@ -8,6 +8,7 @@ imports no JAX, so a machine with a GPU and no JAX runs them with
 
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -20,14 +21,28 @@ from torch_port import LLAMA3_SCALING, TINY, VQ
 import chip_smoke
 from vptq_tpu_torch import AutoModelForCausalLM
 from vptq_tpu_torch.convert import convert_params
+from vptq_tpu_torch.examples import (
+    kernel_bench,
+    vq_smallk_probe,
+    w4_unpack_ablation,
+    w4_wall_candidates,
+)
 from vptq_tpu_torch.ops import _build
 from vptq_tpu_torch.ops.bf16_matmul import bf16_matmul, bf16_matmul_reference
 from vptq_tpu_torch.ops.flash_attention import (
     flash_attention,
     flash_attention_reference,
 )
+from vptq_tpu_torch.ops.vq_smallk_matmul import (
+    vq_smallk_matmul,
+    vq_smallk_matmul_reference,
+)
 from vptq_tpu_torch.ops.w2_matmul import w2_matmul, w2_matmul_reference
 from vptq_tpu_torch.ops.w3_matmul import w3_matmul, w3_matmul_reference
+from vptq_tpu_torch.ops.w4_i32x8_matmul import (
+    w4_i32x8_matmul,
+    w4_i32x8_matmul_reference,
+)
 from vptq_tpu_torch.ops.w4_matmul import w4_matmul, w4_matmul_reference
 from vptq_tpu_torch.ops.w4_matmul_expert import (
     w4_matmul_expert,
@@ -36,6 +51,15 @@ from vptq_tpu_torch.ops.w4_matmul_expert import (
 from vptq_tpu_torch.ops.w4_matmul_pairs import (
     w4_matmul_pairs,
     w4_matmul_pairs_reference,
+)
+from vptq_tpu_torch.ops.w4_probe_matmul import (
+    W4_PROBE_MODES,
+    w4_probe_matmul,
+    w4_probe_matmul_reference,
+)
+from vptq_tpu_torch.ops.w4_raw_probe import (
+    w4_raw_probe,
+    w4_raw_probe_reference,
 )
 from vptq_tpu_torch.ops.w8_matmul import w8_matmul, w8_matmul_reference
 from vptq_tpu_torch.ops.w8_matmul_expert import (
@@ -57,7 +81,9 @@ _IMPORT_ALL = r"""
 import importlib, pkgutil, sys
 import vptq_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(vptq_tpu_torch.__path__, "vptq_tpu_torch.")]
-assert {"vptq_tpu_torch.ops.flash_attention", "vptq_tpu_torch.ops.bf16_matmul"} <= set(names)
+assert {"vptq_tpu_torch.ops.flash_attention", "vptq_tpu_torch.ops.bf16_matmul",
+        "vptq_tpu_torch.ops.vq_smallk_matmul",
+        "vptq_tpu_torch.examples.w4_wall_candidates"} <= set(names)
 for name in names:
     importlib.import_module(name)
 import chip_smoke
@@ -75,7 +101,7 @@ def test_port_imports_no_jax_and_no_vptq_tpu():
         [sys.executable, "-c", _IMPORT_ALL], cwd=ROOT, env=env,
         capture_output=True, text=True, timeout=120, check=True,
     ).stdout.split(maxsplit=1)
-    assert int(out[0]) >= 31  # every module of the package was imported
+    assert int(out[0]) >= 40  # every module of the package was imported
     assert out[1].strip() == "[]"
 
 
@@ -143,8 +169,9 @@ def test_chip_smoke_phases_on_cpu():
     # one token's top-2 are two experts; three tokens' pick at most four
     assert [r["distinct"] for r in moe_rows if r["T"] == 2] == [2] * 4
     assert all(2 <= r["distinct"] <= 4 for r in moe_rows if r["T"] == 6)
-    assert set(chip_smoke.ALL_KERNELS) == {r["kernel"] for r in rows}
-    assert len(chip_smoke.ALL_KERNELS) == 10
+    assert set(chip_smoke.ALL_KERNELS) - set(chip_smoke.PROBE_KERNELS) == {
+        r["kernel"] for r in rows}
+    assert len(chip_smoke.ALL_KERNELS) == 14
     records = chip_smoke.kernel_records(
         rows, dict.fromkeys(chip_smoke.ALL_KERNELS, 0), tokens=(1, 20),
         pairs=(2, 6), seqs=(40, 70),
@@ -229,6 +256,73 @@ def test_chip_smoke_long_prompts_on_cpu(window):
         assert e2e["kernels"] == ["w8_matmul", "flash_attention"]
         assert e2e["long_prefill_logits_max_abs_diff"] == 0.0
     assert set(e2e["launches"].values()) == {0}  # the CPU launches nothing
+
+
+def test_chip_smoke_probe_phase_on_cpu():
+    """The probe phase at a tiny size with the plain versions: every mode
+    of P1 / P2 with K2 beside it, P3 at v 4 and 8 fused and onehot-only,
+    and the same at k 200 (outside the records), and the scripts' own
+    checks; one record per probe mode."""
+    shapes = (("a", 40, 2048), ("b", 24, 1024))
+    rows = chip_smoke.phase_probes("cpu", shapes=shapes, iters=1)
+    assert all(r["max_abs_err"] == 0.0 for r in rows)
+    probe_modes = [
+        (r["kernel"], r["mode"]) for r in rows
+        if r["shape"] == "a" and r["kernel"] != "w4_matmul"]
+    assert probe_modes == [
+        *(("w4_probe_matmul", m) for m in W4_PROBE_MODES),
+        ("w4_i32x8_matmul", "i32x8"), ("w4_raw_probe", "s8dot"),
+        ("w4_raw_probe", "cvtonly"),
+        *(("vq_smallk_matmul", f"v{v} {k}{m}") for v in (4, 8)
+          for k in ("", "k200 ") for m in ("fused", "onehot_only")),
+    ]
+    assert [r["mode"] for r in rows if r["kernel"] == "w4_matmul"] == [
+        "w4_matmul"] * 2
+    checks = [r for r in rows if "script_err" in r]
+    assert [(r["shape"], r["mode"]) for r in checks] == [
+        ("check_fma16_exact", "fma16"), ("check_fma16_exact", "fma16f32"),
+        *(("shift28 check", m) for m in ("prod", "shift28", "t8", "g256")),
+        ("--check k=256", "v8 fused"), ("--check k=200", "v8 fused"),
+    ]
+    assert all(r["T"] == 3 and not r["in_record"] for r in checks)
+    assert all(r["script_err"] <= r["script_limit"] for r in checks
+               if r["script_limit"] is not None)
+    # bytes: x, the bytes and the scale rows each mode reads, y in bf16
+    by_mode = {r["mode"]: r for r in rows if r["shape"] == "a"}
+    assert by_mode["prod"]["bytes"] == 2 * 2048 + 40 * 1024 + 16 * 40 * 2 + 80
+    assert by_mode["g256"]["bytes"] == by_mode["prod"]["bytes"] - 8 * 40 * 2
+    assert by_mode["t8"]["bytes"] == by_mode["prod"]["bytes"] + 2 * 2048
+    assert by_mode["s8dot"]["bytes"] == 1024 + 40 * 1024 + 40 * 2 + 80
+    assert by_mode["v8 onehot_only"]["bytes"] == 2 * 256 + 40 * 256 + 80
+    assert by_mode["v8 k200 fused"]["bytes"] == (
+        by_mode["v8 fused"]["bytes"] - 56 * 8 * 2)
+    assert not any(r["in_record"] for r in rows if "k200" in r["mode"])
+    assert by_mode["s8dot"]["flops"] == by_mode["prod"]["flops"] // 2
+    launches = dict.fromkeys(chip_smoke.ALL_KERNELS, 0)
+    records = chip_smoke.kernel_records(rows, launches)
+    assert len(records) == 13
+    keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
+    assert all(keys <= set(r) and r["launches"] == 0 for r in records)
+    assert all((ROOT / r["source"]).exists() for r in records)
+    assert {r["replaces"] for r in records} == {
+        "examples/w4_unpack_ablation.py:39", "examples/w4_wall_candidates.py:53",
+        "examples/w4_wall_candidates.py:91", "examples/w4_wall_candidates.py:124",
+        "examples/w4_wall_candidates.py:161",
+        "examples/w4_wall_candidates.py:172", "examples/vq_smallk_probe.py:92",
+    }
+    json.dumps(records)
+
+
+@pytest.mark.parametrize("module", [
+    kernel_bench, w4_wall_candidates, w4_unpack_ablation, vq_smallk_probe,
+])
+def test_examples_exit_nonzero_without_a_card(module, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit) as exc:
+        module.main([])
+    assert exc.value.code not in (0, None)
+    assert "--device cpu" in str(exc.value.code)
 
 
 def test_expected_launches_of_a_request():
@@ -320,15 +414,22 @@ def test_kernel_names_its_tpu_kernel_and_trace_tags(name):
     and its ``trace_tags`` occur in its CUDA sources. No two kernels'
     tags pick the same CUDA kernel names."""
     fn, _ = chip_smoke.kernel_fns(name)
-    path, line = fn.replaces.split(":")
-    body = (ROOT / path).read_text().splitlines()[int(line) - 1]
-    if name == "flash_attention":
-        # the JAX package calls the library's Pallas op, it has no body here
-        assert body.strip() == "out = flash_attention(", body
-    else:
-        # _w8_kernel, _w8e_kernel (expert), _w8p_kernel (pairs), _bf16_kernel
-        base, _, kind = name.partition("_matmul")
-        assert body.startswith(f"def _{base}{kind[1:2]}_kernel("), body
+    for place in fn.replaces.split(", "):
+        path, line = place.split(":")
+        body = (ROOT / path).read_text().splitlines()[int(line) - 1]
+        if name == "flash_attention":
+            # the JAX package calls the library's Pallas op, it has no body
+            assert body.strip() == "out = flash_attention(", body
+        elif path.startswith("examples/"):
+            # a probe script's body: _prod_kernel, _kernel, kernel, ...
+            assert re.match(r"\s*def _?\w*kernel\(", body), body
+        else:
+            # _w8_kernel, _w8e_kernel (expert), _w8p_kernel (pairs), ...
+            base, _, kind = name.partition("_matmul")
+            assert body.startswith(f"def _{base}{kind[1:2]}_kernel("), body
+    # a probe names its body per mode; each is one of replaces'
+    assert set(getattr(fn, "bodies", {}).values()) <= set(
+        fn.replaces.split(", "))
     csrc = ROOT / "vptq_tpu_torch/csrc"
     src = (csrc / f"{name}.cu").read_text()
     assert f'extern "C" int vptq_{name}(' in src
@@ -699,3 +800,128 @@ def test_long_fresh_prefill_goes_through_k8(cuda, checkpoint):
     cache = init_cache(tiny.cfg, 1, 2048, torch.bfloat16, cuda)
     with pytest.raises(ValueError, match="supported sizes"):
         forward(tiny, tokens, cache, fresh_prefill=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("tokens", [1, 3, 16, 17, 40])
+@pytest.mark.parametrize("mode", sorted(W4_PROBE_MODES))
+def test_w4_probe_kernel_matches_plain_version(cuda, mode, tokens, out_dtype):
+    """Every unpack mode on the GEMV (T <= 16) and on the tile (T > 16),
+    x in f32 (rounded to bf16 by every mode), an odd number of rows."""
+    gen = torch.Generator(device=cuda).manual_seed(tokens)
+    wq = torch.randint(-128, 128, (200, 1024), generator=gen, device=cuda,
+                       dtype=torch.int8)
+    scales = (torch.rand((16, 200), generator=gen, device=cuda) * 1e-2).to(
+        torch.bfloat16)
+    x = torch.randn((tokens, 2048), generator=gen, device=cuda)
+    before = w4_probe_matmul.launches
+    got = w4_probe_matmul(x, wq, scales, mode, out_dtype=out_dtype)
+    want = w4_probe_matmul_reference(x, wq, scales, mode, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert w4_probe_matmul.launches == before + 1
+    assert got.shape == (tokens, 200) and got.dtype == out_dtype
+    _assert_kernel_close(got, want, out_dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("tokens", [1, 3, 8, 9, 40])
+def test_i32x8_kernel_matches_plain_version(cuda, tokens, out_dtype):
+    """Words drawn over all of int32 (plane 7 of a negative word too)."""
+    gen = torch.Generator(device=cuda).manual_seed(tokens)
+    wq = torch.randint(-2 ** 31, 2 ** 31 - 1, (200, 256), generator=gen,
+                       device=cuda, dtype=torch.int32)
+    scales = (torch.rand((16, 200), generator=gen, device=cuda) * 1e-2).to(
+        torch.bfloat16)
+    x = torch.randn((tokens, 2048), generator=gen, device=cuda)
+    before = w4_i32x8_matmul.launches
+    got = w4_i32x8_matmul(x, wq, scales, out_dtype=out_dtype)
+    want = w4_i32x8_matmul_reference(x, wq, scales, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert w4_i32x8_matmul.launches == before + 1
+    assert got.shape == (tokens, 200) and got.dtype == out_dtype
+    _assert_kernel_close(got, want, out_dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("tokens", [1, 3, 8, 9, 40])
+@pytest.mark.parametrize("mode", ["s8dot", "cvtonly"])
+def test_raw_probe_kernel_matches_plain_version(cuda, mode, tokens,
+                                                out_dtype):
+    """s8dot sums exact integers on both sides, so the two agree bit for
+    bit; cvtonly to the summation order."""
+    gen = torch.Generator(device=cuda).manual_seed(tokens)
+    wq = torch.randint(-128, 128, (200, 1024), generator=gen, device=cuda,
+                       dtype=torch.int8)
+    scales = (torch.rand((16, 200), generator=gen, device=cuda) * 1e-2).to(
+        torch.bfloat16)
+    x = torch.randn((tokens, 1024), generator=gen, device=cuda) * 40
+    if mode == "s8dot":
+        x = x.to(torch.int8)
+    before = w4_raw_probe.launches
+    got = w4_raw_probe(x, wq, scales, mode, out_dtype=out_dtype)
+    want = w4_raw_probe_reference(x, wq, scales, mode, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert w4_raw_probe.launches == before + 1
+    assert got.shape == (tokens, 200) and got.dtype == out_dtype
+    if mode == "s8dot":
+        assert torch.equal(got, want)
+    else:
+        _assert_kernel_close(got, want, out_dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tokens", [1, 3, 9, 40])
+@pytest.mark.parametrize("k", [200, 256])
+@pytest.mark.parametrize("onehot_only", [False, True])
+@pytest.mark.parametrize("v", [4, 8])
+def test_vq_smallk_kernel_matches_plain_version(cuda, v, onehot_only, k,
+                                                tokens):
+    """Ids drawn from [0, 256): with k = 200 an id past the codebook must
+    add 0; f32 out, so only the summation order differs."""
+    gen = torch.Generator(device=cuda).manual_seed(tokens + k)
+    ids = torch.randint(0, 256, (200, 1024 // v), generator=gen, device=cuda,
+                        dtype=torch.uint8)
+    cb = torch.randn((k, v), generator=gen, device=cuda) * 0.02
+    x = torch.randn((tokens, 1024), generator=gen, device=cuda)
+    before = vq_smallk_matmul.launches
+    got = vq_smallk_matmul(x, ids, cb, v, onehot_only)
+    want = vq_smallk_matmul_reference(x, ids, cb, v, onehot_only)
+    torch.cuda.synchronize()
+    assert vq_smallk_matmul.launches == before + 1
+    assert got.shape == (tokens, 200) and got.dtype == torch.float32
+    _assert_kernel_close(got, want, torch.float32)
+
+
+@pytest.mark.cuda
+def test_probe_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    wq = torch.zeros((8, 384), dtype=torch.int8, device=cuda)
+    scales = torch.zeros((6, 8), dtype=torch.bfloat16, device=cuda)
+    x = torch.zeros((1, 768), device=cuda)
+    w4_probe_matmul(x, wq, scales, "prod")  # 768 = 3 groups of 256
+    with pytest.raises(ValueError, match="multiple of 512"):
+        w4_probe_matmul(x, wq, scales, "g256")
+    with pytest.raises(ValueError, match="mode"):
+        w4_probe_matmul(x, wq, scales, "fma32")
+    with pytest.raises(ValueError, match="one device"):
+        w4_probe_matmul(x, wq.cpu(), scales, "prod")
+    with pytest.raises(ValueError, match="int8"):
+        w4_raw_probe(x[:, :384], wq, scales, "s8dot")
+    ids = torch.zeros((8, 64), dtype=torch.uint8, device=cuda)
+    with pytest.raises(ValueError, match="codebook"):
+        vq_smallk_matmul(torch.zeros((1, 512), device=cuda), ids,
+                         torch.zeros((257, 8), device=cuda), 8)
+    with pytest.raises(ValueError, match="multiple of 1024"):
+        w4_i32x8_matmul(x, torch.zeros((8, 96), dtype=torch.int32,
+                                       device=cuda), scales)
+
+
+@pytest.mark.cuda
+def test_probe_examples_run_their_checks_on_the_card(cuda):
+    """The scripts' own checks through the ports' entry points."""
+    assert w4_wall_candidates.check_fma16_exact(cuda) < 2e-2
+    assert w4_unpack_ablation.check_shift28(cuda) < 2e-2
+    err, limit = vq_smallk_probe.check(cuda)
+    assert err < limit

@@ -49,12 +49,19 @@
 //    slab of that part and runs the MMAs; at the part's group edge the
 //    accumulators are scaled per column and added to the totals.
 // wgmma / TMA pipelining is later work.
+//
+// Two hooks serve the int4 unpack probes (w4_probe_matmul.cu) and change
+// nothing for the formats that do not use them: x may lie in f32 (XT =
+// float; the kernels round it to bf16 as they stage it), and a format may
+// fold a constant into the scale of each part (kScaledParts, part_scale).
 
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "expert_select.cuh"
 
@@ -86,6 +93,22 @@ struct Scales {
   }
 };
 
+// Whether format P multiplies part p's scales by P::part_scale(p).
+template <class P, class = void>
+struct ScaledParts : std::false_type {};
+template <class P>
+struct ScaledParts<P, std::void_t<decltype(P::kScaledParts)>>
+    : std::bool_constant<P::kScaledParts> {};
+
+template <class P>
+__device__ __forceinline__ float scale_of(const Scales& sc, int o, int g,
+                                          int p) {
+  if constexpr (ScaledParts<P>::value)
+    return sc.at(o, g) * P::part_scale(p);
+  else
+    return sc.at(o, g);
+}
+
 // f32 with the integer v in its low mantissa bits: 2^23 + v
 __device__ __forceinline__ float magic(uint32_t v) {
   return __int_as_float(0x4B000000u | v);
@@ -97,6 +120,22 @@ __device__ __forceinline__ float bf16_lo(uint32_t p) {
 
 __device__ __forceinline__ float bf16_hi(uint32_t p) {
   return __int_as_float(p & 0xFFFF0000u);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// 8 consecutive values of x as bf16: as they lie, or rounded from f32
+__device__ __forceinline__ uint4 load_x8(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint4*>(p);
+}
+__device__ __forceinline__ uint4 load_x8(const float* p) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  const float4 b = *reinterpret_cast<const float4*>(p + 4);
+  return make_uint4(pack_bf16x2(a.x, a.y), pack_bf16x2(a.z, a.w),
+                    pack_bf16x2(b.x, b.y), pack_bf16x2(b.z, b.w));
 }
 
 template <typename OutT>
@@ -142,9 +181,10 @@ __device__ __forceinline__ void select_expert(Planes& pl, Scales& sc,
 // --------------------------------------------------------------------
 // decode: T <= 16
 
-template <class P, class Sel, int TP, int kRows, int G, typename OutT>
+template <class P, class Sel, int TP, int kRows, int G, typename OutT,
+          typename XT>
 __global__ void __launch_bounds__(kThreads)
-    gemv(const __nv_bfloat16* __restrict__ x, Planes pl, Scales sc, Ids ids,
+    gemv(const XT* __restrict__ x, Planes pl, Scales sc, Ids ids,
          OutT* __restrict__ y, int T, int out, int in_p, int L) {
   constexpr int kParts = P::kParts;
   constexpr int kSet = G / 16;  // lanes that share one group
@@ -182,8 +222,7 @@ __global__ void __launch_bounds__(kThreads)
       const int pos = c0 + c * 8;
       uint4 v = make_uint4(0u, 0u, 0u, 0u);
       if (t < T && pos < L)
-        v = *reinterpret_cast<const uint4*>(x + (size_t)t * in_p +
-                                            (size_t)p * L + pos);
+        v = load_x8(x + (size_t)t * in_p + (size_t)p * L + pos);
       reinterpret_cast<uint4*>(xs)[i] = v;
     }
     __syncthreads();
@@ -227,7 +266,8 @@ __global__ void __launch_bounds__(kThreads)
       const int g = (p * L + k) / G;
 #pragma unroll
       for (int r = 0; r < kRows; ++r) {
-        const float s = (k_ok && row_ok[r]) ? sc.at(row0 + r, g) : 0.f;
+        const float s =
+            (k_ok && row_ok[r]) ? scale_of<P>(sc, row0 + r, g, p) : 0.f;
 #pragma unroll
         for (int t = 0; t < TP; ++t) {
           float v = part[r][t];
@@ -274,14 +314,9 @@ __device__ __forceinline__ uint32_t lds32(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-template <class P, class Sel, int G, typename OutT>
+template <class P, class Sel, int G, typename OutT, typename XT>
 __global__ void __launch_bounds__(kThreads)
-    gemm(const __nv_bfloat16* __restrict__ x, Planes pl, Scales sc, Ids ids,
+    gemm(const XT* __restrict__ x, Planes pl, Scales sc, Ids ids,
          OutT* __restrict__ y, int T, int out, int in_p, int L) {
   static_assert(!Sel::kPairs, "a pairs launch runs the T = 1 gemv");
   constexpr int kParts = P::kParts;
@@ -306,7 +341,7 @@ __global__ void __launch_bounds__(kThreads)
   const int wr = tid >> 1, wc = (tid & 1) * 16;
   const bool x_ok = m0 + xr < T;
   const bool w_ok = n0 + wr < out;
-  const __nv_bfloat16* xp = x + (size_t)(x_ok ? m0 + xr : 0) * in_p + xc;
+  const XT* xp = x + (size_t)(x_ok ? m0 + xr : 0) * in_p + xc;
 
   float acc[2][4][4];
   float tot[2][4][4];
@@ -320,7 +355,7 @@ __global__ void __launch_bounds__(kThreads)
   const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
   // slabs run group by group, part by part within a group, slab by slab
   // within a part; x column of slab (gpos, p, s) is p*L + gpos + s*BK
-  uint4 xreg = x_ok ? *reinterpret_cast<const uint4*>(xp) : zero;
+  uint4 xreg = x_ok ? load_x8(xp) : zero;
 
   for (int gpos = 0; gpos < L; gpos += G) {
     uint32_t w[kSlabs][P::kPlanes][4];
@@ -354,8 +389,7 @@ __global__ void __launch_bounds__(kThreads)
             next = (p + 1) * L + gpos;
           else if (gpos + G < L)
             next = gpos + G;
-          if (next >= 0 && x_ok)
-            xreg = *reinterpret_cast<const uint4*>(xp + next);
+          if (next >= 0 && x_ok) xreg = load_x8(xp + next);
         }
 #pragma unroll
         for (int kk = 0; kk < BK; kk += 16) {
@@ -388,8 +422,8 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int col = n0 + wn * 32 + j * 8 + tig * 2;
-        const float s0 = col < out ? sc.at(col, g) : 0.f;
-        const float s1 = col + 1 < out ? sc.at(col + 1, g) : 0.f;
+        const float s0 = col < out ? scale_of<P>(sc, col, g, p) : 0.f;
+        const float s1 = col + 1 < out ? scale_of<P>(sc, col + 1, g, p) : 0.f;
 #pragma unroll
         for (int i = 0; i < 2; ++i) {
           tot[i][j][0] += acc[i][j][0] * s0;
@@ -426,8 +460,8 @@ __global__ void __launch_bounds__(kThreads)
 // launch
 
 // pairs: the grid's second dimension (1 unless the launch is a pairs launch)
-template <class P, class Sel, int TP, int G, typename OutT>
-cudaError_t launch_gemv(const __nv_bfloat16* x, const Planes& pl,
+template <class P, class Sel, int TP, int G, typename OutT, typename XT>
+cudaError_t launch_gemv(const XT* x, const Planes& pl,
                         const Scales& sc, const Ids& ids, OutT* y, int T,
                         int pairs, int out, int in_p, int L,
                         cudaStream_t stream) {
@@ -435,7 +469,7 @@ cudaError_t launch_gemv(const __nv_bfloat16* x, const Planes& pl,
   // spill registers
   constexpr int kRows =
       TP <= 2 ? (P::kPlanes == 1 ? 4 : 2) : (TP <= 8 && P::kPlanes == 1 ? 2 : 1);
-  auto kernel = gemv<P, Sel, TP, kRows, G, OutT>;
+  auto kernel = gemv<P, Sel, TP, kRows, G, OutT, XT>;
   const size_t smem =
       (size_t)TP * P::kParts * kChunk * sizeof(__nv_bfloat16);
   if (smem > 48 * 1024) {
@@ -449,42 +483,43 @@ cudaError_t launch_gemv(const __nv_bfloat16* x, const Planes& pl,
   return cudaGetLastError();
 }
 
-template <class P, class Sel, int G, typename OutT>
+template <class P, class Sel, int G, typename OutT, typename XT>
 cudaError_t launch_typed(const void* x, const Planes& pl, const Scales& sc,
                          const Ids& ids, void* y, int T, int out, int in_p,
                          cudaStream_t stream) {
-  const auto* xb = static_cast<const __nv_bfloat16*>(x);
+  const auto* xb = static_cast<const XT*>(x);
   auto* yo = static_cast<OutT*>(y);
   const int L = in_p / P::kParts;
   if (L % G || L % 16) return cudaErrorInvalidValue;
   if constexpr (Sel::kPairs) {
     // T pairs, each one row of x through its own expert
     if (T > 65535) return cudaErrorInvalidValue;
-    return launch_gemv<P, Sel, 1, G, OutT>(xb, pl, sc, ids, yo, 1, T, out, in_p, L, stream);
+    return launch_gemv<P, Sel, 1, G, OutT, XT>(xb, pl, sc, ids, yo, 1, T, out, in_p, L, stream);
   } else {
-    if (T <= 1) return launch_gemv<P, Sel, 1, G, OutT>(xb, pl, sc, ids, yo, T, 1, out, in_p, L, stream);
-    if (T <= 2) return launch_gemv<P, Sel, 2, G, OutT>(xb, pl, sc, ids, yo, T, 1, out, in_p, L, stream);
-    if (T <= 4) return launch_gemv<P, Sel, 4, G, OutT>(xb, pl, sc, ids, yo, T, 1, out, in_p, L, stream);
-    if (T <= 8) return launch_gemv<P, Sel, 8, G, OutT>(xb, pl, sc, ids, yo, T, 1, out, in_p, L, stream);
-    if (T <= 16) return launch_gemv<P, Sel, 16, G, OutT>(xb, pl, sc, ids, yo, T, 1, out, in_p, L, stream);
+    if (T <= 1) return launch_gemv<P, Sel, 1, G, OutT, XT>(xb, pl, sc, ids, yo, T, 1, out, in_p, L, stream);
+    if (T <= 2) return launch_gemv<P, Sel, 2, G, OutT, XT>(xb, pl, sc, ids, yo, T, 1, out, in_p, L, stream);
+    if (T <= 4) return launch_gemv<P, Sel, 4, G, OutT, XT>(xb, pl, sc, ids, yo, T, 1, out, in_p, L, stream);
+    if (T <= 8) return launch_gemv<P, Sel, 8, G, OutT, XT>(xb, pl, sc, ids, yo, T, 1, out, in_p, L, stream);
+    if (T <= 16) return launch_gemv<P, Sel, 16, G, OutT, XT>(xb, pl, sc, ids, yo, T, 1, out, in_p, L, stream);
     dim3 grid((out + BN - 1) / BN, (T + BM - 1) / BM);
-    gemm<P, Sel, G, OutT><<<grid, kThreads, 0, stream>>>(xb, pl, sc, ids, yo,
-                                                         T, out, in_p, L);
+    gemm<P, Sel, G, OutT, XT><<<grid, kThreads, 0, stream>>>(
+        xb, pl, sc, ids, yo, T, out, in_p, L);
     return cudaGetLastError();
   }
 }
 
-// out_dtype: 0 = bf16, 1 = f32
-template <class P, int G, class Sel = sel::Whole>
+// out_dtype: 0 = bf16, 1 = f32; XT: the type x lies in
+template <class P, int G, class Sel = sel::Whole,
+          typename XT = __nv_bfloat16>
 int launch(const void* x, const Planes& pl, const Scales& sc, void* y, int T,
            int out, int in_p, int out_dtype, void* stream,
            const Ids& ids = Ids{nullptr, 0}) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (out_dtype) {
     case 0:
-      return (int)launch_typed<P, Sel, G, __nv_bfloat16>(x, pl, sc, ids, y, T, out, in_p, s);
+      return (int)launch_typed<P, Sel, G, __nv_bfloat16, XT>(x, pl, sc, ids, y, T, out, in_p, s);
     case 1:
-      return (int)launch_typed<P, Sel, G, float>(x, pl, sc, ids, y, T, out, in_p, s);
+      return (int)launch_typed<P, Sel, G, float, XT>(x, pl, sc, ids, y, T, out, in_p, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

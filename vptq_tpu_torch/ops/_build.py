@@ -8,7 +8,7 @@ seconds, not minutes. A library is rebuilt when its source, or a
 header of ``csrc/`` (``lowbit.cuh``, the skeleton of K2–K4; ``w8.cuh``
 and ``w4.cuh``, the loops the MoE kernels share with K1 and K2, and the
 fragment helpers K7 takes from ``w8.cuh``; ``expert_select.cuh``), is
-newer.
+newer (``probe_gemv.cuh`` is the frame of three of the probe GEMVs).
 Nothing is built when a module is imported: the first launch builds.
 """
 
@@ -33,6 +33,7 @@ SOURCES = (
     "w8_matmul_expert", "w8_matmul_pairs",
     "w4_matmul_expert", "w4_matmul_pairs",
     "flash_attention", "bf16_matmul",
+    "w4_probe_matmul", "w4_i32x8_matmul", "w4_raw_probe", "vq_smallk_matmul",
 )
 
 NVCC_FLAGS = (

@@ -84,12 +84,14 @@ def launch(
     in_p: int,
     out_dtype: torch.dtype | None,
     ids: Optional[torch.Tensor] = None,
+    x_dtype: torch.dtype = torch.bfloat16,
 ) -> torch.Tensor:
     """Launch ``fn_name`` of ``lib<lib_name>.so`` on CUDA tensors; raises
     on anything the kernel does not take, and on a failed launch.
 
     ``ids``: the int32 expert ids of a launch on stacked weights, passed
     to the kernel as a device pointer and never read on the host.
+    ``x_dtype``: the type the kernel reads x in.
     """
     if x.device.type != "cuda":
         raise ValueError(f"{lib_name} runs on cuda or cpu, not {x.device}")
@@ -105,7 +107,7 @@ def launch(
     if out_dtype not in _OUT_CODES:
         raise ValueError(f"unsupported output dtype {out_dtype}")
     lead = x.shape[:-1]
-    x2 = x.reshape(-1, in_p).to(torch.bfloat16).contiguous()
+    x2 = x.reshape(-1, in_p).to(x_dtype).contiguous()
     tokens = x2.shape[0]
     y = torch.empty(tokens, out_f, dtype=out_dtype, device=x.device)
     if tokens == 0:
