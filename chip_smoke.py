@@ -12,18 +12,22 @@ without them, or when any phase fails. Phases:
    K6b ``w4_matmul_expert``, K5b ``w4_matmul_pairs``, K8
    ``flash_attention``, K7 ``bf16_matmul`` and the probes P1/P2
    ``w4_probe_matmul``, ``w4_i32x8_matmul``, ``w4_raw_probe`` and P3
-   ``vq_smallk_matmul``), one ``nvcc`` each, all at once;
+   ``vq_smallk_matmul``), one ``nvcc`` each, all at once; the
+   ``-Xptxas -v`` lines of K2's and K4's prefill tile
+   (``lowbit_tile.cuh``), which must show no spill;
 2. each of K1-K4 at the four linear shapes of Llama-3.1-8B, on layers its
    format's encoder makes on the card from a random weight (K1 group
    2048, K3 group 64), at T=1 (decode) and T=128 and T=512 (prefill
-   buckets): the kernel held against its plain version on the card, then
+   buckets), K2 and K4 also at T=2048 (the long-prefill chunk, through
+   their tile): the kernel held against its plain version on the card, then
    timed with CUDA events (L2 flushed before each launch) beside the
    plain version and a ``torch.matmul`` yardstick; K1 also at the four
    shapes of Qwen2.5-7B (group 512; intermediate 18944 padded to 19456);
    K7 at the Llama shapes on a random bf16 weight; K8 at Llama-3.1-8B's
    heads (32 over 8 KV heads of 128) on N(0, 1) q, k, v with v a strided
    view into a fused q|k|v row, at S=1024, 2048 and 1100 (no tile divides
-   it), at head size 64, and with scores scaled to about +-50, beside
+   it), at head size 64, at head size 96 (Phi-3-mini's 32 heads; S=1024
+   and 1100), and with scores scaled to about +-50, beside
    ``scaled_dot_product_attention`` as its yardstick;
 3. the MoE kernels at Mixtral-8x7B's two expert shapes (gate_up
    28672 x 4096, down 4096 x 14336) on stacks of 8 experts that the int8
@@ -90,6 +94,7 @@ from __future__ import annotations
 import contextlib
 import importlib
 import json
+import re
 import shutil
 import subprocess
 import sys
@@ -204,6 +209,13 @@ MOE_KERNELS = {
     "int4": ("w4_matmul_expert", "w4_matmul_pairs"),
 }
 FLASH, BF16 = "flash_attention", "bf16_matmul"
+# a word of the mangled name of the Hopper prefill tile of K2 and K4,
+# which the kernel phase also times at a long prefill chunk
+TILE_KERNEL = "wg_tile"
+TILE_KERNELS = ("w4_matmul", "w3_matmul")
+# its instances in each of those libraries: one per output type (bf16, f32)
+TILE_INSTANCES = 2
+LONG_CHUNK = 2048
 # the int4-unpack probes P1 / P2 and the small-codebook VQ probe P3: no
 # layer calls them (0 launches on every main path); the probe phase does
 PROBE_KERNELS = (
@@ -233,8 +245,27 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
+def ptxas_entries(log: str) -> dict:
+    """{mangled kernel name: its ``-Xptxas -v`` lines (spills, registers
+    and shared memory)} of one build log."""
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(
+            r"(?:Compiling entry function|Function properties for) '?(\w+)",
+            line,
+        )
+        if m:
+            name = m.group(1)
+            out.setdefault(name, [])
+        elif name and ("spill" in line or "registers" in line):
+            out[name].append(line.strip())
+    return out
+
+
 def phase_build() -> float:
-    """Build every kernel source of the port; returns wall seconds."""
+    """Build every kernel source of the port; returns wall seconds. Each
+    of the ``TILE_INSTANCES`` instances of the prefill tile of K2 and K4
+    (``lowbit_tile.cuh``) must report no spill."""
     from vptq_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
@@ -245,6 +276,21 @@ def phase_build() -> float:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas: {line.strip()}")
+        clean = 0
+        for entry, lines in ptxas_entries(log).items():
+            if TILE_KERNEL not in entry:
+                continue
+            print(f"  tile {entry}: " + "; ".join(lines))
+            if not any("0 bytes spill stores, 0 bytes spill loads" in line
+                       for line in lines):
+                raise AssertionError(f"{name}: the tile {entry} spills")
+            clean += 1
+        want = TILE_INSTANCES if name in TILE_KERNELS else 0
+        if clean != want:
+            raise AssertionError(
+                f"{name}: {clean} tile instances with 0 spill bytes in the "
+                f"-Xptxas -v log, {want} expected"
+            )
     return seconds
 
 
@@ -397,6 +443,9 @@ FLASH_CASES = (
     ("llama-3.1-8b heads", 1, 2048, 32, 8, 128, 1.0, True),
     ("no tile divides S", 1, 1100, 32, 8, 128, 1.0, False),
     ("head size 64, two sequences", 2, 1100, 8, 2, 64, 1.0, False),
+    # Phi-3-mini's heads: 32 of 96, no grouping
+    ("head size 96", 1, 1024, 32, 32, 96, 1.0, False),
+    ("head size 96", 1, 1100, 32, 32, 96, 1.0, False),
     # q.k / sqrt(D) ~ N(0, 12^2): scores reach about +-50
     ("scores to +-50", 1, 1024, 32, 8, 128, 12.0 ** 0.5, False),
 )
@@ -810,17 +859,15 @@ def write_checkpoint(cfg: dict, vq_kwargs: dict, seed=0, std=SMOKE_STD,
 
 
 def expected_launches(cfg, fmt: str, prompt_len: int, new_tokens: int,
-                      buckets) -> dict:
+                      buckets, dtype=torch.bfloat16) -> dict:
     """Launches of every kernel in one request on the card: the prompt in
     bucket-padded chunks, then one forward call per further token. The
-    first chunk, when it holds 1024 tokens or more and the model has no
-    sliding window, goes through K8 once per layer. A MoE block sends a
-    call of at most 64 tokens through the pairs kernel twice, and a
-    longer one through the expert kernel 2·E times. K7 is on no path."""
-    from vptq_tpu_torch.models.llama import (
-        _FLASH_MIN_SEQ,
-        _MOE_FAST_MAX_TOKENS,
-    )
+    first chunk, when it holds 1024 tokens or more, the model has no
+    sliding window and K8 is built for ``dtype`` and the head size, goes
+    through K8 once per layer. A MoE block sends a call of at most 64
+    tokens through the pairs kernel twice, and a longer one through the
+    expert kernel 2·E times. K7 is on no path."""
+    from vptq_tpu_torch.models.llama import _MOE_FAST_MAX_TOKENS, takes_flash
     from vptq_tpu_torch.serving.generate import _pad_bucket
 
     layers = cfg.num_hidden_layers
@@ -829,7 +876,7 @@ def expected_launches(cfg, fmt: str, prompt_len: int, new_tokens: int,
         for done in range(0, prompt_len, buckets[-1])
     ] + [1] * (new_tokens - 1)
     expected = dict.fromkeys(ALL_KERNELS, 0)
-    if calls[0] >= _FLASH_MIN_SEQ and cfg.sliding_window is None:
+    if takes_flash(cfg, calls[0], dtype):
         expected[FLASH] = layers
     if not cfg.num_local_experts:
         expected[FORMAT_KERNEL[fmt]] = 4 * layers * len(calls)
@@ -901,7 +948,7 @@ def phase_e2e(device, path, fmt: str, vocab: int,
     prompts = [rng.integers(0, vocab, n).tolist() for n in prompt_lens]
     flash = [
         p for p in prompts
-        if expected_launches(cfg, fmt, len(p), 1, buckets)[FLASH]
+        if expected_launches(cfg, fmt, len(p), 1, buckets, gen.dtype)[FLASH]
     ]
     on_path = (
         FORMAT_KERNEL[fmt], *(MOE_KERNELS[fmt] if moe else ()),
@@ -928,7 +975,7 @@ def phase_e2e(device, path, fmt: str, vocab: int,
         t_end = time.perf_counter()
         counts = {k: f.launches for k, f in fns.items()}
         expected = expected_launches(
-            cfg, fmt, len(prompt), len(out), buckets
+            cfg, fmt, len(prompt), len(out), buckets, gen.dtype
         )
         if not cuda:
             expected = dict.fromkeys(expected, 0)
@@ -1034,14 +1081,23 @@ def _device_events(prof):
     ]
 
 
+def tag_sets(trace_tags: tuple) -> tuple:
+    """A wrapper's ``trace_tags`` as tuples of words: a kernel whose name
+    holds every word of one of them is the wrapper's. A wrapper whose
+    CUDA kernels share no words beyond another wrapper's gives one tuple
+    per family of them."""
+    return trace_tags if isinstance(trace_tags[0], tuple) else (trace_tags,)
+
+
 def _kernel_ms(events, tags: dict, what: str, per: int = 1) -> dict:
     """Device ms of the events whose names hold each kernel's words."""
     out = {
         name: sum(
             e.device_time_total for e in events
-            if all(tag in e.name for tag in words)
+            if any(all(tag in e.name for tag in words)
+                   for words in tag_sets(trace_tags))
         ) / 1e3 / per
-        for name, words in tags.items()
+        for name, trace_tags in tags.items()
     }
     for name, ms in out.items():
         if not ms > 0:
@@ -1250,7 +1306,9 @@ def main() -> int:
     )
     rows = []
     for name in FORMAT_KERNEL.values():
-        rows += phase_kernel(name, device, k1_shapes(LLAMA31_8B))
+        extra = (LONG_CHUNK,) if name in TILE_KERNELS else ()
+        tokens = (1, 128, 512) + extra
+        rows += phase_kernel(name, device, k1_shapes(LLAMA31_8B), tokens)
     rows += phase_kernel(
         "w8_matmul", device, k1_shapes(QWEN25_7B), in_record=False
     )

@@ -80,6 +80,26 @@ def test_greedy_tokens_identical(tmp_path, jax_pallas_int8, max_seq):
     assert got == want
 
 
+@pytest.mark.parametrize("fmt", ["int8", "int4"])
+def test_fp16_greedy_tokens_identical(tmp_path, jax_pallas_int8, fmt):
+    """A model loaded in fp16 computes what vptq_tpu's fp16 model does:
+    the linears round x to bf16, sum in f32 and round the sums to fp16."""
+    path = _checkpoint(tmp_path, seed=4)
+    prompt = np.random.default_rng(3).integers(0, TINY["vocab_size"], 20)
+    buckets = (16, 32)
+    jmodel = j_load_model(path, dtype=jnp.float16, runtime_format=fmt)
+    want = JGenerator(
+        jmodel, max_seq=64, dtype=jnp.float16, prompt_buckets=buckets
+    ).generate(prompt, max_new_tokens=10, chunk_size=4)
+    tmodel = load_model(path, dtype=torch.float16, runtime_format=fmt,
+                        device="cpu")
+    assert tmodel.embed_tokens.dtype == torch.float16
+    got = Generator(
+        tmodel, max_seq=64, dtype=torch.float16, prompt_buckets=buckets
+    ).generate(prompt, max_new_tokens=10, chunk_size=4)
+    assert len(want) == 10 and got == want
+
+
 @pytest.mark.parametrize(
     "vq",
     [

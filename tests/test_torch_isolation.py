@@ -237,7 +237,8 @@ def test_chip_smoke_long_prompts_on_cpu(window):
     2048-token chunk and one in two chunks; K8 is on the path unless the
     model has a sliding window, and the long prompt's logits are held
     against the plain versions."""
-    cfg = dict(TINY, tie_word_embeddings=False)
+    # head size 64, which K8 is built for (TINY's 16 is not)
+    cfg = dict(TINY, tie_word_embeddings=False, hidden_size=256, head_dim=64)
     if window:
         cfg.update(model_type="mistral", sliding_window=window)
     path, _ = chip_smoke.write_checkpoint(cfg, VQ)
@@ -331,11 +332,13 @@ def test_expected_launches_of_a_request():
     2 of the pairs kernel for a call of at most 64 tokens and 2·E of the
     expert kernel for a longer one."""
     buckets = [128, 512, 2048]
-    dense = tiny_model_config(num_hidden_layers=3)
+    # Llama's head size, which K8 is built for
+    dense = tiny_model_config(num_hidden_layers=3, head_dim=128)
     got = chip_smoke.expected_launches(dense, "int4", 16, 32, buckets)
     assert got.pop("w4_matmul") == 4 * 3 * 32 and set(got.values()) == {0}
     moe = tiny_model_config(num_hidden_layers=3, model_type="mixtral",
-                            num_local_experts=8, num_experts_per_tok=2)
+                            num_local_experts=8, num_experts_per_tok=2,
+                            head_dim=128)
     for prompt in (16, 128, 512):
         got = chip_smoke.expected_launches(moe, "int8", prompt, 32, buckets)
         assert got.pop("w8_matmul") == 2 * 3 * 32
@@ -368,6 +371,14 @@ def test_expected_launches_of_a_request():
     assert set(got.values()) == {0}
     assert chip_smoke.expected_launches(
         dense, "int8", 1536, 32, [128, 512])["flash_attention"] == 0
+    # K8 is built for bf16 at head sizes 64, 96 and 128 only
+    for dtype in (torch.float32, torch.float16):
+        assert chip_smoke.expected_launches(
+            dense, "int8", 1536, 32, buckets, dtype)["flash_attention"] == 0
+    for dim, want in ((96, 3), (80, 0), (16, 0)):
+        model = tiny_model_config(num_hidden_layers=3, head_dim=dim)
+        assert chip_smoke.expected_launches(
+            model, "int8", 1536, 32, buckets)["flash_attention"] == want
 
 
 def test_k1_shapes_of_qwen25_7b_and_mistral_7b():
@@ -408,6 +419,45 @@ def test_moe_shapes_of_mixtral_8x7b():
     assert cfg.sliding_window is None
 
 
+def _ptxas_log(entry: str, spill: int) -> str:
+    return (
+        f"ptxas info    : Compiling entry function '{entry}' for 'sm_90a'\n"
+        f"ptxas info    : Function properties for {entry}\n"
+        f"    0 bytes stack frame, {spill} bytes spill stores, {spill} bytes "
+        "spill loads\n"
+        "ptxas info    : Used 168 registers, used 1 barriers\n"
+    )
+
+
+@pytest.mark.parametrize("tiles,spill,ok", [
+    (chip_smoke.TILE_INSTANCES, 0, True),
+    (chip_smoke.TILE_INSTANCES, 8, False),       # a tile spills
+    (chip_smoke.TILE_INSTANCES - 1, 0, False),   # an instance went missing
+    (0, 0, False),                               # no -Xptxas -v lines
+])
+def test_build_phase_requires_every_tile_instance_spill_free(
+    monkeypatch, tiles, spill, ok
+):
+    """The build phase passes only when each library of the prefill tile
+    reports every tile instance with 0 spill bytes."""
+    logs = {
+        name: "".join(
+            _ptxas_log(f"_ZN6lowbit4tile7wg_tileI{name}{i}EEvv", spill)
+            for i in range(tiles if name in chip_smoke.TILE_KERNELS else 0)
+        ) + _ptxas_log(f"_ZN6lowbit4gemv{name}", 0)
+        for name in _build.SOURCES
+    }
+    monkeypatch.setattr(
+        _build, "build",
+        lambda force=False: {name: (0.0, log) for name, log in logs.items()},
+    )
+    if ok:
+        chip_smoke.phase_build()
+    else:
+        with pytest.raises(AssertionError, match="tile"):
+            chip_smoke.phase_build()
+
+
 @pytest.mark.parametrize("name", sorted(chip_smoke.ALL_KERNELS))
 def test_kernel_names_its_tpu_kernel_and_trace_tags(name):
     """A wrapper's ``replaces`` points at the Pallas kernel body it ports,
@@ -438,12 +488,13 @@ def test_kernel_names_its_tpu_kernel_and_trace_tags(name):
         for header in sorted(csrc.glob("*.cuh")):
             if f'#include "{header.name}"' in src:
                 src += header.read_text()
-    assert all(tag in src for tag in fn.trace_tags)
+    mine = chip_smoke.tag_sets(fn.trace_tags)
+    assert all(tag in src for tags in mine for tag in tags)
     assert name in _build.SOURCES
-    others = [chip_smoke.kernel_fns(k)[0].trace_tags
-              for k in chip_smoke.ALL_KERNELS if k != name]
-    assert all(set(fn.trace_tags) - set(tags) and set(tags) - set(fn.trace_tags)
-               for tags in others)
+    others = [tags for k in chip_smoke.ALL_KERNELS if k != name
+              for tags in chip_smoke.tag_sets(chip_smoke.kernel_fns(k)[0].trace_tags)]
+    assert all(set(a) - set(b) and set(b) - set(a)
+               for a in mine for b in others)
 
 
 @pytest.fixture
@@ -514,6 +565,61 @@ def test_lowbit_kernel_matches_plain_version(cuda, kernel, tokens, out_dtype):
     )
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "out_dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("in_p", ["min", 14336])
+@pytest.mark.parametrize("tokens", [17, 40, 64, 65, 128, 300, 512])
+@pytest.mark.parametrize("kernel", ["w4", "w3"])
+def test_lowbit_tile_matches_plain_version(cuda, kernel, tokens, in_p,
+                                           out_dtype):
+    """K2 and K4 past the GEMV run the Hopper tile: both token buckets
+    (64 and 128 a tile), ragged T, 200 rows (ragged out), the format's
+    smallest width (K2 256; K4 1024, one group a part) and down's depth
+    (many turns of the ring), f32 / bf16 / fp16 out."""
+    in_p = {"w4": 256, "w3": 1024}[kernel] if in_p == "min" else in_p
+    gen = torch.Generator(device=cuda).manual_seed(tokens + in_p)
+    fn, ref, weights = _lowbit_case(kernel, gen, cuda, in_p=in_p)
+    x = torch.randn((tokens, in_p), generator=gen, device=cuda)
+    before = fn.launches
+    got = fn(x, *weights, out_dtype=out_dtype)
+    want = ref(x, *weights, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    assert got.shape == (tokens, 200) and got.dtype == out_dtype
+    _assert_kernel_close(got, want, out_dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tokens", [1, 16, 40, 130])
+@pytest.mark.parametrize("kernel", ["w8", "w4", "w2g64", "w3", "bf16"])
+def test_linear_kernels_take_fp16(cuda, kernel, tokens):
+    """K1-K4 and K7 on fp16 x with fp16 out, as a model loaded in fp16
+    calls them: x rounded to bf16, f32 sums, one rounding to fp16."""
+    gen = torch.Generator(device=cuda).manual_seed(tokens)
+    if kernel == "w8":
+        fn, ref = w8_matmul, w8_matmul_reference
+        weights = (
+            torch.randint(-127, 128, (200, 2048), generator=gen, device=cuda,
+                          dtype=torch.int8),
+            torch.rand((4, 200), generator=gen, device=cuda) * 1e-2,
+        )
+    elif kernel == "bf16":
+        fn, ref = bf16_matmul, bf16_matmul_reference
+        weights = ((torch.randn((200, 2048), generator=gen, device=cuda)
+                    * 0.05).to(torch.bfloat16),)
+    else:
+        fn, ref, weights = _lowbit_case(kernel, gen, cuda)
+    x = torch.randn((tokens, 2048), generator=gen, device=cuda).half()
+    before = fn.launches
+    got = fn(x, *weights)
+    want = ref(x, *weights)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    assert got.shape == (tokens, 200) and got.dtype == torch.float16
+    _assert_kernel_close(got, want, torch.float16)
+
+
 def _stacked_case(fmt, gen, device, n_experts=5, out_f=200, in_p=2048):
     """Stacked experts of random codes with an odd number of rows."""
     if fmt == "int8":
@@ -531,10 +637,14 @@ def _stacked_case(fmt, gen, device, n_experts=5, out_f=200, in_p=2048):
             w4_matmul_pairs, w4_matmul_pairs_reference, wq, scales)
 
 
+# both sum exact products in f32 per group: in f32 only the summation
+# order differs; in bf16 and fp16, an ulp or so of the final rounding
+# (2^-8 and 2^-11 relative)
+KERNEL_RTOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2, torch.float16: 1e-3}
+
+
 def _assert_kernel_close(got, want, out_dtype):
-    # both sum exact products in f32 per group: in f32 only the summation
-    # order differs; in bf16, one ulp of the final rounding
-    rtol = 1e-5 if out_dtype == torch.float32 else 1e-2
+    rtol = KERNEL_RTOL[out_dtype]
     torch.testing.assert_close(
         got.float(), want.float(), rtol=rtol,
         atol=rtol * want.float().abs().max().item(),
@@ -683,7 +793,7 @@ def _assert_flash_close(got, want):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("batch", [1, 2])
-@pytest.mark.parametrize("dim", [64, 128])
+@pytest.mark.parametrize("dim", [64, 96, 128])
 @pytest.mark.parametrize("seq", [1, 63, 64, 65, 1024, 1100])
 def test_flash_kernel_matches_plain_version(cuda, seq, dim, batch):
     gen = torch.Generator(device=cuda).manual_seed(seq + dim)
@@ -733,7 +843,7 @@ def test_flash_kernel_runs_on_the_current_stream_and_refuses(cuda):
     _assert_flash_close(got, flash_attention_reference(q, k, v, 0.125))
     with pytest.raises(ValueError, match="bfloat16"):
         flash_attention(q.float(), k.float(), v.float(), 0.125)
-    with pytest.raises(ValueError, match=r"supported sizes are \(64, 128\)"):
+    with pytest.raises(ValueError, match=r"head sizes \(64, 96, 128\)"):
         flash_attention(q[..., :32], k[..., :32], v[..., :32], 0.125)
     with pytest.raises(ValueError, match="one device"):
         flash_attention(q, k.cpu(), v, 0.125)
@@ -769,14 +879,7 @@ def test_long_fresh_prefill_goes_through_k8(cuda, checkpoint):
     from vptq_tpu_torch.models.llama import forward, init_cache
     from vptq_tpu_torch.models.loader import load_model
 
-    # head_dim 64: TINY's 16 is a size the kernel is not built for
-    path = Path(checkpoint) / "wide"
-    write_synthetic_checkpoint(
-        path, tiny_model_config(**{**TINY, "hidden_size": 256, "head_dim": 64},
-                                tie_word_embeddings=False),
-        vq_kwargs=VQ, seed=0, std=0.05,
-    )
-    model = load_model(str(path), runtime_format="int8", device=cuda)
+    model = load_model(_wide(checkpoint), runtime_format="int8", device=cuda)
     tokens = torch.arange(1024, device=cuda)[None] % TINY["vocab_size"]
 
     def run():
@@ -796,10 +899,59 @@ def test_long_fresh_prefill_goes_through_k8(cuda, checkpoint):
     diff = (got - want).abs().max().item()
     assert diff <= chip_smoke.LOGIT_TOL * want.abs().max().item()
 
+    # TINY's head size 16 is one the kernel is not built for: the chunk
+    # takes the cache attention, on the card as on the CPU
     tiny = load_model(checkpoint, runtime_format="int8", device=cuda)
     cache = init_cache(tiny.cfg, 1, 2048, torch.bfloat16, cuda)
-    with pytest.raises(ValueError, match="supported sizes"):
-        forward(tiny, tokens, cache, fresh_prefill=True)
+    with torch.inference_mode():
+        logits, _ = forward(tiny, tokens, cache, fresh_prefill=True)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + TINY["num_hidden_layers"]
+    assert bool(torch.isfinite(logits).all())
+
+
+def _wide(checkpoint) -> str:
+    """TINY at head size 64, which K8 is built for, beside ``checkpoint``."""
+    path = Path(checkpoint) / "wide"
+    write_synthetic_checkpoint(
+        path, tiny_model_config(**{**TINY, "hidden_size": 256, "head_dim": 64},
+                                tie_word_embeddings=False),
+        vq_kwargs=VQ, seed=0, std=0.05,
+    )
+    return str(path)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16])
+def test_long_prompts_in_f32_and_fp16_are_served(cuda, checkpoint, dtype):
+    """A model loaded in f32 or fp16 serves an 1100-token prompt on the
+    card: its fresh chunk takes the cache attention (K8 is built for
+    bf16), its linears the int4 tile, and its logits are those of the
+    plain versions."""
+    from vptq_tpu_torch.models.llama import forward, init_cache
+    from vptq_tpu_torch.models.loader import load_model
+
+    model = load_model(_wide(checkpoint), runtime_format="int4", device=cuda,
+                       dtype=dtype)
+    tokens = torch.arange(1100, device=cuda)[None] % TINY["vocab_size"]
+
+    def run():
+        cache = init_cache(model.cfg, 1, 2048, dtype, cuda)
+        with torch.inference_mode():
+            logits, _ = forward(model, tokens, cache, dtype=dtype,
+                                fresh_prefill=True)
+        torch.cuda.synchronize()
+        return logits
+
+    flash, w4 = flash_attention.launches, w4_matmul.launches
+    got = run()
+    assert flash_attention.launches == flash
+    assert w4_matmul.launches == w4 + 4 * TINY["num_hidden_layers"]
+    assert bool(torch.isfinite(got).all())
+    with chip_smoke.plain_versions("int4"):
+        want = run()
+    diff = (got.float() - want.float()).abs().max().item()
+    assert diff <= chip_smoke.LOGIT_TOL * want.float().abs().max().item()
 
 
 @pytest.mark.cuda

@@ -316,7 +316,7 @@ cudaError_t launch(const __nv_bfloat16* q, const __nv_bfloat16* k,
 
 // Strides in elements: *_sb between batches, *_ss between positions; a
 // head's D values are contiguous and heads lie D apart. Requires D in
-// {64, 128}, H % KV == 0, S >= 1, H and B at most 65535, 16-byte aligned
+// {64, 96, 128}, H % KV == 0, S >= 1, H and B at most 65535, 16-byte aligned
 // pointers and strides that are multiples of 8. Returns the CUDA error
 // code of the launch (0 on success).
 extern "C" int vptq_flash_attention(const void* q, const void* k,
@@ -336,6 +336,9 @@ extern "C" int vptq_flash_attention(const void* q, const void* k,
   switch (D) {
     case 64:
       return (int)fa::launch<64>(qp, kp, vp, op, B, S, H, KV, q_sb, q_ss,
+                                 k_sb, k_ss, v_sb, v_ss, scale, s);
+    case 96:
+      return (int)fa::launch<96>(qp, kp, vp, op, B, S, H, KV, q_sb, q_ss,
                                  k_sb, k_ss, v_sb, v_ss, scale, s);
     case 128:
       return (int)fa::launch<128>(qp, kp, vp, op, B, S, H, KV, q_sb, q_ss,

@@ -41,14 +41,14 @@
 //    one group add their sums with shuffles, the first of them multiplies
 //    the group's scale in, and the rows' totals are summed across the warp
 //    at the end.
-//  * gemm (T > 16): 64 x 128 output tiles, 8 warps, bf16 mma.sync
+//  * gemm (T > 16; K3 and K6b: K2 and K4 take lowbit_tile.cuh's Hopper
+//    tile instead): 64 x 128 output tiles, 8 warps, bf16 mma.sync
 //    m16n8k16 with f32 accumulators (K1's tile). A block walks positions
 //    one group (G) at a time: each thread loads its 16 bytes of each plane
 //    for the group's G/32 slabs into registers once, then for each part
 //    unpacks them into exact bf16 levels in shared memory beside the x
 //    slab of that part and runs the MMAs; at the part's group edge the
 //    accumulators are scaled per column and added to the totals.
-// wgmma / TMA pipelining is later work.
 //
 // Two hooks serve the int4 unpack probes (w4_probe_matmul.cu) and change
 // nothing for the formats that do not use them: x may lie in f32 (XT =
@@ -483,6 +483,18 @@ cudaError_t launch_gemv(const XT* x, const Planes& pl,
   return cudaGetLastError();
 }
 
+// T <= 16 tokens: the gemv instantiated for the next power of two
+template <class P, class Sel, int G, typename OutT, typename XT>
+cudaError_t launch_decode(const XT* xb, const Planes& pl, const Scales& sc,
+                          const Ids& ids, OutT* yo, int T, int out, int in_p,
+                          int L, cudaStream_t stream) {
+  if (T <= 1) return launch_gemv<P, Sel, 1, G, OutT, XT>(xb, pl, sc, ids, yo, T, 1, out, in_p, L, stream);
+  if (T <= 2) return launch_gemv<P, Sel, 2, G, OutT, XT>(xb, pl, sc, ids, yo, T, 1, out, in_p, L, stream);
+  if (T <= 4) return launch_gemv<P, Sel, 4, G, OutT, XT>(xb, pl, sc, ids, yo, T, 1, out, in_p, L, stream);
+  if (T <= 8) return launch_gemv<P, Sel, 8, G, OutT, XT>(xb, pl, sc, ids, yo, T, 1, out, in_p, L, stream);
+  return launch_gemv<P, Sel, 16, G, OutT, XT>(xb, pl, sc, ids, yo, T, 1, out, in_p, L, stream);
+}
+
 template <class P, class Sel, int G, typename OutT, typename XT>
 cudaError_t launch_typed(const void* x, const Planes& pl, const Scales& sc,
                          const Ids& ids, void* y, int T, int out, int in_p,
@@ -496,15 +508,26 @@ cudaError_t launch_typed(const void* x, const Planes& pl, const Scales& sc,
     if (T > 65535) return cudaErrorInvalidValue;
     return launch_gemv<P, Sel, 1, G, OutT, XT>(xb, pl, sc, ids, yo, 1, T, out, in_p, L, stream);
   } else {
-    if (T <= 1) return launch_gemv<P, Sel, 1, G, OutT, XT>(xb, pl, sc, ids, yo, T, 1, out, in_p, L, stream);
-    if (T <= 2) return launch_gemv<P, Sel, 2, G, OutT, XT>(xb, pl, sc, ids, yo, T, 1, out, in_p, L, stream);
-    if (T <= 4) return launch_gemv<P, Sel, 4, G, OutT, XT>(xb, pl, sc, ids, yo, T, 1, out, in_p, L, stream);
-    if (T <= 8) return launch_gemv<P, Sel, 8, G, OutT, XT>(xb, pl, sc, ids, yo, T, 1, out, in_p, L, stream);
-    if (T <= 16) return launch_gemv<P, Sel, 16, G, OutT, XT>(xb, pl, sc, ids, yo, T, 1, out, in_p, L, stream);
+    if (T <= 16)
+      return launch_decode<P, Sel, G, OutT, XT>(xb, pl, sc, ids, yo, T, out, in_p, L, stream);
     dim3 grid((out + BN - 1) / BN, (T + BM - 1) / BM);
     gemm<P, Sel, G, OutT, XT><<<grid, kThreads, 0, stream>>>(
         xb, pl, sc, ids, yo, T, out, in_p, L);
     return cudaGetLastError();
+  }
+}
+
+// f(OutT* null) for out_dtype 0 = bf16, 1 = f32: the output type of a
+// launch, as a CUDA error code
+template <class F>
+int with_out_type(int out_dtype, F&& f) {
+  switch (out_dtype) {
+    case 0:
+      return (int)f(static_cast<__nv_bfloat16*>(nullptr));
+    case 1:
+      return (int)f(static_cast<float*>(nullptr));
+    default:
+      return (int)cudaErrorInvalidValue;
   }
 }
 
@@ -515,14 +538,10 @@ int launch(const void* x, const Planes& pl, const Scales& sc, void* y, int T,
            int out, int in_p, int out_dtype, void* stream,
            const Ids& ids = Ids{nullptr, 0}) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (out_dtype) {
-    case 0:
-      return (int)launch_typed<P, Sel, G, __nv_bfloat16, XT>(x, pl, sc, ids, y, T, out, in_p, s);
-    case 1:
-      return (int)launch_typed<P, Sel, G, float, XT>(x, pl, sc, ids, y, T, out, in_p, s);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  return with_out_type(out_dtype, [&](auto* tag) {
+    using OutT = std::remove_pointer_t<decltype(tag)>;
+    return launch_typed<P, Sel, G, OutT, XT>(x, pl, sc, ids, y, T, out, in_p, s);
+  });
 }
 
 }  // namespace lowbit

@@ -15,18 +15,20 @@
 // 0.025 ms at 3.35 TB/s); at T = 512 the bf16 tensor-core FLOPs
 // (0.226 ms per layer at 989 TFLOP/s).
 //
-// Design: the skeleton in lowbit.cuh with eight parts (octants) of
-// L = in_p/8 columns. Position k reads three 16-byte runs: wq2 at k
-// (quarters = even octants 0, 2, 4, 6), wq2 at k + L (odd octants) and
-// wq1 at k (the eight sign bits), so every byte is read once. The level
-// two − 4·sign is built as the 3-bit offset code two | (!sign << 2) in the
-// mantissa of 2^23, minus 2^23 + 4: exact, with no conversion
+// Design: eight parts (octants) of L = in_p/8 columns; T <= 16 runs the
+// GEMV of lowbit.cuh, more tokens the Hopper tile of lowbit_tile.cuh (TMA
+// ring, levels unpacked into bf16 pairs in registers, wgmma). Position k
+// reads three 16-byte runs: wq2 at k (quarters = even octants 0, 2, 4, 6),
+// wq2 at k + L (odd octants) and wq1 at k (the eight sign bits), so every
+// byte is read once. The level two − 4·sign is built as the 3-bit offset
+// code two | (!sign << 2) in the mantissa of 2^23, minus 2^23 + 4 (in
+// the tile: of bf16 128, minus 132): exact, with no conversion
 // instruction. The TPU kernel split the value into two families of
 // sub-dots (two against the quarter, −sign against the octant with 4·s)
 // for its vector unit; here one exact level per weight computes the
 // same function up to summation order.
 
-#include "lowbit.cuh"
+#include "lowbit_tile.cuh"
 
 namespace {
 
@@ -46,6 +48,18 @@ struct W3 {
     const uint32_t ns = (w[2][j >> 2] >> (sh + p)) & 0x1u;
     return lowbit::magic(two | (ns << 2)) - 8388612.0f;  // 2^23 + 4
   }
+  // the prefill tile (lowbit_tile.cuh): octant p reads its quarter plane
+  // (p & 1) and the sign plane; t holds the bytes of two positions in bits
+  // 0-7 and 16-23 of each, and the pair is 128 + code in each bf16 half,
+  // so that subtracting 132 leaves two - 4·sign
+  static constexpr int kTileSlots = 2;
+  static constexpr uint32_t kTileBias = 0x43044304u;  // bf16 (132, 132)
+  __device__ static int tile_plane(int p, int i) { return i ? 2 : p & 1; }
+  __device__ static uint32_t tile_code(const uint32_t (&t)[2], int p) {
+    const uint32_t two = (t[0] >> (2 * (p >> 1))) & 0x00030003u;
+    const uint32_t ns = (~t[1] >> p) & 0x00010001u;
+    return two | (ns << 2) | 0x43004300u;
+  }
 };
 
 }  // namespace
@@ -63,6 +77,6 @@ extern "C" int vptq_w3_matmul(const void* x, const void* wq2,
   lowbit::Planes pl = {{w2, w2, w1}, {2 * L, 2 * L, L}, {0, L, 0}};
   lowbit::Scales sc = {static_cast<const __nv_bfloat16*>(scales),
                        in_p / 128, 1};
-  return lowbit::launch<W3, 128>(x, pl, sc, y, T, out, in_p, out_dtype,
-                                 stream);
+  return lowbit::tile::launch<W3>(x, pl, sc, y, T, out, in_p, out_dtype,
+                                  stream);
 }

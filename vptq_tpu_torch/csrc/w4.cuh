@@ -1,6 +1,7 @@
-// The int4 format of the low-bit skeleton (lowbit.cuh), shared by K2
-// w4_matmul (w4_matmul.cu), K6b w4_matmul_expert (w4_matmul_expert.cu)
-// and K5b w4_matmul_pairs (w4_matmul_pairs.cu).
+// The int4 format of the low-bit skeleton (lowbit.cuh) and of the prefill
+// tile (lowbit_tile.cuh), shared by K2 w4_matmul (w4_matmul.cu), K6b
+// w4_matmul_expert (w4_matmul_expert.cu) and K5b w4_matmul_pairs
+// (w4_matmul_pairs.cu).
 //
 //   wq     (out, in_p / 2)  int8: byte k holds column k in its low nibble
 //                           and column in_p/2 + k in its high nibble,
@@ -36,7 +37,27 @@ struct W4 {
     const uint32_t v = (w[0][j >> 2] >> (8 * (j & 3) + 4 * p)) & 0xFu;
     return lowbit::magic(v) - 8388616.0f;  // 2^23 + 8
   }
+  // the prefill tile (lowbit_tile.cuh): both parts read the one plane;
+  // t holds the bytes of two positions in bits 0-7 and 16-23, and part
+  // p's pair is 128 + (nibble ^ 8) in each bf16 half, so that subtracting
+  // 136 leaves the signed nibble
+  static constexpr int kTileSlots = 1;
+  static constexpr uint32_t kTileBias = 0x43084308u;  // bf16 (136, 136)
+  __device__ static int tile_plane(int, int) { return 0; }
+  __device__ static uint32_t tile_code(const uint32_t (&t)[1], int p) {
+    return ((t[0] >> (4 * p)) & 0x000F000Fu) ^ 0x43084308u;
+  }
 };
+
+// the one plane and the scales of a weight of in_p columns and out rows
+inline lowbit::Planes planes(const void* wq, int in_p) {
+  const auto* w = static_cast<const uint8_t*>(wq);
+  return {{w, nullptr, nullptr}, {in_p / 2, 0, 0}, {0, 0, 0}};
+}
+
+inline lowbit::Scales scales_of(const void* scales, int out) {
+  return {static_cast<const __nv_bfloat16*>(scales), 1, out};
+}
 
 // Returns the CUDA error of the launch (0 on success). Requires
 // in_p % 256 == 0, 16-byte aligned x and wq, all tensors contiguous on
@@ -45,13 +66,10 @@ template <class Sel>
 int launch(const void* x, const void* wq, const void* scales, const void* ids,
            void* y, int T, int out, int in_p, int n_experts, int out_dtype,
            void* stream) {
-  const int L = in_p / 2;
-  const auto* w = static_cast<const uint8_t*>(wq);
-  lowbit::Planes pl = {{w, nullptr, nullptr}, {L, 0, 0}, {0, 0, 0}};
-  lowbit::Scales sc = {static_cast<const __nv_bfloat16*>(scales), 1, out};
   lowbit::Ids sel_ids = {static_cast<const int*>(ids), n_experts};
-  return lowbit::launch<W4, 128, Sel>(x, pl, sc, y, T, out, in_p, out_dtype,
-                                      stream, sel_ids);
+  return lowbit::launch<W4, 128, Sel>(x, planes(wq, in_p),
+                                      scales_of(scales, out), y, T, out, in_p,
+                                      out_dtype, stream, sel_ids);
 }
 
 }  // namespace w4

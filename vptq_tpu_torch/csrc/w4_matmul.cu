@@ -12,9 +12,11 @@
 // 0.034 ms at 3.35 TB/s); at T = 512 the bf16 tensor-core FLOPs
 // (2·T·out·in_p, 0.226 ms per layer at 989 TFLOP/s).
 //
-// Design: the skeleton in lowbit.cuh with the int4 format of w4.cuh, on
-// one whole weight.
+// Design: the int4 format of w4.cuh on one whole weight; T <= 16 runs
+// the GEMV of lowbit.cuh, more tokens the Hopper tile of lowbit_tile.cuh
+// (TMA ring, levels unpacked into bf16 pairs in registers, wgmma).
 
+#include "lowbit_tile.cuh"
 #include "w4.cuh"
 
 // Returns the CUDA error of the launch (0 on success). Requires
@@ -23,6 +25,7 @@
 extern "C" int vptq_w4_matmul(const void* x, const void* wq,
                               const void* scales, void* y, int T, int out,
                               int in_p, int out_dtype, void* stream) {
-  return w4::launch<sel::Whole>(x, wq, scales, nullptr, y, T, out, in_p, 0,
-                                out_dtype, stream);
+  return lowbit::tile::launch<w4::W4>(x, w4::planes(wq, in_p),
+                                      w4::scales_of(scales, out), y, T, out,
+                                      in_p, out_dtype, stream);
 }

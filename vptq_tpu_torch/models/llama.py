@@ -3,8 +3,9 @@ in torch.
 
 Port of the dense-Llama and Mixtral parts of ``vptq_tpu/models/llama.py``:
 RMSNorm, RoPE (default and llama3 scaling), GQA attention over a
-per-layer KV cache (a fresh prefill of 1024 tokens or more through the
-flash-attention kernel K8; Mistral's sliding window in the masks), SwiGLU,
+per-layer KV cache (a fresh bf16 prefill of 1024 tokens or more, at a
+head size it is built for, through the flash-attention kernel K8;
+Mistral's sliding window in the masks), SwiGLU,
 with every projection a runtime linear (Qwen2's q/k/v carry a bias), and
 the sparse MoE block (f32 router, top-k, softmax over the top-k) whose
 stacked int8 / int4 experts run through the expert kernels K6 (every
@@ -29,7 +30,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from vptq_tpu_torch.ops.flash_attention import flash_attention
+from vptq_tpu_torch.ops.flash_attention import flash_attention, kernel_takes
 from vptq_tpu_torch.ops.w4_matmul_expert import w4_matmul_expert
 from vptq_tpu_torch.ops.w4_matmul_pairs import w4_matmul_pairs
 from vptq_tpu_torch.ops.w8_matmul_expert import w8_matmul_expert
@@ -46,11 +47,13 @@ __all__ = [
     "StackedExperts",
     "forward",
     "init_cache",
+    "takes_flash",
 ]
 
 # a fresh prefill this long (and no sliding window) takes the
-# flash-attention kernel K8, as in the JAX package on a TPU; shorter
-# chunks and chunks at an offset take _cache_and_attend
+# flash-attention kernel K8, as in the JAX package on a TPU, when K8 is
+# built for its dtype and head size; shorter chunks, chunks at an offset
+# and the rest take _cache_and_attend
 _FLASH_MIN_SEQ = 1024
 _DECODE_BLOCK = 256
 
@@ -353,11 +356,7 @@ def _attention(
     q = apply_rope(q.reshape(batch, seq, nh, hd), cos, sin)
     k = apply_rope(k.reshape(batch, seq, nkv, hd), cos, sin)
     v = v.reshape(batch, seq, nkv, hd)
-    if (
-        fresh_prefill
-        and seq >= _FLASH_MIN_SEQ
-        and cfg.sliding_window is None
-    ):
+    if fresh_prefill and takes_flash(cfg, seq, q.dtype):
         # fused causal attention over the fresh chunk only (offset 0), in
         # the activation dtype; v stays a view into the fused q|k|v row
         _insert_kv(block_idx, k, v, cache)
@@ -367,6 +366,18 @@ def _attention(
             block_idx, q, k, v, cache, offsets, cfg, scale=hd ** -0.5
         )
     return attn.o_proj(out.to(x.dtype))
+
+
+def takes_flash(cfg: ModelConfig, seq: int, dtype: torch.dtype) -> bool:
+    """Whether a fresh chunk of ``seq`` tokens in ``dtype`` goes through
+    K8: long enough, no sliding window, and a dtype and head size the
+    kernel is built for. It depends on no device: a model takes one route
+    on the CPU and on the card."""
+    return (
+        seq >= _FLASH_MIN_SEQ
+        and cfg.sliding_window is None
+        and kernel_takes(dtype, cfg.head_dim)
+    )
 
 
 def _decode_attend_blocks(

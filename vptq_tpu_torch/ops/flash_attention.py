@@ -26,10 +26,15 @@ import torch
 
 from vptq_tpu_torch.ops import _build
 
-__all__ = ["HEAD_DIMS", "flash_attention", "flash_attention_reference"]
+__all__ = [
+    "HEAD_DIMS",
+    "flash_attention",
+    "flash_attention_reference",
+    "kernel_takes",
+]
 
 # head sizes the kernel is instantiated for
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 96, 128)
 # DEFAULT_MASK_VALUE of the TPU op: masked scores are large and finite
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 
@@ -55,6 +60,13 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> int:
             f"{k.dtype}, {v.dtype}"
         )
     return heads // kv_heads
+
+
+def kernel_takes(dtype: torch.dtype, head_dim: int) -> bool:
+    """Whether the kernel is built for activations of ``dtype`` at
+    ``head_dim``: bf16 at a size of :data:`HEAD_DIMS`. The model routes
+    by this alone, on every device, so the CPU takes the card's route."""
+    return dtype == torch.bfloat16 and head_dim in HEAD_DIMS
 
 
 def flash_attention_reference(
@@ -127,14 +139,10 @@ def flash_attention(
         )
     batch, seq, heads, dim = q.shape
     kv_heads = k.shape[2]
-    if dim not in HEAD_DIMS:
+    if not kernel_takes(q.dtype, dim):
         raise ValueError(
-            f"flash_attention: head size {dim} is not built; supported "
-            f"sizes are {HEAD_DIMS}"
-        )
-    if q.dtype != torch.bfloat16:
-        raise ValueError(
-            f"flash_attention: the kernel takes bfloat16, got {q.dtype}"
+            f"flash_attention: the kernel takes bfloat16 at head sizes "
+            f"{HEAD_DIMS}, got {q.dtype} at {dim}"
         )
     if k.device != q.device or v.device != q.device:
         raise ValueError("flash_attention: all tensors must be on one device")

@@ -25,6 +25,9 @@ from vptq_tpu_torch.ops import _build
 
 __all__ = ["check_pairs", "grouped_reference", "launch", "pick_expert"]
 
+# the output dtypes the kernels write, by their out_dtype code; fp16 is
+# written as f32 and rounded once, to nearest even, on the way out (the
+# TPU wrappers round their f32 sums to x.dtype the same way)
 _OUT_CODES = {torch.bfloat16: 0, torch.float32: 1}
 
 
@@ -104,14 +107,15 @@ def launch(
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError(f"{lib_name}: weights and scales must be contiguous")
     out_dtype = out_dtype or x.dtype
-    if out_dtype not in _OUT_CODES:
+    kernel_dtype = torch.float32 if out_dtype == torch.float16 else out_dtype
+    if kernel_dtype not in _OUT_CODES:
         raise ValueError(f"unsupported output dtype {out_dtype}")
     lead = x.shape[:-1]
     x2 = x.reshape(-1, in_p).to(x_dtype).contiguous()
     tokens = x2.shape[0]
-    y = torch.empty(tokens, out_f, dtype=out_dtype, device=x.device)
+    y = torch.empty(tokens, out_f, dtype=kernel_dtype, device=x.device)
     if tokens == 0:
-        return y.reshape(*lead, out_f)
+        return y.to(out_dtype).reshape(*lead, out_f)
     # the kernels read x and every packed plane (all tensors but the
     # scales and the ids) with 16-byte loads
     planes = tensors[: -1 if ids is None else -2]
@@ -129,8 +133,8 @@ def launch(
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = getattr(lib, fn_name)(
             x2.data_ptr(), *(t.data_ptr() for t in tensors), y.data_ptr(),
-            tokens, out_f, in_p, *ints, _OUT_CODES[out_dtype], stream,
+            tokens, out_f, in_p, *ints, _OUT_CODES[kernel_dtype], stream,
         )
     if err:
         raise RuntimeError(f"{lib_name} kernel launch failed: CUDA error {err}")
-    return y.reshape(*lead, out_f)
+    return y.to(out_dtype).reshape(*lead, out_f)

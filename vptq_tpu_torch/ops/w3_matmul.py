@@ -84,6 +84,7 @@ def w3_matmul(
 w3_matmul.launches = 0
 # the TPU kernel this one replaces
 w3_matmul.replaces = "vptq_tpu/ops/pallas_gemm.py:1218"
-# words of the demangled names of its CUDA kernels (lowbit.cuh's, with
-# the policy W3 of csrc/w3_matmul.cu) that pick them out of a trace
+# words of the demangled names of its CUDA kernels (lowbit.cuh's GEMV and
+# lowbit_tile.cuh's tile, with the policy W3 of csrc/w3_matmul.cu) that
+# pick them out of a trace
 w3_matmul.trace_tags = ("lowbit", "W3")
