@@ -13,15 +13,16 @@ without them, or when any phase fails. Phases:
    ``flash_attention``, K7 ``bf16_matmul`` and the probes P1/P2
    ``w4_probe_matmul``, ``w4_i32x8_matmul``, ``w4_raw_probe`` and P3
    ``vq_smallk_matmul``), one ``nvcc`` each, all at once; the
-   ``-Xptxas -v`` lines of K2's and K4's prefill tile
-   (``lowbit_tile.cuh``), which must show no spill;
+   ``-Xptxas -v`` lines of the prefill tile (``lowbit_tile.cuh``) in K2,
+   K3, K4 and K6b, every instance of which must show no spill;
 2. each of K1-K4 at the four linear shapes of Llama-3.1-8B, on layers its
    format's encoder makes on the card from a random weight (K1 group
-   2048, K3 group 64), at T=1 (decode) and T=128 and T=512 (prefill
-   buckets), K2 and K4 also at T=2048 (the long-prefill chunk, through
-   their tile): the kernel held against its plain version on the card, then
-   timed with CUDA events (L2 flushed before each launch) beside the
-   plain version and a ``torch.matmul`` yardstick; K1 also at the four
+   2048, K3 group 64, and 128 beside it), at T=1 (decode) and T=128 and
+   T=512 (prefill buckets), K2, K3 and K4 also at T=2048 (the
+   long-prefill chunk, through their tile): the kernel held against its
+   plain version on the card, then timed with CUDA events (L2 flushed
+   before each launch) beside the plain version and a ``torch.matmul``
+   yardstick; K1 also at the four
    shapes of Qwen2.5-7B (group 512; intermediate 18944 padded to 19456);
    K7 at the Llama shapes on a random bf16 weight; K8 at Llama-3.1-8B's
    heads (32 over 8 KV heads of 128) on N(0, 1) q, k, v with v a strided
@@ -32,7 +33,9 @@ without them, or when any phase fails. Phases:
 3. the MoE kernels at Mixtral-8x7B's two expert shapes (gate_up
    28672 x 4096, down 4096 x 14336) on stacks of 8 experts that the int8
    and int4 encoders make on the card: K6a / K6b at T=1, 128 and 512 (one
-   expert, the last of the stack), K5a / K5b at P=2 (one token's top-2)
+   expert, the last of the stack, whose slab starts 411 MB into gate_up's
+   int4 stack), K6b also at T=2048 (Mixtral's long chunk, through the
+   tile), K5a / K5b at P=2 (one token's top-2)
    and P=16 (8 tokens' top-2) pairs, each against its plain version and
    timed like phase 2, the bound counting the distinct experts read;
    yardsticks ``torch.matmul`` with one expert's dequantized bf16 weight
@@ -72,8 +75,9 @@ without them, or when any phase fails. Phases:
    K5, per layer and prefill chunk 16 of K6, K8 as above, every other
    kernel 0; the
    first prompt's prefill logits, and one decode step's, through the
-   kernels against the plain versions; the profiled decode steps must
-   hold no device-to-host copy (the expert ids stay on the card);
+   kernels against the plain versions; the profiled decode steps and the
+   profiled long prefill must hold no device-to-host copy (the expert ids
+   stay on the card);
 7. end to end in int8 on one synthetic checkpoint of Qwen2.5-7B geometry
    (a bias on q, k and v; K1's first widths that pad), the same four
    requests, the long prompt's logits against the plain versions;
@@ -209,12 +213,15 @@ MOE_KERNELS = {
     "int4": ("w4_matmul_expert", "w4_matmul_pairs"),
 }
 FLASH, BF16 = "flash_attention", "bf16_matmul"
-# a word of the mangled name of the Hopper prefill tile of K2 and K4,
-# which the kernel phase also times at a long prefill chunk
+# a word of the mangled name of the Hopper prefill tile
+# (lowbit_tile.cuh), and its instances in each library that holds it: one
+# per output type (bf16, f32), and in K3 per scale group (64, 128) too.
+# The kernel phases also time these kernels at a long prefill chunk.
 TILE_KERNEL = "wg_tile"
-TILE_KERNELS = ("w4_matmul", "w3_matmul")
-# its instances in each of those libraries: one per output type (bf16, f32)
-TILE_INSTANCES = 2
+TILE_INSTANCES = {
+    "w4_matmul": 2, "w3_matmul": 2, "w2_matmul": 4, "w4_matmul_expert": 2,
+}
+TILE_KERNELS = tuple(TILE_INSTANCES)
 LONG_CHUNK = 2048
 # the int4-unpack probes P1 / P2 and the small-codebook VQ probe P3: no
 # layer calls them (0 launches on every main path); the probe phase does
@@ -264,8 +271,9 @@ def ptxas_entries(log: str) -> dict:
 
 def phase_build() -> float:
     """Build every kernel source of the port; returns wall seconds. Each
-    of the ``TILE_INSTANCES`` instances of the prefill tile of K2 and K4
-    (``lowbit_tile.cuh``) must report no spill."""
+    library must hold its ``TILE_INSTANCES`` instances of the prefill tile
+    (``lowbit_tile.cuh``), none elsewhere, and each must report no
+    spill."""
     from vptq_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
@@ -285,7 +293,7 @@ def phase_build() -> float:
                        for line in lines):
                 raise AssertionError(f"{name}: the tile {entry} spills")
             clean += 1
-        want = TILE_INSTANCES if name in TILE_KERNELS else 0
+        want = TILE_INSTANCES.get(name, 0)
         if clean != want:
             raise AssertionError(
                 f"{name}: {clean} tile instances with 0 spill bytes in the "
@@ -313,15 +321,17 @@ def kernel_fns(name):
     return getattr(mod, name), getattr(mod, f"{name}_reference")
 
 
-def make_layer(name, gen, out_f, in_f, device):
+def make_layer(name, gen, out_f, in_f, device, group=None):
     """The runtime layer that kernel ``name``'s format encoder makes from
     one random f32 (out, in) weight on ``device`` (K1 group from
-    ``pick_group``, K3 group 64, the padding the encoders apply)."""
+    ``pick_group``, K3 group 64 unless ``group`` says otherwise, the
+    padding the encoders apply)."""
     from vptq_tpu_torch.layers import runtime as rt
 
     fmt = next(f for f, k in FORMAT_KERNEL.items() if k == name)
     w = torch.randn((out_f, in_f), generator=gen, device=device) * SMOKE_STD
-    return getattr(rt, f"_encode_{fmt}")(w, None)
+    kwargs = {} if group is None else dict(group=group)
+    return getattr(rt, f"_encode_{fmt}")(w, None, **kwargs)
 
 
 def check_and_time(name, label, call, plain, library, nbytes, flops, device,
@@ -365,10 +375,11 @@ def check_and_time(name, label, call, plain, library, nbytes, flops, device,
 
 
 def phase_kernel(name, device, shapes, tokens=(1, 128, 512), iters=20,
-                 seed=0, in_record=True):
+                 seed=0, in_record=True, group=None):
     """One kernel at each shape and token count: agreement with its
     plain version, times and bound. ``in_record``: whether the rows go
-    into the kernel's record (one model's layer) or stand alone."""
+    into the kernel's record (one model's layer) or stand alone;
+    ``group``: K3's scale group, where not its default."""
     from vptq_tpu_torch.examples.kernel_bench import flush_buffer
     from vptq_tpu_torch.layers.runtime import linear_exact_weight
 
@@ -377,7 +388,7 @@ def phase_kernel(name, device, shapes, tokens=(1, 128, 512), iters=20,
     flush = flush_buffer(device)
     rows = []
     for shape, out_f, in_f in shapes:
-        layer = make_layer(name, gen, out_f, in_f, device)
+        layer = make_layer(name, gen, out_f, in_f, device, group)
         args = tuple(layer.buffers())
         w_bf16 = linear_exact_weight(layer).to(torch.bfloat16)
         in_p = w_bf16.shape[1]
@@ -1107,10 +1118,23 @@ def _kernel_ms(events, tags: dict, what: str, per: int = 1) -> dict:
     return out
 
 
+def _device_to_host(events, what: str) -> int:
+    """The device-to-host copies of a trace: there must be none, since a
+    routing id or a length read on the host would be one."""
+    to_host = [e.name for e in events if "dtoh" in e.name.lower()]
+    if to_host:
+        raise AssertionError(
+            f"{len(to_host)} device-to-host copies in {what}: {to_host[:3]}"
+        )
+    return len(to_host)
+
+
 def prefill_breakdown(model, gen, prompt, tags: dict):
     """Wall time of one fresh prefill of ``prompt`` padded into its bucket
     (host clock, synchronized) against the device time of the kernels it
-    runs (``torch.profiler`` CUDA activity, the same call run again)."""
+    runs (``torch.profiler`` CUDA activity, the same call run again). The
+    prefill reads nothing back: the trace must hold no device-to-host
+    copy (a MoE layer's expert ids stay on the card)."""
     from torch.profiler import ProfilerActivity, profile
 
     from vptq_tpu_torch.models.llama import forward, init_cache
@@ -1141,6 +1165,7 @@ def prefill_breakdown(model, gen, prompt, tags: dict):
         tokens=tokens.shape[1], wall_ms=wall_ms,
         device_busy_ms=sum(e.device_time_total for e in events) / 1e3,
         kernel_ms=_kernel_ms(events, tags, "prefill"),
+        device_to_host_copies=_device_to_host(events, "a long prefill"),
     )
     print("long prefill " + json.dumps(out))
     return out
@@ -1178,18 +1203,13 @@ def decode_breakdown(model, gen, prompt, tags: dict, steps=8):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             run(steps)
     events = _device_events(prof)
-    to_host = [e.name for e in events if "dtoh" in e.name.lower()]
-    if to_host:
-        raise AssertionError(
-            f"{len(to_host)} device-to-host copies in {steps} decode "
-            f"steps: {to_host[:3]}"
-        )
+    to_host = _device_to_host(events, f"{steps} decode steps")
     busy_ms = sum(e.device_time_total for e in events) / 1e3 / steps
     kernel_ms = _kernel_ms(events, tags, "decode", per=steps)
     out = dict(
         wall_ms=wall_ms, device_busy_ms=busy_ms, kernel_ms=kernel_ms,
         kernels_per_step=len(events) / steps,
-        idle_share=1.0 - busy_ms / wall_ms, device_to_host_copies=0,
+        idle_share=1.0 - busy_ms / wall_ms, device_to_host_copies=to_host,
     )
     print("decode step " + json.dumps(out))
     return out
@@ -1309,13 +1329,21 @@ def main() -> int:
         extra = (LONG_CHUNK,) if name in TILE_KERNELS else ()
         tokens = (1, 128, 512) + extra
         rows += phase_kernel(name, device, k1_shapes(LLAMA31_8B), tokens)
+    # K3 at its other scale group (128: the tile unsplit)
+    rows += phase_kernel(
+        "w2_matmul", device, k1_shapes(LLAMA31_8B),
+        (1, 128, 512, LONG_CHUNK), in_record=False, group=128,
+    )
     rows += phase_kernel(
         "w8_matmul", device, k1_shapes(QWEN25_7B), in_record=False
     )
     rows += phase_bf16(device, k1_shapes(LLAMA31_8B))
     rows += phase_flash(device)
-    for fmt in MOE_KERNELS:
-        rows += phase_moe_kernels(fmt, device, moe_shapes(MIXTRAL_8X7B))
+    for fmt, (expert, _) in MOE_KERNELS.items():
+        extra = (LONG_CHUNK,) if expert in TILE_KERNELS else ()
+        rows += phase_moe_kernels(
+            fmt, device, moe_shapes(MIXTRAL_8X7B), tokens=(1, 128, 512) + extra
+        )
     t0 = time.perf_counter()
     rows += phase_probes(device)
     print(f"probe phase: {time.perf_counter() - t0:.2f} s")

@@ -23,6 +23,7 @@ from vptq_tpu_torch import AutoModelForCausalLM
 from vptq_tpu_torch.convert import convert_params
 from vptq_tpu_torch.examples import (
     kernel_bench,
+    kernel_turns,
     vq_smallk_probe,
     w4_unpack_ablation,
     w4_wall_candidates,
@@ -317,6 +318,7 @@ def test_chip_smoke_probe_phase_on_cpu():
 
 @pytest.mark.parametrize("module", [
     kernel_bench, w4_wall_candidates, w4_unpack_ablation, vq_smallk_probe,
+    kernel_turns,
 ])
 def test_examples_exit_nonzero_without_a_card(module, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -429,24 +431,37 @@ def _ptxas_log(entry: str, spill: int) -> str:
     )
 
 
-@pytest.mark.parametrize("tiles,spill,ok", [
-    (chip_smoke.TILE_INSTANCES, 0, True),
-    (chip_smoke.TILE_INSTANCES, 8, False),       # a tile spills
-    (chip_smoke.TILE_INSTANCES - 1, 0, False),   # an instance went missing
-    (0, 0, False),                               # no -Xptxas -v lines
+@pytest.mark.parametrize("where,extra,spill,ok", [
+    ("all", 0, 0, True),
+    ("all", 0, 8, False),                   # every tile spills
+    ("all", -1, 0, False),                  # an instance went missing
+    ("all", None, 0, False),                # no -Xptxas -v lines
+    ("w2_matmul", -1, 0, False),            # K3 lost a group's instance
+    ("w2_matmul", 0, 8, False),             # K3's tile spills
+    ("w4_matmul_expert", -1, 0, False),     # K6b lost one
+    ("w4_matmul_expert", 0, 8, False),      # K6b's tile spills
+    ("w4_matmul_pairs", 1, 0, False),       # a tile where none belongs
 ])
 def test_build_phase_requires_every_tile_instance_spill_free(
-    monkeypatch, tiles, spill, ok
+    monkeypatch, where, extra, spill, ok
 ):
     """The build phase passes only when each library of the prefill tile
-    reports every tile instance with 0 spill bytes."""
-    logs = {
-        name: "".join(
-            _ptxas_log(f"_ZN6lowbit4tile7wg_tileI{name}{i}EEvv", spill)
-            for i in range(tiles if name in chip_smoke.TILE_KERNELS else 0)
+    (K2, K3, K4, K6b) reports its number of tile instances, each with 0
+    spill bytes, and the other libraries none."""
+    def tiles(name):
+        want = chip_smoke.TILE_INSTANCES.get(name, 0)
+        if where not in ("all", name):
+            return want, 0
+        return (0 if extra is None else want + extra), spill
+
+    def log(name):
+        n, spilled = tiles(name)
+        return "".join(
+            _ptxas_log(f"_ZN6lowbit4tile7wg_tileI{name}{i}EEvv", spilled)
+            for i in range(n)
         ) + _ptxas_log(f"_ZN6lowbit4gemv{name}", 0)
-        for name in _build.SOURCES
-    }
+
+    logs = {name: log(name) for name in _build.SOURCES}
     monkeypatch.setattr(
         _build, "build",
         lambda force=False: {name: (0.0, log) for name, log in logs.items()},
@@ -570,14 +585,15 @@ def test_lowbit_kernel_matches_plain_version(cuda, kernel, tokens, out_dtype):
     "out_dtype", [torch.float32, torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("in_p", ["min", 14336])
 @pytest.mark.parametrize("tokens", [17, 40, 64, 65, 128, 300, 512])
-@pytest.mark.parametrize("kernel", ["w4", "w3"])
+@pytest.mark.parametrize("kernel", ["w4", "w3", "w2g64", "w2g128"])
 def test_lowbit_tile_matches_plain_version(cuda, kernel, tokens, in_p,
                                            out_dtype):
-    """K2 and K4 past the GEMV run the Hopper tile: both token buckets
-    (64 and 128 a tile), ragged T, 200 rows (ragged out), the format's
-    smallest width (K2 256; K4 1024, one group a part) and down's depth
-    (many turns of the ring), f32 / bf16 / fp16 out."""
-    in_p = {"w4": 256, "w3": 1024}[kernel] if in_p == "min" else in_p
+    """K2, K3 and K4 past the GEMV run the Hopper tile: one token tile
+    (T <= 128) and several, ragged T, 200 rows (ragged out), the format's
+    smallest width (K2 256; K4 and K3 1024, one stage a part) and down's
+    depth (many turns of the ring), K3 at both scale groups (64: two
+    groups of each part in a stage), f32 / bf16 / fp16 out."""
+    in_p = {"w4": 256}.get(kernel, 1024) if in_p == "min" else in_p
     gen = torch.Generator(device=cuda).manual_seed(tokens + in_p)
     fn, ref, weights = _lowbit_case(kernel, gen, cuda, in_p=in_p)
     x = torch.randn((tokens, in_p), generator=gen, device=cuda)
@@ -588,6 +604,20 @@ def test_lowbit_tile_matches_plain_version(cuda, kernel, tokens, in_p,
     assert fn.launches == before + 1
     assert got.shape == (tokens, 200) and got.dtype == out_dtype
     _assert_kernel_close(got, want, out_dtype)
+
+
+@pytest.mark.cuda
+def test_w2_kernel_refuses_widths_its_tile_does_not_take(cuda):
+    """K3's tile reads 128 positions of each quarter a stage: a width
+    that 512 does not divide is refused on the card (pack_int2 pads every
+    layer to 1024), and the CPU's plain version still takes it."""
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    _, _, (wq, scales) = _lowbit_case("w2g64", gen, cuda, in_p=768)
+    x = torch.randn((3, 768), generator=gen, device=cuda)
+    with pytest.raises(ValueError, match="multiple of 512"):
+        w2_matmul(x, wq, scales)
+    got = w2_matmul(x.cpu(), wq.cpu(), scales.cpu())
+    assert got.shape == (3, 200)
 
 
 @pytest.mark.cuda
@@ -653,11 +683,13 @@ def _assert_kernel_close(got, want, out_dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("tokens", [1, 3, 16, 17, 40, 130])
+@pytest.mark.parametrize("tokens", [1, 3, 16, 17, 40, 65, 128, 130, 300, 512])
 @pytest.mark.parametrize("fmt", ["int8", "int4"])
 def test_expert_kernel_matches_plain_version(cuda, fmt, tokens, out_dtype):
     """K6a / K6b on every expert of a stack, the last included, with the
-    id on the card; an id outside the stack is clamped into it."""
+    id on the card; an id outside the stack is clamped into it. K6b runs
+    its GEMV up to 16 tokens and K2's Hopper tile past them, at the token
+    counts the MoE prefill sends (more than 64) too."""
     gen = torch.Generator(device=cuda).manual_seed(tokens)
     fn, ref, _, _, wq, scales = _stacked_case(fmt, gen, cuda)
     x = torch.randn((tokens, 2048), generator=gen, device=cuda)

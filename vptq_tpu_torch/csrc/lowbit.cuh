@@ -41,8 +41,10 @@
 //    one group add their sums with shuffles, the first of them multiplies
 //    the group's scale in, and the rows' totals are summed across the warp
 //    at the end.
-//  * gemm (T > 16; K3 and K6b: K2 and K4 take lowbit_tile.cuh's Hopper
-//    tile instead): 64 x 128 output tiles, 8 warps, bf16 mma.sync
+//  * gemm (T > 16, only for the int4 unpack probes P1 / P2 of
+//    w4_probe_matmul.cu, whose scripts pad tokens to tiles of up to 512;
+//    K2, K3, K4 and K6b take lowbit_tile.cuh's Hopper tile instead):
+//    64 x 128 output tiles, 8 warps, bf16 mma.sync
 //    m16n8k16 with f32 accumulators (K1's tile). A block walks positions
 //    one group (G) at a time: each thread loads its 16 bytes of each plane
 //    for the group's G/32 slabs into registers once, then for each part

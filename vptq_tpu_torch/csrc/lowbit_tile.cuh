@@ -1,11 +1,12 @@
-// The Hopper (sm_90a) prefill tile of the low-bit formats: K2 w4_matmul
-// and K4 w3_matmul at T > 16 tokens. It computes what lowbit::gemm
+// The Hopper (sm_90a) prefill tile of the low-bit formats at T > 16
+// tokens: K2 w4_matmul, K3 w2_matmul, K4 w3_matmul, and K6b
+// w4_matmul_expert on one expert of a stack. It computes what lowbit::gemm
 // computes, y = x @ (s ⊙ L)^T over the split layouts of lowbit.cuh: x is
 // rounded to bf16, every level is exact in bf16, the products of one
-// (row, 128-column group) are summed in f32, that f32 partial is
-// multiplied by the group's bf16 scale, and the scaled partials are summed
-// in f32. No scale is folded into a bf16 weight. The byte layouts are the
-// formats' own (w4.cuh, w3_matmul.cu), bit for bit.
+// (row, scale group) are summed in f32, that f32 partial is multiplied by
+// the group's bf16 scale, and the scaled partials are summed in f32. No
+// scale is folded into a bf16 weight. The byte layouts are the formats'
+// own (w4.cuh, w2_matmul.cu, w3_matmul.cu), bit for bit.
 //
 // What bounds it: at T = 512 the bf16 tensor-core operations (2·T·out·in_p,
 // 0.226 ms per Llama-3.1-8B layer at 989 TFLOP/s); the int4 weight bytes
@@ -21,30 +22,44 @@
 //    gid + 8 of its warp's 16, positions 2·tig, +1, +8, +9 of each 16) once
 //    per token tile, straight into bf16 pairs: the bytes of two positions
 //    are spread into the two halves (prmt), the format's code is put under
-//    the bf16 exponent of 128 (lop3), and one bf16x2 fma subtracts 128 plus
-//    the code's offset. Every level below 256 is exact in bf16, so no
-//    conversion instruction runs and no level touches shared memory.
+//    a bf16 exponent (lop3), giving base + code, and one bf16x2 fma
+//    subtracts the bias, base + the code's offset; the policy chooses both
+//    so that every step is exact in bf16 (int4 and int3: base 128, step 1;
+//    int2's half levels: base 64, step ½). No conversion instruction runs
+//    and no level touches shared memory.
 //  * An asynchronous ring: one producer thread keeps TMA copies in flight,
 //    a 128-position group of packed bytes for the block's 128 rows (int4
-//    16 KB, int3 48 KB, two stages) and 64-position x boxes (128 tokens
-//    each, four slabs of two boxes), with full and empty mbarriers; setmaxnreg
-//    moves registers from the producer warpgroup to the consumers.
-//  * One position group of bytes feeds kParts x slabs (int4 2, int3 8: x
-//    is kParts times wider than the bytes), so the bytes stay resident while
-//    the x slabs of part 0, 1, ... stream through the ring, in lowbit::gemm's
-//    order (group outer, part inner). Per part a warpgroup unpacks its
-//    fragments, issues 8 k16 steps into acc, waits, and adds
-//    acc · s(row, group) into tot: two scales a thread, since rows are M.
-//    While one consumer warpgroup unpacks, the other's wgmmas can run.
+//    and int2 16 KB, int3 48 KB, two stages) and 64-position x boxes (128
+//    tokens each, four slabs of two boxes), with full and empty mbarriers;
+//    setmaxnreg moves registers from the producer warpgroup to the
+//    consumers.
+//  * One position group of bytes feeds kParts x slabs (int4 2, int2 4,
+//    int3 8: x is kParts times wider than the bytes), so the bytes stay
+//    resident while the x slabs of part 0, 1, ... stream through the ring,
+//    in lowbit::gemm's order (group outer, part inner). Per part a
+//    warpgroup unpacks its fragments, issues the 8 k16 steps into acc,
+//    waits, and adds acc · s(row, group) into tot: two scales a thread,
+//    since rows are M. A scale group G of 64 (int2's default) holds half a
+//    stage: the 8 steps go as two commit groups of 4, each started with
+//    scale-d 0 and folded with its own scales after its wait (no second
+//    accumulator: the consumers hold 168 of their 232 registers). While
+//    one consumer warpgroup unpacks, the other's wgmmas can run.
+//  * One expert of a stack (Sel = sel::Expert, K6b): the weight maps are
+//    3-D, {L, out, E}, and the producer reads the id from device memory
+//    and passes it as the third coordinate of every weight copy; the
+//    consumers read it too and move the scale pointer to the expert's
+//    slab. The id never reaches the host and no slab is copied.
 //  * The epilogue writes tot through shared memory, so the (T, out) stores
 //    of y coalesce; the ragged T and out edges are masked, and TMA fills
-//    the loads past T and past out with zeros.
+//    the loads past T and past out with zeros (x past T adds 0; rows past
+//    out get scale 0 and are never stored).
 //
 // A format policy P adds to its lowbit.cuh interface: kTileSlots, the
 // planes one part reads; tile_plane(p, i), which plane feeds slot i of
-// part p; tile_code(t, p), the bf16 pair 128 + code of part p from the
-// spread bytes t of its slots; and kTileBias, the bf16 pair 128 + the
-// code's offset.
+// part p; tile_code(t, p), the bf16 pair base + code of part p from the
+// spread bytes t of its slots; and kTileBias, the bf16 pair base + the
+// code's offset (tests/test_torch_tile_codes.py checks every byte value
+// of every policy against the plain unpack).
 
 #pragma once
 
@@ -61,7 +76,7 @@ namespace tile {
 constexpr int kThreads = 384;  // producer warpgroup + two consumer warpgroups
 constexpr int kRows = 128;     // output rows per block
 constexpr int kTokens = 128;   // tokens per block (N)
-constexpr int kGroup = 128;    // positions of one weight stage (a scale group)
+constexpr int kGroup = 128;    // positions of one weight stage
 constexpr int kStages = 4;     // x slabs in the ring
 constexpr int kPlaneTile = kRows * kGroup;  // bytes of one plane's stage
 constexpr int kPad = 4;        // f32 padding of an epilogue row
@@ -82,8 +97,9 @@ struct Smem {
 };
 
 struct Maps {
-  CUtensorMap x;                // (T, in_p) bf16, boxes of 128 x 64
-  CUtensorMap w[kMaxPlanes];    // plane i: (out, L) bytes, boxes of 128 x 128
+  CUtensorMap x;              // (T, in_p) bf16, boxes of 128 x 64
+  CUtensorMap w[kMaxPlanes];  // plane i: (out, L) bytes, boxes of 128 x 128;
+                              // stacked: (E, out, L), boxes of 1 x 128 x 128
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -148,6 +164,18 @@ __device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
          (1ull << 62);
 }
 
+// the same into the slab of expert e of a 3-D map
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         int c0, int c1, int e,
+                                         uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4}], [%5];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(e),
+      "r"(bar)
+      : "memory");
+}
+
 // acc as wgmma left it: the compiler may not read it before the wait
 template <int M>
 __device__ __forceinline__ void fence_acc(float (&d)[M]) {
@@ -192,13 +220,19 @@ __device__ __forceinline__ void mma(float (&d)[64], const uint32_t (&a)[4],
         "r"(accumulate));
 }
 
-template <class P, typename OutT>
+// G: the scale group, 128 or 64 positions (two groups of each part in a
+// stage); Sel: the whole weight, or the expert ids[0] of a stack
+template <class P, class Sel, int G, typename OutT>
 __global__ void __launch_bounds__(kThreads, 1)
-    wg_tile(const __grid_constant__ Maps maps, Scales sc,
+    wg_tile(const __grid_constant__ Maps maps, Scales sc, Ids ids,
             OutT* __restrict__ y, int T, int out, int L) {
+  static_assert(!Sel::kPairs, "a pairs launch runs the T = 1 gemv");
+  static_assert(G == kGroup || G == kGroup / 2, "scale group 128 or 64");
   using S = Smem<P>;
   constexpr int kParts = P::kParts;
-  constexpr int kAcc = kTokens / 2;  // f32 accumulators a thread holds
+  constexpr int kSplit = kGroup / G;  // scale groups of a part in a stage
+  constexpr int kSteps = 8 / kSplit;  // k16 steps of one scale group
+  constexpr int kAcc = kTokens / 2;   // f32 accumulators a thread holds
   extern __shared__ __align__(16) unsigned char tile_smem[];
   const uint32_t raw = smem_u32(tile_smem);
   const uint32_t xs0 = (raw + 1023) & ~1023u;  // the x ring
@@ -229,15 +263,22 @@ __global__ void __launch_bounds__(kThreads, 1)
     // the producer: one thread keeps the ring full
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;");
     if (threadIdx.x == 0) {
+      int e = 0;  // the expert: the third coordinate of a stacked map
+      if constexpr (Sel::kIds)
+        e = (int)sel::expert_of(ids.ids, ids.n_experts, 0);
       int it = 0;
       for (int gi = 0; gi < n_groups; ++gi) {
         const int ws = gi & 1;
         bar_wait(w_empty + 8 * ws, ((gi >> 1) & 1) ^ 1);
         bar_expect(w_full + 8 * ws, P::kPlanes * kPlaneTile);
 #pragma unroll
-        for (int i = 0; i < P::kPlanes; ++i)
-          tma_load(ws0 + (ws * P::kPlanes + i) * kPlaneTile, &maps.w[i],
-                   gi * kGroup, n0, w_full + 8 * ws);
+        for (int i = 0; i < P::kPlanes; ++i) {
+          const uint32_t dst = ws0 + (ws * P::kPlanes + i) * kPlaneTile;
+          if constexpr (Sel::kIds)
+            tma_load(dst, &maps.w[i], gi * kGroup, n0, e, w_full + 8 * ws);
+          else
+            tma_load(dst, &maps.w[i], gi * kGroup, n0, w_full + 8 * ws);
+        }
         for (int p = 0; p < kParts; ++p, ++it) {
           const int xs = it % kStages;
           bar_wait(x_empty + 8 * xs, ((it / kStages) & 1) ^ 1);
@@ -251,6 +292,9 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 232;");
+    if constexpr (Sel::kIds)
+      sc.s += sel::expert_of(ids.ids, ids.n_experts, 0) * out *
+              (size_t)(kParts * L / G);
     const int ctid = threadIdx.x - 128;
     const int lane = threadIdx.x & 31;
     const int gid = lane >> 2;
@@ -306,21 +350,33 @@ __global__ void __launch_bounds__(kThreads, 1)
         const int xs = it % kStages;
         bar_wait(x_full + 8 * xs, (it / kStages) & 1);
         __syncwarp();
-        asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
         const uint32_t slab = xs0 + xs * S::kSlab;
+        float s0[kSplit], s1[kSplit];
 #pragma unroll
-        for (int s = 0; s < 8; ++s)
-          mma(acc, a[s], desc_sw128(slab + (s >> 2) * S::kBox + (s & 3) * 32),
-              s > 0);
-        asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-        const int g = p * n_groups + gi;
-        const float s0 = o0 < out ? scale_of<P>(sc, o0, g, p) : 0.f;
-        const float s1 = o1 < out ? scale_of<P>(sc, o1, g, p) : 0.f;
-        asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
-        fence_acc(acc);
-        bar_arrive(x_empty + 8 * xs);
+        for (int h = 0; h < kSplit; ++h) {
+          asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
 #pragma unroll
-        for (int i = 0; i < kAcc; ++i) tot[i] += acc[i] * ((i & 2) ? s1 : s0);
+          for (int s = h * kSteps; s < (h + 1) * kSteps; ++s)
+            mma(acc, a[s],
+                desc_sw128(slab + (s >> 2) * S::kBox + (s & 3) * 32),
+                s > h * kSteps);
+          asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+          if (h == 0) {
+            // group h' of part p at stage gi: p·(L/G) + gi·kSplit + h'
+#pragma unroll
+            for (int k = 0; k < kSplit; ++k) {
+              const int g = p * (L / G) + gi * kSplit + k;
+              s0[k] = o0 < out ? scale_of<P>(sc, o0, g, p) : 0.f;
+              s1[k] = o1 < out ? scale_of<P>(sc, o1, g, p) : 0.f;
+            }
+          }
+          asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+          fence_acc(acc);
+          if (h == kSplit - 1) bar_arrive(x_empty + 8 * xs);
+#pragma unroll
+          for (int i = 0; i < kAcc; ++i)
+            tot[i] += acc[i] * ((i & 2) ? s1[h] : s0[h]);
+        }
       }
       bar_arrive(w_empty + 8 * ws);
     }
@@ -377,32 +433,35 @@ inline EncodeTiled encoder() {
 
 // a (rows, cols) array with rows `stride` bytes apart, read in boxes of
 // (box_rows, box_cols) with the 128-byte swizzle; loads past the edges
-// read zeros
+// read zeros. With depth > 0 the map has a third dimension of `depth`
+// (rows, cols) slabs `depth_stride` bytes apart, read one slab a box.
 inline bool encode(CUtensorMap* map, CUtensorMapDataType type,
                    const void* base, uint64_t rows, uint64_t cols,
-                   uint64_t stride, uint32_t box_rows, uint32_t box_cols) {
+                   uint64_t stride, uint32_t box_rows, uint32_t box_cols,
+                   uint64_t depth = 0, uint64_t depth_stride = 0) {
   const EncodeTiled fn = encoder();
-  const cuuint64_t dims[2] = {cols, rows};
-  const cuuint64_t strides[1] = {stride};
-  const cuuint32_t box[2] = {box_cols, box_rows};
-  const cuuint32_t elem_strides[2] = {1, 1};
+  const cuuint64_t dims[3] = {cols, rows, depth};
+  const cuuint64_t strides[2] = {stride, depth_stride};
+  const cuuint32_t box[3] = {box_cols, box_rows, 1};
+  const cuuint32_t elem_strides[3] = {1, 1, 1};
   return fn != nullptr &&
-         fn(map, type, 2, const_cast<void*>(base), dims, strides, box,
-            elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+         fn(map, type, depth ? 3 : 2, const_cast<void*>(base), dims, strides,
+            box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <class P, typename OutT>
+template <class P, class Sel, int G, typename OutT>
 cudaError_t launch_typed(const void* x, const Planes& pl, const Scales& sc,
-                         OutT* y, int T, int out, int in_p,
+                         const Ids& ids, OutT* y, int T, int out, int in_p,
                          cudaStream_t stream) {
   const int L = in_p / P::kParts;
   if (L % kGroup) return cudaErrorInvalidValue;
   if (T <= kDecodeMax)
-    return launch_decode<P, sel::Whole, kGroup, OutT, __nv_bfloat16>(
-        static_cast<const __nv_bfloat16*>(x), pl, sc, Ids{nullptr, 0}, y, T,
-        out, in_p, L, stream);
+    return launch_decode<P, Sel, G, OutT, __nv_bfloat16>(
+        static_cast<const __nv_bfloat16*>(x), pl, sc, ids, y, T, out, in_p,
+        L, stream);
+  if (Sel::kIds && ids.n_experts < 1) return cudaErrorInvalidValue;
   Maps maps = {};
   if (!encode(&maps.x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, T, in_p,
               (uint64_t)in_p * sizeof(__nv_bfloat16), kTokens, 64))
@@ -410,27 +469,31 @@ cudaError_t launch_typed(const void* x, const Planes& pl, const Scales& sc,
   for (int i = 0; i < P::kPlanes; ++i)
     if (!encode(&maps.w[i], CU_TENSOR_MAP_DATA_TYPE_UINT8,
                 pl.base[i] + pl.off[i], out, L, pl.row_bytes[i], kRows,
-                kGroup))
+                kGroup, Sel::kIds ? ids.n_experts : 0,
+                (uint64_t)out * pl.row_bytes[i]))
       return cudaErrorInvalidValue;
-  auto kernel = wg_tile<P, OutT>;
+  auto kernel = wg_tile<P, Sel, G, OutT>;
   constexpr int smem = Smem<P>::kBytes;
   const cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
   const dim3 grid((T + kTokens - 1) / kTokens, (out + kRows - 1) / kRows);
-  kernel<<<grid, kThreads, smem, stream>>>(maps, sc, y, T, out, L);
+  kernel<<<grid, kThreads, smem, stream>>>(maps, sc, ids, y, T, out, L);
   return cudaGetLastError();
 }
 
-// The whole-weight launch of a format on bf16 x: T <= 16 runs
-// lowbit::gemv, more tokens the tile. out_dtype: 0 = bf16, 1 = f32.
-template <class P>
+// A launch of a format on bf16 x with scale group G: the whole weight, or
+// (Sel = sel::Expert) expert ids[0] of a stack of ids.n_experts. T <= 16
+// runs lowbit::gemv, more tokens the tile. out_dtype: 0 = bf16, 1 = f32.
+template <class P, int G = kGroup, class Sel = sel::Whole>
 int launch(const void* x, const Planes& pl, const Scales& sc, void* y, int T,
-           int out, int in_p, int out_dtype, void* stream) {
+           int out, int in_p, int out_dtype, void* stream,
+           const Ids& ids = Ids{nullptr, 0}) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return with_out_type(out_dtype, [&](auto* tag) {
     using OutT = std::remove_pointer_t<decltype(tag)>;
-    return launch_typed<P>(x, pl, sc, static_cast<OutT*>(y), T, out, in_p, s);
+    return launch_typed<P, Sel, G, OutT>(x, pl, sc, ids, static_cast<OutT*>(y),
+                                         T, out, in_p, s);
   });
 }
 

@@ -14,18 +14,31 @@
 // Llama-3.1-8B layer, 0.018 ms at 3.35 TB/s); at T = 512 the bf16
 // tensor-core FLOPs (0.226 ms per layer at 989 TFLOP/s).
 //
-// Design: the skeleton in lowbit.cuh with four parts of in_p/4 columns.
-// The level c + 0.5 is built exactly per weight: flipping the high bit
-// of every 2-bit field maps c to c + 2 ∈ [0, 3], which is shifted into
-// the mantissa of 2^22 (half-unit steps) and 2^22 + 1.5 subtracted. The
-// TPU kernel instead ran the integer codes through the MXU and added
-// 0.5·s·Σx per group from precomputed group sums of x; on Hopper the
-// exact half-integer level costs nothing extra, and the result is the
-// same function up to summation order. Scales change every 64 columns
-// at G = 64: the gemv reduces over 4-lane sets, the gemm applies the
-// scale every 2 slabs.
+// Design: four parts of L = in_p/4 columns; T <= 16 runs the GEMV of
+// lowbit.cuh, more tokens the Hopper tile of lowbit_tile.cuh (TMA ring,
+// levels unpacked into bf16 pairs in registers, wgmma), as K2 and K4 do.
+// The level c + 0.5 is built exactly per weight: flipping the high bit of
+// every 2-bit field maps c to v = c + 2 ∈ [0, 3]. The GEMV shifts v into
+// the mantissa of 2^22 (half-unit steps) and subtracts 2^22 + 1.5. The tile
+// cannot use the bf16 base 128 of int4 and int3, whose step of 1 holds no
+// half: it puts 2v under the exponent of 64 (step ½), which gives the
+// pair 64 + v, and subtracts 65.5 (bf16 0x4283, exact), leaving v − 1.5 =
+// c + 0.5. The TPU kernel instead ran the integer codes through the MXU
+// and added 0.5·s·Σx per group from precomputed group sums of x; on
+// Hopper the exact half-integer level costs nothing extra, and the result
+// is the same function up to summation order.
+//
+// Scales change every 64 columns at G = 64 (the default of every int2
+// model): the gemv reduces over 4-lane sets; the tile, whose weight stage
+// is 128 positions, splits each part's 8 k16 steps into two commit groups
+// of 4, each folded into the totals with its own scale after its wait
+// (no second accumulator: the consumers have no registers to spare).
+// The other design, 64-position weight stages with one x box a slab, was
+// 7% slower on one H100 at T = 128, 512 and 2048 (twice the barrier round
+// trips and copies). G = 128 runs the tile unsplit, as int4 and int3 do;
+// G = 64 costs 12–15% over it.
 
-#include "lowbit.cuh"
+#include "lowbit_tile.cuh"
 
 namespace {
 
@@ -43,13 +56,23 @@ struct W2 {
     const uint32_t v = (w[0][j >> 2] >> (8 * (j & 3) + 2 * p)) & 0x3u;
     return __int_as_float(0x4A800000u | (v << 1)) - 4194305.5f;
   }
+  // the prefill tile (lowbit_tile.cuh): every quarter reads the one plane;
+  // t holds the bytes of two positions in bits 0-7 and 16-23, and quarter
+  // p's pair is 64 + v in each bf16 half (2v in the mantissa, step ½), so
+  // that subtracting 65.5 leaves v − 1.5 = c + 0.5
+  static constexpr int kTileSlots = 1;
+  static constexpr uint32_t kTileBias = 0x42834283u;  // bf16 (65.5, 65.5)
+  __device__ static int tile_plane(int, int) { return 0; }
+  __device__ static uint32_t tile_code(const uint32_t (&t)[1], int p) {
+    return (((t[0] >> (2 * p)) & 0x00030003u) << 1) ^ 0x42844284u;
+  }
 };
 
 }  // namespace
 
 // Returns the CUDA error of the launch (0 on success). Requires group 64
-// or 128, in_p % (4·group) == 0, 16-byte aligned x and wq, all tensors
-// contiguous on the current device.
+// or 128, in_p % 512 == 0 (the tile's stage of 128 positions a part),
+// 16-byte aligned x and wq, all tensors contiguous on the current device.
 extern "C" int vptq_w2_matmul(const void* x, const void* wq,
                               const void* scales, void* y, int T, int out,
                               int in_p, int group, int out_dtype,
@@ -60,10 +83,10 @@ extern "C" int vptq_w2_matmul(const void* x, const void* wq,
   lowbit::Scales sc = {static_cast<const __nv_bfloat16*>(scales),
                        in_p / group, 1};
   if (group == 64)
-    return lowbit::launch<W2, 64>(x, pl, sc, y, T, out, in_p, out_dtype,
-                                  stream);
+    return lowbit::tile::launch<W2, 64>(x, pl, sc, y, T, out, in_p,
+                                        out_dtype, stream);
   if (group == 128)
-    return lowbit::launch<W2, 128>(x, pl, sc, y, T, out, in_p, out_dtype,
-                                   stream);
+    return lowbit::tile::launch<W2, 128>(x, pl, sc, y, T, out, in_p,
+                                         out_dtype, stream);
   return (int)cudaErrorInvalidValue;
 }

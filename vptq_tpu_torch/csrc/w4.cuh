@@ -1,5 +1,5 @@
 // The int4 format of the low-bit skeleton (lowbit.cuh) and of the prefill
-// tile (lowbit_tile.cuh), shared by K2 w4_matmul (w4_matmul.cu), K6b
+// tile (lowbit_tile.cuh), and its launch, shared by K2 w4_matmul (w4_matmul.cu), K6b
 // w4_matmul_expert (w4_matmul_expert.cu) and K5b w4_matmul_pairs
 // (w4_matmul_pairs.cu).
 //
@@ -19,7 +19,7 @@
 
 #pragma once
 
-#include "lowbit.cuh"
+#include "lowbit_tile.cuh"
 
 namespace w4 {
 
@@ -61,15 +61,23 @@ inline lowbit::Scales scales_of(const void* scales, int out) {
 
 // Returns the CUDA error of the launch (0 on success). Requires
 // in_p % 256 == 0, 16-byte aligned x and wq, all tensors contiguous on
-// the current device; with ids, n_experts slabs in wq and scales.
+// the current device; with ids, n_experts slabs in wq and scales. The
+// whole weight (K2) and one expert (K6b) run lowbit::gemv up to 16 tokens
+// and the Hopper tile of lowbit_tile.cuh past them; pairs (K5b) run the
+// T = 1 gemv.
 template <class Sel>
 int launch(const void* x, const void* wq, const void* scales, const void* ids,
            void* y, int T, int out, int in_p, int n_experts, int out_dtype,
            void* stream) {
-  lowbit::Ids sel_ids = {static_cast<const int*>(ids), n_experts};
-  return lowbit::launch<W4, 128, Sel>(x, planes(wq, in_p),
-                                      scales_of(scales, out), y, T, out, in_p,
-                                      out_dtype, stream, sel_ids);
+  const lowbit::Ids sel_ids = {static_cast<const int*>(ids), n_experts};
+  if constexpr (Sel::kPairs)
+    return lowbit::launch<W4, 128, Sel>(x, planes(wq, in_p),
+                                        scales_of(scales, out), y, T, out,
+                                        in_p, out_dtype, stream, sel_ids);
+  else
+    return lowbit::tile::launch<W4, 128, Sel>(
+        x, planes(wq, in_p), scales_of(scales, out), y, T, out, in_p,
+        out_dtype, stream, sel_ids);
 }
 
 }  // namespace w4

@@ -16,7 +16,6 @@
 // the GEMV of lowbit.cuh, more tokens the Hopper tile of lowbit_tile.cuh
 // (TMA ring, levels unpacked into bf16 pairs in registers, wgmma).
 
-#include "lowbit_tile.cuh"
 #include "w4.cuh"
 
 // Returns the CUDA error of the launch (0 on success). Requires
@@ -25,7 +24,6 @@
 extern "C" int vptq_w4_matmul(const void* x, const void* wq,
                               const void* scales, void* y, int T, int out,
                               int in_p, int out_dtype, void* stream) {
-  return lowbit::tile::launch<w4::W4>(x, w4::planes(wq, in_p),
-                                      w4::scales_of(scales, out), y, T, out,
-                                      in_p, out_dtype, stream);
+  return w4::launch<sel::Whole>(x, wq, scales, nullptr, y, T, out, in_p, 0,
+                                out_dtype, stream);
 }

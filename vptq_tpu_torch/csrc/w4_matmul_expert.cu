@@ -15,9 +15,19 @@
 //
 // What bounds it on an H100: the bytes of ONE expert's slab at T <= 16
 // (58.7 MB of Mixtral's gate_up plus 1.8 MB of scales, 0.018 ms at
-// 3.35 TB/s), the bf16 tensor-core FLOPs at prefill. No copy of the slab
-// is made: the offset e·out·in_p/2 (scales: e·out·in_p/128) is added, in
-// 64 bits, to K2's own loops (lowbit.cuh, policy sel::Expert).
+// 3.35 TB/s), the bf16 tensor-core FLOPs at prefill (2·T·out·in_p: 0.182
+// ms for one Mixtral expert's gate_up and down at T = 512). No copy of the
+// slab is made and the id never reaches the host.
+//
+// Design: K2's two routes with the policy sel::Expert. T <= 16 runs the
+// GEMV of lowbit.cuh, which adds the offset e·out·in_p/2 (scales:
+// e·out·in_p/128), in 64 bits, to its pointers. More tokens (on the MoE
+// prefill path every call holds more than 64) run K2's Hopper tile of
+// lowbit_tile.cuh: its weight map is 3-D over the stack, {in_p/2, out,
+// E}, the producer thread reads e from device memory and passes it as the
+// third coordinate of every TMA copy of the weight, and the consumers
+// move the scale pointer to the expert's slab. An id outside the stack is
+// clamped into it (expert_select.cuh).
 
 #include "w4.cuh"
 

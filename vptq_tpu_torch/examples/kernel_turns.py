@@ -1,0 +1,141 @@
+"""The kernel phases of ``chip_smoke.py`` on several trees, in turns.
+
+Compares versions of the low-bit kernels on one card in one run: each
+turn is a fresh process in one tree (a checkout of the repository) that
+builds that tree's kernels and runs that tree's own ``chip_smoke`` phases
+at the full shapes: K3 ``w2_matmul``, K2 ``w4_matmul`` and K4
+``w3_matmul`` at the four linears of a Llama-3.1-8B layer, the int4 MoE
+kernels K6b ``w4_matmul_expert`` and K5b ``w4_matmul_pairs`` at a
+Mixtral-8x7B expert's two shapes on stacks of 8; T = 1, 128, 512 and
+2048 (K5b: P = 2 and 16). Each kernel is held against its plain version,
+as the smoke holds it. The card's name and power limit come first; then
+one line per (turn, kernel, scale group, T) with ms, bound, plain and
+``torch.matmul`` ms summed over the shapes, and the device-to-host copies
+of two K6b launches (T = 512, 2048) in the ``torch.profiler`` trace.
+
+    python -m vptq_tpu_torch.examples.kernel_turns \\
+        --tree P=build/tree/parent --tree C=. --order P C C P \\
+        [--out DIR] [--device cuda]
+
+Without ``--tree`` and ``--order`` it runs one turn in the current
+directory. ``--out`` keeps every row of each turn as
+``DIR/turn_<n>_<label>.json``. With ``--device cpu`` the phases run at a
+tiny size on the plain versions (a rehearsal); without a card and without
+it, the script exits non-zero.
+"""
+
+from __future__ import annotations
+
+import argparse
+import subprocess
+import sys
+from pathlib import Path
+
+from vptq_tpu_torch.examples.kernel_bench import card_line, pick_device
+
+__all__ = ["main"]
+
+# the kernels a turn runs: the smoke's phase_kernel for the first three,
+# phase_moe_kernels("int4") for the MoE pair
+KERNELS = ("w2_matmul", "w4_matmul", "w3_matmul", "w4_matmul_expert",
+           "w4_matmul_pairs")
+
+# One turn, run with ``python -c`` from the root of its tree so that the
+# tree's own chip_smoke and vptq_tpu_torch are the ones imported:
+# argv = label, device, out file ("" for none)
+_TURN = r'''
+import json, sys, time
+import torch
+import chip_smoke as cs
+from vptq_tpu_torch.ops import _build
+
+label, dev, out = sys.argv[1:4]
+KERNELS = %(kernels)r
+torch.backends.cuda.matmul.allow_tf32 = False
+t0 = time.perf_counter()
+if dev == "cuda":
+    _build.build(KERNELS)
+print(f"[{label}] build {time.perf_counter() - t0:.1f} s", flush=True)
+shapes = cs.k1_shapes(cs.LLAMA31_8B)
+moe_shapes = cs.moe_shapes(cs.MIXTRAL_8X7B)
+tokens, iters = (1, 128, 512, 2048), 20
+if dev == "cpu":
+    shapes = moe_shapes = [("a", 40, 1024), ("b", 24, 2048)]
+    tokens, iters = (1, 20), 1
+rows = []
+for name in KERNELS[:3]:
+    rows += cs.phase_kernel(name, dev, shapes, tokens, iters=iters)
+rows += cs.phase_moe_kernels("int4", dev, moe_shapes, tokens=tokens,
+                             iters=iters)
+if dev == "cuda":
+    # device-to-host copies of two K6b launches: the id stays on the card
+    from torch.profiler import ProfilerActivity, profile
+
+    fn = cs.kernel_fns("w4_matmul_expert")[0]
+    wq = torch.zeros((8, 4096, 7168), dtype=torch.int8, device=dev)
+    sc = torch.ones((8, 112, 4096), dtype=torch.bfloat16, device=dev)
+    e = torch.tensor(7, dtype=torch.int32, device=dev)
+    x = torch.randn((2048, 14336), device=dev).to(torch.bfloat16)
+    fn(x, wq, sc, e)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for t in (512, 2048):
+            fn(x[:t], wq, sc, e)
+        torch.cuda.synchronize()
+    names = [v.name for v in prof.events()
+             if v.device_type == torch.autograd.DeviceType.CUDA]
+    print(f"[{label}] w4_matmul_expert device-to-host copies in 2 launches: "
+          f"{sum('dtoh' in n.lower() for n in names)}; its kernels: "
+          f"{sorted(set(n.split('(')[0] for n in names))}", flush=True)
+summary = {}
+for r in rows:
+    s = summary.setdefault(f"{r['kernel']} g{r['group']} {r['unit']}={r['T']}",
+                           dict(ms=0.0, bound_ms=0.0, plain_ms=0.0,
+                                library_ms=0.0, max_abs_err=0.0))
+    for k in ("ms", "bound_ms", "plain_ms", "library_ms"):
+        s[k] += r[k]
+    s["max_abs_err"] = max(s["max_abs_err"], r["max_abs_err"])
+for k, s in summary.items():
+    print(f"[{label}] {k}: " + json.dumps(s), flush=True)
+if out:
+    with open(out, "w") as f:
+        json.dump(rows, f)
+'''
+
+
+def main(argv=None) -> None:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--tree", action="append", metavar="LABEL=DIR",
+                        help="a tree and its label (default: C=.)")
+    parser.add_argument("--order", nargs="+", default=["C"],
+                        help="labels in the order of the turns")
+    parser.add_argument("--out", default="")
+    parser.add_argument("--device", default="cuda")
+    args = parser.parse_args(argv)
+    device = pick_device(args.device)
+    trees = dict(t.split("=", 1) for t in args.tree or ["C=."])
+    unknown = set(args.order) - set(trees)
+    if unknown:
+        raise SystemExit(f"no --tree for {sorted(unknown)}")
+    print(card_line(device), flush=True)
+    if args.out:
+        Path(args.out).mkdir(parents=True, exist_ok=True)
+    code = _TURN % dict(kernels=KERNELS)
+    for n, label in enumerate(args.order):
+        out = (str(Path(args.out).resolve() / f"turn_{n}_{label}.json")
+               if args.out else "")
+        run = subprocess.run(
+            [sys.executable, "-c", code, label, device.type, out],
+            cwd=trees[label], capture_output=True, text=True,
+        )
+        for line in run.stdout.splitlines():
+            if line.startswith(f"[{label}]"):
+                print(line, flush=True)
+        if run.returncode:
+            print(run.stdout[-4000:] + run.stderr[-4000:], file=sys.stderr)
+            raise SystemExit(f"turn {n} ({label}) failed: {run.returncode}")
+    print(card_line(device), flush=True)
+
+
+if __name__ == "__main__":
+    main()

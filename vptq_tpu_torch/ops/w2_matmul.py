@@ -18,6 +18,7 @@ from vptq_tpu_torch.ops.packing import unpack_int2
 __all__ = ["W2_GROUPS", "w2_matmul", "w2_matmul_reference"]
 
 W2_GROUPS = (64, 128)  # scale groups the kernel takes
+_TILE_POSITIONS = 128  # positions of one quarter in a stage of the tile
 
 
 def _check(x: torch.Tensor, wq: torch.Tensor, scales: torch.Tensor) -> int:
@@ -71,6 +72,13 @@ def w2_matmul(
     group = _check(x, wq, scales)
     if x.device.type == "cpu":
         return w2_matmul_reference(x, wq, scales, out_dtype)
+    if wq.shape[1] % _TILE_POSITIONS:
+        # the prefill tile reads 128 positions of each quarter a stage;
+        # pack_int2 pads every layer to W2_BLOCK = 1024 columns
+        raise ValueError(
+            f"in_features {wq.shape[1] * 4} must be a multiple of "
+            f"{4 * _TILE_POSITIONS} on the card"
+        )
     y = launch(
         "w2_matmul", "vptq_w2_matmul", x, (wq, scales), (group,),
         wq.shape[0], wq.shape[1] * 4, out_dtype,
@@ -82,6 +90,7 @@ def w2_matmul(
 w2_matmul.launches = 0
 # the TPU kernel this one replaces
 w2_matmul.replaces = "vptq_tpu/ops/pallas_gemm.py:986"
-# words of the demangled names of its CUDA kernels (lowbit.cuh's, with
-# the policy W2 of csrc/w2_matmul.cu) that pick them out of a trace
+# words of the demangled names of its CUDA kernels (lowbit.cuh's GEMV and
+# lowbit_tile.cuh's prefill tile, with the policy W2 of csrc/w2_matmul.cu)
+# that pick them out of a trace
 w2_matmul.trace_tags = ("lowbit", "W2")

@@ -79,7 +79,7 @@ def w4_matmul(
 w4_matmul.launches = 0
 # the TPU kernel this one replaces
 w4_matmul.replaces = "vptq_tpu/ops/pallas_gemm.py:445"
-# words of the demangled names of its CUDA kernels that pick them out of a
-# trace, one tuple per family: lowbit.cuh's GEMV with the policies W4 of
-# csrc/w4.cuh and sel::Whole, and lowbit_tile.cuh's prefill tile with W4
-w4_matmul.trace_tags = (("lowbit", "W4", "Whole"), ("wg_tile", "W4"))
+# words of the demangled names of its CUDA kernels (lowbit.cuh's GEMV and
+# lowbit_tile.cuh's prefill tile, with the policies W4 of csrc/w4.cuh and
+# sel::Whole) that pick them out of a trace
+w4_matmul.trace_tags = ("lowbit", "W4", "Whole")

@@ -5,8 +5,10 @@ Port of ``vptq_tpu/ops/pallas_gemm.py:626-763`` (``_w4e_kernel``, entry
 stacked ``(E, out, in_p / 2)`` split-half nibble experts, reading only
 expert ``e``'s bytes. The id is an int32 tensor that stays on the
 device: the hand-written CUDA kernel
-(``vptq_tpu_torch/csrc/w4_matmul_expert.cu``, K2's loops of
-``csrc/lowbit.cuh`` entered with an expert offset) reads it itself.
+(``vptq_tpu_torch/csrc/w4_matmul_expert.cu``: K2's GEMV of
+``csrc/lowbit.cuh`` entered with an expert offset up to 16 tokens, K2's
+Hopper tile of ``csrc/lowbit_tile.cuh`` over a 3-D map of the stack past
+them) reads it itself.
 
 :func:`w4_matmul_expert` launches the kernel for CUDA tensors and runs
 the plain version :func:`w4_matmul_expert_reference` only for tensors
@@ -99,6 +101,7 @@ def w4_matmul_expert(
 w4_matmul_expert.launches = 0
 # the TPU kernel this one replaces
 w4_matmul_expert.replaces = "vptq_tpu/ops/pallas_gemm.py:626"
-# words of the demangled names of its CUDA kernels (lowbit.cuh's, with
-# the policies W4 and sel::Expert) that pick them out of a trace
+# words of the demangled names of its CUDA kernels (lowbit.cuh's GEMV and
+# lowbit_tile.cuh's tile, with the policies W4 and sel::Expert) that pick
+# them out of a trace
 w4_matmul_expert.trace_tags = ("lowbit", "W4", "Expert")
