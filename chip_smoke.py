@@ -13,17 +13,17 @@ without them, or when any phase fails. Phases:
    ``flash_attention``, K7 ``bf16_matmul`` and the probes P1/P2
    ``w4_probe_matmul``, ``w4_i32x8_matmul``, ``w4_raw_probe`` and P3
    ``vq_smallk_matmul``), one ``nvcc`` each, all at once; the
-   ``-Xptxas -v`` lines of the prefill tile (``lowbit_tile.cuh``) in K2,
-   K3, K4 and K6b, every instance of which must show no spill;
+   ``-Xptxas -v`` lines of the prefill tile (``lowbit_tile.cuh``) in K1,
+   K2, K3, K4, K6a and K6b, every instance of which must show no spill;
 2. each of K1-K4 at the four linear shapes of Llama-3.1-8B, on layers its
    format's encoder makes on the card from a random weight (K1 group
-   2048, K3 group 64, and 128 beside it), at T=1 (decode) and T=128 and
-   T=512 (prefill buckets), K2, K3 and K4 also at T=2048 (the
-   long-prefill chunk, through their tile): the kernel held against its
+   2048, K3 group 64, and 128 beside it), at T=1 (decode), T=128 and
+   T=512 (prefill buckets) and T=2048 (the long-prefill chunk; every
+   T > 16 through their tile): the kernel held against its
    plain version on the card, then timed with CUDA events (L2 flushed
    before each launch) beside the plain version and a ``torch.matmul``
-   yardstick; K1 also at the four
-   shapes of Qwen2.5-7B (group 512; intermediate 18944 padded to 19456);
+   yardstick; K1 also at the four shapes of Qwen2.5-7B (groups 512 and
+   1024; intermediate 18944 padded to 19456), T=2048 included;
    K7 at the Llama shapes on a random bf16 weight; K8 at Llama-3.1-8B's
    heads (32 over 8 KV heads of 128) on N(0, 1) q, k, v with v a strided
    view into a fused q|k|v row, at S=1024, 2048 and 1100 (no tile divides
@@ -32,10 +32,10 @@ without them, or when any phase fails. Phases:
    ``scaled_dot_product_attention`` as its yardstick;
 3. the MoE kernels at Mixtral-8x7B's two expert shapes (gate_up
    28672 x 4096, down 4096 x 14336) on stacks of 8 experts that the int8
-   and int4 encoders make on the card: K6a / K6b at T=1, 128 and 512 (one
-   expert, the last of the stack, whose slab starts 411 MB into gate_up's
-   int4 stack), K6b also at T=2048 (Mixtral's long chunk, through the
-   tile), K5a / K5b at P=2 (one token's top-2)
+   and int4 encoders make on the card: K6a / K6b at T=1, 128, 512 and
+   2048 (Mixtral's long chunk, through the tile; one expert, the last of
+   the stack, whose slab starts 822 MB into gate_up's int8 stack and 411
+   MB into the int4 one), K5a / K5b at P=2 (one token's top-2)
    and P=16 (8 tokens' top-2) pairs, each against its plain version and
    timed like phase 2, the bound counting the distinct experts read;
    yardsticks ``torch.matmul`` with one expert's dequantized bf16 weight
@@ -215,14 +215,17 @@ MOE_KERNELS = {
 FLASH, BF16 = "flash_attention", "bf16_matmul"
 # a word of the mangled name of the Hopper prefill tile
 # (lowbit_tile.cuh), and its instances in each library that holds it: one
-# per output type (bf16, f32), and in K3 per scale group (64, 128) too.
+# per output type (bf16, f32), and in K3 per scale group (64, 128) too
+# (K1's and K6a's groups of 512 to 2048 are a run-time count of stages).
 # The kernel phases also time these kernels at a long prefill chunk.
 TILE_KERNEL = "wg_tile"
 TILE_INSTANCES = {
-    "w4_matmul": 2, "w3_matmul": 2, "w2_matmul": 4, "w4_matmul_expert": 2,
+    "w8_matmul": 2, "w4_matmul": 2, "w3_matmul": 2, "w2_matmul": 4,
+    "w8_matmul_expert": 2, "w4_matmul_expert": 2,
 }
-TILE_KERNELS = tuple(TILE_INSTANCES)
-LONG_CHUNK = 2048
+# the token counts of the kernel phases: decode, two prefill buckets and
+# the long-prefill chunk (every T > 16 runs the tile)
+TOKENS = (1, 128, 512, 2048)
 # the int4-unpack probes P1 / P2 and the small-codebook VQ probe P3: no
 # layer calls them (0 launches on every main path); the probe phase does
 PROBE_KERNELS = (
@@ -1100,13 +1103,18 @@ def tag_sets(trace_tags: tuple) -> tuple:
     return trace_tags if isinstance(trace_tags[0], tuple) else (trace_tags,)
 
 
+def picks(trace_tags: tuple, kernel_name: str) -> bool:
+    """Whether a wrapper's ``trace_tags`` pick a CUDA kernel's (demangled)
+    name out of a trace."""
+    return any(all(tag in kernel_name for tag in words)
+               for words in tag_sets(trace_tags))
+
+
 def _kernel_ms(events, tags: dict, what: str, per: int = 1) -> dict:
     """Device ms of the events whose names hold each kernel's words."""
     out = {
         name: sum(
-            e.device_time_total for e in events
-            if any(all(tag in e.name for tag in words)
-                   for words in tag_sets(trace_tags))
+            e.device_time_total for e in events if picks(trace_tags, e.name)
         ) / 1e3 / per
         for name, trace_tags in tags.items()
     }
@@ -1326,23 +1334,21 @@ def main() -> int:
     )
     rows = []
     for name in FORMAT_KERNEL.values():
-        extra = (LONG_CHUNK,) if name in TILE_KERNELS else ()
-        tokens = (1, 128, 512) + extra
-        rows += phase_kernel(name, device, k1_shapes(LLAMA31_8B), tokens)
+        rows += phase_kernel(name, device, k1_shapes(LLAMA31_8B), TOKENS)
     # K3 at its other scale group (128: the tile unsplit)
     rows += phase_kernel(
-        "w2_matmul", device, k1_shapes(LLAMA31_8B),
-        (1, 128, 512, LONG_CHUNK), in_record=False, group=128,
+        "w2_matmul", device, k1_shapes(LLAMA31_8B), TOKENS, in_record=False,
+        group=128,
     )
+    # K1 at Qwen2.5-7B's groups 512 (in 3584) and 1024 (in 19456)
     rows += phase_kernel(
-        "w8_matmul", device, k1_shapes(QWEN25_7B), in_record=False
+        "w8_matmul", device, k1_shapes(QWEN25_7B), TOKENS, in_record=False
     )
     rows += phase_bf16(device, k1_shapes(LLAMA31_8B))
     rows += phase_flash(device)
-    for fmt, (expert, _) in MOE_KERNELS.items():
-        extra = (LONG_CHUNK,) if expert in TILE_KERNELS else ()
+    for fmt in MOE_KERNELS:
         rows += phase_moe_kernels(
-            fmt, device, moe_shapes(MIXTRAL_8X7B), tokens=(1, 128, 512) + extra
+            fmt, device, moe_shapes(MIXTRAL_8X7B), tokens=TOKENS
         )
     t0 = time.perf_counter()
     rows += phase_probes(device)

@@ -440,14 +440,18 @@ def _ptxas_log(entry: str, spill: int) -> str:
     ("w2_matmul", 0, 8, False),             # K3's tile spills
     ("w4_matmul_expert", -1, 0, False),     # K6b lost one
     ("w4_matmul_expert", 0, 8, False),      # K6b's tile spills
+    ("w8_matmul", -1, 0, False),            # K1 lost an out type's one
+    ("w8_matmul", 0, 8, False),             # K1's tile spills
+    ("w8_matmul_expert", -1, 0, False),     # K6a lost one
+    ("w8_matmul_expert", 0, 8, False),      # K6a's tile spills
     ("w4_matmul_pairs", 1, 0, False),       # a tile where none belongs
 ])
 def test_build_phase_requires_every_tile_instance_spill_free(
     monkeypatch, where, extra, spill, ok
 ):
     """The build phase passes only when each library of the prefill tile
-    (K2, K3, K4, K6b) reports its number of tile instances, each with 0
-    spill bytes, and the other libraries none."""
+    (K1, K2, K3, K4, K6a, K6b) reports its number of tile instances, each
+    with 0 spill bytes, and the other libraries none."""
     def tiles(name):
         want = chip_smoke.TILE_INSTANCES.get(name, 0)
         if where not in ("all", name):
@@ -510,6 +514,49 @@ def test_kernel_names_its_tpu_kernel_and_trace_tags(name):
               for tags in chip_smoke.tag_sets(chip_smoke.kernel_fns(k)[0].trace_tags)]
     assert all(set(a) - set(b) and set(b) - set(a)
                for a in mine for b in others)
+
+
+# demangled names of the CUDA kernels of K1, K6a and of the kernels next to
+# them, as a profiler trace shows them (the tile's template arguments: the
+# format policy, the selection, the scale group within a stage, the output
+# type and the scales' struct)
+_TILE = ("void lowbit::tile::wg_tile<{p}, sel::{sel}, 128, float, "
+         "lowbit::ScalesOf<{s}> >(lowbit::tile::Maps, lowbit::ScalesOf<{s}>, "
+         "lowbit::Ids, float*, int, int, int, int)")
+_W8 = ("void w8::w8_{k}<sel::{sel}, {t}__nv_bfloat16>(__nv_bfloat16 const*, "
+       "signed char const*, float const*, __nv_bfloat16*, int const*, int, "
+       "int, int, int, int)")
+_GEMV = ("void lowbit::gemv<w4::W4, sel::{sel}, 16, 4, 128, float, "
+         "__nv_bfloat16>(__nv_bfloat16 const*, lowbit::Planes, "
+         "lowbit::ScalesOf<__nv_bfloat16>, lowbit::Ids, float*, int, int, "
+         "int, int)")
+KERNEL_NAMES = {
+    "w8_matmul": [_W8.format(k="gemv", sel="Whole", t="16, "),
+                  _W8.format(k="gemm", sel="Whole", t=""),
+                  _TILE.format(p="w8::W8", sel="Whole", s="float")],
+    "w8_matmul_expert": [_W8.format(k="gemv", sel="Expert", t="16, "),
+                         _W8.format(k="gemm", sel="Expert", t=""),
+                         _TILE.format(p="w8::W8", sel="Expert", s="float")],
+    "w8_matmul_pairs": [_W8.format(k="gemv", sel="Pairs", t="1, ")],
+    "w4_matmul": [_GEMV.format(sel="Whole"),
+                  _TILE.format(p="w4::W4", sel="Whole", s="__nv_bfloat16")],
+    "w4_matmul_expert": [
+        _GEMV.format(sel="Expert"),
+        _TILE.format(p="w4::W4", sel="Expert", s="__nv_bfloat16")],
+    "w4_matmul_pairs": [_GEMV.format(sel="Pairs")],
+}
+
+
+@pytest.mark.parametrize("name", sorted(KERNEL_NAMES))
+def test_trace_tags_pick_each_kernel_family_and_no_other(name):
+    """K1's and K6a's tags pick their GEMV's, their mma.sync tile's and
+    their Hopper tile's names, and no name of K2's, K6b's, K5a's or K5b's
+    kernels; those kernels' tags pick none of K1's or K6a's."""
+    tags = chip_smoke.kernel_fns(name)[0].trace_tags
+    for kernel, names in KERNEL_NAMES.items():
+        for kernel_name in names:
+            assert chip_smoke.picks(tags, kernel_name) == (kernel == name), (
+                name, kernel_name)
 
 
 @pytest.fixture
@@ -604,6 +651,120 @@ def test_lowbit_tile_matches_plain_version(cuda, kernel, tokens, in_p,
     assert fn.launches == before + 1
     assert got.shape == (tokens, 200) and got.dtype == out_dtype
     _assert_kernel_close(got, want, out_dtype)
+
+
+# (in_p, group) of the int8 layers the loaders make: groups 512, 1024 and
+# 2048 (pick_group) at Llama-3.1-8B's and Qwen2.5-7B's widths, where the
+# group divides in_p (19456: Qwen2.5-7B's intermediate, padded)
+K1_WIDTHS = [(in_p, group) for in_p in (2048, 3584, 14336, 19456)
+             for group in (512, 1024, 2048) if in_p % group == 0]
+
+
+def _int8_case(gen, device, out_f, in_p, group, n_experts=None):
+    """Random int8 codes and f32 scales of (in_p / group, out) layout,
+    stacked when ``n_experts`` is given."""
+    lead = () if n_experts is None else (n_experts,)
+    wq = torch.randint(-128, 128, (*lead, out_f, in_p), generator=gen,
+                       device=device, dtype=torch.int8)
+    scales = torch.rand((*lead, in_p // group, out_f), generator=gen,
+                        device=device) * 1e-2
+    return wq, scales
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "out_dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("in_p,group", K1_WIDTHS)
+@pytest.mark.parametrize("out_f", [200, 14336])
+@pytest.mark.parametrize("tokens", [17, 40, 128, 130, 300, 512, 2048])
+def test_k1_tile_matches_plain_version(cuda, tokens, out_f, in_p, group,
+                                       out_dtype):
+    """K1 past the GEMV runs the Hopper tile with the W8 policy: one token
+    tile and several, ragged T and out (200 rows), gate_up's rows
+    (14336), a scale group of 4 to 16 stages summed in acc before one fold
+    (groups 512, 1024, 2048, one group to 38 of them), f32 / bf16 / fp16
+    out."""
+    gen = torch.Generator(device=cuda).manual_seed(tokens + out_f + in_p)
+    wq, scales = _int8_case(gen, cuda, out_f, in_p, group)
+    x = torch.randn((tokens, in_p), generator=gen, device=cuda)
+    before = w8_matmul.launches
+    got = w8_matmul(x, wq, scales, out_dtype=out_dtype)
+    want = w8_matmul_reference(x, wq, scales, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert w8_matmul.launches == before + 1
+    assert got.shape == (tokens, out_f) and got.dtype == out_dtype
+    _assert_kernel_close(got, want, out_dtype)
+
+
+def _int8_route_case(kernel, gen, device, group, tokens, in_p=1536):
+    """K1 or K6a (expert 2 of 3) on bf16 x (so that the wrapper launches no
+    cast) at a scale group that divides in_p: 24 groups of 64, 16 of 96, 3
+    of 512. Returns (wrapper, plain version, args)."""
+    x = torch.randn((tokens, in_p), generator=gen, device=device).to(
+        torch.bfloat16)
+    fn, ref = chip_smoke.kernel_fns(kernel)
+    if kernel == "w8_matmul":
+        return fn, ref, (x, *_int8_case(gen, device, 200, in_p, group))
+    return fn, ref, (
+        x, *_int8_case(gen, device, 200, in_p, group, n_experts=3),
+        torch.tensor(2, dtype=torch.int32, device=device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("tokens", [3, 17, 40, 300])
+@pytest.mark.parametrize("group", [64, 96, 512])
+@pytest.mark.parametrize("kernel", ["w8_matmul", "w8_matmul_expert"])
+def test_int8_groups_route_by_shape(cuda, kernel, group, tokens, out_dtype):
+    """A scale group that is no multiple of the tile's 128-position stage
+    (64, 96: the wrappers take any multiple of 32; no loader makes one)
+    runs w8_gemm past 16 tokens, a group of whole stages the tile: each
+    route matches the plain version, with one launch a call
+    (test_int8_route_shows_in_the_kernel_names sees which kernel runs)."""
+    gen = torch.Generator(device=cuda).manual_seed(group + tokens)
+    fn, ref, args = _int8_route_case(kernel, gen, cuda, group, tokens)
+    before = fn.launches
+    got = fn(*args, out_dtype=out_dtype)
+    want = ref(*args, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    _assert_kernel_close(got, want, out_dtype)
+
+
+@pytest.mark.cuda
+def test_int8_route_shows_in_the_kernel_names(cuda):
+    """One profiler session (many short sessions in one process now and
+    then record no device event at all) over K1 and K6a at groups 64, 96
+    and 512 and T 3 and 40: each call launches one kernel, the one its
+    shape picks: w8_gemv up to 16 tokens; past them the tile for a group
+    of whole 128-column stages, w8_gemm for another group."""
+    from torch.profiler import ProfilerActivity, profile
+
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    calls, routes = [], []
+    for kernel in ("w8_matmul", "w8_matmul_expert"):
+        for group in (64, 96, 512):
+            for tokens in (3, 40):
+                fn, _, args = _int8_route_case(kernel, gen, cuda, group,
+                                               tokens)
+                calls.append(lambda f=fn, a=args: f(*a))
+                routes.append("w8_gemv" if tokens <= 16 else
+                              "wg_tile" if group % 128 == 0 else "w8_gemm")
+    for call in calls:
+        call()  # built and warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for call in calls:
+            call()
+            torch.cuda.synchronize()
+    events = sorted(
+        (e for e in prof.events()
+         if e.device_type == torch.autograd.DeviceType.CUDA),
+        key=lambda e: e.time_range.start)
+    names = [e.name for e in events]
+    assert len(names) == len(calls), names
+    for name, route in zip(names, routes):
+        assert route in name, (route, name)
 
 
 @pytest.mark.cuda
@@ -705,6 +866,36 @@ def test_expert_kernel_matches_plain_version(cuda, fmt, tokens, out_dtype):
     beyond = fn(x, wq, scales, torch.tensor(9, device=cuda),
                 out_dtype=out_dtype)
     assert torch.equal(beyond, fn(x, wq, scales, ids[4], out_dtype=out_dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("fmt", ["int8", "int4"])
+def test_expert_kernel_matches_plain_version_at_a_long_chunk(cuda, fmt,
+                                                             out_dtype):
+    """K6a / K6b at Mixtral's long chunk (T 2048) through the tile, on
+    every expert of a stack and the clamped id 9; int8 at group 2048 (two
+    groups of 16 stages at in_p 4096), int4 at its group 128."""
+    gen = torch.Generator(device=cuda).manual_seed(2048)
+    n_experts, tokens, in_p = 3, 2048, 4096
+    if fmt == "int8":
+        fn, ref = w8_matmul_expert, w8_matmul_expert_reference
+        wq, scales = _int8_case(gen, cuda, 200, in_p, 2048, n_experts)
+    else:
+        fn, ref, _, _, wq, scales = _stacked_case(
+            fmt, gen, cuda, n_experts=n_experts, in_p=in_p)
+    x = torch.randn((tokens, in_p), generator=gen, device=cuda)
+    ids = torch.arange(n_experts, dtype=torch.int32, device=cuda)
+    for e in range(n_experts):
+        got = fn(x, wq, scales, ids[e], out_dtype=out_dtype)
+        want = ref(x, wq, scales, ids[e], out_dtype=out_dtype)
+        assert got.shape == (tokens, 200) and got.dtype == out_dtype
+        _assert_kernel_close(got, want, out_dtype)
+    beyond = fn(x, wq, scales, torch.tensor(9, device=cuda),
+                out_dtype=out_dtype)
+    last = fn(x, wq, scales, ids[-1], out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert torch.equal(beyond, last)
 
 
 @pytest.mark.cuda

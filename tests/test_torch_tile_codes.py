@@ -7,12 +7,14 @@ The tile turns the bytes of two positions into a bf16 pair in three
 steps: ``__byte_perm`` spreads them into the two halves of a word, the
 format policy's ``tile_code`` puts its code under a bf16 exponent (base +
 code), and one ``fma.rn.bf16x2`` with ``kTileBias`` takes base + offset
-away. This test reads those pieces from the CUDA sources (the spread
-selector, ``kOne``, the sign flip of the bias, and each policy's
-``tile_code``, ``tile_plane``, ``kTileBias`` and ``kParts``), runs them
-in numpy uint32 arithmetic with a bf16 fma that rounds to nearest even,
-and holds the results to ``ops/packing.py``'s ``unpack_int4``,
-``unpack_int3`` and ``unpack_int2`` (+ 0.5). So it checks what the card
+away. int8's ``tile_code`` (``W8``) makes the signed level itself with a
+``bf16x2_fma`` of its own, and its bias is 0. This test reads those
+pieces from the CUDA sources (the spread selector, ``kOne``, the sign
+flip of the bias, and each policy's ``tile_code``, ``tile_plane``,
+``kTileBias`` and ``kParts``), runs them in numpy uint32 arithmetic with
+a bf16 fma that rounds to nearest even, and holds the results to
+``ops/packing.py``'s ``unpack_int4``, ``unpack_int3`` and ``unpack_int2``
+(+ 0.5), and to the int8 byte's value. So it checks what the card
 compiles; the kernels themselves run only there.
 """
 
@@ -32,6 +34,7 @@ POLICIES = {
     "int4": ("w4.cuh", "W4"),
     "int3": ("w3_matmul.cu", "W3"),
     "int2": ("w2_matmul.cu", "W2"),
+    "int8": ("w8.cuh", "W8"),
 }
 L = 8  # positions a row: one 8-byte word a plane, the bytes prmt reads
 ROWS = 1 << 16  # every pair of bytes
@@ -39,16 +42,18 @@ ROWS = 1 << 16  # every pair of bytes
 
 def _c_expr(expr: str) -> str:
     """A C integer expression of the sources as Python: literal suffixes
-    dropped, a conditional turned around (the operators the policies use,
-    ~ << >> & ^ | * +, bind alike in both languages)."""
+    and namespace qualifiers dropped, a conditional turned around (the
+    operators the policies use, ~ << >> & ^ | * +, bind alike in both
+    languages; a call of bf16x2_fma runs :func:`_fma_bits`)."""
     expr = re.sub(r"\b(0[xX][0-9A-Fa-f]+|\d+)[uU]\b", r"\1", expr.strip())
+    expr = re.sub(r"\b\w+::", "", expr)
     m = re.fullmatch(r"(.+?)\s*\?\s*(.+?)\s*:\s*(.+)", expr, re.S)
     return f"(({m[2]}) if ({m[1]}) else ({m[3]}))" if m else expr
 
 
 def _run_body(body: str, env: dict):
     """Run a device function's body (declarations, then a return)."""
-    env = dict(env)
+    env = dict(env, bf16x2_fma=_fma_bits)
     for stmt in filter(None, (s.strip() for s in body.split(";"))):
         if stmt.startswith("return "):
             return eval(_c_expr(stmt[len("return "):]), {}, env)
@@ -118,6 +123,15 @@ def _fma_bf16x2(a, b, c):
     return out
 
 
+def _fma_bits(a, b, c) -> np.ndarray:
+    """The device function bf16x2_fma: :func:`_fma_bf16x2`'s halves packed
+    back into uint32 words of two bf16 (exact: each half is rounded to
+    bf16 already)."""
+    lo, hi = (np.asarray(v, np.float32).view(np.uint32) >> np.uint32(16)
+              for v in _fma_bf16x2(a, b, c))
+    return (lo | (hi << np.uint32(16))).astype(np.uint32)
+
+
 def _planes(fmt: str, tig: int):
     """The planes of ``ROWS`` rows of ``L`` positions, in which positions
     2·tig and 2·tig + 1 of the rows hold every pair of bytes of each plane
@@ -142,6 +156,8 @@ def _planes(fmt: str, tig: int):
         levels = unpack_int3(t(np.concatenate([lo, hi], axis=1)), t(sign))
         return (lo, hi, sign), levels.double().numpy()
     one = plane(pair)
+    if fmt == "int8":
+        return (one,), one.view(np.int8).astype(np.float64)
     if fmt == "int4":
         return (one,), unpack_int4(t(one)).double().numpy()
     return (one,), unpack_int2(t(one)).double().numpy() + 0.5
@@ -179,7 +195,8 @@ def test_tile_arithmetic_is_the_one_the_tests_emulate():
     assert hooked == {name for _, name in POLICIES.values()}
 
 
-CASES = [(fmt, p) for fmt, n in (("int4", 2), ("int3", 8), ("int2", 4))
+CASES = [(fmt, p) for fmt, n in (("int4", 2), ("int3", 8), ("int2", 4),
+                                 ("int8", 1))
          for p in range(n)]
 
 

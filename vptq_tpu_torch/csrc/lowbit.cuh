@@ -86,14 +86,24 @@ struct Ids {
   int n_experts;
 };
 
-struct Scales {
-  const __nv_bfloat16* s;
+__device__ __forceinline__ float scale_f32(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+__device__ __forceinline__ float scale_f32(float v) { return v; }
+
+// the scale of row o and group g at s[o·row_stride + g·group_stride]: bf16
+// for the low-bit formats (Scales), f32 for int8 (ScalesOf<float>, which
+// only the prefill tile of lowbit_tile.cuh reads)
+template <typename T>
+struct ScalesOf {
+  const T* s;
   int row_stride;
   int group_stride;
   __device__ __forceinline__ float at(int o, int g) const {
-    return __bfloat162float(s[(size_t)o * row_stride + (size_t)g * group_stride]);
+    return scale_f32(s[(size_t)o * row_stride + (size_t)g * group_stride]);
   }
 };
+using Scales = ScalesOf<__nv_bfloat16>;
 
 // Whether format P multiplies part p's scales by P::part_scale(p).
 template <class P, class = void>
@@ -102,9 +112,8 @@ template <class P>
 struct ScaledParts<P, std::void_t<decltype(P::kScaledParts)>>
     : std::bool_constant<P::kScaledParts> {};
 
-template <class P>
-__device__ __forceinline__ float scale_of(const Scales& sc, int o, int g,
-                                          int p) {
+template <class P, class S>
+__device__ __forceinline__ float scale_of(const S& sc, int o, int g, int p) {
   if constexpr (ScaledParts<P>::value)
     return sc.at(o, g) * P::part_scale(p);
   else

@@ -1,12 +1,13 @@
-// The Hopper (sm_90a) prefill tile of the low-bit formats at T > 16
-// tokens: K2 w4_matmul, K3 w2_matmul, K4 w3_matmul, and K6b
-// w4_matmul_expert on one expert of a stack. It computes what lowbit::gemm
-// computes, y = x @ (s ⊙ L)^T over the split layouts of lowbit.cuh: x is
-// rounded to bf16, every level is exact in bf16, the products of one
-// (row, scale group) are summed in f32, that f32 partial is multiplied by
-// the group's bf16 scale, and the scaled partials are summed in f32. No
-// scale is folded into a bf16 weight. The byte layouts are the formats'
-// own (w4.cuh, w2_matmul.cu, w3_matmul.cu), bit for bit.
+// The Hopper (sm_90a) prefill tile of the quantized formats at T > 16
+// tokens: K1 w8_matmul, K2 w4_matmul, K3 w2_matmul, K4 w3_matmul, and K6a
+// w8_matmul_expert and K6b w4_matmul_expert on one expert of a stack. It
+// computes what lowbit::gemm computes, y = x @ (s ⊙ L)^T over the split
+// layouts of lowbit.cuh: x is rounded to bf16, every level is exact in
+// bf16, the products of one (row, scale group) are summed in f32, that
+// f32 partial is multiplied by the group's scale (bf16; int8's f32), and
+// the scaled partials are summed in f32. No scale is folded into a bf16
+// weight. The byte layouts are the formats' own (w8.cuh, w4.cuh,
+// w2_matmul.cu, w3_matmul.cu), bit for bit.
 //
 // What bounds it: at T = 512 the bf16 tensor-core operations (2·T·out·in_p,
 // 0.226 ms per Llama-3.1-8B layer at 989 TFLOP/s); the int4 weight bytes
@@ -25,16 +26,19 @@
 //    a bf16 exponent (lop3), giving base + code, and one bf16x2 fma
 //    subtracts the bias, base + the code's offset; the policy chooses both
 //    so that every step is exact in bf16 (int4 and int3: base 128, step 1;
-//    int2's half levels: base 64, step ½). No conversion instruction runs
-//    and no level touches shared memory.
+//    int2's half levels: base 64, step ½; int8's 256 levels take two
+//    exponents, so its code makes the signed level itself with one more
+//    fma and its bias is 0). No conversion instruction runs and no level
+//    touches shared memory.
 //  * An asynchronous ring: one producer thread keeps TMA copies in flight,
-//    a 128-position group of packed bytes for the block's 128 rows (int4
-//    and int2 16 KB, int3 48 KB, two stages) and 64-position x boxes (128
-//    tokens each, four slabs of two boxes), with full and empty mbarriers;
-//    setmaxnreg moves registers from the producer warpgroup to the
-//    consumers.
-//  * One position group of bytes feeds kParts x slabs (int4 2, int2 4,
-//    int3 8: x is kParts times wider than the bytes), so the bytes stay
+//    a 128-position group of packed bytes for the block's 128 rows (int8,
+//    int4 and int2 16 KB, int3 48 KB; as many stages as the x ring has
+//    slabs' worth of positions, at least two: int8 4, the others 2) and
+//    64-position x boxes (128 tokens each, four slabs of two boxes), with
+//    full and empty mbarriers; setmaxnreg moves registers from the
+//    producer warpgroup to the consumers.
+//  * One position group of bytes feeds kParts x slabs (int8 1, int4 2,
+//    int2 4, int3 8: x is kParts times wider than the bytes), so the bytes stay
 //    resident while the x slabs of part 0, 1, ... stream through the ring,
 //    in lowbit::gemm's order (group outer, part inner). Per part a
 //    warpgroup unpacks its fragments, issues the 8 k16 steps into acc,
@@ -42,9 +46,13 @@
 //    since rows are M. A scale group G of 64 (int2's default) holds half a
 //    stage: the 8 steps go as two commit groups of 4, each started with
 //    scale-d 0 and folded with its own scales after its wait (no second
-//    accumulator: the consumers hold 168 of their 232 registers). While
-//    one consumer warpgroup unpacks, the other's wgmmas can run.
-//  * One expert of a stack (Sel = sel::Expert, K6b): the weight maps are
+//    accumulator: the consumers hold 168 of their 232 registers). int8's
+//    f32 scale groups of 512 to 2048 positions span 4 to 16 stages (a
+//    run-time count, so K1 and K6a have one instance per output type):
+//    acc sums them, each step after the group's first with scale-d 1, and
+//    is folded into tot once, after the group's last wait. While one
+//    consumer warpgroup unpacks, the other's wgmmas can run.
+//  * One expert of a stack (Sel = sel::Expert, K6a, K6b): the weight maps are
 //    3-D, {L, out, E}, and the producer reads the id from device memory
 //    and passes it as the third coordinate of every weight copy; the
 //    consumers read it too and move the scale pointer to the expert's
@@ -59,7 +67,8 @@
 // part p; tile_code(t, p), the bf16 pair base + code of part p from the
 // spread bytes t of its slots; and kTileBias, the bf16 pair base + the
 // code's offset (tests/test_torch_tile_codes.py checks every byte value
-// of every policy against the plain unpack).
+// of every policy against the plain unpack). The scales come as a
+// ScalesOf<bf16> or ScalesOf<float> (lowbit.cuh).
 
 #pragma once
 
@@ -88,8 +97,12 @@ struct Smem {
   static constexpr int kBox = kTokens * 128;  // one 64-position x box
   static constexpr int kSlab = 2 * kBox;
   static constexpr int kX = kStages * kSlab;
-  static constexpr int kW = 2 * P::kPlanes * kPlaneTile;
-  static constexpr int kBars = (2 * kStages + 4) * 8;
+  // weight stages: as many position groups as the x ring holds slabs, at
+  // least two (int8, one part: 4; the sub-byte formats: 2)
+  static constexpr int kWStages =
+      kStages / P::kParts > 2 ? kStages / P::kParts : 2;
+  static constexpr int kW = kWStages * P::kPlanes * kPlaneTile;
+  static constexpr int kBars = (2 * kStages + 2 * kWStages) * 8;
   static constexpr int kBytes = kX + kW + kBars + 1024;  // + alignment
   static_assert(kTokens * (kRows + kPad) * 4 <= kX,
                 "epilogue fits the x ring");
@@ -220,16 +233,21 @@ __device__ __forceinline__ void mma(float (&d)[64], const uint32_t (&a)[4],
         "r"(accumulate));
 }
 
-// G: the scale group, 128 or 64 positions (two groups of each part in a
-// stage); Sel: the whole weight, or the expert ids[0] of a stack
-template <class P, class Sel, int G, typename OutT>
+// G: the scale group within a stage, 128 or 64 positions (two groups of
+// each part in a stage); gstages: the stages of one scale group (1, or
+// with G = 128 and one part a run-time count: int8's groups of 512 to
+// 2048 positions span 4 to 16 stages, which acc sums before one fold).
+// Sel: the whole weight, or the expert ids[0] of a stack; Sc: the scales'
+// struct (bf16 or f32)
+template <class P, class Sel, int G, typename OutT, class Sc>
 __global__ void __launch_bounds__(kThreads, 1)
-    wg_tile(const __grid_constant__ Maps maps, Scales sc, Ids ids,
-            OutT* __restrict__ y, int T, int out, int L) {
+    wg_tile(const __grid_constant__ Maps maps, Sc sc, Ids ids,
+            OutT* __restrict__ y, int T, int out, int L, int gstages) {
   static_assert(!Sel::kPairs, "a pairs launch runs the T = 1 gemv");
   static_assert(G == kGroup || G == kGroup / 2, "scale group 128 or 64");
   using S = Smem<P>;
   constexpr int kParts = P::kParts;
+  constexpr int kW = S::kWStages;
   constexpr int kSplit = kGroup / G;  // scale groups of a part in a stage
   constexpr int kSteps = 8 / kSplit;  // k16 steps of one scale group
   constexpr int kAcc = kTokens / 2;   // f32 accumulators a thread holds
@@ -238,9 +256,9 @@ __global__ void __launch_bounds__(kThreads, 1)
   const uint32_t xs0 = (raw + 1023) & ~1023u;  // the x ring
   const uint32_t ws0 = xs0 + S::kX;            // the weight ring
   const uint32_t bars = ws0 + S::kW;
-  // x_full[kStages], x_empty[kStages], w_full[2], w_empty[2]
+  // x_full[kStages], x_empty[kStages], w_full[kW], w_empty[kW]
   const uint32_t x_full = bars, x_empty = bars + 8 * kStages;
-  const uint32_t w_full = bars + 16 * kStages, w_empty = w_full + 16;
+  const uint32_t w_full = bars + 16 * kStages, w_empty = w_full + 8 * kW;
 
   const int m0 = blockIdx.x * kTokens;  // first token
   const int n0 = blockIdx.y * kRows;    // first output row
@@ -251,7 +269,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       bar_init(x_full + 8 * i, 1);
       bar_init(x_empty + 8 * i, 256);
     }
-    for (int i = 0; i < 2; ++i) {
+    for (int i = 0; i < kW; ++i) {
       bar_init(w_full + 8 * i, 1);
       bar_init(w_empty + 8 * i, 256);
     }
@@ -268,8 +286,8 @@ __global__ void __launch_bounds__(kThreads, 1)
         e = (int)sel::expert_of(ids.ids, ids.n_experts, 0);
       int it = 0;
       for (int gi = 0; gi < n_groups; ++gi) {
-        const int ws = gi & 1;
-        bar_wait(w_empty + 8 * ws, ((gi >> 1) & 1) ^ 1);
+        const int ws = gi % kW;
+        bar_wait(w_empty + 8 * ws, ((gi / kW) & 1) ^ 1);
         bar_expect(w_full + 8 * ws, P::kPlanes * kPlaneTile);
 #pragma unroll
         for (int i = 0; i < P::kPlanes; ++i) {
@@ -292,9 +310,14 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 232;");
+    // stages of one scale group: a run-time count only where a stage holds
+    // one part (acc carries one part's sums), else 1, which leaves the
+    // sub-byte formats' loop as it was
+    const int gs = kParts == 1 ? gstages : 1;
+    const int part_groups = L / (G * gs);  // scale groups of one part
     if constexpr (Sel::kIds)
       sc.s += sel::expert_of(ids.ids, ids.n_experts, 0) * out *
-              (size_t)(kParts * L / G);
+              (size_t)(kParts * part_groups);
     const int ctid = threadIdx.x - 128;
     const int lane = threadIdx.x & 31;
     const int gid = lane >> 2;
@@ -339,10 +362,13 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
     };
 
-    int it = 0;
+    // in_group: this stage's place in its scale group; grp: the group (of
+    // G·gs positions) the stage lies in
+    int it = 0, in_group = 0, grp = 0;
     for (int gi = 0; gi < n_groups; ++gi) {
-      const int ws = gi & 1;
-      bar_wait(w_full + 8 * ws, (gi >> 1) & 1);
+      const int ws = gi % kW;
+      const bool last = gs == 1 || in_group == gs - 1;  // fold acc into tot
+      bar_wait(w_full + 8 * ws, (gi / kW) & 1);
 #pragma unroll 1
       for (int p = 0; p < kParts; ++p, ++it) {
         uint32_t a[8][4];
@@ -359,13 +385,13 @@ __global__ void __launch_bounds__(kThreads, 1)
           for (int s = h * kSteps; s < (h + 1) * kSteps; ++s)
             mma(acc, a[s],
                 desc_sw128(slab + (s >> 2) * S::kBox + (s & 3) * 32),
-                s > h * kSteps);
+                s > h * kSteps || in_group > 0);
           asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-          if (h == 0) {
-            // group h' of part p at stage gi: p·(L/G) + gi·kSplit + h'
+          if (h == 0 && last) {
+            // group h' of part p at stage gi: p·part_groups + grp·kSplit + h'
 #pragma unroll
             for (int k = 0; k < kSplit; ++k) {
-              const int g = p * (L / G) + gi * kSplit + k;
+              const int g = p * part_groups + grp * kSplit + k;
               s0[k] = o0 < out ? scale_of<P>(sc, o0, g, p) : 0.f;
               s1[k] = o1 < out ? scale_of<P>(sc, o1, g, p) : 0.f;
             }
@@ -373,12 +399,16 @@ __global__ void __launch_bounds__(kThreads, 1)
           asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
           fence_acc(acc);
           if (h == kSplit - 1) bar_arrive(x_empty + 8 * xs);
+          if (last) {
 #pragma unroll
-          for (int i = 0; i < kAcc; ++i)
-            tot[i] += acc[i] * ((i & 2) ? s1[h] : s0[h]);
+            for (int i = 0; i < kAcc; ++i)
+              tot[i] += acc[i] * ((i & 2) ? s1[h] : s0[h]);
+          }
         }
       }
       bar_arrive(w_empty + 8 * ws);
+      grp += last;
+      in_group = last ? 0 : in_group + 1;
     }
 
     // epilogue: tot (rows x tokens) through shared memory, the x ring now
@@ -451,16 +481,17 @@ inline bool encode(CUtensorMap* map, CUtensorMapDataType type,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <class P, class Sel, int G, typename OutT>
-cudaError_t launch_typed(const void* x, const Planes& pl, const Scales& sc,
-                         const Ids& ids, OutT* y, int T, int out, int in_p,
-                         cudaStream_t stream) {
+// The tile alone, on T > 16 tokens of bf16 x. group: the positions of one
+// scale group, G itself, or (G = kGroup, one part) a multiple of the
+// stage that divides L.
+template <class P, class Sel, int G, typename OutT, class Sc>
+cudaError_t launch_tile(const void* x, const Planes& pl, const Sc& sc,
+                        const Ids& ids, OutT* y, int T, int out, int in_p,
+                        int group, cudaStream_t stream) {
   const int L = in_p / P::kParts;
-  if (L % kGroup) return cudaErrorInvalidValue;
-  if (T <= kDecodeMax)
-    return launch_decode<P, Sel, G, OutT, __nv_bfloat16>(
-        static_cast<const __nv_bfloat16*>(x), pl, sc, ids, y, T, out, in_p,
-        L, stream);
+  const bool stages = G == kGroup && P::kParts == 1 && group % kGroup == 0;
+  if (L % kGroup || group < G || L % group || (group != G && !stages))
+    return cudaErrorInvalidValue;
   if (Sel::kIds && ids.n_experts < 1) return cudaErrorInvalidValue;
   Maps maps = {};
   if (!encode(&maps.x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, T, in_p,
@@ -472,14 +503,28 @@ cudaError_t launch_typed(const void* x, const Planes& pl, const Scales& sc,
                 kGroup, Sel::kIds ? ids.n_experts : 0,
                 (uint64_t)out * pl.row_bytes[i]))
       return cudaErrorInvalidValue;
-  auto kernel = wg_tile<P, Sel, G, OutT>;
+  auto kernel = wg_tile<P, Sel, G, OutT, Sc>;
   constexpr int smem = Smem<P>::kBytes;
   const cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
   const dim3 grid((T + kTokens - 1) / kTokens, (out + kRows - 1) / kRows);
-  kernel<<<grid, kThreads, smem, stream>>>(maps, sc, ids, y, T, out, L);
+  kernel<<<grid, kThreads, smem, stream>>>(maps, sc, ids, y, T, out, L,
+                                           group / G);
   return cudaGetLastError();
+}
+
+template <class P, class Sel, int G, typename OutT>
+cudaError_t launch_typed(const void* x, const Planes& pl, const Scales& sc,
+                         const Ids& ids, OutT* y, int T, int out, int in_p,
+                         cudaStream_t stream) {
+  if ((in_p / P::kParts) % kGroup) return cudaErrorInvalidValue;
+  if (T <= kDecodeMax)
+    return launch_decode<P, Sel, G, OutT, __nv_bfloat16>(
+        static_cast<const __nv_bfloat16*>(x), pl, sc, ids, y, T, out, in_p,
+        in_p / P::kParts, stream);
+  return launch_tile<P, Sel, G, OutT>(x, pl, sc, ids, y, T, out, in_p, G,
+                                      stream);
 }
 
 // A launch of a format on bf16 x with scale group G: the whole weight, or

@@ -18,12 +18,13 @@
 //
 // What bounds it on an H100: at decode (T <= 16) the bytes of wq, one
 // per weight, read once (6.98 GB per token at Llama-3.1-8B width); at
-// prefill the tensor-core FLOPs (2*T*out*in_p). The TPU kernel walked
-// in_p on a sequential grid axis with an f32 accumulator in VMEM; here
-// blocks run in no order, so a loop inside each block walks in_p.
+// prefill the tensor-core FLOPs (2*T*out*in_p: 0.226 ms per Llama-3.1-8B
+// layer at T = 512, 989 TFLOP/s). The TPU kernel walked in_p on a
+// sequential grid axis with an f32 accumulator in VMEM; here blocks run
+// in no order, so a loop inside each block walks in_p.
 //
-// Two kernels, picked by T (a pairs launch runs the first at T = 1 on a
-// grid of (row tiles, pairs)):
+// Three kernels, picked by T and the scale group (a pairs launch runs the
+// first at T = 1 on a grid of (row tiles, pairs)):
 //  * w8_gemv (T <= 16): each warp owns kRows weight rows and streams
 //    them with 16-byte loads, four loads per row in flight; x for the
 //    current scale group is staged in shared memory as bf16 and shared
@@ -31,13 +32,22 @@
 //    (no I2F), so the loop stays under the memory rate. Per-lane
 //    partials are reduced with warp shuffles at each group boundary,
 //    where the scale is applied.
-//  * w8_gemm (T > 16): 64 x 128 output tiles, 8 warps, bf16 mma.sync
-//    m16n8k16 with f32 accumulators. The int8 tile is widened to bf16
-//    while it is written to shared memory; the next tile's global loads
-//    are in flight during the current tile's MMAs. At each group
-//    boundary the group accumulators are scaled per column (the mma C
-//    layout fixes each register's column) and added to the totals.
-// wgmma/TMA pipelining is later work.
+//  * T > 16, a group of whole 128-position stages (every group the
+//    loaders make: 512, 1024, 2048): the Hopper prefill tile of
+//    lowbit_tile.cuh with the policy W8 below (TMA ring, levels made in
+//    registers as wgmma's A operand, x from swizzled shared memory). The
+//    bytes are the one plane and the one part; a 128 x 128 stage of 16 KB
+//    feeds one x slab, so the weight ring holds four stages. acc sums
+//    the group's 4 to 16 stages and is folded into the totals with the
+//    f32 scales once, after the group's last wait.
+//  * w8_gemm (T > 16, any other group, a multiple of 32 that no loader
+//    makes; routed by shape, never after a failed launch): 64 x 128
+//    output tiles, 8 warps, bf16 mma.sync m16n8k16 with f32
+//    accumulators. The int8 tile is widened to bf16 while it is written
+//    to shared memory; the next tile's global loads are in flight during
+//    the current tile's MMAs. At each group boundary the group
+//    accumulators are scaled per column and added to the totals. K7
+//    (bf16_matmul.cu) takes its constants and fragment helpers.
 
 #pragma once
 
@@ -46,8 +56,32 @@
 #include <stdint.h>
 
 #include "expert_select.cuh"
+#include "lowbit_tile.cuh"
 
 namespace w8 {
+
+using lowbit::tile::bf16x2_fma;
+
+// The int8 format on the prefill tile (lowbit_tile.cuh): one plane, the
+// bytes as they lie, one part. The name W8 tags the tile's instances in a
+// profiler trace (w8_matmul.trace_tags). t holds the bytes b of two
+// positions in bits 0-7 and 16-23. In each bf16 half m = 128 + (b & 127)
+// puts the low seven bits under the exponent of 128, and n = -(128 +
+// 128·s) takes b's sign bit s into the exponent (-128 or -256), so one fma
+// gives m + n = b - 256·s, the signed level, exact in bf16; the tile's own
+// fma then takes away a bias of 0.
+struct W8 {
+  static constexpr int kPlanes = 1;
+  static constexpr int kParts = 1;
+  static constexpr int kTileSlots = 1;
+  static constexpr uint32_t kTileBias = 0u;
+  __device__ static int tile_plane(int, int) { return 0; }
+  __device__ static uint32_t tile_code(const uint32_t (&t)[1], int) {
+    const uint32_t m = (t[0] & 0x007F007Fu) | 0x43004300u;
+    const uint32_t n = (t[0] & 0x00800080u) | 0xC300C300u;
+    return bf16x2_fma(m, 0x3F803F80u, n);
+  }
+};
 
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
@@ -217,7 +251,8 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // --------------------------------------------------------------------
-// prefill: T > 16
+// prefill at T > 16 for a scale group that is no multiple of 128 (the
+// tile, lowbit_tile.cuh, takes the others)
 
 constexpr int BM = 64;        // tokens per block tile
 constexpr int BN = 128;       // output rows per block tile
@@ -421,6 +456,17 @@ cudaError_t launch_typed(const Args& a, void* y, cudaStream_t stream) {
     if (T <= 4) return launch_gemv<Sel, 4, OutT>(a, yo, T, 1, stream);
     if (T <= 8) return launch_gemv<Sel, 8, OutT>(a, yo, T, 1, stream);
     if (T <= 16) return launch_gemv<Sel, 16, OutT>(a, yo, T, 1, stream);
+    // the route by shape: whole stages of a scale group take the tile
+    if (a.group % lowbit::tile::kGroup == 0) {
+      const lowbit::Planes pl = {
+          {reinterpret_cast<const uint8_t*>(a.wq), nullptr, nullptr},
+          {a.in_p, 0, 0},
+          {0, 0, 0}};
+      const lowbit::ScalesOf<float> sc = {a.scales, 1, a.out};
+      return lowbit::tile::launch_tile<W8, Sel, lowbit::tile::kGroup, OutT>(
+          a.x, pl, sc, lowbit::Ids{a.ids, a.n_experts}, yo, T, a.out, a.in_p,
+          a.group, stream);
+    }
     dim3 grid((a.out + BN - 1) / BN, (T + BM - 1) / BM);
     w8_gemm<Sel, OutT><<<grid, kThreads, 0, stream>>>(
         a.x, a.wq, a.scales, yo, a.ids, a.n_experts, T, a.out, a.in_p,

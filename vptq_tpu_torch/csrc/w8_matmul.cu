@@ -2,7 +2,10 @@
 //
 // Replaces vptq_tpu/ops/pallas_gemm.py:_w8_kernel (entry w8_matmul).
 // The loops, their design and what bounds them are in w8.cuh; this is
-// their entry for one whole weight.
+// their entry for one whole weight: T <= 16 runs w8.cuh's GEMV, more
+// tokens the Hopper tile of lowbit_tile.cuh with the policy w8::W8 (a
+// scale group of whole 128-column stages, the loaders' 512 to 2048), or
+// w8_gemm for another group.
 //
 //   x      (T, in_p)      bf16, row-major
 //   wq     (out, in_p)    int8, row-major

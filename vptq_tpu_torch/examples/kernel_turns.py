@@ -1,17 +1,19 @@
 """The kernel phases of ``chip_smoke.py`` on several trees, in turns.
 
-Compares versions of the low-bit kernels on one card in one run: each
-turn is a fresh process in one tree (a checkout of the repository) that
-builds that tree's kernels and runs that tree's own ``chip_smoke`` phases
-at the full shapes: K3 ``w2_matmul``, K2 ``w4_matmul`` and K4
-``w3_matmul`` at the four linears of a Llama-3.1-8B layer, the int4 MoE
-kernels K6b ``w4_matmul_expert`` and K5b ``w4_matmul_pairs`` at a
-Mixtral-8x7B expert's two shapes on stacks of 8; T = 1, 128, 512 and
-2048 (K5b: P = 2 and 16). Each kernel is held against its plain version,
-as the smoke holds it. The card's name and power limit come first; then
-one line per (turn, kernel, scale group, T) with ms, bound, plain and
-``torch.matmul`` ms summed over the shapes, and the device-to-host copies
-of two K6b launches (T = 512, 2048) in the ``torch.profiler`` trace.
+Compares versions of the dequant-matmul kernels on one card in one run:
+each turn is a fresh process in one tree (a checkout of the repository)
+that builds that tree's kernels and runs that tree's own ``chip_smoke``
+phases at the full shapes: K3 ``w2_matmul``, K2 ``w4_matmul``, K4
+``w3_matmul``, K1 ``w8_matmul`` and K7 ``bf16_matmul`` at the four
+linears of a Llama-3.1-8B layer, the MoE kernels K6b ``w4_matmul_expert``,
+K5b ``w4_matmul_pairs``, K6a ``w8_matmul_expert`` and K5a
+``w8_matmul_pairs`` at a Mixtral-8x7B expert's two shapes on stacks of 8;
+T = 1, 128, 512 and 2048 (K5: P = 2 and 16). Each kernel is held against
+its plain version, as the smoke holds it. The card's name and power limit
+come first; then one line per (turn, kernel, scale group, T) with ms,
+bound, plain and ``torch.matmul`` ms summed over the shapes, and the
+device-to-host copies of two launches each of K6b and K6a (T = 512,
+2048) in the ``torch.profiler`` trace, with the names of their kernels.
 
     python -m vptq_tpu_torch.examples.kernel_turns \\
         --tree P=build/tree/parent --tree C=. --order P C C P \\
@@ -35,10 +37,11 @@ from vptq_tpu_torch.examples.kernel_bench import card_line, pick_device
 
 __all__ = ["main"]
 
-# the kernels a turn runs: the smoke's phase_kernel for the first three,
-# phase_moe_kernels("int4") for the MoE pair
-KERNELS = ("w2_matmul", "w4_matmul", "w3_matmul", "w4_matmul_expert",
-           "w4_matmul_pairs")
+# the kernels a turn runs: the smoke's phase_kernel for the four formats,
+# phase_moe_kernels("int4") and ("int8") for the MoE pairs, phase_bf16
+KERNELS = ("w2_matmul", "w4_matmul", "w3_matmul", "w8_matmul",
+           "w4_matmul_expert", "w4_matmul_pairs", "w8_matmul_expert",
+           "w8_matmul_pairs", "bf16_matmul")
 
 # One turn, run with ``python -c`` from the root of its tree so that the
 # tree's own chip_smoke and vptq_tpu_torch are the ones imported:
@@ -63,33 +66,44 @@ if dev == "cpu":
     shapes = moe_shapes = [("a", 40, 1024), ("b", 24, 2048)]
     tokens, iters = (1, 20), 1
 rows = []
-for name in KERNELS[:3]:
-    rows += cs.phase_kernel(name, dev, shapes, tokens, iters=iters)
-rows += cs.phase_moe_kernels("int4", dev, moe_shapes, tokens=tokens,
-                             iters=iters)
+for name in KERNELS:
+    if name in cs.FORMAT_KERNEL.values():
+        rows += cs.phase_kernel(name, dev, shapes, tokens, iters=iters)
+for fmt in ("int4", "int8"):
+    rows += cs.phase_moe_kernels(fmt, dev, moe_shapes, tokens=tokens,
+                                 iters=iters)
+rows += cs.phase_bf16(dev, shapes, tokens, iters=iters)
 if dev == "cuda":
-    # device-to-host copies of two K6b launches: the id stays on the card
+    # device-to-host copies of two launches of each expert kernel at
+    # Mixtral's down shape: the id stays on the card
     from torch.profiler import ProfilerActivity, profile
 
-    fn = cs.kernel_fns("w4_matmul_expert")[0]
-    wq = torch.zeros((8, 4096, 7168), dtype=torch.int8, device=dev)
-    sc = torch.ones((8, 112, 4096), dtype=torch.bfloat16, device=dev)
     e = torch.tensor(7, dtype=torch.int32, device=dev)
     x = torch.randn((2048, 14336), device=dev).to(torch.bfloat16)
-    fn(x, wq, sc, e)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for t in (512, 2048):
-            fn(x[:t], wq, sc, e)
+    for name, cols, sc in (
+        ("w4_matmul_expert", 7168,
+         torch.ones((8, 112, 4096), dtype=torch.bfloat16, device=dev)),
+        ("w8_matmul_expert", 14336,
+         torch.ones((8, 7, 4096), dtype=torch.float32, device=dev)),
+    ):
+        fn = cs.kernel_fns(name)[0]
+        wq = torch.zeros((8, 4096, cols), dtype=torch.int8, device=dev)
+        fn(x, wq, sc, e)
         torch.cuda.synchronize()
-    names = [v.name for v in prof.events()
-             if v.device_type == torch.autograd.DeviceType.CUDA]
-    print(f"[{label}] w4_matmul_expert device-to-host copies in 2 launches: "
-          f"{sum('dtoh' in n.lower() for n in names)}; its kernels: "
-          f"{sorted(set(n.split('(')[0] for n in names))}", flush=True)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for t in (512, 2048):
+                fn(x[:t], wq, sc, e)
+            torch.cuda.synchronize()
+        names = [v.name for v in prof.events()
+                 if v.device_type == torch.autograd.DeviceType.CUDA]
+        print(f"[{label}] {name} device-to-host copies in 2 launches: "
+              f"{sum('dtoh' in n.lower() for n in names)}; its kernels: "
+              f"{sorted(set(names))}", flush=True)
+        del wq
 summary = {}
 for r in rows:
-    s = summary.setdefault(f"{r['kernel']} g{r['group']} {r['unit']}={r['T']}",
+    s = summary.setdefault(
+        f"{r['kernel']} g{r.get('group', '-')} {r['unit']}={r['T']}",
                            dict(ms=0.0, bound_ms=0.0, plain_ms=0.0,
                                 library_ms=0.0, max_abs_err=0.0))
     for k in ("ms", "bound_ms", "plain_ms", "library_ms"):

@@ -2,9 +2,11 @@
 
 Port of ``vptq_tpu/ops/pallas_gemm.py:58-190`` (``_w8_kernel``, entry
 ``w8_matmul``). The kernel is hand-written CUDA for Hopper in
-``vptq_tpu_torch/csrc/w8_matmul.cu`` (loops in ``csrc/w8.cuh``), built
-by ``ops/_build.py`` and called through ``ctypes`` on PyTorch's current
-stream.
+``vptq_tpu_torch/csrc/w8_matmul.cu`` (loops in ``csrc/w8.cuh``: a GEMV up
+to 16 tokens; past them the Hopper prefill tile of
+``csrc/lowbit_tile.cuh`` for a scale group of whole 128-column stages,
+and an ``mma.sync`` tile for any other group), built by ``ops/_build.py``
+and called through ``ctypes`` on PyTorch's current stream.
 
 :func:`w8_matmul` launches it for CUDA tensors, and runs the plain
 version :func:`w8_matmul_reference` only for tensors that lie on the
@@ -68,8 +70,9 @@ def w8_matmul(
     """``x @ (scales ⊙ wq)^T`` through the K1 kernel.
 
     x (..., in_p) float; wq (out, in_p) int8; scales (in_p // group, out)
-    f32 with ``group % 32 == 0``. Returns (..., out) in ``out_dtype``
-    (default ``x.dtype``).
+    f32 with ``group % 32 == 0`` (the loaders' groups, 512 to 2048, are
+    the ones the Hopper tile takes past 16 tokens). Returns (..., out) in
+    ``out_dtype`` (default ``x.dtype``).
     """
     group = _check(x, wq, scales)
     if x.device.type == "cpu":
@@ -87,6 +90,7 @@ def w8_matmul(
 w8_matmul.launches = 0
 # the TPU kernel this one replaces
 w8_matmul.replaces = "vptq_tpu/ops/pallas_gemm.py:58"
-# words of the demangled names of its CUDA kernels (w8.cuh's w8_gemv and
-# w8_gemm, with the policy sel::Whole) that pick them out of a trace
-w8_matmul.trace_tags = ("w8_gem", "Whole")
+# words of the demangled names of its CUDA kernels that pick them out of a
+# trace, one set per family: w8.cuh's w8_gemv and w8_gemm, and the prefill
+# tile (lowbit_tile.cuh) with the policy W8, each with sel::Whole
+w8_matmul.trace_tags = (("w8_gem", "Whole"), ("wg_tile", "W8", "Whole"))

@@ -5,7 +5,9 @@ Port of ``vptq_tpu/ops/pallas_gemm.py:193-312`` (``_w8e_kernel``, entry
 ``(E, out, in_p)`` int8 experts, reading only expert ``e``'s bytes. The
 id is an int32 tensor that stays on the device: the hand-written CUDA
 kernel (``vptq_tpu_torch/csrc/w8_matmul_expert.cu``, K1's loops of
-``csrc/w8.cuh`` entered with an expert offset) reads it itself.
+``csrc/w8.cuh`` entered with an expert offset; past 16 tokens the Hopper
+tile of ``csrc/lowbit_tile.cuh``, whose weight map is 3-D over the stack
+with the id as its third coordinate) reads it itself.
 
 :func:`w8_matmul_expert` launches the kernel for CUDA tensors and runs
 the plain version :func:`w8_matmul_expert_reference` only for tensors
@@ -102,6 +104,9 @@ def w8_matmul_expert(
 w8_matmul_expert.launches = 0
 # the TPU kernel this one replaces
 w8_matmul_expert.replaces = "vptq_tpu/ops/pallas_gemm.py:193"
-# words of the demangled names of its CUDA kernels (w8.cuh's, with the
-# policy sel::Expert) that pick them out of a profiler trace
-w8_matmul_expert.trace_tags = ("w8_gem", "Expert")
+# words of the demangled names of its CUDA kernels that pick them out of a
+# profiler trace, one set per family: w8.cuh's w8_gemv and w8_gemm, and
+# the prefill tile with the policy W8, each with sel::Expert
+w8_matmul_expert.trace_tags = (
+    ("w8_gem", "Expert"), ("wg_tile", "W8", "Expert"),
+)
