@@ -14,7 +14,8 @@ without them, or when any phase fails. Phases:
    ``w4_probe_matmul``, ``w4_i32x8_matmul``, ``w4_raw_probe`` and P3
    ``vq_smallk_matmul``), one ``nvcc`` each, all at once; the
    ``-Xptxas -v`` lines of the prefill tile (``lowbit_tile.cuh``) in K1,
-   K2, K3, K4, K6a and K6b, every instance of which must show no spill;
+   K2, K3, K4, K6a, K6b and K7, and of K8's kernel at each head size,
+   every instance of which must show no spill;
 2. each of K1-K4 at the four linear shapes of Llama-3.1-8B, on layers its
    format's encoder makes on the card from a random weight (K1 group
    2048, K3 group 64, and 128 beside it), at T=1 (decode), T=128 and
@@ -24,10 +25,12 @@ without them, or when any phase fails. Phases:
    before each launch) beside the plain version and a ``torch.matmul``
    yardstick; K1 also at the four shapes of Qwen2.5-7B (groups 512 and
    1024; intermediate 18944 padded to 19456), T=2048 included;
-   K7 at the Llama shapes on a random bf16 weight; K8 at Llama-3.1-8B's
+   K7 at the Llama shapes on a random bf16 weight, at the same T (T > 16
+   through the tile's SS form); K8 at Llama-3.1-8B's
    heads (32 over 8 KV heads of 128) on N(0, 1) q, k, v with v a strided
    view into a fused q|k|v row, at S=1024, 2048 and 1100 (no tile divides
-   it), at head size 64, at head size 96 (Phi-3-mini's 32 heads; S=1024
+   it), at Qwen2.5-7B's heads (28 over 4, GQA group 7) at S=2048, at head
+   size 64, at head size 96 (Phi-3-mini's 32 heads; S=1024
    and 1100), and with scores scaled to about +-50, beside
    ``scaled_dot_product_attention`` as its yardstick;
 3. the MoE kernels at Mixtral-8x7B's two expert shapes (gate_up
@@ -216,13 +219,17 @@ FLASH, BF16 = "flash_attention", "bf16_matmul"
 # a word of the mangled name of the Hopper prefill tile
 # (lowbit_tile.cuh), and its instances in each library that holds it: one
 # per output type (bf16, f32), and in K3 per scale group (64, 128) too
-# (K1's and K6a's groups of 512 to 2048 are a run-time count of stages).
-# The kernel phases also time these kernels at a long prefill chunk.
+# (K1's and K6a's groups of 512 to 2048 are a run-time count of stages;
+# K7's are the SS form). The kernel phases also time these kernels at a
+# long prefill chunk.
 TILE_KERNEL = "wg_tile"
 TILE_INSTANCES = {
     "w8_matmul": 2, "w4_matmul": 2, "w3_matmul": 2, "w2_matmul": 4,
-    "w8_matmul_expert": 2, "w4_matmul_expert": 2,
+    "w8_matmul_expert": 2, "w4_matmul_expert": 2, "bf16_matmul": 2,
 }
+# K8's kernel (fa::flash_wgmma<D>), one instance per head size
+FLASH_KERNEL = "flash_wgmma"
+FLASH_INSTANCES = {"flash_attention": 3}
 # the token counts of the kernel phases: decode, two prefill buckets and
 # the long-prefill chunk (every T > 16 runs the tile)
 TOKENS = (1, 128, 512, 2048)
@@ -275,8 +282,8 @@ def ptxas_entries(log: str) -> dict:
 def phase_build() -> float:
     """Build every kernel source of the port; returns wall seconds. Each
     library must hold its ``TILE_INSTANCES`` instances of the prefill tile
-    (``lowbit_tile.cuh``), none elsewhere, and each must report no
-    spill."""
+    (``lowbit_tile.cuh``) and its ``FLASH_INSTANCES`` of K8's kernel, none
+    elsewhere, and each must report no spill."""
     from vptq_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
@@ -285,23 +292,27 @@ def phase_build() -> float:
     for name, (secs, log) in built.items():
         print(f"built {name} in {secs:.2f} s")
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if ("registers" in line or "spill" in line
+                    or "wgmma" in line.lower()):
                 print(f"  ptxas: {line.strip()}")
-        clean = 0
-        for entry, lines in ptxas_entries(log).items():
-            if TILE_KERNEL not in entry:
-                continue
-            print(f"  tile {entry}: " + "; ".join(lines))
-            if not any("0 bytes spill stores, 0 bytes spill loads" in line
-                       for line in lines):
-                raise AssertionError(f"{name}: the tile {entry} spills")
-            clean += 1
-        want = TILE_INSTANCES.get(name, 0)
-        if clean != want:
-            raise AssertionError(
-                f"{name}: {clean} tile instances with 0 spill bytes in the "
-                f"-Xptxas -v log, {want} expected"
-            )
+        entries = ptxas_entries(log)
+        for word, instances in ((TILE_KERNEL, TILE_INSTANCES),
+                                (FLASH_KERNEL, FLASH_INSTANCES)):
+            clean = 0
+            for entry, lines in entries.items():
+                if word not in entry:
+                    continue
+                print(f"  tile {entry}: " + "; ".join(lines))
+                if not any("0 bytes spill stores, 0 bytes spill loads"
+                           in line for line in lines):
+                    raise AssertionError(f"{name}: the tile {entry} spills")
+                clean += 1
+            want = instances.get(name, 0)
+            if clean != want:
+                raise AssertionError(
+                    f"{name}: {clean} tile instances ({word}) with 0 spill "
+                    f"bytes in the -Xptxas -v log, {want} expected"
+                )
     return seconds
 
 
@@ -418,7 +429,7 @@ def phase_kernel(name, device, shapes, tokens=(1, 128, 512), iters=20,
     return rows
 
 
-def phase_bf16(device, shapes, tokens=(1, 128, 512), iters=20, seed=0):
+def phase_bf16(device, shapes, tokens=TOKENS, iters=20, seed=0):
     """K7 at each shape and token count on a random bf16 weight against
     its plain version; the yardstick is ``torch.matmul`` on the same
     tensors."""
@@ -456,6 +467,8 @@ FLASH_CASES = (
     ("llama-3.1-8b heads", 1, 1024, 32, 8, 128, 1.0, True),
     ("llama-3.1-8b heads", 1, 2048, 32, 8, 128, 1.0, True),
     ("no tile divides S", 1, 1100, 32, 8, 128, 1.0, False),
+    # Qwen2.5-7B's heads: 28 over 4 KV heads, GQA group 7
+    ("qwen2.5-7b heads", 1, 2048, 28, 4, 128, 1.0, False),
     ("head size 64, two sequences", 2, 1100, 8, 2, 64, 1.0, False),
     # Phi-3-mini's heads: 32 of 96, no grouping
     ("head size 96", 1, 1024, 32, 32, 96, 1.0, False),
@@ -1344,7 +1357,7 @@ def main() -> int:
     rows += phase_kernel(
         "w8_matmul", device, k1_shapes(QWEN25_7B), TOKENS, in_record=False
     )
-    rows += phase_bf16(device, k1_shapes(LLAMA31_8B))
+    rows += phase_bf16(device, k1_shapes(LLAMA31_8B), TOKENS)
     rows += phase_flash(device)
     for fmt in MOE_KERNELS:
         rows += phase_moe_kernels(

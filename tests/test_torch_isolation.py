@@ -444,25 +444,34 @@ def _ptxas_log(entry: str, spill: int) -> str:
     ("w8_matmul", 0, 8, False),             # K1's tile spills
     ("w8_matmul_expert", -1, 0, False),     # K6a lost one
     ("w8_matmul_expert", 0, 8, False),      # K6a's tile spills
+    ("bf16_matmul", -1, 0, False),          # K7 lost an out type's one
+    ("bf16_matmul", 0, 8, False),           # K7's tile spills
+    ("flash_attention", -1, 0, False),      # K8 lost a head size's one
+    ("flash_attention", 0, 8, False),       # K8's kernel spills
     ("w4_matmul_pairs", 1, 0, False),       # a tile where none belongs
 ])
 def test_build_phase_requires_every_tile_instance_spill_free(
     monkeypatch, where, extra, spill, ok
 ):
     """The build phase passes only when each library of the prefill tile
-    (K1, K2, K3, K4, K6a, K6b) reports its number of tile instances, each
-    with 0 spill bytes, and the other libraries none."""
-    def tiles(name):
-        want = chip_smoke.TILE_INSTANCES.get(name, 0)
+    (K1, K2, K3, K4, K6a, K6b, K7) reports its number of tile instances,
+    and K8's library its instances of the attention kernel, each with 0
+    spill bytes, and the other libraries none."""
+    def tiles(name, instances):
+        want = instances.get(name, 0)
         if where not in ("all", name):
             return want, 0
         return (0 if extra is None else want + extra), spill
 
     def log(name):
-        n, spilled = tiles(name)
+        n, spilled = tiles(name, chip_smoke.TILE_INSTANCES)
+        m, flash_spilled = tiles(name, chip_smoke.FLASH_INSTANCES)
         return "".join(
             _ptxas_log(f"_ZN6lowbit4tile7wg_tileI{name}{i}EEvv", spilled)
             for i in range(n)
+        ) + "".join(
+            _ptxas_log(f"_ZN2fa11flash_wgmmaILi{i}EEEvv{name}", flash_spilled)
+            for i in range(m)
         ) + _ptxas_log(f"_ZN6lowbit4gemv{name}", 0)
 
     logs = {name: log(name) for name in _build.SOURCES}
@@ -530,7 +539,14 @@ _GEMV = ("void lowbit::gemv<w4::W4, sel::{sel}, 16, 4, 128, float, "
          "__nv_bfloat16>(__nv_bfloat16 const*, lowbit::Planes, "
          "lowbit::ScalesOf<__nv_bfloat16>, lowbit::Ids, float*, int, int, "
          "int, int)")
+_BF16_GEMV = ("void bf16mm::bf16_gemv<{t}, float>(__nv_bfloat16 const*, "
+              "__nv_bfloat16 const*, float*, int, int, int)")
 KERNEL_NAMES = {
+    "bf16_matmul": [_BF16_GEMV.format(t=1), _BF16_GEMV.format(t=16),
+                    _TILE.format(p="bf16mm::BF16", sel="Whole", s="float")],
+    "flash_attention": [
+        f"void fa::flash_wgmma<{d}>(fa::Maps, __nv_bfloat16*, int, int, int, "
+        "int, int, float)" for d in (64, 96, 128)],
     "w8_matmul": [_W8.format(k="gemv", sel="Whole", t="16, "),
                   _W8.format(k="gemm", sel="Whole", t=""),
                   _TILE.format(p="w8::W8", sel="Whole", s="float")],
@@ -550,8 +566,9 @@ KERNEL_NAMES = {
 @pytest.mark.parametrize("name", sorted(KERNEL_NAMES))
 def test_trace_tags_pick_each_kernel_family_and_no_other(name):
     """K1's and K6a's tags pick their GEMV's, their mma.sync tile's and
-    their Hopper tile's names, and no name of K2's, K6b's, K5a's or K5b's
-    kernels; those kernels' tags pick none of K1's or K6a's."""
+    their Hopper tile's names, K7's its GEMV's and its SS tile's, K8's its
+    kernel's at each head size, and no name of another kernel here (K2,
+    K6b, K5a, K5b among them); no other kernel's tags pick theirs."""
     tags = chip_smoke.kernel_fns(name)[0].trace_tags
     for kernel, names in KERNEL_NAMES.items():
         for kernel_name in names:
@@ -735,9 +752,12 @@ def test_int8_groups_route_by_shape(cuda, kernel, group, tokens, out_dtype):
 def test_int8_route_shows_in_the_kernel_names(cuda):
     """One profiler session (many short sessions in one process now and
     then record no device event at all) over K1 and K6a at groups 64, 96
-    and 512 and T 3 and 40: each call launches one kernel, the one its
-    shape picks: w8_gemv up to 16 tokens; past them the tile for a group
-    of whole 128-column stages, w8_gemm for another group."""
+    and 512 and T 3 and 40, K7 at T 3 and 40 and K8 at head sizes 64, 96
+    and 128: each call launches one kernel, the one its shape picks:
+    w8_gemv up to 16 tokens; past them the tile for a group of whole
+    128-column stages, w8_gemm for another group; K7's GEMV up to 16
+    tokens and the tile's SS instance past them; K8's warp-specialised
+    kernel."""
     from torch.profiler import ProfilerActivity, profile
 
     gen = torch.Generator(device=cuda).manual_seed(0)
@@ -750,6 +770,17 @@ def test_int8_route_shows_in_the_kernel_names(cuda):
                 calls.append(lambda f=fn, a=args: f(*a))
                 routes.append("w8_gemv" if tokens <= 16 else
                               "wg_tile" if group % 128 == 0 else "w8_gemm")
+    w = (torch.randn((200, 1024), generator=gen, device=cuda) * 0.05).to(
+        torch.bfloat16)
+    for tokens in (3, 40):
+        x = torch.randn((tokens, 1024), generator=gen, device=cuda).to(
+            torch.bfloat16)
+        calls.append(lambda x=x: bf16_matmul(x, w))
+        routes.append("bf16_gemv" if tokens <= 16 else "wg_tile<bf16mm::BF16")
+    for dim in (64, 96, 128):
+        qkv = _flash_case(gen, cuda, 1, 300, 4, 2, dim)
+        calls.append(lambda a=qkv, d=dim: flash_attention(*a, d ** -0.5))
+        routes.append(f"fa::flash_wgmma<{dim}>")
     for call in calls:
         call()  # built and warm
     torch.cuda.synchronize()
@@ -1092,6 +1123,51 @@ def test_bf16_kernel_matches_plain_version(cuda, tokens, out_dtype):
     _assert_kernel_close(got, want, out_dtype)
     with pytest.raises(ValueError, match="% 512"):
         bf16_matmul(x[:, :768], w[:, :768].contiguous())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "out_dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("out_f", [200, 384])
+@pytest.mark.parametrize("tokens", [17, 100, 128, 129, 512, 2048])
+def test_bf16_tile_matches_plain_version(cuda, tokens, out_f, out_dtype):
+    """K7 past 16 tokens runs the Hopper tile in its SS form: ragged
+    tokens, rows that fill no 128-row tile (200), 16 weight stages; bf16,
+    f32 and fp16 out (fp16 x, the f32 sums rounded once)."""
+    gen = torch.Generator(device=cuda).manual_seed(tokens + out_f)
+    w = (torch.randn((out_f, 2048), generator=gen, device=cuda) * 0.05).to(
+        torch.bfloat16)
+    x = torch.randn((tokens, 2048), generator=gen, device=cuda)
+    if out_dtype == torch.float16:
+        x = x.half()
+    before = bf16_matmul.launches
+    got = bf16_matmul(x, w, out_dtype=out_dtype)
+    want = bf16_matmul_reference(x, w, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert bf16_matmul.launches == before + 1
+    assert got.shape == (tokens, out_f) and got.dtype == out_dtype
+    _assert_kernel_close(got, want, out_dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("group", [1, 4, 7])
+@pytest.mark.parametrize("dim", [64, 96, 128])
+@pytest.mark.parametrize(
+    "seq", [1, 63, 64, 65, 127, 128, 129, 1100, 2500])
+def test_flash_wgmma_matches_plain_version(cuda, seq, dim, group):
+    """K8's warp-specialised kernel on two sequences: MHA and GQA groups 4
+    and 7 (Qwen2.5's 28 / 4), ragged S around its 128-row tiles, a v that
+    is a view into the fused q|k|v row, scores to about +-50."""
+    gen = torch.Generator(device=cuda).manual_seed(seq * dim + group)
+    q, k, v = _flash_case(gen, cuda, 2, seq, 2 * group, 2, dim, 12 ** 0.5)
+    assert seq == 1 or v.stride(1) == (2 * group + 4) * dim
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, dim ** -0.5)
+    want = flash_attention_reference(q, k, v, dim ** -0.5)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert got.shape == (2, seq, 2 * group * dim)
+    _assert_flash_close(got, want)
 
 
 @pytest.mark.cuda

@@ -10,19 +10,21 @@
 //   y (T, out)   bf16 / f32
 //
 // What bounds it on an H100: at decode (T <= 16) the bytes of w, two per
-// weight, read once; at prefill the tensor-core FLOPs (2*T*out*in). The
-// TPU kernel walked in on a sequential grid axis with an f32 accumulator
-// in VMEM; here a loop inside each block walks it. This is K1's pair of
-// kernels (w8.cuh) without the int8 widening and the scale groups:
+// weight, read once; at prefill the tensor-core operations (2*T*out*in,
+// 0.226 ms per Llama-3.1-8B layer at T = 512). The TPU kernel walked in
+// on a sequential grid axis with an f32 accumulator in VMEM; here a loop
+// inside each block walks it:
 //  * bf16_gemv (T <= 16): each warp owns kRows weight rows and streams
 //    them with 16-byte loads, kRows * 2 loads per lane in flight; x is
 //    staged in shared memory 512 columns at a time and shared by the
 //    block's warps; per-lane partials are reduced with warp shuffles at
 //    the end.
-//  * bf16_gemm (T > 16): 64 x 128 output tiles, 8 warps, bf16 mma.sync
-//    m16n8k16 with f32 accumulators; the next tile's global loads are in
-//    flight during the current tile's MMAs.
-// wgmma/TMA pipelining is later work.
+//  * T > 16: the Hopper prefill tile of lowbit_tile.cuh (wg_tile) with
+//    the policy BF16 below, in its SS form: w is K-major like x, so both
+//    wgmma operands come from 128-byte-swizzled shared memory through
+//    descriptors, fed by a TMA ring (128 output rows x 128 tokens a block,
+//    weight stages of 128 x 128 bf16 in two 64-position boxes); there is
+//    nothing to unpack and no scale, and the f32 sums are written once.
 
 #include "w8.cuh"
 
@@ -119,107 +121,42 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-using w8::BK;
-using w8::BM;
-using w8::BN;
-using w8::LDS;
-using w8::lds32;
-using w8::mma_bf16;
+// The bf16 weight on the prefill tile: one 128-position stage feeds one x
+// slab, both read by wgmma from shared memory (lowbit_tile.cuh's SS form).
+// The name BF16 tags the tile's instances in a profiler trace
+// (bf16_matmul.trace_tags).
+struct BF16 {
+  static constexpr bool kTileSS = true;
+  static constexpr int kPlanes = 1;
+  static constexpr int kParts = 1;
+};
 
+namespace tile = lowbit::tile;
+
+// T > 16 tokens through the tile: x (T, in) and w (out, in) as 2-D maps of
+// 64-position boxes (128 tokens, 128 rows); the scales and ids go unused
 template <typename OutT>
-__global__ void __launch_bounds__(kThreads)
-    bf16_gemm(const __nv_bfloat16* __restrict__ x,
-              const __nv_bfloat16* __restrict__ w, OutT* __restrict__ y,
-              int T, int out, int in) {
-  __shared__ __align__(16) __nv_bfloat16 xs[BM][LDS];
-  __shared__ __align__(16) __nv_bfloat16 ws[BN][LDS];
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int wm = warp >> 2;  // 2 warps along tokens (32 each)
-  const int wn = warp & 3;   // 4 warps along out rows (32 each)
-  const int gid = lane >> 2;
-  const int tig = lane & 3;
-  const int m0 = blockIdx.y * BM;
-  const int n0 = blockIdx.x * BN;
-
-  // global -> register staging per step: one 16 B load of x and two of w
-  const int xr = tid >> 2, xc = (tid & 3) * 8;
-  const int wr = tid >> 1, wc = (tid & 1) * 16;
-  const bool x_ok = m0 + xr < T;
-  const bool w_ok = n0 + wr < out;
-  const __nv_bfloat16* xp = x + (size_t)(x_ok ? m0 + xr : 0) * in + xc;
-  const __nv_bfloat16* wp = w + (size_t)(w_ok ? n0 + wr : 0) * in + wc;
-
-  float acc[2][4][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-
-  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
-  uint4 xreg = x_ok ? *reinterpret_cast<const uint4*>(xp) : zero;
-  uint4 wreg0 = w_ok ? __ldg(reinterpret_cast<const uint4*>(wp)) : zero;
-  uint4 wreg1 = w_ok ? __ldg(reinterpret_cast<const uint4*>(wp + 8)) : zero;
-
-  const int nk = in / BK;
-  for (int kt = 0; kt < nk; ++kt) {
-    *reinterpret_cast<uint4*>(&xs[xr][xc]) = xreg;
-    *reinterpret_cast<uint4*>(&ws[wr][wc]) = wreg0;
-    *reinterpret_cast<uint4*>(&ws[wr][wc + 8]) = wreg1;
-    __syncthreads();
-    if (kt + 1 < nk) {
-      const size_t k1 = (size_t)(kt + 1) * BK;
-      xreg = x_ok ? *reinterpret_cast<const uint4*>(xp + k1) : zero;
-      wreg0 = w_ok ? __ldg(reinterpret_cast<const uint4*>(wp + k1)) : zero;
-      wreg1 = w_ok ? __ldg(reinterpret_cast<const uint4*>(wp + k1 + 8)) : zero;
-    }
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      uint32_t a[2][4];
-      uint32_t b[4][2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int r = wm * 32 + i * 16 + gid;
-        a[i][0] = lds32(&xs[r][kk + tig * 2]);
-        a[i][1] = lds32(&xs[r + 8][kk + tig * 2]);
-        a[i][2] = lds32(&xs[r][kk + tig * 2 + 8]);
-        a[i][3] = lds32(&xs[r + 8][kk + tig * 2 + 8]);
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int n = wn * 32 + j * 8 + gid;
-        b[j][0] = lds32(&ws[n][kk + tig * 2]);
-        b[j][1] = lds32(&ws[n][kk + tig * 2 + 8]);
-      }
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) mma_bf16(acc[i][j], a[i], b[j]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = m0 + wm * 32 + i * 16 + gid;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = n0 + wn * 32 + j * 8 + tig * 2;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int rr = row + 8 * h;
-        if (rr >= T) continue;
-        if (col < out)
-          y[(size_t)rr * out + col] = cvt_out<OutT>(acc[i][j][2 * h]);
-        if (col + 1 < out)
-          y[(size_t)rr * out + col + 1] = cvt_out<OutT>(acc[i][j][2 * h + 1]);
-      }
-    }
-  }
+cudaError_t launch_tile(const __nv_bfloat16* x, const __nv_bfloat16* w,
+                        OutT* y, int T, int out, int in,
+                        cudaStream_t stream) {
+  const uint64_t row = (uint64_t)in * sizeof(__nv_bfloat16);
+  tile::Maps maps = {};
+  if (!tile::encode(&maps.x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, T, in, row,
+                    tile::kTokens, 64) ||
+      !tile::encode(&maps.w[0], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, w, out, in,
+                    row, tile::kRows, 64))
+    return cudaErrorInvalidValue;
+  using Sc = lowbit::ScalesOf<float>;
+  auto kernel = tile::wg_tile<BF16, sel::Whole, tile::kGroup, OutT, Sc>;
+  constexpr int smem = tile::Smem<BF16>::kBytes;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((T + tile::kTokens - 1) / tile::kTokens,
+                  (out + tile::kRows - 1) / tile::kRows);
+  kernel<<<grid, tile::kThreads, smem, stream>>>(
+      maps, Sc{nullptr, 0, 0}, lowbit::Ids{nullptr, 0}, y, T, out, in, 1);
+  return cudaGetLastError();
 }
 
 template <int TP, typename OutT>
@@ -242,9 +179,7 @@ cudaError_t launch(const __nv_bfloat16* x, const __nv_bfloat16* w, void* y,
   if (T <= 4) return launch_gemv<4, OutT>(x, w, yo, T, out, in, stream);
   if (T <= 8) return launch_gemv<8, OutT>(x, w, yo, T, out, in, stream);
   if (T <= 16) return launch_gemv<16, OutT>(x, w, yo, T, out, in, stream);
-  dim3 grid((out + BN - 1) / BN, (T + BM - 1) / BM);
-  bf16_gemm<OutT><<<grid, kThreads, 0, stream>>>(x, w, yo, T, out, in);
-  return cudaGetLastError();
+  return launch_tile<OutT>(x, w, yo, T, out, in, stream);
 }
 
 }  // namespace bf16mm

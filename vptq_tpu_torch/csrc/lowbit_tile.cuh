@@ -1,6 +1,7 @@
 // The Hopper (sm_90a) prefill tile of the quantized formats at T > 16
 // tokens: K1 w8_matmul, K2 w4_matmul, K3 w2_matmul, K4 w3_matmul, and K6a
-// w8_matmul_expert and K6b w4_matmul_expert on one expert of a stack. It
+// w8_matmul_expert and K6b w4_matmul_expert on one expert of a stack; and
+// of K7 bf16_matmul's bf16 weights, in the SS form (last point below). It
 // computes what lowbit::gemm computes, y = x @ (s ⊙ L)^T over the split
 // layouts of lowbit.cuh: x is rounded to bf16, every level is exact in
 // bf16, the products of one (row, scale group) are summed in f32, that
@@ -61,6 +62,16 @@
 //    of y coalesce; the ragged T and out edges are masked, and TMA fills
 //    the loads past T and past out with zeros (x past T adds 0; rows past
 //    out get scale 0 and are never stored).
+//  * bf16 weights (a policy with kTileSS, K7): nothing to unpack and no
+//    scale, so A comes from shared memory too (wgmma.mma_async SS, both
+//    operands through 128-byte-swizzled descriptors). A weight stage is
+//    128 rows of 128 bf16 positions, 32 KB as two 64-position TMA boxes
+//    like an x slab; each consumer warpgroup reads its 64 rows of it.
+//    Four 32 KB x slabs leave room for three weight stages (four would
+//    need 256 KB). tot takes every stage's products with scale-d 1 and is
+//    written once; a warpgroup keeps one stage's wgmmas in flight
+//    (wait_group 1) and frees the stage before it. The RS formats'
+//    instances compile as they did: the SS path is a compile-time branch.
 //
 // A format policy P adds to its lowbit.cuh interface: kTileSlots, the
 // planes one part reads; tile_plane(p, i), which plane feeds slot i of
@@ -91,17 +102,31 @@ constexpr int kPlaneTile = kRows * kGroup;  // bytes of one plane's stage
 constexpr int kPad = 4;        // f32 padding of an epilogue row
 constexpr int kDecodeMax = 16; // T up to this runs lowbit::gemv
 
+// Whether format P's weights are bf16 that wgmma reads from shared memory
+// (the SS form): no planes to unpack and no scales to fold.
+template <class P, class = void>
+struct TileSS : std::false_type {};
+template <class P>
+struct TileSS<P, std::void_t<decltype(P::kTileSS)>>
+    : std::bool_constant<P::kTileSS> {};
+
 // shared memory of one block (bytes), 1024-aligned tiles first
 template <class P>
 struct Smem {
+  static constexpr bool kSS = TileSS<P>::value;
   static constexpr int kBox = kTokens * 128;  // one 64-position x box
   static constexpr int kSlab = 2 * kBox;
   static constexpr int kX = kStages * kSlab;
+  static constexpr int kWBox = kRows * 128;   // SS: 64 bf16 positions
+  // one weight stage: the planes' bytes of 128 positions, or (SS) two
+  // boxes of 64 bf16 positions
+  static constexpr int kWStage = kSS ? 2 * kWBox : P::kPlanes * kPlaneTile;
   // weight stages: as many position groups as the x ring holds slabs, at
-  // least two (int8, one part: 4; the sub-byte formats: 2)
+  // least two (int8, one part: 4; the sub-byte formats: 2); SS: three,
+  // all that fit beside the x ring
   static constexpr int kWStages =
-      kStages / P::kParts > 2 ? kStages / P::kParts : 2;
-  static constexpr int kW = kWStages * P::kPlanes * kPlaneTile;
+      kSS ? 3 : (kStages / P::kParts > 2 ? kStages / P::kParts : 2);
+  static constexpr int kW = kWStages * kWStage;
   static constexpr int kBars = (2 * kStages + 2 * kWStages) * 8;
   static constexpr int kBytes = kX + kW + kBars + 1024;  // + alignment
   static_assert(kTokens * (kRows + kPad) * 4 <= kX,
@@ -175,6 +200,42 @@ __device__ __forceinline__ uint32_t bf16x2_fma(uint32_t a, uint32_t b,
 __device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
   return (uint64_t)((addr & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) |
          (1ull << 62);
+}
+
+// d (+)= A · B for one k16 step, both from shared memory through their
+// descriptors (the SS form): A 64 x 16, B 16 x 128, both K-major
+__device__ __forceinline__ void mma_ss(float (&d)[64], uint64_t desc_a,
+                                       uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
 }
 
 // the same into the slab of expert e of a 3-D map
@@ -288,14 +349,22 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int gi = 0; gi < n_groups; ++gi) {
         const int ws = gi % kW;
         bar_wait(w_empty + 8 * ws, ((gi / kW) & 1) ^ 1);
-        bar_expect(w_full + 8 * ws, P::kPlanes * kPlaneTile);
+        bar_expect(w_full + 8 * ws, S::kWStage);
+        if constexpr (S::kSS) {
+          // two 64-position boxes of the bf16 weight rows
+          const uint32_t dst = ws0 + ws * S::kWStage;
+          tma_load(dst, &maps.w[0], gi * kGroup, n0, w_full + 8 * ws);
+          tma_load(dst + S::kWBox, &maps.w[0], gi * kGroup + 64, n0,
+                   w_full + 8 * ws);
+        } else {
 #pragma unroll
-        for (int i = 0; i < P::kPlanes; ++i) {
-          const uint32_t dst = ws0 + (ws * P::kPlanes + i) * kPlaneTile;
-          if constexpr (Sel::kIds)
-            tma_load(dst, &maps.w[i], gi * kGroup, n0, e, w_full + 8 * ws);
-          else
-            tma_load(dst, &maps.w[i], gi * kGroup, n0, w_full + 8 * ws);
+          for (int i = 0; i < P::kPlanes; ++i) {
+            const uint32_t dst = ws0 + (ws * P::kPlanes + i) * kPlaneTile;
+            if constexpr (Sel::kIds)
+              tma_load(dst, &maps.w[i], gi * kGroup, n0, e, w_full + 8 * ws);
+            else
+              tma_load(dst, &maps.w[i], gi * kGroup, n0, w_full + 8 * ws);
+          }
         }
         for (int p = 0; p < kParts; ++p, ++it) {
           const int xs = it % kStages;
@@ -336,79 +405,109 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
     for (int i = 0; i < kAcc; ++i) acc[i] = tot[i] = 0.f;
 
-    // the A fragments of part p from weight stage ws: 8 k16 steps
-    auto unpack = [&](uint32_t (&a)[8][4], int ws, int p) {
-#pragma unroll
-      for (int s = 0; s < 8; ++s) {
-        const uint32_t chunk = (uint32_t)(s ^ gid) << 4;
-        // (row, half): r0 lo, r0 + 8 lo, r0 hi, r0 + 8 hi
-        uint32_t t[4][P::kTileSlots];
-#pragma unroll
-        for (int i = 0; i < P::kTileSlots; ++i) {
-          const uint32_t plane =
-              ws0 + (ws * P::kPlanes + P::tile_plane(p, i)) * kPlaneTile +
-              chunk;
-          const uint4 q0 = lds128(plane + row0);
-          const uint4 q1 = lds128(plane + row1);
-          t[0][i] = __byte_perm(q0.x, q0.y, spread);
-          t[1][i] = __byte_perm(q1.x, q1.y, spread);
-          t[2][i] = __byte_perm(q0.z, q0.w, spread);
-          t[3][i] = __byte_perm(q1.z, q1.w, spread);
-        }
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          a[s][j] = bf16x2_fma(P::tile_code(t[j], p), kOne,
-                               P::kTileBias ^ 0x80008000u);
-      }
-    };
-
-    // in_group: this stage's place in its scale group; grp: the group (of
-    // G·gs positions) the stage lies in
-    int it = 0, in_group = 0, grp = 0;
-    for (int gi = 0; gi < n_groups; ++gi) {
-      const int ws = gi % kW;
-      const bool last = gs == 1 || in_group == gs - 1;  // fold acc into tot
-      bar_wait(w_full + 8 * ws, (gi / kW) & 1);
-#pragma unroll 1
-      for (int p = 0; p < kParts; ++p, ++it) {
-        uint32_t a[8][4];
-        unpack(a, ws, p);
-        const int xs = it % kStages;
-        bar_wait(x_full + 8 * xs, (it / kStages) & 1);
-        __syncwarp();
+    if constexpr (S::kSS) {
+      // bf16 weights: this warpgroup's 64 rows of each stage's two boxes
+      // are A, the x slab B; tot sums every stage
+      const uint32_t wrows = ws0 + (ctid >> 7) * 64 * 128;
+      for (int gi = 0; gi < n_groups; ++gi) {
+        const int ws = gi % kW, xs = gi % kStages;
+        bar_wait(w_full + 8 * ws, (gi / kW) & 1);
+        bar_wait(x_full + 8 * xs, (gi / kStages) & 1);
+        const uint32_t wa = wrows + ws * S::kWStage;
         const uint32_t slab = xs0 + xs * S::kSlab;
-        float s0[kSplit], s1[kSplit];
+        asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
 #pragma unroll
-        for (int h = 0; h < kSplit; ++h) {
-          asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+        for (int s = 0; s < 8; ++s)
+          mma_ss(tot, desc_sw128(wa + (s >> 2) * S::kWBox + (s & 3) * 32),
+                 desc_sw128(slab + (s >> 2) * S::kBox + (s & 3) * 32),
+                 gi > 0 || s > 0);
+        asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+        // this stage's products stay in flight; the last stage's are done,
+        // so its weight stage and x slab go back to the producer
+        asm volatile("wgmma.wait_group.sync.aligned 1;" ::: "memory");
+        fence_acc(tot);
+        if (gi > 0) {
+          bar_arrive(w_empty + 8 * ((gi - 1) % kW));
+          bar_arrive(x_empty + 8 * ((gi - 1) % kStages));
+        }
+      }
+      asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+      fence_acc(tot);
+    } else {
+      // the A fragments of part p from weight stage ws: 8 k16 steps
+      auto unpack = [&](uint32_t (&a)[8][4], int ws, int p) {
 #pragma unroll
-          for (int s = h * kSteps; s < (h + 1) * kSteps; ++s)
-            mma(acc, a[s],
-                desc_sw128(slab + (s >> 2) * S::kBox + (s & 3) * 32),
-                s > h * kSteps || in_group > 0);
-          asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-          if (h == 0 && last) {
-            // group h' of part p at stage gi: p·part_groups + grp·kSplit + h'
+        for (int s = 0; s < 8; ++s) {
+          const uint32_t chunk = (uint32_t)(s ^ gid) << 4;
+          // (row, half): r0 lo, r0 + 8 lo, r0 hi, r0 + 8 hi
+          uint32_t t[4][P::kTileSlots];
 #pragma unroll
-            for (int k = 0; k < kSplit; ++k) {
-              const int g = p * part_groups + grp * kSplit + k;
-              s0[k] = o0 < out ? scale_of<P>(sc, o0, g, p) : 0.f;
-              s1[k] = o1 < out ? scale_of<P>(sc, o1, g, p) : 0.f;
+          for (int i = 0; i < P::kTileSlots; ++i) {
+            const uint32_t plane =
+                ws0 + (ws * P::kPlanes + P::tile_plane(p, i)) * kPlaneTile +
+                chunk;
+            const uint4 q0 = lds128(plane + row0);
+            const uint4 q1 = lds128(plane + row1);
+            t[0][i] = __byte_perm(q0.x, q0.y, spread);
+            t[1][i] = __byte_perm(q1.x, q1.y, spread);
+            t[2][i] = __byte_perm(q0.z, q0.w, spread);
+            t[3][i] = __byte_perm(q1.z, q1.w, spread);
+          }
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            a[s][j] = bf16x2_fma(P::tile_code(t[j], p), kOne,
+                                 P::kTileBias ^ 0x80008000u);
+        }
+      };
+
+      // in_group: this stage's place in its scale group; grp: the group (of
+      // G·gs positions) the stage lies in
+      int it = 0, in_group = 0, grp = 0;
+      for (int gi = 0; gi < n_groups; ++gi) {
+        const int ws = gi % kW;
+        const bool last = gs == 1 || in_group == gs - 1;  // fold acc into tot
+        bar_wait(w_full + 8 * ws, (gi / kW) & 1);
+#pragma unroll 1
+        for (int p = 0; p < kParts; ++p, ++it) {
+          uint32_t a[8][4];
+          unpack(a, ws, p);
+          const int xs = it % kStages;
+          bar_wait(x_full + 8 * xs, (it / kStages) & 1);
+          __syncwarp();
+          const uint32_t slab = xs0 + xs * S::kSlab;
+          float s0[kSplit], s1[kSplit];
+#pragma unroll
+          for (int h = 0; h < kSplit; ++h) {
+            asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+#pragma unroll
+            for (int s = h * kSteps; s < (h + 1) * kSteps; ++s)
+              mma(acc, a[s],
+                  desc_sw128(slab + (s >> 2) * S::kBox + (s & 3) * 32),
+                  s > h * kSteps || in_group > 0);
+            asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+            if (h == 0 && last) {
+              // group h' of part p at stage gi: p·part_groups + grp·kSplit + h'
+#pragma unroll
+              for (int k = 0; k < kSplit; ++k) {
+                const int g = p * part_groups + grp * kSplit + k;
+                s0[k] = o0 < out ? scale_of<P>(sc, o0, g, p) : 0.f;
+                s1[k] = o1 < out ? scale_of<P>(sc, o1, g, p) : 0.f;
+              }
+            }
+            asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+            fence_acc(acc);
+            if (h == kSplit - 1) bar_arrive(x_empty + 8 * xs);
+            if (last) {
+#pragma unroll
+              for (int i = 0; i < kAcc; ++i)
+                tot[i] += acc[i] * ((i & 2) ? s1[h] : s0[h]);
             }
           }
-          asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
-          fence_acc(acc);
-          if (h == kSplit - 1) bar_arrive(x_empty + 8 * xs);
-          if (last) {
-#pragma unroll
-            for (int i = 0; i < kAcc; ++i)
-              tot[i] += acc[i] * ((i & 2) ? s1[h] : s0[h]);
-          }
         }
+        bar_arrive(w_empty + 8 * ws);
+        grp += last;
+        in_group = last ? 0 : in_group + 1;
       }
-      bar_arrive(w_empty + 8 * ws);
-      grp += last;
-      in_group = last ? 0 : in_group + 1;
     }
 
     // epilogue: tot (rows x tokens) through shared memory, the x ring now

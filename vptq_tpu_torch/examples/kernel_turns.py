@@ -1,19 +1,22 @@
 """The kernel phases of ``chip_smoke.py`` on several trees, in turns.
 
-Compares versions of the dequant-matmul kernels on one card in one run:
-each turn is a fresh process in one tree (a checkout of the repository)
-that builds that tree's kernels and runs that tree's own ``chip_smoke``
-phases at the full shapes: K3 ``w2_matmul``, K2 ``w4_matmul``, K4
-``w3_matmul``, K1 ``w8_matmul`` and K7 ``bf16_matmul`` at the four
-linears of a Llama-3.1-8B layer, the MoE kernels K6b ``w4_matmul_expert``,
-K5b ``w4_matmul_pairs``, K6a ``w8_matmul_expert`` and K5a
-``w8_matmul_pairs`` at a Mixtral-8x7B expert's two shapes on stacks of 8;
-T = 1, 128, 512 and 2048 (K5: P = 2 and 16). Each kernel is held against
-its plain version, as the smoke holds it. The card's name and power limit
-come first; then one line per (turn, kernel, scale group, T) with ms,
-bound, plain and ``torch.matmul`` ms summed over the shapes, and the
-device-to-host copies of two launches each of K6b and K6a (T = 512,
-2048) in the ``torch.profiler`` trace, with the names of their kernels.
+Compares versions of the kernels on one card in one run: each turn is a
+fresh process in one tree (a checkout of the repository) that builds that
+tree's kernels and runs that tree's own ``chip_smoke`` phases at the full
+shapes: K3 ``w2_matmul``, K2 ``w4_matmul``, K4 ``w3_matmul``, K1
+``w8_matmul`` and K7 ``bf16_matmul`` at the four linears of a
+Llama-3.1-8B layer, the MoE kernels K6b ``w4_matmul_expert``, K5b
+``w4_matmul_pairs``, K6a ``w8_matmul_expert`` and K5a ``w8_matmul_pairs``
+at a Mixtral-8x7B expert's two shapes on stacks of 8, T = 1, 128, 512
+and 2048 (K5: P = 2 and 16); and K8 ``flash_attention`` at every case of
+the tree's ``chip_smoke.FLASH_CASES`` (``phase_flash``). Each kernel is
+held against its plain version, as the smoke holds it. The card's name
+and power limit come first; then one line per (turn, kernel, scale group,
+T) with ms, bound, plain and ``torch.matmul`` ms summed over the shapes
+(K8: one line per case, its yardstick ``scaled_dot_product_attention``),
+and the device-to-host copies of two launches each of K6b and K6a (T =
+512, 2048) in the ``torch.profiler`` trace, with the names of their
+kernels.
 
     python -m vptq_tpu_torch.examples.kernel_turns \\
         --tree P=build/tree/parent --tree C=. --order P C C P \\
@@ -38,10 +41,11 @@ from vptq_tpu_torch.examples.kernel_bench import card_line, pick_device
 __all__ = ["main"]
 
 # the kernels a turn runs: the smoke's phase_kernel for the four formats,
-# phase_moe_kernels("int4") and ("int8") for the MoE pairs, phase_bf16
+# phase_moe_kernels("int4") and ("int8") for the MoE pairs, phase_bf16,
+# phase_flash
 KERNELS = ("w2_matmul", "w4_matmul", "w3_matmul", "w8_matmul",
            "w4_matmul_expert", "w4_matmul_pairs", "w8_matmul_expert",
-           "w8_matmul_pairs", "bf16_matmul")
+           "w8_matmul_pairs", "bf16_matmul", "flash_attention")
 
 # One turn, run with ``python -c`` from the root of its tree so that the
 # tree's own chip_smoke and vptq_tpu_torch are the ones imported:
@@ -62,9 +66,11 @@ print(f"[{label}] build {time.perf_counter() - t0:.1f} s", flush=True)
 shapes = cs.k1_shapes(cs.LLAMA31_8B)
 moe_shapes = cs.moe_shapes(cs.MIXTRAL_8X7B)
 tokens, iters = (1, 128, 512, 2048), 20
+flash_cases = cs.FLASH_CASES
 if dev == "cpu":
     shapes = moe_shapes = [("a", 40, 1024), ("b", 24, 2048)]
     tokens, iters = (1, 20), 1
+    flash_cases = (("heads", 1, 40, 4, 2, 16, 1.0, True),)
 rows = []
 for name in KERNELS:
     if name in cs.FORMAT_KERNEL.values():
@@ -73,6 +79,7 @@ for fmt in ("int4", "int8"):
     rows += cs.phase_moe_kernels(fmt, dev, moe_shapes, tokens=tokens,
                                  iters=iters)
 rows += cs.phase_bf16(dev, shapes, tokens, iters=iters)
+rows += cs.phase_flash(dev, flash_cases, iters=iters)
 if dev == "cuda":
     # device-to-host copies of two launches of each expert kernel at
     # Mixtral's down shape: the id stays on the card
@@ -102,10 +109,12 @@ if dev == "cuda":
         del wq
 summary = {}
 for r in rows:
-    s = summary.setdefault(
-        f"{r['kernel']} g{r.get('group', '-')} {r['unit']}={r['T']}",
-                           dict(ms=0.0, bound_ms=0.0, plain_ms=0.0,
-                                library_ms=0.0, max_abs_err=0.0))
+    key = f"{r['kernel']} g{r.get('group', '-')} {r['unit']}={r['T']}"
+    if r["unit"] == "S":  # one line per attention case
+        key += f" B={r['batch']} {r['heads']}/{r['kv_heads']}x{r['head_dim']}"
+        key += f" {r['shape']}"
+    s = summary.setdefault(key, dict(ms=0.0, bound_ms=0.0, plain_ms=0.0,
+                                     library_ms=0.0, max_abs_err=0.0))
     for k in ("ms", "bound_ms", "plain_ms", "library_ms"):
         s[k] += r[k]
     s["max_abs_err"] = max(s["max_abs_err"], r["max_abs_err"])

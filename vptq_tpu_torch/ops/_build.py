@@ -6,7 +6,8 @@ is compiled by ``nvcc`` for Hopper (``sm_90a``) into
 loaded with ``ctypes``. No PyTorch header is included, so a build takes
 seconds, not minutes. A library is rebuilt when its source, or a
 header of ``csrc/`` (``lowbit.cuh``, the skeleton of K2–K4;
-``lowbit_tile.cuh``, the Hopper prefill tile of K1–K4, K6a and K6b;
+``lowbit_tile.cuh``, the Hopper prefill tile of K1–K4, K6a, K6b and
+K7, whose mbarrier, TMA and ``wgmma`` helpers K8 takes;
 ``w8.cuh`` and ``w4.cuh``, the loops the MoE kernels share with K1 and
 K2, and the fragment helpers K7 takes from ``w8.cuh``;
 ``expert_select.cuh``), is

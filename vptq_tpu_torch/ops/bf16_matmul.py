@@ -3,9 +3,11 @@
 Port of ``vptq_tpu/ops/pallas_gemm.py:905-983`` (``_bf16_kernel``, entry
 ``bf16_matmul``), the tile kernel of the exact-parity runtime format. The
 kernel is hand-written CUDA for Hopper in
-``vptq_tpu_torch/csrc/bf16_matmul.cu`` (fragment helpers from
-``csrc/w8.cuh``), built by ``ops/_build.py`` and called through ``ctypes``
-on PyTorch's current stream.
+``vptq_tpu_torch/csrc/bf16_matmul.cu``: a GEMV for T ≤ 16 (helpers from
+``csrc/w8.cuh``), and above it the Hopper prefill tile of
+``csrc/lowbit_tile.cuh`` in its SS form (both ``wgmma`` operands from
+shared memory). It is built by ``ops/_build.py`` and called through
+``ctypes`` on PyTorch's current stream.
 
 Neither package's layers call it: ``DenseLinear`` is a plain product
 (``jnp.dot`` there, ``torch.matmul`` here). It is kept as an op, as the
@@ -80,5 +82,6 @@ def bf16_matmul(
 bf16_matmul.launches = 0
 # the TPU kernel this one replaces
 bf16_matmul.replaces = "vptq_tpu/ops/pallas_gemm.py:905"
-# words of the demangled names of its CUDA kernels (bf16_gemv, bf16_gemm)
-bf16_matmul.trace_tags = ("bf16_gem",)
+# words of the demangled names of its CUDA kernels: the GEMV, and the
+# tile's instances with the policy bf16mm::BF16
+bf16_matmul.trace_tags = (("bf16_gemv",), ("wg_tile", "BF16"))

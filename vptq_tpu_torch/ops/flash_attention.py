@@ -4,9 +4,10 @@ Port of the Pallas TPU flash-attention op that the JAX package calls for
 a fresh prefill of 1024 tokens or more (``vptq_tpu/models/llama.py:577``;
 body ``_flash_attention_kernel_single_batch`` of
 ``jax.experimental.pallas.ops.tpu.flash_attention``). The kernel is
-hand-written CUDA for Hopper in ``vptq_tpu_torch/csrc/flash_attention.cu``,
-built by ``ops/_build.py`` and called through ``ctypes`` on PyTorch's
-current stream.
+hand-written CUDA for Hopper in ``vptq_tpu_torch/csrc/flash_attention.cu``
+(``fa::flash_wgmma``: TMA ring, ``wgmma``, warp specialisation), built by
+``ops/_build.py`` and called through ``ctypes`` on PyTorch's current
+stream.
 
 The JAX call repeats K/V to H heads and moves heads before positions;
 here q, k and v keep the model's own (B, S, heads, D) layout, the KV
@@ -146,11 +147,11 @@ def flash_attention(
         )
     if k.device != q.device or v.device != q.device:
         raise ValueError("flash_attention: all tensors must be on one device")
-    # heads and batch are the launch grid's y and z
-    if heads > 65535 or batch > 65535:
+    # one block for each 128-query tile of each head and sequence
+    if -(-seq // 128) * heads * batch >= 2 ** 31:
         raise ValueError(
-            f"flash_attention: at most 65535 heads and sequences, got "
-            f"{heads} and {batch}"
+            f"flash_attention: at most 2^31 - 1 blocks of 128 queries, got "
+            f"{seq} positions, {heads} heads and {batch} sequences"
         )
     strides = [s for name, t in (("q", q), ("k", k), ("v", v))
                for s in _strides(name, t)]
@@ -183,5 +184,5 @@ def flash_attention(
 flash_attention.launches = 0
 # the TPU kernel this one replaces: the call of the Pallas flash op
 flash_attention.replaces = "vptq_tpu/models/llama.py:585"
-# a word of the demangled name of its CUDA kernel (fa::flash_fwd<D>)
-flash_attention.trace_tags = ("flash_fwd",)
+# a word of the demangled name of its CUDA kernel (fa::flash_wgmma<D>)
+flash_attention.trace_tags = ("flash_wgmma",)
