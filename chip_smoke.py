@@ -14,13 +14,15 @@ without them, or when any phase fails. Phases:
    ``w4_probe_matmul``, ``w4_i32x8_matmul``, ``w4_raw_probe`` and P3
    ``vq_smallk_matmul``), one ``nvcc`` each, all at once; the
    ``-Xptxas -v`` lines of the prefill tile (``lowbit_tile.cuh``) in K1,
-   K2, K3, K4, K6a, K6b and K7, and of K8's kernel at each head size,
-   every instance of which must show no spill;
+   K2, K3, K4, K6a, K6b and K7, of K8's kernel at each head size and of
+   the decode GEMV (``decode_gemv.cuh``) in K1 and K2, every instance of
+   which must show no spill;
 2. each of K1-K4 at the four linear shapes of Llama-3.1-8B, on layers its
    format's encoder makes on the card from a random weight (K1 group
    2048, K3 group 64, and 128 beside it), at T=1 (decode), T=128 and
    T=512 (prefill buckets) and T=2048 (the long-prefill chunk; every
-   T > 16 through their tile): the kernel held against its
+   T > 16 through their tile; K1 and K2 also at T=16, the decode GEMV's
+   largest instance): the kernel held against its
    plain version on the card, then timed with CUDA events (L2 flushed
    before each launch) beside the plain version and a ``torch.matmul``
    yardstick; K1 also at the four shapes of Qwen2.5-7B (groups 512 and
@@ -230,6 +232,10 @@ TILE_INSTANCES = {
 # K8's kernel (fa::flash_wgmma<D>), one instance per head size
 FLASH_KERNEL = "flash_wgmma"
 FLASH_INSTANCES = {"flash_attention": 3}
+# the Hopper decode GEMV of K1 and K2 at T <= 16 (decode_gemv.cuh): one
+# instance per token tile (N = 8, 16) and output type (bf16, f32)
+DECODE_KERNEL = "decode_gemv"
+DECODE_INSTANCES = {"w8_matmul": 4, "w4_matmul": 4}
 # the token counts of the kernel phases: decode, two prefill buckets and
 # the long-prefill chunk (every T > 16 runs the tile)
 TOKENS = (1, 128, 512, 2048)
@@ -282,7 +288,8 @@ def ptxas_entries(log: str) -> dict:
 def phase_build() -> float:
     """Build every kernel source of the port; returns wall seconds. Each
     library must hold its ``TILE_INSTANCES`` instances of the prefill tile
-    (``lowbit_tile.cuh``) and its ``FLASH_INSTANCES`` of K8's kernel, none
+    (``lowbit_tile.cuh``), its ``FLASH_INSTANCES`` of K8's kernel and its
+    ``DECODE_INSTANCES`` of the decode GEMV (``decode_gemv.cuh``), none
     elsewhere, and each must report no spill."""
     from vptq_tpu_torch.ops import _build
 
@@ -297,7 +304,8 @@ def phase_build() -> float:
                 print(f"  ptxas: {line.strip()}")
         entries = ptxas_entries(log)
         for word, instances in ((TILE_KERNEL, TILE_INSTANCES),
-                                (FLASH_KERNEL, FLASH_INSTANCES)):
+                                (FLASH_KERNEL, FLASH_INSTANCES),
+                                (DECODE_KERNEL, DECODE_INSTANCES)):
             clean = 0
             for entry, lines in entries.items():
                 if word not in entry:
@@ -1348,6 +1356,11 @@ def main() -> int:
     rows = []
     for name in FORMAT_KERNEL.values():
         rows += phase_kernel(name, device, k1_shapes(LLAMA31_8B), TOKENS)
+    # K1 and K2 at the decode GEMV's largest instance (N = 16)
+    for name in ("w8_matmul", "w4_matmul"):
+        rows += phase_kernel(
+            name, device, k1_shapes(LLAMA31_8B), (16,), in_record=False
+        )
     # K3 at its other scale group (128: the tile unsplit)
     rows += phase_kernel(
         "w2_matmul", device, k1_shapes(LLAMA31_8B), TOKENS, in_record=False,

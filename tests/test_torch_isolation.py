@@ -38,6 +38,13 @@ from vptq_tpu_torch.ops.vq_smallk_matmul import (
     vq_smallk_matmul,
     vq_smallk_matmul_reference,
 )
+from vptq_tpu_torch.ops.scaled_matmul import (
+    DECODE_SPLITS,
+    DECODE_STAGE,
+    decode_blocks,
+    decode_smem,
+    decode_split,
+)
 from vptq_tpu_torch.ops.w2_matmul import w2_matmul, w2_matmul_reference
 from vptq_tpu_torch.ops.w3_matmul import w3_matmul, w3_matmul_reference
 from vptq_tpu_torch.ops.w4_i32x8_matmul import (
@@ -449,29 +456,41 @@ def _ptxas_log(entry: str, spill: int) -> str:
     ("flash_attention", -1, 0, False),      # K8 lost a head size's one
     ("flash_attention", 0, 8, False),       # K8's kernel spills
     ("w4_matmul_pairs", 1, 0, False),       # a tile where none belongs
+    ("decode:w8_matmul", -1, 0, False),     # K1 lost a decode GEMV instance
+    ("decode:w8_matmul", 0, 8, False),      # K1's decode GEMV spills
+    ("decode:w4_matmul", -1, 0, False),     # K2 lost a decode GEMV instance
+    ("decode:w4_matmul", 0, 8, False),      # K2's decode GEMV spills
+    ("decode:w8_matmul_expert", 1, 0, False),  # one where none belongs
 ])
 def test_build_phase_requires_every_tile_instance_spill_free(
     monkeypatch, where, extra, spill, ok
 ):
     """The build phase passes only when each library of the prefill tile
     (K1, K2, K3, K4, K6a, K6b, K7) reports its number of tile instances,
-    and K8's library its instances of the attention kernel, each with 0
-    spill bytes, and the other libraries none."""
-    def tiles(name, instances):
+    K8's library its instances of the attention kernel, and K1's and K2's
+    their four instances of the decode GEMV, each with 0 spill bytes, and
+    the other libraries none. ``where``: every table of one library, or
+    (``decode:<library>``) its decode GEMV alone."""
+    def tiles(name, instances, decode=False):
         want = instances.get(name, 0)
-        if where not in ("all", name):
+        hit = where in ("all", name) or (decode and where == f"decode:{name}")
+        if not hit:
             return want, 0
         return (0 if extra is None else want + extra), spill
 
     def log(name):
         n, spilled = tiles(name, chip_smoke.TILE_INSTANCES)
         m, flash_spilled = tiles(name, chip_smoke.FLASH_INSTANCES)
+        k, decode_spilled = tiles(name, chip_smoke.DECODE_INSTANCES, True)
         return "".join(
             _ptxas_log(f"_ZN6lowbit4tile7wg_tileI{name}{i}EEvv", spilled)
             for i in range(n)
         ) + "".join(
             _ptxas_log(f"_ZN2fa11flash_wgmmaILi{i}EEEvv{name}", flash_spilled)
             for i in range(m)
+        ) + "".join(
+            _ptxas_log(f"_ZN5dgemv11decode_gemvI{name}{i}EEvv", decode_spilled)
+            for i in range(k)
         ) + _ptxas_log(f"_ZN6lowbit4gemv{name}", 0)
 
     logs = {name: log(name) for name in _build.SOURCES}
@@ -541,6 +560,8 @@ _GEMV = ("void lowbit::gemv<w4::W4, sel::{sel}, 16, 4, 128, float, "
          "int, int)")
 _BF16_GEMV = ("void bf16mm::bf16_gemv<{t}, float>(__nv_bfloat16 const*, "
               "__nv_bfloat16 const*, float*, int, int, int)")
+_DECODE = ("void dgemv::decode_gemv<{p}, {n}, {o}, {s}>(__nv_bfloat16 const*, "
+           "unsigned char const*, {s} const*, {o}*, int, int, int, int)")
 KERNEL_NAMES = {
     "bf16_matmul": [_BF16_GEMV.format(t=1), _BF16_GEMV.format(t=16),
                     _TILE.format(p="bf16mm::BF16", sel="Whole", s="float")],
@@ -549,13 +570,17 @@ KERNEL_NAMES = {
         "int, int, float)" for d in (64, 96, 128)],
     "w8_matmul": [_W8.format(k="gemv", sel="Whole", t="16, "),
                   _W8.format(k="gemm", sel="Whole", t=""),
-                  _TILE.format(p="w8::W8", sel="Whole", s="float")],
+                  _TILE.format(p="w8::W8", sel="Whole", s="float"),
+                  *(_DECODE.format(p="w8::W8", n=n, o=o, s="float")
+                    for n in (1, 2) for o in ("float", "__nv_bfloat16"))],
     "w8_matmul_expert": [_W8.format(k="gemv", sel="Expert", t="16, "),
                          _W8.format(k="gemm", sel="Expert", t=""),
                          _TILE.format(p="w8::W8", sel="Expert", s="float")],
     "w8_matmul_pairs": [_W8.format(k="gemv", sel="Pairs", t="1, ")],
     "w4_matmul": [_GEMV.format(sel="Whole"),
-                  _TILE.format(p="w4::W4", sel="Whole", s="__nv_bfloat16")],
+                  _TILE.format(p="w4::W4", sel="Whole", s="__nv_bfloat16"),
+                  *(_DECODE.format(p="w4::W4", n=n, o=o, s="__nv_bfloat16")
+                    for n in (1, 2) for o in ("float", "__nv_bfloat16"))],
     "w4_matmul_expert": [
         _GEMV.format(sel="Expert"),
         _TILE.format(p="w4::W4", sel="Expert", s="__nv_bfloat16")],
@@ -566,14 +591,76 @@ KERNEL_NAMES = {
 @pytest.mark.parametrize("name", sorted(KERNEL_NAMES))
 def test_trace_tags_pick_each_kernel_family_and_no_other(name):
     """K1's and K6a's tags pick their GEMV's, their mma.sync tile's and
-    their Hopper tile's names, K7's its GEMV's and its SS tile's, K8's its
-    kernel's at each head size, and no name of another kernel here (K2,
-    K6b, K5a, K5b among them); no other kernel's tags pick theirs."""
+    their Hopper tile's names, K1's and K2's also their decode GEMV's
+    (each instance), K7's its GEMV's and its SS tile's, K8's its kernel's
+    at each head size, and no name of another kernel here (K2, K6b, K5a,
+    K5b among them); no other kernel's tags pick theirs."""
     tags = chip_smoke.kernel_fns(name)[0].trace_tags
     for kernel, names in KERNEL_NAMES.items():
         for kernel_name in names:
             assert chip_smoke.picks(tags, kernel_name) == (kernel == name), (
                 name, kernel_name)
+
+
+# (out, in_p, K1's group) of the decode GEMV's shapes: Llama-3.1-8B's four
+# linears (qkv, o, gate_up, down; K1 at the loaders' group 2048) and
+# Mixtral's attention among them, Qwen2.5-7B's (groups 512 and 1024; the
+# intermediate padded to 19456; K1 only), then an out of 200, no multiple
+# of a row block, at splits that cut a scale group (2048: 2 stages a rank
+# of a 4-stage group; 4096: 4 of 8; 14336: 14 of 16)
+LLAMA_DECODE = [(6144, 4096, 2048), (4096, 4096, 2048), (28672, 4096, 2048),
+                (4096, 14336, 2048)]
+QWEN_DECODE = [(4608, 3584, 512), (3584, 3584, 512), (38912, 3584, 512),
+               (3584, 19456, 1024)]
+ODD_DECODE = [(200, 2048, 512), (200, 4096, 1024), (200, 14336, 2048)]
+
+
+def _decode_positions(kernel, in_p):
+    """(parts, positions of a row) of K1 (one part of in_p) or K2 (two of
+    in_p / 2)."""
+    return (1, in_p) if kernel == "w8" else (2, in_p // 2)
+
+
+@pytest.mark.parametrize("kernel,shape", [
+    *(("w8", s) for s in LLAMA_DECODE + QWEN_DECODE),
+    *(("w4", s) for s in LLAMA_DECODE),
+])
+def test_decode_split_puts_two_blocks_on_every_sm(kernel, shape):
+    """At every T <= 16 the plan splits each shape of the main paths on
+    whole 128-position stages into a cluster of 1, 2, 4 or 8 blocks, with
+    two blocks or more for each of an H100's 132 SMs, whose x fits one
+    block; at up to 8 tokens (decode runs one) two blocks fit one SM's
+    shared memory. (Past 8 tokens Qwen2.5-7B's down, 19 stages of x a
+    block, leaves room for one.)"""
+    out_f, in_p, _ = shape
+    parts, positions = _decode_positions(kernel, in_p)
+    assert positions % DECODE_STAGE == 0
+    stages = positions // DECODE_STAGE
+    for tokens in range(1, 17):
+        split = decode_split(out_f, positions, parts, tokens, 132)
+        assert split in DECODE_SPLITS and split <= stages, (tokens, split)
+        assert decode_blocks(out_f, tokens) * split >= 2 * 132, (tokens, split)
+        per_block = decode_smem(parts, tokens, -(-stages // split))
+        assert per_block <= 232448, (tokens, per_block)
+        if tokens <= 8:
+            assert 2 * (per_block + 1024) <= 228 * 1024, (tokens, per_block)
+
+
+def test_decode_split_of_shapes_off_the_main_paths():
+    """A small weight takes the largest split its stages allow (the most
+    blocks); a width of no whole stages, or whose x no split fits into a
+    block, or no token at all, is planned 0, and its wrapper sends it to
+    the older GEMV."""
+    assert decode_split(200, 2048, 1, 1, 132) == 8
+    assert decode_split(200, 512, 1, 16, 132) == 4  # 4 stages
+    assert decode_split(64, 128, 2, 3, 132) == 1
+    assert decode_split(28672, 4096, 1, 1, 132) == 1
+    assert decode_split(4096, 1000, 1, 1, 132) == 0  # no whole stages
+    assert decode_split(4096, 65536, 1, 16, 132) == 0  # 256 KB of x a rank
+    assert decode_split(4096, 65536, 1, 1, 132) == 4  # 128 blocks of 32
+    assert decode_split(4096, 4096, 1, 0, 132) == 0
+    assert decode_blocks(200, 1) == 7 and decode_blocks(200, 9) == 4
+    assert decode_blocks(4096, 8) == 128 and decode_blocks(4096, 16) == 64
 
 
 @pytest.fixture
@@ -713,6 +800,75 @@ def test_k1_tile_matches_plain_version(cuda, tokens, out_f, in_p, group,
     _assert_kernel_close(got, want, out_dtype)
 
 
+def _decode_case(kernel, gen, device, shape):
+    """(wrapper, plain version, weights) of K1 (int8 codes, f32 scales at
+    the shape's group) or K2 (int4 bytes, bf16 scales) at one shape."""
+    out_f, in_p, group = shape
+    if kernel == "w8":
+        return w8_matmul, w8_matmul_reference, _int8_case(
+            gen, device, out_f, in_p, group)
+    return w4_matmul, w4_matmul_reference, _lowbit_case(
+        "w4", gen, device, out_f=out_f, in_p=in_p)[2]
+
+
+def _assert_smoke_close(got, want):
+    """chip_smoke.py's bound: |err| <= RTOL·|plain| + ATOL_FRAC·max|plain|."""
+    g, w = got.float(), want.float()
+    limit = chip_smoke.RTOL * w.abs() + chip_smoke.ATOL_FRAC * w.abs().max()
+    assert bool(torch.all((g - w).abs() <= limit)), (g - w).abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "out_dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("tokens", [1, 2, 3, 8, 9, 16])
+@pytest.mark.parametrize("kernel,shape", [
+    *(("w8", s) for s in LLAMA_DECODE + QWEN_DECODE + ODD_DECODE),
+    *(("w4", s) for s in LLAMA_DECODE + QWEN_DECODE + ODD_DECODE),
+])
+def test_decode_gemv_matches_plain_version(cuda, kernel, shape, tokens,
+                                           out_dtype):
+    """K1 and K2 up to 16 tokens run the Hopper decode GEMV: both token
+    tiles (N = 8 up to 8 tokens, 16 past them) at every shape of the main
+    paths and at an out of 200; K1 at groups 512, 1024 and 2048, where
+    the cluster's split cuts a group (summed unscaled across ranks); f32,
+    bf16 and fp16 out. One launch a call."""
+    gen = torch.Generator(device=cuda).manual_seed(sum(shape) + tokens)
+    fn, ref, weights = _decode_case(kernel, gen, cuda, shape)
+    x = torch.randn((tokens, shape[1]), generator=gen, device=cuda)
+    before = fn.launches
+    got = fn(x, *weights, out_dtype=out_dtype)
+    want = ref(x, *weights, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    assert got.shape == (tokens, shape[0]) and got.dtype == out_dtype
+    _assert_smoke_close(got, want)
+    _assert_kernel_close(got, want, out_dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tokens", [1, 16])
+@pytest.mark.parametrize("kernel", ["w8", "w4"])
+def test_decode_gemv_is_bit_equal_and_runs_on_the_current_stream(
+        cuda, kernel, tokens):
+    """Two launches on the same inputs give the same bits (the cluster
+    reduces in rank order, no atomics), on a side stream as on the
+    default one, at a shape whose split cuts a scale group."""
+    gen = torch.Generator(device=cuda).manual_seed(tokens)
+    shape = (200, 14336, 2048)
+    fn, ref, weights = _decode_case(kernel, gen, cuda, shape)
+    x = torch.randn((tokens, shape[1]), generator=gen, device=cuda)
+    first = fn(x, *weights, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    stream = torch.cuda.Stream()
+    with torch.cuda.stream(stream):
+        second = fn(x, *weights, out_dtype=torch.float32)
+    stream.synchronize()
+    assert torch.equal(first, second)
+    _assert_kernel_close(second, ref(x, *weights, out_dtype=torch.float32),
+                         torch.float32)
+
+
 def _int8_route_case(kernel, gen, device, group, tokens, in_p=1536):
     """K1 or K6a (expert 2 of 3) on bf16 x (so that the wrapper launches no
     cast) at a scale group that divides in_p: 24 groups of 64, 16 of 96, 3
@@ -752,10 +908,12 @@ def test_int8_groups_route_by_shape(cuda, kernel, group, tokens, out_dtype):
 def test_int8_route_shows_in_the_kernel_names(cuda):
     """One profiler session (many short sessions in one process now and
     then record no device event at all) over K1 and K6a at groups 64, 96
-    and 512 and T 3 and 40, K7 at T 3 and 40 and K8 at head sizes 64, 96
-    and 128: each call launches one kernel, the one its shape picks:
-    w8_gemv up to 16 tokens; past them the tile for a group of whole
-    128-column stages, w8_gemm for another group; K7's GEMV up to 16
+    and 512 and T 3 and 40, K2 at T 3 and 40, K7 at T 3 and 40 and K8 at
+    head sizes 64, 96 and 128: each call launches one kernel, the one its
+    shape picks: up to 16 tokens K1's decode GEMV for a group of whole
+    128-column stages and w8_gemv for another group or for K6a; past them
+    the tile for a group of whole stages, w8_gemm for another group; K2's
+    decode GEMV up to 16 tokens and its tile past them; K7's GEMV up to 16
     tokens and the tile's SS instance past them; K8's warp-specialised
     kernel."""
     from torch.profiler import ProfilerActivity, profile
@@ -768,8 +926,18 @@ def test_int8_route_shows_in_the_kernel_names(cuda):
                 fn, _, args = _int8_route_case(kernel, gen, cuda, group,
                                                tokens)
                 calls.append(lambda f=fn, a=args: f(*a))
-                routes.append("w8_gemv" if tokens <= 16 else
-                              "wg_tile" if group % 128 == 0 else "w8_gemm")
+                whole = kernel == "w8_matmul" and group % 128 == 0
+                routes.append(
+                    ("decode_gemv<w8::W8" if whole else "w8_gemv")
+                    if tokens <= 16 else
+                    "wg_tile" if group % 128 == 0 else "w8_gemm")
+    for tokens in (3, 40):
+        _, _, w4_args = _lowbit_case("w4", gen, cuda)
+        x = torch.randn((tokens, 2048), generator=gen, device=cuda).to(
+            torch.bfloat16)
+        calls.append(lambda x=x, a=w4_args: w4_matmul(x, *a))
+        routes.append("decode_gemv<w4::W4" if tokens <= 16 else
+                      "wg_tile<w4::W4")
     w = (torch.randn((200, 1024), generator=gen, device=cuda) * 0.05).to(
         torch.bfloat16)
     for tokens in (3, 40):

@@ -1,0 +1,607 @@
+// The Hopper (sm_90a) decode GEMV of K1 w8_matmul and K2 w4_matmul on one
+// whole weight at T <= 16 tokens: y = x @ (s ⊙ L)^T over the formats' own
+// byte layouts (w8.cuh, w4.cuh), bit for bit. It replaces w8.cuh's w8_gemv
+// and lowbit.cuh's gemv on those two routes, and computes what they and
+// the TPU kernels compute (vptq_tpu/ops/pallas_gemm.py _w8_kernel,
+// _w4_kernel): x is rounded to bf16, every level is exact, the products of
+// one (row, scale group) are summed in f32, that f32 partial is multiplied
+// by the group's scale (int8: f32; int4: bf16), the scaled partials are
+// summed in f32, and the result is cast once.
+//
+// What bounds it on an H100: the weight bytes, read once (int8 6.98 GB a
+// token at Llama-3.1-8B width, 0.065 ms a layer at 3.35 TB/s; int4 half
+// that). Little's law at that rate and ~1 µs of latency asks for ~25 KB in
+// flight on every SM at all times, and the unpack must keep pace. So:
+//  * A deep asynchronous weight ring. A block owns kRows rows (32 up to 8
+//    tokens, 64 past them: at one token the smaller blocks balance the SMs
+//    better) and a range of 128-position stages. One producer warp copies
+//    each stage (kRows rows of 128 bytes) into a ring slot with cp.async.cg
+//    16-byte copies, whose landing the slot's mbarrier tracks
+//    (cp.async.mbarrier.arrive.noinc); kRing = 4 slots a block, several
+//    blocks an SM: 64 KB and more in flight on every SM. (One 1-D bulk copy
+//    a row, cp.async.bulk, ran at half the rate: 128-byte bulk copies are
+//    too small for the copy engine.) No tensor map, no workspace, no
+//    per-call attribute: the host does nothing per call but the launch.
+//  * A thread-block cluster splits the positions: its `split` blocks (1, 2,
+//    4 or 8; ops/scaled_matmul.py decode_split picks it by shape so that
+//    every Llama-3.1-8B and Qwen2.5-7B shape makes two blocks or more for
+//    each SM) take the same rows and disjoint stage ranges. Each pushes its
+//    partials into the shared memory of the rank that writes those rows
+//    (distributed shared memory); one cluster barrier later that rank sums
+//    them in rank order: one launch, no atomics, the same bits on every
+//    run. Where a range cuts an int8 scale group (512 to 2048 positions),
+//    each rank keeps that group's unscaled f32 partial apart; the ranks'
+//    partials of the group are summed first and the scale multiplies the
+//    sum.
+//  * x is staged once a block, only the block's own positions (int4: both
+//    parts, L apart), by cp.async with an XOR swizzle on its 16-byte chunks
+//    that keeps the B-fragment loads free of bank conflicts, and so are the
+//    scales of the block's rows. Their loads are issued before the
+//    producer starts, so that they do not queue behind the ring's copies;
+//    there is no barrier inside the loop.
+//  * The unpack and the product on tensor cores: each thread makes its A
+//    fragments with the policy's own prefill-tile hooks (P::tile_code and,
+//    for a bias, one lowbit::tile::bf16x2_fma with P::kTileBias) and runs
+//    mma.sync m16n8k16 bf16 -> f32 with 16 weight rows as M and the tokens
+//    as N (8 or 16; a token past T reads token T - 1, whose columns are
+//    never stored). The 16 k-slots of a step are the thread's own bytes:
+//    bytes 0, 2 of word u of its chunk (tile_code reads bits 0-7 and 16-23
+//    in place) fill slots 2·tig, +1, bytes 1, 3 (the word shifted by 8)
+//    slots 2·tig + 8, +9, and x is staged with each four positions as
+//    (0, 2), (1, 3) to match. A warp sums one scale group's steps in acc
+//    and folds them into f32 totals with the group's scales, as the tile
+//    does. mma.sync rather than wgmma: a warp owns its 16 rows and needs
+//    no warpgroup to keep in step, and the tensor cores are far from
+//    binding (one m16n8k16 per 256 weights). What binds at one token is
+//    the unpack's integer work: int8's tile_code is four LOP3 a pair of
+//    weights, so K1 runs near its loop's issue rate (PERF.md).
+//
+// A format policy P gives kParts and the tile hooks (w8::W8, w4::W4); the
+// scales are (groups, out) of type ST; gs is the stages of one scale group
+// (int8 group / 128; int4 1, each part's group of 128 positions).
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <cooperative_groups.h>
+
+#include <atomic>
+
+#include "lowbit_tile.cuh"
+
+namespace dgemv {
+
+constexpr int kStage = 128;                     // positions of one stage
+constexpr int kH = kStage / 64;                 // 16-byte chunks a thread
+                                                // reads of a row a stage
+static_assert(kStage == 128, "the swizzles below assume two chunks a row");
+constexpr int kRing = 4;                        // slots
+constexpr int kMaxSplit = 8;                    // the portable cluster
+constexpr int kBars = 128;                      // barriers, padded
+constexpr int kMaxSmem = 232448;                // one block's limit
+
+// The block of a token tile: NT = 1 (N = 8, T <= 8) runs 2 consumer warps
+// of 16 rows, NT = 2 (T <= 16) 4; one producer warp beside them. (At one
+// token, 32-row blocks balance the SMs better than 64-row ones.)
+template <int NT>
+struct Block {
+  static constexpr int kConsumers = NT == 1 ? 2 : 4;
+  static constexpr int kRows = 16 * kConsumers;
+  static constexpr int kThreads = 32 * (kConsumers + 1);
+  static constexpr int kSlot = kRows * kStage;  // bytes of one stage
+};
+
+using lowbit::mma_bf16;
+using lowbit::tile::bar_arrive;
+using lowbit::tile::bar_init;
+using lowbit::tile::bar_wait;
+using lowbit::tile::bf16x2_fma;
+using lowbit::tile::smem_u32;
+namespace cg = cooperative_groups;
+
+// the shared memory of a block: barriers, the ring, x (T rows of
+// kParts·max_stages·kStage bf16) and the scales of each stage (kRows rows
+// of one f32 group, or of two parts' bf16 groups of 128 positions: 256
+// bytes a 128-position stage), + 128 for alignment
+inline size_t smem_bytes(int rows, int parts, int T, int max_stages) {
+  return 128 + kBars + (size_t)kRing * rows * kStage +
+         (size_t)T * parts * max_stages * kStage * 2 +
+         (size_t)max_stages * (kStage / 128) * rows * 4 +
+         (size_t)3 * rows * T * 4;
+}
+
+// stage range [a, b) of rank r of `split` over n stages
+__device__ __forceinline__ void range_of(int r, int split, int n, int& a,
+                                         int& b) {
+  a = r * n / split;
+  b = (r + 1) * n / split;
+}
+
+// The scale groups rank r's range cuts (-1: none): g[0] the first group
+// it touches, where that group reaches outside the range; g[1] the last,
+// where it is another group and reaches past the range's end.
+__device__ __forceinline__ void cuts_of(int r, int split, int n, int gs,
+                                        int (&g)[2]) {
+  int a, b;
+  range_of(r, split, n, a, b);
+  const int gf = a / gs, gl = (b - 1) / gs;
+  g[0] = (gf * gs < a || (gf == gl && b < (gf + 1) * gs)) ? gf : -1;
+  g[1] = (gl != gf && b < (gl + 1) * gs) ? gl : -1;
+}
+
+// 16 bytes from global to shared memory, around L1
+// the cluster barrier in its phases (every thread of every block of the
+// cluster arrives once a phase)
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void cluster_arrive_release() {
+  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(dst),
+               "l"(reinterpret_cast<uint64_t>(src))
+               : "memory");
+}
+
+// an arrival on the barrier once this thread's earlier cp.async copies
+// have landed (one of the barrier's expected arrivals)
+__device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];" ::"r"(
+                   bar)
+               : "memory");
+}
+
+// x row t's chunk q (8 positions) lies at chunk q ^ (t & 1), and chunk c
+// of weight row r in a slot at chunk c ^ 4·(r & 1): the 8 lanes of a
+// quarter warp (tokens or rows 2i and 2i + 1; tig 0..3) then read 8
+// distinct bank groups
+__device__ __forceinline__ int xswz(int q, int t) { return q ^ (t & 1); }
+__device__ __forceinline__ int wswz(int c, int r) { return c ^ ((r & 1) << 2); }
+
+// The A pair of part p from the bytes of two positions in bits 0-7 and
+// 16-23 of t (the rest is never read): the prefill tile's unpack,
+// tile_code and one bf16x2 fma that takes away the bias; a bias of 0
+// (int8) leaves code + (-0) = code, bit for bit, so that fma is skipped.
+template <class P>
+__device__ __forceinline__ uint32_t level_pair(uint32_t t, int p) {
+  const uint32_t spread[1] = {t};
+  const uint32_t code = P::tile_code(spread, p);
+  if constexpr (P::kTileBias == 0u)
+    return code;
+  else
+    return bf16x2_fma(code, 0x3F803F80u, P::kTileBias ^ 0x80008000u);
+}
+
+// NT: 8-token tiles of N (1: T <= 8, 2: T <= 16). w: the (out, L) bytes,
+// one row of L positions; x: (T, kParts·L) bf16; sc: (groups, out).
+template <class P, int NT, typename OutT, typename ST>
+__global__ void __launch_bounds__(Block<NT>::kThreads, NT == 1 ? 6 : 5)
+    decode_gemv(const __nv_bfloat16* __restrict__ x,
+                const uint8_t* __restrict__ w, const ST* __restrict__ sc,
+                OutT* __restrict__ y, int T, int out, int L, int gs) {
+  constexpr int kParts = P::kParts;
+  constexpr int kConsumers = Block<NT>::kConsumers;
+  constexpr int kRows = Block<NT>::kRows;
+  constexpr int kThreads = Block<NT>::kThreads;
+  constexpr int kSlot = Block<NT>::kSlot;
+  extern __shared__ __align__(16) unsigned char dg_smem[];
+  unsigned char* sm = dg_smem + ((128 - (smem_u32(dg_smem) & 127)) & 127);
+  const uint32_t full = smem_u32(sm), empty = full + 8 * kRing;
+  unsigned char* ring = sm + kBars;
+  const uint32_t ring_u32 = smem_u32(ring);
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int split = (int)gridDim.x;
+  const int rank = (int)cluster.block_rank();
+  const int n = L / kStage;  // stages of a row
+  const int max_stages = (n + split - 1) / split;
+  int a, b;
+  range_of(rank, split, n, a, b);
+  const int nl = b - a;
+  const int n0 = blockIdx.y * kRows;
+  const int rows = min(kRows, out - n0);
+  // x: T rows of kParts parts of max_stages stages
+  unsigned char* xs = ring + kRing * kSlot;
+  const int x_pitch = kParts * max_stages * kStage * 2;
+  const int part_chunks = max_stages * (kStage / 8);  // of one x row
+  // the scales each stage folds: [stage][part][fold][row] (ST)
+  ST* ss = reinterpret_cast<ST*>(xs + T * x_pitch);
+  // the partials other ranks push: [rank][kind][row][token] f32, kRows / split
+  // rows of 3 kinds of each of split ranks
+  float* rx = reinterpret_cast<float*>(
+      reinterpret_cast<unsigned char*>(ss) +
+      (size_t)max_stages * (kStage / 128) * kRows * 4);
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kRing; ++i) {
+      bar_init(full + 8 * i, 32);
+      bar_init(empty + 8 * i, kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  if (split > 1) cluster_arrive_relaxed();
+
+  if (warp == kConsumers) {
+    // the producer: a stage is kRows rows of kStage / 16 16-byte chunks;
+    // neighbouring lanes copy neighbouring chunks of a row, and each lane
+    // arrives on the slot's barrier once its copies have landed
+    constexpr int kPerRow = kStage / 16;
+    constexpr int kRowsAtOnce = 32 / kPerRow;
+    const int c = lane % kPerRow;
+    const int row0 = lane / kPerRow;
+    const uint8_t* src =
+        w + (size_t)(n0 + row0) * L + (size_t)a * kStage + c * 16;
+    const uint32_t dst0 =
+        ring_u32 + row0 * kStage + (wswz(c, row0) << 4);
+    // once the consumers' loads of x and the scales are out
+    asm volatile("bar.sync 2, %0;" ::"n"(kThreads) : "memory");
+    for (int i = 0; i < nl; ++i) {
+      const int slot = i % kRing;
+      if (lane == 0) bar_wait(empty + 8 * slot, ((i / kRing) & 1) ^ 1);
+      __syncwarp();
+      const uint32_t dst = dst0 + slot * kSlot;
+      const uint8_t* from = src + (size_t)i * kStage;
+#pragma unroll
+      for (int k = 0; k < kRows / kRowsAtOnce; ++k)
+        if (row0 + k * kRowsAtOnce < rows)
+          cp_async16(dst + k * kRowsAtOnce * kStage,
+                     from + (size_t)k * kRowsAtOnce * L);
+      cp_async_arrive(full + 8 * slot);
+    }
+    asm volatile("cp.async.wait_all;" ::: "memory");
+    if (split == 1) return;
+  } else {
+    // a format of two parts folds each 128-position group (two chunks of
+    // each thread); one part folds once its group's last stage is done
+    constexpr int kFold = kParts > 1 ? 2 : kH;
+    constexpr int kFolds = kH / kFold;
+    const int n_groups = kParts > 1 ? L / 128 : n / gs;  // of one part
+    // stage x and the scales once: the block's own positions of each part
+    // (of T tokens), and
+    // the scales of its rows for every fold of every stage. Their loads are
+    // issued before the producer may start, so that they do not queue
+    // behind the ring's copies: x as 16-byte copies, the scales in batches
+    // of 16 a thread.
+    {
+      constexpr int kStride = 32 * kConsumers;
+      constexpr int kBatch = 16;
+      const int cpp = nl * (kStage / 8);  // x chunks of one part
+      const int per_tok = kParts * cpp;
+      for (int e = threadIdx.x; e < T * per_tok; e += kStride) {
+        const int t = e / per_tok;
+        const int r = e - t * per_tok;
+        const int p = r / cpp;
+        const int c = r - p * cpp;
+        const int q = p * part_chunks + c;
+        cp_async16(smem_u32(xs) + t * x_pitch + (xswz(q, t) << 4),
+                   x + (size_t)t * kParts * L + (size_t)p * L +
+                       (size_t)a * kStage + (size_t)c * 8);
+      }
+      const int per_stage = kParts * kFolds * kRows;
+      bool went = false;  // whether this thread let the producer start
+      for (int e0 = threadIdx.x; e0 < nl * per_stage; e0 += kBatch * kStride) {
+        ST v[kBatch];
+#pragma unroll
+        for (int k = 0; k < kBatch; ++k) {
+          const int e = e0 + k * kStride;
+          const int row = e % kRows;
+          const int f = (e / kRows) % kFolds;
+          const int p = (e / (kRows * kFolds)) % kParts;
+          const int i = e / per_stage;
+          const int g = kParts > 1 ? p * n_groups + (a + i) * kFolds + f
+                                   : (a + i) / gs;
+          v[k] = e < nl * per_stage && n0 + row < out
+                     ? sc[(size_t)g * out + n0 + row]
+                     : ST(0.f);
+        }
+        if (!went)  // the producer may start
+          asm volatile("barrier.cta.arrive 2, %0;" ::"n"(kThreads) : "memory");
+        went = true;
+#pragma unroll
+        for (int k = 0; k < kBatch; ++k)
+          if (e0 + k * kStride < nl * per_stage) ss[e0 + k * kStride] = v[k];
+      }
+      if (!went)
+        asm volatile("barrier.cta.arrive 2, %0;" ::"n"(kThreads) : "memory");
+      // x as the weight words give their pairs: positions 0 1 2 3 of each
+      // four as (0, 2), (1, 3) (bytes 0, 2 and, shifted, 1, 3); each
+      // thread reorders the chunks it copied
+      asm volatile("cp.async.wait_all;" ::: "memory");
+      for (int e = threadIdx.x; e < T * per_tok; e += kStride) {
+        const int t = e / per_tok;
+        const int r = e - t * per_tok;
+        const int q = (r / cpp) * part_chunks + r % cpp;
+        uint4* at = reinterpret_cast<uint4*>(xs + t * x_pitch +
+                                             (xswz(q, t) << 4));
+        const uint4 v = *at;
+        *at = make_uint4(__byte_perm(v.x, v.y, 0x5410u),
+                         __byte_perm(v.x, v.y, 0x7632u),
+                         __byte_perm(v.z, v.w, 0x5410u),
+                         __byte_perm(v.z, v.w, 0x7632u));
+      }
+      asm volatile("bar.sync 1, %0;" ::"n"(32 * kConsumers) : "memory");
+    }
+
+    const int gid = lane >> 2;
+    const int tig = lane & 3;
+    const int r0 = warp * 16 + gid;  // rows r0 and r0 + 8 of the block
+    const int par = gid & 1;         // of r0, r0 + 8 and tokens 8j + gid
+    // this thread's chunk h of rows r0 and r0 + 8 in slot 0: chunk
+    // tig + 4h, swizzled by the row's parity
+    const unsigned char* wrow[kH];
+#pragma unroll
+    for (int h = 0; h < kH; ++h)
+      wrow[h] = ring + r0 * kStage + 16 * tig + 64 * (h ^ par);
+    // its x chunks 2·tig + 8h + e of part p and token 8j + gid in stage 0:
+    // 16 bytes apart, swizzled by the token's parity. A token past T reads
+    // token T - 1: column n of a product depends on column n of B alone,
+    // and the columns past T are never stored.
+    const unsigned char* xrow[NT];
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+      xrow[j] = xs + min(8 * j + gid, T - 1) * x_pitch + 32 * tig + 16 * par;
+    const int xe = 16 - 32 * par;  // from chunk e = 0 to e = 1
+
+    float acc[kParts][NT][4], tot[NT][4], cut[2][NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        tot[j][e] = cut[0][j][e] = cut[1][j][e] = 0.f;
+#pragma unroll
+        for (int p = 0; p < kParts; ++p) acc[p][j][e] = 0.f;
+      }
+
+    // the stage's group (one part) and its place in it, kept as counters
+    int g = a / gs, in_group = a - g * gs;
+    const int first_group = g;
+    for (int i = 0; i < nl; ++i) {
+      const int slot = i & (kRing - 1);
+      const bool group_end = in_group == gs - 1 || i == nl - 1;
+      bar_wait(full + 8 * slot, (i / kRing) & 1);
+      // this thread's bytes of rows r0 and r0 + 8; then the slot is free
+      uint4 wq0[kH], wq1[kH];
+#pragma unroll
+      for (int h = 0; h < kH; ++h) {
+        const unsigned char* at = wrow[h] + slot * kSlot;
+        wq0[h] = *reinterpret_cast<const uint4*>(at);
+        wq1[h] = *reinterpret_cast<const uint4*>(at + 8 * kStage);
+      }
+      __syncwarp();
+      if (lane == 0) bar_arrive(empty + 8 * slot);
+
+#pragma unroll
+      for (int h = 0; h < kH; ++h) {
+        // x chunks 2·tig + 8h and + 1 (positions 16·tig + 64h ..+ 15) of
+        // each part and token tile
+        uint4 xq[kParts][NT][2];
+#pragma unroll
+        for (int p = 0; p < kParts; ++p)
+#pragma unroll
+          for (int j = 0; j < NT; ++j)
+#pragma unroll
+            for (int e = 0; e < 2; ++e)
+              xq[p][j][e] = *reinterpret_cast<const uint4*>(
+                  xrow[j] + i * (kStage * 2) + p * part_chunks * 16 +
+                  128 * h + e * xe);
+        const uint32_t w0[4] = {wq0[h].x, wq0[h].y, wq0[h].z, wq0[h].w};
+        const uint32_t w1[4] = {wq1[h].x, wq1[h].y, wq1[h].z, wq1[h].w};
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          // step u: slots 2·tig, +1 are bytes 0, 2 of word u of the chunk
+          // (positions 4u, 4u + 2 of it), slots 2·tig + 8, +9 bytes 1, 3;
+          // x was staged in the same order
+#pragma unroll
+          for (int p = 0; p < kParts; ++p) {
+            const uint32_t af[4] = {level_pair<P>(w0[u], p),
+                                    level_pair<P>(w1[u], p),
+                                    level_pair<P>(w0[u] >> 8, p),
+                                    level_pair<P>(w1[u] >> 8, p)};
+#pragma unroll
+            for (int j = 0; j < NT; ++j) {
+              const uint4& xc = xq[p][j][u >> 1];
+              const uint32_t bf[2] = {(u & 1) ? xc.z : xc.x,
+                                      (u & 1) ? xc.w : xc.y};
+              mma_bf16(acc[p][j], af, bf);
+            }
+          }
+        }
+
+        const bool fold = kParts > 1 ? h % kFold == kFold - 1
+                                     : h == kH - 1 && group_end;
+        if (fold) {
+          // a group inside the range is scaled here; a group the range
+          // cuts (one part only) keeps its unscaled partial for the
+          // cluster's sum
+          const int f = h / kFold;
+          const bool whole =
+              kParts > 1 || (g * gs >= a && (g + 1) * gs <= b);
+#pragma unroll
+          for (int p = 0; p < kParts; ++p)
+#pragma unroll
+            for (int j = 0; j < NT; ++j) {
+              if (whole) {
+                const ST* sp = ss + ((i * kParts + p) * kFolds + f) * kRows;
+                const float s0 = lowbit::scale_f32(sp[r0]);
+                const float s1 = lowbit::scale_f32(sp[r0 + 8]);
+                tot[j][0] += acc[p][j][0] * s0;
+                tot[j][1] += acc[p][j][1] * s0;
+                tot[j][2] += acc[p][j][2] * s1;
+                tot[j][3] += acc[p][j][3] * s1;
+              } else if (g == first_group) {
+#pragma unroll
+                for (int e = 0; e < 4; ++e) cut[0][j][e] = acc[p][j][e];
+              } else {
+#pragma unroll
+                for (int e = 0; e < 4; ++e) cut[1][j][e] = acc[p][j][e];
+              }
+#pragma unroll
+              for (int e = 0; e < 4; ++e) acc[p][j][e] = 0.f;
+            }
+        }
+      }
+      if (++in_group == gs) {
+        in_group = 0;
+        ++g;
+      }
+    }
+
+    if (split == 1) {
+      // no cluster: every group was whole, the totals are y
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int tok = 8 * j + 2 * tig + (e & 1);
+          const int o = n0 + r0 + 8 * (e >> 1);
+          if (tok < T && o < out)
+            y[(size_t)tok * out + o] = lowbit::cvt_out<OutT>(tot[j][e]);
+        }
+      return;
+    }
+    // Push this block's partials, [body, cut 0, cut 1], of each row to the
+    // rank that writes the row (rank q: rows q·kRows/split ..), into its
+    // receive area at [this rank][kind][row][token]; once every rank is in
+    // (the barrier's first phase, entered at the start, so that no block
+    // writes to one that has not begun)
+    cluster_wait();
+    const int per = kRows / split;
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int tok = 8 * j + 2 * tig + (e & 1);
+        const int row = r0 + 8 * (e >> 1);
+        if (tok < T) {
+          const int q = row / per;
+          float* theirs = cluster.map_shared_rank(rx, q);
+          const int at = ((rank * 3) * per + row - q * per) * T + tok;
+          theirs[at] = tot[j][e];
+          if (kParts == 1) {
+            theirs[at + per * T] = cut[0][j][e];
+            theirs[at + 2 * per * T] = cut[1][j][e];
+          }
+        }
+      }
+  }
+
+  if (warp == kConsumers) cluster_wait();
+  // the second phase: every rank's partials are in
+  __syncwarp();
+  cluster_arrive_release();
+  cluster_wait();
+  if (warp < kConsumers) {
+    // this rank's rows: the ranks' partials summed in rank order; a cut
+    // group's unscaled partials summed before its scale
+    const int per = kRows / split;
+    for (int e = threadIdx.x; e < per * T; e += 32 * kConsumers) {
+      const int t = e / per;
+      const int row = e - t * per;
+      const int o = n0 + rank * per + row;
+      if (o >= out) continue;
+      float total = 0.f, open = 0.f;
+      int open_g = -1;
+      for (int r = 0; r < split; ++r) {
+        const float* part = rx + ((r * 3) * per + row) * T + t;
+        total += part[0];
+        if (kParts > 1) continue;
+        int cuts[2];
+        cuts_of(r, split, n, gs, cuts);
+#pragma unroll
+        for (int k = 0; k < 2; ++k) {
+          if (cuts[k] < 0) continue;
+          if (cuts[k] != open_g) {
+            if (open_g >= 0)
+              total += open * lowbit::scale_f32(sc[(size_t)open_g * out + o]);
+            open = 0.f;
+            open_g = cuts[k];
+          }
+          open += part[(1 + k) * per * T];
+        }
+      }
+      if (open_g >= 0)
+        total += open * lowbit::scale_f32(sc[(size_t)open_g * out + o]);
+      y[(size_t)t * out + o] = lowbit::cvt_out<OutT>(total);
+    }
+  }
+}
+
+// the dynamic shared memory a kernel may take, set once per device (at
+// most 64) for each instance
+template <class P, int NT, typename OutT, typename ST>
+cudaError_t allow_smem() {
+  static std::atomic<uint64_t> done{0};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  const uint64_t bit = 1ull << (dev & 63);
+  if (done.load(std::memory_order_relaxed) & bit) return cudaSuccess;
+  e = cudaFuncSetAttribute(decode_gemv<P, NT, OutT, ST>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           kMaxSmem);
+  if (e == cudaSuccess) done.fetch_or(bit, std::memory_order_relaxed);
+  return e;
+}
+
+template <class P, int NT, typename OutT, typename ST>
+cudaError_t launch_n(const __nv_bfloat16* x, const uint8_t* w, const ST* sc,
+                     OutT* y, int T, int out, int L, int gs, int split,
+                     cudaStream_t stream) {
+  using B = Block<NT>;
+  const int n = L / kStage;
+  const size_t smem =
+      smem_bytes(B::kRows, P::kParts, T, (n + split - 1) / split);
+  if (smem > (size_t)kMaxSmem || out > 65535 * B::kRows)
+    return cudaErrorInvalidValue;
+  const cudaError_t e = allow_smem<P, NT, OutT, ST>();
+  if (e != cudaSuccess) return e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(split, (out + B::kRows - 1) / B::kRows);
+  cfg.blockDim = dim3(B::kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = split;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t l = cudaLaunchKernelEx(&cfg, decode_gemv<P, NT, OutT, ST>,
+                                           x, w, sc, y, T, out, L, gs);
+  return l != cudaSuccess ? l : cudaGetLastError();
+}
+
+// The decode GEMV of format P on 1..16 tokens of bf16 x: w (out, L)
+// bytes, scales (kParts·L / (128·gs), out). split: the cluster's blocks
+// (1, 2, 4 or 8, at most L / 128); gs: the stages of a scale group, which
+// must divide L / 128 (a format of two parts takes gs = 1 only). Returns
+// the CUDA error of the launch (cudaErrorInvalidValue for what it does not
+// take).
+template <class P, typename OutT, typename ST>
+cudaError_t launch(const __nv_bfloat16* x, const uint8_t* w, const ST* sc,
+                   OutT* y, int T, int out, int L, int gs, int split,
+                   cudaStream_t stream) {
+  const int n = L / kStage;
+  if (T < 1 || T > 16 || out < 1 || L % kStage || gs < 1 || n % gs ||
+      (P::kParts > 1 && gs != 1) || split < 1 || split > kMaxSplit ||
+      (split & (split - 1)) || split > n)
+    return cudaErrorInvalidValue;
+  if (T <= 8)
+    return launch_n<P, 1, OutT, ST>(x, w, sc, y, T, out, L, gs, split, stream);
+  return launch_n<P, 2, OutT, ST>(x, w, sc, y, T, out, L, gs, split, stream);
+}
+
+}  // namespace dgemv

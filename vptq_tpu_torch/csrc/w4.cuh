@@ -1,5 +1,6 @@
-// The int4 format of the low-bit skeleton (lowbit.cuh) and of the prefill
-// tile (lowbit_tile.cuh), and its launch, shared by K2 w4_matmul (w4_matmul.cu), K6b
+// The int4 format of the low-bit skeleton (lowbit.cuh), of the prefill
+// tile (lowbit_tile.cuh) and of the decode GEMV (decode_gemv.cuh), and its
+// launch, shared by K2 w4_matmul (w4_matmul.cu), K6b
 // w4_matmul_expert (w4_matmul_expert.cu) and K5b w4_matmul_pairs
 // (w4_matmul_pairs.cu).
 //
@@ -19,6 +20,7 @@
 
 #pragma once
 
+#include "decode_gemv.cuh"
 #include "lowbit_tile.cuh"
 
 namespace w4 {
@@ -62,14 +64,25 @@ inline lowbit::Scales scales_of(const void* scales, int out) {
 // Returns the CUDA error of the launch (0 on success). Requires
 // in_p % 256 == 0, 16-byte aligned x and wq, all tensors contiguous on
 // the current device; with ids, n_experts slabs in wq and scales. The
-// whole weight (K2) and one expert (K6b) run lowbit::gemv up to 16 tokens
-// and the Hopper tile of lowbit_tile.cuh past them; pairs (K5b) run the
-// T = 1 gemv.
+// whole weight (K2) runs the Hopper decode GEMV of decode_gemv.cuh up to
+// 16 tokens (split: its cluster size, ops/scaled_matmul.py decode_split;
+// 0: lowbit::gemv) and one expert (K6b) lowbit::gemv; both run the Hopper
+// tile of lowbit_tile.cuh past 16 tokens; pairs (K5b) run the T = 1 gemv.
 template <class Sel>
 int launch(const void* x, const void* wq, const void* scales, const void* ids,
            void* y, int T, int out, int in_p, int n_experts, int out_dtype,
-           void* stream) {
+           void* stream, int split = 0) {
   const lowbit::Ids sel_ids = {static_cast<const int*>(ids), n_experts};
+  if constexpr (std::is_same_v<Sel, sel::Whole>)
+    if (T <= lowbit::tile::kDecodeMax && split > 0)
+      return lowbit::with_out_type(out_dtype, [&](auto* tag) {
+        using OutT = std::remove_pointer_t<decltype(tag)>;
+        return dgemv::launch<W4>(
+            static_cast<const __nv_bfloat16*>(x),
+            static_cast<const uint8_t*>(wq),
+            static_cast<const __nv_bfloat16*>(scales), static_cast<OutT*>(y),
+            T, out, in_p / 2, 1, split, static_cast<cudaStream_t>(stream));
+      });
   if constexpr (Sel::kPairs)
     return lowbit::launch<W4, 128, Sel>(x, planes(wq, in_p),
                                         scales_of(scales, out), y, T, out,

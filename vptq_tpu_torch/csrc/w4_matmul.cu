@@ -13,17 +13,21 @@
 // (2·T·out·in_p, 0.226 ms per layer at 989 TFLOP/s).
 //
 // Design: the int4 format of w4.cuh on one whole weight; T <= 16 runs
-// the GEMV of lowbit.cuh, more tokens the Hopper tile of lowbit_tile.cuh
-// (TMA ring, levels unpacked into bf16 pairs in registers, wgmma).
+// the Hopper decode GEMV of decode_gemv.cuh (a bulk-copy weight ring, a
+// cluster that splits the positions, the tile's unpack into mma.sync),
+// more tokens the Hopper tile of lowbit_tile.cuh (TMA ring, levels
+// unpacked into bf16 pairs in registers, wgmma).
 
 #include "w4.cuh"
 
-// Returns the CUDA error of the launch (0 on success). Requires
-// in_p % 256 == 0, 16-byte aligned x and wq, all tensors contiguous on
-// the current device.
+// split: the decode GEMV's cluster size at T <= 16 (ops/scaled_matmul.py
+// decode_split; 0: lowbit.cuh's gemv). Returns the CUDA error of the
+// launch (0 on success). Requires in_p % 256 == 0, 16-byte aligned x and
+// wq, all tensors contiguous on the current device.
 extern "C" int vptq_w4_matmul(const void* x, const void* wq,
                               const void* scales, void* y, int T, int out,
-                              int in_p, int out_dtype, void* stream) {
+                              int in_p, int split, int out_dtype,
+                              void* stream) {
   return w4::launch<sel::Whole>(x, wq, scales, nullptr, y, T, out, in_p, 0,
-                                out_dtype, stream);
+                                out_dtype, stream, split);
 }

@@ -23,9 +23,16 @@
 // sequential grid axis with an f32 accumulator in VMEM; here blocks run
 // in no order, so a loop inside each block walks in_p.
 //
-// Three kernels, picked by T and the scale group (a pairs launch runs the
-// first at T = 1 on a grid of (row tiles, pairs)):
-//  * w8_gemv (T <= 16): each warp owns kRows weight rows and streams
+// Four kernels, picked by T, the selection and the scale group (a pairs
+// launch runs w8_gemv at T = 1 on a grid of (row tiles, pairs)):
+//  * T <= 16 on one whole weight (K1) with a group of whole 128-position
+//    stages (every group the loaders make) and a split the wrapper planned
+//    (ops/scaled_matmul.py decode_split): the Hopper decode GEMV of
+//    decode_gemv.cuh with the policy W8 below (a cp.async weight ring,
+//    a cluster that splits in_p, the tile's unpack into mma.sync).
+//  * w8_gemv (T <= 16 otherwise: one expert (K6a), the pairs (K5a), and a
+//    group that is no multiple of 128 or a plan of 0, routed by shape,
+//    never after a failed launch): each warp owns kRows weight rows and streams
 //    them with 16-byte loads, four loads per row in flight; x for the
 //    current scale group is staged in shared memory as bf16 and shared
 //    by the block's warps; int8 -> f32 is a byte permute and one add
@@ -55,6 +62,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "decode_gemv.cuh"
 #include "expert_select.cuh"
 #include "lowbit_tile.cuh"
 
@@ -421,6 +429,7 @@ struct Args {
   const int* ids;  // null for sel::Whole
   int n_experts;
   int T, out, in_p, group;
+  int split;  // the decode GEMV's cluster (sel::Whole, T <= 16); 0: none
 };
 
 // pairs: the grid's second dimension (1 unless the launch is a pairs launch)
@@ -451,6 +460,13 @@ cudaError_t launch_typed(const Args& a, void* y, cudaStream_t stream) {
     if (T > 65535) return cudaErrorInvalidValue;
     return launch_gemv<Sel, 1, OutT>(a, yo, 1, T, stream);
   } else {
+    // the route by shape: one whole weight with a group of whole stages
+    // and a planned split takes the Hopper decode GEMV up to 16 tokens
+    if constexpr (std::is_same_v<Sel, sel::Whole>)
+      if (T <= 16 && a.group % dgemv::kStage == 0 && a.split > 0)
+        return dgemv::launch<W8>(a.x, reinterpret_cast<const uint8_t*>(a.wq),
+                                 a.scales, yo, T, a.out, a.in_p,
+                                 a.group / dgemv::kStage, a.split, stream);
     if (T <= 1) return launch_gemv<Sel, 1, OutT>(a, yo, T, 1, stream);
     if (T <= 2) return launch_gemv<Sel, 2, OutT>(a, yo, T, 1, stream);
     if (T <= 4) return launch_gemv<Sel, 4, OutT>(a, yo, T, 1, stream);
@@ -478,15 +494,17 @@ cudaError_t launch_typed(const Args& a, void* y, cudaStream_t stream) {
 // out_dtype: 0 = bf16, 1 = f32. Returns the CUDA error code of the
 // launch (0 on success). Requires in_p % group == 0, group % 32 == 0,
 // 16-byte aligned x and wq, all tensors contiguous on the current device.
+// split: the decode GEMV's cluster size for a whole weight at T <= 16 (0:
+// w8_gemv).
 template <class Sel>
 int launch(const void* x, const void* wq, const void* scales, const void* ids,
            void* y, int T, int out, int in_p, int group, int n_experts,
-           int out_dtype, void* stream) {
+           int out_dtype, void* stream, int split = 0) {
   const Args a = {static_cast<const __nv_bfloat16*>(x),
                   static_cast<const int8_t*>(wq),
                   static_cast<const float*>(scales),
                   static_cast<const int*>(ids),
-                  n_experts, T, out, in_p, group};
+                  n_experts, T, out, in_p, group, split};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (out_dtype) {
     case 0:

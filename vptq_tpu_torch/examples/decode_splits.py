@@ -1,0 +1,137 @@
+"""K1 and K2's decode GEMV at every cluster size, beside the older GEMV.
+
+Times K1 ``w8_matmul`` (group 2048) and K2 ``w4_matmul`` on random codes at
+the four linears of a Llama-3.1-8B layer, for each token count, through
+the launch of ``ops/scaled_matmul.py`` with each split the kernel takes
+(1, 2, 4, 8; the one ``decode_split`` plans is starred) and with split 0,
+which routes the call to the GEMV the decode kernel replaced (``w8.cuh``'s
+``w8_gemv``, ``lowbit.cuh``'s ``gemv``). Every launch is first held to the
+plain version (|err| <= 1e-2·|plain| + 1e-3·max|plain|). Each time is the
+median of 30 launches between CUDA events, each after a 1 GiB flush of the
+L2: ``w`` overwrites the buffer (the L2 is left full of dirty lines that
+the timed call writes back, as ``kernel_bench.time_ms`` leaves it), ``r``
+only reads it (a clean L2, as a decode step finds it). The card's name and
+power limit come first, then one line per (kernel, shape, T, split,
+flush), then the layer's sums for the planned split and split 0.
+
+    python -m vptq_tpu_torch.examples.decode_splits [--tokens 1,4,16]
+        [--flush w,r]
+
+Without a CUDA device it exits non-zero.
+"""
+
+from __future__ import annotations
+
+import argparse
+import statistics
+
+import torch
+
+from vptq_tpu_torch.examples.kernel_bench import card_line, flush_buffer
+from vptq_tpu_torch.ops import scaled_matmul as sm
+from vptq_tpu_torch.ops.w4_matmul import w4_matmul_reference
+from vptq_tpu_torch.ops.w8_matmul import w8_matmul_reference
+
+__all__ = ["main"]
+
+# (name, out, in) of one Llama-3.1-8B layer's linears
+SHAPES = (("qkv", 6144, 4096), ("o", 4096, 4096), ("gate_up", 28672, 4096),
+          ("down", 4096, 14336))
+GROUP = 2048  # K1's scale group at these widths (the loaders' pick)
+
+
+def _time(fn, flush, mode: str, iters: int = 30) -> float:
+    """Median ms of ``iters`` calls, each after a 1 GiB flush."""
+    sink = torch.zeros((), dtype=torch.int64, device=flush.device)
+    words = flush.view(torch.int32)
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(iters):
+        if mode == "w":
+            flush.zero_()
+        else:
+            sink.copy_(words.sum())
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def main(argv=None) -> None:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--tokens", default="1,4,16")
+    parser.add_argument("--flush", default="w,r")
+    args = parser.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("decode_splits times the card's kernels: it needs a "
+                         "CUDA device")
+    device = torch.device("cuda")
+    print(card_line(device), flush=True)
+    tokens = [int(t) for t in args.tokens.split(",")]
+    modes = args.flush.split(",")
+    flush = flush_buffer(device)
+    gen = torch.Generator(device=device).manual_seed(0)
+    n_sm = sm.sm_count(device)
+    layer = {}
+    for kernel in ("w8", "w4"):
+        for shape, out_f, in_p in SHAPES:
+            if kernel == "w8":
+                wq = torch.randint(-128, 128, (out_f, in_p), generator=gen,
+                                   device=device, dtype=torch.int8)
+                sc = torch.rand((in_p // GROUP, out_f), generator=gen,
+                                device=device) * 1e-2
+                parts, positions, ref = 1, in_p, w8_matmul_reference
+            else:
+                wq = torch.randint(-128, 128, (out_f, in_p // 2),
+                                   generator=gen, device=device,
+                                   dtype=torch.int8)
+                sc = (torch.rand((in_p // 128, out_f), generator=gen,
+                                 device=device) * 1e-2).to(torch.bfloat16)
+                parts, positions, ref = 2, in_p // 2, w4_matmul_reference
+            for t in tokens:
+                x = torch.randn((t, in_p), generator=gen, device=device).to(
+                    torch.bfloat16)
+                plan = sm.decode_split(out_f, positions, parts, t, n_sm)
+                want = ref(x, wq, sc).float()
+                limit = 1e-2 * want.abs() + 1e-3 * want.abs().max()
+                for split in (0, *sm.DECODE_SPLITS):
+                    if split > positions // sm.DECODE_STAGE or (
+                            split and sm.decode_smem(
+                                parts, t, -(-positions // sm.DECODE_STAGE
+                                            // split)) > 232448):
+                        continue
+                    ints = (GROUP, split) if kernel == "w8" else (split,)
+
+                    def call(ints=ints):
+                        return sm.launch(f"{kernel}_matmul",
+                                         f"vptq_{kernel}_matmul", x, (wq, sc),
+                                         ints, out_f, in_p, None)
+
+                    if not bool(torch.all((call().float() - want).abs()
+                                          <= limit)):
+                        raise AssertionError(
+                            f"{kernel} {shape} T={t} split={split}: outside "
+                            "the tolerance")
+                    for mode in modes:
+                        us = _time(call, flush, mode) * 1e3
+                        star = "*" if split == plan else ""
+                        print(f"{kernel} {shape} T={t} split={split}{star} "
+                              f"flush={mode}: {us:.1f} us", flush=True)
+                        if split in (0, plan):
+                            key = (kernel, t, mode, split == 0)
+                            layer[key] = layer.get(key, 0.0) + us
+            del wq, sc
+    for (kernel, t, mode, old), us in sorted(layer.items()):
+        what = "old GEMV (split 0)" if old else "decode GEMV (planned split)"
+        print(f"layer {kernel} T={t} flush={mode} {what}: {us:.1f} us",
+              flush=True)
+    print(card_line(device), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -17,13 +17,93 @@ PyTorch's current stream.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Sequence
 
 import torch
 
 from vptq_tpu_torch.ops import _build
 
-__all__ = ["check_pairs", "grouped_reference", "launch", "pick_expert"]
+__all__ = [
+    "DECODE_SPLITS", "DECODE_STAGE", "check_pairs", "decode_blocks",
+    "decode_route", "decode_rows", "decode_smem", "decode_split",
+    "grouped_reference", "launch", "pick_expert", "sm_count",
+]
+
+# The Hopper decode GEMV of K1 and K2 (csrc/decode_gemv.cuh) at T <= 16: a
+# block owns 32 rows (up to 8 tokens) or 64 (up to 16) and a range of
+# DECODE_STAGE-position stages; a cluster of DECODE_SPLITS[i] blocks splits
+# the positions of a row.
+DECODE_STAGE = 128
+DECODE_SPLITS = (1, 2, 4, 8)
+_DECODE_RING = 4  # ring slots of one stage each
+_BLOCK_SMEM = 232448  # one block's limit on an H100
+
+
+def decode_rows(tokens: int) -> int:
+    """Rows of one decode-GEMV block at ``tokens`` (its token tile)."""
+    return 32 if tokens <= 8 else 64
+
+
+def decode_blocks(out_f: int, tokens: int) -> int:
+    """Row blocks of the decode GEMV over ``out_f`` rows."""
+    return -(-out_f // decode_rows(tokens))
+
+
+def decode_smem(parts: int, tokens: int, stages: int) -> int:
+    """Shared memory of one decode-GEMV block whose range is ``stages``
+    stages (bytes): the ring, x for ``tokens`` rows of ``parts`` parts of
+    those stages, the scales of each stage (4 bytes a row and 128
+    positions) and the partials the cluster's ranks push (3 f32 a row and
+    token)."""
+    rows = decode_rows(tokens)
+    return (256 + _DECODE_RING * rows * DECODE_STAGE
+            + tokens * parts * stages * DECODE_STAGE * 2
+            + stages * rows * 4 + 3 * rows * tokens * 4)
+
+
+@functools.lru_cache(maxsize=None)
+def decode_split(out_f: int, positions: int, parts: int, tokens: int,
+                 n_sm: int) -> int:
+    """The cluster size of the decode GEMV: how many blocks split the
+    ``positions`` (whole stages; int8 in_p, int4 in_p / 2) of each row
+    block at ``tokens`` <= 16, for a card of ``n_sm`` SMs.
+
+    The smallest of 1, 2, 4, 8 that makes two blocks or more for each SM
+    and whose x fits a block; failing that, the largest that fits (most
+    blocks, least x each). 0, so that the older GEMV runs, where the
+    positions are no whole stages or no split fits x into a block."""
+    stages = positions // DECODE_STAGE
+    if positions % DECODE_STAGE or not 1 <= tokens <= 16:
+        return 0
+    fits = [s for s in DECODE_SPLITS if s <= stages
+            and decode_smem(parts, tokens, -(-stages // s)) <= _BLOCK_SMEM]
+    for s in fits:
+        if decode_blocks(out_f, tokens) * s >= 2 * n_sm:
+            return s
+    return fits[-1] if fits else 0
+
+
+def decode_route(out_f: int, positions: int, parts: int,
+                 x: torch.Tensor) -> int:
+    """The split a K1 / K2 launch passes its kernel: decode_split's for x
+    of 1 to 16 tokens, else 0."""
+    tokens = x.numel() // positions // parts if positions else 0
+    if not 1 <= tokens <= 16:
+        return 0
+    return decode_split(out_f, positions, parts, tokens, sm_count(x.device))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(device: torch.device) -> int:
+    """The SMs of a CUDA device (cached)."""
+    return _sm_count(device.index if device.index is not None
+                     else torch.cuda.current_device())
+
 
 # the output dtypes the kernels write, by their out_dtype code; fp16 is
 # written as f32 and rounded once, to nearest even, on the way out (the

@@ -2,7 +2,9 @@
 
 Port of ``vptq_tpu/ops/pallas_gemm.py:445-623`` (``_w4_kernel``, entry
 ``w4_matmul``). The kernel is hand-written CUDA for Hopper in
-``vptq_tpu_torch/csrc/w4_matmul.cu``. :func:`w4_matmul` launches it for
+``vptq_tpu_torch/csrc/w4_matmul.cu``: the decode GEMV of
+``csrc/decode_gemv.cuh`` up to 16 tokens, the prefill tile of
+``csrc/lowbit_tile.cuh`` past them. :func:`w4_matmul` launches it for
 CUDA tensors and runs the plain version :func:`w4_matmul_reference`
 only for tensors that lie on the CPU. ``w4_matmul.launches`` counts
 kernel launches.
@@ -12,7 +14,11 @@ from __future__ import annotations
 
 import torch
 
-from vptq_tpu_torch.ops.scaled_matmul import grouped_reference, launch
+from vptq_tpu_torch.ops.scaled_matmul import (
+    decode_route,
+    grouped_reference,
+    launch,
+)
 from vptq_tpu_torch.ops.packing import INT4_GROUP, unpack_int4
 
 __all__ = ["w4_matmul", "w4_matmul_reference"]
@@ -68,9 +74,12 @@ def w4_matmul(
     in_p = _check(x, wq, scales)
     if x.device.type == "cpu":
         return w4_matmul_reference(x, wq, scales, out_dtype)
+    # the decode GEMV's cluster size over the in_p / 2 byte positions; 0
+    # sends a shape it does not take to lowbit.cuh's GEMV
+    split = decode_route(wq.shape[0], in_p // 2, 2, x)
     y = launch(
-        "w4_matmul", "vptq_w4_matmul", x, (wq, scales), (), wq.shape[0],
-        in_p, out_dtype,
+        "w4_matmul", "vptq_w4_matmul", x, (wq, scales), (split,),
+        wq.shape[0], in_p, out_dtype,
     )
     w4_matmul.launches += 1
     return y
@@ -79,7 +88,8 @@ def w4_matmul(
 w4_matmul.launches = 0
 # the TPU kernel this one replaces
 w4_matmul.replaces = "vptq_tpu/ops/pallas_gemm.py:445"
-# words of the demangled names of its CUDA kernels (lowbit.cuh's GEMV and
-# lowbit_tile.cuh's prefill tile, with the policies W4 of csrc/w4.cuh and
-# sel::Whole) that pick them out of a trace
-w4_matmul.trace_tags = ("lowbit", "W4", "Whole")
+# words of the demangled names of its CUDA kernels that pick them out of a
+# trace, one set per family: lowbit.cuh's GEMV and lowbit_tile.cuh's
+# prefill tile, with the policy W4 of csrc/w4.cuh and sel::Whole, and the
+# decode GEMV (decode_gemv.cuh, one whole weight) with the policy W4
+w4_matmul.trace_tags = (("lowbit", "W4", "Whole"), ("decode_gemv", "W4"))

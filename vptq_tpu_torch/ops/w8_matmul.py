@@ -2,11 +2,13 @@
 
 Port of ``vptq_tpu/ops/pallas_gemm.py:58-190`` (``_w8_kernel``, entry
 ``w8_matmul``). The kernel is hand-written CUDA for Hopper in
-``vptq_tpu_torch/csrc/w8_matmul.cu`` (loops in ``csrc/w8.cuh``: a GEMV up
-to 16 tokens; past them the Hopper prefill tile of
-``csrc/lowbit_tile.cuh`` for a scale group of whole 128-column stages,
-and an ``mma.sync`` tile for any other group), built by ``ops/_build.py``
-and called through ``ctypes`` on PyTorch's current stream.
+``vptq_tpu_torch/csrc/w8_matmul.cu`` (loops in ``csrc/w8.cuh``: for a
+scale group of whole 128-column stages the Hopper decode GEMV of
+``csrc/decode_gemv.cuh`` up to 16 tokens and the Hopper prefill tile of
+``csrc/lowbit_tile.cuh`` past them; for any other group, which no loader
+makes, ``w8.cuh``'s GEMV and an ``mma.sync`` tile), built by
+``ops/_build.py`` and called through ``ctypes`` on PyTorch's current
+stream.
 
 :func:`w8_matmul` launches it for CUDA tensors, and runs the plain
 version :func:`w8_matmul_reference` only for tensors that lie on the
@@ -17,7 +19,12 @@ from __future__ import annotations
 
 import torch
 
-from vptq_tpu_torch.ops.scaled_matmul import grouped_reference, launch
+from vptq_tpu_torch.ops.scaled_matmul import (
+    DECODE_STAGE,
+    decode_route,
+    grouped_reference,
+    launch,
+)
 
 __all__ = ["w8_matmul", "w8_matmul_reference"]
 
@@ -79,9 +86,14 @@ def w8_matmul(
         return w8_matmul_reference(x, wq, scales, out_dtype)
     if group % 32:
         raise ValueError(f"scale group {group} must be a multiple of 32")
+    out_f, in_p = wq.shape
+    # the decode GEMV's cluster size, by shape; 0 sends a group of no whole
+    # stages (or a shape it does not take) to w8.cuh's GEMV
+    split = (decode_route(out_f, in_p, 1, x)
+             if group % DECODE_STAGE == 0 else 0)
     y = launch(
-        "w8_matmul", "vptq_w8_matmul", x, (wq, scales), (group,),
-        wq.shape[0], wq.shape[1], out_dtype,
+        "w8_matmul", "vptq_w8_matmul", x, (wq, scales), (group, split),
+        out_f, in_p, out_dtype,
     )
     w8_matmul.launches += 1
     return y
@@ -91,6 +103,9 @@ w8_matmul.launches = 0
 # the TPU kernel this one replaces
 w8_matmul.replaces = "vptq_tpu/ops/pallas_gemm.py:58"
 # words of the demangled names of its CUDA kernels that pick them out of a
-# trace, one set per family: w8.cuh's w8_gemv and w8_gemm, and the prefill
-# tile (lowbit_tile.cuh) with the policy W8, each with sel::Whole
-w8_matmul.trace_tags = (("w8_gem", "Whole"), ("wg_tile", "W8", "Whole"))
+# trace, one set per family: w8.cuh's w8_gemv and w8_gemm and the prefill
+# tile (lowbit_tile.cuh) with the policy W8, each with sel::Whole, and the
+# decode GEMV (decode_gemv.cuh, one whole weight) with the policy W8
+w8_matmul.trace_tags = (
+    ("w8_gem", "Whole"), ("wg_tile", "W8", "Whole"), ("decode_gemv", "W8"),
+)
