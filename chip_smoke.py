@@ -232,10 +232,12 @@ TILE_INSTANCES = {
 # K8's kernel (fa::flash_wgmma<D>), one instance per head size
 FLASH_KERNEL = "flash_wgmma"
 FLASH_INSTANCES = {"flash_attention": 3}
-# the Hopper decode GEMV of K1 and K2 at T <= 16 (decode_gemv.cuh): one
-# instance per token tile (N = 8, 16) and output type (bf16, f32)
+# the Hopper decode GEMV of K1–K4 at T <= 16 (decode_gemv.cuh): one
+# instance per token tile (N = 8, 16) and output type (bf16, f32), and in
+# K3 per scale group (64, 128) too
 DECODE_KERNEL = "decode_gemv"
-DECODE_INSTANCES = {"w8_matmul": 4, "w4_matmul": 4}
+DECODE_INSTANCES = {"w8_matmul": 4, "w4_matmul": 4, "w3_matmul": 4,
+                    "w2_matmul": 8}
 # the token counts of the kernel phases: decode, two prefill buckets and
 # the long-prefill chunk (every T > 16 runs the tile)
 TOKENS = (1, 128, 512, 2048)
@@ -396,12 +398,37 @@ def check_and_time(name, label, call, plain, library, nbytes, flops, device,
     )
 
 
+def launched_kernels(calls, device) -> list:
+    """The name of the one CUDA kernel each call launches, from one
+    ``torch.profiler`` session over all of them (many short sessions in
+    one process now and then record nothing; a session that lost an event
+    is taken again, up to three times)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for call in calls:
+        call()
+    _sync(device)
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for call in calls:
+                call()
+                _sync(device)
+        names = [e.name for e in sorted(_device_events(prof),
+                                        key=lambda e: e.time_range.start)]
+        if len(names) == len(calls):
+            return names
+    raise AssertionError(
+        f"{len(calls)} calls launched {len(names)} kernels: {names[:4]}")
+
+
 def phase_kernel(name, device, shapes, tokens=(1, 128, 512), iters=20,
-                 seed=0, in_record=True, group=None):
+                 seed=0, in_record=True, group=None, routes=None):
     """One kernel at each shape and token count: agreement with its
     plain version, times and bound. ``in_record``: whether the rows go
     into the kernel's record (one model's layer) or stand alone;
-    ``group``: K3's scale group, where not its default."""
+    ``group``: K3's scale group, where not its default; ``routes``: a list
+    to which each call of up to 16 tokens on the card is appended with its
+    row, for :func:`check_decode_routes`."""
     from vptq_tpu_torch.examples.kernel_bench import flush_buffer
     from vptq_tpu_torch.layers.runtime import linear_exact_weight
 
@@ -433,8 +460,37 @@ def phase_kernel(name, device, shapes, tokens=(1, 128, 512), iters=20,
                 ),
             ))
             print(f"{name} " + json.dumps(rows[-1]))
+            if (routes is not None and t <= 16
+                    and torch.device(device).type == "cuda"):
+                routes.append((rows[-1], lambda x=x, a=args: fn(x, *a)))
         del layer, args, w_bf16
     return rows
+
+
+def check_decode_routes(routes, device) -> None:
+    """The CUDA kernel each call of ``routes`` (phase_kernel's, up to 16
+    tokens) launches, from one trace: K2 and K3 run the Hopper decode GEMV
+    at every shape the kernel phases time; K1 and K4 run it where their
+    wrappers' rule routes them (``takes_decode_gemv`` of
+    ``ops/w8_matmul.py``, ``ops/w3_matmul.py``) and the older GEMV
+    elsewhere. The names are picked by the wrappers' ``trace_tags`` (the
+    decode GEMV's family: ``decode_gemv`` and the policy)."""
+    names = launched_kernels([call for _, call in routes], device)
+    for (r, _), kernel in zip(routes, names):
+        print(f"{r['kernel']} {r['shape']} T={r['T']} g{r['group']} runs "
+              f"{kernel}")
+        fn = kernel_fns(r["kernel"])[0]
+        family = next(t for t in tag_sets(fn.trace_tags)
+                      if "decode_gemv" in t)
+        rule = getattr(importlib.import_module(
+            f"vptq_tpu_torch.ops.{r['kernel']}"), "takes_decode_gemv", None)
+        want = rule is None or rule(r["T"], r["out"], r["in_p"])
+        if picks((family,), kernel) != want:
+            raise AssertionError(
+                f"{r['kernel']} {r['shape']} T={r['T']} ran {kernel}; the "
+                f"decode GEMV expected: {want}")
+    print(f"decode routes: {len(routes)} calls up to 16 tokens, each on "
+          "its route")
 
 
 def phase_bf16(device, shapes, tokens=TOKENS, iters=20, seed=0):
@@ -1353,23 +1409,33 @@ def main() -> int:
     print(
         f"{FLASH} vs plain tolerance: |err| <= {FLASH_TOL} * max|plain|"
     )
-    rows = []
+    rows, routes = [], []
     for name in FORMAT_KERNEL.values():
-        rows += phase_kernel(name, device, k1_shapes(LLAMA31_8B), TOKENS)
-    # K1 and K2 at the decode GEMV's largest instance (N = 16)
-    for name in ("w8_matmul", "w4_matmul"):
+        rows += phase_kernel(name, device, k1_shapes(LLAMA31_8B), TOKENS,
+                             routes=routes)
+    # K1–K4 at the decode GEMV's largest instance (N = 16)
+    for name in FORMAT_KERNEL.values():
         rows += phase_kernel(
-            name, device, k1_shapes(LLAMA31_8B), (16,), in_record=False
+            name, device, k1_shapes(LLAMA31_8B), (16,), in_record=False,
+            routes=routes,
         )
-    # K3 at its other scale group (128: the tile unsplit)
+    # K1 at 8 tokens: its decode GEMV's N = 8 instance (w8_gemv takes T = 1)
     rows += phase_kernel(
-        "w2_matmul", device, k1_shapes(LLAMA31_8B), TOKENS, in_record=False,
-        group=128,
+        "w8_matmul", device, k1_shapes(LLAMA31_8B), (8,), in_record=False,
+        routes=routes,
+    )
+    # K3 at its other scale group (128: the tile unsplit), T = 16 too
+    rows += phase_kernel(
+        "w2_matmul", device, k1_shapes(LLAMA31_8B), (1, 16, *TOKENS[1:]),
+        in_record=False, group=128, routes=routes,
     )
     # K1 at Qwen2.5-7B's groups 512 (in 3584) and 1024 (in 19456)
     rows += phase_kernel(
-        "w8_matmul", device, k1_shapes(QWEN25_7B), TOKENS, in_record=False
+        "w8_matmul", device, k1_shapes(QWEN25_7B), TOKENS, in_record=False,
+        routes=routes,
     )
+    check_decode_routes(routes, device)
+    del routes
     rows += phase_bf16(device, k1_shapes(LLAMA31_8B), TOKENS)
     rows += phase_flash(device)
     for fmt in MOE_KERNELS:

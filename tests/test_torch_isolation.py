@@ -6,6 +6,7 @@ imports no JAX, so a machine with a GPU and no JAX runs them with
 ``python -m pytest --noconftest tests/test_torch_isolation.py -m cuda``.
 """
 
+import importlib
 import json
 import os
 import re
@@ -39,6 +40,7 @@ from vptq_tpu_torch.ops.vq_smallk_matmul import (
     vq_smallk_matmul_reference,
 )
 from vptq_tpu_torch.ops.scaled_matmul import (
+    DECODE_FORMATS,
     DECODE_SPLITS,
     DECODE_STAGE,
     decode_blocks,
@@ -68,6 +70,9 @@ from vptq_tpu_torch.ops.w4_probe_matmul import (
 from vptq_tpu_torch.ops.w4_raw_probe import (
     w4_raw_probe,
     w4_raw_probe_reference,
+)
+from vptq_tpu_torch.ops.w8_matmul import (
+    takes_decode_gemv as w8_takes_decode_gemv,
 )
 from vptq_tpu_torch.ops.w8_matmul import w8_matmul, w8_matmul_reference
 from vptq_tpu_torch.ops.w8_matmul_expert import (
@@ -460,6 +465,10 @@ def _ptxas_log(entry: str, spill: int) -> str:
     ("decode:w8_matmul", 0, 8, False),      # K1's decode GEMV spills
     ("decode:w4_matmul", -1, 0, False),     # K2 lost a decode GEMV instance
     ("decode:w4_matmul", 0, 8, False),      # K2's decode GEMV spills
+    ("decode:w3_matmul", -1, 0, False),     # K4 lost a decode GEMV instance
+    ("decode:w3_matmul", 0, 8, False),      # K4's decode GEMV spills
+    ("decode:w2_matmul", -1, 0, False),     # K3 lost a decode GEMV instance
+    ("decode:w2_matmul", 0, 8, False),      # K3's decode GEMV spills
     ("decode:w8_matmul_expert", 1, 0, False),  # one where none belongs
 ])
 def test_build_phase_requires_every_tile_instance_spill_free(
@@ -467,8 +476,9 @@ def test_build_phase_requires_every_tile_instance_spill_free(
 ):
     """The build phase passes only when each library of the prefill tile
     (K1, K2, K3, K4, K6a, K6b, K7) reports its number of tile instances,
-    K8's library its instances of the attention kernel, and K1's and K2's
-    their four instances of the decode GEMV, each with 0 spill bytes, and
+    K8's library its instances of the attention kernel, K1's, K2's and
+    K4's their four instances of the decode GEMV and K3's its eight (two
+    scale groups), each with 0 spill bytes, and
     the other libraries none. ``where``: every table of one library, or
     (``decode:<library>``) its decode GEMV alone."""
     def tiles(name, instances, decode=False):
@@ -560,8 +570,13 @@ _GEMV = ("void lowbit::gemv<w4::W4, sel::{sel}, 16, 4, 128, float, "
          "int, int)")
 _BF16_GEMV = ("void bf16mm::bf16_gemv<{t}, float>(__nv_bfloat16 const*, "
               "__nv_bfloat16 const*, float*, int, int, int)")
-_DECODE = ("void dgemv::decode_gemv<{p}, {n}, {o}, {s}>(__nv_bfloat16 const*, "
-           "unsigned char const*, {s} const*, {o}*, int, int, int, int)")
+_DECODE = ("void dgemv::decode_gemv<{p}, {n}, {g}, {o}, {s}>(__nv_bfloat16 "
+           "const*, lowbit::Planes, lowbit::ScalesOf<{s}>, {o}*, int, int, "
+           "int, int)")
+# K3's and K4's: their policies (anonymous namespace), scale group g
+_ANON = "(anonymous namespace)::W{b}"
+_LOWBIT_GEMV = _GEMV.replace("w4::W4", "{p}").replace(", 4, 128,", ", {g},")
+_TILE_G = _TILE.replace(", 128, float", ", {g}, float")
 KERNEL_NAMES = {
     "bf16_matmul": [_BF16_GEMV.format(t=1), _BF16_GEMV.format(t=16),
                     _TILE.format(p="bf16mm::BF16", sel="Whole", s="float")],
@@ -571,7 +586,7 @@ KERNEL_NAMES = {
     "w8_matmul": [_W8.format(k="gemv", sel="Whole", t="16, "),
                   _W8.format(k="gemm", sel="Whole", t=""),
                   _TILE.format(p="w8::W8", sel="Whole", s="float"),
-                  *(_DECODE.format(p="w8::W8", n=n, o=o, s="float")
+                  *(_DECODE.format(p="w8::W8", n=n, g=128, o=o, s="float")
                     for n in (1, 2) for o in ("float", "__nv_bfloat16"))],
     "w8_matmul_expert": [_W8.format(k="gemv", sel="Expert", t="16, "),
                          _W8.format(k="gemm", sel="Expert", t=""),
@@ -579,22 +594,42 @@ KERNEL_NAMES = {
     "w8_matmul_pairs": [_W8.format(k="gemv", sel="Pairs", t="1, ")],
     "w4_matmul": [_GEMV.format(sel="Whole"),
                   _TILE.format(p="w4::W4", sel="Whole", s="__nv_bfloat16"),
-                  *(_DECODE.format(p="w4::W4", n=n, o=o, s="__nv_bfloat16")
+                  *(_DECODE.format(p="w4::W4", n=n, g=128, o=o,
+                                   s="__nv_bfloat16")
                     for n in (1, 2) for o in ("float", "__nv_bfloat16"))],
     "w4_matmul_expert": [
         _GEMV.format(sel="Expert"),
         _TILE.format(p="w4::W4", sel="Expert", s="__nv_bfloat16")],
     "w4_matmul_pairs": [_GEMV.format(sel="Pairs")],
+    "w3_matmul": [
+        _LOWBIT_GEMV.format(p=_ANON.format(b=3), sel="Whole", g="1, 128"),
+        _TILE_G.format(p=_ANON.format(b=3), sel="Whole", g=128,
+                       s="__nv_bfloat16"),
+        *(_DECODE.format(p=_ANON.format(b=3), n=n, g=128, o=o,
+                         s="__nv_bfloat16")
+          for n in (1, 2) for o in ("float", "__nv_bfloat16"))],
+    "w2_matmul": [
+        *(_LOWBIT_GEMV.format(p=_ANON.format(b=2), sel="Whole", g=f"1, {g}")
+          for g in (64, 128)),
+        *(_TILE_G.format(p=_ANON.format(b=2), sel="Whole", g=g,
+                         s="__nv_bfloat16") for g in (64, 128)),
+        *(_DECODE.format(p=_ANON.format(b=2), n=n, g=g, o=o,
+                         s="__nv_bfloat16")
+          for n in (1, 2) for g in (64, 128)
+          for o in ("float", "__nv_bfloat16"))],
 }
 
 
 @pytest.mark.parametrize("name", sorted(KERNEL_NAMES))
 def test_trace_tags_pick_each_kernel_family_and_no_other(name):
     """K1's and K6a's tags pick their GEMV's, their mma.sync tile's and
-    their Hopper tile's names, K1's and K2's also their decode GEMV's
-    (each instance), K7's its GEMV's and its SS tile's, K8's its kernel's
-    at each head size, and no name of another kernel here (K2, K6b, K5a,
-    K5b among them); no other kernel's tags pick theirs."""
+    their Hopper tile's names, K1's, K2's, K3's and K4's also their decode
+    GEMV's (each instance; K3's and K4's at each scale group, whose
+    policies lie in an anonymous namespace), K3's and K4's their
+    lowbit.cuh GEMV's and their tile's, K7's its GEMV's and its SS tile's,
+    K8's its kernel's at each head size, and no name of another kernel
+    here (K2, K6b, K5a, K5b among them); no other kernel's tags pick
+    theirs."""
     tags = chip_smoke.kernel_fns(name)[0].trace_tags
     for kernel, names in KERNEL_NAMES.items():
         for kernel_name in names:
@@ -616,31 +651,38 @@ ODD_DECODE = [(200, 2048, 512), (200, 4096, 1024), (200, 14336, 2048)]
 
 
 def _decode_positions(kernel, in_p):
-    """(parts, positions of a row) of K1 (one part of in_p) or K2 (two of
-    in_p / 2)."""
-    return (1, in_p) if kernel == "w8" else (2, in_p // 2)
+    """(parts, positions of a row, planes, scale bytes a row and stage) of
+    K1 (one part of in_p), K2 (two of in_p / 2), K4 (eight of in_p / 8, in
+    three planes) or K3 (four of in_p / 4; groups 64 or 128)."""
+    parts, planes, scale_bytes = DECODE_FORMATS[kernel]
+    return parts, in_p // parts, planes, scale_bytes
 
 
 @pytest.mark.parametrize("kernel,shape", [
     *(("w8", s) for s in LLAMA_DECODE + QWEN_DECODE),
-    *(("w4", s) for s in LLAMA_DECODE),
+    *((k, s) for k in ("w4", "w3", "w2g64", "w2g128") for s in LLAMA_DECODE),
 ])
 def test_decode_split_puts_two_blocks_on_every_sm(kernel, shape):
     """At every T <= 16 the plan splits each shape of the main paths on
     whole 128-position stages into a cluster of 1, 2, 4 or 8 blocks, with
     two blocks or more for each of an H100's 132 SMs, whose x fits one
     block; at up to 8 tokens (decode runs one) two blocks fit one SM's
-    shared memory. (Past 8 tokens Qwen2.5-7B's down, 19 stages of x a
-    block, leaves room for one.)"""
+    shared memory, int3's ring of three planes' stages included. (Past 8
+    tokens Qwen2.5-7B's down, 19 stages of x a block, leaves room for
+    one; int3's o, 4 stages of 512 positions, makes 256 blocks of 64 rows
+    at most.)"""
     out_f, in_p, _ = shape
-    parts, positions = _decode_positions(kernel, in_p)
+    parts, positions, planes, scale_bytes = _decode_positions(kernel, in_p)
     assert positions % DECODE_STAGE == 0
     stages = positions // DECODE_STAGE
     for tokens in range(1, 17):
-        split = decode_split(out_f, positions, parts, tokens, 132)
+        split = decode_split(out_f, positions, parts, tokens, 132, planes,
+                             scale_bytes)
         assert split in DECODE_SPLITS and split <= stages, (tokens, split)
-        assert decode_blocks(out_f, tokens) * split >= 2 * 132, (tokens, split)
-        per_block = decode_smem(parts, tokens, -(-stages // split))
+        assert (decode_blocks(out_f, tokens) * split >= 2 * 132
+                or split == stages), (tokens, split)
+        per_block = decode_smem(parts, tokens, -(-stages // split), planes,
+                                scale_bytes)
         assert per_block <= 232448, (tokens, per_block)
         if tokens <= 8:
             assert 2 * (per_block + 1024) <= 228 * 1024, (tokens, per_block)
@@ -661,6 +703,74 @@ def test_decode_split_of_shapes_off_the_main_paths():
     assert decode_split(4096, 4096, 1, 0, 132) == 0
     assert decode_blocks(200, 1) == 7 and decode_blocks(200, 9) == 4
     assert decode_blocks(4096, 8) == 128 and decode_blocks(4096, 16) == 64
+    # K4: eight parts of in_p / 8 in three planes, 16 scale bytes a row and
+    # stage; a ring of two slots of 12 KB stages
+    assert decode_smem(8, 1, 2, 3, 16) == (
+        256 + 2 * 3 * 32 * 128 + 8 * 2 * 128 * 2 + 2 * 32 * 16 + 3 * 32 * 4)
+    assert decode_split(200, 256, 8, 1, 132, 3, 16) == 2  # in_p 2048
+    # in_p 28672 at 8 tokens: split 4 fits a block (x 112 KB a rank) but
+    # not two an SM; 8 does
+    assert decode_smem(8, 8, 7, 3, 16) <= 232448
+    assert 2 * (decode_smem(8, 8, 7, 3, 16) + 1024) > 233472
+    assert decode_split(4096, 3584, 8, 8, 132, 3, 16) == 8
+    assert decode_split(4096, 1000, 8, 1, 132, 3, 16) == 0
+    # K3: four parts of in_p / 4, one plane; 64 positions a group fold
+    # twice a stage (16 scale bytes), 128 once (8)
+    assert decode_smem(4, 16, 1, 1, 16) - decode_smem(4, 16, 1, 1, 8) == 64 * 8
+    assert decode_split(200, 512, 4, 16, 132, 1, 16) == 4  # in_p 2048
+    assert decode_split(28672, 1024, 4, 1, 132, 1, 16) == 1
+
+
+@pytest.mark.parametrize("kernel", ["w8_matmul", "w3_matmul"])
+def test_decode_route_sends_few_tokens_on_small_weights_to_the_older_gemv(
+        kernel):
+    """K1 and K4 send the token counts and shapes at which their older
+    GEMV measured faster than the decode GEMV (decode_splits, a clean L2)
+    back to it: K1 one or two tokens at every shape; K4 one or two tokens
+    on o (4096 x 4096) and on weights no larger (Qwen2.5-7B's qkv and o);
+    every other count up to 16 takes the decode GEMV, and no count outside
+    1..16 does."""
+    rule = importlib.import_module(
+        f"vptq_tpu_torch.ops.{kernel}").takes_decode_gemv
+    qkv, o, gate_up, down = LLAMA_DECODE
+    older = {"w8_matmul": {(t, s) for t in (1, 2)
+                           for s in LLAMA_DECODE + QWEN_DECODE},
+             "w3_matmul": {(t, s) for t in (1, 2)
+                           for s in (o, *QWEN_DECODE[:2])}}[kernel]
+    for shape in LLAMA_DECODE + QWEN_DECODE:
+        for tokens in range(1, 17):
+            want = (tokens, shape) not in older
+            assert rule(tokens, *shape[:2]) == want, (tokens, shape)
+        assert not rule(0, *shape[:2]) and not rule(17, *shape[:2])
+
+
+def test_check_decode_routes_holds_each_call_to_its_route(monkeypatch):
+    """The smoke's route check takes each call's kernel from one trace and
+    passes when K3 and K2 ran the decode GEMV and K1 and K4 the kernel
+    their rule picks (K1 at one token: w8_gemv; K4 at one token on o:
+    lowbit.cuh's GEMV); a call on another route fails it."""
+    names = {
+        ("w2_matmul", 16): _DECODE.format(p=_ANON.format(b=2), n=2, g=64,
+                                          o="float", s="__nv_bfloat16"),
+        ("w4_matmul", 1): _DECODE.format(p="w4::W4", n=1, g=128, o="float",
+                                         s="__nv_bfloat16"),
+        ("w8_matmul", 1): _W8.format(k="gemv", sel="Whole", t="1, "),
+        ("w3_matmul", 1): _LOWBIT_GEMV.format(p=_ANON.format(b=3),
+                                              sel="Whole", g="4, 128"),
+    }
+    shape = {"w3_matmul": (4096, 4096)}  # o; the others at qkv's
+    routes = [(dict(kernel=k, shape="s", T=t, group=128,
+                    out=shape.get(k, (6144, 4096))[0],
+                    in_p=shape.get(k, (6144, 4096))[1]), None)
+              for k, t in names]
+    got = list(names.values())
+    monkeypatch.setattr(chip_smoke, "launched_kernels",
+                        lambda calls, device: got)
+    chip_smoke.check_decode_routes(routes, "cuda")
+    got[0] = _LOWBIT_GEMV.format(p=_ANON.format(b=2), sel="Whole",
+                                 g="1, 64")
+    with pytest.raises(AssertionError, match="decode GEMV expected: True"):
+        chip_smoke.check_decode_routes(routes, "cuda")
 
 
 @pytest.fixture
@@ -802,13 +912,21 @@ def test_k1_tile_matches_plain_version(cuda, tokens, out_f, in_p, group,
 
 def _decode_case(kernel, gen, device, shape):
     """(wrapper, plain version, weights) of K1 (int8 codes, f32 scales at
-    the shape's group) or K2 (int4 bytes, bf16 scales) at one shape."""
+    the shape's group), K2, K4 or K3 (their bytes and bf16 scales; K3 at
+    the group its name gives) at one shape."""
     out_f, in_p, group = shape
     if kernel == "w8":
         return w8_matmul, w8_matmul_reference, _int8_case(
             gen, device, out_f, in_p, group)
-    return w4_matmul, w4_matmul_reference, _lowbit_case(
-        "w4", gen, device, out_f=out_f, in_p=in_p)[2]
+    return _lowbit_case(kernel, gen, device, out_f=out_f, in_p=in_p)
+
+
+def _decode_everywhere(monkeypatch):
+    """K1's and K4's wrappers take the decode GEMV at every token count up
+    to 16 (their rules send some to the older GEMV)."""
+    for name in ("w8_matmul", "w3_matmul"):
+        monkeypatch.setattr(importlib.import_module(f"vptq_tpu_torch.ops.{name}"),
+                            "takes_decode_gemv", lambda *a: True)
 
 
 def _assert_smoke_close(got, want):
@@ -825,14 +943,19 @@ def _assert_smoke_close(got, want):
 @pytest.mark.parametrize("kernel,shape", [
     *(("w8", s) for s in LLAMA_DECODE + QWEN_DECODE + ODD_DECODE),
     *(("w4", s) for s in LLAMA_DECODE + QWEN_DECODE + ODD_DECODE),
+    *((k, s) for k in ("w3", "w2g64", "w2g128")
+      for s in LLAMA_DECODE + ODD_DECODE),
 ])
-def test_decode_gemv_matches_plain_version(cuda, kernel, shape, tokens,
-                                           out_dtype):
-    """K1 and K2 up to 16 tokens run the Hopper decode GEMV: both token
-    tiles (N = 8 up to 8 tokens, 16 past them) at every shape of the main
-    paths and at an out of 200; K1 at groups 512, 1024 and 2048, where
-    the cluster's split cuts a group (summed unscaled across ranks); f32,
-    bf16 and fp16 out. One launch a call."""
+def test_decode_gemv_matches_plain_version(cuda, monkeypatch, kernel, shape,
+                                           tokens, out_dtype):
+    """K1–K4 up to 16 tokens run the Hopper decode GEMV: both token tiles
+    (N = 8 up to 8 tokens, 16 past them) at every shape of the main paths
+    and at an out of 200; K1 at groups 512, 1024 and 2048, where the
+    cluster's split cuts a group (summed unscaled across ranks); K4's
+    three planes; K3 at groups 64 (two folds a stage) and 128; f32, bf16
+    and fp16 out, at every token count, also those at which K1's and K4's
+    wrappers route a shape to their older GEMV. One launch a call."""
+    _decode_everywhere(monkeypatch)
     gen = torch.Generator(device=cuda).manual_seed(sum(shape) + tokens)
     fn, ref, weights = _decode_case(kernel, gen, cuda, shape)
     x = torch.randn((tokens, shape[1]), generator=gen, device=cuda)
@@ -848,12 +971,14 @@ def test_decode_gemv_matches_plain_version(cuda, kernel, shape, tokens,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("tokens", [1, 16])
-@pytest.mark.parametrize("kernel", ["w8", "w4"])
+@pytest.mark.parametrize("kernel", ["w8", "w4", "w3", "w2g64", "w2g128"])
 def test_decode_gemv_is_bit_equal_and_runs_on_the_current_stream(
-        cuda, kernel, tokens):
+        cuda, monkeypatch, kernel, tokens):
     """Two launches on the same inputs give the same bits (the cluster
     reduces in rank order, no atomics), on a side stream as on the
-    default one, at a shape whose split cuts a scale group."""
+    default one, at a shape of a cluster of 8 (K1: whose split cuts a
+    scale group)."""
+    _decode_everywhere(monkeypatch)
     gen = torch.Generator(device=cuda).manual_seed(tokens)
     shape = (200, 14336, 2048)
     fn, ref, weights = _decode_case(kernel, gen, cuda, shape)
@@ -911,7 +1036,8 @@ def test_int8_route_shows_in_the_kernel_names(cuda):
     and 512 and T 3 and 40, K2 at T 3 and 40, K7 at T 3 and 40 and K8 at
     head sizes 64, 96 and 128: each call launches one kernel, the one its
     shape picks: up to 16 tokens K1's decode GEMV for a group of whole
-    128-column stages and w8_gemv for another group or for K6a; past them
+    128-column stages where its rule takes it (from 3 tokens)
+    and w8_gemv elsewhere, for another group or for K6a; past them
     the tile for a group of whole stages, w8_gemm for another group; K2's
     decode GEMV up to 16 tokens and its tile past them; K7's GEMV up to 16
     tokens and the tile's SS instance past them; K8's warp-specialised
@@ -926,7 +1052,8 @@ def test_int8_route_shows_in_the_kernel_names(cuda):
                 fn, _, args = _int8_route_case(kernel, gen, cuda, group,
                                                tokens)
                 calls.append(lambda f=fn, a=args: f(*a))
-                whole = kernel == "w8_matmul" and group % 128 == 0
+                whole = (kernel == "w8_matmul" and group % 128 == 0
+                         and w8_takes_decode_gemv(tokens, 200, 1536))
                 routes.append(
                     ("decode_gemv<w8::W8" if whole else "w8_gemv")
                     if tokens <= 16 else

@@ -298,7 +298,7 @@ def _torch(a):
     return torch.from_numpy(a)
 
 
-@pytest.mark.parametrize("tokens", [1, 3, 17, 40])
+@pytest.mark.parametrize("tokens", [1, 3, 16, 17, 40])
 @pytest.mark.parametrize("kernel", list(KERNELS))
 def test_reference_matches_pallas(monkeypatch, kernel, tokens):
     rng = np.random.default_rng(tokens * 13 + len(kernel))

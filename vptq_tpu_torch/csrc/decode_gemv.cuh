@@ -1,27 +1,31 @@
-// The Hopper (sm_90a) decode GEMV of K1 w8_matmul and K2 w4_matmul on one
-// whole weight at T <= 16 tokens: y = x @ (s ⊙ L)^T over the formats' own
-// byte layouts (w8.cuh, w4.cuh), bit for bit. It replaces w8.cuh's w8_gemv
-// and lowbit.cuh's gemv on those two routes, and computes what they and
-// the TPU kernels compute (vptq_tpu/ops/pallas_gemm.py _w8_kernel,
-// _w4_kernel): x is rounded to bf16, every level is exact, the products of
-// one (row, scale group) are summed in f32, that f32 partial is multiplied
-// by the group's scale (int8: f32; int4: bf16), the scaled partials are
-// summed in f32, and the result is cast once.
+// The Hopper (sm_90a) decode GEMV of K1 w8_matmul, K2 w4_matmul, K3
+// w2_matmul and K4 w3_matmul on one whole weight at T <= 16 tokens:
+// y = x @ (s ⊙ L)^T over the formats' own byte layouts (w8.cuh, w4.cuh,
+// w2_matmul.cu, w3_matmul.cu), bit for bit. It replaces w8.cuh's w8_gemv
+// and lowbit.cuh's gemv on those routes, and computes what they and the
+// TPU kernels compute (vptq_tpu/ops/pallas_gemm.py _w8_kernel, _w4_kernel,
+// _w2_kernel, _w3_kernel): x is rounded to bf16, every level is exact, the
+// products of one (row, scale group) are summed in f32, that f32 partial
+// is multiplied by the group's scale (int8: f32; the others: bf16), the
+// scaled partials are summed in f32, and the result is cast once.
 //
 // What bounds it on an H100: the weight bytes, read once (int8 6.98 GB a
 // token at Llama-3.1-8B width, 0.065 ms a layer at 3.35 TB/s; int4 half
-// that). Little's law at that rate and ~1 µs of latency asks for ~25 KB in
-// flight on every SM at all times, and the unpack must keep pace. So:
+// that; int3 3/8, int2 1/4 of it, plus their scales). Little's law at that
+// rate and ~1 µs of latency asks for ~25 KB in flight on every SM at all
+// times, and the unpack must keep pace. So:
 //  * A deep asynchronous weight ring. A block owns kRows rows (32 up to 8
 //    tokens, 64 past them: at one token the smaller blocks balance the SMs
 //    better) and a range of 128-position stages. One producer warp copies
-//    each stage (kRows rows of 128 bytes) into a ring slot with cp.async.cg
-//    16-byte copies, whose landing the slot's mbarrier tracks
-//    (cp.async.mbarrier.arrive.noinc); kRing = 4 slots a block, several
-//    blocks an SM: 64 KB and more in flight on every SM. (One 1-D bulk copy
-//    a row, cp.async.bulk, ran at half the rate: 128-byte bulk copies are
-//    too small for the copy engine.) No tensor map, no workspace, no
-//    per-call attribute: the host does nothing per call but the launch.
+//    each stage (kRows rows of 128 bytes of each of the format's byte
+//    planes: int3 three, the others one) into a ring slot with
+//    cp.async.cg 16-byte copies, whose landing the slot's mbarrier tracks
+//    (cp.async.mbarrier.arrive.noinc); 4 slots a block (int3: 2 of three
+//    planes), several blocks an SM: 64 KB and more in flight on every SM.
+//    (One 1-D bulk copy a row, cp.async.bulk, ran at half the rate:
+//    128-byte bulk copies are too small for the copy engine.) No tensor
+//    map, no workspace, no per-call attribute: the host does nothing per
+//    call but the launch.
 //  * A thread-block cluster splits the positions: its `split` blocks (1, 2,
 //    4 or 8; ops/scaled_matmul.py decode_split picks it by shape so that
 //    every Llama-3.1-8B and Qwen2.5-7B shape makes two blocks or more for
@@ -32,33 +36,48 @@
 //    run. Where a range cuts an int8 scale group (512 to 2048 positions),
 //    each rank keeps that group's unscaled f32 partial apart; the ranks'
 //    partials of the group are summed first and the scale multiplies the
-//    sum.
-//  * x is staged once a block, only the block's own positions (int4: both
-//    parts, L apart), by cp.async with an XOR swizzle on its 16-byte chunks
-//    that keeps the B-fragment loads free of bank conflicts, and so are the
-//    scales of the block's rows. Their loads are issued before the
-//    producer starts, so that they do not queue behind the ring's copies;
-//    there is no barrier inside the loop.
+//    sum. (The other formats' groups, 64 or 128 positions of a part, lie
+//    inside one stage: no range cuts them.)
+//  * x is staged once a block, only the block's own positions of every
+//    part (int4: two parts, L apart; int2 four; int3 eight), by cp.async
+//    with an XOR swizzle on its 16-byte chunks that keeps the B-fragment
+//    loads free of bank conflicts, and so are the scales of the block's
+//    rows. Their loads are issued before the producer starts, so that they
+//    do not queue behind the ring's copies; there is no barrier inside the
+//    loop.
 //  * The unpack and the product on tensor cores: each thread makes its A
-//    fragments with the policy's own prefill-tile hooks (P::tile_code and,
-//    for a bias, one lowbit::tile::bf16x2_fma with P::kTileBias) and runs
+//    fragments with the policy's own prefill-tile hooks (P::tile_code on
+//    P::kTileSlots words, word i from plane P::tile_plane(p, i), and, for
+//    a bias, one lowbit::tile::bf16x2_fma with P::kTileBias) and runs
 //    mma.sync m16n8k16 bf16 -> f32 with 16 weight rows as M and the tokens
 //    as N (8 or 16; a token past T reads token T - 1, whose columns are
 //    never stored). The 16 k-slots of a step are the thread's own bytes:
-//    bytes 0, 2 of word u of its chunk (tile_code reads bits 0-7 and 16-23
-//    in place) fill slots 2·tig, +1, bytes 1, 3 (the word shifted by 8)
-//    slots 2·tig + 8, +9, and x is staged with each four positions as
-//    (0, 2), (1, 3) to match. A warp sums one scale group's steps in acc
-//    and folds them into f32 totals with the group's scales, as the tile
-//    does. mma.sync rather than wgmma: a warp owns its 16 rows and needs
-//    no warpgroup to keep in step, and the tensor cores are far from
-//    binding (one m16n8k16 per 256 weights). What binds at one token is
-//    the unpack's integer work: int8's tile_code is four LOP3 a pair of
-//    weights, so K1 runs near its loop's issue rate (PERF.md).
+//    bytes 0, 2 of word u of its chunk of each plane (tile_code reads bits
+//    0-7 and 16-23 in place) fill slots 2·tig, +1, bytes 1, 3 (the words
+//    shifted by 8) slots 2·tig + 8, +9, and x is staged with each four
+//    positions as (0, 2), (1, 3) to match. A warp sums one scale group's
+//    steps in acc and folds them into f32 totals with the group's scales,
+//    as the tile does. mma.sync rather than wgmma: a warp owns its 16 rows
+//    and needs no warpgroup to keep in step, and the tensor cores are far
+//    from binding (one m16n8k16 per 256 weights). What binds at one token
+//    is the loop's issue, not the bytes: K1 runs near its loop's issue
+//    rate, and K3 and K4 near one instruction a cycle an SM, where an
+//    unpack with 40% fewer integer operations moved them by 5% or less
+//    (PERF.md).
+//  * The parts (K1: one, K2: two, K3: four, K4: eight) run in turn: each
+//    part's two chunks of a stage, then the fold of that part's group (64
+//    positions: after each chunk; 128: after both; int8: after the
+//    group's last stage) before the next part, so that one acc and one
+//    part's x are live at a time: eight parts' x and accumulators at 16
+//    tokens would not fit the registers.
 //
-// A format policy P gives kParts and the tile hooks (w8::W8, w4::W4); the
-// scales are (groups, out) of type ST; gs is the stages of one scale group
-// (int8 group / 128; int4 1, each part's group of 128 positions).
+// A format policy P gives kPlanes, kParts and the tile hooks (w8::W8,
+// w4::W4, w2_matmul.cu W2, w3_matmul.cu W3). The weight comes as a
+// lowbit::Planes (each plane (out, L) bytes at its row stride and offset:
+// one for K1–K3, three for K4) and the scales as a lowbit::ScalesOf (K1
+// f32 and K2 bf16 laid out (groups, out), K3 and K4 bf16 (out, groups));
+// gs is the stages of one scale group of one part (int8 group / 128, else
+// 1) and G the group of a part of several (K3: 64 or 128; K4: 128).
 
 #pragma once
 
@@ -78,7 +97,6 @@ constexpr int kStage = 128;                     // positions of one stage
 constexpr int kH = kStage / 64;                 // 16-byte chunks a thread
                                                 // reads of a row a stage
 static_assert(kStage == 128, "the swizzles below assume two chunks a row");
-constexpr int kRing = 4;                        // slots
 constexpr int kMaxSplit = 8;                    // the portable cluster
 constexpr int kBars = 128;                      // barriers, padded
 constexpr int kMaxSmem = 232448;                // one block's limit
@@ -91,8 +109,30 @@ struct Block {
   static constexpr int kConsumers = NT == 1 ? 2 : 4;
   static constexpr int kRows = 16 * kConsumers;
   static constexpr int kThreads = 32 * (kConsumers + 1);
-  static constexpr int kSlot = kRows * kStage;  // bytes of one stage
+  static constexpr int kSlot = kRows * kStage;  // bytes of one plane's stage
 };
+
+// The ring's slots: four of one plane's stage (4 KB at 32 rows), two of
+// three planes' (12 KB): as many bytes in flight a block, and more blocks
+// an SM.
+template <class P>
+constexpr int kRingOf = P::kPlanes > 1 ? 2 : 4;
+
+// The blocks an SM that the registers must allow (__launch_bounds__): up
+// to 8 tokens six, four for int3's three planes; at 16 tokens five for
+// int8, four for int4 (at five its loop spilled) and two for more parts,
+// whose 64-row blocks' x leaves room for two an SM at most.
+template <class P, int NT>
+constexpr int kMinBlocks =
+    NT == 1 ? (P::kPlanes > 1 ? 4 : 6)
+            : (P::kParts == 1 ? 5 : P::kParts == 2 ? 4 : 2);
+
+// The folds of one part in a stage: a scale group of 64 positions (K3 at
+// G = 64) folds after each of a thread's two 64-position chunks, one of
+// 128 after both; one part (int8) folds once its group's last stage is
+// done. Its scales take kParts · folds · sizeof(ST) bytes a row and stage.
+template <class P, int G>
+constexpr int kFoldsOf = P::kParts > 1 && G == 64 ? 2 : 1;
 
 using lowbit::mma_bf16;
 using lowbit::tile::bar_arrive;
@@ -102,15 +142,15 @@ using lowbit::tile::bf16x2_fma;
 using lowbit::tile::smem_u32;
 namespace cg = cooperative_groups;
 
-// the shared memory of a block: barriers, the ring, x (T rows of
-// kParts·max_stages·kStage bf16) and the scales of each stage (kRows rows
-// of one f32 group, or of two parts' bf16 groups of 128 positions: 256
-// bytes a 128-position stage), + 128 for alignment
-inline size_t smem_bytes(int rows, int parts, int T, int max_stages) {
-  return 128 + kBars + (size_t)kRing * rows * kStage +
+// the shared memory of a block: barriers, the ring (ring slots of planes ·
+// rows · 128 bytes), x (T rows of parts·max_stages·kStage bf16), the
+// scales of each stage (scale_bytes a row) and the partials the cluster's
+// ranks push (3 f32 a row and token), + 128 for alignment
+inline size_t smem_bytes(int ring, int rows, int planes, int parts,
+                         int scale_bytes, int T, int max_stages) {
+  return 128 + kBars + (size_t)ring * planes * rows * kStage +
          (size_t)T * parts * max_stages * kStage * 2 +
-         (size_t)max_stages * (kStage / 128) * rows * 4 +
-         (size_t)3 * rows * T * 4;
+         (size_t)max_stages * scale_bytes * rows + (size_t)3 * rows * T * 4;
 }
 
 // stage range [a, b) of rank r of `split` over n stages
@@ -132,7 +172,6 @@ __device__ __forceinline__ void cuts_of(int r, int split, int n, int gs,
   g[1] = (gl != gf && b < (gl + 1) * gs) ? gl : -1;
 }
 
-// 16 bytes from global to shared memory, around L1
 // the cluster barrier in its phases (every thread of every block of the
 // cluster arrives once a phase)
 __device__ __forceinline__ void cluster_arrive_relaxed() {
@@ -145,6 +184,7 @@ __device__ __forceinline__ void cluster_wait() {
   asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
 }
 
+// 16 bytes from global to shared memory, around L1
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(dst),
                "l"(reinterpret_cast<uint64_t>(src))
@@ -166,32 +206,42 @@ __device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
 __device__ __forceinline__ int xswz(int q, int t) { return q ^ (t & 1); }
 __device__ __forceinline__ int wswz(int c, int r) { return c ^ ((r & 1) << 2); }
 
-// The A pair of part p from the bytes of two positions in bits 0-7 and
-// 16-23 of t (the rest is never read): the prefill tile's unpack,
-// tile_code and one bf16x2 fma that takes away the bias; a bias of 0
-// (int8) leaves code + (-0) = code, bit for bit, so that fma is skipped.
+// The A pair of part p from P::kTileSlots words whose bytes of two
+// positions lie in bits 0-7 and 16-23 (the rest is never read): the
+// prefill tile's unpack, tile_code and one bf16x2 fma that takes away the
+// bias; a bias of 0 (int8) leaves code + (-0) = code, bit for bit, so that
+// fma is skipped.
 template <class P>
-__device__ __forceinline__ uint32_t level_pair(uint32_t t, int p) {
-  const uint32_t spread[1] = {t};
-  const uint32_t code = P::tile_code(spread, p);
+__device__ __forceinline__ uint32_t level_pair(
+    const uint32_t (&t)[P::kTileSlots], int p) {
+  const uint32_t code = P::tile_code(t, p);
   if constexpr (P::kTileBias == 0u)
     return code;
   else
     return bf16x2_fma(code, 0x3F803F80u, P::kTileBias ^ 0x80008000u);
 }
 
-// NT: 8-token tiles of N (1: T <= 8, 2: T <= 16). w: the (out, L) bytes,
-// one row of L positions; x: (T, kParts·L) bf16; sc: (groups, out).
-template <class P, int NT, typename OutT, typename ST>
-__global__ void __launch_bounds__(Block<NT>::kThreads, NT == 1 ? 6 : 5)
-    decode_gemv(const __nv_bfloat16* __restrict__ x,
-                const uint8_t* __restrict__ w, const ST* __restrict__ sc,
-                OutT* __restrict__ y, int T, int out, int L, int gs) {
+// NT: 8-token tiles of N (1: T <= 8, 2: T <= 16); G: the scale group of a
+// part of several (64 or 128 positions). x: (T, kParts·L) bf16; pl: the
+// planes, each (out, L) bytes at its row stride and offset; sc: the scales;
+// gs: the stages of one scale group of one part (1 for several parts).
+template <class P, int NT, int G, typename OutT, typename ST>
+__global__ void __launch_bounds__(Block<NT>::kThreads, kMinBlocks<P, NT>)
+    decode_gemv(const __nv_bfloat16* __restrict__ x, lowbit::Planes pl,
+                lowbit::ScalesOf<ST> sc, OutT* __restrict__ y, int T, int out,
+                int L, int gs) {
+  constexpr int kPlanes = P::kPlanes;
   constexpr int kParts = P::kParts;
+  constexpr int kRing = kRingOf<P>;
   constexpr int kConsumers = Block<NT>::kConsumers;
   constexpr int kRows = Block<NT>::kRows;
   constexpr int kThreads = Block<NT>::kThreads;
   constexpr int kSlot = Block<NT>::kSlot;
+  constexpr int kSlotAll = kPlanes * kSlot;  // bytes of one ring slot
+  static_assert(kParts <= 2 ? kPlanes == 1 && G == 128
+                            : G == 64 || G == 128,
+                "one plane and group 128 for one or two parts; group 64 or "
+                "128 for more");
   extern __shared__ __align__(16) unsigned char dg_smem[];
   unsigned char* sm = dg_smem + ((128 - (smem_u32(dg_smem) & 127)) & 127);
   const uint32_t full = smem_u32(sm), empty = full + 8 * kRing;
@@ -209,16 +259,18 @@ __global__ void __launch_bounds__(Block<NT>::kThreads, NT == 1 ? 6 : 5)
   const int n0 = blockIdx.y * kRows;
   const int rows = min(kRows, out - n0);
   // x: T rows of kParts parts of max_stages stages
-  unsigned char* xs = ring + kRing * kSlot;
+  unsigned char* xs = ring + kRing * kSlotAll;
   const int x_pitch = kParts * max_stages * kStage * 2;
   const int part_chunks = max_stages * (kStage / 8);  // of one x row
   // the scales each stage folds: [stage][part][fold][row] (ST)
+  constexpr int kFold = kParts > 1 ? kH / kFoldsOf<P, G> : kH;
+  constexpr int kFolds = kH / kFold;
   ST* ss = reinterpret_cast<ST*>(xs + T * x_pitch);
   // the partials other ranks push: [rank][kind][row][token] f32, kRows / split
   // rows of 3 kinds of each of split ranks
   float* rx = reinterpret_cast<float*>(
       reinterpret_cast<unsigned char*>(ss) +
-      (size_t)max_stages * (kStage / 128) * kRows * 4);
+      (size_t)max_stages * (kParts * kFolds * sizeof(ST)) * kRows);
 
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -234,15 +286,18 @@ __global__ void __launch_bounds__(Block<NT>::kThreads, NT == 1 ? 6 : 5)
   if (split > 1) cluster_arrive_relaxed();
 
   if (warp == kConsumers) {
-    // the producer: a stage is kRows rows of kStage / 16 16-byte chunks;
-    // neighbouring lanes copy neighbouring chunks of a row, and each lane
-    // arrives on the slot's barrier once its copies have landed
+    // the producer: a stage is kRows rows of kStage / 16 16-byte chunks of
+    // each plane; neighbouring lanes copy neighbouring chunks of a row, and
+    // each lane arrives on the slot's barrier once its copies have landed
     constexpr int kPerRow = kStage / 16;
     constexpr int kRowsAtOnce = 32 / kPerRow;
     const int c = lane % kPerRow;
     const int row0 = lane / kPerRow;
-    const uint8_t* src =
-        w + (size_t)(n0 + row0) * L + (size_t)a * kStage + c * 16;
+    const uint8_t* src[kPlanes];
+#pragma unroll
+    for (int q = 0; q < kPlanes; ++q)
+      src[q] = pl.base[q] + (size_t)(n0 + row0) * pl.row_bytes[q] +
+               pl.off[q] + (size_t)a * kStage + c * 16;
     const uint32_t dst0 =
         ring_u32 + row0 * kStage + (wswz(c, row0) << 4);
     // once the consumers' loads of x and the scales are out
@@ -251,23 +306,22 @@ __global__ void __launch_bounds__(Block<NT>::kThreads, NT == 1 ? 6 : 5)
       const int slot = i % kRing;
       if (lane == 0) bar_wait(empty + 8 * slot, ((i / kRing) & 1) ^ 1);
       __syncwarp();
-      const uint32_t dst = dst0 + slot * kSlot;
-      const uint8_t* from = src + (size_t)i * kStage;
 #pragma unroll
-      for (int k = 0; k < kRows / kRowsAtOnce; ++k)
-        if (row0 + k * kRowsAtOnce < rows)
-          cp_async16(dst + k * kRowsAtOnce * kStage,
-                     from + (size_t)k * kRowsAtOnce * L);
+      for (int q = 0; q < kPlanes; ++q) {
+        const uint32_t dst = dst0 + slot * kSlotAll + q * kSlot;
+        const uint8_t* from = src[q] + (size_t)i * kStage;
+#pragma unroll
+        for (int k = 0; k < kRows / kRowsAtOnce; ++k)
+          if (row0 + k * kRowsAtOnce < rows)
+            cp_async16(dst + k * kRowsAtOnce * kStage,
+                       from + (size_t)k * kRowsAtOnce * pl.row_bytes[q]);
+      }
       cp_async_arrive(full + 8 * slot);
     }
     asm volatile("cp.async.wait_all;" ::: "memory");
     if (split == 1) return;
   } else {
-    // a format of two parts folds each 128-position group (two chunks of
-    // each thread); one part folds once its group's last stage is done
-    constexpr int kFold = kParts > 1 ? 2 : kH;
-    constexpr int kFolds = kH / kFold;
-    const int n_groups = kParts > 1 ? L / 128 : n / gs;  // of one part
+    const int n_groups = kParts > 1 ? L / G : n / gs;  // of one part
     // stage x and the scales once: the block's own positions of each part
     // (of T tokens), and
     // the scales of its rows for every fold of every stage. Their loads are
@@ -303,7 +357,8 @@ __global__ void __launch_bounds__(Block<NT>::kThreads, NT == 1 ? 6 : 5)
           const int g = kParts > 1 ? p * n_groups + (a + i) * kFolds + f
                                    : (a + i) / gs;
           v[k] = e < nl * per_stage && n0 + row < out
-                     ? sc[(size_t)g * out + n0 + row]
+                     ? sc.s[(size_t)(n0 + row) * sc.row_stride +
+                            (size_t)g * sc.group_stride]
                      : ST(0.f);
         }
         if (!went)  // the producer may start
@@ -354,15 +409,16 @@ __global__ void __launch_bounds__(Block<NT>::kThreads, NT == 1 ? 6 : 5)
       xrow[j] = xs + min(8 * j + gid, T - 1) * x_pitch + 32 * tig + 16 * par;
     const int xe = 16 - 32 * par;  // from chunk e = 0 to e = 1
 
-    float acc[kParts][NT][4], tot[NT][4], cut[2][NT][4];
+    // the words of every plane stay in registers for the stage, and each
+    // part's x, products and fold come in turn: one acc and one part's x
+    // are live at a time
+    constexpr int kSlots = P::kTileSlots;
+    float tot[NT][4], cut[2][NT][4], acc[NT][4];
 #pragma unroll
     for (int j = 0; j < NT; ++j)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        tot[j][e] = cut[0][j][e] = cut[1][j][e] = 0.f;
-#pragma unroll
-        for (int p = 0; p < kParts; ++p) acc[p][j][e] = 0.f;
-      }
+      for (int e = 0; e < 4; ++e)
+        tot[j][e] = cut[0][j][e] = cut[1][j][e] = acc[j][e] = 0.f;
 
     // the stage's group (one part) and its place in it, kept as counters
     int g = a / gs, in_group = a - g * gs;
@@ -371,87 +427,100 @@ __global__ void __launch_bounds__(Block<NT>::kThreads, NT == 1 ? 6 : 5)
       const int slot = i & (kRing - 1);
       const bool group_end = in_group == gs - 1 || i == nl - 1;
       bar_wait(full + 8 * slot, (i / kRing) & 1);
-      // this thread's bytes of rows r0 and r0 + 8; then the slot is free
-      uint4 wq0[kH], wq1[kH];
+      // this thread's words of rows r0 and r0 + 8 (wd[plane][0 / 1]) in
+      // chunk h of each plane; then the slot is free
+      uint32_t wd[kPlanes][2][kH][4];
 #pragma unroll
-      for (int h = 0; h < kH; ++h) {
-        const unsigned char* at = wrow[h] + slot * kSlot;
-        wq0[h] = *reinterpret_cast<const uint4*>(at);
-        wq1[h] = *reinterpret_cast<const uint4*>(at + 8 * kStage);
-      }
+      for (int q = 0; q < kPlanes; ++q)
+#pragma unroll
+        for (int h = 0; h < kH; ++h) {
+          const unsigned char* at = wrow[h] + slot * kSlotAll + q * kSlot;
+          const uint4 v0 = *reinterpret_cast<const uint4*>(at);
+          const uint4 v1 = *reinterpret_cast<const uint4*>(at + 8 * kStage);
+          wd[q][0][h][0] = v0.x;
+          wd[q][0][h][1] = v0.y;
+          wd[q][0][h][2] = v0.z;
+          wd[q][0][h][3] = v0.w;
+          wd[q][1][h][0] = v1.x;
+          wd[q][1][h][1] = v1.y;
+          wd[q][1][h][2] = v1.z;
+          wd[q][1][h][3] = v1.w;
+        }
       __syncwarp();
       if (lane == 0) bar_arrive(empty + 8 * slot);
 
 #pragma unroll
-      for (int h = 0; h < kH; ++h) {
-        // x chunks 2·tig + 8h and + 1 (positions 16·tig + 64h ..+ 15) of
-        // each part and token tile
-        uint4 xq[kParts][NT][2];
+      for (int p = 0; p < kParts; ++p)
 #pragma unroll
-        for (int p = 0; p < kParts; ++p)
+        for (int h = 0; h < kH; ++h) {
+          // part p's x chunks 2·tig + 8h and + 1 (positions 16·tig + 64h
+          // ..+ 15) of each token tile
+          uint4 xq[NT][2];
 #pragma unroll
           for (int j = 0; j < NT; ++j)
 #pragma unroll
             for (int e = 0; e < 2; ++e)
-              xq[p][j][e] = *reinterpret_cast<const uint4*>(
+              xq[j][e] = *reinterpret_cast<const uint4*>(
                   xrow[j] + i * (kStage * 2) + p * part_chunks * 16 +
                   128 * h + e * xe);
-        const uint32_t w0[4] = {wq0[h].x, wq0[h].y, wq0[h].z, wq0[h].w};
-        const uint32_t w1[4] = {wq1[h].x, wq1[h].y, wq1[h].z, wq1[h].w};
 #pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          // step u: slots 2·tig, +1 are bytes 0, 2 of word u of the chunk
-          // (positions 4u, 4u + 2 of it), slots 2·tig + 8, +9 bytes 1, 3;
-          // x was staged in the same order
+          for (int u = 0; u < 4; ++u) {
+            // step u: slots 2·tig, +1 are bytes 0, 2 of word u of the chunk
+            // (positions 4u, 4u + 2 of it), slots 2·tig + 8, +9 bytes 1, 3;
+            // x was staged in the same order. Each slot's word comes from
+            // its plane: (row r0, r0 + 8) x (bytes 0 and 2, 1 and 3)
+            uint32_t t[4][kSlots];
 #pragma unroll
-          for (int p = 0; p < kParts; ++p) {
-            const uint32_t af[4] = {level_pair<P>(w0[u], p),
-                                    level_pair<P>(w1[u], p),
-                                    level_pair<P>(w0[u] >> 8, p),
-                                    level_pair<P>(w1[u] >> 8, p)};
+            for (int s = 0; s < kSlots; ++s) {
+              const int q = P::tile_plane(p, s);
+              t[0][s] = wd[q][0][h][u];
+              t[1][s] = wd[q][1][h][u];
+              t[2][s] = wd[q][0][h][u] >> 8;
+              t[3][s] = wd[q][1][h][u] >> 8;
+            }
+            const uint32_t af[4] = {
+                level_pair<P>(t[0], p), level_pair<P>(t[1], p),
+                level_pair<P>(t[2], p), level_pair<P>(t[3], p)};
 #pragma unroll
             for (int j = 0; j < NT; ++j) {
-              const uint4& xc = xq[p][j][u >> 1];
+              const uint4& xc = xq[j][u >> 1];
               const uint32_t bf[2] = {(u & 1) ? xc.z : xc.x,
                                       (u & 1) ? xc.w : xc.y};
-              mma_bf16(acc[p][j], af, bf);
+              mma_bf16(acc[j], af, bf);
             }
           }
-        }
 
-        const bool fold = kParts > 1 ? h % kFold == kFold - 1
-                                     : h == kH - 1 && group_end;
-        if (fold) {
-          // a group inside the range is scaled here; a group the range
-          // cuts (one part only) keeps its unscaled partial for the
-          // cluster's sum
-          const int f = h / kFold;
-          const bool whole =
-              kParts > 1 || (g * gs >= a && (g + 1) * gs <= b);
-#pragma unroll
-          for (int p = 0; p < kParts; ++p)
+          // part p's group ends (one part: its last stage in the range)
+          const bool fold = kParts > 1 ? h % kFold == kFold - 1
+                                       : h == kH - 1 && group_end;
+          if (fold) {
+            // a group inside the range is scaled here; a group the range
+            // cuts (one part only) keeps its unscaled partial for the
+            // cluster's sum
+            const bool whole =
+                kParts > 1 || (g * gs >= a && (g + 1) * gs <= b);
+            const ST* sp = ss + ((i * kParts + p) * kFolds + h / kFold) * kRows;
 #pragma unroll
             for (int j = 0; j < NT; ++j) {
               if (whole) {
-                const ST* sp = ss + ((i * kParts + p) * kFolds + f) * kRows;
                 const float s0 = lowbit::scale_f32(sp[r0]);
                 const float s1 = lowbit::scale_f32(sp[r0 + 8]);
-                tot[j][0] += acc[p][j][0] * s0;
-                tot[j][1] += acc[p][j][1] * s0;
-                tot[j][2] += acc[p][j][2] * s1;
-                tot[j][3] += acc[p][j][3] * s1;
+                tot[j][0] += acc[j][0] * s0;
+                tot[j][1] += acc[j][1] * s0;
+                tot[j][2] += acc[j][2] * s1;
+                tot[j][3] += acc[j][3] * s1;
               } else if (g == first_group) {
 #pragma unroll
-                for (int e = 0; e < 4; ++e) cut[0][j][e] = acc[p][j][e];
+                for (int e = 0; e < 4; ++e) cut[0][j][e] = acc[j][e];
               } else {
 #pragma unroll
-                for (int e = 0; e < 4; ++e) cut[1][j][e] = acc[p][j][e];
+                for (int e = 0; e < 4; ++e) cut[1][j][e] = acc[j][e];
               }
 #pragma unroll
-              for (int e = 0; e < 4; ++e) acc[p][j][e] = 0.f;
+              for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
             }
+          }
         }
-      }
       if (++in_group == gs) {
         in_group = 0;
         ++g;
@@ -524,7 +593,7 @@ __global__ void __launch_bounds__(Block<NT>::kThreads, NT == 1 ? 6 : 5)
           if (cuts[k] < 0) continue;
           if (cuts[k] != open_g) {
             if (open_g >= 0)
-              total += open * lowbit::scale_f32(sc[(size_t)open_g * out + o]);
+              total += open * sc.at(o, open_g);
             open = 0.f;
             open_g = cuts[k];
           }
@@ -532,41 +601,40 @@ __global__ void __launch_bounds__(Block<NT>::kThreads, NT == 1 ? 6 : 5)
         }
       }
       if (open_g >= 0)
-        total += open * lowbit::scale_f32(sc[(size_t)open_g * out + o]);
+        total += open * sc.at(o, open_g);
       y[(size_t)t * out + o] = lowbit::cvt_out<OutT>(total);
     }
   }
 }
 
-// the dynamic shared memory a kernel may take, set once per device (at
-// most 64) for each instance
-template <class P, int NT, typename OutT, typename ST>
-cudaError_t allow_smem() {
+// One launch on a cluster of `split` blocks along x and one row block of
+// Block<NT> along y for each kRows rows of out; the kernel's limit of
+// dynamic shared memory is raised once per device (at most 64).
+template <class P, int NT, int G, typename OutT, typename ST>
+cudaError_t launch_n(const __nv_bfloat16* x, const lowbit::Planes& pl,
+                     const lowbit::ScalesOf<ST>& sc, OutT* y, int T, int out,
+                     int L, int gs, int split, cudaStream_t stream) {
+  using B = Block<NT>;
   static std::atomic<uint64_t> done{0};
+  const int n = L / kStage;
+  const size_t smem = smem_bytes(
+      kRingOf<P>, B::kRows, P::kPlanes, P::kParts,
+      P::kParts * kFoldsOf<P, G> * (int)sizeof(ST), T,
+      (n + split - 1) / split);
+  if (smem > (size_t)kMaxSmem || out > 65535 * B::kRows)
+    return cudaErrorInvalidValue;
+  auto kernel = decode_gemv<P, NT, G, OutT, ST>;
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
   const uint64_t bit = 1ull << (dev & 63);
-  if (done.load(std::memory_order_relaxed) & bit) return cudaSuccess;
-  e = cudaFuncSetAttribute(decode_gemv<P, NT, OutT, ST>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           kMaxSmem);
-  if (e == cudaSuccess) done.fetch_or(bit, std::memory_order_relaxed);
-  return e;
-}
-
-template <class P, int NT, typename OutT, typename ST>
-cudaError_t launch_n(const __nv_bfloat16* x, const uint8_t* w, const ST* sc,
-                     OutT* y, int T, int out, int L, int gs, int split,
-                     cudaStream_t stream) {
-  using B = Block<NT>;
-  const int n = L / kStage;
-  const size_t smem =
-      smem_bytes(B::kRows, P::kParts, T, (n + split - 1) / split);
-  if (smem > (size_t)kMaxSmem || out > 65535 * B::kRows)
-    return cudaErrorInvalidValue;
-  const cudaError_t e = allow_smem<P, NT, OutT, ST>();
-  if (e != cudaSuccess) return e;
+  if (!(done.load(std::memory_order_relaxed) & bit)) {
+    e = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kMaxSmem);
+    if (e != cudaSuccess) return e;
+    done.fetch_or(bit, std::memory_order_relaxed);
+  }
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(split, (out + B::kRows - 1) / B::kRows);
   cfg.blockDim = dim3(B::kThreads);
@@ -579,29 +647,33 @@ cudaError_t launch_n(const __nv_bfloat16* x, const uint8_t* w, const ST* sc,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  const cudaError_t l = cudaLaunchKernelEx(&cfg, decode_gemv<P, NT, OutT, ST>,
-                                           x, w, sc, y, T, out, L, gs);
+  const cudaError_t l =
+      cudaLaunchKernelEx(&cfg, kernel, x, pl, sc, y, T, out, L, gs);
   return l != cudaSuccess ? l : cudaGetLastError();
 }
 
-// The decode GEMV of format P on 1..16 tokens of bf16 x: w (out, L)
-// bytes, scales (kParts·L / (128·gs), out). split: the cluster's blocks
-// (1, 2, 4 or 8, at most L / 128); gs: the stages of a scale group, which
-// must divide L / 128 (a format of two parts takes gs = 1 only). Returns
-// the CUDA error of the launch (cudaErrorInvalidValue for what it does not
-// take).
-template <class P, typename OutT, typename ST>
-cudaError_t launch(const __nv_bfloat16* x, const uint8_t* w, const ST* sc,
-                   OutT* y, int T, int out, int L, int gs, int split,
-                   cudaStream_t stream) {
+// The decode GEMV of format P on 1..16 tokens of bf16 x: its planes (each
+// (out, L) bytes at its row stride and offset) and scales of type ST at
+// sc.s[row·row_stride + g·group_stride]. G: the scale group of a part of
+// several (K3: 64 or 128 positions; K4: 128); gs: the stages of one scale
+// group of one part (K1: its group / 128, which must divide L / 128; 1
+// for several parts). split: the cluster's blocks (1, 2, 4 or 8, at most
+// L / 128). Returns the CUDA error of the launch (cudaErrorInvalidValue
+// for what it does not take).
+template <class P, int G = 128, typename OutT, typename ST>
+cudaError_t launch(const __nv_bfloat16* x, const lowbit::Planes& pl,
+                   const lowbit::ScalesOf<ST>& sc, OutT* y, int T, int out,
+                   int L, int gs, int split, cudaStream_t stream) {
   const int n = L / kStage;
   if (T < 1 || T > 16 || out < 1 || L % kStage || gs < 1 || n % gs ||
       (P::kParts > 1 && gs != 1) || split < 1 || split > kMaxSplit ||
       (split & (split - 1)) || split > n)
     return cudaErrorInvalidValue;
   if (T <= 8)
-    return launch_n<P, 1, OutT, ST>(x, w, sc, y, T, out, L, gs, split, stream);
-  return launch_n<P, 2, OutT, ST>(x, w, sc, y, T, out, L, gs, split, stream);
+    return launch_n<P, 1, G, OutT, ST>(x, pl, sc, y, T, out, L, gs, split,
+                                       stream);
+  return launch_n<P, 2, G, OutT, ST>(x, pl, sc, y, T, out, L, gs, split,
+                                     stream);
 }
 
 }  // namespace dgemv

@@ -93,7 +93,9 @@ __device__ __forceinline__ float scale_f32(float v) { return v; }
 
 // the scale of row o and group g at s[o·row_stride + g·group_stride]: bf16
 // for the low-bit formats (Scales), f32 for int8 (ScalesOf<float>, which
-// only the prefill tile of lowbit_tile.cuh reads)
+// the prefill tile of lowbit_tile.cuh and the decode GEMV of
+// decode_gemv.cuh read; the decode GEMV reads ScalesOf<bf16> in both
+// layouts, (groups, out) for int4 and (out, groups) for int3 and int2)
 template <typename T>
 struct ScalesOf {
   const T* s;

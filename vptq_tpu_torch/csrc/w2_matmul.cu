@@ -14,9 +14,13 @@
 // Llama-3.1-8B layer, 0.018 ms at 3.35 TB/s); at T = 512 the bf16
 // tensor-core FLOPs (0.226 ms per layer at 989 TFLOP/s).
 //
-// Design: four parts of L = in_p/4 columns; T <= 16 runs the GEMV of
-// lowbit.cuh, more tokens the Hopper tile of lowbit_tile.cuh (TMA ring,
-// levels unpacked into bf16 pairs in registers, wgmma), as K2 and K4 do.
+// Design: four parts of L = in_p/4 columns; T <= 16 runs the Hopper
+// decode GEMV of decode_gemv.cuh (a cp.async weight ring, a cluster that
+// splits the positions, the tile's unpack into mma.sync, each quarter's
+// x, products and folds in turn) where the wrapper planned a split
+// (ops/scaled_matmul.py decode_split), else lowbit.cuh's GEMV; more tokens
+// the Hopper tile of lowbit_tile.cuh (TMA ring, levels unpacked into bf16
+// pairs in registers, wgmma), as K2 and K4 do.
 // The level c + 0.5 is built exactly per weight: flipping the high bit of
 // every 2-bit field maps c to v = c + 2 ∈ [0, 3]. The GEMV shifts v into
 // the mantissa of 2^22 (half-unit steps) and subtracts 2^22 + 1.5. The tile
@@ -29,15 +33,18 @@
 // is the same function up to summation order.
 //
 // Scales change every 64 columns at G = 64 (the default of every int2
-// model): the gemv reduces over 4-lane sets; the tile, whose weight stage
-// is 128 positions, splits each part's 8 k16 steps into two commit groups
-// of 4, each folded into the totals with its own scale after its wait
-// (no second accumulator: the consumers have no registers to spare).
+// model): the gemv reduces over 4-lane sets; the decode GEMV folds each
+// quarter after each of a thread's two 64-position chunks; the tile, whose
+// weight stage is 128 positions, splits each part's 8 k16 steps into two
+// commit groups of 4, each folded into the totals with its own scale
+// after its wait (no second accumulator: the consumers have no registers
+// to spare).
 // The other design, 64-position weight stages with one x box a slab, was
 // 7% slower on one H100 at T = 128, 512 and 2048 (twice the barrier round
 // trips and copies). G = 128 runs the tile unsplit, as int4 and int3 do;
 // G = 64 costs 12–15% over it.
 
+#include "decode_gemv.cuh"
 #include "lowbit_tile.cuh"
 
 namespace {
@@ -70,18 +77,33 @@ struct W2 {
 
 }  // namespace
 
-// Returns the CUDA error of the launch (0 on success). Requires group 64
-// or 128, in_p % 512 == 0 (the tile's stage of 128 positions a part),
-// 16-byte aligned x and wq, all tensors contiguous on the current device.
+// split: the decode GEMV's cluster size at T <= 16 (ops/scaled_matmul.py
+// decode_split; 0: lowbit.cuh's gemv). Returns the CUDA error of the
+// launch (0 on success). Requires group 64 or 128, in_p % 512 == 0 (the
+// stage of 128 positions a part), 16-byte aligned x and wq, all tensors
+// contiguous on the current device.
 extern "C" int vptq_w2_matmul(const void* x, const void* wq,
                               const void* scales, void* y, int T, int out,
-                              int in_p, int group, int out_dtype,
+                              int in_p, int group, int split, int out_dtype,
                               void* stream) {
   const int L = in_p / 4;
   const auto* w = static_cast<const uint8_t*>(wq);
   lowbit::Planes pl = {{w, nullptr, nullptr}, {L, 0, 0}, {0, 0, 0}};
   lowbit::Scales sc = {static_cast<const __nv_bfloat16*>(scales),
                        in_p / group, 1};
+  if (T <= lowbit::tile::kDecodeMax && split > 0 &&
+      (group == 64 || group == 128))
+    return lowbit::with_out_type(out_dtype, [&](auto* tag) {
+      using OutT = std::remove_pointer_t<decltype(tag)>;
+      const auto* xb = static_cast<const __nv_bfloat16*>(x);
+      auto* yo = static_cast<OutT*>(y);
+      const auto s = static_cast<cudaStream_t>(stream);
+      return group == 64
+                 ? dgemv::launch<W2, 64>(xb, pl, sc, yo, T, out, L, 1, split,
+                                         s)
+                 : dgemv::launch<W2, 128>(xb, pl, sc, yo, T, out, L, 1,
+                                          split, s);
+    });
   if (group == 64)
     return lowbit::tile::launch<W2, 64>(x, pl, sc, y, T, out, in_p,
                                         out_dtype, stream);

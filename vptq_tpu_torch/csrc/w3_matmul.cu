@@ -16,7 +16,11 @@
 // (0.226 ms per layer at 989 TFLOP/s).
 //
 // Design: eight parts (octants) of L = in_p/8 columns; T <= 16 runs the
-// GEMV of lowbit.cuh, more tokens the Hopper tile of lowbit_tile.cuh (TMA
+// Hopper decode GEMV of decode_gemv.cuh (a cp.async ring of the three
+// planes' stages, a cluster that splits the positions, the tile's unpack
+// into mma.sync, each octant's x, products and fold in turn) where the
+// wrapper planned a split (ops/scaled_matmul.py decode_split), else
+// lowbit.cuh's GEMV; more tokens the Hopper tile of lowbit_tile.cuh (TMA
 // ring, levels unpacked into bf16 pairs in registers, wgmma). Position k
 // reads three 16-byte runs: wq2 at k (quarters = even octants 0, 2, 4, 6),
 // wq2 at k + L (odd octants) and wq1 at k (the eight sign bits), so every
@@ -28,6 +32,7 @@
 // for its vector unit; here one exact level per weight computes the
 // same function up to summation order.
 
+#include "decode_gemv.cuh"
 #include "lowbit_tile.cuh"
 
 namespace {
@@ -64,19 +69,27 @@ struct W3 {
 
 }  // namespace
 
-// Returns the CUDA error of the launch (0 on success). Requires
-// in_p % 1024 == 0, 16-byte aligned x, wq2 and wq1, all tensors
-// contiguous on the current device.
+// split: the decode GEMV's cluster size at T <= 16 (ops/scaled_matmul.py
+// decode_split; 0: lowbit.cuh's gemv). Returns the CUDA error of the
+// launch (0 on success). Requires in_p % 1024 == 0, 16-byte aligned x,
+// wq2 and wq1, all tensors contiguous on the current device.
 extern "C" int vptq_w3_matmul(const void* x, const void* wq2,
                               const void* wq1, const void* scales, void* y,
-                              int T, int out, int in_p, int out_dtype,
-                              void* stream) {
+                              int T, int out, int in_p, int split,
+                              int out_dtype, void* stream) {
   const int L = in_p / 8;
   const auto* w2 = static_cast<const uint8_t*>(wq2);
   const auto* w1 = static_cast<const uint8_t*>(wq1);
   lowbit::Planes pl = {{w2, w2, w1}, {2 * L, 2 * L, L}, {0, L, 0}};
   lowbit::Scales sc = {static_cast<const __nv_bfloat16*>(scales),
                        in_p / 128, 1};
+  if (T <= lowbit::tile::kDecodeMax && split > 0)
+    return lowbit::with_out_type(out_dtype, [&](auto* tag) {
+      using OutT = std::remove_pointer_t<decltype(tag)>;
+      return dgemv::launch<W3>(static_cast<const __nv_bfloat16*>(x), pl, sc,
+                               static_cast<OutT*>(y), T, out, L, 1, split,
+                               static_cast<cudaStream_t>(stream));
+    });
   return lowbit::tile::launch<W3>(x, pl, sc, y, T, out, in_p, out_dtype,
                                   stream);
 }

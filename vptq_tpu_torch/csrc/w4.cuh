@@ -78,10 +78,9 @@ int launch(const void* x, const void* wq, const void* scales, const void* ids,
       return lowbit::with_out_type(out_dtype, [&](auto* tag) {
         using OutT = std::remove_pointer_t<decltype(tag)>;
         return dgemv::launch<W4>(
-            static_cast<const __nv_bfloat16*>(x),
-            static_cast<const uint8_t*>(wq),
-            static_cast<const __nv_bfloat16*>(scales), static_cast<OutT*>(y),
-            T, out, in_p / 2, 1, split, static_cast<cudaStream_t>(stream));
+            static_cast<const __nv_bfloat16*>(x), planes(wq, in_p),
+            scales_of(scales, out), static_cast<OutT*>(y), T, out, in_p / 2,
+            1, split, static_cast<cudaStream_t>(stream));
       });
   if constexpr (Sel::kPairs)
     return lowbit::launch<W4, 128, Sel>(x, planes(wq, in_p),

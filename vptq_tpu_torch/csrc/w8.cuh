@@ -464,9 +464,13 @@ cudaError_t launch_typed(const Args& a, void* y, cudaStream_t stream) {
     // and a planned split takes the Hopper decode GEMV up to 16 tokens
     if constexpr (std::is_same_v<Sel, sel::Whole>)
       if (T <= 16 && a.group % dgemv::kStage == 0 && a.split > 0)
-        return dgemv::launch<W8>(a.x, reinterpret_cast<const uint8_t*>(a.wq),
-                                 a.scales, yo, T, a.out, a.in_p,
-                                 a.group / dgemv::kStage, a.split, stream);
+        return dgemv::launch<W8>(
+            a.x,
+            lowbit::Planes{{reinterpret_cast<const uint8_t*>(a.wq)},
+                           {a.in_p},
+                           {0}},
+            lowbit::ScalesOf<float>{a.scales, 1, a.out}, yo, T, a.out, a.in_p,
+            a.group / dgemv::kStage, a.split, stream);
     if (T <= 1) return launch_gemv<Sel, 1, OutT>(a, yo, T, 1, stream);
     if (T <= 2) return launch_gemv<Sel, 2, OutT>(a, yo, T, 1, stream);
     if (T <= 4) return launch_gemv<Sel, 4, OutT>(a, yo, T, 1, stream);

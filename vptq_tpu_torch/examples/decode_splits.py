@@ -1,10 +1,11 @@
-"""K1 and K2's decode GEMV at every cluster size, beside the older GEMV.
+"""K1–K4's decode GEMV at every cluster size, beside the older GEMV.
 
-Times K1 ``w8_matmul`` (group 2048) and K2 ``w4_matmul`` on random codes at
-the four linears of a Llama-3.1-8B layer, for each token count, through
-the launch of ``ops/scaled_matmul.py`` with each split the kernel takes
-(1, 2, 4, 8; the one ``decode_split`` plans is starred) and with split 0,
-which routes the call to the GEMV the decode kernel replaced (``w8.cuh``'s
+Times K1 ``w8_matmul`` (group 2048), K2 ``w4_matmul``, K4 ``w3_matmul``
+and K3 ``w2_matmul`` (groups 64 and 128) on random codes at the four
+linears of a Llama-3.1-8B layer, for each token count, through the launch
+of ``ops/scaled_matmul.py`` with each split the kernel takes (1, 2, 4, 8;
+the one ``decode_split`` plans is starred) and with split 0, which routes
+the call to the GEMV the decode kernel replaced (``w8.cuh``'s
 ``w8_gemv``, ``lowbit.cuh``'s ``gemv``). Every launch is first held to the
 plain version (|err| <= 1e-2·|plain| + 1e-3·max|plain|). Each time is the
 median of 30 launches between CUDA events, each after a 1 GiB flush of the
@@ -15,7 +16,7 @@ power limit come first, then one line per (kernel, shape, T, split,
 flush), then the layer's sums for the planned split and split 0.
 
     python -m vptq_tpu_torch.examples.decode_splits [--tokens 1,4,16]
-        [--flush w,r]
+        [--flush w,r] [--kernels w8,w4,w3,w2g64,w2g128]
 
 Without a CUDA device it exits non-zero.
 """
@@ -29,6 +30,8 @@ import torch
 
 from vptq_tpu_torch.examples.kernel_bench import card_line, flush_buffer
 from vptq_tpu_torch.ops import scaled_matmul as sm
+from vptq_tpu_torch.ops.w2_matmul import w2_matmul_reference
+from vptq_tpu_torch.ops.w3_matmul import w3_matmul_reference
 from vptq_tpu_torch.ops.w4_matmul import w4_matmul_reference
 from vptq_tpu_torch.ops.w8_matmul import w8_matmul_reference
 
@@ -38,6 +41,7 @@ __all__ = ["main"]
 SHAPES = (("qkv", 6144, 4096), ("o", 4096, 4096), ("gate_up", 28672, 4096),
           ("down", 4096, 14336))
 GROUP = 2048  # K1's scale group at these widths (the loaders' pick)
+KERNELS = ("w8", "w4", "w3", "w2g64", "w2g128")
 
 
 def _time(fn, flush, mode: str, iters: int = 30) -> float:
@@ -62,10 +66,39 @@ def _time(fn, flush, mode: str, iters: int = 30) -> float:
     return statistics.median(times)
 
 
+def _case(kernel: str, out_f: int, in_p: int, gen, device):
+    """(library, C function, weights, ints before the split, positions,
+    plain version) of one kernel on random codes and scales."""
+    def codes(n):
+        return torch.randint(-128, 128, (out_f, n), generator=gen,
+                             device=device, dtype=torch.int8)
+
+    def scales(*shape):
+        return (torch.rand(shape, generator=gen, device=device)
+                * 1e-2).to(torch.bfloat16)
+
+    if kernel == "w8":
+        sc = torch.rand((in_p // GROUP, out_f), generator=gen,
+                        device=device) * 1e-2
+        return ("w8_matmul", (codes(in_p), sc), (GROUP,), in_p,
+                w8_matmul_reference)
+    if kernel == "w4":
+        return ("w4_matmul", (codes(in_p // 2), scales(in_p // 128, out_f)),
+                (), in_p // 2, w4_matmul_reference)
+    if kernel == "w3":
+        return ("w3_matmul", (codes(in_p // 4), codes(in_p // 8),
+                              scales(out_f, in_p // 128)),
+                (), in_p // 8, w3_matmul_reference)
+    group = int(kernel[len("w2g"):])
+    return ("w2_matmul", (codes(in_p // 4), scales(out_f, in_p // group)),
+            (group,), in_p // 4, w2_matmul_reference)
+
+
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--tokens", default="1,4,16")
     parser.add_argument("--flush", default="w,r")
+    parser.add_argument("--kernels", default=",".join(KERNELS))
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("decode_splits times the card's kernels: it needs a "
@@ -78,39 +111,28 @@ def main(argv=None) -> None:
     gen = torch.Generator(device=device).manual_seed(0)
     n_sm = sm.sm_count(device)
     layer = {}
-    for kernel in ("w8", "w4"):
+    for kernel in args.kernels.split(","):
+        parts, planes, scale_bytes = sm.DECODE_FORMATS[kernel]
         for shape, out_f, in_p in SHAPES:
-            if kernel == "w8":
-                wq = torch.randint(-128, 128, (out_f, in_p), generator=gen,
-                                   device=device, dtype=torch.int8)
-                sc = torch.rand((in_p // GROUP, out_f), generator=gen,
-                                device=device) * 1e-2
-                parts, positions, ref = 1, in_p, w8_matmul_reference
-            else:
-                wq = torch.randint(-128, 128, (out_f, in_p // 2),
-                                   generator=gen, device=device,
-                                   dtype=torch.int8)
-                sc = (torch.rand((in_p // 128, out_f), generator=gen,
-                                 device=device) * 1e-2).to(torch.bfloat16)
-                parts, positions, ref = 2, in_p // 2, w4_matmul_reference
+            lib, weights, ints, positions, ref = _case(
+                kernel, out_f, in_p, gen, device)
+            stages = positions // sm.DECODE_STAGE
             for t in tokens:
                 x = torch.randn((t, in_p), generator=gen, device=device).to(
                     torch.bfloat16)
-                plan = sm.decode_split(out_f, positions, parts, t, n_sm)
-                want = ref(x, wq, sc).float()
+                plan = sm.decode_split(out_f, positions, parts, t, n_sm,
+                                       planes, scale_bytes)
+                want = ref(x, *weights).float()
                 limit = 1e-2 * want.abs() + 1e-3 * want.abs().max()
                 for split in (0, *sm.DECODE_SPLITS):
-                    if split > positions // sm.DECODE_STAGE or (
-                            split and sm.decode_smem(
-                                parts, t, -(-positions // sm.DECODE_STAGE
-                                            // split)) > 232448):
+                    if split > stages or (split and sm.decode_smem(
+                            parts, t, -(-stages // split), planes,
+                            scale_bytes) > 232448):
                         continue
-                    ints = (GROUP, split) if kernel == "w8" else (split,)
 
-                    def call(ints=ints):
-                        return sm.launch(f"{kernel}_matmul",
-                                         f"vptq_{kernel}_matmul", x, (wq, sc),
-                                         ints, out_f, in_p, None)
+                    def call(split=split):
+                        return sm.launch(lib, f"vptq_{lib}", x, weights,
+                                         (*ints, split), out_f, in_p, None)
 
                     if not bool(torch.all((call().float() - want).abs()
                                           <= limit)):
@@ -125,7 +147,7 @@ def main(argv=None) -> None:
                         if split in (0, plan):
                             key = (kernel, t, mode, split == 0)
                             layer[key] = layer.get(key, 0.0) + us
-            del wq, sc
+            del weights
     for (kernel, t, mode, old), us in sorted(layer.items()):
         what = "old GEMV (split 0)" if old else "decode GEMV (planned split)"
         print(f"layer {kernel} T={t} flush={mode} {what}: {us:.1f} us",

@@ -8,7 +8,7 @@ shapes: K3 ``w2_matmul``, K2 ``w4_matmul``, K4 ``w3_matmul``, K1
 Llama-3.1-8B layer, the MoE kernels K6b ``w4_matmul_expert``, K5b
 ``w4_matmul_pairs``, K6a ``w8_matmul_expert`` and K5a ``w8_matmul_pairs``
 at a Mixtral-8x7B expert's two shapes on stacks of 8, T = 1, 128, 512
-and 2048 (K1 and K2 also T = 4 and 16; K5: P = 2 and 16); and K8
+and 2048 (K1–K4 also T = 4 and 16; K5: P = 2 and 16); and K8
 ``flash_attention`` at every case of
 the tree's ``chip_smoke.FLASH_CASES`` (``phase_flash``). Each kernel is
 held against its plain version, as the smoke holds it. The card's name
@@ -75,10 +75,8 @@ if dev == "cpu":
 rows = []
 for name in KERNELS:
     if name in cs.FORMAT_KERNEL.values():
-        # K1 and K2 also at T = 4 and 16: their decode GEMV's two instances
-        toks = tokens
-        if name in ("w8_matmul", "w4_matmul"):
-            toks = (tokens[0], 4, 16) + tokens[1:]
+        # K1–K4 also at T = 4 and 16: their decode GEMV's two instances
+        toks = (tokens[0], 4, 16) + tokens[1:]
         rows += cs.phase_kernel(name, dev, shapes, toks, iters=iters)
 for fmt in ("int4", "int8"):
     rows += cs.phase_moe_kernels(fmt, dev, moe_shapes, tokens=tokens,

@@ -25,19 +25,29 @@ import torch
 from vptq_tpu_torch.ops import _build
 
 __all__ = [
-    "DECODE_SPLITS", "DECODE_STAGE", "check_pairs", "decode_blocks",
-    "decode_route", "decode_rows", "decode_smem", "decode_split",
-    "grouped_reference", "launch", "pick_expert", "sm_count",
+    "DECODE_FORMATS", "DECODE_SPLITS", "DECODE_STAGE", "check_pairs",
+    "decode_blocks", "decode_route", "decode_rows", "decode_smem",
+    "decode_split", "grouped_reference", "launch", "pick_expert",
+    "sm_count",
 ]
 
-# The Hopper decode GEMV of K1 and K2 (csrc/decode_gemv.cuh) at T <= 16: a
+# The Hopper decode GEMV of K1–K4 (csrc/decode_gemv.cuh) at T <= 16: a
 # block owns 32 rows (up to 8 tokens) or 64 (up to 16) and a range of
 # DECODE_STAGE-position stages; a cluster of DECODE_SPLITS[i] blocks splits
 # the positions of a row.
 DECODE_STAGE = 128
 DECODE_SPLITS = (1, 2, 4, 8)
-_DECODE_RING = 4  # ring slots of one stage each
 _BLOCK_SMEM = 232448  # one block's limit on an H100
+_SM_SMEM = 233472  # an SM's, of which each block holds _BLOCK_RESERVED more
+_BLOCK_RESERVED = 1024
+# (parts, byte planes, scale bytes a row and stage) of each format's decode
+# GEMV: int8 one f32 scale a stage, int4 a bf16 one for each of two parts,
+# int3 for each of eight, int2 for each of four parts and 64 or 128
+# positions
+DECODE_FORMATS = {
+    "w8": (1, 1, 4), "w4": (2, 1, 4), "w3": (8, 3, 16),
+    "w2g64": (4, 1, 16), "w2g128": (4, 1, 8),
+}
 
 
 def decode_rows(tokens: int) -> int:
@@ -50,48 +60,60 @@ def decode_blocks(out_f: int, tokens: int) -> int:
     return -(-out_f // decode_rows(tokens))
 
 
-def decode_smem(parts: int, tokens: int, stages: int) -> int:
+def decode_smem(parts: int, tokens: int, stages: int, planes: int = 1,
+                scale_bytes: int = 4) -> int:
     """Shared memory of one decode-GEMV block whose range is ``stages``
-    stages (bytes): the ring, x for ``tokens`` rows of ``parts`` parts of
-    those stages, the scales of each stage (4 bytes a row and 128
-    positions) and the partials the cluster's ranks push (3 f32 a row and
-    token)."""
+    stages (bytes): the ring (four slots of a stage of one plane, or two of
+    ``planes`` planes), x for ``tokens`` rows of ``parts`` parts of those
+    stages, the scales of each stage (``scale_bytes`` a row) and the
+    partials the cluster's ranks push (3 f32 a row and token)."""
     rows = decode_rows(tokens)
-    return (256 + _DECODE_RING * rows * DECODE_STAGE
+    ring = 4 if planes == 1 else 2  # decode_gemv.cuh kRingOf
+    return (256 + ring * planes * rows * DECODE_STAGE
             + tokens * parts * stages * DECODE_STAGE * 2
-            + stages * rows * 4 + 3 * rows * tokens * 4)
+            + stages * rows * scale_bytes + 3 * rows * tokens * 4)
 
 
 @functools.lru_cache(maxsize=None)
 def decode_split(out_f: int, positions: int, parts: int, tokens: int,
-                 n_sm: int) -> int:
+                 n_sm: int, planes: int = 1, scale_bytes: int = 4) -> int:
     """The cluster size of the decode GEMV: how many blocks split the
-    ``positions`` (whole stages; int8 in_p, int4 in_p / 2) of each row
-    block at ``tokens`` <= 16, for a card of ``n_sm`` SMs.
+    ``positions`` (whole stages; int8 in_p, int4 in_p / 2, int2 in_p / 4,
+    int3 in_p / 8) of each row block at ``tokens`` <= 16, for a card of
+    ``n_sm`` SMs; ``planes`` and ``scale_bytes`` as for
+    :func:`decode_smem` (:data:`DECODE_FORMATS`).
 
     The smallest of 1, 2, 4, 8 that makes two blocks or more for each SM
-    and whose x fits a block; failing that, the largest that fits (most
-    blocks, least x each). 0, so that the older GEMV runs, where the
-    positions are no whole stages or no split fits x into a block."""
+    and whose x fits a block, and up to 8 tokens two blocks an SM's shared
+    memory; failing that, the largest that fits (most blocks, least x
+    each). 0, so that the older GEMV runs, where the positions are no whole
+    stages or no split fits x into a block."""
     stages = positions // DECODE_STAGE
     if positions % DECODE_STAGE or not 1 <= tokens <= 16:
         return 0
-    fits = [s for s in DECODE_SPLITS if s <= stages
-            and decode_smem(parts, tokens, -(-stages // s)) <= _BLOCK_SMEM]
+    smem = {s: decode_smem(parts, tokens, -(-stages // s), planes,
+                           scale_bytes)
+            for s in DECODE_SPLITS if s <= stages}
+    fits = [s for s, b in smem.items() if b <= _BLOCK_SMEM]
     for s in fits:
-        if decode_blocks(out_f, tokens) * s >= 2 * n_sm:
+        pair = 2 * (smem[s] + _BLOCK_RESERVED) <= _SM_SMEM
+        if (decode_blocks(out_f, tokens) * s >= 2 * n_sm
+                and (tokens > 8 or pair)):
             return s
     return fits[-1] if fits else 0
 
 
-def decode_route(out_f: int, positions: int, parts: int,
+def decode_route(out_f: int, positions: int, fmt: str,
                  x: torch.Tensor) -> int:
-    """The split a K1 / K2 launch passes its kernel: decode_split's for x
-    of 1 to 16 tokens, else 0."""
+    """The split a K1–K4 launch passes its kernel: decode_split's for x of
+    1 to 16 tokens in format ``fmt`` (a key of :data:`DECODE_FORMATS`),
+    else 0."""
+    parts, planes, scale_bytes = DECODE_FORMATS[fmt]
     tokens = x.numel() // positions // parts if positions else 0
     if not 1 <= tokens <= 16:
         return 0
-    return decode_split(out_f, positions, parts, tokens, sm_count(x.device))
+    return decode_split(out_f, positions, parts, tokens, sm_count(x.device),
+                        planes, scale_bytes)
 
 
 @functools.lru_cache(maxsize=None)

@@ -2,7 +2,10 @@
 
 Port of ``vptq_tpu/ops/pallas_gemm.py:986-1215`` (``_w2_kernel``, entry
 ``w2_matmul``). The kernel is hand-written CUDA for Hopper in
-``vptq_tpu_torch/csrc/w2_matmul.cu``. :func:`w2_matmul` launches it for
+``vptq_tpu_torch/csrc/w2_matmul.cu``: the decode GEMV of
+``csrc/decode_gemv.cuh`` up to 16 tokens (``lowbit.cuh``'s GEMV for a
+shape the plan gives no split), the prefill tile of
+``csrc/lowbit_tile.cuh`` past them. :func:`w2_matmul` launches it for
 CUDA tensors and runs the plain version :func:`w2_matmul_reference`
 only for tensors that lie on the CPU. ``w2_matmul.launches`` counts
 kernel launches.
@@ -12,7 +15,11 @@ from __future__ import annotations
 
 import torch
 
-from vptq_tpu_torch.ops.scaled_matmul import grouped_reference, launch
+from vptq_tpu_torch.ops.scaled_matmul import (
+    decode_route,
+    grouped_reference,
+    launch,
+)
 from vptq_tpu_torch.ops.packing import unpack_int2
 
 __all__ = ["W2_GROUPS", "w2_matmul", "w2_matmul_reference"]
@@ -73,14 +80,18 @@ def w2_matmul(
     if x.device.type == "cpu":
         return w2_matmul_reference(x, wq, scales, out_dtype)
     if wq.shape[1] % _TILE_POSITIONS:
-        # the prefill tile reads 128 positions of each quarter a stage;
-        # pack_int2 pads every layer to W2_BLOCK = 1024 columns
+        # the prefill tile and the decode GEMV read 128 positions of each
+        # quarter a stage; pack_int2 pads every layer to W2_BLOCK = 1024
+        # columns
         raise ValueError(
             f"in_features {wq.shape[1] * 4} must be a multiple of "
             f"{4 * _TILE_POSITIONS} on the card"
         )
+    # the decode GEMV's cluster size over the in_p / 4 positions; 0 sends a
+    # shape it does not take to lowbit.cuh's GEMV
+    split = decode_route(wq.shape[0], wq.shape[1], f"w2g{group}", x)
     y = launch(
-        "w2_matmul", "vptq_w2_matmul", x, (wq, scales), (group,),
+        "w2_matmul", "vptq_w2_matmul", x, (wq, scales), (group, split),
         wq.shape[0], wq.shape[1] * 4, out_dtype,
     )
     w2_matmul.launches += 1
@@ -90,7 +101,8 @@ def w2_matmul(
 w2_matmul.launches = 0
 # the TPU kernel this one replaces
 w2_matmul.replaces = "vptq_tpu/ops/pallas_gemm.py:986"
-# words of the demangled names of its CUDA kernels (lowbit.cuh's GEMV and
-# lowbit_tile.cuh's prefill tile, with the policy W2 of csrc/w2_matmul.cu)
-# that pick them out of a trace
-w2_matmul.trace_tags = ("lowbit", "W2")
+# words of the demangled names of its CUDA kernels that pick them out of a
+# trace, one set per family: lowbit.cuh's GEMV and lowbit_tile.cuh's
+# prefill tile, and the decode GEMV (decode_gemv.cuh), each with the
+# policy W2 of csrc/w2_matmul.cu
+w2_matmul.trace_tags = (("lowbit", "W2"), ("decode_gemv", "W2"))

@@ -3,7 +3,10 @@
 
 Port of ``vptq_tpu/ops/pallas_gemm.py:1218-1454`` (``_w3_kernel``, entry
 ``w3_matmul``). The kernel is hand-written CUDA for Hopper in
-``vptq_tpu_torch/csrc/w3_matmul.cu``. :func:`w3_matmul` launches it for
+``vptq_tpu_torch/csrc/w3_matmul.cu``: the decode GEMV of
+``csrc/decode_gemv.cuh`` up to 16 tokens (``lowbit.cuh``'s GEMV for a
+shape the plan gives no split), the prefill tile of
+``csrc/lowbit_tile.cuh`` past them. :func:`w3_matmul` launches it for
 CUDA tensors and runs the plain version :func:`w3_matmul_reference`
 only for tensors that lie on the CPU. ``w3_matmul.launches`` counts
 kernel launches.
@@ -13,10 +16,27 @@ from __future__ import annotations
 
 import torch
 
-from vptq_tpu_torch.ops.scaled_matmul import grouped_reference, launch
+from vptq_tpu_torch.ops.scaled_matmul import (
+    decode_route,
+    grouped_reference,
+    launch,
+)
 from vptq_tpu_torch.ops.packing import INT4_GROUP, W3_BLOCK, unpack_int3
 
-__all__ = ["w3_matmul", "w3_matmul_reference"]
+__all__ = ["takes_decode_gemv", "w3_matmul", "w3_matmul_reference"]
+
+# lowbit.cuh's GEMV is faster than the decode GEMV on o (4096 x 4096) at 1
+# and 2 tokens (examples/decode_splits, flush r, one H100 at the four
+# Llama-3.1-8B linears); a weight of at most that many entries goes to it
+_GEMV_ENTRIES = 1 << 24
+
+
+def takes_decode_gemv(tokens: int, out_f: int, in_p: int) -> bool:
+    """Whether K4 sends ``tokens`` (1 to 16) of an (out_f, in_p) weight to
+    the Hopper decode GEMV rather than to ``lowbit.cuh``'s GEMV: where it
+    was measured the faster."""
+    return 1 <= tokens <= 16 and not (
+        tokens <= 2 and out_f * in_p <= _GEMV_ENTRIES)
 
 
 def _check(x, wq2, wq1, scales) -> int:
@@ -73,9 +93,15 @@ def w3_matmul(
     in_p = _check(x, wq2, wq1, scales)
     if x.device.type == "cpu":
         return w3_matmul_reference(x, wq2, wq1, scales, out_dtype)
+    # the decode GEMV's cluster size over the in_p / 8 positions; 0 sends a
+    # shape it does not take, or one at a token count at which lowbit.cuh's
+    # GEMV is faster, to that GEMV
+    out_f = wq2.shape[0]
+    split = (decode_route(out_f, in_p // 8, "w3", x)
+             if takes_decode_gemv(x.numel() // in_p, out_f, in_p) else 0)
     y = launch(
-        "w3_matmul", "vptq_w3_matmul", x, (wq2, wq1, scales), (),
-        wq2.shape[0], in_p, out_dtype,
+        "w3_matmul", "vptq_w3_matmul", x, (wq2, wq1, scales), (split,),
+        out_f, in_p, out_dtype,
     )
     w3_matmul.launches += 1
     return y
@@ -84,7 +110,8 @@ def w3_matmul(
 w3_matmul.launches = 0
 # the TPU kernel this one replaces
 w3_matmul.replaces = "vptq_tpu/ops/pallas_gemm.py:1218"
-# words of the demangled names of its CUDA kernels (lowbit.cuh's GEMV and
-# lowbit_tile.cuh's tile, with the policy W3 of csrc/w3_matmul.cu) that
-# pick them out of a trace
-w3_matmul.trace_tags = ("lowbit", "W3")
+# words of the demangled names of its CUDA kernels that pick them out of a
+# trace, one set per family: lowbit.cuh's GEMV and lowbit_tile.cuh's tile,
+# and the decode GEMV (decode_gemv.cuh), each with the policy W3 of
+# csrc/w3_matmul.cu
+w3_matmul.trace_tags = (("lowbit", "W3"), ("decode_gemv", "W3"))

@@ -76,7 +76,7 @@ def w4_matmul(
         return w4_matmul_reference(x, wq, scales, out_dtype)
     # the decode GEMV's cluster size over the in_p / 2 byte positions; 0
     # sends a shape it does not take to lowbit.cuh's GEMV
-    split = decode_route(wq.shape[0], in_p // 2, 2, x)
+    split = decode_route(wq.shape[0], in_p // 2, "w4", x)
     y = launch(
         "w4_matmul", "vptq_w4_matmul", x, (wq, scales), (split,),
         wq.shape[0], in_p, out_dtype,

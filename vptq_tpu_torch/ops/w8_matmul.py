@@ -26,7 +26,20 @@ from vptq_tpu_torch.ops.scaled_matmul import (
     launch,
 )
 
-__all__ = ["w8_matmul", "w8_matmul_reference"]
+__all__ = ["takes_decode_gemv", "w8_matmul", "w8_matmul_reference"]
+
+# w8.cuh's w8_gemv is faster than the decode GEMV up to this many tokens on a
+# clean L2, as a decode step finds it (examples/decode_splits, flush r, one
+# H100, the four Llama-3.1-8B linears summed); from the next count on the
+# decode GEMV is, or the two are even
+_W8_GEMV_TOKENS = 2
+
+
+def takes_decode_gemv(tokens: int, out_f: int, in_p: int) -> bool:
+    """Whether K1 sends ``tokens`` of an (out_f, in_p) weight whose scale
+    group is whole 128-column stages to the Hopper decode GEMV rather than
+    to ``w8_gemv``: from 3 to 16 tokens, at every shape."""
+    return _W8_GEMV_TOKENS < tokens <= 16
 
 
 def _check(x: torch.Tensor, wq: torch.Tensor, scales: torch.Tensor) -> int:
@@ -88,9 +101,12 @@ def w8_matmul(
         raise ValueError(f"scale group {group} must be a multiple of 32")
     out_f, in_p = wq.shape
     # the decode GEMV's cluster size, by shape; 0 sends a group of no whole
-    # stages (or a shape it does not take) to w8.cuh's GEMV
-    split = (decode_route(out_f, in_p, 1, x)
-             if group % DECODE_STAGE == 0 else 0)
+    # stages, a token count at which w8.cuh's GEMV is faster, or a shape
+    # the decode GEMV does not take to w8.cuh's GEMV
+    tokens = x.numel() // in_p
+    split = (decode_route(out_f, in_p, "w8", x)
+             if group % DECODE_STAGE == 0
+             and takes_decode_gemv(tokens, out_f, in_p) else 0)
     y = launch(
         "w8_matmul", "vptq_w8_matmul", x, (wq, scales), (group, split),
         out_f, in_p, out_dtype,
