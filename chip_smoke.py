@@ -15,8 +15,8 @@ without them, or when any phase fails. Phases:
    ``vq_smallk_matmul``), one ``nvcc`` each, all at once; the
    ``-Xptxas -v`` lines of the prefill tile (``lowbit_tile.cuh``) in K1,
    K2, K3, K4, K6a, K6b and K7, of K8's kernel at each head size and of
-   the decode GEMV (``decode_gemv.cuh``) in K1 and K2, every instance of
-   which must show no spill;
+   the decode GEMV (``decode_gemv.cuh``) in K1, K2, K3, K4 and K5b, every
+   instance of which must show no spill;
 2. each of K1-K4 at the four linear shapes of Llama-3.1-8B, on layers its
    format's encoder makes on the card from a random weight (K1 group
    2048, K3 group 64, and 128 beside it), at T=1 (decode), T=128 and
@@ -41,10 +41,14 @@ without them, or when any phase fails. Phases:
    2048 (Mixtral's long chunk, through the tile; one expert, the last of
    the stack, whose slab starts 822 MB into gate_up's int8 stack and 411
    MB into the int4 one), K5a / K5b at P=2 (one token's top-2)
-   and P=16 (8 tokens' top-2) pairs, each against its plain version and
-   timed like phase 2, the bound counting the distinct experts read;
-   yardsticks ``torch.matmul`` with one expert's dequantized bf16 weight
-   and ``torch.bmm`` over the gathered experts;
+   and P=16 (8 tokens' top-2) pairs, K5b also at P=1 and P=128 (64
+   tokens' top-2, the most a MoE decode call sends), each against its
+   plain version and timed like phase 2, the bound counting the distinct
+   experts read; yardsticks ``torch.matmul`` with one expert's
+   dequantized bf16 weight and ``torch.bmm`` over the experts' bf16 slabs,
+   gathered by the ids before the timed window; then K5b's kernel name
+   at each P from one trace, which must be the decode GEMV's
+   (``check_decode_routes``);
    then the probes, which no layer calls: every mode of P1 / P2 (prod,
    shift28, fma16, fma16f32, t8, g256; i32x8; s8dot, cvtonly) with K2
    beside them at the probe scripts' four Llama-2-7B decode shapes (T=1),
@@ -234,10 +238,11 @@ FLASH_KERNEL = "flash_wgmma"
 FLASH_INSTANCES = {"flash_attention": 3}
 # the Hopper decode GEMV of K1–K4 at T <= 16 (decode_gemv.cuh): one
 # instance per token tile (N = 8, 16) and output type (bf16, f32), and in
-# K3 per scale group (64, 128) too
+# K3 per scale group (64, 128) too; K5b's pairs run one token a block (N =
+# 8), one instance per output type
 DECODE_KERNEL = "decode_gemv"
 DECODE_INSTANCES = {"w8_matmul": 4, "w4_matmul": 4, "w3_matmul": 4,
-                    "w2_matmul": 8}
+                    "w2_matmul": 8, "w4_matmul_pairs": 2}
 # the token counts of the kernel phases: decode, two prefill buckets and
 # the long-prefill chunk (every T > 16 runs the tile)
 TOKENS = (1, 128, 512, 2048)
@@ -469,16 +474,18 @@ def phase_kernel(name, device, shapes, tokens=(1, 128, 512), iters=20,
 
 def check_decode_routes(routes, device) -> None:
     """The CUDA kernel each call of ``routes`` (phase_kernel's, up to 16
-    tokens) launches, from one trace: K2 and K3 run the Hopper decode GEMV
-    at every shape the kernel phases time; K1 and K4 run it where their
-    wrappers' rule routes them (``takes_decode_gemv`` of
-    ``ops/w8_matmul.py``, ``ops/w3_matmul.py``) and the older GEMV
-    elsewhere. The names are picked by the wrappers' ``trace_tags`` (the
-    decode GEMV's family: ``decode_gemv`` and the policy)."""
+    tokens, and phase_moe_kernels' K5b calls) launches, from one trace: K2,
+    K3 and K5b run the Hopper decode GEMV at every shape and pair count
+    the kernel phases time; K1 and K4 run it where their wrappers' rule
+    routes them (``takes_decode_gemv`` of ``ops/w8_matmul.py``,
+    ``ops/w3_matmul.py``) and the older GEMV elsewhere. The names are
+    picked by the wrappers' ``trace_tags`` (the decode GEMV's family:
+    ``decode_gemv``, the format and the selection, ``Whole`` or
+    ``Pairs``)."""
     names = launched_kernels([call for _, call in routes], device)
     for (r, _), kernel in zip(routes, names):
-        print(f"{r['kernel']} {r['shape']} T={r['T']} g{r['group']} runs "
-              f"{kernel}")
+        print(f"{r['kernel']} {r['shape']} {r['unit']}={r['T']} "
+              f"g{r['group']} runs {kernel}")
         fn = kernel_fns(r["kernel"])[0]
         family = next(t for t in tag_sets(fn.trace_tags)
                       if "decode_gemv" in t)
@@ -487,10 +494,9 @@ def check_decode_routes(routes, device) -> None:
         want = rule is None or rule(r["T"], r["out"], r["in_p"])
         if picks((family,), kernel) != want:
             raise AssertionError(
-                f"{r['kernel']} {r['shape']} T={r['T']} ran {kernel}; the "
-                f"decode GEMV expected: {want}")
-    print(f"decode routes: {len(routes)} calls up to 16 tokens, each on "
-          "its route")
+                f"{r['kernel']} {r['shape']} {r['unit']}={r['T']} ran "
+                f"{kernel}; the decode GEMV expected: {want}")
+    print(f"decode routes: {len(routes)} calls, each on its route")
 
 
 def phase_bf16(device, shapes, tokens=TOKENS, iters=20, seed=0):
@@ -600,12 +606,14 @@ def moe_shapes(cfg: dict):
 
 
 def phase_moe_kernels(fmt, device, shapes, n_experts=8, tokens=(1, 128, 512),
-                      pairs=(2, 16), top_k=2, iters=20, seed=0):
+                      pairs=(2, 16), top_k=2, iters=20, seed=0, routes=None):
     """The expert (K6) and pairs (K5) kernels of ``fmt`` at each shape, on
     a stack of ``n_experts`` that the format's encoder makes on ``device``:
     the expert kernel on the stack's last expert at each token count, the
-    pairs kernel on the top-``top_k`` ids of P / ``top_k`` tokens (distinct
-    per token, drawn from ``seed``)."""
+    pairs kernel on the first P of the top-``top_k`` ids of ⌈P / top_k⌉
+    tokens (distinct per token, drawn from ``seed``). ``routes``: a list
+    to which each pairs call on the card of a kernel with a decode-GEMV
+    family is appended with its row, for :func:`check_decode_routes`."""
     from vptq_tpu_torch.examples.kernel_bench import flush_buffer
     from vptq_tpu_torch.layers.runtime import (
         linear_exact_weight,
@@ -660,14 +668,18 @@ def phase_moe_kernels(fmt, device, shapes, n_experts=8, tokens=(1, 128, 512),
         for n_pairs in pairs:
             ids = torch.cat([
                 torch.randperm(n_experts, generator=cpu_gen)[:top_k]
-                for _ in range(n_pairs // top_k)
-            ])
+                for _ in range(-(-n_pairs // top_k))
+            ])[:n_pairs]
             distinct = len(set(ids.tolist()))
             ids = ids.to(device=device, dtype=torch.int32)
-            ids64 = ids.to(torch.int64)
             x = torch.randn(
                 (n_pairs, in_p), generator=gen, device=device
             ).to(torch.bfloat16)
+            # the yardstick's operands: the P experts' bf16 slabs gathered
+            # here, outside the timed window, so that one torch.bmm is timed
+            x3 = x[:, None, :]
+            w_pairs = w_bf16.index_select(0, ids.to(torch.int64)).transpose(
+                1, 2)
             rows.append(dict(
                 kernel=p_name, shape=shape, unit="P", T=n_pairs, out=out_f,
                 in_p=in_p, group=group, experts=n_experts, distinct=distinct,
@@ -675,10 +687,7 @@ def phase_moe_kernels(fmt, device, shapes, n_experts=8, tokens=(1, 128, 512),
                     p_name, f"{shape} P={n_pairs}",
                     lambda: p_fn(x, wq, scales, ids),
                     lambda: p_ref(x, wq, scales, ids),
-                    lambda: torch.bmm(
-                        x[:, None, :],
-                        w_bf16.index_select(0, ids64).transpose(1, 2),
-                    ),
+                    lambda: torch.bmm(x3, w_pairs),
                     # each distinct expert's slab counted once, however
                     # many pairs pick it
                     n_pairs * (in_p * 2 + 4 + out_f * 2) + distinct * slab,
@@ -686,6 +695,12 @@ def phase_moe_kernels(fmt, device, shapes, n_experts=8, tokens=(1, 128, 512),
                 ),
             ))
             print(f"{p_name} " + json.dumps(rows[-1]))
+            del x3, w_pairs
+            if (routes is not None and torch.device(device).type == "cuda"
+                    and any(DECODE_KERNEL in t
+                            for t in tag_sets(p_fn.trace_tags))):
+                routes.append((rows[-1], lambda x=x, w=wq, s=scales, i=ids:
+                               p_fn(x, w, s, i)))
         del wq, scales, w_bf16, w_last
     return rows
 
@@ -1188,7 +1203,14 @@ def picks(trace_tags: tuple, kernel_name: str) -> bool:
 
 
 def _kernel_ms(events, tags: dict, what: str, per: int = 1) -> dict:
-    """Device ms of the events whose names hold each kernel's words."""
+    """Device ms of the events whose names hold each kernel's words; an
+    event that two kernels' words pick fails it (each CUDA kernel belongs
+    to one family of one kernel)."""
+    for e in events:
+        owners = [n for n, t in tags.items() if picks(t, e.name)]
+        if len(owners) > 1:
+            raise AssertionError(
+                f"{e.name} in the {what} trace is picked by {owners}")
     out = {
         name: sum(
             e.device_time_total for e in events if picks(trace_tags, e.name)
@@ -1310,9 +1332,9 @@ RECORD_OF = {
 LIBRARY_OF = {
     "_expert": "torch.matmul of bf16 x with the one expert's dequantized "
                "bf16 weight: a yardstick that reads bf16 weights",
-    "_pairs": "torch.bmm of bf16 x over the dequantized bf16 experts "
-              "gathered by the ids (index_select): a yardstick that reads "
-              "bf16 weights",
+    "_pairs": "torch.bmm of bf16 x over the P pairs' dequantized bf16 "
+              "expert slabs, gathered by the ids (index_select) before the "
+              "timed window: a yardstick that reads bf16 weights",
     FLASH: "torch.nn.functional.scaled_dot_product_attention(is_causal=True, "
            "enable_gqa=True) on the same q, k, v",
     BF16: "torch.matmul of the same bf16 x and w",
@@ -1434,14 +1456,25 @@ def main() -> int:
         "w8_matmul", device, k1_shapes(QWEN25_7B), TOKENS, in_record=False,
         routes=routes,
     )
-    check_decode_routes(routes, device)
-    del routes
     rows += phase_bf16(device, k1_shapes(LLAMA31_8B), TOKENS)
     rows += phase_flash(device)
+    # K5b also at one pair and at the pairs of the longest call a MoE
+    # block sends through the pairs kernel (64 tokens' top-2: 128); its
+    # calls must run the decode GEMV
+    from vptq_tpu_torch.models.llama import _MOE_FAST_MAX_TOKENS
+
+    most = MIXTRAL_8X7B["num_experts_per_tok"] * _MOE_FAST_MAX_TOKENS
     for fmt in MOE_KERNELS:
         rows += phase_moe_kernels(
-            fmt, device, moe_shapes(MIXTRAL_8X7B), tokens=TOKENS
+            fmt, device, moe_shapes(MIXTRAL_8X7B), tokens=TOKENS,
+            pairs=(2, 16, 1, most) if fmt == "int4" else (2, 16),
+            routes=routes,
         )
+    # every decode call in one profiler session, the process's first: a
+    # second session, for the eight K5b calls alone, recorded seven
+    # kernels, three times running (alone in a process it records eight)
+    check_decode_routes(routes, device)
+    del routes
     t0 = time.perf_counter()
     rows += phase_probes(device)
     print(f"probe phase: {time.perf_counter() - t0:.2f} s")

@@ -469,6 +469,8 @@ def _ptxas_log(entry: str, spill: int) -> str:
     ("decode:w3_matmul", 0, 8, False),      # K4's decode GEMV spills
     ("decode:w2_matmul", -1, 0, False),     # K3 lost a decode GEMV instance
     ("decode:w2_matmul", 0, 8, False),      # K3's decode GEMV spills
+    ("decode:w4_matmul_pairs", -1, 0, False),  # K5b lost an out type's one
+    ("decode:w4_matmul_pairs", 0, 8, False),   # K5b's decode GEMV spills
     ("decode:w8_matmul_expert", 1, 0, False),  # one where none belongs
 ])
 def test_build_phase_requires_every_tile_instance_spill_free(
@@ -477,8 +479,9 @@ def test_build_phase_requires_every_tile_instance_spill_free(
     """The build phase passes only when each library of the prefill tile
     (K1, K2, K3, K4, K6a, K6b, K7) reports its number of tile instances,
     K8's library its instances of the attention kernel, K1's, K2's and
-    K4's their four instances of the decode GEMV and K3's its eight (two
-    scale groups), each with 0 spill bytes, and
+    K4's their four instances of the decode GEMV, K3's its eight (two
+    scale groups) and K5b's its two (one token a pair, two output types),
+    each with 0 spill bytes, and
     the other libraries none. ``where``: every table of one library, or
     (``decode:<library>``) its decode GEMV alone."""
     def tiles(name, instances, decode=False):
@@ -570,9 +573,9 @@ _GEMV = ("void lowbit::gemv<w4::W4, sel::{sel}, 16, 4, 128, float, "
          "int, int)")
 _BF16_GEMV = ("void bf16mm::bf16_gemv<{t}, float>(__nv_bfloat16 const*, "
               "__nv_bfloat16 const*, float*, int, int, int)")
-_DECODE = ("void dgemv::decode_gemv<{p}, {n}, {g}, {o}, {s}>(__nv_bfloat16 "
-           "const*, lowbit::Planes, lowbit::ScalesOf<{s}>, {o}*, int, int, "
-           "int, int)")
+_DECODE = ("void dgemv::decode_gemv<{p}, sel::{sel}, {n}, {g}, {o}, {s}>("
+           "__nv_bfloat16 const*, lowbit::Planes, lowbit::ScalesOf<{s}>, "
+           "{o}*, int, int, int, int, lowbit::Ids)")
 # K3's and K4's: their policies (anonymous namespace), scale group g
 _ANON = "(anonymous namespace)::W{b}"
 _LOWBIT_GEMV = _GEMV.replace("w4::W4", "{p}").replace(", 4, 128,", ", {g},")
@@ -586,7 +589,8 @@ KERNEL_NAMES = {
     "w8_matmul": [_W8.format(k="gemv", sel="Whole", t="16, "),
                   _W8.format(k="gemm", sel="Whole", t=""),
                   _TILE.format(p="w8::W8", sel="Whole", s="float"),
-                  *(_DECODE.format(p="w8::W8", n=n, g=128, o=o, s="float")
+                  *(_DECODE.format(p="w8::W8", sel="Whole", n=n, g=128, o=o,
+                                   s="float")
                     for n in (1, 2) for o in ("float", "__nv_bfloat16"))],
     "w8_matmul_expert": [_W8.format(k="gemv", sel="Expert", t="16, "),
                          _W8.format(k="gemm", sel="Expert", t=""),
@@ -594,18 +598,22 @@ KERNEL_NAMES = {
     "w8_matmul_pairs": [_W8.format(k="gemv", sel="Pairs", t="1, ")],
     "w4_matmul": [_GEMV.format(sel="Whole"),
                   _TILE.format(p="w4::W4", sel="Whole", s="__nv_bfloat16"),
-                  *(_DECODE.format(p="w4::W4", n=n, g=128, o=o,
+                  *(_DECODE.format(p="w4::W4", sel="Whole", n=n, g=128, o=o,
                                    s="__nv_bfloat16")
                     for n in (1, 2) for o in ("float", "__nv_bfloat16"))],
     "w4_matmul_expert": [
         _GEMV.format(sel="Expert"),
         _TILE.format(p="w4::W4", sel="Expert", s="__nv_bfloat16")],
-    "w4_matmul_pairs": [_GEMV.format(sel="Pairs")],
+    "w4_matmul_pairs": [
+        _GEMV.format(sel="Pairs"),
+        *(_DECODE.format(p="w4::W4", sel="Pairs", n=1, g=128, o=o,
+                         s="__nv_bfloat16")
+          for o in ("float", "__nv_bfloat16"))],
     "w3_matmul": [
         _LOWBIT_GEMV.format(p=_ANON.format(b=3), sel="Whole", g="1, 128"),
         _TILE_G.format(p=_ANON.format(b=3), sel="Whole", g=128,
                        s="__nv_bfloat16"),
-        *(_DECODE.format(p=_ANON.format(b=3), n=n, g=128, o=o,
+        *(_DECODE.format(p=_ANON.format(b=3), sel="Whole", n=n, g=128, o=o,
                          s="__nv_bfloat16")
           for n in (1, 2) for o in ("float", "__nv_bfloat16"))],
     "w2_matmul": [
@@ -613,27 +621,40 @@ KERNEL_NAMES = {
           for g in (64, 128)),
         *(_TILE_G.format(p=_ANON.format(b=2), sel="Whole", g=g,
                          s="__nv_bfloat16") for g in (64, 128)),
-        *(_DECODE.format(p=_ANON.format(b=2), n=n, g=g, o=o,
+        *(_DECODE.format(p=_ANON.format(b=2), sel="Whole", n=n, g=g, o=o,
                          s="__nv_bfloat16")
           for n in (1, 2) for g in (64, 128)
           for o in ("float", "__nv_bfloat16"))],
 }
 
 
-@pytest.mark.parametrize("name", sorted(KERNEL_NAMES))
+@pytest.mark.parametrize("name", [
+    *sorted(KERNEL_NAMES),
+    # one family alone: the decode GEMV's instances of K2 (sel::Whole) and
+    # of K5b (sel::Pairs), the same kernel template with another policy
+    "w4_matmul@decode_gemv", "w4_matmul_pairs@decode_gemv",
+])
 def test_trace_tags_pick_each_kernel_family_and_no_other(name):
     """K1's and K6a's tags pick their GEMV's, their mma.sync tile's and
     their Hopper tile's names, K1's, K2's, K3's and K4's also their decode
     GEMV's (each instance; K3's and K4's at each scale group, whose
-    policies lie in an anonymous namespace), K3's and K4's their
+    policies lie in an anonymous namespace), K5b's its lowbit.cuh GEMV's
+    and its decode GEMV's (sel::Pairs), K3's and K4's their
     lowbit.cuh GEMV's and their tile's, K7's its GEMV's and its SS tile's,
     K8's its kernel's at each head size, and no name of another kernel
     here (K2, K6b, K5a, K5b among them); no other kernel's tags pick
-    theirs."""
+    theirs. ``kernel@family``: that kernel's tags of one family (the set
+    ``check_decode_routes`` takes) pick its own decode GEMV instances and
+    no other name, K2's not K5b's and K5b's not K2's."""
+    name, _, family = name.partition("@")
     tags = chip_smoke.kernel_fns(name)[0].trace_tags
+    if family:
+        tags = tuple(t for t in chip_smoke.tag_sets(tags) if family in t)
+        assert len(tags) == 1, tags
     for kernel, names in KERNEL_NAMES.items():
         for kernel_name in names:
-            assert chip_smoke.picks(tags, kernel_name) == (kernel == name), (
+            mine = kernel == name and (not family or family in kernel_name)
+            assert chip_smoke.picks(tags, kernel_name) == mine, (
                 name, kernel_name)
 
 
@@ -721,6 +742,54 @@ def test_decode_split_of_shapes_off_the_main_paths():
     assert decode_split(28672, 1024, 4, 1, 132, 1, 16) == 1
 
 
+# K5b at Mixtral-8x7B's two expert shapes (out, in_p) and P pairs: the
+# split its plan gives. gate_up (2048 positions, 16 stages) makes 896 row
+# blocks of 32 a pair, split 1 at every P; down (7168 positions, 56
+# stages) makes 128 a pair: one pair needs split 4 (K2's at T = 1), two
+# 2 (256 blocks, below 264), 16 and 128 split 1.
+MIXTRAL_PAIRS = [
+    ((28672, 4096), 1, 1), ((28672, 4096), 2, 1), ((28672, 4096), 16, 1),
+    ((28672, 4096), 128, 1),
+    ((4096, 14336), 1, 4), ((4096, 14336), 2, 2), ((4096, 14336), 16, 1),
+    ((4096, 14336), 128, 1),
+]
+
+
+@pytest.mark.parametrize("shape,pairs,split", MIXTRAL_PAIRS)
+def test_decode_split_of_pairs_counts_every_pair(monkeypatch, shape, pairs,
+                                                 split):
+    """A pairs launch (K5b) runs one token a block and its row blocks once
+    for each pair: the plan counts them all, gives the split above, and
+    makes two blocks or more for each of an H100's 132 SMs with x and the
+    ring in a block, two blocks an SM; the split one size smaller would
+    not make two a SM (without the pairs, down would take 4 at P = 2).
+    K5b's wrapper asks for the same plan from x's P rows."""
+    from vptq_tpu_torch.ops import scaled_matmul
+
+    out_f, in_p = shape
+    parts, planes, scale_bytes = DECODE_FORMATS["w4"]
+    positions = in_p // 2
+    stages = positions // DECODE_STAGE
+    got = decode_split(out_f, positions, parts, 1, 132, planes, scale_bytes,
+                       pairs)
+    assert got == split
+    blocks = decode_blocks(out_f, 1) * pairs
+    assert blocks * split >= 2 * 132
+    assert split == 1 or blocks * (split // 2) < 2 * 132
+    per_block = decode_smem(parts, 1, -(-stages // split), planes,
+                            scale_bytes)
+    assert 2 * (per_block + 1024) <= 228 * 1024
+    monkeypatch.setattr(scaled_matmul, "sm_count", lambda device: 132)
+    x = torch.zeros((pairs, in_p), dtype=torch.bfloat16)
+    assert scaled_matmul.decode_route(out_f, positions, "w4", x,
+                                      pairs=True) == split
+    # the same rows as tokens of one weight: K2's plan
+    if pairs <= 16:
+        assert scaled_matmul.decode_route(out_f, positions, "w4", x) == (
+            decode_split(out_f, positions, parts, pairs, 132, planes,
+                         scale_bytes))
+
+
 @pytest.mark.parametrize("kernel", ["w8_matmul", "w3_matmul"])
 def test_decode_route_sends_few_tokens_on_small_weights_to_the_older_gemv(
         kernel):
@@ -746,20 +815,25 @@ def test_decode_route_sends_few_tokens_on_small_weights_to_the_older_gemv(
 
 def test_check_decode_routes_holds_each_call_to_its_route(monkeypatch):
     """The smoke's route check takes each call's kernel from one trace and
-    passes when K3 and K2 ran the decode GEMV and K1 and K4 the kernel
-    their rule picks (K1 at one token: w8_gemv; K4 at one token on o:
-    lowbit.cuh's GEMV); a call on another route fails it."""
+    passes when K3, K2 and K5b (two pairs) ran the decode GEMV and K1 and
+    K4 the kernel their rule picks (K1 at one token: w8_gemv; K4 at one
+    token on o: lowbit.cuh's GEMV); a call on another route fails it."""
     names = {
-        ("w2_matmul", 16): _DECODE.format(p=_ANON.format(b=2), n=2, g=64,
-                                          o="float", s="__nv_bfloat16"),
-        ("w4_matmul", 1): _DECODE.format(p="w4::W4", n=1, g=128, o="float",
-                                         s="__nv_bfloat16"),
+        ("w2_matmul", 16): _DECODE.format(p=_ANON.format(b=2), sel="Whole",
+                                          n=2, g=64, o="float",
+                                          s="__nv_bfloat16"),
+        ("w4_matmul", 1): _DECODE.format(p="w4::W4", sel="Whole", n=1, g=128,
+                                         o="float", s="__nv_bfloat16"),
+        ("w4_matmul_pairs", 2): _DECODE.format(
+            p="w4::W4", sel="Pairs", n=1, g=128, o="float",
+            s="__nv_bfloat16"),
         ("w8_matmul", 1): _W8.format(k="gemv", sel="Whole", t="1, "),
         ("w3_matmul", 1): _LOWBIT_GEMV.format(p=_ANON.format(b=3),
                                               sel="Whole", g="4, 128"),
     }
     shape = {"w3_matmul": (4096, 4096)}  # o; the others at qkv's
     routes = [(dict(kernel=k, shape="s", T=t, group=128,
+                    unit="P" if k.endswith("_pairs") else "T",
                     out=shape.get(k, (6144, 4096))[0],
                     in_p=shape.get(k, (6144, 4096))[1]), None)
               for k, t in names]
@@ -771,6 +845,119 @@ def test_check_decode_routes_holds_each_call_to_its_route(monkeypatch):
                                  g="1, 64")
     with pytest.raises(AssertionError, match="decode GEMV expected: True"):
         chip_smoke.check_decode_routes(routes, "cuda")
+
+
+@pytest.mark.parametrize("ran", ["lowbit_gemv", "k2_decode_gemv"])
+def test_check_decode_routes_holds_pairs_calls_to_the_decode_gemv(
+        monkeypatch, ran):
+    """K5b's calls must run its own decode GEMV (sel::Pairs): at P = 1, 2,
+    16 and 128 a pairs call that ran lowbit.cuh's GEMV fails the check,
+    and so does one whose name is K2's decode GEMV (sel::Whole)."""
+    pairs = _DECODE.format(p="w4::W4", sel="Pairs", n=1, g=128,
+                           o="__nv_bfloat16", s="__nv_bfloat16")
+    wrong = {"lowbit_gemv": _GEMV.format(sel="Pairs"),
+             "k2_decode_gemv": pairs.replace("sel::Pairs", "sel::Whole")}[ran]
+    routes = [(dict(kernel="w4_matmul_pairs", shape=shape, unit="P", T=n,
+                    group=128, out=out_f, in_p=in_p), None)
+              for shape, out_f, in_p in chip_smoke.moe_shapes(
+                  chip_smoke.MIXTRAL_8X7B)
+              for n in (1, 2, 16, 128)]
+    got = [pairs] * len(routes)
+    monkeypatch.setattr(chip_smoke, "launched_kernels",
+                        lambda calls, device: got)
+    chip_smoke.check_decode_routes(routes, "cuda")
+    got[-1] = wrong
+    with pytest.raises(AssertionError, match="P=128 ran"):
+        chip_smoke.check_decode_routes(routes, "cuda")
+
+
+class _Event:
+    def __init__(self, name, us):
+        self.name, self.device_time_total = name, us
+
+
+def test_decode_breakdown_attributes_each_kernel_to_one_family():
+    """The decode step's device time per kernel: K2's and K5b's decode
+    GEMV instances are summed apart (sel::Whole, sel::Pairs); a name that
+    two kernels' tags pick fails the breakdown rather than count twice."""
+    whole = _DECODE.format(p="w4::W4", sel="Whole", n=1, g=128,
+                           o="__nv_bfloat16", s="__nv_bfloat16")
+    pairs = whole.replace("sel::Whole", "sel::Pairs")
+    events = [_Event(whole, 30.0), _Event(pairs, 110.0), _Event(pairs, 10.0),
+              _Event("void at::native::elementwise_kernel<128, 4>()", 5.0)]
+    tags = {k: chip_smoke.kernel_fns(k)[0].trace_tags
+            for k in ("w4_matmul", "w4_matmul_pairs")}
+    got = chip_smoke._kernel_ms(events, tags, "decode", per=2)
+    assert got == {"w4_matmul": 0.015, "w4_matmul_pairs": 0.06}
+    # tags that would pick both (K2's before it named its selection)
+    tags["w4_matmul"] = (("decode_gemv", "W4"),)
+    with pytest.raises(AssertionError, match="picked by"):
+        chip_smoke._kernel_ms(events, tags, "decode")
+
+
+def test_moe_phase_takes_one_pair_and_routes_only_card_calls():
+    """phase_moe_kernels at P = 1 (one expert) and P = 3 (two tokens'
+    top-2, the first three): the ids are the first P of ⌈P / 2⌉ tokens'
+    picks; on the CPU no call joins the route check."""
+    shapes = [("a", 40, 1024)]
+    routes = []
+    rows = chip_smoke.phase_moe_kernels(
+        "int4", "cpu", shapes, n_experts=4, tokens=(1,), pairs=(1, 3),
+        iters=1, routes=routes)
+    pair_rows = [r for r in rows if r["unit"] == "P"]
+    assert [r["T"] for r in pair_rows] == [1, 3]
+    assert pair_rows[0]["distinct"] == 1
+    assert pair_rows[1]["distinct"] in (2, 3)
+    assert all(r["max_abs_err"] == 0.0 for r in rows)
+    assert routes == []
+
+
+def test_sass_diff_maps_renamed_kernels_onto_their_old_names():
+    """sass_diff's rewrites compare a kernel whose name took the selection
+    policy (and the ids) with the parent's name for it, in the form
+    ``cu++filt`` prints (template parameters numbered in the argument
+    types); a rewrite that gives two kernels one name fails."""
+    from vptq_tpu_torch.examples import sass_diff
+
+    def name(p, sel, n, g, t):
+        sel = f"sel::{sel}, " if sel else ""
+        return (f"void dgemv::decode_gemv<{p}, {sel}(int){n}, (int){g}, "
+                "float, __nv_bfloat16>(const __nv_bfloat16 *, "
+                f"lowbit::Planes, lowbit::ScalesOf<T{t + 1}>, T{t} *, int, "
+                "int, int, int)")
+
+    listing = "".join(
+        f"\tFunction : {mangled}\n"
+        "        /*0000*/                   MOV R1, c[0x0][0x28] ;"
+        "  /* 0x00000a0000017a02 */\n"
+        for mangled in ("_Z1a", "_Z1b", "_Z1c"))
+    funcs = sass_diff.functions(listing, keep_hash=True)
+    assert list(funcs) == ["_Z1a", "_Z1b", "_Z1c"]
+    assert funcs["_Z1a"] == ["MOV R1, c[0x0][0x28]"]
+    new = [name("w4::W4", "Whole", 1, 128, 5),
+           name("<unnamed>::W2", "Whole", 2, 64, 5),
+           name("w4::W4", "Pairs", 1, 128, 5)[:-1] + ", lowbit::Ids)"]
+    demangled = dict(zip(funcs, new))
+    rules = [(r"(decode_gemv<.*?), sel::Whole(,.*ScalesOf<)T6>, T5 \*",
+              r"\1\2T5>, T4 *"),
+             (r"(decode_gemv<.*), lowbit::Ids\)$", r"\1)")]
+    got = sass_diff.rewrite_names(
+        funcs, rules, lambda names: [demangled[n] for n in names])
+    assert list(got) == [name("w4::W4", None, 1, 128, 4),
+                         name("<unnamed>::W2", None, 2, 64, 4),
+                         name("w4::W4", "Pairs", 1, 128, 5)]
+    with pytest.raises(SystemExit, match="two kernels"):
+        sass_diff.rewrite_names(funcs, [(r"sel::\w+, ", "")],
+                                lambda names: [new[0], new[0], new[1]])
+
+
+def test_decode_splits_exits_nonzero_without_a_card(monkeypatch):
+    from vptq_tpu_torch.examples import decode_splits
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit) as exc:
+        decode_splits.main(["--kernels", "w4p"])
+    assert exc.value.code not in (0, None)
 
 
 @pytest.fixture
@@ -1245,6 +1432,89 @@ def test_pairs_kernel_matches_plain_version(cuda, fmt, ids, out_dtype):
     assert fn.launches == before + 1
     assert got.shape == (len(ids), 200) and got.dtype == out_dtype
     _assert_kernel_close(got, want, out_dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("pairs", [1, 2, 16])
+@pytest.mark.parametrize("split", [0, 1, 2, 4, 8])
+def test_pairs_kernel_matches_plain_version_at_every_split(cuda, split,
+                                                           pairs, out_dtype):
+    """K5b at each cluster size its decode GEMV takes (1, 2, 4, 8: in_p
+    2048 is 8 stages of 128 positions a part) and at 0 (lowbit.cuh's
+    GEMV), through the C entry its wrapper calls, on a stack of 5 experts
+    of 200 rows (no multiple of a row block)."""
+    from vptq_tpu_torch.ops.scaled_matmul import launch
+
+    gen = torch.Generator(device=cuda).manual_seed(split * 100 + pairs)
+    _, _, _, ref, wq, scales = _stacked_case("int4", gen, cuda)
+    x = torch.randn((pairs, 2048), generator=gen, device=cuda)
+    ids = torch.tensor([4, 0, 3, 3, 1, 4, 0, 2] * 2, dtype=torch.int32,
+                       device=cuda)[:pairs]
+    got = launch("w4_matmul_pairs", "vptq_w4_matmul_pairs", x, (wq, scales),
+                 (5, split), 200, 2048, out_dtype, ids=ids)
+    want = ref(x, wq, scales, ids, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert got.shape == (pairs, 200) and got.dtype == out_dtype
+    _assert_kernel_close(got, want, out_dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_pairs_kernel_matches_plain_version_on_the_last_of_a_large_stack(
+        cuda, out_dtype):
+    """K5b on a stack of 40 int4 slabs of Mixtral's gate_up (28672 x 4096):
+    the last starts 39 · 58.7 MB = 2.29 GB in, past 2^31 bytes, so its
+    offset must be computed in 64 bits; the pairs pick expert 39, expert 0
+    and 45, past the stack, which reads expert 39."""
+    gen = torch.Generator(device=cuda).manual_seed(40)
+    n_experts, out_f, in_p = 40, 28672, 4096
+    wq = torch.randint(-128, 128, (n_experts, out_f, in_p // 2),
+                       generator=gen, device=cuda, dtype=torch.int8)
+    scales = (torch.rand((n_experts, in_p // 128, out_f), generator=gen,
+                         device=cuda) * 1e-2).to(torch.bfloat16)
+    x = torch.randn((3, in_p), generator=gen, device=cuda)
+    got = w4_matmul_pairs(x, wq, scales, torch.tensor([39, 0, 45],
+                                                      device=cuda),
+                          out_dtype=out_dtype)
+    want = w4_matmul_pairs_reference(
+        x, wq, scales, torch.tensor([39, 0, 39], device=cuda),
+        out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    _assert_kernel_close(got, want, out_dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["int8", "int4"])
+def test_pairs_kernel_clamps_an_id_past_the_stack(cuda, fmt):
+    """An id past the stack (9 of 5) reads the last expert and a negative
+    one the first, bit for bit, at one pair (K5b's decode GEMV at its
+    plan's split) and at 16."""
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    _, _, fn, _, wq, scales = _stacked_case(fmt, gen, cuda)
+    for pairs in (1, 16):
+        x = torch.randn((pairs, 2048), generator=gen, device=cuda)
+        bad = torch.tensor([9, -3] * 8, device=cuda)[:pairs]
+        good = torch.tensor([4, 0] * 8, device=cuda)[:pairs]
+        assert torch.equal(fn(x, wq, scales, bad), fn(x, wq, scales, good))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pairs", [1, 2, 16])
+@pytest.mark.parametrize("fmt", ["int8", "int4"])
+def test_pairs_kernel_takes_fp16(cuda, fmt, pairs):
+    """K5a / K5b on fp16 x with fp16 out, as a model loaded in fp16 calls
+    them: the kernel reads x rounded to bf16 and its f32 sums are rounded
+    once to fp16."""
+    gen = torch.Generator(device=cuda).manual_seed(pairs)
+    _, _, fn, ref, wq, scales = _stacked_case(fmt, gen, cuda)
+    x = torch.randn((pairs, 2048), generator=gen, device=cuda).half()
+    experts = torch.tensor([1, 4, 2, 0] * 4, device=cuda)[:pairs]
+    got = fn(x, wq, scales, experts)
+    want = ref(x, wq, scales, experts)
+    torch.cuda.synchronize()
+    assert got.shape == (pairs, 200) and got.dtype == torch.float16
+    _assert_kernel_close(got, want, torch.float16)
 
 
 @pytest.mark.cuda

@@ -1,10 +1,12 @@
 // The Hopper (sm_90a) decode GEMV of K1 w8_matmul, K2 w4_matmul, K3
-// w2_matmul and K4 w3_matmul on one whole weight at T <= 16 tokens:
-// y = x @ (s ⊙ L)^T over the formats' own byte layouts (w8.cuh, w4.cuh,
-// w2_matmul.cu, w3_matmul.cu), bit for bit. It replaces w8.cuh's w8_gemv
-// and lowbit.cuh's gemv on those routes, and computes what they and the
-// TPU kernels compute (vptq_tpu/ops/pallas_gemm.py _w8_kernel, _w4_kernel,
-// _w2_kernel, _w3_kernel): x is rounded to bf16, every level is exact, the
+// w2_matmul and K4 w3_matmul on one whole weight at T <= 16 tokens
+// (sel::Whole), and of K5b w4_matmul_pairs on a stack of experts, one
+// token a pair (sel::Pairs): y = x @ (s ⊙ L)^T over the formats' own byte
+// layouts (w8.cuh, w4.cuh, w2_matmul.cu, w3_matmul.cu), bit for bit. It
+// replaces w8.cuh's w8_gemv and lowbit.cuh's gemv on those routes, and
+// computes what they and the TPU kernels compute
+// (vptq_tpu/ops/pallas_gemm.py _w8_kernel, _w4_kernel, _w2_kernel,
+// _w3_kernel, _w4p_kernel): x is rounded to bf16, every level is exact, the
 // products of one (row, scale group) are summed in f32, that f32 partial
 // is multiplied by the group's scale (int8: f32; the others: bf16), the
 // scaled partials are summed in f32, and the result is cast once.
@@ -33,11 +35,12 @@
 //    partials into the shared memory of the rank that writes those rows
 //    (distributed shared memory); one cluster barrier later that rank sums
 //    them in rank order: one launch, no atomics, the same bits on every
-//    run. Where a range cuts an int8 scale group (512 to 2048 positions),
-//    each rank keeps that group's unscaled f32 partial apart; the ranks'
-//    partials of the group are summed first and the scale multiplies the
-//    sum. (The other formats' groups, 64 or 128 positions of a part, lie
-//    inside one stage: no range cuts them.)
+//    run. (A pairs launch plans its split over all its pairs' row
+//    blocks: decode_split's `pairs`.) Where a range cuts an int8 scale
+//    group (512 to 2048 positions), each rank keeps that group's unscaled
+//    f32 partial apart; the ranks' partials of the group are summed first
+//    and the scale multiplies the sum. (The other formats' groups, 64 or
+//    128 positions of a part, lie inside one stage: no range cuts them.)
 //  * x is staged once a block, only the block's own positions of every
 //    part (int4: two parts, L apart; int2 four; int3 eight), by cp.async
 //    with an XOR swizzle on its 16-byte chunks that keeps the B-fragment
@@ -70,6 +73,19 @@
 //    group's last stage) before the next part, so that one acc and one
 //    part's x are live at a time: eight parts' x and accumulators at 16
 //    tokens would not fit the registers.
+//
+// A selection policy Sel (expert_select.cuh) says which weight a block
+// reads. sel::Whole: the one weight, a grid of (split, row blocks).
+// sel::Pairs (K5b): a grid of (split, row blocks, P), pair p = blockIdx.z;
+// the block's first load is ids[p] (clamped into the stack), which moves
+// the planes by e·out·row_bytes bytes, the scales by e·out·groups
+// elements (in 64 bits: a stack may pass 2^31 bytes), x and y to row p,
+// before the producer's first copy and before x and the scales are
+// staged; then the block runs one token (T = 1, N = 8: the padding
+// columns read token 0 and are never stored). Pairs that pick one expert
+// each read its slab, as the TPU kernel does.
+// The policy's name is part of every instance's demangled name, so a
+// trace tells K2's decode GEMV from K5b's.
 //
 // A format policy P gives kPlanes, kParts and the tile hooks (w8::W8,
 // w4::W4, w2_matmul.cu W2, w3_matmul.cu W3). The weight comes as a
@@ -224,12 +240,14 @@ __device__ __forceinline__ uint32_t level_pair(
 // NT: 8-token tiles of N (1: T <= 8, 2: T <= 16); G: the scale group of a
 // part of several (64 or 128 positions). x: (T, kParts·L) bf16; pl: the
 // planes, each (out, L) bytes at its row stride and offset; sc: the scales;
-// gs: the stages of one scale group of one part (1 for several parts).
-template <class P, int NT, int G, typename OutT, typename ST>
+// gs: the stages of one scale group of one part (1 for several parts);
+// ids: with sel::Pairs, the expert of each row of x (P rows, T = 1), whose
+// slabs lie in the stacks pl and sc point to (unread for sel::Whole).
+template <class P, class Sel, int NT, int G, typename OutT, typename ST>
 __global__ void __launch_bounds__(Block<NT>::kThreads, kMinBlocks<P, NT>)
     decode_gemv(const __nv_bfloat16* __restrict__ x, lowbit::Planes pl,
                 lowbit::ScalesOf<ST> sc, OutT* __restrict__ y, int T, int out,
-                int L, int gs) {
+                int L, int gs, lowbit::Ids ids) {
   constexpr int kPlanes = P::kPlanes;
   constexpr int kParts = P::kParts;
   constexpr int kRing = kRingOf<P>;
@@ -242,6 +260,22 @@ __global__ void __launch_bounds__(Block<NT>::kThreads, kMinBlocks<P, NT>)
                             : G == 64 || G == 128,
                 "one plane and group 128 for one or two parts; group 64 or "
                 "128 for more");
+  static_assert(!Sel::kIds || Sel::kPairs,
+                "one whole weight, or one expert for each pair");
+  if constexpr (Sel::kPairs) {
+    // pair p's expert, the block's first load; everything after it reads
+    // that expert's slab and row p of x and y
+    const int p = sel::pair_of<Sel, 2>();
+    const size_t e = sel::expert_of(ids.ids, ids.n_experts, p);
+#pragma unroll
+    for (int q = 0; q < kPlanes; ++q)
+      pl.base[q] += e * (size_t)out * (size_t)pl.row_bytes[q];
+    const size_t groups =
+        kParts > 1 ? (size_t)kParts * (L / G) : (size_t)(L / kStage / gs);
+    sc.s += e * (size_t)out * groups;
+    x += (size_t)p * kParts * L;
+    y += (size_t)p * out;
+  }
   extern __shared__ __align__(16) unsigned char dg_smem[];
   unsigned char* sm = dg_smem + ((128 - (smem_u32(dg_smem) & 127)) & 127);
   const uint32_t full = smem_u32(sm), empty = full + 8 * kRing;
@@ -607,13 +641,15 @@ __global__ void __launch_bounds__(Block<NT>::kThreads, kMinBlocks<P, NT>)
   }
 }
 
-// One launch on a cluster of `split` blocks along x and one row block of
-// Block<NT> along y for each kRows rows of out; the kernel's limit of
-// dynamic shared memory is raised once per device (at most 64).
-template <class P, int NT, int G, typename OutT, typename ST>
+// One launch on a cluster of `split` blocks along x, one row block of
+// Block<NT> along y for each kRows rows of out and one pair along z (1 for
+// sel::Whole); the kernel's limit of dynamic shared memory is raised once
+// per device (at most 64).
+template <class P, class Sel, int NT, int G, typename OutT, typename ST>
 cudaError_t launch_n(const __nv_bfloat16* x, const lowbit::Planes& pl,
                      const lowbit::ScalesOf<ST>& sc, OutT* y, int T, int out,
-                     int L, int gs, int split, cudaStream_t stream) {
+                     int L, int gs, int split, const lowbit::Ids& ids,
+                     int pairs, cudaStream_t stream) {
   using B = Block<NT>;
   static std::atomic<uint64_t> done{0};
   const int n = L / kStage;
@@ -621,9 +657,9 @@ cudaError_t launch_n(const __nv_bfloat16* x, const lowbit::Planes& pl,
       kRingOf<P>, B::kRows, P::kPlanes, P::kParts,
       P::kParts * kFoldsOf<P, G> * (int)sizeof(ST), T,
       (n + split - 1) / split);
-  if (smem > (size_t)kMaxSmem || out > 65535 * B::kRows)
+  if (smem > (size_t)kMaxSmem || out > 65535 * B::kRows || pairs > 65535)
     return cudaErrorInvalidValue;
-  auto kernel = decode_gemv<P, NT, G, OutT, ST>;
+  auto kernel = decode_gemv<P, Sel, NT, G, OutT, ST>;
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
@@ -636,7 +672,7 @@ cudaError_t launch_n(const __nv_bfloat16* x, const lowbit::Planes& pl,
     done.fetch_or(bit, std::memory_order_relaxed);
   }
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(split, (out + B::kRows - 1) / B::kRows);
+  cfg.gridDim = dim3(split, (out + B::kRows - 1) / B::kRows, pairs);
   cfg.blockDim = dim3(B::kThreads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
@@ -648,7 +684,7 @@ cudaError_t launch_n(const __nv_bfloat16* x, const lowbit::Planes& pl,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   const cudaError_t l =
-      cudaLaunchKernelEx(&cfg, kernel, x, pl, sc, y, T, out, L, gs);
+      cudaLaunchKernelEx(&cfg, kernel, x, pl, sc, y, T, out, L, gs, ids);
   return l != cudaSuccess ? l : cudaGetLastError();
 }
 
@@ -658,22 +694,35 @@ cudaError_t launch_n(const __nv_bfloat16* x, const lowbit::Planes& pl,
 // several (K3: 64 or 128 positions; K4: 128); gs: the stages of one scale
 // group of one part (K1: its group / 128, which must divide L / 128; 1
 // for several parts). split: the cluster's blocks (1, 2, 4 or 8, at most
-// L / 128). Returns the CUDA error of the launch (cudaErrorInvalidValue
-// for what it does not take).
-template <class P, int G = 128, typename OutT, typename ST>
+// L / 128). Sel: sel::Whole (pl and sc one weight, ids unread, pairs 1) or
+// sel::Pairs (pl and sc stacks of ids.n_experts slabs, `pairs` rows of x
+// of one token each, T = 1; the split planned for all pairs' blocks).
+// Returns the CUDA error of the launch (cudaErrorInvalidValue for what it
+// does not take).
+template <class P, class Sel, int G = 128, typename OutT, typename ST>
 cudaError_t launch(const __nv_bfloat16* x, const lowbit::Planes& pl,
                    const lowbit::ScalesOf<ST>& sc, OutT* y, int T, int out,
-                   int L, int gs, int split, cudaStream_t stream) {
+                   int L, int gs, int split, cudaStream_t stream,
+                   const lowbit::Ids& ids = lowbit::Ids{nullptr, 0},
+                   int pairs = 1) {
   const int n = L / kStage;
   if (T < 1 || T > 16 || out < 1 || L % kStage || gs < 1 || n % gs ||
       (P::kParts > 1 && gs != 1) || split < 1 || split > kMaxSplit ||
       (split & (split - 1)) || split > n)
     return cudaErrorInvalidValue;
-  if (T <= 8)
-    return launch_n<P, 1, G, OutT, ST>(x, pl, sc, y, T, out, L, gs, split,
-                                       stream);
-  return launch_n<P, 2, G, OutT, ST>(x, pl, sc, y, T, out, L, gs, split,
-                                     stream);
+  if constexpr (Sel::kPairs) {
+    if (T != 1 || pairs < 1 || ids.ids == nullptr || ids.n_experts < 1)
+      return cudaErrorInvalidValue;
+    return launch_n<P, Sel, 1, G, OutT, ST>(x, pl, sc, y, 1, out, L, gs,
+                                            split, ids, pairs, stream);
+  } else {
+    if (pairs != 1) return cudaErrorInvalidValue;
+    if (T <= 8)
+      return launch_n<P, Sel, 1, G, OutT, ST>(x, pl, sc, y, T, out, L, gs,
+                                              split, ids, 1, stream);
+    return launch_n<P, Sel, 2, G, OutT, ST>(x, pl, sc, y, T, out, L, gs,
+                                            split, ids, 1, stream);
+  }
 }
 
 }  // namespace dgemv

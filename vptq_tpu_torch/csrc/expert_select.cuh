@@ -32,17 +32,21 @@ struct Expert {
   static constexpr bool kPairs = false;
 };
 
-// K5: blockIdx.y is a pair p; row p of x goes through expert ids[p]
-// into row p of y. Each pair runs the T = 1 GEMV.
+// K5: a grid axis is a pair p; row p of x goes through expert ids[p]
+// into row p of y. Each pair runs one token's GEMV.
 struct Pairs {
   static constexpr bool kIds = true;
   static constexpr bool kPairs = true;
 };
 
-// The pair this block serves (0 unless the launch is a pairs launch).
-template <class S>
+// The pair this block serves (0 unless the launch is a pairs launch): the
+// grid's y axis for the GEMVs of lowbit.cuh and w8.cuh (a grid of (row
+// tiles, pairs)), z for decode_gemv.cuh's (a grid of (cluster, row
+// blocks, pairs)).
+template <class S, int kAxis = 1>
 __device__ __forceinline__ int pair_of() {
-  return S::kPairs ? (int)blockIdx.y : 0;
+  static_assert(kAxis == 1 || kAxis == 2, "pairs lie along y or z");
+  return S::kPairs ? (int)(kAxis == 2 ? blockIdx.z : blockIdx.y) : 0;
 }
 
 // The expert of pair p, clamped into the stack so that a bad id cannot

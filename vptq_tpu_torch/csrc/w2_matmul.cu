@@ -99,10 +99,10 @@ extern "C" int vptq_w2_matmul(const void* x, const void* wq,
       auto* yo = static_cast<OutT*>(y);
       const auto s = static_cast<cudaStream_t>(stream);
       return group == 64
-                 ? dgemv::launch<W2, 64>(xb, pl, sc, yo, T, out, L, 1, split,
-                                         s)
-                 : dgemv::launch<W2, 128>(xb, pl, sc, yo, T, out, L, 1,
-                                          split, s);
+                 ? dgemv::launch<W2, sel::Whole, 64>(xb, pl, sc, yo, T, out,
+                                                     L, 1, split, s)
+                 : dgemv::launch<W2, sel::Whole, 128>(xb, pl, sc, yo, T, out,
+                                                      L, 1, split, s);
     });
   if (group == 64)
     return lowbit::tile::launch<W2, 64>(x, pl, sc, y, T, out, in_p,

@@ -86,9 +86,10 @@ extern "C" int vptq_w3_matmul(const void* x, const void* wq2,
   if (T <= lowbit::tile::kDecodeMax && split > 0)
     return lowbit::with_out_type(out_dtype, [&](auto* tag) {
       using OutT = std::remove_pointer_t<decltype(tag)>;
-      return dgemv::launch<W3>(static_cast<const __nv_bfloat16*>(x), pl, sc,
-                               static_cast<OutT*>(y), T, out, L, 1, split,
-                               static_cast<cudaStream_t>(stream));
+      return dgemv::launch<W3, sel::Whole>(
+          static_cast<const __nv_bfloat16*>(x), pl, sc,
+          static_cast<OutT*>(y), T, out, L, 1, split,
+          static_cast<cudaStream_t>(stream));
     });
   return lowbit::tile::launch<W3>(x, pl, sc, y, T, out, in_p, out_dtype,
                                   stream);

@@ -64,10 +64,12 @@ inline lowbit::Scales scales_of(const void* scales, int out) {
 // Returns the CUDA error of the launch (0 on success). Requires
 // in_p % 256 == 0, 16-byte aligned x and wq, all tensors contiguous on
 // the current device; with ids, n_experts slabs in wq and scales. The
-// whole weight (K2) runs the Hopper decode GEMV of decode_gemv.cuh up to
-// 16 tokens (split: its cluster size, ops/scaled_matmul.py decode_split;
-// 0: lowbit::gemv) and one expert (K6b) lowbit::gemv; both run the Hopper
-// tile of lowbit_tile.cuh past 16 tokens; pairs (K5b) run the T = 1 gemv.
+// whole weight (K2) up to 16 tokens and the T pairs (K5b) of one token
+// each run the Hopper decode GEMV of decode_gemv.cuh (split: its cluster
+// size, ops/scaled_matmul.py decode_split, which counts the pairs' blocks;
+// 0: lowbit::gemv, pairs at T = 1); one expert (K6b) runs lowbit::gemv;
+// the whole weight and one expert run the Hopper tile of lowbit_tile.cuh
+// past 16 tokens.
 template <class Sel>
 int launch(const void* x, const void* wq, const void* scales, const void* ids,
            void* y, int T, int out, int in_p, int n_experts, int out_dtype,
@@ -77,16 +79,24 @@ int launch(const void* x, const void* wq, const void* scales, const void* ids,
     if (T <= lowbit::tile::kDecodeMax && split > 0)
       return lowbit::with_out_type(out_dtype, [&](auto* tag) {
         using OutT = std::remove_pointer_t<decltype(tag)>;
-        return dgemv::launch<W4>(
+        return dgemv::launch<W4, Sel>(
             static_cast<const __nv_bfloat16*>(x), planes(wq, in_p),
             scales_of(scales, out), static_cast<OutT*>(y), T, out, in_p / 2,
             1, split, static_cast<cudaStream_t>(stream));
       });
-  if constexpr (Sel::kPairs)
+  if constexpr (Sel::kPairs) {
+    if (split > 0)
+      return lowbit::with_out_type(out_dtype, [&](auto* tag) {
+        using OutT = std::remove_pointer_t<decltype(tag)>;
+        return dgemv::launch<W4, Sel>(
+            static_cast<const __nv_bfloat16*>(x), planes(wq, in_p),
+            scales_of(scales, out), static_cast<OutT*>(y), 1, out, in_p / 2,
+            1, split, static_cast<cudaStream_t>(stream), sel_ids, T);
+      });
     return lowbit::launch<W4, 128, Sel>(x, planes(wq, in_p),
                                         scales_of(scales, out), y, T, out,
                                         in_p, out_dtype, stream, sel_ids);
-  else
+  } else
     return lowbit::tile::launch<W4, 128, Sel>(
         x, planes(wq, in_p), scales_of(scales, out), y, T, out, in_p,
         out_dtype, stream, sel_ids);

@@ -464,7 +464,7 @@ cudaError_t launch_typed(const Args& a, void* y, cudaStream_t stream) {
     // and a planned split takes the Hopper decode GEMV up to 16 tokens
     if constexpr (std::is_same_v<Sel, sel::Whole>)
       if (T <= 16 && a.group % dgemv::kStage == 0 && a.split > 0)
-        return dgemv::launch<W8>(
+        return dgemv::launch<W8, sel::Whole>(
             a.x,
             lowbit::Planes{{reinterpret_cast<const uint8_t*>(a.wq)},
                            {a.in_p},

@@ -8,10 +8,23 @@ One line per library: kernels equal, kernels that differ, and kernels in
 one tree only; then the names of those that differ or are new.
 
     python -m vptq_tpu_torch.examples.sass_diff \\
-        --tree P=build/tree/parent --tree C=. [--out DIR]
+        --tree P=build/tree/parent --tree C=. [--out DIR] \\
+        [--rewrite 'PATTERN=>REPLACEMENT' ...]
 
-Needs ``nvcc`` and ``cuobjdump`` (``CUDA_HOME``, default ``/usr/local/cuda``);
-exits non-zero without them. ``--out`` keeps each tree's listing.
+``--rewrite`` compares kernels whose name changed: each is a regular
+expression applied to every kernel's demangled name (``cu++filt``) in
+both trees, in the order given, before the names are matched; a rewrite
+that gives two kernels of one tree one name fails. For example the
+selection policy that the decode GEMV took as its second template
+argument (``cu++filt`` numbers the template parameters in the argument
+types, which then move by one), and the ids it took last:
+
+    --rewrite '(decode_gemv<.*?), sel::Whole(,.*ScalesOf<)T6>, T5 \\*=>\\1\\2T5>, T4 *' \\
+    --rewrite '(decode_gemv<.*), lowbit::Ids\\)$=>\\1)'
+
+Needs ``nvcc`` and ``cuobjdump`` (``CUDA_HOME``, default ``/usr/local/cuda``),
+and ``cu++filt`` for ``--rewrite``; exits non-zero without them. ``--out``
+keeps each tree's listing.
 """
 
 from __future__ import annotations
@@ -24,31 +37,65 @@ import subprocess
 import sys
 from pathlib import Path
 
-__all__ = ["functions", "main"]
+__all__ = ["functions", "main", "rewrite_names"]
 
 _BUILD = ("from vptq_tpu_torch.ops import _build; "
           "_build.build(); print(' '.join(_build.SOURCES))")
+# nvcc names an anonymous namespace after the file and a hash
+_ANON_HASH = r"_GLOBAL__N__\w+?_cu_[0-9a-f]+"
 
 
-def _cuobjdump() -> str:
+def _tool(name: str) -> str:
     home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
-    cand = Path(home) / "bin" / "cuobjdump"
-    found = str(cand) if cand.exists() else shutil.which("cuobjdump")
+    cand = Path(home) / "bin" / name
+    found = str(cand) if cand.exists() else shutil.which(name)
     if not found:
-        raise SystemExit("cuobjdump not found (set CUDA_HOME)")
+        raise SystemExit(f"{name} not found (set CUDA_HOME)")
     return found
 
 
-def functions(listing: str) -> dict:
+def _demangle(names: list) -> list:
+    """The demangled names (``cu++filt``), in order."""
+    if not names:
+        return []
+    run = subprocess.run([_tool("cu++filt")], input="\n".join(names) + "\n",
+                         capture_output=True, text=True, check=True)
+    out = run.stdout.splitlines()
+    if len(out) != len(names):
+        raise SystemExit("cu++filt gave a name count that differs")
+    return out
+
+
+def rewrite_names(funcs: dict, rules: list, demangle=_demangle) -> dict:
+    """``funcs`` ({mangled kernel name: instructions}, as
+    ``functions(listing, keep_hash=True)`` gives them) keyed by each
+    demangled name, an anonymous namespace's hash left out, after the
+    ``(pattern, replacement)`` regular expressions ``rules``, in order.
+    Two kernels that come to one name fail: they could not be told
+    apart."""
+    out = {}
+    for name, demangled in zip(funcs, demangle(list(funcs))):
+        demangled = re.sub(_ANON_HASH, "(anonymous namespace)", demangled)
+        for pattern, repl in rules:
+            demangled = re.sub(pattern, repl, demangled)
+        if demangled in out:
+            raise SystemExit(f"--rewrite gives two kernels the name "
+                             f"{demangled}")
+        out[demangled] = funcs[name]
+    return out
+
+
+def functions(listing: str, keep_hash: bool = False) -> dict:
     """{kernel name: its instructions} of one ``cuobjdump -sass`` listing;
-    a name's anonymous-namespace hash is left out."""
+    a name's anonymous-namespace hash is left out unless ``keep_hash``
+    (which keeps the mangled name whole, for the demangler)."""
     out, name = {}, None
     for line in listing.splitlines():
         m = re.match(r"\s*Function : (\S+)", line)
         if m:
-            # nvcc names an anonymous namespace after the file and a hash
-            name = re.sub(r"_GLOBAL__N__\w+?_cu_[0-9a-f]+", "_GLOBAL__N__",
-                          m.group(1))
+            name = m.group(1)
+            if not keep_hash:
+                name = re.sub(_ANON_HASH, "_GLOBAL__N__", name)
             out[name] = []
             continue
         m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(.*?)\s*;?\s*/\*", line)
@@ -62,11 +109,16 @@ def main(argv=None) -> None:
     parser.add_argument("--tree", action="append", required=True,
                         metavar="LABEL=DIR")
     parser.add_argument("--out", default="")
+    parser.add_argument("--rewrite", action="append", default=[],
+                        metavar="PATTERN=>REPLACEMENT")
     args = parser.parse_args(argv)
     trees = dict(t.split("=", 1) for t in args.tree)
     if len(trees) != 2:
         raise SystemExit("give two trees")
-    tool = _cuobjdump()
+    rules = [tuple(r.split("=>", 1)) for r in args.rewrite]
+    if any(len(r) != 2 for r in rules):
+        raise SystemExit("a --rewrite is PATTERN=>REPLACEMENT")
+    tool = _tool("cuobjdump")
     sass = {}
     for label, root in trees.items():
         run = subprocess.run([sys.executable, "-c", _BUILD], cwd=root,
@@ -82,7 +134,9 @@ def main(argv=None) -> None:
             if args.out:
                 Path(args.out).mkdir(parents=True, exist_ok=True)
                 (Path(args.out) / f"{label}_{name}.sass").write_text(listing)
-            sass[label][name] = functions(listing)
+            funcs = functions(listing, keep_hash=bool(rules))
+            sass[label][name] = (rewrite_names(funcs, rules) if rules
+                                 else funcs)
     a, b = trees
     for name in sorted(set(sass[a]) | set(sass[b])):
         fa, fb = sass[a].get(name, {}), sass[b].get(name, {})

@@ -31,10 +31,10 @@ __all__ = [
     "sm_count",
 ]
 
-# The Hopper decode GEMV of K1–K4 (csrc/decode_gemv.cuh) at T <= 16: a
-# block owns 32 rows (up to 8 tokens) or 64 (up to 16) and a range of
-# DECODE_STAGE-position stages; a cluster of DECODE_SPLITS[i] blocks splits
-# the positions of a row.
+# The Hopper decode GEMV of K1–K4 (csrc/decode_gemv.cuh) at T <= 16, and
+# of K5b on its pairs of one token each: a block owns 32 rows (up to 8
+# tokens) or 64 (up to 16) and a range of DECODE_STAGE-position stages; a
+# cluster of DECODE_SPLITS[i] blocks splits the positions of a row.
 DECODE_STAGE = 128
 DECODE_SPLITS = (1, 2, 4, 8)
 _BLOCK_SMEM = 232448  # one block's limit on an H100
@@ -76,18 +76,21 @@ def decode_smem(parts: int, tokens: int, stages: int, planes: int = 1,
 
 @functools.lru_cache(maxsize=None)
 def decode_split(out_f: int, positions: int, parts: int, tokens: int,
-                 n_sm: int, planes: int = 1, scale_bytes: int = 4) -> int:
+                 n_sm: int, planes: int = 1, scale_bytes: int = 4,
+                 pairs: int = 1) -> int:
     """The cluster size of the decode GEMV: how many blocks split the
     ``positions`` (whole stages; int8 in_p, int4 in_p / 2, int2 in_p / 4,
     int3 in_p / 8) of each row block at ``tokens`` <= 16, for a card of
     ``n_sm`` SMs; ``planes`` and ``scale_bytes`` as for
-    :func:`decode_smem` (:data:`DECODE_FORMATS`).
+    :func:`decode_smem` (:data:`DECODE_FORMATS`). ``pairs``: the row
+    blocks are launched that many times (K5b: one token a pair, each pair
+    its expert's row blocks).
 
-    The smallest of 1, 2, 4, 8 that makes two blocks or more for each SM
-    and whose x fits a block, and up to 8 tokens two blocks an SM's shared
-    memory; failing that, the largest that fits (most blocks, least x
-    each). 0, so that the older GEMV runs, where the positions are no whole
-    stages or no split fits x into a block."""
+    The smallest of 1, 2, 4, 8 that makes two blocks or more for each SM,
+    counting every pair's, and whose x fits a block, and up to 8 tokens
+    two blocks an SM's shared memory; failing that, the largest that fits
+    (most blocks, least x each). 0, so that the older GEMV runs, where the
+    positions are no whole stages or no split fits x into a block."""
     stages = positions // DECODE_STAGE
     if positions % DECODE_STAGE or not 1 <= tokens <= 16:
         return 0
@@ -97,23 +100,25 @@ def decode_split(out_f: int, positions: int, parts: int, tokens: int,
     fits = [s for s, b in smem.items() if b <= _BLOCK_SMEM]
     for s in fits:
         pair = 2 * (smem[s] + _BLOCK_RESERVED) <= _SM_SMEM
-        if (decode_blocks(out_f, tokens) * s >= 2 * n_sm
+        if (decode_blocks(out_f, tokens) * pairs * s >= 2 * n_sm
                 and (tokens > 8 or pair)):
             return s
     return fits[-1] if fits else 0
 
 
-def decode_route(out_f: int, positions: int, fmt: str,
-                 x: torch.Tensor) -> int:
+def decode_route(out_f: int, positions: int, fmt: str, x: torch.Tensor,
+                 pairs: bool = False) -> int:
     """The split a K1–K4 launch passes its kernel: decode_split's for x of
     1 to 16 tokens in format ``fmt`` (a key of :data:`DECODE_FORMATS`),
-    else 0."""
+    else 0. ``pairs``: x's rows are a pairs launch's (K5b), one token
+    each, all of them counted."""
     parts, planes, scale_bytes = DECODE_FORMATS[fmt]
-    tokens = x.numel() // positions // parts if positions else 0
-    if not 1 <= tokens <= 16:
+    rows = x.numel() // positions // parts if positions else 0
+    tokens, n_pairs = (1, rows) if pairs else (rows, 1)
+    if not 1 <= tokens <= 16 or n_pairs < 1:
         return 0
     return decode_split(out_f, positions, parts, tokens, sm_count(x.device),
-                        planes, scale_bytes)
+                        planes, scale_bytes, n_pairs)
 
 
 @functools.lru_cache(maxsize=None)

@@ -103,6 +103,6 @@ w2_matmul.launches = 0
 w2_matmul.replaces = "vptq_tpu/ops/pallas_gemm.py:986"
 # words of the demangled names of its CUDA kernels that pick them out of a
 # trace, one set per family: lowbit.cuh's GEMV and lowbit_tile.cuh's
-# prefill tile, and the decode GEMV (decode_gemv.cuh), each with the
-# policy W2 of csrc/w2_matmul.cu
-w2_matmul.trace_tags = (("lowbit", "W2"), ("decode_gemv", "W2"))
+# prefill tile, and the decode GEMV (decode_gemv.cuh, with sel::Whole),
+# each with the policy W2 of csrc/w2_matmul.cu
+w2_matmul.trace_tags = (("lowbit", "W2"), ("decode_gemv", "W2", "Whole"))

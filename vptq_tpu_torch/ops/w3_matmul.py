@@ -112,6 +112,6 @@ w3_matmul.launches = 0
 w3_matmul.replaces = "vptq_tpu/ops/pallas_gemm.py:1218"
 # words of the demangled names of its CUDA kernels that pick them out of a
 # trace, one set per family: lowbit.cuh's GEMV and lowbit_tile.cuh's tile,
-# and the decode GEMV (decode_gemv.cuh), each with the policy W3 of
-# csrc/w3_matmul.cu
-w3_matmul.trace_tags = (("lowbit", "W3"), ("decode_gemv", "W3"))
+# and the decode GEMV (decode_gemv.cuh, with sel::Whole), each with the
+# policy W3 of csrc/w3_matmul.cu
+w3_matmul.trace_tags = (("lowbit", "W3"), ("decode_gemv", "W3", "Whole"))

@@ -90,6 +90,8 @@ w4_matmul.launches = 0
 w4_matmul.replaces = "vptq_tpu/ops/pallas_gemm.py:445"
 # words of the demangled names of its CUDA kernels that pick them out of a
 # trace, one set per family: lowbit.cuh's GEMV and lowbit_tile.cuh's
-# prefill tile, with the policy W4 of csrc/w4.cuh and sel::Whole, and the
-# decode GEMV (decode_gemv.cuh, one whole weight) with the policy W4
-w4_matmul.trace_tags = (("lowbit", "W4", "Whole"), ("decode_gemv", "W4"))
+# prefill tile, and the decode GEMV (decode_gemv.cuh), each with the
+# policy W4 of csrc/w4.cuh and sel::Whole (K5b's pairs run the same
+# kernels with sel::Pairs)
+w4_matmul.trace_tags = (("lowbit", "W4", "Whole"),
+                        ("decode_gemv", "W4", "Whole"))

@@ -5,8 +5,9 @@ Port of ``vptq_tpu/ops/pallas_gemm.py:766-902`` (``_w4p_kernel``, entry
 unpack_int4(wq[e_p]))ᵀ`` for all (token, expert) pairs of a MoE decode
 step in one launch. The ids are an int32 tensor that stays on the
 device; the hand-written CUDA kernel
-(``vptq_tpu_torch/csrc/w4_matmul_pairs.cu``) reads ``ids[p]`` in the
-block that serves pair p.
+(``vptq_tpu_torch/csrc/w4_matmul_pairs.cu``: K2's Hopper decode GEMV of
+``csrc/decode_gemv.cuh`` with the selection ``sel::Pairs``) reads
+``ids[p]`` in the blocks that serve pair p.
 
 :func:`w4_matmul_pairs` launches the kernel for CUDA tensors and runs
 the plain version :func:`w4_matmul_pairs_reference` only for tensors
@@ -17,7 +18,7 @@ from __future__ import annotations
 
 import torch
 
-from vptq_tpu_torch.ops.scaled_matmul import check_pairs, launch
+from vptq_tpu_torch.ops.scaled_matmul import check_pairs, decode_route, launch
 from vptq_tpu_torch.ops.w4_matmul_expert import (
     check_stacked,
     w4_matmul_expert_reference,
@@ -63,9 +64,12 @@ def w4_matmul_pairs(
     check_pairs(x, experts)
     if x.device.type == "cpu":
         return w4_matmul_pairs_reference(x, wq, scales, experts, out_dtype)
+    # the decode GEMV's cluster size, planned for all P pairs' row blocks;
+    # 0 sends a width whose x fits no block to lowbit.cuh's GEMV
+    split = decode_route(out_f, in_p // 2, "w4", x, pairs=True)
     y = launch(
         "w4_matmul_pairs", "vptq_w4_matmul_pairs", x, (wq, scales),
-        (n_experts,), out_f, in_p, out_dtype,
+        (n_experts, split), out_f, in_p, out_dtype,
         ids=experts.to(torch.int32).contiguous(),
     )
     w4_matmul_pairs.launches += 1
@@ -75,6 +79,8 @@ def w4_matmul_pairs(
 w4_matmul_pairs.launches = 0
 # the TPU kernel this one replaces
 w4_matmul_pairs.replaces = "vptq_tpu/ops/pallas_gemm.py:766"
-# words of the demangled names of its CUDA kernels (lowbit.cuh's, with
-# the policies W4 and sel::Pairs) that pick them out of a trace
-w4_matmul_pairs.trace_tags = ("lowbit", "W4", "Pairs")
+# words of the demangled names of its CUDA kernels that pick them out of a
+# trace, one set per family: lowbit.cuh's GEMV and the decode GEMV
+# (decode_gemv.cuh), each with the policies W4 and sel::Pairs
+w4_matmul_pairs.trace_tags = (("lowbit", "W4", "Pairs"),
+                              ("decode_gemv", "W4", "Pairs"))

@@ -120,8 +120,9 @@ w8_matmul.launches = 0
 w8_matmul.replaces = "vptq_tpu/ops/pallas_gemm.py:58"
 # words of the demangled names of its CUDA kernels that pick them out of a
 # trace, one set per family: w8.cuh's w8_gemv and w8_gemm and the prefill
-# tile (lowbit_tile.cuh) with the policy W8, each with sel::Whole, and the
-# decode GEMV (decode_gemv.cuh, one whole weight) with the policy W8
+# tile (lowbit_tile.cuh) with the policy W8, and the decode GEMV
+# (decode_gemv.cuh) with the policy W8, each with sel::Whole
 w8_matmul.trace_tags = (
-    ("w8_gem", "Whole"), ("wg_tile", "W8", "Whole"), ("decode_gemv", "W8"),
+    ("w8_gem", "Whole"), ("wg_tile", "W8", "Whole"),
+    ("decode_gemv", "W8", "Whole"),
 )
