@@ -68,15 +68,24 @@ without them, or when any phase fails. Phases:
    written once by the port's own writer, loaded by
    ``AutoModelForCausalLM.from_pretrained(runtime_format=...)`` on cuda;
    four greedy requests of 16, 128, 512 and 1536 prompt tokens and 32
-   new tokens each, with every kernel's launch count set to 0 before and
-   checked after (the format's kernel 4 per layer per forward call; K8
-   once per layer for the 1536-token prompt, whose fresh 2048-token chunk
-   it serves, and 0 for the shorter prompts; the others 0), finite
+   new tokens each, every decode chunk through the generator's CUDA
+   graphs (one per live 256-position block count, captured at first use
+   and replayed), with every kernel's launch count set to 0 before and
+   checked after, replays included (the format's kernel 4 per layer per
+   forward call; K8 once per layer for the 1536-token prompt, whose fresh
+   2048-token chunk it serves, and 0 for the shorter prompts; the others
+   0); the first request's tokens against the eager plain loop
+   (``decode_loop``), and 12 steps from 250 cached tokens (across the
+   first block boundary) through the graphs and through ``decode_loop``,
+   greedy and sampled: tokens identical, logits bit for bit; finite
    logits, and the first prompt's prefill logits held against the same
    model run through the plain version (in int8 the long prompt's too,
-   K8 swapped for its plain version with K1); then one decode step's
-   wall time against the device time of its kernels (``torch.profiler``),
-   and the same for the long prompt's prefill;
+   K8 swapped for its plain version with K1); then one eager decode
+   step's wall time against the device time of its kernels
+   (``torch.profiler``), and the same for a replayed graph step (kernels
+   per step, the route of every decode kernel in the trace, no
+   device-to-host copy in the chunk, capture seconds, the graphs' pool),
+   and for the long prompt's prefill;
 6. end to end in int8 and in int4 on one synthetic checkpoint of
    Mixtral-8x7B-v0.1 geometry (full width, 8 experts, top-2; depth as
    ``MIXTRAL_8X7B`` says), the same four requests: per layer and forward
@@ -1023,18 +1032,92 @@ def plain_versions(fmt: str):
         yield
 
 
+def prefill(model, gen, prompt):
+    """``prompt`` into the generator's persistent cache in bucket-padded
+    chunks, as ``Generator.generate`` does (its lengths rewound to the
+    true length after each chunk); returns the last chunk's real rows'
+    logits."""
+    from vptq_tpu_torch.models.llama import forward
+    from vptq_tpu_torch.serving.generate import _pad_bucket
+
+    buckets, cache = gen.prompt_buckets, gen.cache
+    device = model.embed_tokens.device
+    cache.reset(0)
+    for done in range(0, len(prompt), buckets[-1]):
+        chunk = prompt[done: done + buckets[-1]]
+        tokens = torch.zeros(
+            (1, _pad_bucket(len(chunk), buckets)), dtype=torch.int64
+        )
+        tokens[0, : len(chunk)] = torch.tensor(chunk)
+        logits, _ = forward(
+            model, tokens.to(device), cache, dtype=gen.dtype,
+            fresh_prefill=(done == 0),
+        )
+        cache.reset(done + len(chunk))
+    return logits[0, : len(chunk)]
+
+
+def eager_tokens(model, gen, prompt, new_tokens):
+    """The greedy tokens of one request through the eager plain loop
+    (``decode_loop``), on the generator's own cache."""
+    from vptq_tpu_torch.serving.generate import decode_loop
+
+    with torch.inference_mode():
+        first = torch.argmax(prefill(model, gen, prompt)[-1:], dim=-1)
+        toks, _ = decode_loop(
+            model, first, gen.cache, None, 0.0, steps=new_tokens - 1,
+            dtype=gen.dtype,
+        )
+    return [int(first[0]), *toks[:, 0].tolist()]
+
+
+def graph_against_eager(model, gen, prompt, steps, temperature=0.0, seed=5):
+    """``steps`` decode steps after ``prompt`` through the generator's
+    CUDA graphs and then again through ``decode_loop`` from the same
+    cache (its lengths rewound): tokens identical and every step's logits
+    bit-equal, or it fails. Returns the block counts the steps ran."""
+    from vptq_tpu_torch.serving.generate import decode_loop, decode_plan
+
+    graphs = gen.graphs
+    with torch.inference_mode():
+        first = torch.argmax(prefill(model, gen, prompt)[-1:], dim=-1)
+        start = gen.cache.max_len
+        graphs.begin(first, temperature, seed)
+        got = [graphs.step().clone() for _ in range(steps)]
+        got_toks = graphs.tokens[:steps, 0].tolist()
+        gen.cache.reset(start)
+        want = []
+        toks, _ = decode_loop(
+            model, first, gen.cache,
+            torch.Generator(device=first.device).manual_seed(seed),
+            temperature, steps=steps, dtype=gen.dtype, logits=want,
+        )
+    if got_toks != toks[:, 0].tolist():
+        raise AssertionError(
+            f"graph tokens {got_toks} != eager {toks[:, 0].tolist()}")
+    for i, (g, w) in enumerate(zip(got, want)):
+        if not torch.equal(g, w):
+            raise AssertionError(
+                f"step {i}: graph logits differ from eager by "
+                f"{(g - w).abs().max().item()}")
+    return sorted(set(decode_plan(start, steps, gen.max_seq)))
+
+
 def phase_e2e(device, path, fmt: str, vocab: int,
               prompt_lens=(16, 128, 512, 1536), new_tokens=32, max_seq=2048,
               seed=0):
     """from_pretrained(runtime_format=fmt) → one greedy request per prompt
-    length; launch counts, logits, a decode step and, for a prompt that
-    takes the flash kernel, its prefill checked. Serves whatever ``path``
-    holds (dense Llama, Qwen2, Mistral or Mixtral). A dense model in int8
-    also holds its longest flash prompt's logits against the plain
-    versions (K8 swapped with K1)."""
+    length, each decode chunk through the generator's CUDA graphs on the
+    card; launch counts (replays included), logits, a decode step and,
+    for a prompt that takes the flash kernel, its prefill checked. On the
+    card the graphs are held to the eager plain loop: the first request's
+    tokens, and a run that crosses a 256-position block boundary, greedy
+    and sampled, logits bit for bit. Serves whatever ``path`` holds
+    (dense Llama, Qwen2, Mistral or Mixtral). A dense model in int8 also
+    holds its longest flash prompt's logits against the plain versions
+    (K8 swapped with K1)."""
     from vptq_tpu_torch import AutoModelForCausalLM
-    from vptq_tpu_torch.models.llama import forward, init_cache
-    from vptq_tpu_torch.serving.generate import _pad_bucket
+    from vptq_tpu_torch.models.llama import forward
 
     fns = {k: kernel_fns(k)[0] for k in ALL_KERNELS}
     cuda = torch.device(device).type == "cuda"
@@ -1065,8 +1148,10 @@ def phase_e2e(device, path, fmt: str, vocab: int,
     if cuda:
         result["weights_gb"] = torch.cuda.memory_allocated(device) / 1e9
         torch.cuda.reset_peak_memory_stats(device)
+    if cuda != (gen.graphs is not None):
+        raise AssertionError(f"{fmt}: the card decodes through graphs only")
 
-    requests = []
+    requests, outs = [], []
     launches = dict.fromkeys(on_path, 0)
     for prompt in prompts:
         stamps = []
@@ -1093,6 +1178,7 @@ def phase_e2e(device, path, fmt: str, vocab: int,
             raise AssertionError(f"bad tokens {out}")
         for k in on_path:
             launches[k] += counts[k]
+        outs.append(out)
         requests.append(dict(
             prompt=len(prompt), new=len(out),
             launches={k: counts[k] for k in on_path},
@@ -1106,32 +1192,33 @@ def phase_e2e(device, path, fmt: str, vocab: int,
     result["launches"] = launches
     if cuda:
         result["peak_gb"] = torch.cuda.max_memory_allocated(device) / 1e9
+        # the graphs against the eager loop: the first request's tokens,
+        # then 12 steps from 250 cached tokens (blocks 1 and 2), greedy
+        # and sampled, logits bit for bit
+        if eager_tokens(model, gen, prompts[0], new_tokens) != outs[0]:
+            raise AssertionError(f"{fmt}: graph tokens differ from eager")
+        boundary = rng.integers(0, vocab, 250).tolist()
+        result["graph_vs_eager"] = dict(
+            tokens_identical=True,
+            logits_bit_equal_blocks=graph_against_eager(
+                model, gen, boundary, 12),
+            sampled_bit_equal_blocks=graph_against_eager(
+                model, gen, boundary, 12, temperature=0.8),
+        )
+        print(f"graph vs eager {fmt} " + json.dumps(result["graph_vs_eager"]))
 
     # logits: finite for every prompt; the first prompt's, and those of
     # one decode step after it (a MoE prefill never reaches the pairs
     # kernels), through the kernels and through their plain versions
     def logits_of(prompt, decode=False):
-        """Logits of the prompt's last chunk (its real rows), prefilled in
-        bucket-padded chunks as ``Generator.generate`` does, and of one
-        further token."""
-        cache = init_cache(cfg, 1, max_seq, gen.dtype, device)
+        """Logits of the prompt's last chunk (its real rows), prefilled as
+        ``Generator.generate`` does, and of one further token."""
         with torch.inference_mode():
-            for done in range(0, len(prompt), buckets[-1]):
-                chunk = prompt[done: done + buckets[-1]]
-                tokens = torch.zeros(
-                    (1, _pad_bucket(len(chunk), buckets)), dtype=torch.int64
-                )
-                tokens[0, : len(chunk)] = torch.tensor(chunk)
-                logits, _ = forward(
-                    model, tokens.to(device), cache, dtype=gen.dtype,
-                    fresh_prefill=(done == 0),
-                )
-                cache.lengths = [done + len(chunk)]
-            out = [logits[0, : len(chunk)]]
+            out = [prefill(model, gen, prompt)]
             if decode:
                 step = torch.tensor([prompt[:1]], dtype=torch.int64)
                 logits, _ = forward(
-                    model, step.to(device), cache, dtype=gen.dtype
+                    model, step.to(device), gen.cache, dtype=gen.dtype
                 )
                 out.append(logits[0])
         return out
@@ -1165,8 +1252,12 @@ def phase_e2e(device, path, fmt: str, vocab: int,
         in_decode = [
             k for k in on_path if not k.endswith("_expert") and k != FLASH
         ]
+        tags = {k: fns[k].trace_tags for k in in_decode}
         result["decode_step"] = decode_breakdown(
-            model, gen, prompts[0], {k: fns[k].trace_tags for k in in_decode}
+            model, gen, prompts[0], tags
+        )
+        result["graph_step"] = graph_breakdown(
+            model, gen, prompts[0], tags, fmt
         )
         if flash:
             in_prefill = [k for k in on_path if not k.endswith("_pairs")]
@@ -1174,7 +1265,7 @@ def phase_e2e(device, path, fmt: str, vocab: int,
                 model, gen, flash[-1],
                 {k: fns[k].trace_tags for k in in_prefill},
             )
-    del engine, model
+    del engine, model, gen
     if cuda:
         torch.cuda.empty_cache()
     return result
@@ -1279,13 +1370,13 @@ def prefill_breakdown(model, gen, prompt, tags: dict):
 
 
 def decode_breakdown(model, gen, prompt, tags: dict, steps=8):
-    """Wall time of one batch-1 decode step (host clock, synchronized)
-    against the device time of the kernels it runs (``torch.profiler``
-    CUDA activity, taken over the same steps run again); ``tags`` maps
-    each kernel of the path to the words that pick its CUDA kernels by
-    name. The steps read nothing back, so the trace must hold no
-    device-to-host copy: a routing decision read on the host would be
-    one."""
+    """Wall time of one batch-1 eager decode step (host clock,
+    synchronized) against the device time of the kernels it runs
+    (``torch.profiler`` CUDA activity, taken over the same steps run
+    again); ``tags`` maps each kernel of the path to the words that pick
+    its CUDA kernels by name. The steps read nothing back, so the trace
+    must hold no device-to-host copy: a routing decision read on the host
+    would be one."""
     from torch.profiler import ProfilerActivity, profile
 
     from vptq_tpu_torch.models.llama import forward, init_cache
@@ -1319,6 +1410,133 @@ def decode_breakdown(model, gen, prompt, tags: dict, steps=8):
         idle_share=1.0 - busy_ms / wall_ms, device_to_host_copies=to_host,
     )
     print("decode step " + json.dumps(out))
+    return out
+
+
+def decode_calls(model, fmt: str) -> list:
+    """(kernel, out, in_p) of every kernel call of one decode step, in
+    order: each block's linears (qkv, o, gate_up, down, or their unfused
+    parts), and a MoE block's two pairs calls (gate_up, down)."""
+    from vptq_tpu_torch.models.llama import MoeMlp
+
+    def call(lin):
+        in_p = getattr(lin, "in_padded", None) or lin.wq.shape[1]
+        return FORMAT_KERNEL[fmt], lin.out_features, in_p
+
+    out = []
+    for block in model.blocks:
+        attn, mlp = block.attn, block.mlp
+        lins = ([attn.qkv_proj] if attn.qkv_proj is not None
+                else [attn.q_proj, attn.k_proj, attn.v_proj]) + [attn.o_proj]
+        if isinstance(mlp, MoeMlp):
+            st = mlp.stacked
+            pairs = MOE_KERNELS[fmt][1]
+            out += [call(lin) for lin in lins] + [
+                (pairs, st.gate_up_wq.shape[1], None),
+                (pairs, st.down_wq.shape[1], None),
+            ]
+            continue
+        lins += ([mlp.gate_up_proj] if mlp.gate_up_proj is not None
+                 else [mlp.gate_proj, mlp.up_proj]) + [mlp.down_proj]
+        out += [call(lin) for lin in lins]
+    return out
+
+
+def step_routes(events, model, fmt: str, what: str) -> dict:
+    """The route check of one decode step's trace: each kernel's CUDA
+    kernels fall in the families its wrapper routes one token to (K2,
+    K3, K5b: the decode GEMV, ``decode_gemv`` with ``Whole`` or
+    ``Pairs``; K1 and K4: their ``takes_decode_gemv`` per linear; the
+    rest their only family), every such family present and no other.
+    Returns {kernel: families seen}."""
+    want = {}
+    for kernel, out_f, in_p in decode_calls(model, fmt):
+        families = tag_sets(kernel_fns(kernel)[0].trace_tags)
+        decode = [t for t in families if "decode_gemv" in t]
+        rule = getattr(importlib.import_module(
+            f"vptq_tpu_torch.ops.{kernel}"), "takes_decode_gemv", None)
+        if decode and (rule is None or rule(1, out_f, in_p)):
+            picked = decode[0]
+        else:
+            picked = next(t for t in families if "decode_gemv" not in t)
+        want.setdefault(kernel, set()).add(picked)
+    seen = {}
+    for kernel in want:
+        # the decode GEMV's names also hold the words of lowbit.cuh's
+        # family (its Planes, ScalesOf): its own family comes first
+        families = sorted(tag_sets(kernel_fns(kernel)[0].trace_tags),
+                          key=lambda t: "decode_gemv" not in t)
+        for e in events:
+            fam = next((t for t in families if picks((t,), e.name)), None)
+            if fam is not None:
+                seen.setdefault(kernel, set()).add(fam)
+    if seen != want:
+        raise AssertionError(
+            f"{fmt} {what}: kernel families {seen}, routes say {want}")
+    return {k: sorted(" ".join(t) for t in v) for k, v in seen.items()}
+
+
+def kernel_families(events, steps: int, top: int = 12) -> dict:
+    """The ``top`` kernel families of a trace by launches: {family:
+    [launches a step, device ms a step]}, a family being a kernel's name
+    without its namespace, template arguments and parameters."""
+    fams = {}
+    for e in events:
+        name = re.sub(r"<.*", "", e.name.replace("(anonymous namespace)", ""))
+        name = name.split("(")[0].split("::")[-1].replace("void ", "").strip()
+        n, us = fams.get(name, (0, 0.0))
+        fams[name] = (n + 1, us + e.device_time_total)
+    ranked = sorted(fams.items(), key=lambda kv: -kv[1][0])[:top]
+    return {k: [n / steps, us / 1e3 / steps] for k, (n, us) in ranked}
+
+
+def graph_breakdown(model, gen, prompt, tags: dict, fmt: str, steps=8):
+    """The graphed decode step (``gen.graphs``, greedy, from ``prompt``):
+    wall time (host clock over ``steps`` replays, synchronized) against
+    the device time of the kernels the replays run (``torch.profiler``
+    over the same steps run again), the kernels per step, the routes
+    (:func:`step_routes`: CUPTI records the kernels of a replay), no
+    device-to-host copy inside the chunk, the seconds of each capture so
+    far and the bytes of the graphs' pool."""
+    from torch.profiler import ProfilerActivity, profile
+
+    device = model.embed_tokens.device
+    graphs = gen.graphs
+
+    def run(n):
+        for _ in range(n):
+            graphs.step()
+        torch.cuda.synchronize(device)
+
+    with torch.inference_mode():
+        first = torch.argmax(prefill(model, gen, prompt)[-1:], dim=-1)
+        graphs.begin(first, 0.0, 0)
+        run(2)  # captured at the first request already: replays
+        t0 = time.perf_counter()
+        run(steps)
+        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            run(steps)
+    events = _device_events(prof)
+    busy_ms = sum(e.device_time_total for e in events) / 1e3 / steps
+    span_ms = (max(e.time_range.end for e in events)
+               - min(e.time_range.start for e in events)) / 1e3 / steps
+    out = dict(
+        wall_ms=wall_ms, tok_s=1e3 / wall_ms, device_busy_ms=busy_ms,
+        idle_share=1.0 - busy_ms / wall_ms, trace_span_ms=span_ms,
+        trace_idle_share=1.0 - busy_ms / span_ms,
+        kernels_per_step=len(events) / steps,
+        families=kernel_families(events, steps),
+        kernel_ms=_kernel_ms(events, tags, "graph decode", per=steps),
+        device_to_host_copies=_device_to_host(
+            events, f"{steps} replayed decode steps"),
+        routes=step_routes(events, model, fmt, "replayed step"),
+        capture_s={f"{n // 256} blocks{' sampled' if s else ''}": t
+                   for (n, s), t in graphs.capture_s.items()},
+        graphs=len(graphs.captured),
+        pool_mb=graphs.pool_bytes() / 1e6,
+    )
+    print("graph decode step " + json.dumps(out))
     return out
 
 

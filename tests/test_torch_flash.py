@@ -112,7 +112,7 @@ def test_reference_matches_cache_and_attend(batch, seq, heads, kv_heads, dim):
     cache = tl.init_cache(cfg, batch, seq + 3, torch.float32, "cpu")
     want = tl._cache_and_attend(
         0, q, k, v_view, cache, torch.zeros(batch, dtype=torch.int64), cfg,
-        scale=dim ** -0.5,
+        tl.attended(0, seq, seq + 3), scale=dim ** -0.5,
     )
     before = flash_attention.launches
     got = flash_attention(q, k, v_view, dim ** -0.5)
@@ -222,7 +222,7 @@ def _fresh_prefill(jmodel, tmodel, seq, jdtype, tdtype):
             tmodel, torch.from_numpy(tokens), cache, dtype=tdtype,
             fresh_prefill=True,
         )
-    assert cache.lengths == [seq]
+    assert cache.lengths.tolist() == [seq] and cache.max_len == seq
     # the chunk's K/V went into the cache
     assert float(cache.k[0][0, seq - 1].abs().sum()) > 0
     assert float(cache.v[1][0, seq:].abs().sum()) == 0

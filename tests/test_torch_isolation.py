@@ -25,6 +25,7 @@ from vptq_tpu_torch.convert import convert_params
 from vptq_tpu_torch.examples import (
     kernel_bench,
     kernel_turns,
+    profile_decode,
     vq_smallk_probe,
     w4_unpack_ablation,
     w4_wall_candidates,
@@ -330,7 +331,7 @@ def test_chip_smoke_probe_phase_on_cpu():
 
 @pytest.mark.parametrize("module", [
     kernel_bench, w4_wall_candidates, w4_unpack_ablation, vq_smallk_probe,
-    kernel_turns,
+    kernel_turns, profile_decode,
 ])
 def test_examples_exit_nonzero_without_a_card(module, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -893,6 +894,65 @@ def test_decode_breakdown_attributes_each_kernel_to_one_family():
     tags["w4_matmul"] = (("decode_gemv", "W4"),)
     with pytest.raises(AssertionError, match="picked by"):
         chip_smoke._kernel_ms(events, tags, "decode")
+
+
+@pytest.mark.parametrize("fmt,family", [
+    ("int8", "llama"), ("int4", "llama"), ("int4", "mixtral"),
+])
+def test_step_routes_hold_each_decode_kernel_to_its_route(tmp_path, fmt,
+                                                          family):
+    """A decode step's trace against the routes of one token: int8's
+    linears on w8_gemv (K1 takes the decode GEMV from 3 tokens on), int4's
+    and K5b's on the decode GEMV (sel::Whole, sel::Pairs); a family off
+    the route, or one missing, fails."""
+    from vptq_tpu_torch.models.loader import load_model
+
+    cfg = dict(TINY, tie_word_embeddings=False)
+    if family == "mixtral":
+        cfg.update(model_type="mixtral", num_local_experts=4,
+                   num_experts_per_tok=2)
+    write_synthetic_checkpoint(tmp_path, tiny_model_config(**cfg),
+                               vq_kwargs=VQ, seed=0)
+    model = load_model(str(tmp_path), runtime_format=fmt, device="cpu")
+    calls = chip_smoke.decode_calls(model, fmt)
+    kernel = chip_smoke.FORMAT_KERNEL[fmt]
+    if family == "mixtral":
+        assert [k for k, _, _ in calls] == [kernel] * 2 + [
+            "w4_matmul_pairs"] * 2 + [kernel] * 2 + ["w4_matmul_pairs"] * 2
+    else:
+        assert [k for k, _, _ in calls] == [kernel] * 8
+    whole = (_W8.format(k="gemv", sel="Whole", t="1, ") if fmt == "int8"
+             else _DECODE.format(p="w4::W4", sel="Whole", n=8, g=128,
+                                 o="__nv_bfloat16", s="__nv_bfloat16"))
+    step = [_Event(whole, 1.0)] * 4
+    if family == "mixtral":
+        step += [_Event(whole.replace("sel::Whole", "sel::Pairs"), 1.0)] * 4
+    got = chip_smoke.step_routes(step, model, fmt, "step")
+    assert got[kernel] == (["w8_gem Whole"] if fmt == "int8"
+                           else ["decode_gemv W4 Whole"])
+    off_route = (_DECODE.format(p="w8::W8", sel="Whole", n=8, g=2048,
+                                o="__nv_bfloat16", s="float")
+                 if fmt == "int8" else _GEMV.format(sel="Whole"))
+    with pytest.raises(AssertionError, match="routes say"):
+        chip_smoke.step_routes(step + [_Event(off_route, 1.0)], model, fmt,
+                               "step")
+    with pytest.raises(AssertionError, match="routes say"):
+        chip_smoke.step_routes(step[:1] if family == "mixtral" else [],
+                               model, fmt, "step")
+
+
+def test_profile_decode_runs_the_plain_versions_on_cpu(capsys):
+    """profile_decode at a tiny width on the CPU: the card line first, the
+    four linears, the lm_head and their sum, then the eager step (the CPU
+    has no graphs)."""
+    profile_decode.main(["--device", "cpu", "--tiny", "--int3"])
+    lines = capsys.readouterr().out.splitlines()
+    assert lines[0].startswith("# cpu") and lines[-1] == lines[0]
+    assert [ln.split()[0] for ln in lines[2:7]] == [
+        "qkv", "o", "gate_up", "down", "lm_head"]
+    assert lines[7].startswith("linears sum:")
+    assert lines[8] == "graphed step: not on the CPU (no CUDA graphs)"
+    assert lines[9].startswith("full step (eager):")
 
 
 def test_moe_phase_takes_one_pair_and_routes_only_card_calls():
@@ -1941,3 +2001,165 @@ def test_probe_examples_run_their_checks_on_the_card(cuda):
     assert w4_unpack_ablation.check_shift28(cuda) < 2e-2
     err, limit = vq_smallk_probe.check(cuda)
     assert err < limit
+
+
+# (runtime format, family) of the graphed decode tests: every format of
+# the dense model, both MoE formats, and a sliding window that 300 steps
+# pass
+GRAPH_CASES = [
+    ("int8", "llama"), ("int4", "llama"), ("int3", "llama"), ("int2", "llama"),
+    ("int8", "mixtral"), ("int4", "mixtral"), ("int8", "mistral"),
+]
+
+
+def _graph_model(path, fmt, family, device):
+    from vptq_tpu_torch.models.loader import load_model
+
+    cfg = dict(TINY, tie_word_embeddings=False)
+    if family == "mixtral":
+        cfg.update(model_type="mixtral", num_local_experts=4,
+                   num_experts_per_tok=2)
+    elif family == "mistral":
+        cfg.update(model_type="mistral", sliding_window=64)
+    write_synthetic_checkpoint(path, tiny_model_config(**cfg), vq_kwargs=VQ,
+                               seed=0)
+    return load_model(str(path), runtime_format=fmt, device=device)
+
+
+def _launches():
+    from vptq_tpu_torch.serving.generate import _counted
+
+    return {f.__name__: f.launches for f in _counted()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt,family", GRAPH_CASES)
+def test_graph_logits_are_bit_equal_to_eager_across_a_block(
+        cuda, tmp_path, fmt, family):
+    """300 greedy steps from a 10-token prompt at max_seq 512 (blocks 1
+    and 2, so two graphs) through the generator's CUDA graphs and through
+    the eager ``decode_loop`` from the same cache: every step's logits bit
+    for bit, the same tokens, and the same launch counts (replays
+    counted)."""
+    from vptq_tpu_torch.models.llama import forward
+    from vptq_tpu_torch.serving.generate import Generator, decode_loop
+
+    model = _graph_model(tmp_path, fmt, family, cuda)
+    gen = Generator(model, max_seq=512)
+    prompt = torch.arange(1, 11, device=cuda)[None]
+    steps = 300
+
+    def prefill():
+        gen.cache.reset(0)
+        logits, _ = forward(model, prompt, gen.cache, fresh_prefill=True)
+        gen.cache.reset(prompt.shape[1])
+        return torch.argmax(logits[:, -1], dim=-1)
+
+    with torch.inference_mode():
+        first = prefill()
+        before = _launches()
+        gen.graphs.begin(first, 0.0, 0)
+        got = [gen.graphs.step().clone() for _ in range(steps)]
+        got_toks = gen.graphs.tokens[:steps, 0].clone()
+        graph_launches = {k: n - before[k] for k, n in _launches().items()}
+        assert gen.cache.max_len == prompt.shape[1] + steps
+        prefill()
+        before = _launches()
+        want = []
+        toks, _ = decode_loop(model, first, gen.cache, None, 0.0,
+                              steps=steps, logits=want)
+        eager_launches = {k: n - before[k] for k, n in _launches().items()}
+    torch.cuda.synchronize()
+    assert sorted(gen.graphs.captured) == [(256, False), (512, False)]
+    assert torch.equal(got_toks, toks[:, 0])
+    assert len(got) == len(want) == steps
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert graph_launches == eager_launches
+    assert graph_launches[chip_smoke.FORMAT_KERNEL[fmt]] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt,family", [("int8", "llama"),
+                                        ("int4", "mixtral")])
+def test_sampled_graph_tokens_equal_eager(cuda, tmp_path, fmt, family):
+    """A sampled request on the card (graphs, each chunk's generator
+    re-seeded with seed + 1 + chunk) and the same request eagerly: the
+    first token from ``seed``, each chunk through ``decode_loop``. 250
+    prompt tokens and 40 new ones cross the first block boundary."""
+    from vptq_tpu_torch.models.llama import forward
+    from vptq_tpu_torch.serving.generate import (
+        Generator,
+        _temperature,
+        decode_loop,
+        sample_next,
+    )
+
+    model = _graph_model(tmp_path, fmt, family, cuda)
+    gen = Generator(model, max_seq=512)
+    prompt = [int(t) for t in torch.arange(250) % TINY["vocab_size"]]
+    temperature, seed, new, chunk = 0.8, 3, 40, 7
+    got = gen.generate(prompt, max_new_tokens=new, temperature=temperature,
+                       seed=seed, chunk_size=chunk)
+
+    def draws(s):
+        return torch.Generator(device=cuda).manual_seed(s)
+
+    with torch.inference_mode():
+        gen.cache.reset(0)
+        padded = torch.zeros((1, 512), dtype=torch.int64)
+        padded[0, :250] = torch.tensor(prompt)
+        logits, _ = forward(model, padded.to(cuda), gen.cache,
+                            fresh_prefill=True)
+        gen.cache.reset(250)
+        tok = sample_next(logits[:, 249], draws(seed),
+                          _temperature(temperature, cuda))
+        want = [int(tok[0])]
+        for i, done in enumerate(range(0, new - 1, chunk)):
+            toks, _ = decode_loop(model, tok, gen.cache, draws(seed + 1 + i),
+                                  temperature, steps=min(chunk, new - 1 - done))
+            want += toks[:, 0].tolist()
+            tok = toks[-1]
+    assert len(got) == new and got == want
+    assert sorted(gen.graphs.captured) == [(256, True), (512, True)]
+
+
+_CAPTURE_FAILS = r"""
+import sys
+import torch
+from vptq_tpu_torch.models import llama
+from vptq_tpu_torch.models.loader import load_model
+from vptq_tpu_torch.serving.generate import Generator
+
+model = load_model(sys.argv[1], runtime_format="int8", device="cuda")
+gen = Generator(model, max_seq=256)
+print("prefill and eager step:", gen.generate([1, 2, 3], max_new_tokens=1))
+norm = llama.rms_norm
+
+
+def reads_back(x, w, eps):
+    float(x.abs().max())  # a device read: legal eagerly, not in a capture
+    return norm(x, w, eps)
+
+
+llama.rms_norm = reads_back
+try:
+    gen.generate([1, 2, 3], max_new_tokens=4)
+except RuntimeError as e:
+    print("raised", type(e).__name__, str(e).splitlines()[0])
+    print("card answers", torch.ones(4, device="cuda").sum().item())
+    sys.exit(0)
+sys.exit("a failed capture did not raise")
+"""
+
+
+@pytest.mark.cuda
+def test_a_capture_that_fails_raises(cuda, checkpoint):
+    """A step that reads the device back cannot be captured: the
+    generator raises (no eager fallback). In a process of its own, so
+    that the failed capture touches no other test."""
+    out = subprocess.run(
+        [sys.executable, "-c", _CAPTURE_FAILS, checkpoint], cwd=ROOT,
+        capture_output=True, text=True, timeout=600,
+    )
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert "raised" in out.stdout and "card answers 4.0" in out.stdout

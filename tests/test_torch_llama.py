@@ -78,8 +78,9 @@ def test_forward_matches_vptq_tpu(tmp_path, llama3, max_seq):
                 tmodel, torch.from_numpy(nxt), tcache, dtype=torch.float32
             )
         _close(tlog, jl)
-    assert tcache.lengths == [18, 18]
-    np.testing.assert_array_equal(np.asarray(jcache.lengths), tcache.lengths)
+    assert tcache.lengths.tolist() == [18, 18] and tcache.max_len == 18
+    np.testing.assert_array_equal(
+        np.asarray(jcache.lengths), tcache.lengths.numpy())
 
 
 def test_rope_frequencies_match():

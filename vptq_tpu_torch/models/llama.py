@@ -14,10 +14,13 @@ expert on every token, for more than 64 tokens) or the pairs kernels K5
 :func:`forward` is the function the JAX package jits. There is no
 autograd on this path.
 
-The KV cache is updated in place (JAX's is functional). Its lengths are
-host integers: every shape and trip count that depends on them (the
-live cache prefix, the number of 256-position decode blocks) is known
-on the host without reading the device.
+The KV cache is updated in place (JAX's is functional). Its lengths
+live on the device, one per sequence, and :func:`forward` advances them
+in place, so a decode step captured as a CUDA graph reads and writes
+them at a fixed address. Every shape that depends on them (the live
+cache prefix, the number of 256-position decode blocks) follows from
+the longest length, which the caller knows on the host (the prompt
+length and the steps taken) and never reads back from the device.
 """
 
 from __future__ import annotations
@@ -45,6 +48,7 @@ __all__ = [
     "ModelConfig",
     "MoeMlp",
     "StackedExperts",
+    "attended",
     "forward",
     "init_cache",
     "takes_flash",
@@ -308,12 +312,22 @@ class Model(nn.Module):
 class KVCache:
     """Preallocated per-layer K/V buffers, updated in place.
 
-    ``lengths`` holds the tokens cached per sequence as host integers.
+    ``lengths`` (B,) int64 on the cache's device: the tokens cached per
+    sequence, advanced in place (its address stays fixed). ``max_len`` is
+    the largest of them as the host knows it: whoever sets the lengths
+    sets it too, and :func:`forward` advances both.
     """
 
     k: List[torch.Tensor]  # per layer: (B, max_seq, kv_heads, hd)
     v: List[torch.Tensor]
-    lengths: List[int]
+    lengths: torch.Tensor
+    max_len: int = 0
+
+    def reset(self, length: int) -> None:
+        """Every sequence to ``length`` tokens, written on the device by a
+        fill (no host-to-device copy)."""
+        self.lengths.fill_(length)
+        self.max_len = length
 
 
 def init_cache(
@@ -324,7 +338,7 @@ def init_cache(
     return KVCache(
         k=[torch.zeros(shape, dtype=dtype, device=device) for _ in layers],
         v=[torch.zeros(shape, dtype=dtype, device=device) for _ in layers],
-        lengths=[0] * batch,
+        lengths=torch.zeros(batch, dtype=torch.int64, device=device),
     )
 
 
@@ -342,6 +356,7 @@ def _attention(
     cache: KVCache,
     offsets: torch.Tensor,  # (B,) int64 on x.device: cache.lengths
     cfg: ModelConfig,
+    live: int,  # cache positions read, from attended()
     fresh_prefill: bool = False,
 ) -> torch.Tensor:
     batch, seq, _ = x.shape
@@ -363,7 +378,7 @@ def _attention(
         out = flash_attention(q, k, v, hd ** -0.5)
     else:
         out = _cache_and_attend(
-            block_idx, q, k, v, cache, offsets, cfg, scale=hd ** -0.5
+            block_idx, q, k, v, cache, offsets, cfg, live, scale=hd ** -0.5
         )
     return attn.o_proj(out.to(x.dtype))
 
@@ -380,14 +395,33 @@ def takes_flash(cfg: ModelConfig, seq: int, dtype: torch.dtype) -> bool:
     )
 
 
+def takes_blocks(max_seq: int) -> bool:
+    """Whether one token attends a cache of ``max_seq`` positions block by
+    block (:func:`_decode_attend_blocks`): whole 256-position blocks."""
+    return max_seq >= _DECODE_BLOCK and max_seq % _DECODE_BLOCK == 0
+
+
+def attended(max_len: int, seq: int, max_seq: int) -> int:
+    """The cache positions a call of ``seq`` tokens reads, from the longest
+    cached length before it (a host integer). One token on a cache of
+    whole blocks reads the live 256-position blocks, ``(max_len + 256) //
+    256`` of them (the trip count of the JAX package's ``while_loop``,
+    whose offsets are the lengths before the call); any other call reads
+    the live prefix. Every shape of a call follows from it, so the eager
+    step and a CUDA graph captured at the same count run the same ops."""
+    if seq == 1 and takes_blocks(max_seq):
+        return (max_len + _DECODE_BLOCK) // _DECODE_BLOCK * _DECODE_BLOCK
+    return min(max_len + seq, max_seq)
+
+
 def _decode_attend_blocks(
     q: torch.Tensor,  # (B, 1, H, Dk)
     k_cache: torch.Tensor,  # (B, T, KV, Dk)
     v_cache: torch.Tensor,  # (B, T, KV, Dv)
-    lengths: List[int],  # host: new token already inserted at lengths[b]
-    offsets: torch.Tensor,  # (B,) the same on the device
+    offsets: torch.Tensor,  # (B,) new token already inserted at offsets[b]
     cfg: ModelConfig,
     scale: float,
+    live: int,  # host: the live blocks' positions, from attended()
     block: int = _DECODE_BLOCK,
 ) -> torch.Tensor:
     """Single-token attention over only the live 256-position blocks.
@@ -395,14 +429,14 @@ def _decode_attend_blocks(
     Each block gets its own online-softmax statistics (max, sum,
     weighted values), and the blocks are combined by rescaling to the
     common max: the flash-decoding structure of the JAX package's
-    ``lax.while_loop``, with the block count known on the host. Cache
-    traffic scales with the live length, not the allocated ``max_seq``.
+    ``lax.while_loop``, with the block count given by the caller from
+    what the host knows (no device read). Cache traffic scales with the
+    live length, not the allocated ``max_seq``.
     """
     batch, _, nh, dk = q.shape
     nkv, dv = k_cache.shape[2], v_cache.shape[3]
     group = nh // nkv
-    n_blocks = (max(lengths) + block) // block
-    live = n_blocks * block
+    n_blocks = live // block
     qf = q[:, 0].to(torch.float32).reshape(batch, nkv, group, dk)
     kb = k_cache[:, :live].to(torch.float32).reshape(
         batch, n_blocks, block, nkv, dk
@@ -437,22 +471,45 @@ def _decode_attend_blocks(
     return out.reshape(batch, 1, nh * dv)
 
 
+def _rows(pos: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """(B, S) positions as a gather / scatter index over the rows of a
+    (B, T, heads, dim) tensor."""
+    return pos[:, :, None, None].expand(-1, -1, t.shape[2], t.shape[3])
+
+
 def _insert_kv(
     block_idx: int, k: torch.Tensor, v: torch.Tensor, cache: KVCache
 ):
-    """Write new K/V rows at each sequence's offset, in place.
+    """Write new K/V rows at each sequence's offset, in place, with the
+    offsets read on the device.
 
-    Rows of a bucket-padded prefill that fall past ``max_seq`` are
-    dropped (the JAX package scatters with ``mode="drop"``); an index
-    past the end would trip a device assert on CUDA.
+    One token: one batched scatter at ``(b, lengths[b])``, as the JAX
+    package does. A chunk: each sequence writes an S-row window, moved
+    back where it would pass ``max_seq``; its rows before ``lengths[b]``
+    write back what they hold, so the chunk's rows past ``max_seq`` are
+    dropped (the JAX package scatters with ``mode="drop"``) and no index
+    leaves the cache (one past the end would trip a device assert on
+    CUDA).
     """
     k_cache, v_cache = cache.k[block_idx], cache.v[block_idx]
-    max_seq = k_cache.shape[1]
-    for b, start in enumerate(cache.lengths):
-        n = min(k.shape[1], max_seq - start)
-        if n > 0:
-            k_cache[b, start: start + n] = k[b, :n].to(k_cache.dtype)
-            v_cache[b, start: start + n] = v[b, :n].to(v_cache.dtype)
+    seq, max_seq = k.shape[1], k_cache.shape[1]
+    if seq > max_seq:
+        raise ValueError(f"a chunk of {seq} tokens exceeds max_seq {max_seq}")
+    lengths = cache.lengths
+    for new, buf in ((k, k_cache), (v, v_cache)):
+        new = new.to(buf.dtype)
+        if seq == 1:
+            buf.scatter_(1, _rows(lengths[:, None], buf), new)
+            continue
+        pos = (torch.clamp(lengths, max=max_seq - seq)[:, None]
+               + torch.arange(seq, device=buf.device))
+        src = pos - lengths[:, None]  # the chunk's row; < 0: keep the cache's
+        rows = torch.where(
+            (src < 0)[:, :, None, None],
+            buf.gather(1, _rows(pos, buf)),
+            new.gather(1, _rows(src.clamp(min=0), new)),
+        )
+        buf.scatter_(1, _rows(pos, buf), rows)
 
 
 def _cache_and_attend(
@@ -463,21 +520,21 @@ def _cache_and_attend(
     cache: KVCache,
     offsets: torch.Tensor,
     cfg: ModelConfig,
+    live: int,
     scale: float,
 ) -> torch.Tensor:
-    """Insert k/v at each sequence's offset and run masked attention."""
+    """Insert k/v at each sequence's offset and run masked attention over
+    the ``live`` cache positions (:func:`attended`, from the host)."""
     batch, seq, nh, dk = q.shape
     nkv, dv = k.shape[2], v.shape[3]
     _insert_kv(block_idx, k, v, cache)
     k_cache, v_cache = cache.k[block_idx], cache.v[block_idx]
-    max_seq = k_cache.shape[1]
-    if seq == 1 and max_seq >= _DECODE_BLOCK and max_seq % _DECODE_BLOCK == 0:
+    if seq == 1 and takes_blocks(k_cache.shape[1]):
         return _decode_attend_blocks(
-            q, k_cache, v_cache, cache.lengths, offsets, cfg, scale
+            q, k_cache, v_cache, offsets, cfg, scale, live
         )
     group = nh // nkv
     # only the live prefix: later positions are masked for every query
-    live = min(max(cache.lengths) + seq, max_seq)
     qg = q.reshape(batch, seq, nkv, group, dk).permute(0, 2, 3, 1, 4)
     scores = torch.einsum(
         "bkgsd,btkd->bkgst",
@@ -652,18 +709,6 @@ def _mlp(mlp, x: torch.Tensor) -> torch.Tensor:
     return mlp.down_proj(F.silu(gate) * up)
 
 
-def _device_lengths(lengths: List[int], device) -> torch.Tensor:
-    """The host lengths, all equal, as a (B,) int64 tensor on ``device``.
-
-    Filled in on the device: a host-to-device copy would make the host
-    wait for the device on every decode step.
-    """
-    assert len(set(lengths)) == 1, f"unequal cache lengths {lengths}"
-    return torch.full(
-        (len(lengths),), lengths[0], dtype=torch.int64, device=device
-    )
-
-
 def forward(
     model: Model,
     tokens: torch.Tensor,  # (B, S) int
@@ -674,21 +719,23 @@ def forward(
     """Run the decoder over ``tokens`` starting at ``cache.lengths``.
 
     Returns (logits (B, S, vocab) f32, cache); the cache is updated in
-    place and its lengths advanced by S.
+    place and its lengths advanced by S on the device (``max_len`` on the
+    host). Nothing is read back from the device.
     """
     cfg = model.cfg
     batch, seq = tokens.shape
     device = model.embed_tokens.device
     ids = tokens.to(device=device, dtype=torch.int64)
     x = model.embed_tokens[ids].to(dtype)
-    offsets = _device_lengths(cache.lengths, device)
+    offsets = cache.lengths
     positions = offsets[:, None] + torch.arange(seq, device=device)[None, :]
     cos, sin = rope_cos_sin(positions, model.inv_freq, model.rope_scale)
+    live = attended(cache.max_len, seq, cache.k[0].shape[1])
 
     for i, block in enumerate(model.blocks):
         h = rms_norm(x, block.input_layernorm, cfg.rms_norm_eps)
         x = x + _attention(
-            i, block.attn, h, cos, sin, cache, offsets, cfg,
+            i, block.attn, h, cos, sin, cache, offsets, cfg, live,
             fresh_prefill=fresh_prefill,
         )
         h = rms_norm(x, block.post_attention_layernorm, cfg.rms_norm_eps)
@@ -701,5 +748,6 @@ def forward(
         logits = torch.matmul(
             x.to(torch.float32), model.embed_tokens.to(torch.float32).t()
         )
-    cache.lengths = [n + seq for n in cache.lengths]
+    cache.lengths.add_(seq)
+    cache.max_len += seq
     return logits.to(torch.float32), cache
