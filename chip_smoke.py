@@ -26,7 +26,11 @@ without them, or when any phase fails. Phases:
    plain version on the card, then timed with CUDA events (L2 flushed
    before each launch) beside the plain version and a ``torch.matmul``
    yardstick; K1 also at the four shapes of Qwen2.5-7B (groups 512 and
-   1024; intermediate 18944 padded to 19456), T=2048 included;
+   1024; intermediate 18944 padded to 19456), T=2048 included, and at
+   the int8 side matrices of the mixed formats at Llama-3.1-8B width
+   (group 128, 128 columns, down 384 or 512; T=1, 3, 16, 128, 512 and
+   2048), outside the records, its calls of up to 16 tokens held to
+   their routes;
    K7 at the Llama shapes on a random bf16 weight, at the same T (T > 16
    through the tile's SS form); K8 at Llama-3.1-8B's
    heads (32 over 8 KV heads of 128) on N(0, 1) q, k, v with v a strided
@@ -85,7 +89,13 @@ without them, or when any phase fails. Phases:
    (``torch.profiler``), and the same for a replayed graph step (kernels
    per step, the route of every decode kernel in the trace, no
    device-to-host copy in the chunk, capture seconds, the graphs' pool),
-   and for the long prompt's prefill;
+   and for the long prompt's prefill; then the runtime checkpoint's round
+   trip in int8 and int4, the checkpoint cut to 4 layers at full width
+   (to spare disk and time): loaded by re-encoding, written by
+   ``tools/export_runtime.py``, read back byte-equal, the same greedy
+   tokens from one request, the runtime load's seconds beside the
+   re-encoding load's, the free disk printed first (a phase without room
+   fails);
 6. end to end in int8 and in int4 on one synthetic checkpoint of
    Mixtral-8x7B-v0.1 geometry (full width, 8 experts, top-2; depth as
    ``MIXTRAL_8X7B`` says), the same four requests: per layer and forward
@@ -95,7 +105,8 @@ without them, or when any phase fails. Phases:
    first prompt's prefill logits, and one decode step's, through the
    kernels against the plain versions; the profiled decode steps and the
    profiled long prefill must hold no device-to-host copy (the expert ids
-   stay on the card);
+   stay on the card); then the runtime checkpoint's round trip in int4
+   (the stacked experts), 4 layers, as in phase 5;
 7. end to end in int8 on one synthetic checkpoint of Qwen2.5-7B geometry
    (a bias on q, k and v; K1's first widths that pad), the same four
    requests, the long prompt's logits against the plain versions;
@@ -103,7 +114,19 @@ without them, or when any phase fails. Phases:
    geometry (sliding window 4096) with ``max_seq`` 8192: prompts of 16,
    512, 1536 and 4608 tokens (three chunks; positions from 4096 on lose
    their oldest keys). The window keeps every chunk out of K8, which
-   must count 0.
+   must count 0;
+9. end to end in the calibrated formats int2-mixed and int3-mixed at
+   full Llama-3.1-8B geometry (32 layers): a model of random codes made
+   on the card (``utils/synth.py`` ``mixed_model``, spread
+   ``MIXED_STD``), written by ``export_runtime`` to a temporary directory
+   (removed afterwards), read back by ``load_runtime_model`` (its
+   seconds are the load) and held byte-equal, then served through
+   ``Engine`` as in phase 5: every linear runs its base kernel (K3 or
+   K4) and K1 on its side, 4 of each per layer and forward call; the
+   graphs against ``decode_loop``, the logits against the plain versions
+   (both kernels swapped) beside the model's own sensitivity to a
+   one-ulp change of its embedding, the routes (K1's side on ``w8_gemv``
+   at one token), no device-to-host copy.
 
 The line before the last is a JSON object with one record per kernel at
 T=1 and T=512 (pairs kernels: P=2 and P=16; K8: S=1024 and S=2048; each
@@ -122,6 +145,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from pathlib import Path
 from unittest import mock
 
 import numpy as np
@@ -209,6 +233,14 @@ V8_K65536 = dict(
 )
 # codebook spread that keeps 32 synthetic layers' activations finite
 SMOKE_STD = 0.02
+# spread of the mixed formats' random codes (``utils/synth.py``
+# mixed_model). At SMOKE_STD the int2-mixed model's own prefill logits
+# move by more than LOGIT_TOL when its embedding moves by one bf16 ulp
+# (``python -m vptq_tpu_torch.examples.mixed_sensitivity``), so that
+# bound could not tell a right kernel from a wrong one; at this spread
+# they move well inside it. phase_e2e reports that sensitivity beside the
+# kernels' difference.
+MIXED_STD = 0.01
 
 # a kernel against its plain version: |kernel - plain| <= RTOL*|plain| +
 # ATOL_FRAC*max|plain|. Both sum f32 products of the same bf16 inputs
@@ -224,6 +256,12 @@ LOGIT_TOL = 5e-2
 FORMAT_KERNEL = {
     "int8": "w8_matmul", "int4": "w4_matmul", "int3": "w3_matmul",
     "int2": "w2_matmul",
+}
+# calibrated mixed format -> its base kernel and K1, which carries its
+# int8 side matrix (y = base(x) + int8(x[..., col_idx]))
+MIXED_KERNELS = {
+    "int2-mixed": ("w2_matmul", "w8_matmul"),
+    "int3-mixed": ("w3_matmul", "w8_matmul"),
 }
 # runtime format -> the (expert, pairs) kernels of its stacked MoE experts
 MOE_KERNELS = {
@@ -255,6 +293,9 @@ DECODE_INSTANCES = {"w8_matmul": 4, "w4_matmul": 4, "w3_matmul": 4,
 # the token counts of the kernel phases: decode, two prefill buckets and
 # the long-prefill chunk (every T > 16 runs the tile)
 TOKENS = (1, 128, 512, 2048)
+# K1 at the mixed formats' side matrices: w8_gemv (T = 1), the decode
+# GEMV (3, 16) and the tile (past 16)
+SIDE_TOKENS = (1, 3, 16, 128, 512, 2048)
 # the int4-unpack probes P1 / P2 and the small-codebook VQ probe P3: no
 # layer calls them (0 launches on every main path); the probe phase does
 PROBE_KERNELS = (
@@ -271,6 +312,12 @@ ALL_KERNELS = (
 # a rounding of p or of the result falls: one to two bf16 ulps (2^-8) at
 # the largest magnitude.
 FLASH_TOL = 2.0 ** -7
+
+
+def format_kernels(fmt: str) -> tuple:
+    """The kernels every decoder linear of ``fmt`` runs: its format's, or
+    a mixed format's base kernel and K1."""
+    return MIXED_KERNELS.get(fmt, (FORMAT_KERNEL.get(fmt),))
 
 
 def _sh(cmd) -> str:
@@ -979,7 +1026,8 @@ def expected_launches(cfg, fmt: str, prompt_len: int, new_tokens: int,
     bucket-padded chunks, then one forward call per further token. The
     first chunk, when it holds 1024 tokens or more, the model has no
     sliding window and K8 is built for ``dtype`` and the head size, goes
-    through K8 once per layer. A MoE block sends a call of at most 64
+    through K8 once per layer. A mixed format's linear runs its base
+    kernel and K1 once each. A MoE block sends a call of at most 64
     tokens through the pairs kernel twice, and a longer one through the
     expert kernel 2·E times. K7 is on no path."""
     from vptq_tpu_torch.models.llama import _MOE_FAST_MAX_TOKENS, takes_flash
@@ -994,7 +1042,8 @@ def expected_launches(cfg, fmt: str, prompt_len: int, new_tokens: int,
     if takes_flash(cfg, calls[0], dtype):
         expected[FLASH] = layers
     if not cfg.num_local_experts:
-        expected[FORMAT_KERNEL[fmt]] = 4 * layers * len(calls)
+        for kernel in format_kernels(fmt):
+            expected[kernel] = 4 * layers * len(calls)
         return expected
     expert, pairs = MOE_KERNELS[fmt]
     fast = sum(n <= _MOE_FAST_MAX_TOKENS for n in calls)
@@ -1009,15 +1058,16 @@ def expected_launches(cfg, fmt: str, prompt_len: int, new_tokens: int,
 @contextlib.contextmanager
 def plain_versions(fmt: str):
     """Every kernel the model reaches in ``fmt`` swapped for its plain
-    version, for the comparisons only."""
+    version (a mixed format's base kernel and K1 both), for the
+    comparisons only."""
     from vptq_tpu_torch.layers import runtime
     from vptq_tpu_torch.models import llama
 
-    name = FORMAT_KERNEL[fmt]
     with contextlib.ExitStack() as stack:
-        stack.enter_context(
-            mock.patch.object(runtime, name, kernel_fns(name)[1])
-        )
+        for name in format_kernels(fmt):
+            stack.enter_context(
+                mock.patch.object(runtime, name, kernel_fns(name)[1])
+            )
         stack.enter_context(
             mock.patch.object(llama, FLASH, kernel_fns(FLASH)[1])
         )
@@ -1103,31 +1153,40 @@ def graph_against_eager(model, gen, prompt, steps, temperature=0.0, seed=5):
     return sorted(set(decode_plan(start, steps, gen.max_seq)))
 
 
-def phase_e2e(device, path, fmt: str, vocab: int,
+def phase_e2e(device, source, fmt: str, vocab: int,
               prompt_lens=(16, 128, 512, 1536), new_tokens=32, max_seq=2048,
-              seed=0):
+              seed=0, load_s=None, sensitivity=False):
     """from_pretrained(runtime_format=fmt) → one greedy request per prompt
     length, each decode chunk through the generator's CUDA graphs on the
     card; launch counts (replays included), logits, a decode step and,
     for a prompt that takes the flash kernel, its prefill checked. On the
     card the graphs are held to the eager plain loop: the first request's
     tokens, and a run that crosses a 256-position block boundary, greedy
-    and sampled, logits bit for bit. Serves whatever ``path`` holds
-    (dense Llama, Qwen2, Mistral or Mixtral). A dense model in int8 also
-    holds its longest flash prompt's logits against the plain versions
-    (K8 swapped with K1)."""
+    and sampled, logits bit for bit. Serves whatever ``source`` holds: a
+    checkpoint directory (dense Llama, Qwen2, Mistral or Mixtral), or a
+    model already loaded in ``fmt`` (a runtime checkpoint's, read in
+    ``load_s`` seconds), served through ``Engine``. A dense model in int8
+    also holds its longest flash prompt's logits against the plain
+    versions (K8 swapped with K1). ``sensitivity``: also the model's own
+    conditioning, the plain prefill logits again on an embedding whose
+    entries each move by at most one bf16 ulp (times 1 ± 2^-8)."""
     from vptq_tpu_torch import AutoModelForCausalLM
+    from vptq_tpu_torch.api import Engine
     from vptq_tpu_torch.models.llama import forward
 
     fns = {k: kernel_fns(k)[0] for k in ALL_KERNELS}
     cuda = torch.device(device).type == "cuda"
     result = dict(format=fmt)
-    t0 = time.perf_counter()
-    engine = AutoModelForCausalLM.from_pretrained(
-        path, runtime_format=fmt, device=device, max_seq=max_seq
-    )
-    _sync(device)
-    result["load_s"] = time.perf_counter() - t0
+    if isinstance(source, str):
+        t0 = time.perf_counter()
+        engine = AutoModelForCausalLM.from_pretrained(
+            source, runtime_format=fmt, device=device, max_seq=max_seq
+        )
+        _sync(device)
+        load_s = time.perf_counter() - t0
+    else:
+        engine = Engine(source, max_seq=max_seq)
+    result["load_s"] = load_s
 
     model, gen = engine.model, engine.generator
     cfg = model.cfg
@@ -1140,7 +1199,7 @@ def phase_e2e(device, path, fmt: str, vocab: int,
         if expected_launches(cfg, fmt, len(p), 1, buckets, gen.dtype)[FLASH]
     ]
     on_path = (
-        FORMAT_KERNEL[fmt], *(MOE_KERNELS[fmt] if moe else ()),
+        *format_kernels(fmt), *(MOE_KERNELS[fmt] if moe else ()),
         *((FLASH,) if flash else ()),
     )
     result["kernels"] = list(on_path)
@@ -1237,13 +1296,24 @@ def phase_e2e(device, path, fmt: str, vocab: int,
                 raise AssertionError(
                     f"{fmt}: {what} logits differ by {diff} (max {scale})"
                 )
+        return want
 
     for prompt in prompts:
         if not bool(torch.isfinite(logits_of(prompt)[0]).all()):
             raise AssertionError(
                 f"{fmt}: non-finite logits for a {len(prompt)}-token prompt"
             )
-    hold_to_plain(prompts[0], ("prefill", "decode"))
+    want = hold_to_plain(prompts[0], ("prefill", "decode"))[0]
+    if sensitivity:
+        from vptq_tpu_torch.examples.mixed_sensitivity import nudged
+
+        embed = model.embed_tokens
+        model.embed_tokens = nudged(embed, seed)
+        with plain_versions(fmt):
+            moved = logits_of(prompts[0])[0]
+        model.embed_tokens = embed
+        result["prefill_logits_sensitivity"] = (
+            (moved - want).abs().max() / want.abs().max()).item()
     if fmt == "int8" and not moe and flash:
         hold_to_plain(flash[-1], ("long_prefill",))
 
@@ -1268,6 +1338,155 @@ def phase_e2e(device, path, fmt: str, vocab: int,
     del engine, model, gen
     if cuda:
         torch.cuda.empty_cache()
+    return result
+
+
+def side_shapes(cfg: dict, fmt: str):
+    """(name, out, in) of the int8 side matrices of ``fmt``'s four mixed
+    sites in one decoder layer of ``cfg``: ``in`` is the side's column
+    count, by calibration's rule (``utils/synth.py`` ``mixed_cols``)."""
+    from vptq_tpu_torch.utils.synth import MIXED_FORMATS, mixed_cols
+
+    fraction = MIXED_FORMATS[fmt][1]
+    out = []
+    for name, out_f, in_f in k1_shapes(cfg):
+        k = mixed_cols(in_f, fraction)
+        out.append((f"{name} side {k}", out_f, k))
+    return out
+
+
+def disk_room(path, what: str, need: int = 0) -> dict:
+    """shutil.disk_usage where ``path`` lies, printed; fails (the phase is
+    not skipped) unless ``need`` bytes and 1 GB beside them fit."""
+    usage = shutil.disk_usage(path)
+    out = dict(path=str(path), total_gb=usage.total / 1e9,
+               free_gb=usage.free / 1e9, need_gb=need / 1e9)
+    print(f"disk {what} " + json.dumps(out))
+    if usage.free < need + (1 << 30):
+        raise AssertionError(
+            f"{what}: {need / 1e9:.2f} GB to write, {usage.free / 1e9:.2f} "
+            f"GB free at {path}")
+    return out
+
+
+def buffer_bytes(model) -> int:
+    return sum(b.numel() * b.element_size() for b in model.buffers())
+
+
+def same_buffers(want, got, what: str) -> int:
+    """Fails unless two models hold the same tensors under the same names,
+    byte for byte, and the same config; returns the bytes compared."""
+    a, b = dict(want.named_buffers()), dict(got.named_buffers())
+    if a.keys() != b.keys() or want.cfg != got.cfg:
+        raise AssertionError(
+            f"{what}: tensors {sorted(a.keys() ^ b.keys())[:4]} or the "
+            "config differ")
+    for name, t in a.items():
+        u = b[name]
+        if (t.dtype != u.dtype or t.shape != u.shape or not torch.equal(
+                t.reshape(-1).view(torch.uint8),
+                u.reshape(-1).view(torch.uint8))):
+            raise AssertionError(f"{what}: {name} read back differs")
+    return buffer_bytes(want)
+
+
+def phase_mixed(device, cfg: dict, fmt: str, seed=0, **e2e_kwargs):
+    """A calibrated mixed format at ``cfg``'s full geometry through the
+    port's runtime checkpoint: a model of random codes built on the card
+    (``utils/synth.py`` ``mixed_model``: side columns spread evenly,
+    calibration's count rule, side scale group 128), written by
+    ``export_runtime`` to a temporary directory (removed afterwards),
+    read back by ``load_runtime_model`` and held byte-equal to what was
+    written, then served by :func:`phase_e2e` through ``Engine``."""
+    from vptq_tpu_torch.models.llama import ModelConfig
+    from vptq_tpu_torch.tools.export_runtime import (
+        export_runtime,
+        load_runtime_model,
+    )
+    from vptq_tpu_torch.utils.synth import mixed_model
+
+    path = tempfile.mkdtemp(prefix="vptq_mixed_")
+    try:
+        disk_room(path, f"{fmt} (before the build)")
+        t0 = time.perf_counter()
+        model = mixed_model(ModelConfig(**cfg), fmt, device, seed=seed,
+                            std=MIXED_STD)
+        _sync(device)
+        made = dict(build_s=time.perf_counter() - t0,
+                    disk=disk_room(path, fmt, buffer_bytes(model)))
+        t0 = time.perf_counter()
+        export_runtime(model, path)
+        made["write_s"] = time.perf_counter() - t0
+        made["file_gb"] = sum(
+            f.stat().st_size for f in Path(path).iterdir()) / 1e9
+        t0 = time.perf_counter()
+        loaded = load_runtime_model(path, device)
+        _sync(device)
+        load_s = time.perf_counter() - t0
+        made["bytes_equal_gb"] = same_buffers(model, loaded, fmt) / 1e9
+        print(f"runtime checkpoint {fmt} " + json.dumps(made))
+        del model
+        result = phase_e2e(device, loaded, fmt, cfg["vocab_size"],
+                           load_s=load_s, sensitivity=True, **e2e_kwargs)
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
+    result["runtime_checkpoint"] = made
+    return result
+
+
+def phase_round_trip(device, path, fmt: str, vocab: int, layers=4,
+                     prompt_len=16, new_tokens=8, max_seq=256, seed=0):
+    """The runtime checkpoint at full width, depth cut to ``layers`` to
+    spare disk and time: the VPTQ checkpoint at ``path`` cut to its first
+    ``layers`` (its config.json, its shards linked) is loaded in ``fmt``
+    by re-encoding, written by ``export_runtime``, read back by
+    ``load_runtime_model`` and held byte-equal; one greedy request from
+    each gives the same tokens. Returns the runtime load's seconds beside
+    the re-encoding load's."""
+    from vptq_tpu_torch.api import Engine
+    from vptq_tpu_torch.models.loader import load_model
+    from vptq_tpu_torch.tools.export_runtime import (
+        export_runtime,
+        load_runtime_model,
+    )
+
+    cut = Path(tempfile.mkdtemp(prefix="vptq_cut_"))
+    out = tempfile.mkdtemp(prefix="vptq_rt_")
+    try:
+        disk_room(out, f"{fmt} round trip (before the load)")
+        with open(Path(path) / "config.json") as f:
+            hf = json.load(f)
+        hf["num_hidden_layers"] = layers
+        with open(cut / "config.json", "w") as f:
+            json.dump(hf, f)
+        for shard in Path(path).glob("*.safetensors"):
+            (cut / shard.name).symlink_to(shard.resolve())
+        t0 = time.perf_counter()
+        model = load_model(str(cut), runtime_format=fmt, device=device)
+        _sync(device)
+        result = dict(format=fmt, layers=layers,
+                      reencode_load_s=time.perf_counter() - t0)
+        disk_room(out, f"{fmt} round trip", buffer_bytes(model))
+        t0 = time.perf_counter()
+        export_runtime(model, out)
+        result["write_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = load_runtime_model(out, device)
+        _sync(device)
+        result["runtime_load_s"] = time.perf_counter() - t0
+        result["bytes_equal_gb"] = same_buffers(model, back, fmt) / 1e9
+        prompt = np.random.default_rng(seed).integers(
+            0, vocab, prompt_len).tolist()
+        tokens = [Engine(m, max_seq=max_seq).generate(
+            prompt, max_new_tokens=new_tokens) for m in (model, back)]
+        if tokens[0] != tokens[1] or len(tokens[0]) != new_tokens:
+            raise AssertionError(f"{fmt}: tokens {tokens[1]} read back, "
+                                 f"{tokens[0]} re-encoded")
+        result["tokens_identical"] = True
+    finally:
+        shutil.rmtree(cut, ignore_errors=True)
+        shutil.rmtree(out, ignore_errors=True)
+    print("round trip " + json.dumps(result))
     return result
 
 
@@ -1416,12 +1635,17 @@ def decode_breakdown(model, gen, prompt, tags: dict, steps=8):
 def decode_calls(model, fmt: str) -> list:
     """(kernel, out, in_p) of every kernel call of one decode step, in
     order: each block's linears (qkv, o, gate_up, down, or their unfused
-    parts), and a MoE block's two pairs calls (gate_up, down)."""
+    parts; a mixed layer's base, then its side), and a MoE block's two
+    pairs calls (gate_up, down)."""
     from vptq_tpu_torch.models.llama import MoeMlp
 
+    kernels = format_kernels(fmt)
+
     def call(lin):
-        in_p = getattr(lin, "in_padded", None) or lin.wq.shape[1]
-        return FORMAT_KERNEL[fmt], lin.out_features, in_p
+        # a mixed layer: its base, then its int8 side on the gathered columns
+        parts = (lin.base, lin.int8) if len(kernels) == 2 else (lin,)
+        return [(k, part.out_features, part.in_padded)
+                for k, part in zip(kernels, parts)]
 
     out = []
     for block in model.blocks:
@@ -1431,14 +1655,14 @@ def decode_calls(model, fmt: str) -> list:
         if isinstance(mlp, MoeMlp):
             st = mlp.stacked
             pairs = MOE_KERNELS[fmt][1]
-            out += [call(lin) for lin in lins] + [
+            out += sum((call(lin) for lin in lins), []) + [
                 (pairs, st.gate_up_wq.shape[1], None),
                 (pairs, st.down_wq.shape[1], None),
             ]
             continue
         lins += ([mlp.gate_up_proj] if mlp.gate_up_proj is not None
                  else [mlp.gate_proj, mlp.up_proj]) + [mlp.down_proj]
-        out += [call(lin) for lin in lins]
+        out += sum((call(lin) for lin in lins), [])
     return out
 
 
@@ -1674,6 +1898,14 @@ def main() -> int:
         "w8_matmul", device, k1_shapes(QWEN25_7B), TOKENS, in_record=False,
         routes=routes,
     )
+    # K1 at the int8 side matrices of the mixed formats at Llama-3.1-8B
+    # width: group 128, in_p 128 to 512 (one to four stages)
+    sides = dict.fromkeys(
+        s for fmt in MIXED_KERNELS for s in side_shapes(LLAMA31_8B, fmt))
+    rows += phase_kernel(
+        "w8_matmul", device, list(sides), SIDE_TOKENS, in_record=False,
+        group=128, routes=routes,
+    )
     rows += phase_bf16(device, k1_shapes(LLAMA31_8B), TOKENS)
     rows += phase_flash(device)
     # K5b also at one pair and at the pairs of the longest call a MoE
@@ -1698,15 +1930,17 @@ def main() -> int:
     print(f"probe phase: {time.perf_counter() - t0:.2f} s")
     phase_encoders(device)
     launches = dict.fromkeys(ALL_KERNELS, 0)
-    # (label, config, formats, what phase_e2e and the writer get beside)
+    # (label, config, formats, what phase_e2e and the writer get beside,
+    # the formats of the depth-cut runtime checkpoint round trip)
     runs = (
-        ("Llama-3.1-8B", LLAMA31_8B, FORMAT_KERNEL, {}, {}),
-        ("Mixtral-8x7B", MIXTRAL_8X7B, MOE_KERNELS, {}, {}),
-        ("Qwen2.5-7B", QWEN25_7B, ("int8",), {}, dict(qkv_bias=True)),
+        ("Llama-3.1-8B", LLAMA31_8B, FORMAT_KERNEL, {}, {},
+         ("int8", "int4")),
+        ("Mixtral-8x7B", MIXTRAL_8X7B, MOE_KERNELS, {}, {}, ("int4",)),
+        ("Qwen2.5-7B", QWEN25_7B, ("int8",), {}, dict(qkv_bias=True), ()),
         ("Mistral-7B", MISTRAL_7B, ("int8",),
-         dict(prompt_lens=(16, 512, 1536, 4608), max_seq=8192), {}),
+         dict(prompt_lens=(16, 512, 1536, 4608), max_seq=8192), {}, ()),
     )
-    for label, cfg, formats, e2e_kwargs, writer_kwargs in runs:
+    for label, cfg, formats, e2e_kwargs, writer_kwargs, trips in runs:
         path, write_s = write_checkpoint(cfg, V8_K65536, **writer_kwargs)
         print(f"checkpoint write {label} "
               f"({cfg['num_hidden_layers']} layers): {write_s:.2f} s")
@@ -1718,8 +1952,17 @@ def main() -> int:
                 print(f"e2e {label} " + json.dumps(e2e))
                 for name, n in e2e["launches"].items():
                     launches[name] += n
+            for fmt in trips:
+                phase_round_trip(device, path, fmt, cfg["vocab_size"])
         finally:
             shutil.rmtree(path, ignore_errors=True)
+    # the calibrated formats, served from the port's own runtime checkpoint
+    # at full Llama-3.1-8B geometry
+    for fmt in MIXED_KERNELS:
+        e2e = phase_mixed(device, LLAMA31_8B, fmt)
+        print("e2e Llama-3.1-8B " + json.dumps(e2e))
+        for name, n in e2e["launches"].items():
+            launches[name] += n
     print(json.dumps({"kernels": kernel_records(rows, launches)}))
     print(json.dumps({
         "ok": True,

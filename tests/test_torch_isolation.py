@@ -25,6 +25,7 @@ from vptq_tpu_torch.convert import convert_params
 from vptq_tpu_torch.examples import (
     kernel_bench,
     kernel_turns,
+    mixed_sensitivity,
     profile_decode,
     vq_smallk_probe,
     w4_unpack_ablation,
@@ -331,7 +332,7 @@ def test_chip_smoke_probe_phase_on_cpu():
 
 @pytest.mark.parametrize("module", [
     kernel_bench, w4_wall_candidates, w4_unpack_ablation, vq_smallk_probe,
-    kernel_turns, profile_decode,
+    kernel_turns, profile_decode, mixed_sensitivity,
 ])
 def test_examples_exit_nonzero_without_a_card(module, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -2163,3 +2164,228 @@ def test_a_capture_that_fails_raises(cuda, checkpoint):
     )
     assert out.returncode == 0, out.stdout + out.stderr
     assert "raised" in out.stdout and "card answers 4.0" in out.stdout
+
+
+# --------------------------------------------------------------------
+# Runtime checkpoints and the mixed formats
+# --------------------------------------------------------------------
+
+_IMPORT_TOOLS = r"""
+import sys
+from vptq_tpu_torch.tools import export_runtime
+bad = sorted(
+    m for m in sys.modules
+    if m.split(".")[0] in ("jax", "jaxlib", "flax", "ml_dtypes", "safetensors", "vptq_tpu")
+)
+print(export_runtime.__name__, bad)
+"""
+
+
+def test_runtime_checkpoint_tools_import_no_jax():
+    """The reader and writer keep their own copy of the JAX package's file
+    format: importing them pulls in no JAX, ml_dtypes or safetensors."""
+    env = {k: v for k, v in os.environ.items() if not k.startswith("JAX")}
+    out = subprocess.run(
+        [sys.executable, "-c", _IMPORT_TOOLS], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=120, check=True,
+    ).stdout.split(maxsplit=1)
+    assert out == ["vptq_tpu_torch.tools.export_runtime", "[]\n"]
+
+
+def test_export_runtime_cli_exits_nonzero_without_a_card(monkeypatch,
+                                                         checkpoint, tmp_path):
+    from vptq_tpu_torch.tools import export_runtime
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit) as exc:
+        export_runtime.main(["-m", checkpoint, "-o", str(tmp_path / "rt")])
+    assert exc.value.code not in (0, None)
+    assert "--device cpu" in str(exc.value.code)
+    assert not (tmp_path / "rt").exists()
+
+
+def test_from_pretrained_refuses_tensor_parallelism(checkpoint):
+    with pytest.raises(NotImplementedError, match="M16"):
+        AutoModelForCausalLM.from_pretrained(checkpoint, device="cpu", tp=2)
+    engine = AutoModelForCausalLM.from_pretrained(
+        checkpoint, device="cpu", tp=1, dtype=torch.float32, max_seq=32)
+    assert len(engine.generate([1, 2, 3], max_new_tokens=2)) == 2
+
+
+def test_side_shapes_of_llama31_8b():
+    """The int8 side matrices of the mixed formats at Llama-3.1-8B width:
+    128 columns everywhere but down's 14336 inputs (1/48: 384, 1/32:
+    512)."""
+    want = {"int2-mixed": 384, "int3-mixed": 512}
+    for fmt, down in want.items():
+        assert [s[1:] for s in chip_smoke.side_shapes(
+            chip_smoke.LLAMA31_8B, fmt)] == [
+            (6144, 128), (4096, 128), (28672, 128), (4096, down)]
+
+
+def test_expected_launches_of_a_mixed_request():
+    """A mixed format's linear runs its base kernel and K1 once each: 4 of
+    each per layer and forward call."""
+    buckets = [128, 512, 2048]
+    dense = tiny_model_config(num_hidden_layers=3, head_dim=128)
+    for fmt, (base, side) in chip_smoke.MIXED_KERNELS.items():
+        got = chip_smoke.expected_launches(dense, fmt, 1536, 32, buckets)
+        assert got.pop(base) == got.pop(side) == 4 * 3 * 32
+        assert got.pop("flash_attention") == 3 and set(got.values()) == {0}
+
+
+def test_plain_versions_swap_every_kernel_of_a_mixed_layer():
+    from vptq_tpu_torch.layers import runtime
+
+    with chip_smoke.plain_versions("int2-mixed"):
+        assert runtime.w2_matmul is w2_matmul_reference
+        assert runtime.w8_matmul is w8_matmul_reference
+    assert runtime.w8_matmul is w8_matmul and runtime.w2_matmul is w2_matmul
+
+
+def test_step_routes_hold_a_mixed_model_to_its_routes():
+    """A mixed model's decode step: each linear's base, then its side; at
+    one token K1's side calls on w8_gemv and K4 on lowbit::gemv (the tiny
+    model's weights are small); a kernel of the path missing fails."""
+    from vptq_tpu_torch.models.llama import ModelConfig
+    from vptq_tpu_torch.utils.synth import mixed_model
+
+    cfg = ModelConfig(**dict(TINY, tie_word_embeddings=False))
+    model = mixed_model(cfg, "int3-mixed", "cpu")
+    calls = chip_smoke.decode_calls(model, "int3-mixed")
+    assert [k for k, _, _ in calls] == ["w3_matmul", "w8_matmul"] * 8
+    assert [c[1:] for c in calls[:4]] == [(128, 2048), (128, 128),
+                                          (64, 2048), (64, 128)]
+    gemv = KERNEL_NAMES["w3_matmul"][0]
+    side = _W8.format(k="gemv", sel="Whole", t="1, ")
+    step = [_Event(gemv, 1.0), _Event(side, 1.0)] * 4
+    assert chip_smoke.step_routes(step, model, "int3-mixed", "step") == {
+        "w3_matmul": ["lowbit W3"], "w8_matmul": ["w8_gem Whole"]}
+    with pytest.raises(AssertionError, match="routes say"):
+        chip_smoke.step_routes(step[::2], model, "int3-mixed", "step")
+
+
+def test_same_buffers_and_disk_room_fail_loudly(monkeypatch, tmp_path):
+    from vptq_tpu_torch.models.llama import ModelConfig
+    from vptq_tpu_torch.utils.synth import mixed_model
+
+    cfg = ModelConfig(**dict(TINY, tie_word_embeddings=False))
+    a = mixed_model(cfg, "int2-mixed", "cpu")
+    b = mixed_model(cfg, "int2-mixed", "cpu")
+    assert chip_smoke.same_buffers(a, b, "x") == chip_smoke.buffer_bytes(a)
+    b.blocks[1].mlp.down_proj.int8.scales[0, 3] += 1e-7
+    with pytest.raises(AssertionError, match="down_proj.int8.scales"):
+        chip_smoke.same_buffers(a, b, "x")
+    usage = shutil.disk_usage(tmp_path)
+    monkeypatch.setattr(shutil, "disk_usage",
+                        lambda p: usage._replace(free=2 << 30))
+    chip_smoke.disk_room(tmp_path, "x", 1 << 30)
+    with pytest.raises(AssertionError, match="GB free"):
+        chip_smoke.disk_room(tmp_path, "x", 3 << 30)
+
+
+@pytest.mark.parametrize("fmt", list(chip_smoke.MIXED_KERNELS))
+def test_chip_smoke_mixed_phase_on_cpu(fmt):
+    """The mixed formats' phase at a tiny size: a model of random codes
+    written and read back byte-equal, served with the plain versions."""
+    cfg = dict(TINY, tie_word_embeddings=False,
+               rope_scaling=tuple(sorted(LLAMA3_SCALING.items())))
+    e2e = chip_smoke.phase_mixed("cpu", cfg, fmt, prompt_lens=(5, 20, 40),
+                                 new_tokens=4, max_seq=64)
+    assert e2e["kernels"] == list(chip_smoke.MIXED_KERNELS[fmt])
+    assert [r["prompt"] for r in e2e["requests"]] == [5, 20, 40]
+    assert set(e2e["launches"].values()) == {0}  # the CPU launches nothing
+    assert e2e["prefill_logits_max_abs_diff"] == 0.0
+    assert e2e["decode_logits_max_abs_diff"] == 0.0
+    made = e2e["runtime_checkpoint"]
+    assert 0 < made["bytes_equal_gb"] <= made["file_gb"]
+
+
+@pytest.mark.parametrize("family,fmt", [
+    ("llama", "int8"), ("llama", "int4"), ("mixtral", "int4"),
+])
+def test_chip_smoke_round_trip_on_cpu(family, fmt):
+    """The depth-cut round trip at a tiny size: one of two layers loaded,
+    written, read back byte-equal, the same greedy tokens."""
+    cfg = dict(TINY, tie_word_embeddings=False)
+    if family == "mixtral":
+        cfg.update(model_type="mixtral", num_local_experts=4,
+                   num_experts_per_tok=2)
+    path, _ = chip_smoke.write_checkpoint(cfg, VQ)
+    try:
+        got = chip_smoke.phase_round_trip("cpu", path, fmt,
+                                          TINY["vocab_size"], layers=1)
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
+    assert got["layers"] == 1 and got["tokens_identical"]
+    assert got["bytes_equal_gb"] > 0
+
+
+# the int8 side matrices of the mixed formats at Llama-3.1-8B width (out,
+# in_p): group 128, one to four 128-position stages
+K1_SIDES = [(6144, 128), (4096, 128), (28672, 128), (4096, 384),
+            (4096, 512)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("tokens", [1, 2, 3, 8, 16, 17, 128, 512, 2048])
+@pytest.mark.parametrize("out_f,in_p", K1_SIDES)
+def test_k1_at_the_mixed_side_shapes(cuda, out_f, in_p, tokens, out_dtype):
+    """K1 on a mixed layer's int8 side: w8_gemv (1-2 tokens), the decode
+    GEMV with one to four stages (3-16), the Hopper tile whose K loop is
+    one to four stages, no longer than its ring of x slabs (past 16)."""
+    gen = torch.Generator(device=cuda).manual_seed(tokens + out_f + in_p)
+    wq, scales = _int8_case(gen, cuda, out_f, in_p, 128)
+    x = torch.randn((tokens, in_p), generator=gen, device=cuda)
+    before = w8_matmul.launches
+    got = w8_matmul(x, wq, scales, out_dtype=out_dtype)
+    want = w8_matmul_reference(x, wq, scales, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert w8_matmul.launches == before + 1
+    assert got.shape == (tokens, out_f) and got.dtype == out_dtype
+    _assert_kernel_close(got, want, out_dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tokens", [1, 3, 16, 17, 130])
+@pytest.mark.parametrize("fmt", list(chip_smoke.MIXED_KERNELS))
+def test_mixed_layer_runs_its_kernels(cuda, fmt, tokens):
+    """A mixed layer on the card launches its base kernel and K1 once
+    each, and agrees with the same layer through their plain versions
+    (each part within chip_smoke's bound of its own magnitude)."""
+    from vptq_tpu_torch.utils.synth import _mixed_linear
+
+    gen = torch.Generator(device=cuda).manual_seed(tokens)
+    lin = _mixed_linear(fmt, 4096, 1024, gen, 0.02)
+    x = torch.randn((tokens, 4096), generator=gen, device=cuda).to(
+        torch.bfloat16)
+    fns = [chip_smoke.kernel_fns(k)[0]
+           for k in chip_smoke.MIXED_KERNELS[fmt]]
+    before = [f.launches for f in fns]
+    got = lin(x)
+    torch.cuda.synchronize()
+    assert [f.launches for f in fns] == [n + 1 for n in before]
+    with chip_smoke.plain_versions(fmt):
+        want = lin(x)
+        parts = lin.base(x).float().abs() + lin.int8(
+            x.index_select(-1, lin.col_idx)).float().abs()
+    assert got.dtype == want.dtype == torch.bfloat16
+    err = (got.float() - want.float()).abs()
+    limit = (chip_smoke.RTOL * parts
+             + chip_smoke.ATOL_FRAC * want.float().abs().max())
+    assert bool(torch.all(err <= limit)), err.max()
+
+
+def test_mixed_sensitivity_runs_the_plain_versions_on_cpu(capsys):
+    """The spread sweep at a tiny width on the CPU: the plain versions on
+    both sides (kernels vs plain 0), the one-ulp embedding's move > 0."""
+    mixed_sensitivity.main(["--device", "cpu", "--tiny", "--std", "0.02"])
+    lines = capsys.readouterr().out.splitlines()
+    assert lines[0].startswith("# cpu") and lines[-1] == lines[0]
+    assert [ln.split(":")[0] for ln in lines[1:3]] == [
+        "int2-mixed std 0.02", "int3-mixed std 0.02"]
+    for ln in lines[1:3]:
+        kernels, moved = (float(w.split()[0]) for w in
+                          ln.split("plain ")[1].split(", one-ulp embedding "))
+        assert kernels == 0.0 and 0 < moved < 1

@@ -57,6 +57,7 @@ class AutoModelForCausalLM:
         dtype=torch.bfloat16,
         max_seq: int = 2048,
         device=None,
+        tp: int = 1,
         **_ignored,
     ) -> Engine:
         """Load a local checkpoint directory; ``device`` defaults to CUDA
@@ -65,8 +66,17 @@ class AutoModelForCausalLM:
         ``runtime_format``: "int8" (K1), "int4" (K2), "int3" (K4) or
         "int2" (K3) re-encode every quantized linear for its hand-written
         kernel; "bf16" dequantizes to bf16; "codebook" keeps the VQ
-        layers. The calibrated "int*-mixed" formats raise (not ported).
+        layers. The calibrated "int*-mixed" formats raise here (their
+        calibration is not ported); a calibrated runtime checkpoint loads
+        with ``tools.export_runtime.load_runtime_model`` and serves
+        through :class:`Engine`. ``tp`` > 1 (tensor parallelism) raises:
+        not ported.
         """
+        if tp > 1:
+            raise NotImplementedError(
+                f"tp={tp}: tensor parallelism (ROADMAP M16) is not ported; "
+                "the port runs on one device"
+            )
         model = load_model(
             pretrained_model_name_or_path,
             dtype=dtype,

@@ -8,7 +8,9 @@ dict keeps no class names, so the kind of each linear follows from its
 leaves: ``wq2`` and ``wq1`` are int3; ``wq`` is int8, int4 or int2 by
 the dtype and shape of its ``scales`` (see :func:`_packed_kind`);
 ``weight`` is dense; ``centroids`` is a codebook layer whose geometry
-comes from the config's ``quantization_config``. A Mixtral block's
+comes from the config's ``quantization_config``; ``col_idx`` is a
+calibrated mixed layer whose base lies under ``int2`` or ``int3`` and
+whose int8 side under ``int8``. A Mixtral block's
 ``mlp`` holds ``router``, ``experts.<e>`` and, after fusion, ``stacked``,
 whose format (int8 or int4) follows from its scales as a ``wq``'s does.
 bf16 arrays are taken by bit pattern.
@@ -25,7 +27,9 @@ from vptq_tpu_torch.config import QuantizationConfig
 from vptq_tpu_torch.layers.dense import DenseLinear
 from vptq_tpu_torch.layers.runtime import (
     Int2Linear,
+    Int2MixedLinear,
     Int3Linear,
+    Int3MixedLinear,
     Int4Linear,
     Int8Linear,
 )
@@ -133,7 +137,18 @@ def convert_params(
         # the JAX planes are uint8 or uint16 arrays
         return to_index_plane(t.to(torch.int64), num_centroids)
 
-    def linear(prefix: str, hf_prefix: str):
+    def linear(prefix: str, hf_prefix: Optional[str]):
+        if f"{prefix}.col_idx" in params:
+            kind, base = (
+                (Int2MixedLinear, "int2") if f"{prefix}.int2.wq" in params
+                else (Int3MixedLinear, "int3")
+            )
+            return kind(
+                linear(f"{prefix}.{base}", None),
+                linear(f"{prefix}.int8", None),
+                get(f"{prefix}.col_idx"),
+                get(f"{prefix}.bias"),
+            )
         if f"{prefix}.wq2" in params:
             return Int3Linear(
                 get(f"{prefix}.wq2"),

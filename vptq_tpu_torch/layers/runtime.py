@@ -1,8 +1,8 @@
 """Runtime weight formats: the dense re-encodings of VPTQ layers.
 
-Port of ``vptq_tpu/layers/runtime.py`` without the calibrated mixed
-layers. The loader reconstructs each layer's exact weight once (a torch
-gather on the load device) and re-encodes it:
+Port of ``vptq_tpu/layers/runtime.py``. The loader reconstructs each
+layer's exact weight once (a torch gather on the load device) and
+re-encodes it:
 
   * ``int8``  per-(row, in-group) scaled int8, run by K1
     (``ops/w8_matmul.py``).
@@ -15,6 +15,13 @@ gather on the load device) and re-encodes it:
     (``ops/w2_matmul.py``).
   * ``bf16``  the exact weight rounded to bf16, run by ``torch.matmul``.
   * ``codebook`` keep the compressed :class:`VQLinear`.
+
+The calibrated mixed layers :class:`Int2MixedLinear` and
+:class:`Int3MixedLinear` add an int8 side matrix on a few input columns
+to an int2 or int3 base (``y = base(x) + int8(x[..., col_idx])``: K3 or
+K4, then K1). Calibration, which chooses their codes, is not ported: they
+are read from a runtime checkpoint (``tools/export_runtime.py``) or built
+from given codes by the ``*_from_q`` constructors.
 
 Every encoding is byte-equal to the JAX package's numpy encoder.
 :func:`fuse_block` also stacks the int8 or int4 experts of a Mixtral MoE
@@ -54,8 +61,12 @@ from vptq_tpu_torch.ops.w4_matmul import w4_matmul
 from vptq_tpu_torch.ops.w8_matmul import w8_matmul
 
 __all__ = [
+    "INT2_MIXED_COL_FRACTION",
+    "INT3_MIXED_COL_FRACTION",
     "Int2Linear",
+    "Int2MixedLinear",
     "Int3Linear",
+    "Int3MixedLinear",
     "Int4Linear",
     "Int8Linear",
     "RUNTIME_FORMATS",
@@ -64,9 +75,13 @@ __all__ = [
     "fuse_block",
     "fuse_linears",
     "fuse_model",
+    "int2_from_q",
     "int2_weight",
+    "int3_from_q",
     "int3_weight",
+    "int4_from_q",
     "int4_weight",
+    "int8_from_q",
     "int8_weight",
     "linear_exact_weight",
     "pick_group",
@@ -115,6 +130,10 @@ class Int8Linear(nn.Module):
     @property
     def group(self) -> int:
         return self.wq.shape[1] // self.scales.shape[0]
+
+    @property
+    def in_padded(self) -> int:
+        return self.wq.shape[1]
 
     @property
     def out_features(self) -> int:
@@ -247,6 +266,79 @@ class Int2Linear(nn.Module):
         )
 
 
+# the int8 share of a mixed format's input columns, before calibration's
+# count rule (at least 128, a multiple of 128, at most in_features):
+# ~2.5 bits a weight for int2-mixed, ~3.4 for int3-mixed
+INT2_MIXED_COL_FRACTION = 1 / 48
+INT3_MIXED_COL_FRACTION = 1 / 32
+
+
+class _MixedLinear(nn.Module):
+    """A low-bit base plus an int8 side matrix on chosen input columns:
+    ``y = base(x) + int8(x[..., col_idx])``, then the bias.
+
+    The gather stays on the device (one ``index_select``), the base runs
+    its format's kernel and the side K1, both in ``x.dtype``. A blocked
+    (``shards > 1``) instance, whose ``col_idx`` holds shard-local ids,
+    is not ported: the runtime reader refuses it.
+    """
+
+    _BASE = ""
+
+    def __init__(
+        self,
+        base: nn.Module,
+        int8: Int8Linear,
+        col_idx: torch.Tensor,  # (k,) int32, the original input columns
+        bias: Optional[torch.Tensor] = None,
+    ):
+        super().__init__()
+        setattr(self, self._BASE, base)
+        self.int8 = int8
+        self.register_buffer("col_idx", col_idx)
+        self.register_buffer("bias", bias)
+
+    @property
+    def base(self) -> nn.Module:
+        return getattr(self, self._BASE)
+
+    @property
+    def out_features(self) -> int:
+        return self.base.out_features
+
+    @property
+    def in_padded(self) -> int:
+        return self.base.in_padded
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xs = x.index_select(-1, self.col_idx)
+        out = self.base(x) + self.int8(xs).to(x.dtype)
+        return _add_bias(out, self.bias)
+
+
+class Int2MixedLinear(_MixedLinear):
+    """int2 plane (K3) + int8 side matrix (K1): the calibrated ~2.5-bit
+    format. Its side holds the residual of the selected columns, which
+    the half-offset grid cannot zero."""
+
+    _BASE = "int2"
+
+    def __init__(self, int2: Int2Linear, int8: Int8Linear, col_idx,
+                 bias=None):
+        super().__init__(int2, int8, col_idx, bias)
+
+
+class Int3MixedLinear(_MixedLinear):
+    """int3 planes (K4) + int8 side matrix (K1): the calibrated ~3.4-bit
+    format; the selected columns hold zeros in the planes."""
+
+    _BASE = "int3"
+
+    def __init__(self, int3: Int3Linear, int8: Int8Linear, col_idx,
+                 bias=None):
+        super().__init__(int3, int8, col_idx, bias)
+
+
 def _exact_weight(layer: VQLinear) -> torch.Tensor:
     """Exact f32 weight (out, in) on the layer's device.
 
@@ -368,6 +460,65 @@ def dense_to_int4(layer: DenseLinear) -> Int4Linear:
     return _encode_int4(layer.weight.to(torch.float32), layer.bias)
 
 
+def _pad_codes(q, scales, pad_to: int, group: int, code: int = 0):
+    """Codes (out, in) and out-major scales (out, in / group) padded along
+    in_features to a multiple of ``pad_to``: codes with ``code``, scales
+    with 1.0 (finite and exact in bf16)."""
+    pad = (-q.shape[1]) % pad_to
+    if pad:
+        q = nn.functional.pad(q, (0, pad), value=code)
+        scales = nn.functional.pad(scales, (0, pad // group), value=1.0)
+    return q.contiguous(), scales
+
+
+def int8_from_q(q: torch.Tensor, scales: torch.Tensor, bias=None):
+    """:class:`Int8Linear` from given codes: ``q`` (out, in) int8 with
+    ``in`` a multiple of the scale group, ``scales`` (out, in / group)."""
+    return Int8Linear(
+        wq=q.contiguous(),
+        scales=scales.t().to(torch.float32).contiguous(),
+        bias=bias,
+    )
+
+
+def int4_from_q(q: torch.Tensor, scales: torch.Tensor, bias=None,
+                pad_to: int = 2048) -> Int4Linear:
+    """:class:`Int4Linear` from given codes: ``q`` (out, in) int8 in
+    [-7, 7], ``in % 128 == 0``; ``scales`` (out, in / 128) f32, already
+    bf16-representable."""
+    q, scales = _pad_codes(q, scales, pad_to, INT4_GROUP)
+    return Int4Linear(
+        wq=pack_int4(q),
+        scales=scales.t().contiguous().to(torch.bfloat16),
+        bias=bias,
+    )
+
+
+def int3_from_q(q: torch.Tensor, scales: torch.Tensor, bias=None,
+                pad_to: int = 2048) -> Int3Linear:
+    """:class:`Int3Linear` from given codes: ``q`` (out, in) int8 in
+    [-4, 3], ``in % 128 == 0``; ``scales`` (out, in / 128) f32."""
+    q, scales = _pad_codes(q, scales, pad_to, INT4_GROUP)
+    wq2, wq1 = pack_int3(q)
+    return Int3Linear(
+        wq2=wq2, wq1=wq1, scales=scales.contiguous().to(torch.bfloat16),
+        bias=bias,
+    )
+
+
+def int2_from_q(q: torch.Tensor, scales: torch.Tensor, bias=None,
+                pad_to: int = W2_BLOCK, group: int = W2_GROUP) -> Int2Linear:
+    """:class:`Int2Linear` from given codes: ``q`` (out, in) int8 in
+    [-2, 1] (levels ``(q + 0.5)·s``), ``in % group == 0``; ``scales``
+    (out, in / group) f32. Padded columns take code -1 (x is zero-padded
+    there, so they add nothing)."""
+    q, scales = _pad_codes(q, scales, pad_to, group, code=-1)
+    return Int2Linear(
+        wq=pack_int2(q), scales=scales.contiguous().to(torch.bfloat16),
+        bias=bias,
+    )
+
+
 def _scaled(levels: torch.Tensor, scales: torch.Tensor, group: int):
     """levels (out, in_p) f32 times out-major scales (out, in_p / group)."""
     out_f, in_p = levels.shape
@@ -472,11 +623,16 @@ def fuse_linears(linears):
     """Concatenate same-input linears into one (row-wise), or None.
 
     q|k|v and gate|up become single matmuls. All inputs must share a
-    type and every array's other dim (in_features, scale groups);
+    type and every array's other dim (in_features, scale groups); mixed
+    layers also one ``col_idx``, and fuse their base and side apart;
     codebook layers are not fused.
     """
     kind = type(linears[0])
-    if kind not in _OUT_DIM or any(type(m) is not kind for m in linears):
+    if any(type(m) is not kind for m in linears):
+        return None
+    if issubclass(kind, _MixedLinear):
+        return _fuse_mixed(linears)
+    if kind not in _OUT_DIM:
         return None
     arrays = {}
     for name, dim in _OUT_DIM[kind].items():
@@ -485,6 +641,20 @@ def fuse_linears(linears):
             return None
         arrays[name] = torch.cat(parts, dim=dim)
     return kind(**arrays, bias=_fused_bias(linears))
+
+
+def _fuse_mixed(linears):
+    """Mixed layers sharing one column selection (calibration picks one
+    per site, so q|k|v and gate|up do) as one, or None."""
+    cols = linears[0].col_idx
+    if any(m.col_idx.shape != cols.shape or not torch.equal(m.col_idx, cols)
+           for m in linears[1:]):
+        return None
+    base = fuse_linears([m.base for m in linears])
+    side = fuse_linears([m.int8 for m in linears])
+    if base is None or side is None:
+        return None
+    return type(linears[0])(base, side, cols, bias=_fused_bias(linears))
 
 
 def _fuse_gate_up(mlp: Mlp) -> None:

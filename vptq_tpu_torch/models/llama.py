@@ -124,9 +124,49 @@ class ModelConfig:
             ),
         )
 
+    def to_dict(self) -> Dict[str, Any]:
+        """The fields by their names in the JAX package's ``ModelConfig``,
+        which takes them as keyword arguments (a runtime checkpoint's
+        ``model_config``)."""
+        return dataclasses.asdict(self)
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "ModelConfig":
+        """Inverse of :meth:`to_dict`, also for the JAX package's dict.
+        Its DeepSeek fields that the port has not are dropped while they
+        hold their defaults, refused otherwise; ``rope_scaling``, a list
+        of pairs in JSON, becomes a tuple of pairs again."""
+        d = dict(d)
+        ours = {f.name for f in dataclasses.fields(cls)}
+        unknown = sorted(set(d) - ours - set(_JAX_ONLY_DEFAULTS))
+        if unknown:
+            raise ValueError(f"unknown model_config fields {unknown}")
+        used = sorted(
+            k for k, v in _JAX_ONLY_DEFAULTS.items()
+            if k in d and d.pop(k) != v
+        )
+        if used:
+            raise NotImplementedError(
+                "vptq_tpu_torch runs no DeepSeek model (MLA, fine-grained "
+                f"MoE); not ported yet: {', '.join(used)}"
+            )
+        if d.get("rope_scaling"):
+            d["rope_scaling"] = tuple((k, v) for k, v in d["rope_scaling"])
+        return cls(**d)
+
     @property
     def is_mla(self) -> bool:
         return self.kv_lora_rank > 0
+
+
+# the JAX package's ModelConfig fields that the port has not (DeepSeek's
+# MLA and fine-grained MoE), with their defaults
+_JAX_ONLY_DEFAULTS = dict(
+    q_lora_rank=None, qk_nope_head_dim=0, qk_rope_head_dim=0, v_head_dim=0,
+    rope_interleave=False, moe_intermediate_size=0, n_shared_experts=0,
+    n_group=1, topk_group=1, norm_topk_prob=True, routed_scaling_factor=1.0,
+    first_k_dense_replace=0,
+)
 
 
 # --------------------------------------------------------------------

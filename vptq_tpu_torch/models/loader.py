@@ -310,7 +310,9 @@ def load_model(
     "int8", "int4", "int3", "int2" and "bf16" re-encode each layer once
     (``layers/runtime.py``), leaving dense layers such as the lm_head
     as they are. The calibrated "int4-mixed", "int3-mixed" and
-    "int2-mixed" raise: they need GPTQ calibration, not ported yet.
+    "int2-mixed" raise: their codes come from GPTQ calibration, not
+    ported yet; a checkpoint calibrated in such a format is served
+    through ``tools.export_runtime.load_runtime_model``.
     ``fuse`` merges q|k|v and gate|up (dense formats only) and stacks
     the experts of a Mixtral checkpoint (int8 and int4), layer by layer,
     so one layer's experts exist twice at most.
@@ -323,7 +325,9 @@ def load_model(
         raise NotImplementedError(
             f"runtime_format {runtime_format!r} is encoded by GPTQ "
             "calibration (ROADMAP M15), which is not ported; plain "
-            "round-to-nearest would be a different model"
+            "round-to-nearest would be a different model. A calibrated "
+            "runtime checkpoint is served through "
+            "vptq_tpu_torch.tools.export_runtime.load_runtime_model"
         )
     if runtime_format not in RUNTIME_FORMATS:
         raise ValueError(f"unknown runtime format {runtime_format!r}")

@@ -1,0 +1,348 @@
+"""Runtime checkpoints: a loaded model's runtime tensors, written once and
+read back without re-encoding.
+
+Port of ``vptq_tpu/tools/export_runtime.py``. Loading a VPTQ checkpoint
+in a runtime format re-encodes every layer (exact dequant, scale search);
+a calibrated format (``int2-mixed``, ``int3-mixed``, ``int4-mixed``) is
+made once by calibration and can only be served from such a file. The
+format is the JAX package's, in both directions:
+
+  * ``runtime.safetensors``: the JAX key names (``wq`` / ``scales`` int8,
+    ``wq4`` / ``scales4`` int4, ``wq3_2`` / ``wq3_1`` / ``scales3`` int3,
+    ``wq2p`` / ``scales2`` int2, ``weight`` dense; a mixed layer's base
+    under ``mix2`` or ``mix3``, its side under ``mix8``, its columns as
+    int32 ``mix_cols``; a Mixtral block's stacked experts under
+    ``stacked_{int8,int4}``); bf16 tensors written as U16;
+  * ``runtime_config.json``: ``format_version`` 1, ``model_config`` (the
+    fields of ``ModelConfig`` by the JAX names) and ``bf16_keys``, the
+    tensors to view back as bf16.
+
+The reader maps the file and copies each tensor to the device as it lies.
+It refuses what the port does not run: DeepSeek's MLA and MoE, another
+``format_version``, and blocked (``shards > 1``) encodings, which the JAX
+package writes without a marker: a plane whose padded width is not the
+one a one-device encoder gives the layer's logical width (int8: a whole
+scale group; int4 and int3: 2048; int2: 1024), or mixed columns that are
+not strictly increasing inside that width. A blocked layer whose every
+shard already has the one-device width has the one-device shape and
+cannot be told apart.
+
+CLI (a VPTQ checkpoint re-encoded on the card, then written):
+
+    python -m vptq_tpu_torch.tools.export_runtime -m CKPT -o OUT \\
+        [--runtime-format int8] [--device cpu]
+
+Load:
+
+    model = vptq_tpu_torch.tools.export_runtime.load_runtime_model(OUT)
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+from pathlib import Path
+from typing import Dict, Optional
+
+import torch
+
+from vptq_tpu_torch.layers.dense import DenseLinear
+from vptq_tpu_torch.layers.runtime import (
+    Int2Linear,
+    Int2MixedLinear,
+    Int3Linear,
+    Int3MixedLinear,
+    Int4Linear,
+    Int8Linear,
+)
+from vptq_tpu_torch.models.llama import (
+    Attention,
+    Block,
+    Mlp,
+    Model,
+    ModelConfig,
+    MoeMlp,
+    StackedExperts,
+)
+from vptq_tpu_torch.models.loader import (
+    _check_supported,
+    _read_safetensors,
+    load_model,
+    resolve_device,
+    write_safetensors,
+)
+from vptq_tpu_torch.ops.packing import W2_BLOCK
+
+__all__ = ["export_runtime", "load_runtime_model", "main"]
+
+_FORMAT_VERSION = 1
+# each layer type's (attribute, key) pairs, its first key marking it
+_KEYS = {
+    Int8Linear: (("wq", "wq"), ("scales", "scales")),
+    Int4Linear: (("wq", "wq4"), ("scales", "scales4")),
+    Int3Linear: (("wq2", "wq3_2"), ("wq1", "wq3_1"), ("scales", "scales3")),
+    Int2Linear: (("wq", "wq2p"), ("scales", "scales2")),
+    DenseLinear: (("weight", "weight"),),
+}
+_MIXED = {Int2MixedLinear: "mix2", Int3MixedLinear: "mix3"}
+# the multiple a one-device encoder pads in_features to (int8: its group)
+_PAD_TO = {Int4Linear: 2048, Int3Linear: 2048, Int2Linear: W2_BLOCK}
+_ATTN = ("q_proj", "k_proj", "v_proj", "o_proj", "qkv_proj")
+_MLP = ("gate_proj", "up_proj", "down_proj", "gate_up_proj")
+# keys of the DeepSeek layers the JAX package writes (MLA, its MoE router)
+_DEEPSEEK_KEYS = ("kv_a_norm", "router_weight")
+
+
+def _flatten_model(model: Model) -> Dict[str, torch.Tensor]:
+    """The runtime tensors of ``model`` by their JAX names, as contiguous
+    CPU tensors (a strided view would be written scrambled)."""
+    out: Dict[str, torch.Tensor] = {}
+
+    def put(name, t):
+        if t is not None:
+            out[name] = t.detach().cpu().contiguous()
+
+    def put_linear(prefix, lin):
+        if lin is None:
+            return
+        if type(lin) in _MIXED:
+            put_linear(f"{prefix}.{_MIXED[type(lin)]}", lin.base)
+            put_linear(f"{prefix}.mix8", lin.int8)
+            put(f"{prefix}.mix_cols", lin.col_idx.to(torch.int32))
+            put(f"{prefix}.bias", lin.bias)
+            return
+        keys = _KEYS.get(type(lin))
+        if keys is None:
+            raise ValueError(
+                f"{prefix}: cannot export {type(lin).__name__}; use "
+                "runtime_format int8/int4/bf16"
+            )
+        for attr, key in keys:
+            put(f"{prefix}.{key}", getattr(lin, attr))
+        put(f"{prefix}.bias", lin.bias)
+
+    put("embed_tokens", model.embed_tokens)
+    put("norm", model.norm)
+    put_linear("lm_head", model.lm_head)
+    for i, block in enumerate(model.blocks):
+        p = f"blocks.{i}"
+        put(f"{p}.input_layernorm", block.input_layernorm)
+        put(f"{p}.post_attention_layernorm", block.post_attention_layernorm)
+        for name in _ATTN:
+            put_linear(f"{p}.attn.{name}", getattr(block.attn, name))
+        mlp = block.mlp
+        experts = [(f"{p}.mlp", mlp)]
+        if isinstance(mlp, MoeMlp):
+            put_linear(f"{p}.mlp.router", mlp.router)
+            st = mlp.stacked
+            if st is not None and not len(mlp.experts):
+                # the experts exist once, stacked; the format rides the key
+                for name in ("gate_up_wq", "gate_up_scales", "down_wq",
+                             "down_scales"):
+                    put(f"{p}.mlp.stacked_{st.fmt}.{name}", getattr(st, name))
+            experts = [(f"{p}.mlp.experts.{e}", ex)
+                       for e, ex in enumerate(mlp.experts)]
+        for prefix, ex in experts:
+            for name in _MLP:
+                put_linear(f"{prefix}.{name}", getattr(ex, name))
+    return out
+
+
+def export_runtime(model: Model, out_dir) -> Path:
+    """Write ``model``'s runtime tensors and config to ``out_dir``."""
+    out = Path(out_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    tensors = _flatten_model(model)
+    bf16_keys = []
+    for k, t in tensors.items():
+        if t.dtype == torch.bfloat16:
+            tensors[k] = t.view(torch.uint16)
+            bf16_keys.append(k)
+    write_safetensors(tensors, out / "runtime.safetensors")
+    meta = {
+        "format_version": _FORMAT_VERSION,
+        "model_config": model.cfg.to_dict(),
+        "bf16_keys": bf16_keys,
+    }
+    with open(out / "runtime_config.json", "w") as f:
+        json.dump(meta, f, indent=2)
+    return out
+
+
+def _check_one_device(prefix: str, in_p: int, pad_to: int, in_f: int):
+    """Refuse a plane whose padded width is not a one-device encoder's for
+    ``in_f`` logical columns."""
+    if in_p != in_f + (-in_f) % pad_to:
+        raise NotImplementedError(
+            f"{prefix}: padded width {in_p} is not the one-device width of "
+            f"{in_f} columns (a multiple of {pad_to}): a blocked (shards > "
+            "1) encoding, which only tensor-parallel placement runs; not "
+            "ported"
+        )
+
+
+def load_runtime_model(runtime_dir, device=None) -> Model:
+    """Read a model written by :func:`export_runtime` (or by the JAX
+    package's), on CUDA unless ``device`` says otherwise."""
+    device = resolve_device(device)
+    root = Path(runtime_dir)
+    with open(root / "runtime_config.json") as f:
+        meta = json.load(f)
+    if meta.get("format_version") != _FORMAT_VERSION:
+        raise ValueError(
+            f"runtime format {meta.get('format_version')} unsupported "
+            f"(this reader takes {_FORMAT_VERSION})"
+        )
+    cfg = ModelConfig.from_dict(meta["model_config"])
+    _check_supported(cfg)
+    raw = _read_safetensors(root / "runtime.safetensors")
+    deepseek = [k for k in raw if k.rsplit(".", 1)[-1] in _DEEPSEEK_KEYS]
+    if deepseek:
+        raise NotImplementedError(
+            f"DeepSeek layers (MLA, its MoE) are not ported: {deepseek[:3]}"
+        )
+    for k in meta["bf16_keys"]:
+        raw[k] = raw[k].view(torch.bfloat16)
+    used = set()
+
+    def take(name) -> Optional[torch.Tensor]:
+        t = raw.get(name)
+        if t is None:
+            return None
+        used.add(name)
+        return t.to(device)
+
+    def is_linear(prefix) -> bool:
+        return any(f"{prefix}.{keys[0][1]}" in raw for keys in _KEYS.values()
+                   ) or f"{prefix}.mix_cols" in raw
+
+    def linear(prefix, in_f: Optional[int]):
+        """The layer under ``prefix``, or None; ``in_f``: its logical
+        in_features (None: a mixed layer's side, whose width is its
+        columns')."""
+        if f"{prefix}.mix_cols" in raw:
+            cols = raw[f"{prefix}.mix_cols"]
+            if cols.numel() and not (
+                bool(torch.all(cols[1:] > cols[:-1]))
+                and 0 <= int(cols[0]) and int(cols[-1]) < in_f
+            ):
+                raise NotImplementedError(
+                    f"{prefix}: mixed columns not strictly increasing inside "
+                    f"{in_f}: a blocked (shards > 1) instance's shard-local "
+                    "ids; not ported"
+                )
+            kind = (Int2MixedLinear if f"{prefix}.mix2.wq2p" in raw
+                    else Int3MixedLinear)
+            return kind(
+                linear(f"{prefix}.{_MIXED[kind]}", in_f),
+                linear(f"{prefix}.mix8", None),
+                take(f"{prefix}.mix_cols"),
+                take(f"{prefix}.bias"),
+            )
+        for kind, keys in _KEYS.items():
+            if f"{prefix}.{keys[0][1]}" not in raw:
+                continue
+            layer = kind(*(take(f"{prefix}.{key}") for _, key in keys),
+                         bias=take(f"{prefix}.bias"))
+            if in_f is not None and kind is not DenseLinear:
+                _check_one_device(
+                    prefix, layer.in_padded,
+                    layer.group if kind is Int8Linear else _PAD_TO[kind],
+                    in_f,
+                )
+            return layer
+        return None
+
+    h, inter = cfg.hidden_size, cfg.intermediate_size
+    # the logical in_features of each projection
+    widths = dict(
+        q_proj=h, k_proj=h, v_proj=h, qkv_proj=h,
+        o_proj=cfg.num_attention_heads * cfg.head_dim,
+        gate_proj=h, up_proj=h, gate_up_proj=h, down_proj=inter,
+    )
+
+    def mlp(prefix) -> Mlp:
+        return Mlp(**{n: linear(f"{prefix}.{n}", widths[n]) for n in _MLP})
+
+    def stacked(prefix) -> Optional[StackedExperts]:
+        for fmt, (kind, per_byte) in dict(
+            int8=(Int8Linear, 1), int4=(Int4Linear, 2)
+        ).items():
+            p = f"{prefix}.stacked_{fmt}"
+            if f"{p}.gate_up_wq" not in raw:
+                continue
+            st = StackedExperts(
+                take(f"{p}.gate_up_wq"), take(f"{p}.gate_up_scales"),
+                take(f"{p}.down_wq"), take(f"{p}.down_scales"), fmt=fmt,
+            )
+            for name, in_f in (("gate_up", h), ("down", inter)):
+                wq = getattr(st, f"{name}_wq")
+                in_p = wq.shape[2] * per_byte
+                group = in_p // getattr(st, f"{name}_scales").shape[1]
+                _check_one_device(
+                    f"{p}.{name}", in_p,
+                    group if kind is Int8Linear else _PAD_TO[kind], in_f,
+                )
+            return st
+        return None
+
+    blocks = []
+    for i in range(cfg.num_hidden_layers):
+        p = f"blocks.{i}"
+        if is_linear(f"{p}.mlp.router"):
+            n = 0
+            while any(is_linear(f"{p}.mlp.experts.{n}.{m}") for m in _MLP):
+                n += 1
+            block_mlp = MoeMlp(
+                router=linear(f"{p}.mlp.router", h),
+                experts=[mlp(f"{p}.mlp.experts.{e}") for e in range(n)],
+                num_experts_per_tok=cfg.num_experts_per_tok,
+                stacked=stacked(f"{p}.mlp"),
+            )
+        else:
+            block_mlp = mlp(f"{p}.mlp")
+        blocks.append(Block(
+            input_layernorm=take(f"{p}.input_layernorm"),
+            attn=Attention(**{n: linear(f"{p}.attn.{n}", widths[n])
+                              for n in _ATTN}),
+            post_attention_layernorm=take(f"{p}.post_attention_layernorm"),
+            mlp=block_mlp,
+        ))
+    model = Model(
+        embed_tokens=take("embed_tokens"), blocks=blocks,
+        norm=take("norm"), lm_head=linear("lm_head", h), cfg=cfg,
+    )
+    unused = sorted(set(raw) - used)
+    if unused:
+        raise ValueError(f"tensors of no known layer: {unused[:4]}")
+    return model
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    p.add_argument("-m", "--model", required=True,
+                   help="a local VPTQ checkpoint directory")
+    p.add_argument("-o", "--output", required=True)
+    p.add_argument("--runtime-format", default="int8",
+                   choices=("int8", "int4", "bf16"))
+    p.add_argument("--device", default="cuda",
+                   help="where the layers are re-encoded (cuda or cpu)")
+    args = p.parse_args(argv)
+    if torch.device(args.device).type == "cuda" and not (
+            torch.cuda.is_available()):
+        raise SystemExit(
+            f"{sys.argv[0]}: no CUDA device is available; pass --device cpu "
+            "to re-encode on the CPU"
+        )
+    model = load_model(
+        args.model, dtype=torch.bfloat16,
+        runtime_format=args.runtime_format, device=args.device,
+    )
+    out = export_runtime(model, args.output)
+    print(f"wrote {out}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
