@@ -22,7 +22,9 @@ without them, or when any phase fails. Phases:
    2048, K3 group 64, and 128 beside it), at T=1 (decode), T=128 and
    T=512 (prefill buckets) and T=2048 (the long-prefill chunk; every
    T > 16 through their tile; K1 and K2 also at T=16, the decode GEMV's
-   largest instance): the kernel held against its
+   largest instance, and at T=8, K2's the served step of 8 slots; K2 also
+   at T=8192, the largest batched admission the serving phases can send:
+   4 prompts of the 2048 bucket): the kernel held against its
    plain version on the card, then timed with CUDA events (L2 flushed
    before each launch) beside the plain version and a ``torch.matmul``
    yardstick; K1 also at the four shapes of Qwen2.5-7B (groups 512 and
@@ -37,12 +39,15 @@ without them, or when any phase fails. Phases:
    view into a fused q|k|v row, at S=1024, 2048 and 1100 (no tile divides
    it), at Qwen2.5-7B's heads (28 over 4, GQA group 7) at S=2048, at head
    size 64, at head size 96 (Phi-3-mini's 32 heads; S=1024
-   and 1100), and with scores scaled to about +-50, beside
+   and 1100), with scores scaled to about +-50, and at Llama-3.1-8B's
+   heads at B=2, 3 and 4, S=2048 (the scheduler's batched admissions of
+   the 2048 bucket, a row a prompt), beside
    ``scaled_dot_product_attention`` as its yardstick;
 3. the MoE kernels at Mixtral-8x7B's two expert shapes (gate_up
    28672 x 4096, down 4096 x 14336) on stacks of 8 experts that the int8
    and int4 encoders make on the card: K6a / K6b at T=1, 128, 512 and
-   2048 (Mixtral's long chunk, through the tile; one expert, the last of
+   2048 (Mixtral's long chunk, through the tile; K6b also at T=8192, the
+   largest batched admission; one expert, the last of
    the stack, whose slab starts 822 MB into gate_up's int8 stack and 411
    MB into the int4 one), K5a / K5b at P=2 (one token's top-2)
    and P=16 (8 tokens' top-2) pairs, K5b also at P=1 and P=128 (64
@@ -95,7 +100,27 @@ without them, or when any phase fails. Phases:
    ``tools/export_runtime.py``, read back byte-equal, the same greedy
    tokens from one request, the runtime load's seconds beside the
    re-encoding load's, the free disk printed first (a phase without room
-   fails);
+   fails); and in int4, on the same loaded model, continuous batching:
+   16 requests (prompts of 16, 128, 512 and 1536 tokens, four each, the
+   1536-token ones sharing a 512-token head; 32-64 new tokens; two
+   stopping at an EOS, two sampled at temperature 0.7 beside greedy
+   neighbours) through one ``Scheduler`` (8 slots, ``max_seq`` 2048,
+   chunks of 16, depth 2, 4 admissions at a time, buckets 128 / 512 /
+   2048) with a ``PrefixCache``, every decode chunk through its batched
+   CUDA graphs: each request returns its budget or ends at its EOS, its
+   streamed tokens are its returned ones, its prefill and first decode
+   logits are the same model's ``Generator``'s within ``LOGIT_TOL``, the
+   prefix cache hits, every kernel's launches are exact over the
+   scheduler's prefill calls and decode steps (K2 4 per layer and call;
+   K8 once per layer for each batched admission of the 2048 bucket, at
+   B = its prompts), the batched step's graphs equal its eager step bit
+   for bit over 12 steps across a block boundary (slots of different lengths,
+   greedy and sampled), and a profile of the replayed batched step holds
+   K2 to its decode GEMV at T=8 and no device-to-host copy; printed: tok/s
+   over the run, TTFT per request, the scheduler's stats, agreement with
+   the Generator's tokens; then the same requests again on the warm
+   scheduler, where every EOS must fire (a request whose EOS did not
+   fire the first time takes its own second token of that run);
 6. end to end in int8 and in int4 on one synthetic checkpoint of
    Mixtral-8x7B-v0.1 geometry (full width, 8 experts, top-2; depth as
    ``MIXTRAL_8X7B`` says), the same four requests: per layer and forward
@@ -106,7 +131,10 @@ without them, or when any phase fails. Phases:
    kernels against the plain versions; the profiled decode steps and the
    profiled long prefill must hold no device-to-host copy (the expert ids
    stay on the card); then the runtime checkpoint's round trip in int4
-   (the stacked experts), 4 layers, as in phase 5;
+   (the stacked experts), 4 layers, as in phase 5; and in int4 the serving
+   of phase 5 with 8 requests (two of each length): K5b 2 per layer and
+   batched step at P=16, its decode-GEMV kernel in the trace, K6 16 per
+   layer and prefill call;
 7. end to end in int8 on one synthetic checkpoint of Qwen2.5-7B geometry
    (a bias on q, k and v; K1's first widths that pad), the same four
    requests, the long prompt's logits against the plain versions;
@@ -115,7 +143,13 @@ without them, or when any phase fails. Phases:
    512, 1536 and 4608 tokens (three chunks; positions from 4096 on lose
    their oldest keys). The window keeps every chunk out of K8, which
    must count 0;
-9. end to end in the calibrated formats int2-mixed and int3-mixed at
+9. end to end in int8 on one synthetic checkpoint of Phi-3-mini-4k
+   geometry (q|k|v and gate|up stored fused, 32 heads of 96, sliding
+   window 2047), written as four ``pytorch_model-*.bin`` shards with
+   their ``pytorch_model.bin.index.json``, served by the ``Generator`` at
+   ``max_seq`` 4096 as in phase 5: prompts of 16, 512, 1536 and 3000
+   tokens (the last crosses the window, which keeps K8 at 0);
+10. end to end in the calibrated formats int2-mixed and int3-mixed at
    full Llama-3.1-8B geometry (32 layers): a model of random codes made
    on the card (``utils/synth.py`` ``mixed_model``, spread
    ``MIXED_STD``), written by ``export_runtime`` to a temporary directory
@@ -224,6 +258,23 @@ MISTRAL_7B = dict(
     rope_theta=10000.0,
     max_position_embeddings=32768,
     sliding_window=4096,
+    tie_word_embeddings=False,
+)
+# microsoft's public Phi-3-mini-4k-instruct config.json (q|k|v and gate|up
+# stored fused; sliding window 2047)
+PHI3_MINI = dict(
+    model_type="phi3",
+    vocab_size=32064,
+    hidden_size=3072,
+    intermediate_size=8192,
+    num_hidden_layers=32,
+    num_attention_heads=32,
+    num_key_value_heads=32,
+    head_dim=96,
+    rms_norm_eps=1e-5,
+    rope_theta=10000.0,
+    max_position_embeddings=4096,
+    sliding_window=2047,
     tie_word_embeddings=False,
 )
 # VPTQ-community v8-k65536-0 geometry
@@ -601,6 +652,10 @@ FLASH_CASES = (
     ("head size 96", 1, 1100, 32, 32, 96, 1.0, False),
     # q.k / sqrt(D) ~ N(0, 12^2): scores reach about +-50
     ("scores to +-50", 1, 1024, 32, 8, 128, 12.0 ** 0.5, False),
+    # the scheduler's batched admissions of the 2048 bucket: a row a
+    # prompt, up to admit_parallel (4)
+    *(("llama-3.1-8b heads, batched admission", b, 2048, 32, 8, 128, 1.0,
+       False) for b in (2, 3, 4)),
 )
 
 
@@ -1004,8 +1059,9 @@ def phase_encoders(device, out_f=4096, in_f=4096, seed=0):
 
 
 def write_checkpoint(cfg: dict, vq_kwargs: dict, seed=0, std=SMOKE_STD,
-                     qkv_bias=False):
-    """The synthetic checkpoint every format loads; returns (dir, s)."""
+                     qkv_bias=False, bin_shards=0):
+    """The synthetic checkpoint every format loads (``bin_shards`` > 0: as
+    that many ``pytorch_model*.bin`` pickles); returns (dir, s)."""
     from vptq_tpu_torch.utils.synth_checkpoint import (
         tiny_model_config,
         write_synthetic_checkpoint,
@@ -1015,7 +1071,7 @@ def write_checkpoint(cfg: dict, vq_kwargs: dict, seed=0, std=SMOKE_STD,
     t0 = time.perf_counter()
     write_synthetic_checkpoint(
         path, tiny_model_config(**cfg), vq_kwargs=vq_kwargs, seed=seed,
-        std=std, qkv_bias=qkv_bias,
+        std=std, qkv_bias=qkv_bias, bin_shards=bin_shards,
     )
     return path, time.perf_counter() - t0
 
@@ -1023,30 +1079,40 @@ def write_checkpoint(cfg: dict, vq_kwargs: dict, seed=0, std=SMOKE_STD,
 def expected_launches(cfg, fmt: str, prompt_len: int, new_tokens: int,
                       buckets, dtype=torch.bfloat16) -> dict:
     """Launches of every kernel in one request on the card: the prompt in
-    bucket-padded chunks, then one forward call per further token. The
-    first chunk, when it holds 1024 tokens or more, the model has no
-    sliding window and K8 is built for ``dtype`` and the head size, goes
-    through K8 once per layer. A mixed format's linear runs its base
-    kernel and K1 once each. A MoE block sends a call of at most 64
-    tokens through the pairs kernel twice, and a longer one through the
-    expert kernel 2·E times. K7 is on no path."""
-    from vptq_tpu_torch.models.llama import _MOE_FAST_MAX_TOKENS, takes_flash
+    bucket-padded chunks, the first one fresh, then one forward call per
+    further token (:func:`launches_of`)."""
     from vptq_tpu_torch.serving.generate import _pad_bucket
 
-    layers = cfg.num_hidden_layers
     calls = [
-        _pad_bucket(min(buckets[-1], prompt_len - done), buckets)
+        (1, _pad_bucket(min(buckets[-1], prompt_len - done), buckets),
+         done == 0)
         for done in range(0, prompt_len, buckets[-1])
-    ] + [1] * (new_tokens - 1)
+    ] + [(1, 1, False)] * (new_tokens - 1)
+    return launches_of(cfg, fmt, calls, dtype)
+
+
+def launches_of(cfg, fmt: str, calls, dtype=torch.bfloat16) -> dict:
+    """Launches of every kernel over forward calls, each (rows, tokens a
+    row, fresh): a fresh call of 1024 tokens or more a row, when the
+    model has no sliding window and K8 is built for ``dtype`` and the head
+    size, goes through K8 once per layer (at B = rows). A mixed format's
+    linear runs its base kernel and K1 once each. A MoE block sends a call
+    of at most 64 tokens in all through the pairs kernel twice (P = 2 ·
+    tokens), and a longer one through the expert kernel 2·E times. K7 is
+    on no path."""
+    from vptq_tpu_torch.models.llama import _MOE_FAST_MAX_TOKENS, takes_flash
+
+    layers = cfg.num_hidden_layers
     expected = dict.fromkeys(ALL_KERNELS, 0)
-    if takes_flash(cfg, calls[0], dtype):
-        expected[FLASH] = layers
+    expected[FLASH] = layers * sum(
+        bool(fresh) and takes_flash(cfg, seq, dtype) for _, seq, fresh in calls
+    )
     if not cfg.num_local_experts:
         for kernel in format_kernels(fmt):
             expected[kernel] = 4 * layers * len(calls)
         return expected
     expert, pairs = MOE_KERNELS[fmt]
-    fast = sum(n <= _MOE_FAST_MAX_TOKENS for n in calls)
+    fast = sum(rows * seq <= _MOE_FAST_MAX_TOKENS for rows, seq, _ in calls)
     expected[FORMAT_KERNEL[fmt]] = 2 * layers * len(calls)
     expected[pairs] = 2 * layers * fast
     expected[expert] = (
@@ -1121,6 +1187,391 @@ def eager_tokens(model, gen, prompt, new_tokens):
     return [int(first[0]), *toks[:, 0].tolist()]
 
 
+# the Scheduler of the serving phases: 8 slots, chunks of 16 steps, two in
+# flight, 4 admissions at a time, the Generator's buckets, a prefix cache
+SERVE = dict(max_batch=8, max_seq=2048, chunk=16, depth=2, admit_parallel=4,
+             prompt_buckets=(128, 512, 2048))
+
+
+def serving_requests(gen, vocab: int, prompt_lens, per_len: int, seed=0,
+                     shared=512):
+    """``per_len`` requests of each prompt length, from the seed,
+    interleaved by length: the longest ones share their first ``shared``
+    tokens (the prefix cache's hits); budgets 32 to 64; the first two of
+    the shortest length stop at an EOS, the token the model gives at
+    position 1 or 4 of its greedy output alone (``gen``: the batched
+    routes may part from it before); two of the others are sampled at
+    temperature 0.7. Each is a dict of ``submit``'s arguments."""
+    rng = np.random.default_rng(seed)
+    head = rng.integers(0, vocab, shared).tolist()
+    out = []
+    for i in range(per_len):
+        for n in prompt_lens:
+            prompt = rng.integers(0, vocab, n).tolist()
+            if n == max(prompt_lens) and n > shared:
+                prompt[:shared] = head
+            out.append(dict(prompt_tokens=prompt,
+                            max_new_tokens=int(rng.integers(32, 65))))
+    for k, req in zip((1, 4), out[:: len(prompt_lens)]):
+        ref = gen.generate(req["prompt_tokens"], max_new_tokens=k + 1)
+        req["eos_token_id"] = ref[-1]
+    for i, req in enumerate(out[1:3]):
+        req.update(temperature=0.7, seed=11 + i)
+    return out
+
+
+def batched_state(sched, lengths, seed=0, temps=(0.0, 0.7)):
+    """Every slot of ``sched`` decoding from ``lengths`` cached tokens
+    (whatever its rows hold), random last tokens, temperatures cycling
+    through ``temps``: the state the batched step is checked and timed
+    from."""
+    decode, cache = sched.decode, sched.cache
+    gen = torch.Generator().manual_seed(seed)
+    batch = len(lengths)
+    cache.lengths.copy_(torch.tensor(lengths))
+    cache.max_len = max(lengths)
+    decode.tok.copy_(torch.randint(0, sched.model.cfg.vocab_size, (batch,),
+                                   generator=gen))
+    decode.temps.copy_(torch.tensor(
+        [temps[i % len(temps)] for i in range(batch)], dtype=torch.float32))
+    decode.set_active([True] * batch)
+
+
+def batched_graph_against_eager(sched, lengths, steps=12, seed=5):
+    """``steps`` batched steps from :func:`batched_state` through the
+    graphs (twice: the second run replays every graph the first may have
+    captured) and then eagerly (``BatchedDecode.eager_step``, a fresh
+    generator of the same seed): every step's logits and tokens bit for
+    bit, or it fails. Returns the block counts the steps ran."""
+    from vptq_tpu_torch.serving.generate import decode_plan
+
+    decode = sched.decode
+    device = sched.cache.lengths.device
+    with torch.inference_mode():
+        for _ in range(2):
+            batched_state(sched, lengths)
+            decode.begin(seed)
+            got = [decode.step().clone() for _ in range(steps)]
+            got_toks = decode.tokens[:steps].clone()
+        batched_state(sched, lengths)
+        graphed = decode.generator
+        decode.generator = torch.Generator(device=device)
+        decode.begin(seed)
+        want = [decode.eager_step().clone() for _ in range(steps)]
+        decode.generator = graphed
+        want_toks = decode.tokens[:steps].clone()
+    if not torch.equal(got_toks, want_toks):
+        raise AssertionError("batched graph tokens differ from eager")
+    for i, (g, w) in enumerate(zip(got, want)):
+        if not torch.equal(g, w):
+            raise AssertionError(
+                f"batched step {i}: graph logits differ from eager by "
+                f"{(g - w).abs().max().item()}")
+    return sorted(set(decode_plan(max(lengths), steps, sched.max_seq)))
+
+
+def batched_breakdown(sched, lengths, tags: dict, fmt: str, steps=8):
+    """The batched graphed step of every slot (from :func:`batched_state`):
+    wall time (host clock over ``steps`` replays, synchronized) against
+    the device time the replays' kernels take (``torch.profiler`` over the
+    same steps run again), the kernels per step, the routes at one token
+    a slot (:func:`step_routes`: K2 at T = 8, K5b at P = 16), no
+    device-to-host copy inside the chunk."""
+    from torch.profiler import ProfilerActivity, profile
+
+    decode = sched.decode
+    device = sched.cache.lengths.device
+    batch = len(lengths)
+
+    def run(n):
+        decode.begin(0)  # the chunk's token buffer from its first row
+        for _ in range(n):
+            decode.step()
+        torch.cuda.synchronize(device)
+
+    with torch.inference_mode():
+        batched_state(sched, lengths)
+        run(2)
+        t0 = time.perf_counter()
+        run(steps)
+        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            run(steps)
+    events = _device_events(prof)
+    busy_ms = sum(e.device_time_total for e in events) / 1e3 / steps
+    out = dict(
+        slots=batch, wall_ms=wall_ms, tok_s=batch * 1e3 / wall_ms,
+        device_busy_ms=busy_ms, idle_share=1.0 - busy_ms / wall_ms,
+        kernels_per_step=len(events) / steps,
+        families=kernel_families(events, steps),
+        kernel_ms=_kernel_ms(events, tags, "batched graph decode", per=steps),
+        device_to_host_copies=_device_to_host(
+            events, f"{steps} replayed batched steps"),
+        routes=step_routes(events, sched.model, fmt, "batched replayed step",
+                           tokens=batch),
+        graphs=len(decode.captured),
+        pool_mb=decode.pool_bytes() / 1e6,
+    )
+    print("batched graph decode step " + json.dumps(out))
+    return out
+
+
+def served_run(sched, reqs):
+    """``reqs`` submitted at once and run to the end: (request ids, their
+    outputs, their streamed tokens, wall seconds, TTFT seconds by prompt
+    length, device seconds), the host clock synchronized at both ends. On
+    the card the device seconds are those of the prefill calls and of the
+    decode chunks (CUDA events around each, in stream order: nothing else
+    runs between a pair), the idle share 1 - their sum over the wall."""
+    stamps, streamed, spans = {}, {}, {"prefill_s": [], "decode_s": []}
+
+    def stream(rid, tok):
+        stamps.setdefault(rid, time.perf_counter())
+        streamed.setdefault(rid, []).append(tok)
+
+    device = sched.cache.lengths.device
+    cuda = device.type == "cuda"
+
+    def timed(fn, what):
+        def call(*args, **kwargs):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kwargs)
+            end.record()
+            spans[what].append((start, end))
+            return out
+        return call
+
+    # what the instances held before (a spy, or nothing: the class's
+    # method), put back after; a bound method left in an attribute would
+    # hold the scheduler in a reference cycle
+    wrapped = [(o, n, vars(o).get(n)) for o, n in (
+        (sched, "_prefill_one"), (sched, "_prefill_fresh_batch"),
+        (sched.decode, "run"))] if cuda else []
+    for o, n, _ in wrapped:
+        setattr(o, n, timed(getattr(o, n),
+                            "decode_s" if n == "run" else "prefill_s"))
+    _sync(device)
+    t0 = time.perf_counter()
+    ids = [sched.submit(**r, stream_callback=stream) for r in reqs]
+    outs = sched.run()
+    _sync(device)
+    wall_s = time.perf_counter() - t0
+    for o, n, held in wrapped:
+        if held is None:
+            delattr(o, n)
+        else:
+            setattr(o, n, held)
+    ttft = {}
+    for rid, req in zip(ids, reqs):
+        ttft.setdefault(len(req["prompt_tokens"]), []).append(
+            stamps[rid] - t0)
+    device_s = {k: sum(a.elapsed_time(b) for a, b in v) / 1e3
+                for k, v in spans.items()}
+    if cuda:
+        device_s["idle_share"] = 1.0 - sum(device_s.values()) / wall_s
+    return ids, {i: outs[i] for i in ids}, streamed, wall_s, ttft, device_s
+
+
+def served_outputs(ids, reqs, outs, streamed, vocab: int) -> int:
+    """Every request's output streamed as returned, of valid tokens, and
+    its budget long or ended at its EOS: the number of EOS that fired."""
+    eos_fired = 0
+    for rid, req in zip(ids, reqs):
+        out = outs[rid]
+        if streamed.get(rid) != out:
+            raise AssertionError(f"request {rid}: streamed tokens differ")
+        eos = req.get("eos_token_id")
+        if not all(0 <= t < vocab for t in out):
+            raise AssertionError(f"request {rid}: bad tokens {out}")
+        if eos is not None and eos in out:
+            if out.index(eos) != len(out) - 1:
+                raise AssertionError(f"request {rid} ran past its EOS")
+            eos_fired += 1
+        elif len(out) != req["max_new_tokens"]:
+            raise AssertionError(f"request {rid}: {len(out)} tokens, "
+                                 f"budget {req['max_new_tokens']}")
+    return eos_fired
+
+
+def phase_serving(model, gen, fmt: str, vocab: int, prompt_lens=(16, 128,
+                  512, 1536), per_len=4, serve=None, shared=512, seed=0):
+    """Continuous batching on the loaded model: ``per_len`` requests of each
+    prompt length (:func:`serving_requests`) through one ``Scheduler``
+    (``SERVE``) with a ``PrefixCache``, every decode chunk through its
+    batched CUDA graphs on the card. Held: every request returns its
+    budget or ends at its EOS, streamed tokens equal returned ones; each
+    request's prefill logits and first decode logits against the same
+    model's ``Generator`` on that prompt within ``LOGIT_TOL``; launch
+    counts exact (:func:`launches_of` over the prefill calls the
+    scheduler made and its decode steps: K8 once a layer for each batched
+    admission of the 2048 bucket, at B = its prompts); the prefix cache
+    hit; on the warm rerun every EOS request stops at its EOS. On the
+    card also: the batched step's graphs against its eager step bit for
+    bit, across a block boundary, greedy and sampled slots side by side;
+    the graphed step's trace (routes at T = 8 / P = 16, no device-to-host
+    copy). Printed: token agreement with the Generator (not required: T =
+    8 and T = 1 take other routes), how many EOS fired, hits, the
+    scheduler's stats, generated tokens a second, TTFT per request, and
+    the same requests run again on the warm scheduler."""
+    from vptq_tpu_torch.models.llama import forward
+    from vptq_tpu_torch.serving.prefix_cache import PrefixCache
+    from vptq_tpu_torch.serving.scheduler import Scheduler
+
+    serve = dict(SERVE, **(serve or {}))
+    device = model.embed_tokens.device
+    cuda = device.type == "cuda"
+    cfg = model.cfg
+    fns = {k: kernel_fns(k)[0] for k in ALL_KERNELS}
+    with torch.inference_mode():
+        reqs = serving_requests(gen, vocab, prompt_lens, per_len, seed,
+                                shared)
+    sched = Scheduler(model, dtype=gen.dtype,
+                      prefix_cache=PrefixCache(block_size=64), **serve)
+
+    # what the run did: prefill calls (rows, tokens a row, fresh), each
+    # request's prefill logits and first decode logits
+    calls, prefill_logits, decode_logits, starting = [], {}, {}, {}
+    one, batch = sched._prefill_one, sched._prefill_fresh_batch
+
+    def prefill_one(tokens, cache1, start, fresh=False):
+        calls.append((1, tokens.shape[1], fresh))
+        return one(tokens, cache1, start, fresh)
+
+    def prefill_batch(tokens):
+        calls.append((tokens.shape[0], tokens.shape[1], True))
+        return batch(tokens)
+
+    finish, install, step = (sched._finish_admission, sched._install,
+                             sched.decode.step)
+
+    def finish_admission(adm):
+        prefill_logits[adm.req.req_id] = adm.last_logits.clone()
+        finish(adm)
+
+    def install_slot(req, cache1, row, plen, first, slot):
+        install(req, cache1, row, plen, first, slot)
+        starting[slot] = req.req_id
+
+    def decode_step():
+        logits = step()
+        for slot, rid in starting.items():
+            decode_logits[rid] = logits[slot].clone()
+        starting.clear()
+        return logits
+
+    sched._prefill_one, sched._prefill_fresh_batch = prefill_one, prefill_batch
+    sched._finish_admission, sched._install = finish_admission, install_slot
+    sched.decode.step = decode_step
+
+    for f in fns.values():
+        f.launches = 0
+    ids, outs, streamed, wall_s, ttft, device_s = served_run(sched, reqs)
+    counts = {k: f.launches for k, f in fns.items()}
+    # the class's own methods again (the spies would also hold the
+    # scheduler in a reference cycle)
+    del sched.decode.step
+    for name in ("_prefill_one", "_prefill_fresh_batch", "_finish_admission",
+                 "_install"):
+        delattr(sched, name)
+
+    steps = sched.stats["chunks"] * sched.chunk
+    expected = launches_of(
+        cfg, fmt, calls + [(sched.max_batch, 1, False)] * steps, gen.dtype)
+    if not cuda:
+        expected = dict.fromkeys(expected, 0)
+    if counts != expected:
+        raise AssertionError(f"{fmt} serving: launches {counts}, "
+                             f"expected {expected}")
+    eos_fired = served_outputs(ids, reqs, outs, streamed, vocab)
+    hits = sched.prefix_cache.hits
+    if hits < 1:
+        raise AssertionError(f"{fmt} serving: no prefix-cache hit")
+
+    # each request's prefill and first decode logits against the
+    # Generator's on the same prompt (its first token fed back)
+    diffs, agree = [], []
+    with torch.inference_mode():
+        for rid, req in zip(ids, reqs):
+            prompt = req["prompt_tokens"]
+            want = prefill(model, gen, prompt)[-1]
+            step_logits, _ = forward(
+                model, torch.tensor([[outs[rid][0]]], device=device),
+                gen.cache, dtype=gen.dtype)
+            for what, g, w in (("prefill", prefill_logits[rid], want),
+                               ("decode", decode_logits.get(rid),
+                                step_logits[0, 0])):
+                if g is None:  # a request that stopped at its first token
+                    continue
+                diff = (g - w).abs().max().item()
+                scale = w.abs().max().item()
+                diffs.append(diff / scale)
+                if not (diff <= LOGIT_TOL * scale
+                        and bool(torch.isfinite(g).all())):
+                    raise AssertionError(
+                        f"request {rid} ({len(prompt)} tokens): {what} "
+                        f"logits differ from the Generator's by {diff} "
+                        f"(max {scale})")
+            if not req.get("temperature") and req.get("eos_token_id") is None:
+                alone = gen.generate(prompt,
+                                     max_new_tokens=req["max_new_tokens"])
+                agree.append(sum(a == b for a, b in zip(alone, outs[rid]))
+                             / len(alone))
+    tokens = sum(len(o) for o in outs.values())
+    result = dict(
+        format=fmt, requests=len(reqs), slots=sched.max_batch,
+        wall_s=wall_s, tokens=tokens, tok_s=tokens / wall_s, ttft_s=ttft,
+        device_s=device_s,
+        prefix_hits=hits, prefix_blocks=sched.prefix_cache.num_blocks,
+        eos_fired=eos_fired, stats=dict(sched.stats),
+        prefill_calls=[list(c) for c in calls],
+        launches={k: n for k, n in counts.items() if n},
+        logits_max_rel_diff=max(diffs),
+        greedy_token_agreement=agree,
+    )
+    # the same requests again on the warm scheduler (graphs captured,
+    # caches pooled, the prefix cache emptied): no first-use costs. A
+    # request whose EOS did not fire takes its own second token of the
+    # first run as EOS, which the same greedy run gives again: every EOS
+    # must fire now
+    sched.prefix_cache.clear()
+    warm = [dict(r) for r in reqs]
+    for rid, req in zip(ids, warm):
+        if req.get("eos_token_id") not in (None, *outs[rid]):
+            req["eos_token_id"] = outs[rid][1]
+    before = dict(sched.stats)
+    warm_ids, again, warm_streamed, warm_s, warm_ttft, warm_device = (
+        served_run(sched, warm))
+    warm_eos = served_outputs(warm_ids, warm, again, warm_streamed, vocab)
+    want_eos = sum(r.get("eos_token_id") is not None for r in warm)
+    if warm_eos != want_eos:
+        raise AssertionError(f"{fmt} serving: {warm_eos} of {want_eos} EOS "
+                             "fired on the warm run")
+    tokens = sum(len(o) for o in again.values())
+    result["warm"] = dict(
+        wall_s=warm_s, tokens=tokens, tok_s=tokens / warm_s,
+        ttft_s=warm_ttft, device_s=warm_device, eos_fired=warm_eos,
+        stats={k: sched.stats[k] - n for k, n in before.items()},
+    )
+    print(f"serving run {fmt} " + json.dumps(result))
+    if cuda:
+        # slots of different lengths, the longest crossing 1024 (blocks 4
+        # to 5) in the 12 steps; greedy and sampled slots side by side
+        lengths = [1014, 3, 250, 600, 17, 900, 1009, 128][: sched.max_batch]
+        result["batched_graph_vs_eager_blocks"] = batched_graph_against_eager(
+            sched, lengths)
+        in_decode = [k for k in result["launches"]
+                     if not k.endswith("_expert") and k != FLASH]
+        result["batched_step"] = batched_breakdown(
+            sched, lengths, {k: fns[k].trace_tags for k in in_decode}, fmt)
+    print(f"serving {fmt} " + json.dumps(result))
+    del sched
+    if cuda:
+        torch.cuda.empty_cache()
+    return result
+
+
 def graph_against_eager(model, gen, prompt, steps, temperature=0.0, seed=5):
     """``steps`` decode steps after ``prompt`` through the generator's
     CUDA graphs and then again through ``decode_loop`` from the same
@@ -1155,7 +1606,7 @@ def graph_against_eager(model, gen, prompt, steps, temperature=0.0, seed=5):
 
 def phase_e2e(device, source, fmt: str, vocab: int,
               prompt_lens=(16, 128, 512, 1536), new_tokens=32, max_seq=2048,
-              seed=0, load_s=None, sensitivity=False):
+              seed=0, load_s=None, sensitivity=False, serve=None):
     """from_pretrained(runtime_format=fmt) → one greedy request per prompt
     length, each decode chunk through the generator's CUDA graphs on the
     card; launch counts (replays included), logits, a decode step and,
@@ -1169,7 +1620,9 @@ def phase_e2e(device, source, fmt: str, vocab: int,
     also holds its longest flash prompt's logits against the plain
     versions (K8 swapped with K1). ``sensitivity``: also the model's own
     conditioning, the plain prefill logits again on an embedding whose
-    entries each move by at most one bf16 ulp (times 1 ± 2^-8)."""
+    entries each move by at most one bf16 ulp (times 1 ± 2^-8).
+    ``serve``: then :func:`phase_serving` on the same model, with these
+    arguments."""
     from vptq_tpu_torch import AutoModelForCausalLM
     from vptq_tpu_torch.api import Engine
     from vptq_tpu_torch.models.llama import forward
@@ -1335,6 +1788,8 @@ def phase_e2e(device, source, fmt: str, vocab: int,
                 model, gen, flash[-1],
                 {k: fns[k].trace_tags for k in in_prefill},
             )
+    if serve is not None:
+        result["serving"] = phase_serving(model, gen, fmt, vocab, **serve)
     del engine, model, gen
     if cuda:
         torch.cuda.empty_cache()
@@ -1666,20 +2121,21 @@ def decode_calls(model, fmt: str) -> list:
     return out
 
 
-def step_routes(events, model, fmt: str, what: str) -> dict:
-    """The route check of one decode step's trace: each kernel's CUDA
-    kernels fall in the families its wrapper routes one token to (K2,
-    K3, K5b: the decode GEMV, ``decode_gemv`` with ``Whole`` or
-    ``Pairs``; K1 and K4: their ``takes_decode_gemv`` per linear; the
-    rest their only family), every such family present and no other.
-    Returns {kernel: families seen}."""
+def step_routes(events, model, fmt: str, what: str, tokens: int = 1) -> dict:
+    """The route check of one decode step's trace at ``tokens`` tokens (1,
+    or a batched step's slots): each kernel's CUDA kernels fall in the
+    families its wrapper routes that many tokens to (K2, K3, K5b: the
+    decode GEMV, ``decode_gemv`` with ``Whole`` or ``Pairs``; K1 and K4:
+    their ``takes_decode_gemv`` per linear; the rest their only family),
+    every such family present and no other. Returns {kernel: families
+    seen}."""
     want = {}
     for kernel, out_f, in_p in decode_calls(model, fmt):
         families = tag_sets(kernel_fns(kernel)[0].trace_tags)
         decode = [t for t in families if "decode_gemv" in t]
         rule = getattr(importlib.import_module(
             f"vptq_tpu_torch.ops.{kernel}"), "takes_decode_gemv", None)
-        if decode and (rule is None or rule(1, out_f, in_p)):
+        if decode and (rule is None or rule(tokens, out_f, in_p)):
             picked = decode[0]
         else:
             picked = next(t for t in families if "decode_gemv" not in t)
@@ -1883,10 +2339,19 @@ def main() -> int:
             name, device, k1_shapes(LLAMA31_8B), (16,), in_record=False,
             routes=routes,
         )
-    # K1 at 8 tokens: its decode GEMV's N = 8 instance (w8_gemv takes T = 1)
+    # K1 and K2 at 8 tokens: the decode GEMV's N = 8 instance (K1's
+    # w8_gemv takes T = 1); K2's is the served step of the 8 slots
+    for name in ("w8_matmul", "w4_matmul"):
+        rows += phase_kernel(
+            name, device, k1_shapes(LLAMA31_8B), (8,), in_record=False,
+            routes=routes,
+        )
+    # K2 at the largest batched admission the serving phases can send:
+    # admit_parallel rows of the longest bucket (K6b below as well)
+    admit = SERVE["admit_parallel"] * max(SERVE["prompt_buckets"])
     rows += phase_kernel(
-        "w8_matmul", device, k1_shapes(LLAMA31_8B), (8,), in_record=False,
-        routes=routes,
+        "w4_matmul", device, k1_shapes(LLAMA31_8B), (admit,), iters=5,
+        in_record=False,
     )
     # K3 at its other scale group (128: the tile unsplit), T = 16 too
     rows += phase_kernel(
@@ -1916,7 +2381,8 @@ def main() -> int:
     most = MIXTRAL_8X7B["num_experts_per_tok"] * _MOE_FAST_MAX_TOKENS
     for fmt in MOE_KERNELS:
         rows += phase_moe_kernels(
-            fmt, device, moe_shapes(MIXTRAL_8X7B), tokens=TOKENS,
+            fmt, device, moe_shapes(MIXTRAL_8X7B),
+            tokens=TOKENS + (admit,) if fmt == "int4" else TOKENS,
             pairs=(2, 16, 1, most) if fmt == "int4" else (2, 16),
             routes=routes,
         )
@@ -1931,27 +2397,36 @@ def main() -> int:
     phase_encoders(device)
     launches = dict.fromkeys(ALL_KERNELS, 0)
     # (label, config, formats, what phase_e2e and the writer get beside,
-    # the formats of the depth-cut runtime checkpoint round trip)
+    # the formats of the depth-cut runtime checkpoint round trip, the
+    # formats served through the Scheduler and its phase's arguments)
     runs = (
         ("Llama-3.1-8B", LLAMA31_8B, FORMAT_KERNEL, {}, {},
-         ("int8", "int4")),
-        ("Mixtral-8x7B", MIXTRAL_8X7B, MOE_KERNELS, {}, {}, ("int4",)),
-        ("Qwen2.5-7B", QWEN25_7B, ("int8",), {}, dict(qkv_bias=True), ()),
+         ("int8", "int4"), {"int4": dict(per_len=4)}),
+        ("Mixtral-8x7B", MIXTRAL_8X7B, MOE_KERNELS, {}, {}, ("int4",),
+         {"int4": dict(per_len=2)}),
+        ("Qwen2.5-7B", QWEN25_7B, ("int8",), {}, dict(qkv_bias=True), (), {}),
         ("Mistral-7B", MISTRAL_7B, ("int8",),
-         dict(prompt_lens=(16, 512, 1536, 4608), max_seq=8192), {}, ()),
+         dict(prompt_lens=(16, 512, 1536, 4608), max_seq=8192), {}, (), {}),
+        # read from .bin shards and their index; the window keeps K8 at 0
+        ("Phi-3-mini", PHI3_MINI, ("int8",),
+         dict(prompt_lens=(16, 512, 1536, 3000), max_seq=4096),
+         dict(bin_shards=4), (), {}),
     )
-    for label, cfg, formats, e2e_kwargs, writer_kwargs, trips in runs:
+    for label, cfg, formats, e2e_kwargs, writer_kwargs, trips, serve in runs:
         path, write_s = write_checkpoint(cfg, V8_K65536, **writer_kwargs)
         print(f"checkpoint write {label} "
               f"({cfg['num_hidden_layers']} layers): {write_s:.2f} s")
         try:
             for fmt in formats:
                 e2e = phase_e2e(
-                    device, path, fmt, cfg["vocab_size"], **e2e_kwargs
+                    device, path, fmt, cfg["vocab_size"], **e2e_kwargs,
+                    serve=serve.get(fmt),
                 )
                 print(f"e2e {label} " + json.dumps(e2e))
-                for name, n in e2e["launches"].items():
-                    launches[name] += n
+                served = e2e.get("serving", {}).get("launches", {})
+                for name in launches:
+                    launches[name] += (e2e["launches"].get(name, 0)
+                                       + served.get(name, 0))
             for fmt in trips:
                 phase_round_trip(device, path, fmt, cfg["vocab_size"])
         finally:

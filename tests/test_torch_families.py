@@ -257,9 +257,11 @@ def test_mixtral_with_a_window_loads(tmp_path):
 
 
 def test_port_writer_refuses_other_dense_layouts(tmp_path):
+    # Phi-3's fused layout is written since it is served; Phi-3.5-MoE's is
+    # not
     with pytest.raises(NotImplementedError, match="Qwen2"):
         tsc.write_synthetic_checkpoint(
-            tmp_path, tsc.tiny_model_config(model_type="phi3")
+            tmp_path, tsc.tiny_model_config(model_type="phimoe")
         )
 
 

@@ -942,6 +942,113 @@ def test_step_routes_hold_each_decode_kernel_to_its_route(tmp_path, fmt,
                                model, fmt, "step")
 
 
+@pytest.mark.parametrize("fmt,family", [
+    ("int8", "llama"), ("int4", "llama"), ("int4", "mixtral"),
+])
+def test_step_routes_hold_a_batched_step_to_its_routes(tmp_path, fmt,
+                                                        family):
+    """The batched step of 8 slots (one token a slot): int8's linears on the
+    decode GEMV at T = 8 (``w8_gemv`` takes 1 and 2 tokens only), int4's
+    on the decode GEMV, K5b at P = 16 on ``sel::Pairs``; a one-token
+    trace fails the 8-token routes."""
+    from vptq_tpu_torch.models.loader import load_model
+
+    cfg = dict(TINY, tie_word_embeddings=False)
+    if family == "mixtral":
+        cfg.update(model_type="mixtral", num_local_experts=4,
+                   num_experts_per_tok=2)
+    write_synthetic_checkpoint(tmp_path, tiny_model_config(**cfg),
+                               vq_kwargs=VQ, seed=0)
+    model = load_model(str(tmp_path), runtime_format=fmt, device="cpu")
+    kernel = chip_smoke.FORMAT_KERNEL[fmt]
+    fam = ("w8::W8", 2048, "float") if fmt == "int8" else (
+        "w4::W4", 128, "__nv_bfloat16")
+    whole = _DECODE.format(p=fam[0], sel="Whole", n=8, g=fam[1],
+                           o="__nv_bfloat16", s=fam[2])
+    step = [_Event(whole, 1.0)] * 4
+    if family == "mixtral":
+        step += [_Event(_DECODE.format(
+            p="w4::W4", sel="Pairs", n=8, g=128, o="__nv_bfloat16",
+            s="__nv_bfloat16"), 1.0)] * 4
+    got = chip_smoke.step_routes(step, model, fmt, "batched step", tokens=8)
+    assert got[kernel] == [f"decode_gemv {fam[0][-2:]} Whole"]
+    if family == "mixtral":
+        assert got["w4_matmul_pairs"] == ["decode_gemv W4 Pairs"]
+    if fmt == "int8":
+        one = [_Event(_W8.format(k="gemv", sel="Whole", t="1, "), 1.0)] * 4
+        with pytest.raises(AssertionError, match="routes say"):
+            chip_smoke.step_routes(one, model, fmt, "batched step", tokens=8)
+        assert chip_smoke.step_routes(one, model, fmt, "step") == {
+            kernel: ["w8_gem Whole"]}
+
+
+def test_launches_of_batched_calls():
+    """The serving phase's counts: per layer and forward call 4 of a dense
+    format's kernel; K8 once a layer for a fresh call of 2048 tokens a row
+    whatever its rows (the batched admission, B = 4); a MoE block's call of
+    8 one-token slots through the pairs kernel (P = 16), of 4 rows of 128
+    through the expert kernel 2·E times."""
+    dense = tiny_model_config(num_hidden_layers=3, head_dim=128)
+    calls = [(4, 2048, True), (4, 128, True), (1, 512, False)] + [
+        (8, 1, False)] * 10
+    got = chip_smoke.launches_of(dense, "int4", calls)
+    assert got.pop("w4_matmul") == 4 * 3 * 13
+    assert got.pop("flash_attention") == 3
+    assert set(got.values()) == {0}
+    moe = tiny_model_config(num_hidden_layers=3, model_type="mixtral",
+                            num_local_experts=8, num_experts_per_tok=2,
+                            head_dim=128)
+    got = chip_smoke.launches_of(moe, "int4", calls)
+    assert got.pop("w4_matmul") == 2 * 3 * 13
+    assert got.pop("w4_matmul_pairs") == 2 * 3 * 10
+    assert got.pop("w4_matmul_expert") == 16 * 3 * 3
+    assert got.pop("flash_attention") == 3
+    assert set(got.values()) == {0}
+    # 64 tokens in all still take the pairs kernel; 65 the experts
+    got = chip_smoke.launches_of(moe, "int8", [(8, 8, False), (5, 13, False)])
+    assert (got["w8_matmul_pairs"], got["w8_matmul_expert"]) == (6, 48)
+    windowed = tiny_model_config(num_hidden_layers=3, model_type="phi3",
+                                 num_key_value_heads=4, head_dim=96,
+                                 sliding_window=2047)
+    assert chip_smoke.launches_of(windowed, "int8", calls)[
+        "flash_attention"] == 0
+
+
+def test_chip_smoke_serving_on_cpu():
+    """The serving phase at a tiny size with the plain versions: requests
+    of four prompt lengths through the Scheduler with its prefix cache
+    (the longest share a head: a hit), two of them stopping at an EOS, the
+    logits of every prefill and first decode step equal to the Generator's,
+    the prefill calls the launch count is computed from."""
+    cfg = dict(TINY, tie_word_embeddings=False)
+    path, _ = chip_smoke.write_checkpoint(cfg, VQ)
+    try:
+        e2e = chip_smoke.phase_e2e(
+            "cpu", path, "int4", TINY["vocab_size"], prompt_lens=(5,),
+            new_tokens=2, max_seq=256,
+            serve=dict(prompt_lens=(5, 20, 70, 150), per_len=2, shared=64,
+                       serve=dict(max_seq=256, prompt_buckets=(16, 64, 128))),
+        )
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
+    served = e2e["serving"]
+    assert served["requests"] == 8 and served["slots"] == 8
+    assert served["prefix_hits"] >= 1 and served["launches"] == {}
+    assert served["logits_max_rel_diff"] == 0.0
+    assert served["greedy_token_agreement"] == [1.0] * 4
+    assert served["eos_fired"] == 2 and served["warm"]["eos_fired"] == 2
+    assert sorted(served["ttft_s"]) == [5, 20, 70, 150]
+    # fresh prompts of one bucket ride batched admissions of one row a
+    # prompt (here each admission step holds one prompt a bucket: no
+    # padded row); the 150-token ones take two chunks, the prefix hit its
+    # rest at an offset
+    calls = served["prefill_calls"]
+    assert [1, 16, True] in calls and [1, 128, True] in calls
+    assert {rows for rows, _, _ in calls} == {1}
+    assert any(not fresh for _, _, fresh in calls)
+    assert served["stats"]["batched_admissions"] >= 4
+
+
 def test_profile_decode_runs_the_plain_versions_on_cpu(capsys):
     """profile_decode at a tiny width on the CPU: the card line first, the
     four linears, the lm_head and their sum, then the eager step (the CPU
@@ -2122,6 +2229,52 @@ def test_sampled_graph_tokens_equal_eager(cuda, tmp_path, fmt, family):
             tok = toks[-1]
     assert len(got) == new and got == want
     assert sorted(gen.graphs.captured) == [(256, True), (512, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt,family", GRAPH_CASES)
+def test_batched_graphs_are_bit_equal_to_the_eager_step(cuda, tmp_path, fmt,
+                                                        family):
+    """The scheduler's batched step over 4 slots of different lengths,
+    greedy and sampled slots side by side, 40 steps from a longest slot of
+    250 (blocks 1 and 2): graphs (their second run, all replays) against
+    the eager step, logits and tokens bit for bit."""
+    from vptq_tpu_torch.serving.scheduler import Scheduler
+
+    model = _graph_model(tmp_path, fmt, family, cuda)
+    sched = Scheduler(model, max_batch=4, max_seq=512, chunk=40)
+    assert chip_smoke.batched_graph_against_eager(
+        sched, [250, 3, 100, 240], steps=40) == [1, 2]
+    assert sorted(sched.decode.captured) == [(256,), (512,)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt,family", [("int4", "llama"),
+                                        ("int4", "mixtral")])
+def test_scheduler_serves_through_batched_graphs(cuda, tmp_path, fmt, family):
+    """Six requests, greedy and sampled, through 4 slots on the card: each
+    returns its budget, the decode chunks replay graphs, the kernels of the
+    path ran, and nothing was read back inside a chunk but its tokens."""
+    from vptq_tpu_torch.serving.scheduler import Scheduler
+
+    model = _graph_model(tmp_path, fmt, family, cuda)
+    sched = Scheduler(model, max_batch=4, max_seq=512, chunk=8,
+                      prompt_buckets=(64, 256))
+    before = _launches()
+    vocab = TINY["vocab_size"]
+    ids = [sched.submit([t % vocab for t in range(1, 1 + n)],
+                        max_new_tokens=20 + n % 7,
+                        temperature=0.8 if n % 2 else 0.0, seed=n)
+           for n in (3, 40, 90, 200, 7, 300)]
+    out = sched.run()
+    ran = {k: n - before[k] for k, n in _launches().items() if n > before[k]}
+    assert [len(out[i]) for i in ids] == [20 + n % 7
+                                          for n in (3, 40, 90, 200, 7, 300)]
+    assert all(0 <= t < TINY["vocab_size"] for i in ids for t in out[i])
+    assert sched.decode.captured and sched.stats["chunks"] > 0
+    assert chip_smoke.FORMAT_KERNEL[fmt] in ran
+    if family == "mixtral":
+        assert {"w4_matmul_pairs", "w4_matmul_expert"} <= set(ran)
 
 
 _CAPTURE_FAILS = r"""

@@ -98,11 +98,12 @@ def test_rope_frequencies_match():
 
 
 def test_loader_refuses_unported_families(tmp_path):
+    # Phi-3's fused layout loads since it is ported; Phi-3.5-MoE does not
     write_synthetic_checkpoint(
-        tmp_path, tiny_model_config(**TINY, model_type="phi3"), vq_kwargs=VQ,
-        seed=1,
+        tmp_path, tiny_model_config(**TINY, model_type="phimoe"),
+        vq_kwargs=VQ, seed=1,
     )
     from vptq_tpu_torch.models.loader import load_model
 
-    with pytest.raises(NotImplementedError, match="Phi-3"):
+    with pytest.raises(NotImplementedError, match="phimoe"):
         load_model(str(tmp_path), device="cpu")

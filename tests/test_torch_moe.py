@@ -579,7 +579,7 @@ def _edit_config(path, **changes):
 
 
 @pytest.mark.parametrize("changes,match", [
-    (dict(model_type="phi3"), "Phi-3"),
+    (dict(model_type="phi3"), "MoE of model_type 'phi3'"),
     (dict(n_routed_experts=4), "DeepSeek"),
     (dict(kv_lora_rank=16), "MLA"),
     (dict(model_type="phimoe"), "phimoe"),

@@ -1,11 +1,12 @@
-"""Llama decoder stack (dense Llama 2/3, Mistral, Qwen2 and Mixtral MoE),
-in torch.
+"""Llama decoder stack (dense Llama 2/3, Mistral, Qwen2, Phi-3 and Mixtral
+MoE), in torch.
 
-Port of the dense-Llama and Mixtral parts of ``vptq_tpu/models/llama.py``:
-RMSNorm, RoPE (default and llama3 scaling), GQA attention over a
-per-layer KV cache (a fresh bf16 prefill of 1024 tokens or more, at a
-head size it is built for, through the flash-attention kernel K8;
-Mistral's sliding window in the masks), SwiGLU,
+Port of the dense-Llama (Phi-3 too) and Mixtral parts of
+``vptq_tpu/models/llama.py``: RMSNorm, RoPE (default, llama3 and yarn
+scaling), GQA attention over a per-layer KV cache (a fresh bf16 prefill
+of 1024 tokens or more, at a head size it is built for, through the
+flash-attention kernel K8; Mistral's and Phi-3's sliding window in the
+masks), SwiGLU,
 with every projection a runtime linear (Qwen2's q/k/v carry a bias), and
 the sparse MoE block (f32 router, top-k, softmax over the top-k) whose
 stacked int8 / int4 experts run through the expert kernels K6 (every
@@ -27,6 +28,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import os
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
@@ -179,15 +181,19 @@ def rope_frequencies(
 ) -> Tuple[torch.Tensor, float]:
     """(per-pair inverse frequencies (f32), cos/sin scaling).
 
-    Default and llama3 scaling, with the semantics of HF transformers'
-    ROPE_INIT_FUNCTIONS.
+    Default, llama3 and yarn scaling, with the semantics of HF
+    transformers' ROPE_INIT_FUNCTIONS. Any other type raises: ``longrope``
+    (Phi-3.5) among them, which the JAX package runs as plain RoPE.
     """
     dim = cfg.head_dim
     exponents = torch.arange(0, dim, 2, dtype=torch.float32, device=device)
     inv_freq = 1.0 / (cfg.rope_theta ** (exponents / dim))
+    attention_scaling = 1.0
     scaling = dict(cfg.rope_scaling) if cfg.rope_scaling else None
     kind = scaling.get("rope_type", scaling.get("type")) if scaling else None
-    if kind == "llama3":
+    if kind == "yarn":
+        inv_freq, attention_scaling = _yarn(cfg, scaling, inv_freq, dim)
+    elif kind == "llama3":
         factor = scaling["factor"]
         low_factor = scaling["low_freq_factor"]
         high_factor = scaling["high_freq_factor"]
@@ -207,7 +213,47 @@ def rope_frequencies(
         )
     elif kind not in (None, "default"):
         raise NotImplementedError(f"rope scaling {kind!r} is not ported yet")
-    return inv_freq, 1.0
+    return inv_freq, attention_scaling
+
+
+def _yarn(cfg: ModelConfig, scaling: dict, inv_freq: torch.Tensor, dim: int):
+    """yarn's inverse frequencies (a linear ramp between interpolated and
+    extrapolated ones over the pairs) and its cos/sin scaling."""
+    factor = scaling["factor"]
+    beta_fast = scaling.get("beta_fast") or 32
+    beta_slow = scaling.get("beta_slow") or 1
+    mscale = scaling.get("mscale")
+    mscale_all_dim = scaling.get("mscale_all_dim")
+    orig_max = (
+        scaling.get("original_max_position_embeddings")
+        or cfg.max_position_embeddings
+    )
+
+    def get_mscale(scale, m=1):
+        return 1.0 if scale <= 1 else 0.1 * m * math.log(scale) + 1.0
+
+    attention_scaling = scaling.get("attention_factor")
+    if attention_scaling is None:
+        if mscale and mscale_all_dim:
+            attention_scaling = float(
+                get_mscale(factor, mscale) / get_mscale(factor, mscale_all_dim)
+            )
+        else:
+            attention_scaling = get_mscale(factor)
+
+    def correction_dim(rot):
+        return (dim * math.log(orig_max / (rot * 2 * math.pi))
+                / (2 * math.log(cfg.rope_theta)))
+
+    low = max(math.floor(correction_dim(beta_fast)), 0)
+    high = min(math.ceil(correction_dim(beta_slow)), dim - 1)
+    if low == high:
+        high += 0.001
+    pairs = torch.arange(dim // 2, dtype=torch.float32, device=inv_freq.device)
+    extrapolation = 1.0 - torch.clamp((pairs - low) / (high - low), 0, 1)
+    inv_freq = (inv_freq / factor * (1 - extrapolation)
+                + inv_freq * extrapolation)
+    return inv_freq, attention_scaling
 
 
 def rope_cos_sin(
@@ -425,11 +471,13 @@ def _attention(
 
 def takes_flash(cfg: ModelConfig, seq: int, dtype: torch.dtype) -> bool:
     """Whether a fresh chunk of ``seq`` tokens in ``dtype`` goes through
-    K8: long enough, no sliding window, and a dtype and head size the
-    kernel is built for. It depends on no device: a model takes one route
-    on the CPU and on the card."""
+    K8: long enough, no sliding window, a dtype and head size the kernel
+    is built for, and not switched off by ``VPTQ_TPU_FLASH=0`` (the JAX
+    package's switch, read at every call as there). It depends on no
+    device: a model takes one route on the CPU and on the card."""
     return (
-        seq >= _FLASH_MIN_SEQ
+        os.environ.get("VPTQ_TPU_FLASH", "1") != "0"
+        and seq >= _FLASH_MIN_SEQ
         and cfg.sliding_window is None
         and kernel_takes(dtype, cfg.head_dim)
     )

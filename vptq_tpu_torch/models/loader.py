@@ -1,11 +1,13 @@
-"""HF checkpoint ingestion: VPTQ safetensors → runtime modules.
+"""HF checkpoint ingestion: VPTQ safetensors (or ``.bin``) → runtime modules.
 
-Port of ``vptq_tpu/models/loader.py`` for dense Llama and Mixtral on one
-device.
+Port of ``vptq_tpu/models/loader.py`` for dense Llama (Phi-3's fused
+layout too) and Mixtral on one device.
 The safetensors format is read directly (8-byte header length, JSON
 header, raw little-endian bytes; bf16 included) with ``torch.frombuffer``
-on a memory map, so no package beyond torch is needed. Each quantized
-layer is moved to the load device as stored, then normalized there:
+on a memory map, so no package beyond torch is needed; a checkpoint with
+no safetensors is read from its ``pytorch_model*.bin`` pickles. Each
+quantized layer is moved to the load device as stored, then normalized
+there:
 
   * the uint16-viewed-as-float16/int16 dtype trick is undone
     (reference vqlinear.py:110-113) by ``ops.packing.view_as_uint16``,
@@ -152,21 +154,38 @@ def write_safetensors(tensors: Dict[str, torch.Tensor], path) -> None:
     os.replace(tmp, path)
 
 
-def load_state_dict(checkpoint_dir: str) -> Dict[str, torch.Tensor]:
-    """Read all safetensors shards (``*.index.json`` maps honoured)."""
-    root = Path(checkpoint_dir)
-    index_files = sorted(root.glob("*.safetensors.index.json"))
+def _shards(root: Path, suffix: str, pattern: str):
+    """The shards an ``*{suffix}.index.json`` map names, else the files
+    matching ``pattern``."""
+    index_files = sorted(root.glob(f"*{suffix}.index.json"))
     if index_files:
         with open(index_files[0]) as f:
             weight_map = json.load(f)["weight_map"]
-        shards = sorted({root / v for v in weight_map.values()})
-    else:
-        shards = sorted(root.glob("*.safetensors"))
-    if not shards:
-        raise FileNotFoundError(f"no *.safetensors found in {root}")
+        return sorted({root / v for v in weight_map.values()})
+    return sorted(root.glob(pattern))
+
+
+def load_state_dict(checkpoint_dir: str) -> Dict[str, torch.Tensor]:
+    """Read all checkpoint shards as CPU tensors: safetensors first
+    (``*.index.json`` maps honoured), else the ``pytorch_model*.bin``
+    pickles (``*.bin.index.json`` maps honoured), each through
+    ``torch.load(weights_only=True)``; bf16 stays bf16."""
+    root = Path(checkpoint_dir)
+    shards = _shards(root, ".safetensors", "*.safetensors")
     state: Dict[str, torch.Tensor] = {}
+    if shards:
+        for shard in shards:
+            state.update(_read_safetensors(shard))
+        return state
+    shards = _shards(root, ".bin", "pytorch_model*.bin")
+    if not shards:
+        raise FileNotFoundError(
+            f"no safetensors or pytorch_model*.bin found in {root}"
+        )
     for shard in shards:
-        state.update(_read_safetensors(shard))
+        state.update(
+            torch.load(shard, map_location="cpu", weights_only=True)
+        )
     return state
 
 
@@ -286,12 +305,12 @@ def _check_supported(cfg: ModelConfig) -> None:
         missing.append(f"MoE of model_type {cfg.model_type!r}")
     if cfg.is_mla:
         missing.append("MLA attention")
-    if cfg.model_type in ("phi3", "phi3_v", "phimoe"):
-        missing.append("the Phi-3 fused checkpoint layout")
+    if cfg.model_type == "phimoe":
+        missing.append("Phi-3.5-MoE (phimoe)")
     if missing:
         raise NotImplementedError(
-            "vptq_tpu_torch runs dense Llama, Mistral, Qwen2 and Mixtral; "
-            "not ported yet: "
+            "vptq_tpu_torch runs dense Llama, Mistral, Qwen2, Phi-3 and "
+            "Mixtral; not ported yet: "
             + ", ".join(missing)
         )
 
@@ -375,18 +394,42 @@ def load_model(
             down_proj=lin(f"{p}.mlp.down_proj"),
         )
 
-    make_mlp = moe_mlp if model_cfg.num_local_experts else dense_mlp
+    # Phi-3 checkpoints store q|k|v and gate|up fused (qkv_proj,
+    # gate_up_proj): each is one layer, re-encoded once, and runs as the
+    # fused linear fuse_block would have made
+    fused_ckpt = model_cfg.model_type in ("phi3", "phi3_v")
+
+    def fused_mlp(p):
+        return Mlp(
+            gate_proj=None, up_proj=None,
+            down_proj=lin(f"{p}.mlp.down_proj"),
+            gate_up_proj=lin(f"{p}.mlp.gate_up_proj"),
+        )
+
+    def attention(p):
+        if fused_ckpt:
+            return Attention(
+                q_proj=None, k_proj=None, v_proj=None,
+                o_proj=lin(f"{p}.self_attn.o_proj"),
+                qkv_proj=lin(f"{p}.self_attn.qkv_proj"),
+            )
+        return Attention(
+            q_proj=lin(f"{p}.self_attn.q_proj"),
+            k_proj=lin(f"{p}.self_attn.k_proj"),
+            v_proj=lin(f"{p}.self_attn.v_proj"),
+            o_proj=lin(f"{p}.self_attn.o_proj"),
+        )
+
+    if model_cfg.num_local_experts:
+        make_mlp = moe_mlp
+    else:
+        make_mlp = fused_mlp if fused_ckpt else dense_mlp
     blocks = []
     for i in range(model_cfg.num_hidden_layers):
         p = f"model.layers.{i}"
         block = Block(
             input_layernorm=norm_weight(f"{p}.input_layernorm.weight"),
-            attn=Attention(
-                q_proj=lin(f"{p}.self_attn.q_proj"),
-                k_proj=lin(f"{p}.self_attn.k_proj"),
-                v_proj=lin(f"{p}.self_attn.v_proj"),
-                o_proj=lin(f"{p}.self_attn.o_proj"),
-            ),
+            attn=attention(p),
             post_attention_layernorm=norm_weight(
                 f"{p}.post_attention_layernorm.weight"
             ),

@@ -1,13 +1,14 @@
 """Generation: bucketed prefill, then chunked decode on the device.
 
 Port of ``vptq_tpu/serving/generate.py`` for one sequence on one device
-(no prefix cache, no mesh). The JAX package runs each decode chunk as
-one ``lax.scan`` inside one jit. Here, on a CUDA device, each decode
-step is captured once as a CUDA graph (:class:`DecodeGraphs`, one graph
-per number of live cache blocks and per greedy or sampled step) and
-replayed for the chunk: the host enqueues one graph a token, and reads
-the chunk's tokens once, at its end. On the CPU, which the caller asks
-for explicitly, a chunk is :func:`decode_loop`, the eager loop of
+(no mesh), with its prefix cache, and the batched decode step of its
+scheduler (:class:`BatchedDecode`). The JAX package runs each decode
+chunk as one ``lax.scan`` inside one jit. Here, on a CUDA device, each
+decode step is captured once as a CUDA graph (:class:`DecodeGraphs`, one
+graph per number of live cache blocks and per greedy or sampled step)
+and replayed for the chunk: the host enqueues one graph a token, and
+reads the chunk's tokens once, at its end. On the CPU, which the caller
+asks for explicitly, a chunk is :func:`decode_loop`, the eager loop of
 ``forward`` calls that the graphs are held against.
 """
 
@@ -31,7 +32,8 @@ from vptq_tpu_torch.models.llama import (
 from vptq_tpu_torch.ops import _build
 
 __all__ = [
-    "DecodeGraphs", "Generator", "decode_loop", "decode_plan", "sample_next",
+    "BatchedDecode", "DecodeGraphs", "Generator", "decode_loop",
+    "decode_plan", "sample_next", "sample_slots",
 ]
 
 
@@ -111,76 +113,63 @@ def _counted() -> Tuple:
     )
 
 
-class DecodeGraphs:
-    """The decode step of one model and cache as CUDA graphs, replayed.
+class _Graphs:
+    """A decode step of one model and cache as CUDA graphs, replayed.
 
-    A step is ``forward`` at one token, then sampling, then the token
-    written to the input of the next step and to a buffer of the chunk's
-    tokens on the card; ``forward`` advances the cache's lengths in
-    place. Its shapes depend only on the live cache positions the step
-    reads (``llama.attended``: whole 256-position blocks), so one graph
-    per such count and per greedy or sampled step serves every step; each
-    is captured at its first use, after one eager step on the capture
-    stream that builds any kernel library and sets the kernels'
-    attributes, neither of which may happen inside a capture. That eager
-    step is a real step of the chunk. All graphs share one memory pool.
+    A step is ``forward`` at one token per sequence, then sampling, then
+    the tokens written to the input of the next step and to a buffer of
+    the chunk's tokens on the card; ``forward`` advances the cache's
+    lengths in place. Its shapes depend only on the live cache positions
+    the step reads (``llama.attended``: whole 256-position blocks, from
+    the host's ``cache.max_len``), so one graph per such count (and per
+    what else :meth:`_key` names) serves every step; each is captured at
+    its first use, after one eager step on the capture stream that builds
+    any kernel library and sets the kernels' attributes, neither of which
+    may happen inside a capture. That eager step is a real step of the
+    chunk. All graphs share one memory pool.
 
-    The buffers a graph reads and writes stay at fixed addresses: the
-    input token, the cache and its lengths, the temperature (a device
-    scalar), the step counter and the token buffer. The sampled graphs
-    draw from one ``torch.Generator`` registered with each, re-seeded for
-    every chunk. A replay runs no Python, so the kernel wrappers' launch
-    counts are recorded at capture and added on every replay. A capture
-    or a replay that fails raises: nothing falls back to the eager loop.
+    The buffers a graph reads and writes stay at fixed addresses. The
+    sampled graphs draw from one ``torch.Generator`` registered with
+    each, re-seeded for every chunk. A replay runs no Python, so the
+    kernel wrappers' launch counts are recorded at capture and added on
+    every replay. A capture or a replay that fails raises: nothing falls
+    back to the eager loop.
     """
 
-    def __init__(self, model: Model, cache: KVCache, dtype):
+    def __init__(self, model: Model, cache: KVCache, dtype, rows: int):
         device = cache.lengths.device
-        if device.type != "cuda":
-            raise ValueError(f"CUDA graphs need a CUDA cache, not {device}")
         batch, max_seq = cache.k[0].shape[:2]
         self.model, self.cache, self.dtype = model, cache, dtype
         self.max_seq = max_seq
         self.tok = torch.zeros(batch, dtype=torch.int64, device=device)
-        # the chunk's tokens, row = step of the chunk (a chunk is shorter
-        # than max_seq)
+        # the chunk's tokens, row = step of the chunk
         self.tokens = torch.zeros(
-            (max_seq, batch), dtype=torch.int64, device=device
+            (rows, batch), dtype=torch.int64, device=device
         )
         self.step_idx = torch.zeros(1, dtype=torch.int64, device=device)
-        self.temperature = torch.ones((), dtype=torch.float32, device=device)
         self.generator = torch.Generator(device=device)
-        self.pool = torch.cuda.graph_pool_handle()
-        self.stream = torch.cuda.Stream(device)
-        # (attended positions, sampled) -> (graph, its logits, launches a
-        # replay makes per kernel wrapper)
+        # (key) -> (graph, its logits, launches a replay makes per kernel
+        # wrapper)
         self.captured: Dict[tuple, tuple] = {}
         self.capture_s: Dict[tuple, float] = {}
-        self.sampled = False
         self.logits: Optional[torch.Tensor] = None
+        if device.type == "cuda":
+            self.pool = torch.cuda.graph_pool_handle()
+            self.stream = torch.cuda.Stream(device)
 
-    def begin(self, first: torch.Tensor, temperature: float, seed: int):
-        """Start a chunk at token ``first`` (B,) on the card: the
-        sampled graphs' generator re-seeded with ``seed``."""
-        self.sampled = temperature > 0
-        if self.sampled:
-            self.temperature.fill_(temperature)
-            self.generator.manual_seed(seed)
-        self.tok.copy_(first)
-        self.step_idx.zero_()
+    def _key(self) -> tuple:
+        raise NotImplementedError
+
+    def _sampled(self) -> bool:
+        raise NotImplementedError
 
     def _step(self) -> torch.Tensor:
-        logits, _ = forward(
-            self.model, self.tok[:, None], self.cache, dtype=self.dtype
-        )
-        nxt = sample_next(
-            logits[:, 0], self.generator,
-            self.temperature if self.sampled else None,
-        )
-        self.tok.copy_(nxt)
-        self.tokens.index_copy_(0, self.step_idx, nxt[None])
-        self.step_idx.add_(1)
-        return logits[:, 0]
+        raise NotImplementedError
+
+    def _advance(self) -> None:
+        """The host's count after a replayed step (the replay runs no
+        Python)."""
+        self.cache.max_len += 1
 
     def _capture(self, key: tuple) -> None:
         t0 = time.perf_counter()
@@ -193,7 +182,7 @@ class DecodeGraphs:
         kernels = _counted()
         counts = [f.launches for f in kernels]
         graph = torch.cuda.CUDAGraph()
-        if self.sampled:
+        if self._sampled():
             graph.register_generator_state(self.generator)
         # the capture runs nothing: the host count goes back to what the
         # eager step started from (the key's shapes), and the captured
@@ -213,18 +202,71 @@ class DecodeGraphs:
         """One decode step: its graph replayed, or captured first (after
         a real eager step). Returns the step's (B, V) logits, valid until
         the next step."""
-        key = attended(self.cache.max_len, 1, self.max_seq), self.sampled
+        key = self._key()
         entry = self.captured.get(key)
         if entry is None:
             self._capture(key)
             return self.logits
         graph, logits, launches = entry
         graph.replay()
-        self.cache.max_len += 1
+        self._advance()
         for f, n in launches:
             f.launches += n
         self.logits = logits
         return logits
+
+    def pool_bytes(self) -> int:
+        """Bytes the graphs' shared memory pool holds on the card."""
+        pool = self.pool
+        return sum(
+            s["total_size"] for s in torch.cuda.memory_snapshot()
+            if tuple(s.get("segment_pool_id", ())) == tuple(pool)
+        )
+
+
+class DecodeGraphs(_Graphs):
+    """The decode step of one sequence's cache (batch 1, or a batch whose
+    sequences all decode) as CUDA graphs: one per live 256-position block
+    count and per greedy or sampled step. The temperature is a device
+    scalar; the step counter and the token buffer are the chunk's."""
+
+    def __init__(self, model: Model, cache: KVCache, dtype):
+        device = cache.lengths.device
+        if device.type != "cuda":
+            raise ValueError(f"CUDA graphs need a CUDA cache, not {device}")
+        # a chunk is shorter than max_seq
+        super().__init__(model, cache, dtype, rows=cache.k[0].shape[1])
+        self.temperature = torch.ones((), dtype=torch.float32, device=device)
+        self.sampled = False
+
+    def begin(self, first: torch.Tensor, temperature: float, seed: int):
+        """Start a chunk at token ``first`` (B,) on the card: the
+        sampled graphs' generator re-seeded with ``seed``."""
+        self.sampled = temperature > 0
+        if self.sampled:
+            self.temperature.fill_(temperature)
+            self.generator.manual_seed(seed)
+        self.tok.copy_(first)
+        self.step_idx.zero_()
+
+    def _key(self) -> tuple:
+        return attended(self.cache.max_len, 1, self.max_seq), self.sampled
+
+    def _sampled(self) -> bool:
+        return self.sampled
+
+    def _step(self) -> torch.Tensor:
+        logits, _ = forward(
+            self.model, self.tok[:, None], self.cache, dtype=self.dtype
+        )
+        nxt = sample_next(
+            logits[:, 0], self.generator,
+            self.temperature if self.sampled else None,
+        )
+        self.tok.copy_(nxt)
+        self.tokens.index_copy_(0, self.step_idx, nxt[None])
+        self.step_idx.add_(1)
+        return logits[:, 0]
 
     def run(self, first: torch.Tensor, steps: int, temperature: float,
             seed: int) -> torch.Tensor:
@@ -236,13 +278,148 @@ class DecodeGraphs:
             self.step()
         return self.tokens[:steps]
 
-    def pool_bytes(self) -> int:
-        """Bytes the graphs' shared memory pool holds on the card."""
-        pool = self.pool
-        return sum(
-            s["total_size"] for s in torch.cuda.memory_snapshot()
-            if tuple(s.get("segment_pool_id", ())) == tuple(pool)
+
+def sample_slots(
+    logits: torch.Tensor,  # (B, V)
+    generator: torch.Generator,
+    temps: torch.Tensor,  # (B,) f32 on the logits' device, 0: greedy
+) -> torch.Tensor:
+    """Per-slot greedy or temperature sampling, (B,) int64: a slot at
+    temperature 0 takes ``argmax(logits)`` bit for bit, whatever its
+    neighbours draw; the others take the Gumbel-max of ``logits / t``."""
+    u = torch.rand(
+        logits.shape, generator=generator, device=logits.device,
+        dtype=torch.float32,
+    )
+    gumbel = -torch.log(-torch.log(u))
+    sampled = torch.argmax(
+        logits / temps.clamp(min=1e-6)[:, None] + gumbel, dim=-1
+    )
+    return torch.where(temps > 0, sampled, torch.argmax(logits, dim=-1))
+
+
+class BatchedDecode(_Graphs):
+    """The decode step of every slot of a shared cache: the port of the
+    JAX scheduler's ``_batched_decode`` step.
+
+    All ``B`` slots advance together; only the active ones keep their
+    advanced length (an inactive slot computes into its own rows, masked
+    by its length and rewritten on reuse) and their new token (an
+    inactive slot keeps its last). Lengths stop at ``max_seq - 1``: a
+    slot that far has no token left to give (the scheduler retires a
+    request once prompt and output fill ``max_seq - 1``, so its last
+    counted step writes at ``max_seq - 3``), and every write of a
+    speculative step past its budget stays inside the cache. Sampling is
+    per slot from the (B,) temperatures (:func:`sample_slots`). The last
+    tokens, ``active``, the temperatures, the step counter and the token
+    buffer sit at fixed addresses. On a CUDA device each step is a graph
+    per live block count, keyed on the host's ``cache.max_len``, which
+    the caller sets to the longest active slot before a chunk; on the
+    CPU, the same step runs eagerly.
+    """
+
+    def __init__(self, model: Model, cache: KVCache, dtype, chunk: int):
+        super().__init__(model, cache, dtype, rows=chunk)
+        device = cache.lengths.device
+        batch = cache.k[0].shape[0]
+        self.graphed = device.type == "cuda"
+        self.active = torch.zeros(batch, dtype=torch.bool, device=device)
+        self.temps = torch.zeros(batch, dtype=torch.float32, device=device)
+        self._active_host = [False] * batch
+        self._steps = 0
+
+    def set_active(self, active: Sequence[bool]) -> None:
+        """The slots that decode, written on the device slot by slot (a
+        fill each; no copy from the host)."""
+        for slot, on in enumerate(active):
+            if on != self._active_host[slot]:
+                self.active[slot].fill_(on)
+                self._active_host[slot] = on
+
+    def set_slot(self, slot: int, first: torch.Tensor, temperature: float):
+        """A new occupant of ``slot``: its first token (a (1,) tensor on
+        the device) and its temperature."""
+        self.tok[slot: slot + 1].copy_(first)
+        self.temps[slot].fill_(temperature)
+
+    def _key(self) -> tuple:
+        return (attended(self.cache.max_len, 1, self.max_seq),)
+
+    def _sampled(self) -> bool:
+        return True
+
+    def _advance(self) -> None:
+        self.cache.max_len = min(self.cache.max_len + 1, self.max_seq - 1)
+
+    def _step(self) -> torch.Tensor:
+        cache = self.cache
+        logits, _ = forward(
+            self.model, self.tok[:, None], cache, dtype=self.dtype
         )
+        # forward advanced every slot by one
+        cache.lengths.sub_((~self.active).to(torch.int64))
+        cache.lengths.clamp_(max=self.max_seq - 1)
+        cache.max_len = min(cache.max_len, self.max_seq - 1)
+        sampled = sample_slots(logits[:, 0], self.generator, self.temps)
+        nxt = torch.where(self.active, sampled, self.tok)
+        self.tok.copy_(nxt)
+        self.tokens.index_copy_(0, self.step_idx, nxt[None])
+        self.step_idx.add_(1)
+        return logits[:, 0]
+
+    def begin(self, seed: int) -> None:
+        """Start a chunk: the step counter to 0, the generator re-seeded."""
+        self.generator.manual_seed(seed)
+        self.step_idx.zero_()
+        self._steps = 0
+
+    def _count(self) -> None:
+        # the step counter lives on the device; the host's twin keeps a
+        # chunk inside its token buffer
+        if self._steps >= self.tokens.shape[0]:
+            raise ValueError(
+                f"a chunk of more than {self.tokens.shape[0]} steps")
+        self._steps += 1
+
+    def step(self) -> torch.Tensor:
+        self._count()
+        if self.graphed:
+            return super().step()
+        self.logits = self._step()
+        return self.logits
+
+    def eager_step(self) -> torch.Tensor:
+        """The same step run eagerly, outside any graph (what the graphs
+        are held against)."""
+        self._count()
+        self.logits = self._step()
+        return self.logits
+
+    def run(self, steps: int, seed: int) -> torch.Tensor:
+        """``steps`` steps from the slots' last tokens: (steps, B) on the
+        device."""
+        self.begin(seed)
+        for _ in range(steps):
+            self.step()
+        return self.tokens[:steps]
+
+
+def write_rows(cache: KVCache, slot: int, k: torch.Tensor, v: torch.Tensor):
+    """(layers, 1, n, kv, hd) K/V rows into sequence ``slot`` of ``cache``
+    from position 0, one copy per layer (its length is the caller's)."""
+    n = k.shape[2]
+    for i in range(len(cache.k)):
+        cache.k[i][slot, :n].copy_(k[i, 0])
+        cache.v[i][slot, :n].copy_(v[i, 0])
+
+
+def cache_rows(cache: KVCache, slot: int, n: int):
+    """The first ``n`` K/V rows of sequence ``slot``: (layers, 1, n, kv, hd)
+    each, the layout :class:`PrefixCache` stores."""
+    return (
+        torch.stack([b[slot: slot + 1, :n] for b in cache.k]),
+        torch.stack([b[slot: slot + 1, :n] for b in cache.v]),
+    )
 
 
 def _pad_bucket(n: int, buckets: Sequence[int]) -> int:
@@ -259,7 +436,11 @@ def _generator(device: torch.device, seed: int) -> torch.Generator:
 class Generator:
     """Generation for one sequence at a time, on one persistent cache
     (allocated once at ``max_seq``; each request resets its lengths). On
-    a CUDA device every decode chunk runs through :class:`DecodeGraphs`."""
+    a CUDA device every decode chunk runs through :class:`DecodeGraphs`.
+    With a ``prefix_cache`` (``serving.prefix_cache.PrefixCache``) the
+    longest cached prefix of a prompt is copied into the cache (one copy
+    per layer) and only the rest is prefilled; every prompt's full blocks
+    are cached after its prefill."""
 
     def __init__(
         self,
@@ -267,10 +448,12 @@ class Generator:
         max_seq: int = 2048,
         dtype=torch.bfloat16,
         prompt_buckets: Sequence[int] = (128, 512, 2048),
+        prefix_cache=None,
     ):
         self.model = model
         self.max_seq = max_seq
         self.dtype = dtype
+        self.prefix_cache = prefix_cache
         self.device = model.embed_tokens.device
         self.prompt_buckets = [b for b in prompt_buckets if b <= max_seq]
         if not self.prompt_buckets:
@@ -314,6 +497,11 @@ class Generator:
         done = 0
         last_len = 0
         logits = None
+        if self.prefix_cache is not None:
+            done = self.prefix_cache.match(prompt)
+            if done:
+                write_rows(cache, 0, *self.prefix_cache.gather(prompt, done))
+                cache.reset(done)
         while done < plen:
             chunk = prompt[done: done + max_bucket]
             last_len = len(chunk)
@@ -330,6 +518,8 @@ class Generator:
             done += last_len
             cache.reset(done)
         last_logits = logits[:, last_len - 1]
+        if self.prefix_cache is not None:
+            self.prefix_cache.insert(prompt, *cache_rows(cache, 0, plen), plen)
 
         first = sample_next(
             last_logits, _generator(self.device, seed),

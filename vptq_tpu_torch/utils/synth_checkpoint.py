@@ -1,8 +1,9 @@
 """Write synthetic VPTQ checkpoints in the community on-disk format.
 
 Port of ``vptq_tpu/utils/synth_checkpoint.py`` for the dense Llama
-layout (Llama, Mistral, and Qwen2 with its q/k/v bias) and the Mixtral
-layout (a router and per-expert w1 / w3 / w2): packed
+layout (Llama, Mistral, and Qwen2 with its q/k/v bias), Phi-3's fused
+layout (qkv_proj, gate_up_proj) and the Mixtral layout (a router and
+per-expert w1 / w3 / w2): packed
 int32 index streams, uint16-viewed-as-int16 perms and indices, and the
 ``quantization_config`` block in config.json. For one seed it writes
 the same tensors as the JAX package's writer. Packing is word-wise
@@ -37,6 +38,8 @@ _ARCHITECTURES = {
     "mistral": "MistralForCausalLM",
     "qwen2": "Qwen2ForCausalLM",
     "mixtral": "MixtralForCausalLM",
+    "phi3": "Phi3ForCausalLM",
+    "phi3_v": "Phi3VForCausalLM",
 }
 
 
@@ -105,6 +108,26 @@ def _layer_tensors(
     return out
 
 
+def _write_bins(tensors: Dict[str, np.ndarray], root: Path, n: int) -> None:
+    """``tensors`` as ``n`` ``torch.save`` pickles, split in name order;
+    more than one gets the index HF writes beside them."""
+    names = sorted(tensors)
+    files = (["pytorch_model.bin"] if n == 1 else [
+        f"pytorch_model-{i + 1:05d}-of-{n:05d}.bin" for i in range(n)])
+    weight_map = {}
+    for i, file in enumerate(files):
+        part = names[i * len(names) // n: (i + 1) * len(names) // n]
+        torch.save(
+            {k: torch.from_numpy(np.ascontiguousarray(tensors[k]))
+             for k in part},
+            root / file,
+        )
+        weight_map.update(dict.fromkeys(part, file))
+    if n > 1:
+        with open(root / "pytorch_model.bin.index.json", "w") as f:
+            json.dump({"metadata": {}, "weight_map": weight_map}, f, indent=2)
+
+
 def write_synthetic_checkpoint(
     path: str,
     model_cfg: Optional[ModelConfig] = None,
@@ -113,8 +136,11 @@ def write_synthetic_checkpoint(
     dtype=np.float16,
     qkv_bias: bool = False,
     std: float = 0.5,
+    bin_shards: int = 0,
 ) -> Path:
-    """Create ``path`` with config.json + model.safetensors.
+    """Create ``path`` with config.json + model.safetensors (or, with
+    ``bin_shards`` n > 0, n ``pytorch_model*.bin`` pickles: one file, or n
+    shards and their ``pytorch_model.bin.index.json``).
 
     ``vq_kwargs`` override :func:`make_config` geometry (in/out features
     are filled in per projection). ``qkv_bias`` gives q_proj, k_proj and
@@ -132,7 +158,7 @@ def write_synthetic_checkpoint(
         or moe != (mc.model_type == "mixtral")
     ):
         raise NotImplementedError(
-            "the port writes dense Llama, Mistral, Qwen2 and Mixtral "
+            "the port writes dense Llama, Mistral, Qwen2, Phi-3 and Mixtral "
             "checkpoints"
         )
     vq_kwargs = dict(vq_kwargs or {})
@@ -150,7 +176,15 @@ def write_synthetic_checkpoint(
         "self_attn.v_proj": (h, kv_out),
         "self_attn.o_proj": (q_out, h),
     }
-    if moe:
+    if mc.model_type in ("phi3", "phi3_v"):
+        # Phi-3 checkpoints ship q|k|v and gate|up fused
+        proj_shapes = {
+            "self_attn.qkv_proj": (h, q_out + 2 * kv_out),
+            "self_attn.o_proj": (q_out, h),
+            "mlp.gate_up_proj": (h, 2 * inter),
+            "mlp.down_proj": (inter, h),
+        }
+    elif moe:
         for e in range(mc.num_local_experts):
             proj_shapes[f"block_sparse_moe.experts.{e}.w1"] = (h, inter)
             proj_shapes[f"block_sparse_moe.experts.{e}.w3"] = (h, inter)
@@ -202,7 +236,10 @@ def write_synthetic_checkpoint(
             linears,
         ):
             tensors.update(made)
-    write_safetensors(tensors, root / "model.safetensors")
+    if bin_shards:
+        _write_bins(tensors, root, bin_shards)
+    else:
+        write_safetensors(tensors, root / "model.safetensors")
 
     hf_config = {
         "architectures": [_ARCHITECTURES[mc.model_type]],
