@@ -160,7 +160,19 @@ without them, or when any phase fails. Phases:
    graphs against ``decode_loop``, the logits against the plain versions
    (both kernels swapped) beside the model's own sensitivity to a
    one-ulp change of its embedding, the routes (K1's side on ``w8_gemv``
-   at one token), no device-to-host copy.
+   at one token), no device-to-host copy;
+11. end to end in int8 and in int4 on one synthetic checkpoint of
+   Moonlight-16B-A3B geometry (DeepSeek-V3: 27 layers of 2048, MLA with a
+   latent cache of 576 + 512 per token, the first layer dense, then 64
+   routed experts of 1408, top 6 by sigmoid scores with a correction
+   bias, and 2 shared experts; interleaved RoPE), written between
+   Mixtral's run and Qwen's, the same four requests as phase 5: per
+   forward call 5 launches of K1 / K2 a layer (q, kv_a, o; gate_up and
+   down of the dense layer or of the shared experts), per MoE layer 2 of
+   K5 a decode step and 128 of K6 a prefill chunk, K8 0 (MLA attends in
+   its latent space); graphs against ``decode_loop``, logits against the
+   plain versions, no device-to-host copy; in int4 the serving of phase 6
+   (8 requests, 8 slots: K5b at P=48).
 
 The line before the last is a JSON object with one record per kernel at
 T=1 and T=512 (pairs kernels: P=2 and P=16; K8: S=1024 and S=2048; each
@@ -277,6 +289,45 @@ PHI3_MINI = dict(
     sliding_window=2047,
     tie_word_embeddings=False,
 )
+# moonshotai's public Moonlight-16B-A3B config.json (DeepseekV3ForCausalLM:
+# MLA without q_lora_rank, 64 routed experts of 1408 and 2 shared, top 6,
+# one dense layer first). The file has no rope_interleave key, which the
+# JAX package and the port read as False; DeepSeek's own code always
+# interleaves, so the smoke sets it and the card runs that branch.
+MOONLIGHT_16B = dict(
+    model_type="deepseek_v3",
+    vocab_size=163840,
+    hidden_size=2048,
+    intermediate_size=11264,
+    num_hidden_layers=27,
+    num_attention_heads=16,
+    num_key_value_heads=16,
+    head_dim=128,
+    rms_norm_eps=1e-5,
+    rope_theta=50000.0,
+    max_position_embeddings=8192,
+    q_lora_rank=None,
+    kv_lora_rank=512,
+    qk_nope_head_dim=128,
+    qk_rope_head_dim=64,
+    v_head_dim=128,
+    rope_interleave=True,
+    moe_intermediate_size=1408,
+    n_routed_experts=64,
+    n_shared_experts=2,
+    num_experts_per_tok=6,
+    n_group=1,
+    topk_group=1,
+    norm_topk_prob=True,
+    routed_scaling_factor=2.446,
+    first_k_dense_replace=1,
+    tie_word_embeddings=False,
+)
+# deepseek-ai's public DeepSeek-R1 config.json: its routed experts only
+# (256 of 7168 x 2048, top 8), for the MoE kernel phase; the whole model
+# does not fit one card
+R1_EXPERTS = dict(hidden_size=7168, moe_intermediate_size=2048,
+                  n_routed_experts=256, num_experts_per_tok=8)
 # VPTQ-community v8-k65536-0 geometry
 V8_K65536 = dict(
     vector_len=8, num_centroids=65536, num_res_centroids=-1,
@@ -344,6 +395,9 @@ DECODE_INSTANCES = {"w8_matmul": 4, "w4_matmul": 4, "w3_matmul": 4,
 # the token counts of the kernel phases: decode, two prefill buckets and
 # the long-prefill chunk (every T > 16 runs the tile)
 TOKENS = (1, 128, 512, 2048)
+# K1 / K2 at DeepSeek's shapes: decode, the 8 slots' step, the decode
+# GEMV's largest instance, two prefill buckets
+DEEPSEEK_TOKENS = (1, 8, 16, 128, 512)
 # K1 at the mixed formats' side matrices: w8_gemv (T = 1), the decode
 # GEMV (3, 16) and the tile (past 16)
 SIDE_TOKENS = (1, 3, 16, 128, 512, 2048)
@@ -439,8 +493,22 @@ def phase_build() -> float:
 
 
 def k1_shapes(cfg: dict):
-    """(name, out, in) of the four linears of one decoder layer."""
+    """(name, out, in) of the four linears of one decoder layer; of a
+    DeepSeek model, every K1 / K2 shape: MLA's q (or q_a, q_b), kv_a and
+    o, the dense first layers' gate_up and down, the shared experts'."""
     h, inter = cfg["hidden_size"], cfg["intermediate_size"]
+    if cfg.get("kv_lora_rank"):
+        nh, q_lora = cfg["num_attention_heads"], cfg.get("q_lora_rank")
+        qk = cfg["qk_nope_head_dim"] + cfg["qk_rope_head_dim"]
+        shared = cfg["moe_intermediate_size"] * cfg["n_shared_experts"]
+        q = ([("q_a", q_lora, h), ("q_b", nh * qk, q_lora)] if q_lora
+             else [("q", nh * qk, h)])
+        return q + [
+            ("kv_a", cfg["kv_lora_rank"] + cfg["qk_rope_head_dim"], h),
+            ("o", h, nh * cfg["v_head_dim"]),
+            ("dense gate_up", 2 * inter, h), ("dense down", h, inter),
+            ("shared gate_up", 2 * shared, h), ("shared down", h, shared),
+        ]
     heads = cfg["num_attention_heads"] + 2 * cfg["num_key_value_heads"]
     qkv = heads * cfg["head_dim"]
     return [
@@ -712,19 +780,22 @@ def phase_flash(device, cases=FLASH_CASES, iters=20, seed=0):
 
 def moe_shapes(cfg: dict):
     """(name, out, in) of the two stacked expert weights of a MoE layer."""
-    h, inter = cfg["hidden_size"], cfg["intermediate_size"]
+    h = cfg["hidden_size"]
+    inter = cfg.get("moe_intermediate_size") or cfg["intermediate_size"]
     return [("gate_up", 2 * inter, h), ("down", h, inter)]
 
 
 def phase_moe_kernels(fmt, device, shapes, n_experts=8, tokens=(1, 128, 512),
-                      pairs=(2, 16), top_k=2, iters=20, seed=0, routes=None):
+                      pairs=(2, 16), top_k=2, iters=20, seed=0, routes=None,
+                      in_record=True):
     """The expert (K6) and pairs (K5) kernels of ``fmt`` at each shape, on
     a stack of ``n_experts`` that the format's encoder makes on ``device``:
     the expert kernel on the stack's last expert at each token count, the
     pairs kernel on the first P of the top-``top_k`` ids of ⌈P / top_k⌉
     tokens (distinct per token, drawn from ``seed``). ``routes``: a list
     to which each pairs call on the card of a kernel with a decode-GEMV
-    family is appended with its row, for :func:`check_decode_routes`."""
+    family is appended with its row, for :func:`check_decode_routes`;
+    ``in_record`` as for :func:`phase_kernel`."""
     from vptq_tpu_torch.examples.kernel_bench import flush_buffer
     from vptq_tpu_torch.layers.runtime import (
         linear_exact_weight,
@@ -765,6 +836,7 @@ def phase_moe_kernels(fmt, device, shapes, n_experts=8, tokens=(1, 128, 512),
             rows.append(dict(
                 kernel=e_name, shape=shape, unit="T", T=t, out=out_f,
                 in_p=in_p, group=group, experts=n_experts, distinct=1,
+                in_record=in_record,
                 **check_and_time(
                     e_name, f"{shape} T={t}",
                     lambda: e_fn(x, wq, scales, last),
@@ -794,6 +866,7 @@ def phase_moe_kernels(fmt, device, shapes, n_experts=8, tokens=(1, 128, 512),
             rows.append(dict(
                 kernel=p_name, shape=shape, unit="P", T=n_pairs, out=out_f,
                 in_p=in_p, group=group, experts=n_experts, distinct=distinct,
+                in_record=in_record,
                 **check_and_time(
                     p_name, f"{shape} P={n_pairs}",
                     lambda: p_fn(x, wq, scales, ids),
@@ -1097,28 +1170,45 @@ def launches_of(cfg, fmt: str, calls, dtype=torch.bfloat16) -> dict:
     model has no sliding window and K8 is built for ``dtype`` and the head
     size, goes through K8 once per layer (at B = rows). A mixed format's
     linear runs its base kernel and K1 once each. A MoE block sends a call
-    of at most 64 tokens in all through the pairs kernel twice (P = 2 ·
-    tokens), and a longer one through the expert kernel 2·E times. K7 is
-    on no path."""
+    of at most 64 tokens in all through the pairs kernel twice (P = top-k
+    · tokens), and a longer one through the expert kernel 2·E times. K7
+    is on no path; MLA never reaches K8."""
     from vptq_tpu_torch.models.llama import _MOE_FAST_MAX_TOKENS, takes_flash
 
     layers = cfg.num_hidden_layers
     expected = dict.fromkeys(ALL_KERNELS, 0)
-    expected[FLASH] = layers * sum(
-        bool(fresh) and takes_flash(cfg, seq, dtype) for _, seq, fresh in calls
-    )
-    if not cfg.num_local_experts:
-        for kernel in format_kernels(fmt):
-            expected[kernel] = 4 * layers * len(calls)
+    if not cfg.is_mla:  # MLA never reaches K8
+        expected[FLASH] = layers * sum(
+            bool(fresh) and takes_flash(cfg, seq, dtype)
+            for _, seq, fresh in calls
+        )
+    linears, moe_layers, experts = layer_linears(cfg)
+    for kernel in format_kernels(fmt):
+        expected[kernel] = linears * len(calls)
+    if not moe_layers:
         return expected
     expert, pairs = MOE_KERNELS[fmt]
     fast = sum(rows * seq <= _MOE_FAST_MAX_TOKENS for rows, seq, _ in calls)
-    expected[FORMAT_KERNEL[fmt]] = 2 * layers * len(calls)
-    expected[pairs] = 2 * layers * fast
-    expected[expert] = (
-        2 * cfg.num_local_experts * layers * (len(calls) - fast)
-    )
+    expected[pairs] = 2 * moe_layers * fast
+    expected[expert] = 2 * experts * moe_layers * (len(calls) - fast)
     return expected
+
+
+def layer_linears(cfg) -> tuple:
+    """(the decoder linears of all layers, each one launch of the format's
+    kernel a forward call once fused; the MoE layers; their routed
+    experts): dense 4 a layer; Mixtral 2 (qkv, o); DeepSeek MLA's q (or
+    q_a, q_b), kv_a and o, and 2 more (gate_up, down) in its dense first
+    layers and its shared experts."""
+    layers = cfg.num_hidden_layers
+    if cfg.is_mla:
+        attn = 3 + bool(cfg.q_lora_rank)
+        dense = min(cfg.first_k_dense_replace, layers)
+        moe = (layers - dense) if cfg.n_routed_experts else 0
+        return (attn + 2) * layers, moe, cfg.n_routed_experts
+    if cfg.num_local_experts:
+        return 2 * layers, layers, cfg.num_local_experts
+    return 4 * layers, 0, 0
 
 
 @contextlib.contextmanager
@@ -1643,7 +1733,7 @@ def phase_e2e(device, source, fmt: str, vocab: int,
 
     model, gen = engine.model, engine.generator
     cfg = model.cfg
-    moe = bool(cfg.num_local_experts)
+    moe = bool(layer_linears(cfg)[1])
     buckets = gen.prompt_buckets
     rng = np.random.default_rng(seed)
     prompts = [rng.integers(0, vocab, n).tolist() for n in prompt_lens]
@@ -2090,9 +2180,14 @@ def decode_breakdown(model, gen, prompt, tags: dict, steps=8):
 def decode_calls(model, fmt: str) -> list:
     """(kernel, out, in_p) of every kernel call of one decode step, in
     order: each block's linears (qkv, o, gate_up, down, or their unfused
-    parts; a mixed layer's base, then its side), and a MoE block's two
-    pairs calls (gate_up, down)."""
-    from vptq_tpu_torch.models.llama import MoeMlp
+    parts; MLA's q, kv_a, o and a DeepSeek block's shared experts; a
+    mixed layer's base, then its side), and a MoE block's two pairs calls
+    (gate_up, down)."""
+    from vptq_tpu_torch.models.llama import (
+        DeepseekMoe,
+        MlaAttention,
+        MoeMlp,
+    )
 
     kernels = format_kernels(fmt)
 
@@ -2102,22 +2197,31 @@ def decode_calls(model, fmt: str) -> list:
         return [(k, part.out_features, part.in_padded)
                 for k, part in zip(kernels, parts)]
 
+    def mlp_linears(mlp):
+        return ([mlp.gate_up_proj] if mlp.gate_up_proj is not None
+                else [mlp.gate_proj, mlp.up_proj]) + [mlp.down_proj]
+
     out = []
     for block in model.blocks:
         attn, mlp = block.attn, block.mlp
-        lins = ([attn.qkv_proj] if attn.qkv_proj is not None
-                else [attn.q_proj, attn.k_proj, attn.v_proj]) + [attn.o_proj]
-        if isinstance(mlp, MoeMlp):
+        if isinstance(attn, MlaAttention):
+            lins = [m for m in (attn.q_proj, attn.q_a_proj, attn.q_b_proj,
+                                attn.kv_a_proj, attn.o_proj) if m is not None]
+        else:
+            lins = ([attn.qkv_proj] if attn.qkv_proj is not None
+                    else [attn.q_proj, attn.k_proj, attn.v_proj]
+                    ) + [attn.o_proj]
+        if isinstance(mlp, (MoeMlp, DeepseekMoe)):
             st = mlp.stacked
             pairs = MOE_KERNELS[fmt][1]
+            shared = (mlp_linears(mlp.shared_experts)
+                      if isinstance(mlp, DeepseekMoe) else [])
             out += sum((call(lin) for lin in lins), []) + [
                 (pairs, st.gate_up_wq.shape[1], None),
                 (pairs, st.down_wq.shape[1], None),
-            ]
+            ] + sum((call(lin) for lin in shared), [])
             continue
-        lins += ([mlp.gate_up_proj] if mlp.gate_up_proj is not None
-                 else [mlp.gate_proj, mlp.up_proj]) + [mlp.down_proj]
-        out += sum((call(lin) for lin in lins), [])
+        out += sum((call(lin) for lin in lins + mlp_linears(mlp)), [])
     return out
 
 
@@ -2386,6 +2490,29 @@ def main() -> int:
             pairs=(2, 16, 1, most) if fmt == "int4" else (2, 16),
             routes=routes,
         )
+    # DeepSeek's shapes: K1 / K2 at Moonlight-16B-A3B's MLA (kv_a's out
+    # 576 = 4.5 x 128), dense-layer and shared-expert linears; K5 / K6 at
+    # its 64 experts (2048 <-> 1408, top 6: P = 6, 48 for 8 slots, 384 for
+    # 64 tokens) and at DeepSeek-R1's 256 (7168 <-> 2048, top 8)
+    for name in ("w8_matmul", "w4_matmul"):
+        rows += phase_kernel(
+            name, device, k1_shapes(MOONLIGHT_16B), DEEPSEEK_TOKENS,
+            in_record=False, routes=routes,
+        )
+    top = MOONLIGHT_16B["num_experts_per_tok"]
+    for fmt in MOE_KERNELS:
+        rows += phase_moe_kernels(
+            fmt, device, moe_shapes(MOONLIGHT_16B),
+            n_experts=MOONLIGHT_16B["n_routed_experts"], top_k=top,
+            pairs=(top, 8 * top, _MOE_FAST_MAX_TOKENS * top),
+            routes=routes, in_record=False,
+        )
+        rows += phase_moe_kernels(
+            fmt, device, moe_shapes(R1_EXPERTS),
+            n_experts=R1_EXPERTS["n_routed_experts"],
+            top_k=R1_EXPERTS["num_experts_per_tok"], tokens=(1, 128),
+            pairs=(8, 64), routes=routes, in_record=False,
+        )
     # every decode call in one profiler session, the process's first: a
     # second session, for the eight K5b calls alone, recorded seven
     # kernels, three times running (alone in a process it records eight)
@@ -2403,6 +2530,10 @@ def main() -> int:
         ("Llama-3.1-8B", LLAMA31_8B, FORMAT_KERNEL, {}, {},
          ("int8", "int4"), {"int4": dict(per_len=4)}),
         ("Mixtral-8x7B", MIXTRAL_8X7B, MOE_KERNELS, {}, {}, ("int4",),
+         {"int4": dict(per_len=2)}),
+        # MLA, the grouped sigmoid MoE and its shared experts, all 27
+        # layers; MLA never reaches K8
+        ("Moonlight-16B-A3B", MOONLIGHT_16B, MOE_KERNELS, {}, {}, (),
          {"int4": dict(per_len=2)}),
         ("Qwen2.5-7B", QWEN25_7B, ("int8",), {}, dict(qkv_bias=True), (), {}),
         ("Mistral-7B", MISTRAL_7B, ("int8",),

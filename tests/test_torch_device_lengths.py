@@ -19,6 +19,7 @@ import dataclasses
 import json
 import sys
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -185,6 +186,10 @@ def jax_pallas_int8(monkeypatch):
         sys.modules["vptq_tpu.ops.quant_matmul"], "_IMPL", "pallas"
     )
     monkeypatch.setenv("VPTQ_TPU_PALLAS_INTERPRET", "1")
+    yield
+    # jit caches are keyed on shapes, not on the switch: a trace made
+    # here would serve a later test at the same shapes on the XLA path
+    jax.clear_caches()
 
 
 @pytest.mark.parametrize("max_seq", [44, 256])

@@ -11,8 +11,10 @@
 * ``Int2MixedLinear`` / ``Int3MixedLinear``, fused and not, and the
   ``*_from_q`` constructors against vptq_tpu's; ``convert_params`` on a
   calibrated JAX tree.
-* The reader refuses DeepSeek, blocked (``shards > 1``) layers and
-  another ``format_version``; the writer a codebook layer.
+* DeepSeek (MLA's absorbed uk / uv and norms, the router weight and
+  correction bias, stacked routed and fused shared experts) both ways.
+* The reader refuses blocked (``shards > 1``) layers and another
+  ``format_version``; the writer a codebook layer.
 """
 
 import dataclasses
@@ -46,6 +48,15 @@ from vptq_tpu_torch.utils.synth import mixed_model
 
 MIXTRAL = dict(model_type="mixtral", num_local_experts=4,
                num_experts_per_tok=2)
+# a dense layer, then MLA over grouped routing with a shared expert
+DEEPSEEK = dict(
+    model_type="deepseek_v3", q_lora_rank=24, kv_lora_rank=16,
+    qk_nope_head_dim=16, qk_rope_head_dim=8, v_head_dim=16,
+    rope_interleave=True, moe_intermediate_size=32, n_routed_experts=8,
+    num_experts_per_tok=2, n_shared_experts=1, n_group=4, topk_group=2,
+    first_k_dense_replace=1, routed_scaling_factor=2.5,
+)
+FAMILIES = {"llama": {}, "mixtral": MIXTRAL, "deepseek": DEEPSEEK}
 # (family, runtime_format, calibration tokens) of each checkpoint
 CASES = {
     "int8": ("llama", "int8", None),
@@ -57,6 +68,8 @@ CASES = {
     "int3-mixed": ("llama", "int3-mixed", 128),
     "int4-mixed": ("llama", "int4-mixed", 128),
     "mixtral-int8": ("mixtral", "int8", None),
+    "deepseek-int8": ("deepseek", "int8", None),
+    "deepseek-int4": ("deepseek", "int4", None),
 }
 
 
@@ -71,6 +84,10 @@ def jax_pallas():
         mp.setattr(sys.modules["vptq_tpu.ops.quant_matmul"], "_IMPL", "pallas")
         mp.setenv("VPTQ_TPU_PALLAS_INTERPRET", "1")
         yield
+        # jit caches are keyed on shapes, not on the switch: a trace
+        # made here would serve a later test at the same shapes on
+        # the XLA path
+        jax.clear_caches()
 
 
 @pytest.fixture(scope="module")
@@ -81,9 +98,7 @@ def workdir(tmp_path_factory):
 @functools.lru_cache(maxsize=None)
 def _checkpoint(root: str, family: str) -> str:
     path = f"{root}/ckpt_{family}"
-    cfg = dict(TINY, tie_word_embeddings=False)
-    if family == "mixtral":
-        cfg.update(MIXTRAL)
+    cfg = dict(TINY, tie_word_embeddings=False, **FAMILIES[family])
     jsc.write_synthetic_checkpoint(
         path, jsc.tiny_model_config(**cfg), vq_kwargs=VQ, seed=6)
     return path
@@ -128,7 +143,7 @@ def _logits_close(got: np.ndarray, want: np.ndarray):
         got, want, rtol=1e-4, atol=1e-4 * np.abs(want).max())
 
 
-@pytest.mark.parametrize("case", list(CASES))
+@pytest.mark.parametrize("case", [c for c in CASES if c != "deepseek-int4"])
 def test_jax_runtime_checkpoint_loads_in_the_port(workdir, case):
     jmodel, path = _jax_export(str(workdir), case)
     model = texport.load_runtime_model(path, device="cpu")
@@ -140,6 +155,10 @@ def test_jax_runtime_checkpoint_loads_in_the_port(workdir, case):
         kind = (trt.Int2MixedLinear if case == "int2-mixed"
                 else trt.Int3MixedLinear)
         assert type(model.blocks[0].attn.qkv_proj) is kind
+    if case.startswith("deepseek"):
+        assert isinstance(model.blocks[0].attn, tl.MlaAttention)
+        assert isinstance(model.blocks[1].mlp, tl.DeepseekMoe)
+        assert model.blocks[1].mlp.stacked.fmt == "int8"
 
     tokens = np.random.default_rng(0).integers(0, TINY["vocab_size"], (1, 7))
     want, _ = jax.jit(functools.partial(j_forward, dtype=jnp.float32))(
@@ -178,7 +197,7 @@ def _port_model(root: str, case: str):
 
 @pytest.mark.parametrize("case", [
     "int8", "int4", "int3", "int2", "bf16", "int2-mixed", "int3-mixed",
-    "mixtral-int8",
+    "mixtral-int8", "deepseek-int4",
 ])
 def test_port_runtime_checkpoint_loads_in_jax(workdir, case):
     model = _port_model(str(workdir), case)
@@ -302,14 +321,17 @@ def test_convert_params_carries_a_calibrated_jax_tree(workdir, case):
 
 
 def test_model_config_reads_what_jax_writes():
-    """The port's config from vptq_tpu's dict (llama3 scaling, Mixtral):
-    rope_scaling a tuple of pairs again, the DeepSeek fields dropped at
-    their defaults; back in vptq_tpu, equal to the original."""
+    """The port's config from vptq_tpu's dict (llama3 scaling, Mixtral,
+    DeepSeek with yarn): rope_scaling a tuple of pairs again, every field
+    kept; back in vptq_tpu, equal to the original."""
     scaling = {"rope_type": "llama3", "factor": 8.0, "low_freq_factor": 1.0,
                "high_freq_factor": 4.0,
                "original_max_position_embeddings": 64}
+    yarn = {"rope_type": "yarn", "factor": 40.0, "mscale": 1.0,
+            "mscale_all_dim": 0.707, "original_max_position_embeddings": 64}
     for extra in (dict(rope_scaling=tuple(sorted(scaling.items()))),
-                  MIXTRAL):
+                  MIXTRAL,
+                  dict(DEEPSEEK, rope_scaling=tuple(sorted(yarn.items())))):
         jcfg = jsc.tiny_model_config(**TINY, **extra)
         d = json.loads(json.dumps(dataclasses.asdict(jcfg)))
         cfg = tl.ModelConfig.from_dict(d)
@@ -319,35 +341,10 @@ def test_model_config_reads_what_jax_writes():
             back["rope_scaling"] = tuple(
                 (k, v) for k, v in back["rope_scaling"])
         assert JModelConfig(**back) == jcfg
-    with pytest.raises(NotImplementedError, match="qk_rope_head_dim"):
-        tl.ModelConfig.from_dict(dict(d, qk_rope_head_dim=8))
+        assert back == dataclasses.asdict(jcfg)
+    assert cfg.is_mla and cfg.cache_k_dim == 24 and cfg.rope_dim == 8
     with pytest.raises(ValueError, match="unknown"):
         tl.ModelConfig.from_dict(dict(d, rope_flavour=1))
-
-
-def test_reader_refuses_deepseek(workdir):
-    cfg = jsc.tiny_model_config(
-        model_type="deepseek_v3", q_lora_rank=24, kv_lora_rank=16,
-        qk_nope_head_dim=16, qk_rope_head_dim=8, v_head_dim=16,
-        rope_interleave=True, moe_intermediate_size=32, n_routed_experts=8,
-        num_experts_per_tok=2, n_shared_experts=1, n_group=4, topk_group=2,
-        first_k_dense_replace=1, routed_scaling_factor=2.5,
-    )
-    src, out = workdir / "deepseek", workdir / "rt_deepseek"
-    jsc.write_synthetic_checkpoint(src, cfg, vq_kwargs=VQ, seed=1)
-    jexport.export_runtime(
-        j_load_model(str(src), dtype=jnp.float32, runtime_format="int8"), out)
-    with pytest.raises(NotImplementedError, match="DeepSeek"):
-        texport.load_runtime_model(out, device="cpu")
-    # a file whose config hides the model: the MLA keys themselves refuse
-    with open(out / "runtime_config.json") as f:
-        meta = json.load(f)
-    meta["model_config"] = dataclasses.asdict(
-        jsc.tiny_model_config(num_hidden_layers=cfg.num_hidden_layers))
-    with open(out / "runtime_config.json", "w") as f:
-        json.dump(meta, f)
-    with pytest.raises(NotImplementedError, match="kv_a_norm|router_weight"):
-        texport.load_runtime_model(out, device="cpu")
 
 
 @pytest.mark.parametrize("kind,shards", [

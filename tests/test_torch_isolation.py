@@ -671,6 +671,18 @@ LLAMA_DECODE = [(6144, 4096, 2048), (4096, 4096, 2048), (28672, 4096, 2048),
 QWEN_DECODE = [(4608, 3584, 512), (3584, 3584, 512), (38912, 3584, 512),
                (3584, 19456, 1024)]
 ODD_DECODE = [(200, 2048, 512), (200, 4096, 1024), (200, 14336, 2048)]
+# Moonlight-16B-A3B's (DeepSeek-V3) K1 / K2 shapes: q, kv_a (out 576, 4.5
+# row blocks of 128), o, the dense layer's gate_up and down, the shared
+# experts' gate_up and down (in 2816: int8 group 512 → 3072, int4 → 4096;
+# 11264: int8 group 1024, int4 → 12288)
+DEEPSEEK_DECODE = {
+    "w8": [(3072, 2048, 2048), (576, 2048, 2048), (2048, 2048, 2048),
+           (22528, 2048, 2048), (2048, 11264, 1024), (5632, 2048, 2048),
+           (2048, 3072, 512)],
+    "w4": [(3072, 2048, 128), (576, 2048, 128), (2048, 2048, 128),
+           (22528, 2048, 128), (2048, 12288, 128), (5632, 2048, 128),
+           (2048, 4096, 128)],
+}
 
 
 def _decode_positions(kernel, in_p):
@@ -709,6 +721,36 @@ def test_decode_split_puts_two_blocks_on_every_sm(kernel, shape):
         assert per_block <= 232448, (tokens, per_block)
         if tokens <= 8:
             assert 2 * (per_block + 1024) <= 228 * 1024, (tokens, per_block)
+
+
+@pytest.mark.parametrize("kernel,shape", [
+    (k, s) for k, shapes in DEEPSEEK_DECODE.items() for s in shapes])
+def test_decode_split_at_deepseek_shapes(kernel, shape):
+    """DeepSeek's K1 / K2 shapes at every T <= 16: a split of whole stages
+    whose x fits a block (two blocks an SM up to 8 tokens), making two
+    blocks or more for each of an H100's 132 SMs where the largest split
+    (8) can; Moonlight's narrow outs cannot (kv_a's 576 rows are 18 blocks
+    of 32, or 9 of 64: 144 at split 8), and take split 8, the most blocks
+    the plan makes."""
+    out_f, in_p, _ = shape
+    parts, positions, planes, scale_bytes = _decode_positions(kernel, in_p)
+    stages = positions // DECODE_STAGE
+    for tokens in range(1, 17):
+        split = decode_split(out_f, positions, parts, tokens, 132, planes,
+                             scale_bytes)
+        assert split in DECODE_SPLITS and split <= stages, (tokens, split)
+        enough = decode_blocks(out_f, tokens) * split >= 2 * 132
+        assert enough or split in (stages, max(DECODE_SPLITS)), tokens
+        if not enough and split < stages:
+            assert decode_blocks(out_f, tokens) * max(DECODE_SPLITS) < 264
+        per_block = decode_smem(parts, tokens, -(-stages // split), planes,
+                                scale_bytes)
+        assert per_block <= 232448, (tokens, per_block)
+        if tokens <= 8:
+            assert 2 * (per_block + 1024) <= 228 * 1024, (tokens, per_block)
+    if out_f == 576:
+        assert decode_split(576, positions, parts, 1, 132, planes,
+                            scale_bytes) == 8
 
 
 def test_decode_split_of_shapes_off_the_main_paths():
@@ -755,9 +797,21 @@ MIXTRAL_PAIRS = [
     ((4096, 14336), 1, 4), ((4096, 14336), 2, 2), ((4096, 14336), 16, 1),
     ((4096, 14336), 128, 1),
 ]
+# and at DeepSeek's experts: Moonlight-16B-A3B's 64 (gate_up 2816 x 2048,
+# down 2048 x 1408 padded to 2048; top 6: P = 6, 48 at 8 slots, 384 at 64
+# tokens) and DeepSeek-R1's 256 (gate_up 4096 x 7168 padded to 8192, down
+# 7168 x 2048; top 8: P = 8, 64): one pair takes K2's split, six or more
+# split 1
+DEEPSEEK_PAIRS = [
+    ((2816, 2048), 1, 4), ((2816, 2048), 6, 1), ((2816, 2048), 48, 1),
+    ((2816, 2048), 384, 1), ((2048, 2048), 1, 8), ((2048, 2048), 6, 1),
+    ((2048, 2048), 48, 1), ((2048, 2048), 384, 1), ((4096, 8192), 1, 4),
+    ((4096, 8192), 8, 1), ((4096, 8192), 64, 1), ((7168, 2048), 1, 2),
+    ((7168, 2048), 8, 1), ((7168, 2048), 64, 1),
+]
 
 
-@pytest.mark.parametrize("shape,pairs,split", MIXTRAL_PAIRS)
+@pytest.mark.parametrize("shape,pairs,split", MIXTRAL_PAIRS + DEEPSEEK_PAIRS)
 def test_decode_split_of_pairs_counts_every_pair(monkeypatch, shape, pairs,
                                                  split):
     """A pairs launch (K5b) runs one token a block and its row blocks once
@@ -1049,6 +1103,59 @@ def test_chip_smoke_serving_on_cpu():
     assert served["stats"]["batched_admissions"] >= 4
 
 
+# a tiny DeepSeek-V3 at Moonlight-16B-A3B's layout: MLA without q_lora, a
+# dense first layer, 8 experts in one group, top 3, two shared experts
+TINY_DEEPSEEK = dict(
+    TINY, model_type="deepseek_v3", num_hidden_layers=3,
+    num_key_value_heads=4, kv_lora_rank=16, qk_nope_head_dim=16,
+    qk_rope_head_dim=8, v_head_dim=16, rope_interleave=True,
+    moe_intermediate_size=32, n_routed_experts=8, num_experts_per_tok=3,
+    n_shared_experts=2, routed_scaling_factor=2.446,
+    first_k_dense_replace=1, tie_word_embeddings=False,
+)
+
+
+def test_chip_smoke_deepseek_on_cpu():
+    """The smoke's DeepSeek run at a tiny size with the plain versions:
+    from_pretrained, a short and a long request (the latter's prefill
+    through every expert), the 8-slot Scheduler with a prefix hit; the
+    smoke's launch rule counts MLA's q, kv_a and o, the dense layer's and
+    the shared experts' gate_up and down, 2 pairs calls a MoE layer and
+    step, 2·E expert calls a MoE layer and long chunk, and no K8; the
+    decode calls name every K1 / K2 linear and the pairs calls."""
+    from vptq_tpu_torch.models.llama import ModelConfig
+    from vptq_tpu_torch.models.loader import load_model
+
+    cfg = ModelConfig(**TINY_DEEPSEEK)
+    assert chip_smoke.layer_linears(cfg) == (15, 2, 8)
+    got = chip_smoke.launches_of(cfg, "int4", [(1, 2048, True), (8, 1, False)])
+    assert {k: n for k, n in got.items() if n} == {
+        "w4_matmul": 30, "w4_matmul_expert": 32, "w4_matmul_pairs": 4}
+    path, _ = chip_smoke.write_checkpoint(TINY_DEEPSEEK, VQ)
+    try:
+        model = load_model(path, runtime_format="int8", device="cpu")
+        calls = chip_smoke.decode_calls(model, "int8")
+        assert [c[1:] for c in calls[:5]] == [
+            (96, 512), (24, 512), (64, 512), (256, 512), (64, 512)]
+        assert [c[0] for c in calls].count("w8_matmul_pairs") == 4
+        assert len(calls) == 15 + 4
+        del model
+        e2e = chip_smoke.phase_e2e(
+            "cpu", path, "int4", TINY["vocab_size"], prompt_lens=(5, 70),
+            new_tokens=2, max_seq=256,
+            serve=dict(prompt_lens=(5, 20, 70), per_len=2, shared=64,
+                       serve=dict(max_seq=256, prompt_buckets=(16, 128))),
+        )
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
+    assert e2e["kernels"] == [
+        "w4_matmul", "w4_matmul_expert", "w4_matmul_pairs"]
+    served = e2e["serving"]
+    assert served["prefix_hits"] >= 1 and served["logits_max_rel_diff"] == 0
+    assert served["greedy_token_agreement"] == [1.0] * 2
+    assert served["eos_fired"] == 2 and served["warm"]["eos_fired"] == 2
+
+
 def test_profile_decode_runs_the_plain_versions_on_cpu(capsys):
     """profile_decode at a tiny width on the CPU: the card line first, the
     four linears, the lm_head and their sum, then the eager step (the CPU
@@ -1300,6 +1407,7 @@ def _assert_smoke_close(got, want):
     *(("w4", s) for s in LLAMA_DECODE + QWEN_DECODE + ODD_DECODE),
     *((k, s) for k in ("w3", "w2g64", "w2g128")
       for s in LLAMA_DECODE + ODD_DECODE),
+    *((k, s) for k, shapes in DEEPSEEK_DECODE.items() for s in shapes),
 ])
 def test_decode_gemv_matches_plain_version(cuda, monkeypatch, kernel, shape,
                                            tokens, out_dtype):
@@ -1600,6 +1708,65 @@ def test_pairs_kernel_matches_plain_version(cuda, fmt, ids, out_dtype):
     assert fn.launches == before + 1
     assert got.shape == (len(ids), 200) and got.dtype == out_dtype
     _assert_kernel_close(got, want, out_dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tokens", [1, 8, 16, 17, 128, 512])
+@pytest.mark.parametrize("kernel", ["w8", "w4"])
+def test_kv_a_out_576_matches_plain_version(cuda, kernel, tokens):
+    """K1 / K2 at Moonlight's kv_a_proj_with_mqa, out 576 (4.5 blocks of
+    128 rows: the tile's last N block half full), in 2048: the decode GEMV
+    up to 16 tokens (K1 at one token its w8_gemv), the tile past them; f32
+    and bf16 out."""
+    gen = torch.Generator(device=cuda).manual_seed(576 + tokens)
+    fn, ref, weights = _decode_case(kernel, gen, cuda, (576, 2048, 2048))
+    x = torch.randn((tokens, 2048), generator=gen, device=cuda)
+    for out_dtype in (torch.float32, torch.bfloat16):
+        before = fn.launches
+        got = fn(x, *weights, out_dtype=out_dtype)
+        want = ref(x, *weights, out_dtype=out_dtype)
+        torch.cuda.synchronize()
+        assert fn.launches == before + 1
+        assert got.shape == (tokens, 576) and got.dtype == out_dtype
+        _assert_smoke_close(got, want)
+        _assert_kernel_close(got, want, out_dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["int8", "int4"])
+def test_moe_kernels_at_moonlight_experts(cuda, fmt):
+    """K6 and K5 on a stack of Moonlight-16B-A3B's 64 experts (gate_up
+    2816 x 2048; int8 in its group 2048, int4 in 128): K6 on the first,
+    the last and the clamped id 70 at 1, 17 and 128 tokens; K5 on one
+    token's top 6, 8 slots' (48 pairs) and 64 tokens' (384), ids drawn
+    from a seed."""
+    gen = torch.Generator(device=cuda).manual_seed(64)
+    out_f, in_p, n_experts = 2816, 2048, 64
+    if fmt == "int8":
+        e_fn, e_ref = w8_matmul_expert, w8_matmul_expert_reference
+        p_fn, p_ref = w8_matmul_pairs, w8_matmul_pairs_reference
+        wq, scales = _int8_case(gen, cuda, out_f, in_p, 2048, n_experts)
+    else:
+        e_fn, e_ref, p_fn, p_ref, wq, scales = _stacked_case(
+            fmt, gen, cuda, n_experts=n_experts, out_f=out_f, in_p=in_p)
+    for tokens in (1, 17, 128):
+        x = torch.randn((tokens, in_p), generator=gen, device=cuda)
+        for e, read in ((0, 0), (63, 63), (70, 63)):
+            got = e_fn(x, wq, scales, torch.tensor(e, device=cuda))
+            want = e_ref(x, wq, scales, torch.tensor(read, device=cuda))
+            _assert_kernel_close(got, want, torch.bfloat16)
+    cpu = torch.Generator().manual_seed(6)
+    for n_pairs in (6, 48, 384):
+        ids = torch.cat([torch.randperm(n_experts, generator=cpu)[:6]
+                         for _ in range(n_pairs // 6)]).to(cuda)
+        x = torch.randn((n_pairs, in_p), generator=gen, device=cuda)
+        before = p_fn.launches
+        got = p_fn(x, wq, scales, ids)
+        want = p_ref(x, wq, scales, ids)
+        torch.cuda.synchronize()
+        assert p_fn.launches == before + 1
+        _assert_smoke_close(got, want)
+        _assert_kernel_close(got, want, torch.bfloat16)
 
 
 @pytest.mark.cuda

@@ -61,6 +61,10 @@ def jax_pallas(monkeypatch):
         sys.modules["vptq_tpu.ops.quant_matmul"], "_IMPL", "pallas"
     )
     monkeypatch.setenv("VPTQ_TPU_PALLAS_INTERPRET", "1")
+    yield
+    # jit caches are keyed on shapes, not on the switch: a trace made
+    # here would serve a later test at the same shapes on the XLA path
+    jax.clear_caches()
 
 
 def _bits(a):
@@ -580,8 +584,6 @@ def _edit_config(path, **changes):
 
 @pytest.mark.parametrize("changes,match", [
     (dict(model_type="phi3"), "MoE of model_type 'phi3'"),
-    (dict(n_routed_experts=4), "DeepSeek"),
-    (dict(kv_lora_rank=16), "MLA"),
     (dict(model_type="phimoe"), "phimoe"),
 ])
 def test_other_moe_families_still_raise(tmp_path, changes, match):

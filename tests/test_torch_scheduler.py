@@ -14,6 +14,7 @@ the ``Generator`` and the ``Scheduler``, as vptq_tpu's does.
 
 import sys
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -276,6 +277,10 @@ def jax_pallas(monkeypatch):
     monkeypatch.setattr(sys.modules["vptq_tpu.ops.quant_matmul"], "_IMPL",
                         "pallas")
     monkeypatch.setenv("VPTQ_TPU_PALLAS_INTERPRET", "1")
+    yield
+    # jit caches are keyed on shapes, not on the switch: a trace made
+    # here would serve a later test at the same shapes on the XLA path
+    jax.clear_caches()
 
 
 def test_scheduler_int3(tmp_path, jax_pallas):

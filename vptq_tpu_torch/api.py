@@ -60,8 +60,9 @@ class AutoModelForCausalLM:
         tp: int = 1,
         **_ignored,
     ) -> Engine:
-        """Load a local checkpoint directory; ``device`` defaults to CUDA
-        and raises when no CUDA device is present.
+        """Load a local checkpoint directory (dense Llama, Mistral, Qwen2,
+        Phi-3, Mixtral or DeepSeek-V3); ``device`` defaults to CUDA and
+        raises when no CUDA device is present.
 
         ``runtime_format``: "int8" (K1), "int4" (K2), "int3" (K4) or
         "int2" (K3) re-encode every quantized linear for its hand-written

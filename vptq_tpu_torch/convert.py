@@ -12,7 +12,12 @@ comes from the config's ``quantization_config``; ``col_idx`` is a
 calibrated mixed layer whose base lies under ``int2`` or ``int3`` and
 whose int8 side under ``int8``. A Mixtral block's
 ``mlp`` holds ``router``, ``experts.<e>`` and, after fusion, ``stacked``,
-whose format (int8 or int4) follows from its scales as a ``wq``'s does.
+whose format (int8 or int4) follows from its scales as a ``wq``'s does. A
+DeepSeek block's ``attn`` holds ``kv_a_proj``, ``kv_a_norm``, ``o_proj``,
+``q_proj`` (or ``q_a_proj``, ``q_a_norm``, ``q_b_proj``) and the absorbed
+``uk`` / ``uv``; its ``mlp`` (past ``first_k_dense_replace``) holds
+``router_weight``, ``correction_bias``, ``experts.<e>`` or ``stacked``,
+and ``shared_experts``.
 bf16 arrays are taken by bit pattern.
 """
 
@@ -37,6 +42,8 @@ from vptq_tpu_torch.layers.vqlinear import VQLinear
 from vptq_tpu_torch.models.llama import (
     Attention,
     Block,
+    DeepseekMoe,
+    MlaAttention,
     Mlp,
     Model,
     ModelConfig,
@@ -60,6 +67,11 @@ _HF_MLP = {
 _HF_EXPERT = {
     "gate_proj": "w1", "up_proj": "w3", "down_proj": "w2",
     "gate_up_proj": "gate_up_proj",
+}
+# the JAX MlaAttention's linears and their checkpoint names
+_HF_MLA = {
+    "kv_a_proj": "kv_a_proj_with_mqa", "o_proj": "o_proj",
+    "q_proj": "q_proj", "q_a_proj": "q_a_proj", "q_b_proj": "q_b_proj",
 }
 
 
@@ -197,15 +209,18 @@ def convert_params(
             }
         )
 
+    def stacked_at(prefix: str) -> Optional[StackedExperts]:
+        if f"{prefix}.stacked.gate_up_wq" not in params:
+            return None
+        sp = f"{prefix}.stacked"
+        return StackedExperts(
+            get(f"{sp}.gate_up_wq"), get(f"{sp}.gate_up_scales"),
+            get(f"{sp}.down_wq"), get(f"{sp}.down_scales"),
+            fmt=_stacked_format(sp, params),
+        )
+
     def moe_mlp(prefix: str, hf_prefix: str) -> MoeMlp:
-        stacked = None
-        if f"{prefix}.stacked.gate_up_wq" in params:
-            sp = f"{prefix}.stacked"
-            stacked = StackedExperts(
-                get(f"{sp}.gate_up_wq"), get(f"{sp}.gate_up_scales"),
-                get(f"{sp}.down_wq"), get(f"{sp}.down_scales"),
-                fmt=_stacked_format(sp, params),
-            )
+        stacked = stacked_at(prefix)
         n_experts = 0 if stacked is not None else cfg.num_local_experts
         return MoeMlp(
             router=linear(f"{prefix}.router", f"{hf_prefix}.gate"),
@@ -220,18 +235,61 @@ def convert_params(
             stacked=stacked,
         )
 
+    def mla_attention(prefix: str, hf_prefix: str) -> MlaAttention:
+        return MlaAttention(
+            **{
+                name: linear(f"{prefix}.{name}", f"{hf_prefix}.{hf_name}")
+                for name, hf_name in _HF_MLA.items()
+            },
+            **{
+                name: get(f"{prefix}.{name}")
+                for name in ("kv_a_norm", "q_a_norm", "uk", "uv")
+            },
+        )
+
+    def deepseek_moe(prefix: str, hf_prefix: str) -> DeepseekMoe:
+        stacked = stacked_at(prefix)
+        n_experts = 0 if stacked is not None else cfg.n_routed_experts
+        return DeepseekMoe(
+            router_weight=get(f"{prefix}.router_weight"),
+            correction_bias=get(f"{prefix}.correction_bias"),
+            experts=[
+                dense_mlp(
+                    f"{prefix}.experts.{e}", f"{hf_prefix}.experts.{e}",
+                    _HF_MLP,
+                )
+                for e in range(n_experts)
+            ],
+            shared_experts=dense_mlp(
+                f"{prefix}.shared_experts", f"{hf_prefix}.shared_experts",
+                _HF_MLP,
+            ),
+            top_k=cfg.num_experts_per_tok,
+            n_group=cfg.n_group,
+            topk_group=cfg.topk_group,
+            norm_topk_prob=cfg.norm_topk_prob,
+            routed_scaling_factor=cfg.routed_scaling_factor,
+            stacked=stacked,
+        )
+
     blocks = []
     for i in range(cfg.num_hidden_layers):
         b, hf = f"blocks.{i}", f"model.layers.{i}"
-        attn = Attention(
-            **{
-                name: linear(f"{b}.attn.{name}", f"{hf}.self_attn.{name}")
-                for name in (
-                    "q_proj", "k_proj", "v_proj", "o_proj", "qkv_proj"
-                )
-            }
-        )
-        if cfg.num_local_experts:
+        if cfg.is_mla:
+            attn = mla_attention(f"{b}.attn", f"{hf}.self_attn")
+        else:
+            attn = Attention(
+                **{
+                    name: linear(f"{b}.attn.{name}",
+                                 f"{hf}.self_attn.{name}")
+                    for name in (
+                        "q_proj", "k_proj", "v_proj", "o_proj", "qkv_proj"
+                    )
+                }
+            )
+        if f"{b}.mlp.router_weight" in params:
+            mlp = deepseek_moe(f"{b}.mlp", f"{hf}.mlp")
+        elif cfg.num_local_experts:
             mlp = moe_mlp(f"{b}.mlp", f"{hf}.block_sparse_moe")
         else:
             mlp = dense_mlp(f"{b}.mlp", f"{hf}.mlp", _HF_MLP)

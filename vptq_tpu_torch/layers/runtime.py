@@ -24,8 +24,10 @@ are read from a runtime checkpoint (``tools/export_runtime.py``) or built
 from given codes by the ``*_from_q`` constructors.
 
 Every encoding is byte-equal to the JAX package's numpy encoder.
-:func:`fuse_block` also stacks the int8 or int4 experts of a Mixtral MoE
-block (:func:`stack_experts`) for the expert and pairs kernels K6 and K5.
+:func:`fuse_block` also stacks the int8 or int4 experts of a Mixtral or
+DeepSeek MoE block (:func:`stack_experts`) for the expert and pairs
+kernels K6 and K5; :func:`absorb_mla` turns an MLA layer's kv_b_proj
+into the latent-space products uk / uv.
 Blocked (``shards > 1``) encodings for tensor parallelism are not
 ported: on one device they would compute wrong outputs, so they raise.
 """
@@ -39,7 +41,13 @@ from torch import nn
 
 from vptq_tpu_torch.layers.dense import DenseLinear
 from vptq_tpu_torch.layers.vqlinear import VQLinear
-from vptq_tpu_torch.models.llama import Mlp, MoeMlp, StackedExperts
+from vptq_tpu_torch.models.llama import (
+    Attention,
+    DeepseekMoe,
+    Mlp,
+    MoeMlp,
+    StackedExperts,
+)
 from vptq_tpu_torch.ops.packing import (
     INT4_GROUP,
     W2_BLOCK,
@@ -70,6 +78,7 @@ __all__ = [
     "Int4Linear",
     "Int8Linear",
     "RUNTIME_FORMATS",
+    "absorb_mla",
     "dense_to_int4",
     "dense_to_int8",
     "fuse_block",
@@ -576,6 +585,21 @@ def linear_exact_weight(
     return w if logical_in is None else w[:, :logical_in]
 
 
+def absorb_mla(kv_b_proj, cfg, dtype=torch.bfloat16):
+    """An MLA layer's kv_b up-projections as (uk (kv_lora, heads,
+    qk_nope), uv (kv_lora, heads, v_head)) in ``dtype``: the exact f32
+    weight of the raw layer (never re-encoded first), split per head and
+    transposed, so that attention runs in the compressed latent space
+    (``models/llama.py`` ``_mla_attention``). Exact up to the rounding to
+    ``dtype``."""
+    nh, dn = cfg.num_attention_heads, cfg.qk_nope_head_dim
+    w = linear_exact_weight(kv_b_proj, cfg.kv_lora_rank).reshape(
+        nh, dn + cfg.v_head_dim, cfg.kv_lora_rank)
+    uk = w[:, :dn, :].permute(2, 0, 1).contiguous().to(dtype)
+    uv = w[:, dn:, :].permute(2, 0, 1).contiguous().to(dtype)
+    return uk, uv
+
+
 def to_bf16(layer: VQLinear) -> DenseLinear:
     return DenseLinear(
         weight=_exact_weight(layer).to(torch.bfloat16), bias=layer.bias
@@ -698,14 +722,17 @@ def stack_experts(experts) -> Optional[StackedExperts]:
 
 def fuse_block(block):
     """Fuse one block's q|k|v and gate|up projections (in place), and
-    stack a MoE block's experts for the expert and pairs kernels."""
+    stack a MoE block's experts for the expert and pairs kernels (a
+    DeepSeek block's shared experts fuse their gate|up; its MLA
+    projections stay apart, as in the JAX package)."""
     attn, mlp = block.attn, block.mlp
-    if attn.qkv_proj is None and attn.q_proj is not None:
+    if (isinstance(attn, Attention) and attn.qkv_proj is None
+            and attn.q_proj is not None):
         fused = fuse_linears([attn.q_proj, attn.k_proj, attn.v_proj])
         if fused is not None:
             attn.qkv_proj = fused
             attn.q_proj = attn.k_proj = attn.v_proj = None
-    if isinstance(mlp, MoeMlp):
+    if isinstance(mlp, (MoeMlp, DeepseekMoe)):
         for expert in mlp.experts:
             _fuse_gate_up(expert)
         if mlp.stacked is None and len(mlp.experts):
@@ -714,6 +741,8 @@ def fuse_block(block):
                 # the per-expert copies go, so the expert weights exist
                 # once on the device: both MoE paths read the stack
                 mlp.experts = nn.ModuleList()
+        if isinstance(mlp, DeepseekMoe):
+            _fuse_gate_up(mlp.shared_experts)
     else:
         _fuse_gate_up(mlp)
     return block

@@ -1,19 +1,20 @@
-"""Llama decoder stack (dense Llama 2/3, Mistral, Qwen2, Phi-3 and Mixtral
-MoE), in torch.
+"""Llama decoder stack (dense Llama 2/3, Mistral, Qwen2, Phi-3, Mixtral
+MoE and DeepSeek-V3), in torch.
 
-Port of the dense-Llama (Phi-3 too) and Mixtral parts of
-``vptq_tpu/models/llama.py``: RMSNorm, RoPE (default, llama3 and yarn
-scaling), GQA attention over a per-layer KV cache (a fresh bf16 prefill
-of 1024 tokens or more, at a head size it is built for, through the
-flash-attention kernel K8; Mistral's and Phi-3's sliding window in the
-masks), SwiGLU,
-with every projection a runtime linear (Qwen2's q/k/v carry a bias), and
-the sparse MoE block (f32 router, top-k, softmax over the top-k) whose
+Port of ``vptq_tpu/models/llama.py`` on one device: RMSNorm, RoPE
+(default, llama3 and yarn scaling; DeepSeek's interleaved pairs), GQA
+attention over a per-layer KV cache (a fresh bf16 prefill of 1024 tokens
+or more, at a head size it is built for, through the flash-attention
+kernel K8; Mistral's and Phi-3's sliding window in the masks), SwiGLU,
+with every projection a runtime linear (Qwen2's q/k/v carry a bias), the
+sparse MoE block (f32 router, top-k, softmax over the top-k) whose
 stacked int8 / int4 experts run through the expert kernels K6 (every
 expert on every token, for more than 64 tokens) or the pairs kernels K5
-(the selected experts only, in decode). Modules hold the weights;
-:func:`forward` is the function the JAX package jits. There is no
-autograd on this path.
+(the selected experts only, in decode), and DeepSeek-V3's latent
+attention (MLA, a cache of one latent "head") and grouped sigmoid MoE
+with shared experts, whose routed experts take the same two paths.
+Modules hold the weights; :func:`forward` is the function the JAX
+package jits. There is no autograd on this path.
 
 The KV cache is updated in place (JAX's is functional). Its lengths
 live on the device, one per sequence, and :func:`forward` advances them
@@ -44,7 +45,9 @@ from vptq_tpu_torch.ops.w8_matmul_pairs import w8_matmul_pairs
 __all__ = [
     "Attention",
     "Block",
+    "DeepseekMoe",
     "KVCache",
+    "MlaAttention",
     "Mlp",
     "Model",
     "ModelConfig",
@@ -68,10 +71,8 @@ _DECODE_BLOCK = 256
 class ModelConfig:
     """Static architecture config, parsed from HF ``config.json``.
 
-    The dense-Llama, Mistral, Qwen2 and Mixtral fields of the JAX
-    package's config, plus the ones that mark a family the port does not
-    run yet (DeepSeek's MoE, MLA), so the loader can refuse such a
-    checkpoint.
+    The fields of the JAX package's config: dense Llama, Mistral, Qwen2,
+    Mixtral, and DeepSeek-V2/V3's MLA and fine-grained MoE.
     """
 
     vocab_size: int
@@ -90,8 +91,21 @@ class ModelConfig:
     attention_bias: bool = False
     num_local_experts: int = 0
     num_experts_per_tok: int = 0
-    n_routed_experts: int = 0
+    # --- DeepSeek-V2/V3 MLA + fine-grained MoE
+    q_lora_rank: Optional[int] = None
     kv_lora_rank: int = 0
+    qk_nope_head_dim: int = 0
+    qk_rope_head_dim: int = 0
+    v_head_dim: int = 0
+    rope_interleave: bool = False
+    moe_intermediate_size: int = 0
+    n_routed_experts: int = 0
+    n_shared_experts: int = 0
+    n_group: int = 1
+    topk_group: int = 1
+    norm_topk_prob: bool = True
+    routed_scaling_factor: float = 1.0
+    first_k_dense_replace: int = 0
     sliding_window: Optional[int] = None
 
     @classmethod
@@ -117,8 +131,22 @@ class ModelConfig:
             attention_bias=d.get("attention_bias", d.get("qkv_bias", False)),
             num_local_experts=d.get("num_local_experts", 0),
             num_experts_per_tok=d.get("num_experts_per_tok", 0),
-            n_routed_experts=d.get("n_routed_experts") or 0,
+            q_lora_rank=d.get("q_lora_rank"),
             kv_lora_rank=d.get("kv_lora_rank") or 0,
+            qk_nope_head_dim=d.get("qk_nope_head_dim", 0),
+            qk_rope_head_dim=d.get("qk_rope_head_dim", 0),
+            v_head_dim=d.get("v_head_dim", 0),
+            # a missing key is False, as the JAX package reads it
+            # (transformers' DeepseekV3Config defaults to True)
+            rope_interleave=d.get("rope_interleave", False),
+            moe_intermediate_size=d.get("moe_intermediate_size", 0),
+            n_routed_experts=d.get("n_routed_experts") or 0,
+            n_shared_experts=d.get("n_shared_experts") or 0,
+            n_group=d.get("n_group") or 1,
+            topk_group=d.get("topk_group") or 1,
+            norm_topk_prob=d.get("norm_topk_prob", True),
+            routed_scaling_factor=d.get("routed_scaling_factor", 1.0),
+            first_k_dense_replace=d.get("first_k_dense_replace", 0),
             sliding_window=(
                 d.get("sliding_window")
                 if d.get("use_sliding_window", True)
@@ -134,24 +162,13 @@ class ModelConfig:
 
     @classmethod
     def from_dict(cls, d: Dict[str, Any]) -> "ModelConfig":
-        """Inverse of :meth:`to_dict`, also for the JAX package's dict.
-        Its DeepSeek fields that the port has not are dropped while they
-        hold their defaults, refused otherwise; ``rope_scaling``, a list
-        of pairs in JSON, becomes a tuple of pairs again."""
+        """Inverse of :meth:`to_dict`, also for the JAX package's dict;
+        ``rope_scaling``, a list of pairs in JSON, becomes a tuple of
+        pairs again."""
         d = dict(d)
-        ours = {f.name for f in dataclasses.fields(cls)}
-        unknown = sorted(set(d) - ours - set(_JAX_ONLY_DEFAULTS))
+        unknown = sorted(set(d) - {f.name for f in dataclasses.fields(cls)})
         if unknown:
             raise ValueError(f"unknown model_config fields {unknown}")
-        used = sorted(
-            k for k, v in _JAX_ONLY_DEFAULTS.items()
-            if k in d and d.pop(k) != v
-        )
-        if used:
-            raise NotImplementedError(
-                "vptq_tpu_torch runs no DeepSeek model (MLA, fine-grained "
-                f"MoE); not ported yet: {', '.join(used)}"
-            )
         if d.get("rope_scaling"):
             d["rope_scaling"] = tuple((k, v) for k, v in d["rope_scaling"])
         return cls(**d)
@@ -160,15 +177,26 @@ class ModelConfig:
     def is_mla(self) -> bool:
         return self.kv_lora_rank > 0
 
+    @property
+    def qk_head_dim(self) -> int:
+        return self.qk_nope_head_dim + self.qk_rope_head_dim
 
-# the JAX package's ModelConfig fields that the port has not (DeepSeek's
-# MLA and fine-grained MoE), with their defaults
-_JAX_ONLY_DEFAULTS = dict(
-    q_lora_rank=None, qk_nope_head_dim=0, qk_rope_head_dim=0, v_head_dim=0,
-    rope_interleave=False, moe_intermediate_size=0, n_shared_experts=0,
-    n_group=1, topk_group=1, norm_topk_prob=True, routed_scaling_factor=1.0,
-    first_k_dense_replace=0,
-)
+    @property
+    def cache_k_dim(self) -> int:
+        """MLA caches the compressed latent and the shared rope key, one
+        "head" a token, not per-head expansions."""
+        if self.is_mla:
+            return self.kv_lora_rank + self.qk_rope_head_dim
+        return self.head_dim
+
+    @property
+    def cache_v_dim(self) -> int:
+        """MLA: the latent again (the values read the same vector)."""
+        return self.kv_lora_rank if self.is_mla else self.head_dim
+
+    @property
+    def rope_dim(self) -> int:
+        return self.qk_rope_head_dim if self.is_mla else self.head_dim
 
 
 # --------------------------------------------------------------------
@@ -183,9 +211,10 @@ def rope_frequencies(
 
     Default, llama3 and yarn scaling, with the semantics of HF
     transformers' ROPE_INIT_FUNCTIONS. Any other type raises: ``longrope``
-    (Phi-3.5) among them, which the JAX package runs as plain RoPE.
+    (Phi-3.5) among them, which the JAX package runs as plain RoPE. MLA
+    rotates its ``qk_rope_head_dim`` dims only (``cfg.rope_dim``).
     """
-    dim = cfg.head_dim
+    dim = cfg.rope_dim
     exponents = torch.arange(0, dim, 2, dtype=torch.float32, device=device)
     inv_freq = 1.0 / (cfg.rope_theta ** (exponents / dim))
     attention_scaling = 1.0
@@ -270,9 +299,20 @@ def rope_cos_sin(
 
 
 def apply_rope(
-    x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
+    x: torch.Tensor,  # (B, S, H, D)
+    cos: torch.Tensor,
+    sin: torch.Tensor,
+    interleaved: bool = False,
 ) -> torch.Tensor:
-    """Rotary embedding, half-split pairing (HF rotate_half semantics)."""
+    """Rotary embedding, half-split pairing (HF rotate_half semantics).
+
+    ``interleaved`` first deinterleaves the pairs (2i, 2i + 1), as
+    DeepSeek checkpoints store them (HF
+    apply_rotary_pos_emb_interleave); q and k take the same shuffle.
+    """
+    if interleaved:
+        b, s, h, d = x.shape
+        x = x.reshape(b, s, h, d // 2, 2).transpose(3, 4).reshape(b, s, h, d)
     x1, x2 = x.to(torch.float32).chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
@@ -370,6 +410,49 @@ class MoeMlp(nn.Module):
         self.stacked = stacked
 
 
+class MlaAttention(nn.Module):
+    """DeepSeek-V2/V3 multi-head latent attention (HF DeepseekV3Attention
+    layout): the q projection (``q_proj``, or ``q_a_proj`` → ``q_a_norm``
+    → ``q_b_proj`` when ``q_lora_rank`` is set), the compressed kv with
+    its shared rope key (``kv_a_proj``, ``kv_a_norm``) and ``o_proj``.
+    ``kv_b_proj`` is absorbed at load (``layers/runtime.py``
+    ``absorb_mla``): uk (kv_lora, heads, qk_nope) and uv (kv_lora, heads,
+    v_head), so that attention runs in the latent space, score =
+    (q_nope·uk_h)·c_t + q_rot·k_rot and out_h = (Σ p_t c_t)·uv_h."""
+
+    def __init__(self, kv_a_proj, kv_a_norm, o_proj, uk, uv, q_proj=None,
+                 q_a_proj=None, q_a_norm=None, q_b_proj=None):
+        super().__init__()
+        self.kv_a_proj, self.o_proj = kv_a_proj, o_proj
+        self.q_proj, self.q_a_proj, self.q_b_proj = q_proj, q_a_proj, q_b_proj
+        self.register_buffer("kv_a_norm", kv_a_norm)
+        self.register_buffer("q_a_norm", q_a_norm)
+        self.register_buffer("uk", uk)
+        self.register_buffer("uv", uv)
+
+
+class DeepseekMoe(nn.Module):
+    """DeepSeek-V3 fine-grained MoE (HF DeepseekV3TopkRouter /
+    DeepseekV3MoE): sigmoid scores with a correction bias, group-limited
+    top-k routing, routed experts (stacked, as :class:`MoeMlp`'s, for
+    the expert and pairs kernels) and shared experts beside them."""
+
+    def __init__(self, router_weight, correction_bias, experts,
+                 shared_experts, top_k: int = 8, n_group: int = 1,
+                 topk_group: int = 1, norm_topk_prob: bool = True,
+                 routed_scaling_factor: float = 1.0, stacked=None):
+        super().__init__()
+        # (E, hidden) f32 and (E,) f32: the router is no runtime linear
+        self.register_buffer("router_weight", router_weight)
+        self.register_buffer("correction_bias", correction_bias)
+        self.experts = nn.ModuleList(experts)
+        self.shared_experts = shared_experts
+        self.top_k, self.n_group, self.topk_group = top_k, n_group, topk_group
+        self.norm_topk_prob = norm_topk_prob
+        self.routed_scaling_factor = routed_scaling_factor
+        self.stacked = stacked
+
+
 class Block(nn.Module):
     def __init__(self, input_layernorm, attn, post_attention_layernorm, mlp):
         super().__init__()
@@ -404,8 +487,8 @@ class KVCache:
     sets it too, and :func:`forward` advances both.
     """
 
-    k: List[torch.Tensor]  # per layer: (B, max_seq, kv_heads, hd)
-    v: List[torch.Tensor]
+    k: List[torch.Tensor]  # per layer: (B, max_seq, kv_heads, cache_k_dim)
+    v: List[torch.Tensor]  # per layer: (B, max_seq, kv_heads, cache_v_dim)
     lengths: torch.Tensor
     max_len: int = 0
 
@@ -419,11 +502,16 @@ class KVCache:
 def init_cache(
     cfg: ModelConfig, batch: int, max_seq: int, dtype: torch.dtype, device
 ) -> KVCache:
-    shape = (batch, max_seq, cfg.num_key_value_heads, cfg.head_dim)
+    # MLA caches one shared latent "head" (cfg.cache_k_dim): K and V are
+    # of different widths then
+    kv_heads = 1 if cfg.is_mla else cfg.num_key_value_heads
+    base = (batch, max_seq, kv_heads)
     layers = range(cfg.num_hidden_layers)
     return KVCache(
-        k=[torch.zeros(shape, dtype=dtype, device=device) for _ in layers],
-        v=[torch.zeros(shape, dtype=dtype, device=device) for _ in layers],
+        k=[torch.zeros(base + (cfg.cache_k_dim,), dtype=dtype, device=device)
+           for _ in layers],
+        v=[torch.zeros(base + (cfg.cache_v_dim,), dtype=dtype, device=device)
+           for _ in layers],
         lengths=torch.zeros(batch, dtype=torch.int64, device=device),
     )
 
@@ -644,6 +732,72 @@ def _cache_and_attend(
     return out.permute(0, 3, 1, 2, 4).reshape(batch, seq, nh * dv)
 
 
+def mla_softmax_scale(cfg: ModelConfig) -> float:
+    """MLA's softmax scale: qk_head_dim^-1/2, times yarn's mscale squared
+    where ``mscale_all_dim`` is set (DeepseekV3Attention.__init__)."""
+    scale = cfg.qk_head_dim ** -0.5
+    scaling = dict(cfg.rope_scaling) if cfg.rope_scaling else None
+    if scaling is not None:
+        mscale_all_dim = scaling.get("mscale_all_dim", 0) or 0
+        factor = scaling.get("factor", 1.0)
+        if mscale_all_dim and factor > 1:
+            mscale = 0.1 * mscale_all_dim * math.log(factor) + 1.0
+            scale = scale * mscale * mscale
+    return scale
+
+
+def _mla_attention(
+    block_idx: int,
+    attn: MlaAttention,
+    x: torch.Tensor,  # (B, S, hidden)
+    cos: torch.Tensor,  # (B, S, 1, rope_dim / 2)
+    sin: torch.Tensor,
+    cache: KVCache,
+    offsets: torch.Tensor,
+    cfg: ModelConfig,
+    live: int,
+) -> torch.Tensor:
+    """DeepSeek MLA in the latent space: the cache holds the normed
+    compressed kv and the rotated shared key (one "head" of kv_lora + dr),
+    q's nope part is carried into that space by uk and the attended
+    latent out of it by uv (f32 products of the cast operands, as the JAX
+    package's ``preferred_element_type``), through
+    :func:`_cache_and_attend` (never K8)."""
+    batch, seq, _ = x.shape
+    nh = cfg.num_attention_heads
+    dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    if attn.q_proj is not None:
+        q = attn.q_proj(x)
+    else:
+        q = attn.q_b_proj(
+            rms_norm(attn.q_a_proj(x), attn.q_a_norm, cfg.rms_norm_eps)
+        )
+    q_nope, q_rot = torch.split(q.reshape(batch, seq, nh, dn + dr), [dn, dr],
+                                dim=-1)
+    k_pass, k_rot = torch.split(attn.kv_a_proj(x), [cfg.kv_lora_rank, dr],
+                                dim=-1)
+    c = rms_norm(k_pass, attn.kv_a_norm, cfg.rms_norm_eps)
+    q_rot = apply_rope(q_rot, cos, sin, cfg.rope_interleave)
+    k_rot = apply_rope(k_rot.reshape(batch, seq, 1, dr), cos, sin,
+                       cfg.rope_interleave)
+    # uk into the query: q_eff·c == q_nope·k_nope
+    q_eff = torch.einsum(
+        "bsnd,lnd->bsnl", q_nope.to(torch.float32),
+        attn.uk.to(q_nope.dtype).to(torch.float32),
+    ).to(q_nope.dtype)
+    q_full = torch.cat([q_eff, q_rot], dim=-1)
+    k_lat = torch.cat([c[:, :, None, :], k_rot.to(c.dtype)], dim=-1)
+    out_lat = _cache_and_attend(
+        block_idx, q_full, k_lat, c[:, :, None, :], cache, offsets, cfg,
+        live, scale=mla_softmax_scale(cfg),
+    ).reshape(batch, seq, nh, cfg.kv_lora_rank)
+    out = torch.einsum(
+        "bsnl,lnv->bsnv", out_lat,
+        attn.uv.to(out_lat.dtype).to(torch.float32),
+    ).to(x.dtype).reshape(batch, seq, nh * dv)
+    return attn.o_proj(out)
+
+
 # The selected-experts path runs when a call holds at most this many
 # tokens: each token reads k experts' bytes, so a batch whose n·k nears E
 # is better served by the all-experts path, which reads each expert once.
@@ -787,9 +941,46 @@ def _moe_mlp(moe: MoeMlp, x: torch.Tensor) -> torch.Tensor:
     )
 
 
+def _deepseek_moe(moe: DeepseekMoe, x: torch.Tensor) -> torch.Tensor:
+    """Sigmoid scores plus the correction bias pick the experts, group
+    by group (HF DeepseekV3TopkRouter.get_topk_indices): each group
+    scores the sum of its top two, the ``topk_group`` best groups stay,
+    the others' choices are set to 0.0 (as the JAX package and HF mask
+    them, not -inf), the ``top_k`` best choices are taken; their weights
+    are the unbiased scores, normalized (``norm_topk_prob``, + 1e-20) and
+    scaled by ``routed_scaling_factor``. Every top-k resolves ties to the
+    lower id (:func:`_top_k`). The shared experts run on every token."""
+    lead = x.shape[:-1]
+    num_experts = moe.router_weight.shape[0]
+    scores = torch.sigmoid(
+        x.to(torch.float32) @ moe.router_weight.to(torch.float32).t()
+    )  # (..., E)
+    choice = scores + moe.correction_bias.to(torch.float32)
+    group_size = num_experts // moe.n_group
+    top2 = _top_k(choice.reshape(*lead, moe.n_group, group_size),
+                  min(2, group_size))[0]
+    _, group_idx = _top_k(top2.sum(dim=-1), moe.topk_group)
+    group_mask = torch.zeros(
+        (*lead, moe.n_group), dtype=torch.float32, device=x.device
+    ).scatter_(-1, group_idx, 1.0)
+    expert_mask = group_mask.repeat_interleave(group_size, dim=-1)
+    masked_choice = torch.where(expert_mask > 0, choice, 0.0)
+    top_ids = _top_k(masked_choice, moe.top_k)[1]
+    top_w = torch.gather(scores, -1, top_ids)
+    if moe.norm_topk_prob:
+        top_w = top_w / (top_w.sum(dim=-1, keepdim=True) + 1e-20)
+    top_w = top_w * moe.routed_scaling_factor
+    routed = _route_moe(
+        x, top_ids, top_w, num_experts, moe.experts, moe.stacked
+    )
+    return routed + _mlp(moe.shared_experts, x)
+
+
 def _mlp(mlp, x: torch.Tensor) -> torch.Tensor:
     if isinstance(mlp, MoeMlp):
         return _moe_mlp(mlp, x)
+    if isinstance(mlp, DeepseekMoe):
+        return _deepseek_moe(mlp, x)
     if mlp.gate_up_proj is not None:
         gate, up = mlp.gate_up_proj(x).chunk(2, dim=-1)
     else:
@@ -822,10 +1013,15 @@ def forward(
 
     for i, block in enumerate(model.blocks):
         h = rms_norm(x, block.input_layernorm, cfg.rms_norm_eps)
-        x = x + _attention(
-            i, block.attn, h, cos, sin, cache, offsets, cfg, live,
-            fresh_prefill=fresh_prefill,
-        )
+        if isinstance(block.attn, MlaAttention):
+            x = x + _mla_attention(
+                i, block.attn, h, cos, sin, cache, offsets, cfg, live
+            )
+        else:
+            x = x + _attention(
+                i, block.attn, h, cos, sin, cache, offsets, cfg, live,
+                fresh_prefill=fresh_prefill,
+            )
         h = rms_norm(x, block.post_attention_layernorm, cfg.rms_norm_eps)
         x = x + _mlp(block.mlp, h)
 

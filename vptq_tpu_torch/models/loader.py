@@ -1,7 +1,9 @@
 """HF checkpoint ingestion: VPTQ safetensors (or ``.bin``) → runtime modules.
 
 Port of ``vptq_tpu/models/loader.py`` for dense Llama (Phi-3's fused
-layout too) and Mixtral on one device.
+layout too), Mixtral and DeepSeek-V3 (MLA, whose kv_b_proj is read raw
+and absorbed into uk / uv, never re-encoded; the grouped MoE with shared
+experts) on one device.
 The safetensors format is read directly (8-byte header length, JSON
 header, raw little-endian bytes; bf16 included) with ``torch.frombuffer``
 on a memory map, so no package beyond torch is needed; a checkpoint with
@@ -36,6 +38,7 @@ from vptq_tpu_torch.config import QuantizationConfig, VQLinearConfig
 from vptq_tpu_torch.layers.dense import DenseLinear
 from vptq_tpu_torch.layers.runtime import (
     RUNTIME_FORMATS,
+    absorb_mla,
     dense_to_int8,
     fuse_block,
     to_runtime,
@@ -44,6 +47,8 @@ from vptq_tpu_torch.layers.vqlinear import VQLinear
 from vptq_tpu_torch.models.llama import (
     Attention,
     Block,
+    DeepseekMoe,
+    MlaAttention,
     Mlp,
     Model,
     ModelConfig,
@@ -299,18 +304,16 @@ def _linear(
 
 def _check_supported(cfg: ModelConfig) -> None:
     missing = []
-    if cfg.n_routed_experts:
-        missing.append("DeepSeek's MoE")
     if cfg.num_local_experts and cfg.model_type != "mixtral":
         missing.append(f"MoE of model_type {cfg.model_type!r}")
-    if cfg.is_mla:
-        missing.append("MLA attention")
+    if cfg.n_routed_experts and not cfg.is_mla:
+        missing.append("DeepSeek's MoE without MLA")
     if cfg.model_type == "phimoe":
         missing.append("Phi-3.5-MoE (phimoe)")
     if missing:
         raise NotImplementedError(
-            "vptq_tpu_torch runs dense Llama, Mistral, Qwen2, Phi-3 and "
-            "Mixtral; not ported yet: "
+            "vptq_tpu_torch runs dense Llama, Mistral, Qwen2, Phi-3, "
+            "Mixtral and DeepSeek-V3; not ported yet: "
             + ", ".join(missing)
         )
 
@@ -333,8 +336,8 @@ def load_model(
     ported yet; a checkpoint calibrated in such a format is served
     through ``tools.export_runtime.load_runtime_model``.
     ``fuse`` merges q|k|v and gate|up (dense formats only) and stacks
-    the experts of a Mixtral checkpoint (int8 and int4), layer by layer,
-    so one layer's experts exist twice at most.
+    the experts of a Mixtral or DeepSeek checkpoint (int8 and int4),
+    layer by layer, so one layer's experts exist twice at most.
     ``quantize_lm_head`` re-encodes the dense lm_head to int8 too.
     ``device``: CUDA unless given; the weights are normalized and
     re-encoded there, layer by layer.
@@ -387,12 +390,15 @@ def load_model(
             num_experts_per_tok=model_cfg.num_experts_per_tok,
         )
 
-    def dense_mlp(p):
+    def mlp_at(prefix):
         return Mlp(
-            gate_proj=lin(f"{p}.mlp.gate_proj"),
-            up_proj=lin(f"{p}.mlp.up_proj"),
-            down_proj=lin(f"{p}.mlp.down_proj"),
+            gate_proj=lin(f"{prefix}.gate_proj"),
+            up_proj=lin(f"{prefix}.up_proj"),
+            down_proj=lin(f"{prefix}.down_proj"),
         )
+
+    def dense_mlp(p):
+        return mlp_at(f"{p}.mlp")
 
     # Phi-3 checkpoints store q|k|v and gate|up fused (qkv_proj,
     # gate_up_proj): each is one layer, re-encoded once, and runs as the
@@ -420,20 +426,67 @@ def load_model(
             o_proj=lin(f"{p}.self_attn.o_proj"),
         )
 
-    if model_cfg.num_local_experts:
-        make_mlp = moe_mlp
+    def mla_attention(p):
+        p = f"{p}.self_attn"
+        if model_cfg.q_lora_rank:
+            q_kwargs = dict(
+                q_a_proj=lin(f"{p}.q_a_proj"),
+                q_a_norm=norm_weight(f"{p}.q_a_layernorm.weight"),
+                q_b_proj=lin(f"{p}.q_b_proj"),
+            )
+        else:
+            q_kwargs = dict(q_proj=lin(f"{p}.q_proj"))
+        # the raw layer: re-encoding it first would bake avoidable noise
+        # into the absorbed products
+        uk, uv = absorb_mla(
+            _linear(f"{p}.kv_b_proj", state, qcfg, dtype, device),
+            model_cfg, dtype,
+        )
+        return MlaAttention(
+            kv_a_proj=lin(f"{p}.kv_a_proj_with_mqa"),
+            kv_a_norm=norm_weight(f"{p}.kv_a_layernorm.weight"),
+            o_proj=lin(f"{p}.o_proj"), uk=uk, uv=uv, **q_kwargs,
+        )
+
+    def deepseek_moe(p, layer_idx):
+        # a dense MLP below first_k_dense_replace
+        if layer_idx < model_cfg.first_k_dense_replace:
+            return dense_mlp(p)
+        return DeepseekMoe(
+            router_weight=norm_weight(f"{p}.mlp.gate.weight"),
+            correction_bias=norm_weight(
+                f"{p}.mlp.gate.e_score_correction_bias"
+            ),
+            experts=[
+                mlp_at(f"{p}.mlp.experts.{e}")
+                for e in range(model_cfg.n_routed_experts)
+            ],
+            shared_experts=mlp_at(f"{p}.mlp.shared_experts"),
+            top_k=model_cfg.num_experts_per_tok,
+            n_group=model_cfg.n_group,
+            topk_group=model_cfg.topk_group,
+            norm_topk_prob=model_cfg.norm_topk_prob,
+            routed_scaling_factor=model_cfg.routed_scaling_factor,
+        )
+
+    deepseek = model_cfg.is_mla
+    if deepseek:
+        make_attn, make_mlp = mla_attention, deepseek_moe
+    elif model_cfg.num_local_experts:
+        make_attn, make_mlp = attention, moe_mlp
     else:
+        make_attn = attention
         make_mlp = fused_mlp if fused_ckpt else dense_mlp
     blocks = []
     for i in range(model_cfg.num_hidden_layers):
         p = f"model.layers.{i}"
         block = Block(
             input_layernorm=norm_weight(f"{p}.input_layernorm.weight"),
-            attn=attention(p),
+            attn=make_attn(p),
             post_attention_layernorm=norm_weight(
                 f"{p}.post_attention_layernorm.weight"
             ),
-            mlp=make_mlp(p),
+            mlp=make_mlp(p, i) if deepseek else make_mlp(p),
         )
         if fuse and runtime_format != "codebook":
             fuse_block(block)

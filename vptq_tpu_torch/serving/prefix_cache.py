@@ -3,9 +3,11 @@
 Port of ``vptq_tpu/serving/prefix_cache.py``. Prompts are split into
 ``block_size``-token blocks; each FULL block is keyed by (parent key,
 block tokens), so a block is reused only when its whole left context
-matches. A block holds the (layers, block_size, kv_heads, head_dim) K and
-V rows its prefill wrote, on the cache's device, and the blocks are
-evicted least recently used first against a byte budget. A lookup
+matches. A block holds the (layers, block_size, kv_heads, dim) K and V
+rows its prefill wrote, on the cache's device (K and V may differ in
+width: MLA caches a latent of kv_lora + rope dims as K, kv_lora as V, so
+each is counted apart), and the blocks are evicted least recently used
+first against a byte budget. A lookup
 concatenates the longest chain of cached blocks; the caller writes it
 into its cache and prefills only the rest of the prompt. The partial
 last block is never cached.
@@ -30,7 +32,7 @@ class PrefixCache:
     def __init__(self, block_size: int = 64, capacity_bytes: int = 1 << 30):
         self.block_size = block_size
         self.capacity_bytes = capacity_bytes
-        # key -> (k_block, v_block), each (layers, block, kv, hd)
+        # key -> (k_block, v_block), each (layers, block, kv, dim)
         self._store: "OrderedDict[Tuple, Tuple]" = OrderedDict()
         self._bytes = 0
         self.hits = 0
@@ -68,7 +70,7 @@ class PrefixCache:
 
     def gather(self, tokens: Sequence[int], n: int):
         """(k, v) rows of the first ``n`` cached tokens, each (layers, 1,
-        n, kv_heads, head_dim); None for ``n`` 0."""
+        n, kv_heads, dim); None for ``n`` 0."""
         if n == 0:
             return None
         keys = self._keys_for(np.asarray(tokens)[:n])

@@ -11,15 +11,18 @@ format is the JAX package's, in both directions:
     ``wq4`` / ``scales4`` int4, ``wq3_2`` / ``wq3_1`` / ``scales3`` int3,
     ``wq2p`` / ``scales2`` int2, ``weight`` dense; a mixed layer's base
     under ``mix2`` or ``mix3``, its side under ``mix8``, its columns as
-    int32 ``mix_cols``; a Mixtral block's stacked experts under
-    ``stacked_{int8,int4}``); bf16 tensors written as U16;
+    int32 ``mix_cols``; a Mixtral or DeepSeek block's stacked experts
+    under ``stacked_{int8,int4}``; MLA's ``kv_a_proj``, ``kv_a_norm``,
+    ``q_a_norm``, the absorbed ``uk`` / ``uv``; DeepSeek's
+    ``router_weight``, ``correction_bias`` and ``shared_experts``); bf16
+    tensors written as U16;
   * ``runtime_config.json``: ``format_version`` 1, ``model_config`` (the
     fields of ``ModelConfig`` by the JAX names) and ``bf16_keys``, the
     tensors to view back as bf16.
 
 The reader maps the file and copies each tensor to the device as it lies.
-It refuses what the port does not run: DeepSeek's MLA and MoE, another
-``format_version``, and blocked (``shards > 1``) encodings, which the JAX
+It refuses what the port does not run: another ``format_version``, and
+blocked (``shards > 1``) encodings, which the JAX
 package writes without a marker: a plane whose padded width is not the
 one a one-device encoder gives the layer's logical width (int8: a whole
 scale group; int4 and int3: 2048; int2: 1024), or mixed columns that are
@@ -59,6 +62,8 @@ from vptq_tpu_torch.layers.runtime import (
 from vptq_tpu_torch.models.llama import (
     Attention,
     Block,
+    DeepseekMoe,
+    MlaAttention,
     Mlp,
     Model,
     ModelConfig,
@@ -90,8 +95,9 @@ _MIXED = {Int2MixedLinear: "mix2", Int3MixedLinear: "mix3"}
 _PAD_TO = {Int4Linear: 2048, Int3Linear: 2048, Int2Linear: W2_BLOCK}
 _ATTN = ("q_proj", "k_proj", "v_proj", "o_proj", "qkv_proj")
 _MLP = ("gate_proj", "up_proj", "down_proj", "gate_up_proj")
-# keys of the DeepSeek layers the JAX package writes (MLA, its MoE router)
-_DEEPSEEK_KEYS = ("kv_a_norm", "router_weight")
+_MLA = ("kv_a_proj", "o_proj", "q_proj", "q_a_proj", "q_b_proj")
+_MLA_ARRAYS = ("kv_a_norm", "q_a_norm", "uk", "uv")
+_STACKED = ("gate_up_wq", "gate_up_scales", "down_wq", "down_scales")
 
 
 def _flatten_model(model: Model) -> Dict[str, torch.Tensor]:
@@ -122,6 +128,10 @@ def _flatten_model(model: Model) -> Dict[str, torch.Tensor]:
             put(f"{prefix}.{key}", getattr(lin, attr))
         put(f"{prefix}.bias", lin.bias)
 
+    def put_mlp(prefix, mlp):
+        for name in _MLP:
+            put_linear(f"{prefix}.{name}", getattr(mlp, name))
+
     put("embed_tokens", model.embed_tokens)
     put("norm", model.norm)
     put_linear("lm_head", model.lm_head)
@@ -129,23 +139,33 @@ def _flatten_model(model: Model) -> Dict[str, torch.Tensor]:
         p = f"blocks.{i}"
         put(f"{p}.input_layernorm", block.input_layernorm)
         put(f"{p}.post_attention_layernorm", block.post_attention_layernorm)
-        for name in _ATTN:
-            put_linear(f"{p}.attn.{name}", getattr(block.attn, name))
+        attn = block.attn
+        if isinstance(attn, MlaAttention):
+            for name in _MLA:
+                put_linear(f"{p}.attn.{name}", getattr(attn, name))
+            for name in _MLA_ARRAYS:
+                put(f"{p}.attn.{name}", getattr(attn, name))
+        else:
+            for name in _ATTN:
+                put_linear(f"{p}.attn.{name}", getattr(attn, name))
         mlp = block.mlp
-        experts = [(f"{p}.mlp", mlp)]
+        if not isinstance(mlp, (MoeMlp, DeepseekMoe)):
+            put_mlp(f"{p}.mlp", mlp)
+            continue
         if isinstance(mlp, MoeMlp):
             put_linear(f"{p}.mlp.router", mlp.router)
-            st = mlp.stacked
-            if st is not None and not len(mlp.experts):
-                # the experts exist once, stacked; the format rides the key
-                for name in ("gate_up_wq", "gate_up_scales", "down_wq",
-                             "down_scales"):
-                    put(f"{p}.mlp.stacked_{st.fmt}.{name}", getattr(st, name))
-            experts = [(f"{p}.mlp.experts.{e}", ex)
-                       for e, ex in enumerate(mlp.experts)]
-        for prefix, ex in experts:
-            for name in _MLP:
-                put_linear(f"{prefix}.{name}", getattr(ex, name))
+        else:
+            put(f"{p}.mlp.router_weight", mlp.router_weight)
+            put(f"{p}.mlp.correction_bias", mlp.correction_bias)
+        st = mlp.stacked
+        if st is not None and not len(mlp.experts):
+            # the experts exist once, stacked; the format rides the key
+            for name in _STACKED:
+                put(f"{p}.mlp.stacked_{st.fmt}.{name}", getattr(st, name))
+        for e, ex in enumerate(mlp.experts):
+            put_mlp(f"{p}.mlp.experts.{e}", ex)
+        if isinstance(mlp, DeepseekMoe):
+            put_mlp(f"{p}.mlp.shared_experts", mlp.shared_experts)
     return out
 
 
@@ -197,11 +217,6 @@ def load_runtime_model(runtime_dir, device=None) -> Model:
     cfg = ModelConfig.from_dict(meta["model_config"])
     _check_supported(cfg)
     raw = _read_safetensors(root / "runtime.safetensors")
-    deepseek = [k for k in raw if k.rsplit(".", 1)[-1] in _DEEPSEEK_KEYS]
-    if deepseek:
-        raise NotImplementedError(
-            f"DeepSeek layers (MLA, its MoE) are not ported: {deepseek[:3]}"
-        )
     for k in meta["bf16_keys"]:
         raw[k] = raw[k].view(torch.bfloat16)
     used = set()
@@ -257,15 +272,19 @@ def load_runtime_model(runtime_dir, device=None) -> Model:
     h, inter = cfg.hidden_size, cfg.intermediate_size
     # the logical in_features of each projection
     widths = dict(
-        q_proj=h, k_proj=h, v_proj=h, qkv_proj=h,
-        o_proj=cfg.num_attention_heads * cfg.head_dim,
+        q_proj=h, k_proj=h, v_proj=h, qkv_proj=h, kv_a_proj=h, q_a_proj=h,
+        q_b_proj=cfg.q_lora_rank,
+        o_proj=cfg.num_attention_heads * (
+            cfg.v_head_dim if cfg.is_mla else cfg.head_dim),
         gate_proj=h, up_proj=h, gate_up_proj=h, down_proj=inter,
     )
 
-    def mlp(prefix) -> Mlp:
-        return Mlp(**{n: linear(f"{prefix}.{n}", widths[n]) for n in _MLP})
+    def mlp(prefix, down=inter) -> Mlp:
+        return Mlp(**{n: linear(f"{prefix}.{n}",
+                                down if n == "down_proj" else widths[n])
+                      for n in _MLP})
 
-    def stacked(prefix) -> Optional[StackedExperts]:
+    def stacked(prefix, down) -> Optional[StackedExperts]:
         for fmt, (kind, per_byte) in dict(
             int8=(Int8Linear, 1), int4=(Int4Linear, 2)
         ).items():
@@ -273,10 +292,8 @@ def load_runtime_model(runtime_dir, device=None) -> Model:
             if f"{p}.gate_up_wq" not in raw:
                 continue
             st = StackedExperts(
-                take(f"{p}.gate_up_wq"), take(f"{p}.gate_up_scales"),
-                take(f"{p}.down_wq"), take(f"{p}.down_scales"), fmt=fmt,
-            )
-            for name, in_f in (("gate_up", h), ("down", inter)):
+                *(take(f"{p}.{name}") for name in _STACKED), fmt=fmt)
+            for name, in_f in (("gate_up", h), ("down", down)):
                 wq = getattr(st, f"{name}_wq")
                 in_p = wq.shape[2] * per_byte
                 group = in_p // getattr(st, f"{name}_scales").shape[1]
@@ -287,27 +304,53 @@ def load_runtime_model(runtime_dir, device=None) -> Model:
             return st
         return None
 
+    def experts(prefix, down) -> list:
+        n = 0
+        while any(is_linear(f"{prefix}.experts.{n}.{m}") for m in _MLP):
+            n += 1
+        return [mlp(f"{prefix}.experts.{e}", down) for e in range(n)]
+
+    def block_mlp(p):
+        if is_linear(f"{p}.router"):
+            return MoeMlp(
+                router=linear(f"{p}.router", h),
+                experts=experts(p, inter),
+                num_experts_per_tok=cfg.num_experts_per_tok,
+                stacked=stacked(p, inter),
+            )
+        if f"{p}.router_weight" not in raw:
+            return mlp(p)
+        mi = cfg.moe_intermediate_size
+        return DeepseekMoe(
+            router_weight=take(f"{p}.router_weight"),
+            correction_bias=take(f"{p}.correction_bias"),
+            experts=experts(p, mi),
+            shared_experts=mlp(f"{p}.shared_experts",
+                               mi * cfg.n_shared_experts),
+            top_k=cfg.num_experts_per_tok,
+            n_group=cfg.n_group,
+            topk_group=cfg.topk_group,
+            norm_topk_prob=cfg.norm_topk_prob,
+            routed_scaling_factor=cfg.routed_scaling_factor,
+            stacked=stacked(p, mi),
+        )
+
+    def attention(p):
+        if f"{p}.kv_a_norm" in raw:
+            return MlaAttention(
+                **{n: linear(f"{p}.{n}", widths[n]) for n in _MLA},
+                **{n: take(f"{p}.{n}") for n in _MLA_ARRAYS},
+            )
+        return Attention(**{n: linear(f"{p}.{n}", widths[n]) for n in _ATTN})
+
     blocks = []
     for i in range(cfg.num_hidden_layers):
         p = f"blocks.{i}"
-        if is_linear(f"{p}.mlp.router"):
-            n = 0
-            while any(is_linear(f"{p}.mlp.experts.{n}.{m}") for m in _MLP):
-                n += 1
-            block_mlp = MoeMlp(
-                router=linear(f"{p}.mlp.router", h),
-                experts=[mlp(f"{p}.mlp.experts.{e}") for e in range(n)],
-                num_experts_per_tok=cfg.num_experts_per_tok,
-                stacked=stacked(f"{p}.mlp"),
-            )
-        else:
-            block_mlp = mlp(f"{p}.mlp")
         blocks.append(Block(
             input_layernorm=take(f"{p}.input_layernorm"),
-            attn=Attention(**{n: linear(f"{p}.attn.{n}", widths[n])
-                              for n in _ATTN}),
+            attn=attention(f"{p}.attn"),
             post_attention_layernorm=take(f"{p}.post_attention_layernorm"),
-            mlp=block_mlp,
+            mlp=block_mlp(f"{p}.mlp"),
         ))
     model = Model(
         embed_tokens=take("embed_tokens"), blocks=blocks,

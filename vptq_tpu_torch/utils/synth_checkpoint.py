@@ -2,8 +2,11 @@
 
 Port of ``vptq_tpu/utils/synth_checkpoint.py`` for the dense Llama
 layout (Llama, Mistral, and Qwen2 with its q/k/v bias), Phi-3's fused
-layout (qkv_proj, gate_up_proj) and the Mixtral layout (a router and
-per-expert w1 / w3 / w2): packed
+layout (qkv_proj, gate_up_proj), the Mixtral layout (a router and
+per-expert w1 / w3 / w2) and DeepSeek-V3's (MLA's q / q_a / q_b,
+kv_a_proj_with_mqa, kv_b_proj and their norms; a dense MLP below
+``first_k_dense_replace``, then an f32 router with its correction bias,
+per-expert and shared gate / up / down): packed
 int32 index streams, uint16-viewed-as-int16 perms and indices, and the
 ``quantization_config`` block in config.json. For one seed it writes
 the same tensors as the JAX package's writer. Packing is word-wise
@@ -40,6 +43,7 @@ _ARCHITECTURES = {
     "mixtral": "MixtralForCausalLM",
     "phi3": "Phi3ForCausalLM",
     "phi3_v": "Phi3VForCausalLM",
+    "deepseek_v3": "DeepseekV3ForCausalLM",
 }
 
 
@@ -128,6 +132,62 @@ def _write_bins(tensors: Dict[str, np.ndarray], root: Path, n: int) -> None:
             json.dump({"metadata": {}, "weight_map": weight_map}, f, indent=2)
 
 
+def _deepseek_layer(mc: ModelConfig, i: int, shapes: dict, tensors: dict,
+                    rng, dtype) -> None:
+    """Layer ``i``'s MLP linears into ``shapes`` (a dense MLP below
+    ``first_k_dense_replace``, else the routed and shared experts) and its
+    router, correction bias and MLA norms into ``tensors``, drawing from
+    ``rng`` where the JAX package's writer does (before the linears'
+    seeds)."""
+    h, p = mc.hidden_size, f"model.layers.{i}"
+    if i < mc.first_k_dense_replace or mc.n_routed_experts == 0:
+        inter = mc.intermediate_size
+        shapes["mlp.gate_proj"] = (h, inter)
+        shapes["mlp.up_proj"] = (h, inter)
+        shapes["mlp.down_proj"] = (inter, h)
+    else:
+        mi = mc.moe_intermediate_size
+        for e in range(mc.n_routed_experts):
+            shapes[f"mlp.experts.{e}.gate_proj"] = (h, mi)
+            shapes[f"mlp.experts.{e}.up_proj"] = (h, mi)
+            shapes[f"mlp.experts.{e}.down_proj"] = (mi, h)
+        smi = mi * mc.n_shared_experts
+        shapes["mlp.shared_experts.gate_proj"] = (h, smi)
+        shapes["mlp.shared_experts.up_proj"] = (h, smi)
+        shapes["mlp.shared_experts.down_proj"] = (smi, h)
+        tensors[f"{p}.mlp.gate.weight"] = (
+            0.05 * rng.standard_normal((mc.n_routed_experts, h))
+        ).astype(np.float32)
+        tensors[f"{p}.mlp.gate.e_score_correction_bias"] = (
+            0.1 * rng.standard_normal(mc.n_routed_experts)
+        ).astype(np.float32)
+    tensors[f"{p}.self_attn.kv_a_layernorm.weight"] = np.ones(
+        mc.kv_lora_rank, dtype=dtype)
+    if mc.q_lora_rank:
+        tensors[f"{p}.self_attn.q_a_layernorm.weight"] = np.ones(
+            mc.q_lora_rank, dtype=dtype)
+
+
+def _deepseek_config(mc: ModelConfig) -> dict:
+    """config.json's DeepSeek keys, as the JAX package's writer sets them."""
+    return {
+        "q_lora_rank": mc.q_lora_rank,
+        "kv_lora_rank": mc.kv_lora_rank or None,
+        "qk_nope_head_dim": mc.qk_nope_head_dim,
+        "qk_rope_head_dim": mc.qk_rope_head_dim,
+        "v_head_dim": mc.v_head_dim,
+        "rope_interleave": mc.rope_interleave,
+        "moe_intermediate_size": mc.moe_intermediate_size,
+        "n_routed_experts": mc.n_routed_experts or None,
+        "n_shared_experts": mc.n_shared_experts or None,
+        "n_group": mc.n_group,
+        "topk_group": mc.topk_group,
+        "norm_topk_prob": mc.norm_topk_prob,
+        "routed_scaling_factor": mc.routed_scaling_factor,
+        "first_k_dense_replace": mc.first_k_dense_replace,
+    }
+
+
 def write_synthetic_checkpoint(
     path: str,
     model_cfg: Optional[ModelConfig] = None,
@@ -153,13 +213,13 @@ def write_synthetic_checkpoint(
     mc = model_cfg or tiny_model_config()
     moe = mc.num_local_experts > 0
     if (
-        mc.is_mla
-        or mc.model_type not in _ARCHITECTURES
+        mc.model_type not in _ARCHITECTURES
         or moe != (mc.model_type == "mixtral")
+        or mc.is_mla != (mc.model_type == "deepseek_v3")
     ):
         raise NotImplementedError(
-            "the port writes dense Llama, Mistral, Qwen2, Phi-3 and Mixtral "
-            "checkpoints"
+            "the port writes dense Llama, Mistral, Qwen2, Phi-3, Mixtral "
+            "and DeepSeek-V3 checkpoints"
         )
     vq_kwargs = dict(vq_kwargs or {})
     root = Path(path)
@@ -176,7 +236,22 @@ def write_synthetic_checkpoint(
         "self_attn.v_proj": (h, kv_out),
         "self_attn.o_proj": (q_out, h),
     }
-    if mc.model_type in ("phi3", "phi3_v"):
+    if mc.is_mla:
+        nh = mc.num_attention_heads
+        proj_shapes = {
+            "self_attn.kv_a_proj_with_mqa": (
+                h, mc.kv_lora_rank + mc.qk_rope_head_dim),
+            "self_attn.kv_b_proj": (
+                mc.kv_lora_rank, nh * (mc.qk_nope_head_dim + mc.v_head_dim)),
+            "self_attn.o_proj": (nh * mc.v_head_dim, h),
+        }
+        if mc.q_lora_rank:
+            proj_shapes["self_attn.q_a_proj"] = (h, mc.q_lora_rank)
+            proj_shapes["self_attn.q_b_proj"] = (
+                mc.q_lora_rank, nh * mc.qk_head_dim)
+        else:
+            proj_shapes["self_attn.q_proj"] = (h, nh * mc.qk_head_dim)
+    elif mc.model_type in ("phi3", "phi3_v"):
         # Phi-3 checkpoints ship q|k|v and gate|up fused
         proj_shapes = {
             "self_attn.qkv_proj": (h, q_out + 2 * kv_out),
@@ -198,7 +273,10 @@ def write_synthetic_checkpoint(
     config_for_layers: Dict[str, dict] = {}
     linears = []  # (prefix, cfg, seed), in the order the seeds are drawn
     for i in range(mc.num_hidden_layers):
-        for name, (in_f, out_f) in proj_shapes.items():
+        layer_shapes = dict(proj_shapes)
+        if mc.is_mla:
+            _deepseek_layer(mc, i, layer_shapes, tensors, rng, dtype)
+        for name, (in_f, out_f) in layer_shapes.items():
             prefix = f"model.layers.{i}.{name}"
             has_bias = qkv_bias and name in (
                 "self_attn.q_proj", "self_attn.k_proj", "self_attn.v_proj",
@@ -258,6 +336,7 @@ def write_synthetic_checkpoint(
         "num_local_experts": mc.num_local_experts,
         "num_experts_per_tok": mc.num_experts_per_tok,
         "tie_word_embeddings": mc.tie_word_embeddings,
+        **(_deepseek_config(mc) if mc.is_mla else {}),
         "torch_dtype": "float16" if dtype == np.float16 else "bfloat16",
         "quantization_config": {
             "quant_method": "vptq",
