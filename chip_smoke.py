@@ -122,8 +122,8 @@ without them, or when any phase fails. Phases:
    scheduler, where every EOS must fire (a request whose EOS did not
    fire the first time takes its own second token of that run);
 6. end to end in int8 and in int4 on one synthetic checkpoint of
-   Mixtral-8x7B-v0.1 geometry (full width, 8 experts, top-2; depth as
-   ``MIXTRAL_8X7B`` says), the same four requests: per layer and forward
+   Mixtral-8x7B-v0.1 geometry (full width, 8 experts, top-2; depth cut
+   to ``MIXTRAL_LAYERS`` = 16 of 32), the same four requests: per layer and forward
    call 2 launches of K1 / K2 (qkv, o), per layer and decode step 2 of
    K5, per layer and prefill chunk 16 of K6, K8 as above, every other
    kernel 0; the
@@ -136,7 +136,8 @@ without them, or when any phase fails. Phases:
    batched step at P=16, its decode-GEMV kernel in the trace, K6 16 per
    layer and prefill call;
 7. end to end in int8 on one synthetic checkpoint of Qwen2.5-7B geometry
-   (a bias on q, k and v; K1's first widths that pad), the same four
+   (a bias on q, k and v; K1's first widths that pad; depth cut to
+   ``CUT_LAYERS`` = 8, as in phases 8, 9 and 11), the same four
    requests, the long prompt's logits against the plain versions;
 8. end to end in int8 on one synthetic checkpoint of Mistral-7B-v0.1
    geometry (sliding window 4096) with ``max_seq`` 8192: prompts of 16,
@@ -149,8 +150,10 @@ without them, or when any phase fails. Phases:
    their ``pytorch_model.bin.index.json``, served by the ``Generator`` at
    ``max_seq`` 4096 as in phase 5: prompts of 16, 512, 1536 and 3000
    tokens (the last crosses the window, which keeps K8 at 0);
-10. end to end in the calibrated formats int2-mixed and int3-mixed at
-   full Llama-3.1-8B geometry (32 layers): a model of random codes made
+10. end to end in the mixed formats int2-mixed and int3-mixed at full
+   Llama-3.1-8B width, depth cut to 4 (phase 12 serves a calibrated
+   int2-mixed model from its runtime file at all 32): a model of random
+   codes made
    on the card (``utils/synth.py`` ``mixed_model``, spread
    ``MIXED_STD``), written by ``export_runtime`` to a temporary directory
    (removed afterwards), read back by ``load_runtime_model`` (its
@@ -162,8 +165,8 @@ without them, or when any phase fails. Phases:
    one-ulp change of its embedding, the routes (K1's side on ``w8_gemv``
    at one token), no device-to-host copy;
 11. end to end in int8 and in int4 on one synthetic checkpoint of
-   Moonlight-16B-A3B geometry (DeepSeek-V3: 27 layers of 2048, MLA with a
-   latent cache of 576 + 512 per token, the first layer dense, then 64
+   Moonlight-16B-A3B geometry (DeepSeek-V3: layers of 2048, cut to
+   ``CUT_LAYERS`` = 8 of its 27, MLA with a latent cache of 576 + 512 per token, the first layer dense, then 64
    routed experts of 1408, top 6 by sigmoid scores with a correction
    bias, and 2 shared experts; interleaved RoPE), written between
    Mixtral's run and Qwen's, the same four requests as phase 5: per
@@ -172,7 +175,32 @@ without them, or when any phase fails. Phases:
    K5 a decode step and 128 of K6 a prefill chunk, K8 0 (MLA attends in
    its latent space); graphs against ``decode_loop``, logits against the
    plain versions, no device-to-host copy; in int4 the serving of phase 6
-   (8 requests, 8 slots: K5b at P=48).
+   (8 requests, 8 slots: K5b at P=48); then GPTQ calibration in int4 on
+   the card (``load_model(runtime_format="int4", calibration=4096)``) of
+   the checkpoint cut to 2 layers (the dense one; a MoE one: MLA's
+   ``attn_in`` and ``o``, 64 experts, the shared ones), served as phase
+   12 serves (the experts stacked: K2, K6b, K5b);
+12. GPTQ calibration (M15) on the card at full Llama-3.1-8B width, on a
+   checkpoint written at ``MIXED_STD``: first layer 0's ``o`` and
+   ``down`` quantized by ``gptq_quantize`` on the card and on the CPU
+   from the same weight and captured Hessian (``gptq_against_cpu``:
+   codes in range, the first half of the columns alike but for
+   ``GPTQ_HALF_SHARE``, error ratios within ``GPTQ_RATIO_TOL`` of each
+   other and below RTN's; the share of codes that part, by eighths);
+   then ``from_pretrained(runtime_format="int2-mixed")`` at all 32
+   layers on 4096 synthetic tokens, and int3-mixed and int4-mixed on the
+   checkpoint cut to 4 layers (``phase_calibrated``): the report's
+   seconds (ranking, capture, GPTQ, propagation; per block), each site
+   kind's formats, error ratios and int8 columns, int4-mixed's int8
+   sites, the peak memory, the propagation forwards' launches (a
+   mixed format's base kernel and K1, or K2 / K1, once per linear and
+   block), each of those launches held against its kernel's plain
+   version on the same inputs (f32 x of 8 x 512 tokens and an f32 out,
+   a mixed layer's side on its gathered columns, every expert on every
+   token); written by ``export_runtime``, read back byte-equal, and
+   served from what was read as phase 10 serves (int4-mixed: K2 on its
+   int4 sites, K1 on its int8 ones). Every phase prints its seconds
+   (``seconds <phase>: N``).
 
 The line before the last is a JSON object with one record per kernel at
 T=1 and T=512 (pairs kernels: P=2 and P=16; K8: S=1024 and S=2048; each
@@ -328,6 +356,13 @@ MOONLIGHT_16B = dict(
 # does not fit one card
 R1_EXPERTS = dict(hidden_size=7168, moe_intermediate_size=2048,
                   n_routed_experts=256, num_experts_per_tok=8)
+# the depth of the runs after Llama-3.1-8B's (full width): at full depth
+# every phase together took 1234 s of the smoke's 1200 on one H100 80GB
+# HBM3 at 700 W, the calibration phases included; Mixtral keeps half of
+# its 32 layers (~24 GB of int8 weights), Moonlight, Qwen2.5, Mistral and
+# Phi-3 keep 8
+MIXTRAL_LAYERS = 16
+CUT_LAYERS = 8
 # VPTQ-community v8-k65536-0 geometry
 V8_K65536 = dict(
     vector_len=8, num_centroids=65536, num_res_centroids=-1,
@@ -364,6 +399,13 @@ FORMAT_KERNEL = {
 MIXED_KERNELS = {
     "int2-mixed": ("w2_matmul", "w8_matmul"),
     "int3-mixed": ("w3_matmul", "w8_matmul"),
+}
+# int4-mixed (calibrated): K2 on its int4 sites, K1 on its int8 ones
+CALIBRATED_KERNELS = {"int4-mixed": ("w4_matmul", "w8_matmul")}
+# a runtime layer's type -> the kernel its forward launches
+LAYER_KERNEL = {
+    "Int8Linear": "w8_matmul", "Int4Linear": "w4_matmul",
+    "Int3Linear": "w3_matmul", "Int2Linear": "w2_matmul",
 }
 # runtime format -> the (expert, pairs) kernels of its stacked MoE experts
 MOE_KERNELS = {
@@ -420,15 +462,24 @@ FLASH_TOL = 2.0 ** -7
 
 
 def format_kernels(fmt: str) -> tuple:
-    """The kernels every decoder linear of ``fmt`` runs: its format's, or
-    a mixed format's base kernel and K1."""
-    return MIXED_KERNELS.get(fmt, (FORMAT_KERNEL.get(fmt),))
+    """The kernels the decoder linears of ``fmt`` run: its format's, a
+    mixed format's base kernel and K1, or int4-mixed's K2 and K1."""
+    return (MIXED_KERNELS.get(fmt) or CALIBRATED_KERNELS.get(fmt)
+            or (FORMAT_KERNEL.get(fmt),))
 
 
 def _sh(cmd) -> str:
     return subprocess.run(
         cmd, capture_output=True, text=True, check=True
     ).stdout.strip()
+
+
+@contextlib.contextmanager
+def timed(what: str):
+    """Prints the seconds of the block it wraps."""
+    t0 = time.perf_counter()
+    yield
+    print(f"seconds {what}: {time.perf_counter() - t0:.2f}", flush=True)
 
 
 def _sync(device):
@@ -1150,7 +1201,7 @@ def write_checkpoint(cfg: dict, vq_kwargs: dict, seed=0, std=SMOKE_STD,
 
 
 def expected_launches(cfg, fmt: str, prompt_len: int, new_tokens: int,
-                      buckets, dtype=torch.bfloat16) -> dict:
+                      buckets, dtype=torch.bfloat16, per_call=None) -> dict:
     """Launches of every kernel in one request on the card: the prompt in
     bucket-padded chunks, the first one fresh, then one forward call per
     further token (:func:`launches_of`)."""
@@ -1161,10 +1212,11 @@ def expected_launches(cfg, fmt: str, prompt_len: int, new_tokens: int,
          done == 0)
         for done in range(0, prompt_len, buckets[-1])
     ] + [(1, 1, False)] * (new_tokens - 1)
-    return launches_of(cfg, fmt, calls, dtype)
+    return launches_of(cfg, fmt, calls, dtype, per_call)
 
 
-def launches_of(cfg, fmt: str, calls, dtype=torch.bfloat16) -> dict:
+def launches_of(cfg, fmt: str, calls, dtype=torch.bfloat16,
+                per_call=None) -> dict:
     """Launches of every kernel over forward calls, each (rows, tokens a
     row, fresh): a fresh call of 1024 tokens or more a row, when the
     model has no sliding window and K8 is built for ``dtype`` and the head
@@ -1172,7 +1224,9 @@ def launches_of(cfg, fmt: str, calls, dtype=torch.bfloat16) -> dict:
     linear runs its base kernel and K1 once each. A MoE block sends a call
     of at most 64 tokens in all through the pairs kernel twice (P = top-k
     · tokens), and a longer one through the expert kernel 2·E times. K7
-    is on no path; MLA never reaches K8."""
+    is on no path; MLA never reaches K8. ``per_call``: each linear
+    kernel's launches a forward call where the format does not fix them
+    (int4-mixed: :func:`linear_launches` of the model)."""
     from vptq_tpu_torch.models.llama import _MOE_FAST_MAX_TOKENS, takes_flash
 
     layers = cfg.num_hidden_layers
@@ -1184,7 +1238,8 @@ def launches_of(cfg, fmt: str, calls, dtype=torch.bfloat16) -> dict:
         )
     linears, moe_layers, experts = layer_linears(cfg)
     for kernel in format_kernels(fmt):
-        expected[kernel] = linears * len(calls)
+        expected[kernel] = (
+            linears if per_call is None else per_call[kernel]) * len(calls)
     if not moe_layers:
         return expected
     expert, pairs = MOE_KERNELS[fmt]
@@ -1712,7 +1767,8 @@ def phase_e2e(device, source, fmt: str, vocab: int,
     conditioning, the plain prefill logits again on an embedding whose
     entries each move by at most one bf16 ulp (times 1 ± 2^-8).
     ``serve``: then :func:`phase_serving` on the same model, with these
-    arguments."""
+    arguments. int4-mixed counts each kernel's launches from the model's
+    layers (:func:`linear_launches`)."""
     from vptq_tpu_torch import AutoModelForCausalLM
     from vptq_tpu_torch.api import Engine
     from vptq_tpu_torch.models.llama import forward
@@ -1735,11 +1791,14 @@ def phase_e2e(device, source, fmt: str, vocab: int,
     cfg = model.cfg
     moe = bool(layer_linears(cfg)[1])
     buckets = gen.prompt_buckets
+    per_call = (linear_launches(model, fmt) if fmt in CALIBRATED_KERNELS
+                else None)
     rng = np.random.default_rng(seed)
     prompts = [rng.integers(0, vocab, n).tolist() for n in prompt_lens]
     flash = [
         p for p in prompts
-        if expected_launches(cfg, fmt, len(p), 1, buckets, gen.dtype)[FLASH]
+        if expected_launches(cfg, fmt, len(p), 1, buckets, gen.dtype,
+                             per_call)[FLASH]
     ]
     on_path = (
         *format_kernels(fmt), *(MOE_KERNELS[fmt] if moe else ()),
@@ -1768,7 +1827,7 @@ def phase_e2e(device, source, fmt: str, vocab: int,
         t_end = time.perf_counter()
         counts = {k: f.launches for k, f in fns.items()}
         expected = expected_launches(
-            cfg, fmt, len(prompt), len(out), buckets, gen.dtype
+            cfg, fmt, len(prompt), len(out), buckets, gen.dtype, per_call
         )
         if not cuda:
             expected = dict.fromkeys(expected, 0)
@@ -1979,6 +2038,21 @@ def phase_mixed(device, cfg: dict, fmt: str, seed=0, **e2e_kwargs):
     return result
 
 
+def cut_checkpoint(path, layers: int) -> Path:
+    """A temporary directory holding the checkpoint at ``path`` cut to its
+    first ``layers`` layers: its config.json so edited, links to its
+    safetensors shards (the loader reads the layers the config names)."""
+    cut = Path(tempfile.mkdtemp(prefix="vptq_cut_"))
+    with open(Path(path) / "config.json") as f:
+        hf = json.load(f)
+    hf["num_hidden_layers"] = layers
+    with open(cut / "config.json", "w") as f:
+        json.dump(hf, f)
+    for shard in Path(path).glob("*.safetensors"):
+        (cut / shard.name).symlink_to(shard.resolve())
+    return cut
+
+
 def phase_round_trip(device, path, fmt: str, vocab: int, layers=4,
                      prompt_len=16, new_tokens=8, max_seq=256, seed=0):
     """The runtime checkpoint at full width, depth cut to ``layers`` to
@@ -1995,17 +2069,10 @@ def phase_round_trip(device, path, fmt: str, vocab: int, layers=4,
         load_runtime_model,
     )
 
-    cut = Path(tempfile.mkdtemp(prefix="vptq_cut_"))
+    cut = cut_checkpoint(path, layers)
     out = tempfile.mkdtemp(prefix="vptq_rt_")
     try:
         disk_room(out, f"{fmt} round trip (before the load)")
-        with open(Path(path) / "config.json") as f:
-            hf = json.load(f)
-        hf["num_hidden_layers"] = layers
-        with open(cut / "config.json", "w") as f:
-            json.dump(hf, f)
-        for shard in Path(path).glob("*.safetensors"):
-            (cut / shard.name).symlink_to(shard.resolve())
         t0 = time.perf_counter()
         model = load_model(str(cut), runtime_format=fmt, device=device)
         _sync(device)
@@ -2032,6 +2099,315 @@ def phase_round_trip(device, path, fmt: str, vocab: int, layers=4,
         shutil.rmtree(cut, ignore_errors=True)
         shutil.rmtree(out, ignore_errors=True)
     print("round trip " + json.dumps(result))
+    return result
+
+
+# the linears of one calibration site (q|k|v, gate|up; MLA's q and kv_a)
+SITE_MEMBERS = {"qkv": 3, "gate_up": 2, "attn_in": 2}
+# layer 0's sites whose GPTQ the card holds against the CPU's
+GPTQ_SITES = (("o", "attn.o_proj"), ("down", "mlp.down_proj"))
+# the card's GPTQ against its plain version on the CPU (the same w and H,
+# captured at full width). The codes part along the row: the factor of
+# an ill-conditioned H (layer 0's: condition ~1e5–1e6 after damping) and
+# the products round in another order, a code that flips feeds another
+# error to every later column of its row, and over thousands of columns
+# the two runs drift apart (the share that differs is printed by eighths
+# of the columns; CPU tests hold the codes at 512 columns). Held: in the
+# first half of the columns at most GPTQ_HALF_SHARE of the codes differ;
+# the H-weighted output error ratios lie within GPTQ_RATIO_TOL of each
+# other and both below RTN's / GPTQ_GAIN. The limits sit above what one
+# H100 read on two checkpoints of the same seed (32 layers, twice, the
+# same both times; 4 layers): o 3.11% / 3.00% of the first half's codes
+# apart and ratios 0.50% / 0.33%, down 0.20% / 0.20% and 6.22% / 12.0%
+# (down's ratios, ~2.5e-9, are 4e6 times below RTN's: what is left lies
+# where H is near null, and two rounding orders leave it in other
+# columns).
+GPTQ_HALF_SHARE = 5e-2
+GPTQ_RATIO_TOL = 0.2
+GPTQ_GAIN = 2.0
+
+
+def site_kind(key: str) -> str:
+    """``layers.{i}.{site}`` -> the site's kind (the experts' as one)."""
+    return re.sub(r"^e\d+\.", "experts.", key.split(".", 2)[2])
+
+
+def calibration_report(report) -> dict:
+    """The summary of a calibration report and, per site kind, its sites,
+    their formats, error ratios (mean, max) and int8 columns."""
+    kinds = {}
+    for key, rep in report.items():
+        if key == "summary" or "format" not in rep:
+            continue
+        k = kinds.setdefault(site_kind(key), dict(
+            sites=0, formats={}, err_ratio=[], int8_cols=set()))
+        k["sites"] += 1
+        k["formats"][rep["format"]] = k["formats"].get(rep["format"], 0) + 1
+        k["err_ratio"].append(rep["err_ratio"])
+        if "int8_cols" in rep:
+            k["int8_cols"].add(rep["int8_cols"])
+    for k in kinds.values():
+        errs = k.pop("err_ratio")
+        k["err_ratio_mean"] = sum(errs) / len(errs)
+        k["err_ratio_max"] = max(errs)
+        k["int8_cols"] = sorted(k["int8_cols"])
+    return dict(summary=report["summary"], sites=kinds)
+
+
+def calibration_launches(report, fmt: str) -> dict:
+    """Launches of each kernel in a calibration's propagation forwards:
+    one forward a block on the calibration batch through its quantized,
+    still unfused linears (each member of a site once; a mixed format's
+    base kernel and K1 each)."""
+    out = {}
+    for key, rep in report.items():
+        if key == "summary" or "format" not in rep:
+            continue
+        members = SITE_MEMBERS.get(site_kind(key).split(".")[-1], 1)
+        kernels = MIXED_KERNELS.get(rep["format"]) or (
+            FORMAT_KERNEL[rep["format"]],)
+        for k in kernels:
+            out[k] = out.get(k, 0) + members
+    return out
+
+
+def gptq_against_cpu(device, path, vocab: int, sites=GPTQ_SITES, bits=2,
+                     group=64) -> dict:
+    """``gptq_quantize`` on the card against its plain version on the CPU,
+    on the same weight and Hessian: layer 0's ``sites`` of the checkpoint
+    at ``path``, its exact weights, and the Hessians its capture forward
+    records from 4096 synthetic tokens (as calibration does). Held: the
+    codes in range, the first half of the columns alike but for
+    ``GPTQ_HALF_SHARE``, the H-weighted output error ratios within
+    ``GPTQ_RATIO_TOL`` of each other and both below RTN's /
+    ``GPTQ_GAIN``. Printed: seconds each, the share of codes (by eighths
+    of the columns) and of scales that differ, the largest code
+    difference."""
+    from vptq_tpu_torch.models.loader import load_model
+    from vptq_tpu_torch.quant import calibrate as cal
+    from vptq_tpu_torch.quant.gptq import (
+        dequant_groups,
+        gptq_quantize,
+        group_spans,
+        output_error_ratio,
+        true_f32,
+    )
+
+    cut = cut_checkpoint(path, 1)
+    out = {}
+    try:
+        exact = load_model(str(cut), runtime_format="codebook", fuse=False,
+                           device=device)
+        ids = cal.synthetic_calibration_tokens(vocab).to(
+            device=device, dtype=torch.int64)
+        x, cos, sin, cache = cal._fresh_inputs(exact, ids)
+        block = exact.blocks[0]
+        with true_f32():
+            _, hess = cal._capture_block(0, block, cal._site_map(block), x,
+                                         cos, sin, cache, exact.cfg)
+        del x, cache
+        offset = 0.5 if bits == 2 else 0.0
+        for site, p in sites:
+            w = cal._exact_weight(block.get_submodule(p))
+            h = hess[site].h
+            _sync(device)
+            t0 = time.perf_counter()
+            q, sc = gptq_quantize(w, h, bits=bits, group=group)
+            _sync(device)
+            card_s = time.perf_counter() - t0
+            w, h = w.cpu(), h.cpu()
+            t0 = time.perf_counter()
+            q_cpu, sc_cpu = gptq_quantize(w, h, bits=bits, group=group)
+            cpu_s = time.perf_counter() - t0
+            q, sc = q.cpu(), sc.cpu()
+            spans = group_spans(w.shape[1], group)
+            q0, s0 = gptq_quantize(w, None, bits=bits, group=group)
+            err = {name: output_error_ratio(
+                w, dequant_groups(a, b, spans, offset), h)
+                for name, (a, b) in dict(card=(q, sc), cpu=(q_cpu, sc_cpu),
+                                         rtn=(q0, s0)).items()}
+            diff = (q.to(torch.int16) - q_cpu.to(torch.int16)).abs()
+            n = diff.shape[1]
+            res = dict(
+                shape=list(w.shape), bits=bits, card_s=card_s, cpu_s=cpu_s,
+                codes_differ=(diff > 0).float().mean().item(),
+                codes_differ_by_eighth=[
+                    (diff[:, i * n // 8:(i + 1) * n // 8] > 0).float()
+                    .mean().item() for i in range(8)],
+                codes_differ_first_half=(diff[:, :n // 2] > 0).float()
+                .mean().item(),
+                max_code_diff=int(diff.max()),
+                scales_differ=(sc != sc_cpu).float().mean().item(),
+                err_ratio=err,
+            )
+            print(f"gptq card vs cpu {site} " + json.dumps(res))
+            qmin, qmax = {2: (-2, 1), 3: (-4, 3), 4: (-7, 7)}[bits]
+            if not (qmin <= int(q.min()) and int(q.max()) <= qmax
+                    and res["codes_differ_first_half"] <= GPTQ_HALF_SHARE
+                    and abs(err["card"] - err["cpu"])
+                    <= GPTQ_RATIO_TOL * err["cpu"]
+                    and max(err["card"], err["cpu"]) * GPTQ_GAIN
+                    < err["rtn"]):
+                raise AssertionError(f"gptq {site}: card against cpu {res}")
+            out[site] = res
+    finally:
+        shutil.rmtree(cut, ignore_errors=True)
+    return out
+
+
+def held_propagation(fmt: str, forward, held: list):
+    """``calibrate._block_forward`` that holds every kernel call of each
+    propagation forward (a quantized block, unfused, on the f32
+    calibration batch: x of 8 x 512 tokens and an f32 out, a mixed
+    layer's side on its gathered columns, each expert of a MoE block on
+    every token) against the kernel's plain version on the same inputs:
+    |err| <= RTOL * |plain| + ATOL_FRAC * max|plain|. A capture forward
+    (exact mirrors, no kernel) passes through. Each call's numbers go to
+    ``held``; the plain calls launch nothing. (The block's output is not
+    the yardstick: at these activations a product's last bits can tip an
+    attention row, so it moves far more than any kernel's error.)"""
+    from vptq_tpu_torch.layers import runtime
+    from vptq_tpu_torch.quant import calibrate as cal
+
+    def checking(i, name, kernel):
+        ref = kernel_fns(name)[1]
+
+        def call(x, *args):
+            y = kernel(x, *args)
+            yf, rf = y.float(), ref(x, *args).float()
+            err = (yf - rf).abs()
+            limit = RTOL * rf.abs() + ATOL_FRAC * rf.abs().max()
+            held.append(dict(
+                block=i, kernel=name, x=list(x.shape),
+                dtype=str(x.dtype).removeprefix("torch."),
+                max_abs_err=err.max().item(),
+                of_limit=(err / limit).nan_to_num(0.0).max().item(),
+            ))
+            if not (y.dtype == x.dtype and bool(torch.all(err <= limit))
+                    and bool(torch.isfinite(yf).all())):
+                raise AssertionError(
+                    f"{fmt}: {name} in the propagation of block {i} "
+                    f"against its plain version: {held[-1]}")
+            return y
+
+        return call
+
+    def checked(i, block, x, cos, sin, cache, cfg):
+        if any(isinstance(m, cal._Rec) for m in block.modules()):
+            return forward(i, block, x, cos, sin, cache, cfg)
+        with contextlib.ExitStack() as stack:
+            for name in format_kernels(fmt):
+                stack.enter_context(mock.patch.object(
+                    runtime, name, checking(i, name, getattr(runtime, name))))
+            return forward(i, block, x, cos, sin, cache, cfg)
+
+    return checked
+
+
+def phase_calibrated(device, path, fmt: str, vocab: int, calibration=None,
+                     gptq=False, **e2e_kwargs):
+    """GPTQ calibration (M15) on the card, then the calibrated model
+    served: ``from_pretrained(path, runtime_format=fmt)`` (4096 synthetic
+    tokens) or, for a plain format, ``load_model(path, runtime_format=fmt,
+    calibration=calibration)``. Printed: the report (a spy on
+    ``quantize_model_calibrated``): its summary with the seconds of the
+    ranking pass, the capture, GPTQ and the propagation in all and per
+    block; per site kind the formats, error ratios and int8 columns; the
+    int8 sites of int4-mixed; the load's seconds and peak memory; the
+    launches of the propagation forwards, which must be
+    :func:`calibration_launches`, each held against its plain version
+    (:func:`held_propagation`). Then written by ``export_runtime`` to a
+    temporary directory (removed afterwards), read back by
+    ``load_runtime_model`` and held byte-equal, and served by
+    :func:`phase_e2e` from what was read, with ``sensitivity=True``.
+    ``gptq``: first :func:`gptq_against_cpu` on layer 0's sites."""
+    from vptq_tpu_torch import AutoModelForCausalLM
+    from vptq_tpu_torch.models.loader import load_model
+    from vptq_tpu_torch.quant import calibrate as cal
+    from vptq_tpu_torch.tools.export_runtime import (
+        export_runtime,
+        load_runtime_model,
+    )
+
+    made = {}
+    if gptq:
+        made["gptq_against_cpu"] = gptq_against_cpu(device, path, vocab)
+    reports = []
+    real = cal.quantize_model_calibrated
+
+    def spy(*args, **kwargs):
+        out = real(*args, **kwargs)
+        reports.append(out[1])
+        return out
+
+    cuda = torch.device(device).type == "cuda"
+    fns = {k: kernel_fns(k)[0] for k in ALL_KERNELS}
+    for f in fns.values():
+        f.launches = 0
+    _sync(device)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(device)
+    held = []
+    t0 = time.perf_counter()
+    with mock.patch.object(cal, "quantize_model_calibrated", spy), \
+            mock.patch.object(cal, "_block_forward", held_propagation(
+                fmt, cal._block_forward, held)):
+        if calibration is None:
+            model = AutoModelForCausalLM.from_pretrained(
+                path, runtime_format=fmt, device=device).model
+        else:
+            model = load_model(path, runtime_format=fmt,
+                               calibration=calibration, device=device)
+    _sync(device)
+    load_s = time.perf_counter() - t0
+    report = reports[0]
+    counts = {k: f.launches for k, f in fns.items() if f.launches}
+    # the CPU runs the plain versions, which count nothing
+    expected = calibration_launches(report, fmt) if cuda else {}
+    if counts != expected:
+        raise AssertionError(
+            f"{fmt}: calibration launches {counts}, expected {expected}")
+    made.update(
+        load_s=load_s, weights_gb=buffer_bytes(model) / 1e9,
+        peak_gb=(torch.cuda.max_memory_allocated(device) / 1e9 if cuda
+                 else None),
+        calibration_launches=counts, **calibration_report(report),
+        propagation_vs_plain=dict(
+            calls={k: sum(h["kernel"] == k for h in held)
+                   for k in sorted({h["kernel"] for h in held})},
+            x=sorted({f"{tuple(h['x'])} {h['dtype']}" for h in held}),
+            max_abs_err=max(h["max_abs_err"] for h in held),
+            of_limit=max(h["of_limit"] for h in held),
+        ),
+    )
+    if cuda and made["propagation_vs_plain"]["calls"] != counts:
+        raise AssertionError(
+            f"{fmt}: held {made['propagation_vs_plain']['calls']} of the "
+            f"propagation's launches {counts}")
+    if fmt == "int4-mixed":
+        made["int8_sites"] = sorted(
+            k for k, v in report.items() if v.get("format") == "int8")
+    print(f"calibration {fmt} " + json.dumps(made))
+    out = tempfile.mkdtemp(prefix="vptq_cal_")
+    try:
+        made["disk"] = disk_room(out, fmt, buffer_bytes(model))
+        t0 = time.perf_counter()
+        export_runtime(model, out)
+        made["write_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        loaded = load_runtime_model(out, device)
+        _sync(device)
+        made["runtime_load_s"] = time.perf_counter() - t0
+        made["bytes_equal_gb"] = same_buffers(model, loaded, fmt) / 1e9
+        print(f"calibrated runtime checkpoint {fmt} " + json.dumps(
+            {k: made[k] for k in ("write_s", "runtime_load_s",
+                                  "bytes_equal_gb")}))
+        del model
+        result = phase_e2e(device, loaded, fmt, vocab, load_s=load_s,
+                           sensitivity=True, **e2e_kwargs)
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    result["calibration"] = made
     return result
 
 
@@ -2189,13 +2565,11 @@ def decode_calls(model, fmt: str) -> list:
         MoeMlp,
     )
 
-    kernels = format_kernels(fmt)
-
     def call(lin):
         # a mixed layer: its base, then its int8 side on the gathered columns
-        parts = (lin.base, lin.int8) if len(kernels) == 2 else (lin,)
-        return [(k, part.out_features, part.in_padded)
-                for k, part in zip(kernels, parts)]
+        parts = (lin.base, lin.int8) if hasattr(lin, "col_idx") else (lin,)
+        return [(LAYER_KERNEL[type(part).__name__], part.out_features,
+                 part.in_padded) for part in parts]
 
     def mlp_linears(mlp):
         return ([mlp.gate_up_proj] if mlp.gate_up_proj is not None
@@ -2222,6 +2596,18 @@ def decode_calls(model, fmt: str) -> list:
             ] + sum((call(lin) for lin in shared), [])
             continue
         out += sum((call(lin) for lin in lins + mlp_linears(mlp)), [])
+    return out
+
+
+def linear_launches(model, fmt: str) -> dict:
+    """{kernel: launches a forward call} of ``model``'s decoder linears (a
+    mixed layer's base and side once each), from its layers' types; a MoE
+    block's expert kernels aside."""
+    out = dict.fromkeys(format_kernels(fmt), 0)
+    pairs = MOE_KERNELS.get(fmt, (None, None))[1]
+    for kernel, _, _ in decode_calls(model, fmt):
+        if kernel != pairs:
+            out[kernel] = out.get(kernel, 0) + 1
     return out
 
 
@@ -2408,6 +2794,7 @@ def main() -> int:
         return 1
     import vptq_tpu_torch  # noqa: F401  (fails outside the repo)
 
+    t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print(_sh([
@@ -2433,6 +2820,7 @@ def main() -> int:
     print(
         f"{FLASH} vs plain tolerance: |err| <= {FLASH_TOL} * max|plain|"
     )
+    t_kernels = time.perf_counter()
     rows, routes = [], []
     for name in FORMAT_KERNEL.values():
         rows += phase_kernel(name, device, k1_shapes(LLAMA31_8B), TOKENS,
@@ -2518,57 +2906,113 @@ def main() -> int:
     # kernels, three times running (alone in a process it records eight)
     check_decode_routes(routes, device)
     del routes
+    print(f"seconds kernel phases: {time.perf_counter() - t_kernels:.2f}")
     t0 = time.perf_counter()
     rows += phase_probes(device)
     print(f"probe phase: {time.perf_counter() - t0:.2f} s")
-    phase_encoders(device)
+    with timed("encoders"):
+        phase_encoders(device)
     launches = dict.fromkeys(ALL_KERNELS, 0)
     # (label, config, formats, what phase_e2e and the writer get beside,
     # the formats of the depth-cut runtime checkpoint round trip, the
-    # formats served through the Scheduler and its phase's arguments)
+    # formats served through the Scheduler and its phase's arguments, the
+    # formats calibrated on the card from the checkpoint cut to a depth:
+    # {format: (layers, calibration tokens)})
     runs = (
         ("Llama-3.1-8B", LLAMA31_8B, FORMAT_KERNEL, {}, {},
-         ("int8", "int4"), {"int4": dict(per_len=4)}),
-        ("Mixtral-8x7B", MIXTRAL_8X7B, MOE_KERNELS, {}, {}, ("int4",),
-         {"int4": dict(per_len=2)}),
-        # MLA, the grouped sigmoid MoE and its shared experts, all 27
-        # layers; MLA never reaches K8
-        ("Moonlight-16B-A3B", MOONLIGHT_16B, MOE_KERNELS, {}, {}, (),
-         {"int4": dict(per_len=2)}),
-        ("Qwen2.5-7B", QWEN25_7B, ("int8",), {}, dict(qkv_bias=True), (), {}),
-        ("Mistral-7B", MISTRAL_7B, ("int8",),
-         dict(prompt_lens=(16, 512, 1536, 4608), max_seq=8192), {}, (), {}),
+         ("int8", "int4"), {"int4": dict(per_len=4)}, {}),
+        ("Mixtral-8x7B",
+         dict(MIXTRAL_8X7B, num_hidden_layers=MIXTRAL_LAYERS), MOE_KERNELS,
+         {}, {}, ("int4",), {"int4": dict(per_len=2)}, {}),
+        # MLA, the grouped sigmoid MoE and its shared experts; MLA never
+        # reaches K8. Calibrated int4 at two layers (the dense one and a
+        # MoE one: 64 experts and the shared ones)
+        ("Moonlight-16B-A3B",
+         dict(MOONLIGHT_16B, num_hidden_layers=CUT_LAYERS), MOE_KERNELS, {},
+         {}, (), {"int4": dict(per_len=2)}, {"int4": (2, 4096)}),
+        ("Qwen2.5-7B", dict(QWEN25_7B, num_hidden_layers=CUT_LAYERS),
+         ("int8",), {}, dict(qkv_bias=True), (), {}, {}),
+        ("Mistral-7B", dict(MISTRAL_7B, num_hidden_layers=CUT_LAYERS),
+         ("int8",), dict(prompt_lens=(16, 512, 1536, 4608), max_seq=8192),
+         {}, (), {}, {}),
         # read from .bin shards and their index; the window keeps K8 at 0
-        ("Phi-3-mini", PHI3_MINI, ("int8",),
+        ("Phi-3-mini", dict(PHI3_MINI, num_hidden_layers=CUT_LAYERS),
+         ("int8",),
          dict(prompt_lens=(16, 512, 1536, 3000), max_seq=4096),
-         dict(bin_shards=4), (), {}),
+         dict(bin_shards=4), (), {}, {}),
     )
-    for label, cfg, formats, e2e_kwargs, writer_kwargs, trips, serve in runs:
-        path, write_s = write_checkpoint(cfg, V8_K65536, **writer_kwargs)
-        print(f"checkpoint write {label} "
-              f"({cfg['num_hidden_layers']} layers): {write_s:.2f} s")
+
+    def count(e2e):
+        served = e2e.get("serving", {}).get("launches", {})
+        calibrated = e2e.get("calibration", {}).get(
+            "calibration_launches", {})
+        for name in launches:
+            launches[name] += (e2e["launches"].get(name, 0)
+                               + served.get(name, 0)
+                               + calibrated.get(name, 0))
+
+    for (label, cfg, formats, e2e_kwargs, writer_kwargs, trips, serve,
+         calibrated) in runs:
+        with timed(f"checkpoint write {label} "
+                   f"({cfg['num_hidden_layers']} layers)"):
+            path, _ = write_checkpoint(cfg, V8_K65536, **writer_kwargs)
         try:
             for fmt in formats:
-                e2e = phase_e2e(
-                    device, path, fmt, cfg["vocab_size"], **e2e_kwargs,
-                    serve=serve.get(fmt),
-                )
+                with timed(f"e2e {label} {fmt}"):
+                    e2e = phase_e2e(
+                        device, path, fmt, cfg["vocab_size"], **e2e_kwargs,
+                        serve=serve.get(fmt),
+                    )
                 print(f"e2e {label} " + json.dumps(e2e))
-                served = e2e.get("serving", {}).get("launches", {})
-                for name in launches:
-                    launches[name] += (e2e["launches"].get(name, 0)
-                                       + served.get(name, 0))
+                count(e2e)
             for fmt in trips:
-                phase_round_trip(device, path, fmt, cfg["vocab_size"])
+                with timed(f"round trip {label} {fmt}"):
+                    phase_round_trip(device, path, fmt, cfg["vocab_size"])
+            for fmt, (layers, tokens) in calibrated.items():
+                cut = cut_checkpoint(path, layers)
+                try:
+                    with timed(f"calibrated {label} {fmt} ({layers} layers)"):
+                        e2e = phase_calibrated(device, str(cut), fmt,
+                                               cfg["vocab_size"], tokens)
+                finally:
+                    shutil.rmtree(cut, ignore_errors=True)
+                print(f"e2e {label} calibrated " + json.dumps(e2e))
+                count(e2e)
         finally:
             shutil.rmtree(path, ignore_errors=True)
-    # the calibrated formats, served from the port's own runtime checkpoint
-    # at full Llama-3.1-8B geometry
+    # the mixed formats from random codes, served from the port's own
+    # runtime checkpoint at full width, depth cut to 4 (the calibrated run
+    # below shows that path at all 32 layers)
     for fmt in MIXED_KERNELS:
-        e2e = phase_mixed(device, LLAMA31_8B, fmt)
+        with timed(f"mixed {fmt} from random codes (4 layers)"):
+            e2e = phase_mixed(device, dict(LLAMA31_8B, num_hidden_layers=4),
+                              fmt)
         print("e2e Llama-3.1-8B " + json.dumps(e2e))
-        for name, n in e2e["launches"].items():
-            launches[name] += n
+        count(e2e)
+    # the calibrated formats (M15): GPTQ on the card at Llama-3.1-8B's full
+    # width, int2-mixed at all 32 layers through from_pretrained (layer 0's
+    # GPTQ held against the CPU's first), int3-mixed and int4-mixed at 4
+    with timed("checkpoint write Llama-3.1-8B calibration (32 layers)"):
+        path, _ = write_checkpoint(LLAMA31_8B, V8_K65536, std=MIXED_STD)
+    vocab = LLAMA31_8B["vocab_size"]
+    try:
+        with timed("calibrated Llama-3.1-8B int2-mixed (32 layers)"):
+            e2e = phase_calibrated(device, path, "int2-mixed", vocab,
+                                   gptq=True)
+        print("e2e Llama-3.1-8B calibrated " + json.dumps(e2e))
+        count(e2e)
+        cut = cut_checkpoint(path, 4)
+        try:
+            for fmt in ("int3-mixed", "int4-mixed"):
+                with timed(f"calibrated Llama-3.1-8B {fmt} (4 layers)"):
+                    e2e = phase_calibrated(device, str(cut), fmt, vocab)
+                print("e2e Llama-3.1-8B calibrated " + json.dumps(e2e))
+                count(e2e)
+        finally:
+            shutil.rmtree(cut, ignore_errors=True)
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
+    print(f"seconds smoke: {time.perf_counter() - t_start:.2f}")
     print(json.dumps({"kernels": kernel_records(rows, launches)}))
     print(json.dumps({
         "ok": True,

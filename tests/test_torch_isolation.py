@@ -14,6 +14,7 @@ import shutil
 import subprocess
 import sys
 from pathlib import Path
+from unittest import mock
 
 import pytest
 import torch
@@ -272,6 +273,127 @@ def test_chip_smoke_long_prompts_on_cpu(window):
         assert e2e["kernels"] == ["w8_matmul", "flash_attention"]
         assert e2e["long_prefill_logits_max_abs_diff"] == 0.0
     assert set(e2e["launches"].values()) == {0}  # the CPU launches nothing
+
+
+# tests/test_torch_calibrate.py's spread: a well-conditioned tiny model
+CALIBRATION_STD = 0.05
+@pytest.mark.parametrize("fmt", ["int2-mixed", "int4-mixed"])
+def test_chip_smoke_calibration_on_cpu(fmt):
+    """The smoke's calibrated phase at a tiny size: from_pretrained
+    calibrates on 4096 synthetic tokens, the report is printed per site
+    kind, the model is written and read back byte-equal and served with
+    its sensitivity; int2-mixed first holds layer 0's GPTQ against the
+    CPU's (here the CPU's own)."""
+    path, _ = chip_smoke.write_checkpoint(
+        dict(TINY, tie_word_embeddings=False), VQ, std=CALIBRATION_STD)
+    try:
+        e2e = chip_smoke.phase_calibrated(
+            "cpu", path, fmt, TINY["vocab_size"], gptq=fmt == "int2-mixed",
+            prompt_lens=(5, 20), new_tokens=4, max_seq=64,
+        )
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
+    made = e2e["calibration"]
+    assert made["summary"]["calib_tokens"] == 4096
+    assert len(made["summary"]["block_s"]) == TINY["num_hidden_layers"]
+    assert sorted(made["sites"]) == ["down", "gate_up", "o", "qkv"]
+    assert made["calibration_launches"] == {}  # the CPU launches nothing
+    # every kernel call of the propagation forwards (7 linears a block,
+    # f32 x of 8 x 512 tokens) held against its plain version, which the
+    # CPU runs on both sides
+    held = made["propagation_vs_plain"]
+    assert sum(held["calls"].values()) == 7 * TINY["num_hidden_layers"] * (
+        2 if fmt == "int2-mixed" else 1)
+    assert all(x.startswith("(8, 512, ") and x.endswith(" float32")
+               for x in held["x"])
+    assert held["max_abs_err"] == 0.0
+    assert made["bytes_equal_gb"] > 0
+    if fmt == "int2-mixed":
+        # 64 columns: every one on the int8 side
+        assert all(k["int8_cols"] == [64] for k in made["sites"].values()
+                   if k is not made["sites"]["down"])
+        gptq = made["gptq_against_cpu"]
+        assert sorted(gptq) == ["down", "o"]
+        assert all(g["codes_differ"] == 0.0 for g in gptq.values())
+        assert e2e["kernels"] == ["w2_matmul", "w8_matmul"]
+    else:
+        # a ranking pass put 3 of the 8 sites in int8: K2 and K1 on the path
+        assert made["summary"]["int8_sites"] == 3
+        assert len(made["int8_sites"]) == 3
+        assert e2e["kernels"] == ["w4_matmul", "w8_matmul"]
+    assert e2e["prefill_logits_max_abs_diff"] == 0.0
+    assert "prefill_logits_sensitivity" in e2e
+    # the launches a calibration's propagation makes on the card: a
+    # mixed format's base kernel and K1 on every linear of each block
+    report = {"layers.0.qkv": {"format": "int2-mixed"},
+              "layers.0.o": {"format": "int2-mixed"},
+              "layers.1.gate_up": {"format": "int4"},
+              "layers.1.e3.down": {"format": "int8"},
+              "summary": {}}
+    assert chip_smoke.calibration_launches(report, "int2-mixed") == {
+        "w2_matmul": 4, "w8_matmul": 5, "w4_matmul": 2}
+
+
+def test_chip_smoke_calibrated_deepseek_on_cpu():
+    """Moonlight's calibrated int4 at a tiny size (TINY_DEEPSEEK: a dense
+    layer, then two of 8 experts and two shared ones): the experts stack
+    after calibration, and the served model runs the expert and pairs
+    plain versions."""
+    path, _ = chip_smoke.write_checkpoint(TINY_DEEPSEEK, VQ,
+                                          std=CALIBRATION_STD)
+    try:
+        e2e = chip_smoke.phase_calibrated(
+            "cpu", path, "int4", TINY["vocab_size"], calibration=128,
+            prompt_lens=(5, 70), new_tokens=3, max_seq=128,
+        )
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
+    made = e2e["calibration"]
+    assert made["summary"]["calib_tokens"] == 128
+    assert made["summary"]["int4_sites"] == made["summary"]["sites"]
+    assert sorted(made["sites"]) == [
+        "attn_in", "down", "experts.down", "experts.gate_up", "gate_up", "o",
+        "shared.down", "shared.gate_up"]
+    assert made["sites"]["experts.down"]["sites"] == 16
+    assert list(made["propagation_vs_plain"]["calls"]) == ["w4_matmul"]
+    assert e2e["kernels"] == [
+        "w4_matmul", "w4_matmul_expert", "w4_matmul_pairs"]
+
+
+@pytest.mark.parametrize("fmt,wrong", [("int2-mixed", "w8_matmul"),
+                                       ("int4", "w4_matmul")])
+def test_chip_smoke_propagation_check_catches_a_wrong_kernel(fmt, wrong):
+    """held_propagation fails a calibration whose propagation forward runs
+    a kernel 5% off its plain version (here a mixed layer's side on its
+    gathered columns, or K2), holds every call of the format's kernels in
+    every block, and passes the capture forwards."""
+    from vptq_tpu_torch.layers import runtime
+    from vptq_tpu_torch.models.loader import load_model
+    from vptq_tpu_torch.quant import calibrate as cal
+
+    path, _ = chip_smoke.write_checkpoint(
+        dict(TINY, tie_word_embeddings=False), VQ, std=CALIBRATION_STD)
+    try:
+        model = load_model(path, runtime_format="codebook", fuse=False,
+                           device="cpu")
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
+    ref = chip_smoke.kernel_fns(wrong)[1]
+    ids = cal.synthetic_calibration_tokens(TINY["vocab_size"], 64, 32)
+    held = []
+    with mock.patch.object(cal, "_block_forward", chip_smoke.held_propagation(
+            fmt, cal._block_forward, held)):
+        cal.quantize_model_calibrated(model, tokens=ids, fmt=fmt, fuse=False)
+        assert {h["block"] for h in held} == set(
+            range(TINY["num_hidden_layers"]))
+        assert {h["kernel"] for h in held} == set(
+            chip_smoke.format_kernels(fmt))
+        held.clear()
+        with mock.patch.object(runtime, wrong,
+                               lambda *a, **k: ref(*a, **k) * 1.05), \
+                pytest.raises(AssertionError, match="propagation of block 0"):
+            cal.quantize_model_calibrated(model, tokens=ids, fmt=fmt,
+                                          fuse=False)
 
 
 def test_chip_smoke_probe_phase_on_cpu():
@@ -2709,3 +2831,107 @@ def test_mixed_sensitivity_runs_the_plain_versions_on_cpu(capsys):
         kernels, moved = (float(w.split()[0]) for w in
                           ln.split("plain ")[1].split(", one-ulp embedding "))
         assert kernels == 0.0 and 0 < moved < 1
+
+
+def _correlated_hessian(in_f, n, seed):
+    """X^T X of inputs with a rank in_f / 4 structure plus noise (the
+    inputs of tests/test_gptq.py)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    z = rng.standard_normal((n, in_f // 4)).astype(np.float32)
+    proj = rng.standard_normal((in_f // 4, in_f)).astype(np.float32)
+    x = z @ proj + 0.1 * rng.standard_normal((n, in_f)).astype(np.float32)
+    return torch.from_numpy(x.T @ x)
+
+
+# the share of codes that may part from the CPU's under a correlated H
+# (tests/test_torch_gptq.py's share bounds against JAX); a code that moves
+# feeds another error to its row, so how far a neighbour moves is no bound
+GPTQ_SHARE = {2: 5e-3, 3: 5e-3, 4: 5e-3, 8: 2e-2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hess", ["none", "identity", "correlated"])
+@pytest.mark.parametrize("bits,group", [(2, 64), (3, 128), (4, 128),
+                                        (8, 256)])
+def test_gptq_on_the_card_matches_the_cpu(cuda, bits, group, hess):
+    """``gptq_quantize`` on CUDA tensors against the same call on the CPU:
+    byte-equal without a Hessian and with the identity; under a
+    correlated one (512 columns) within the share bound, the H-weighted
+    output error ratio within 1% of the CPU's."""
+    from vptq_tpu_torch.quant.gptq import (
+        dequant_groups,
+        gptq_quantize,
+        group_spans,
+        output_error_ratio,
+    )
+
+    gen = torch.Generator().manual_seed(bits)
+    w = torch.randn((128, 512), generator=gen) * 0.02
+    h = {"none": None, "identity": torch.eye(512),
+         "correlated": _correlated_hessian(512, 2048, bits)}[hess]
+    q, s = gptq_quantize(w.to(cuda), None if h is None else h.to(cuda),
+                         bits=bits, group=group)
+    q, s = q.cpu(), s.cpu()
+    q_cpu, s_cpu = gptq_quantize(w, h, bits=bits, group=group)
+    if h is None or hess == "identity":
+        assert torch.equal(q, q_cpu) and torch.equal(s, s_cpu)
+        return
+    assert (q != q_cpu).float().mean().item() <= GPTQ_SHARE[bits]
+    spans = group_spans(512, group)
+    offset = 0.5 if bits == 2 else 0.0
+    err, err_cpu = (
+        output_error_ratio(w, dequant_groups(a, b, spans, offset), h)
+        for a, b in ((q, s), (q_cpu, s_cpu)))
+    assert abs(err - err_cpu) <= 1e-2 * err_cpu
+
+
+@pytest.mark.cuda
+def test_gptq_on_the_card_ignores_tf32(cuda):
+    """The caller's TF32 setting changes no code: the Hessian products, the
+    feedback and the error ratios run in true f32."""
+    from vptq_tpu_torch.quant.gptq import gptq_quantize, output_error_ratio
+
+    gen = torch.Generator().manual_seed(0)
+    w = (torch.randn((256, 1024), generator=gen) * 0.02).to(cuda)
+    h = _correlated_hessian(1024, 4096, 0).to(cuda)
+    want = gptq_quantize(w, h, bits=4, group=128)
+    want_err = output_error_ratio(w, w * 1.01, h)
+    matmul = torch.backends.cuda.matmul
+    old = matmul.fp32_precision
+    torch.set_float32_matmul_precision("high")
+    matmul.fp32_precision = "tf32"  # over a backend setting made before
+    try:
+        # TF32 is on for the caller's own products
+        a = h[:512, :512] / h.abs().max()
+        assert ((a @ a).double() - a.double() @ a.double()).abs().max() > (
+            1e-4 * (a.double() @ a.double()).abs().max())
+        got = gptq_quantize(w, h, bits=4, group=128)
+        got_err = output_error_ratio(w, w * 1.01, h)
+    finally:
+        matmul.fp32_precision = old
+        torch.set_float32_matmul_precision("highest")  # torch's default
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert got_err == want_err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits,group", [(2, 64), (3, 128), (8, 128)])
+def test_gptq_replay_equals_the_eager_loop(cuda, monkeypatch, bits, group):
+    """The column loop replayed from its CUDA graph gives the codes and
+    scales of the loop run op by op on the card, in a call of its own and
+    in calls that keep their steps (``steps``)."""
+    from vptq_tpu_torch.quant import gptq
+
+    gen = torch.Generator().manual_seed(bits)
+    w = (torch.randn((192, 512), generator=gen) * 0.02).to(cuda)
+    h = _correlated_hessian(512, 2048, bits).to(cuda)
+    alone = gptq.gptq_quantize(w, h, bits=bits, group=group)
+    steps = {}
+    shared = [gptq.gptq_quantize(w, h, bits=bits, group=group, steps=steps)
+              for _ in range(2)]
+    monkeypatch.setattr(gptq, "CUDA_GRAPHS", False)
+    want = gptq.gptq_quantize(w, h, bits=bits, group=group)
+    for q, s in (alone, *shared):
+        assert torch.equal(q, want[0]) and torch.equal(s, want[1])

@@ -140,7 +140,20 @@ def test_packed_kind_refuses_what_fits_no_format():
 
 
 @pytest.mark.parametrize("fmt", ["int4-mixed", "int3-mixed", "int2-mixed"])
-def test_calibrated_formats_raise(tmp_path, fmt):
+def test_calibrated_formats_load(tmp_path, fmt):
+    """The calibrated formats load (4096 synthetic tokens by default) and
+    generate; tests/test_torch_calibrate.py holds them to JAX's."""
     path = _checkpoint(tmp_path, seed=1)
-    with pytest.raises(NotImplementedError, match="calibration"):
-        load_model(path, runtime_format=fmt, device="cpu")
+    model = load_model(path, dtype=torch.float32, runtime_format=fmt,
+                       device="cpu")
+    kinds = {type(layer).__name__ for block in model.blocks
+             for layer in (block.attn.qkv_proj, block.attn.o_proj,
+                           block.mlp.gate_up_proj, block.mlp.down_proj)}
+    assert kinds == {
+        "int4-mixed": {"Int4Linear", "Int8Linear"},
+        "int3-mixed": {"Int3MixedLinear"},
+        "int2-mixed": {"Int2MixedLinear"},
+    }[fmt]
+    out = Generator(model, max_seq=64, dtype=torch.float32).generate(
+        [1, 2, 3, 4, 5], max_new_tokens=6)
+    assert len(out) == 6 and all(0 <= t < TINY["vocab_size"] for t in out)

@@ -595,9 +595,27 @@ def test_other_moe_families_still_raise(tmp_path, changes, match):
 
 @pytest.mark.parametrize("fmt", ["int4-mixed", "int3-mixed", "int2-mixed"])
 def test_calibrated_formats_still_raise_for_mixtral(tmp_path, fmt):
+    """(Named when these formats raised.) A Mixtral checkpoint calibrates
+    in each (128 synthetic tokens) and generates: mixed experts keep their
+    per-expert layers (the all-experts path), int4-mixed stacks them when
+    every expert site is int4 (tests/test_torch_calibrate.py holds the
+    codes to JAX's)."""
     path = _checkpoint(tmp_path, seed=1)
-    with pytest.raises(NotImplementedError, match="calibration"):
-        load_model(path, runtime_format=fmt, device="cpu")
+    model = load_model(path, dtype=torch.float32, runtime_format=fmt,
+                       calibration=128, device="cpu")
+    for block in model.blocks:
+        moe = block.mlp
+        if fmt == "int4-mixed":
+            stacked = moe.stacked is not None
+            assert stacked == (not len(moe.experts))
+        else:
+            assert moe.stacked is None and len(moe.experts) == 4
+            assert type(moe.experts[0].gate_up_proj).__name__ == (
+                "Int2MixedLinear" if fmt == "int2-mixed" else
+                "Int3MixedLinear")
+    out = Generator(model, max_seq=64, dtype=torch.float32).generate(
+        [1, 2, 3, 4, 5], max_new_tokens=6)
+    assert len(out) == 6 and all(0 <= t < TINY["vocab_size"] for t in out)
 
 
 def test_port_writer_refuses_other_moe_layouts(tmp_path):

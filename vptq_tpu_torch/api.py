@@ -67,11 +67,11 @@ class AutoModelForCausalLM:
         ``runtime_format``: "int8" (K1), "int4" (K2), "int3" (K4) or
         "int2" (K3) re-encode every quantized linear for its hand-written
         kernel; "bf16" dequantizes to bf16; "codebook" keeps the VQ
-        layers. The calibrated "int*-mixed" formats raise here (their
-        calibration is not ported); a calibrated runtime checkpoint loads
-        with ``tools.export_runtime.load_runtime_model`` and serves
-        through :class:`Engine`. ``tp`` > 1 (tensor parallelism) raises:
-        not ported.
+        layers; "int4-mixed", "int3-mixed" and "int2-mixed" calibrate
+        the checkpoint on 4096 synthetic tokens (GPTQ on ``device``,
+        ``quant/calibrate.py``) and serve through the base format's
+        kernel and K1 on the int8 side. ``tp`` > 1 (tensor parallelism)
+        raises: not ported.
         """
         if tp > 1:
             raise NotImplementedError(

@@ -19,9 +19,9 @@ re-encodes it:
 The calibrated mixed layers :class:`Int2MixedLinear` and
 :class:`Int3MixedLinear` add an int8 side matrix on a few input columns
 to an int2 or int3 base (``y = base(x) + int8(x[..., col_idx])``: K3 or
-K4, then K1). Calibration, which chooses their codes, is not ported: they
-are read from a runtime checkpoint (``tools/export_runtime.py``) or built
-from given codes by the ``*_from_q`` constructors.
+K4, then K1). Calibration (``quant/calibrate.py``) chooses their codes
+and builds them with the ``*_from_q`` constructors; a runtime checkpoint
+(``tools/export_runtime.py``) reads them back.
 
 Every encoding is byte-equal to the JAX package's numpy encoder.
 :func:`fuse_block` also stacks the int8 or int4 experts of a Mixtral or

@@ -86,7 +86,7 @@ _SAFETENSORS_DTYPES = {
     "BOOL": torch.bool,
 }
 _SAFETENSORS_CODES = {v: k for k, v in _SAFETENSORS_DTYPES.items()}
-# the JAX loader's calibrated formats (mixed int8 outlier sites)
+# the formats that exist only calibrated (an int8 side: sites or columns)
 CALIBRATED_FORMATS = ("int4-mixed", "int3-mixed", "int2-mixed")
 
 
@@ -325,31 +325,41 @@ def load_model(
     fuse: bool = True,
     quantize_lm_head: bool = False,
     device=None,
+    calibration=None,
+    int8_fraction: Optional[float] = None,
 ) -> Model:
     """Load a local VPTQ HF checkpoint directory into a :class:`Model`.
 
     ``runtime_format``: "codebook" keeps the compressed VQ layers;
     "int8", "int4", "int3", "int2" and "bf16" re-encode each layer once
     (``layers/runtime.py``), leaving dense layers such as the lm_head
-    as they are. The calibrated "int4-mixed", "int3-mixed" and
-    "int2-mixed" raise: their codes come from GPTQ calibration, not
-    ported yet; a checkpoint calibrated in such a format is served
-    through ``tools.export_runtime.load_runtime_model``.
+    as they are.
     ``fuse`` merges q|k|v and gate|up (dense formats only) and stacks
     the experts of a Mixtral or DeepSeek checkpoint (int8 and int4),
     layer by layer, so one layer's experts exist twice at most.
     ``quantize_lm_head`` re-encodes the dense lm_head to int8 too.
     ``device``: CUDA unless given; the weights are normalized and
     re-encoded there, layer by layer.
+
+    ``runtime_format="int4-mixed"``, ``"int3-mixed"`` or ``"int2-mixed"``,
+    or ``calibration`` with "int2", "int3", "int4" or "int8": a calibrated
+    re-encode (``vptq_tpu_torch.quant``) on ``device``: the model is
+    loaded exact (codebook, unfused), then GPTQ-quantized block by block
+    against calibration activations; "int4-mixed" keeps the measured most
+    sensitive ``int8_fraction`` of sites in int8, "int3-mixed" /
+    "int2-mixed" give each site's most energetic input columns an int8
+    side (``int8_fraction``: their share). ``calibration`` is a (B, S)
+    token array, an int (that many synthetic tokens) or None (4096
+    synthetic tokens).
     """
     device = resolve_device(device)
-    if runtime_format in CALIBRATED_FORMATS:
-        raise NotImplementedError(
-            f"runtime_format {runtime_format!r} is encoded by GPTQ "
-            "calibration (ROADMAP M15), which is not ported; plain "
-            "round-to-nearest would be a different model. A calibrated "
-            "runtime checkpoint is served through "
-            "vptq_tpu_torch.tools.export_runtime.load_runtime_model"
+    if runtime_format in CALIBRATED_FORMATS or (
+        calibration is not None
+        and runtime_format in ("int2", "int3", "int4", "int8")
+    ):
+        return _load_calibrated(
+            checkpoint_dir, dtype, runtime_format, fuse, quantize_lm_head,
+            device, calibration, int8_fraction,
         )
     if runtime_format not in RUNTIME_FORMATS:
         raise ValueError(f"unknown runtime format {runtime_format!r}")
@@ -508,3 +518,32 @@ def load_model(
         embed_tokens=embed, blocks=blocks, norm=norm, lm_head=lm_head,
         cfg=model_cfg,
     )
+
+
+def _load_calibrated(checkpoint_dir, dtype, runtime_format, fuse,
+                     quantize_lm_head, device, calibration, int8_fraction):
+    """The calibrated branch of :func:`load_model`."""
+    from vptq_tpu_torch.quant.calibrate import (
+        quantize_model_calibrated,
+        synthetic_calibration_tokens,
+    )
+
+    exact = load_model(checkpoint_dir, dtype=dtype, runtime_format="codebook",
+                       fuse=False, device=device)
+    tokens = calibration
+    if isinstance(tokens, (int, np.integer)):
+        tokens = synthetic_calibration_tokens(
+            exact.cfg.vocab_size, n_tokens=int(tokens))
+    model, _report = quantize_model_calibrated(
+        exact, tokens, fmt=runtime_format, int8_fraction=int8_fraction,
+        fuse=fuse,
+    )
+    # only the decoder blocks are re-encoded: a VPTQ-quantized lm_head is
+    # converted to the base format here, as the plain path would
+    lm = model.lm_head
+    if isinstance(lm, VQLinear):
+        lm = to_runtime(lm, runtime_format.split("-")[0])
+    if quantize_lm_head and isinstance(lm, DenseLinear):
+        lm = dense_to_int8(lm)
+    model.lm_head = lm
+    return model

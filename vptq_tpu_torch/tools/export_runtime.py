@@ -3,9 +3,10 @@ read back without re-encoding.
 
 Port of ``vptq_tpu/tools/export_runtime.py``. Loading a VPTQ checkpoint
 in a runtime format re-encodes every layer (exact dequant, scale search);
-a calibrated format (``int2-mixed``, ``int3-mixed``, ``int4-mixed``) is
-made once by calibration and can only be served from such a file. The
-format is the JAX package's, in both directions:
+a calibrated format (``int2-mixed``, ``int3-mixed``, ``int4-mixed``) runs
+GPTQ over the whole model (``quant/calibrate.py``). Such a file is made
+once and read back without either. The format is the JAX package's, in
+both directions:
 
   * ``runtime.safetensors``: the JAX key names (``wq`` / ``scales`` int8,
     ``wq4`` / ``scales4`` int4, ``wq3_2`` / ``wq3_1`` / ``scales3`` int3,
@@ -100,72 +101,79 @@ _MLA_ARRAYS = ("kv_a_norm", "q_a_norm", "uk", "uv")
 _STACKED = ("gate_up_wq", "gate_up_scales", "down_wq", "down_scales")
 
 
+def _put(out: Dict[str, torch.Tensor], name: str, t) -> None:
+    if t is not None:
+        out[name] = t.detach().cpu().contiguous()
+
+
+def _put_linear(out: Dict[str, torch.Tensor], prefix: str, lin) -> None:
+    if lin is None:
+        return
+    if type(lin) in _MIXED:
+        _put_linear(out, f"{prefix}.{_MIXED[type(lin)]}", lin.base)
+        _put_linear(out, f"{prefix}.mix8", lin.int8)
+        _put(out, f"{prefix}.mix_cols", lin.col_idx.to(torch.int32))
+        _put(out, f"{prefix}.bias", lin.bias)
+        return
+    keys = _KEYS.get(type(lin))
+    if keys is None:
+        raise ValueError(
+            f"{prefix}: cannot export {type(lin).__name__}; use "
+            "runtime_format int8/int4/bf16"
+        )
+    for attr, key in keys:
+        _put(out, f"{prefix}.{key}", getattr(lin, attr))
+    _put(out, f"{prefix}.bias", lin.bias)
+
+
+def _flatten_block(out: Dict[str, torch.Tensor], p: str, block: Block):
+    """One decoder block's runtime tensors under ``p`` (``blocks.{i}``)."""
+
+    def put_mlp(prefix, mlp):
+        for name in _MLP:
+            _put_linear(out, f"{prefix}.{name}", getattr(mlp, name))
+
+    _put(out, f"{p}.input_layernorm", block.input_layernorm)
+    _put(out, f"{p}.post_attention_layernorm", block.post_attention_layernorm)
+    attn = block.attn
+    if isinstance(attn, MlaAttention):
+        for name in _MLA:
+            _put_linear(out, f"{p}.attn.{name}", getattr(attn, name))
+        for name in _MLA_ARRAYS:
+            _put(out, f"{p}.attn.{name}", getattr(attn, name))
+    else:
+        for name in _ATTN:
+            _put_linear(out, f"{p}.attn.{name}", getattr(attn, name))
+    mlp = block.mlp
+    if not isinstance(mlp, (MoeMlp, DeepseekMoe)):
+        put_mlp(f"{p}.mlp", mlp)
+        return out
+    if isinstance(mlp, MoeMlp):
+        _put_linear(out, f"{p}.mlp.router", mlp.router)
+    else:
+        _put(out, f"{p}.mlp.router_weight", mlp.router_weight)
+        _put(out, f"{p}.mlp.correction_bias", mlp.correction_bias)
+    st = mlp.stacked
+    if st is not None and not len(mlp.experts):
+        # the experts exist once, stacked; the format rides the key
+        for name in _STACKED:
+            _put(out, f"{p}.mlp.stacked_{st.fmt}.{name}", getattr(st, name))
+    for e, ex in enumerate(mlp.experts):
+        put_mlp(f"{p}.mlp.experts.{e}", ex)
+    if isinstance(mlp, DeepseekMoe):
+        put_mlp(f"{p}.mlp.shared_experts", mlp.shared_experts)
+    return out
+
+
 def _flatten_model(model: Model) -> Dict[str, torch.Tensor]:
     """The runtime tensors of ``model`` by their JAX names, as contiguous
     CPU tensors (a strided view would be written scrambled)."""
     out: Dict[str, torch.Tensor] = {}
-
-    def put(name, t):
-        if t is not None:
-            out[name] = t.detach().cpu().contiguous()
-
-    def put_linear(prefix, lin):
-        if lin is None:
-            return
-        if type(lin) in _MIXED:
-            put_linear(f"{prefix}.{_MIXED[type(lin)]}", lin.base)
-            put_linear(f"{prefix}.mix8", lin.int8)
-            put(f"{prefix}.mix_cols", lin.col_idx.to(torch.int32))
-            put(f"{prefix}.bias", lin.bias)
-            return
-        keys = _KEYS.get(type(lin))
-        if keys is None:
-            raise ValueError(
-                f"{prefix}: cannot export {type(lin).__name__}; use "
-                "runtime_format int8/int4/bf16"
-            )
-        for attr, key in keys:
-            put(f"{prefix}.{key}", getattr(lin, attr))
-        put(f"{prefix}.bias", lin.bias)
-
-    def put_mlp(prefix, mlp):
-        for name in _MLP:
-            put_linear(f"{prefix}.{name}", getattr(mlp, name))
-
-    put("embed_tokens", model.embed_tokens)
-    put("norm", model.norm)
-    put_linear("lm_head", model.lm_head)
+    _put(out, "embed_tokens", model.embed_tokens)
+    _put(out, "norm", model.norm)
+    _put_linear(out, "lm_head", model.lm_head)
     for i, block in enumerate(model.blocks):
-        p = f"blocks.{i}"
-        put(f"{p}.input_layernorm", block.input_layernorm)
-        put(f"{p}.post_attention_layernorm", block.post_attention_layernorm)
-        attn = block.attn
-        if isinstance(attn, MlaAttention):
-            for name in _MLA:
-                put_linear(f"{p}.attn.{name}", getattr(attn, name))
-            for name in _MLA_ARRAYS:
-                put(f"{p}.attn.{name}", getattr(attn, name))
-        else:
-            for name in _ATTN:
-                put_linear(f"{p}.attn.{name}", getattr(attn, name))
-        mlp = block.mlp
-        if not isinstance(mlp, (MoeMlp, DeepseekMoe)):
-            put_mlp(f"{p}.mlp", mlp)
-            continue
-        if isinstance(mlp, MoeMlp):
-            put_linear(f"{p}.mlp.router", mlp.router)
-        else:
-            put(f"{p}.mlp.router_weight", mlp.router_weight)
-            put(f"{p}.mlp.correction_bias", mlp.correction_bias)
-        st = mlp.stacked
-        if st is not None and not len(mlp.experts):
-            # the experts exist once, stacked; the format rides the key
-            for name in _STACKED:
-                put(f"{p}.mlp.stacked_{st.fmt}.{name}", getattr(st, name))
-        for e, ex in enumerate(mlp.experts):
-            put_mlp(f"{p}.mlp.experts.{e}", ex)
-        if isinstance(mlp, DeepseekMoe):
-            put_mlp(f"{p}.mlp.shared_experts", mlp.shared_experts)
+        _flatten_block(out, f"blocks.{i}", block)
     return out
 
 
@@ -202,6 +210,157 @@ def _check_one_device(prefix: str, in_p: int, pad_to: int, in_f: int):
         )
 
 
+class _Reader:
+    """Layers and blocks built from a runtime file's tensors (``raw``, CPU
+    views), each copied to ``device`` as it lies; ``used`` names the
+    tensors taken."""
+
+    def __init__(self, raw: Dict[str, torch.Tensor], cfg: ModelConfig,
+                 device):
+        self.raw, self.cfg, self.device = raw, cfg, device
+        self.used = set()
+        h = cfg.hidden_size
+        # the logical in_features of each projection
+        self.widths = dict(
+            q_proj=h, k_proj=h, v_proj=h, qkv_proj=h, kv_a_proj=h,
+            q_a_proj=h, q_b_proj=cfg.q_lora_rank,
+            o_proj=cfg.num_attention_heads * (
+                cfg.v_head_dim if cfg.is_mla else cfg.head_dim),
+            gate_proj=h, up_proj=h, gate_up_proj=h,
+            down_proj=cfg.intermediate_size,
+        )
+
+    def take(self, name) -> Optional[torch.Tensor]:
+        t = self.raw.get(name)
+        if t is None:
+            return None
+        self.used.add(name)
+        return t.to(self.device)
+
+    def is_linear(self, prefix) -> bool:
+        return any(f"{prefix}.{keys[0][1]}" in self.raw
+                   for keys in _KEYS.values()
+                   ) or f"{prefix}.mix_cols" in self.raw
+
+    def linear(self, prefix, in_f: Optional[int]):
+        """The layer under ``prefix``, or None; ``in_f``: its logical
+        in_features (None: a mixed layer's side, whose width is its
+        columns')."""
+        raw = self.raw
+        if f"{prefix}.mix_cols" in raw:
+            cols = raw[f"{prefix}.mix_cols"]
+            if cols.numel() and not (
+                bool(torch.all(cols[1:] > cols[:-1]))
+                and 0 <= int(cols[0]) and int(cols[-1]) < in_f
+            ):
+                raise NotImplementedError(
+                    f"{prefix}: mixed columns not strictly increasing inside "
+                    f"{in_f}: a blocked (shards > 1) instance's shard-local "
+                    "ids; not ported"
+                )
+            kind = (Int2MixedLinear if f"{prefix}.mix2.wq2p" in raw
+                    else Int3MixedLinear)
+            return kind(
+                self.linear(f"{prefix}.{_MIXED[kind]}", in_f),
+                self.linear(f"{prefix}.mix8", None),
+                self.take(f"{prefix}.mix_cols"),
+                self.take(f"{prefix}.bias"),
+            )
+        for kind, keys in _KEYS.items():
+            if f"{prefix}.{keys[0][1]}" not in raw:
+                continue
+            layer = kind(*(self.take(f"{prefix}.{key}") for _, key in keys),
+                         bias=self.take(f"{prefix}.bias"))
+            if in_f is not None and kind is not DenseLinear:
+                _check_one_device(
+                    prefix, layer.in_padded,
+                    layer.group if kind is Int8Linear else _PAD_TO[kind],
+                    in_f,
+                )
+            return layer
+        return None
+
+    def mlp(self, prefix, down=None) -> Mlp:
+        down = self.cfg.intermediate_size if down is None else down
+        return Mlp(**{n: self.linear(f"{prefix}.{n}",
+                                     down if n == "down_proj"
+                                     else self.widths[n])
+                      for n in _MLP})
+
+    def stacked(self, prefix, down) -> Optional[StackedExperts]:
+        for fmt, (kind, per_byte) in dict(
+            int8=(Int8Linear, 1), int4=(Int4Linear, 2)
+        ).items():
+            p = f"{prefix}.stacked_{fmt}"
+            if f"{p}.gate_up_wq" not in self.raw:
+                continue
+            st = StackedExperts(
+                *(self.take(f"{p}.{name}") for name in _STACKED), fmt=fmt)
+            for name, in_f in (("gate_up", self.cfg.hidden_size),
+                               ("down", down)):
+                wq = getattr(st, f"{name}_wq")
+                in_p = wq.shape[2] * per_byte
+                group = in_p // getattr(st, f"{name}_scales").shape[1]
+                _check_one_device(
+                    f"{p}.{name}", in_p,
+                    group if kind is Int8Linear else _PAD_TO[kind], in_f,
+                )
+            return st
+        return None
+
+    def experts(self, prefix, down) -> list:
+        n = 0
+        while any(self.is_linear(f"{prefix}.experts.{n}.{m}") for m in _MLP):
+            n += 1
+        return [self.mlp(f"{prefix}.experts.{e}", down) for e in range(n)]
+
+    def block_mlp(self, p):
+        cfg = self.cfg
+        if self.is_linear(f"{p}.router"):
+            inter = cfg.intermediate_size
+            return MoeMlp(
+                router=self.linear(f"{p}.router", cfg.hidden_size),
+                experts=self.experts(p, inter),
+                num_experts_per_tok=cfg.num_experts_per_tok,
+                stacked=self.stacked(p, inter),
+            )
+        if f"{p}.router_weight" not in self.raw:
+            return self.mlp(p)
+        mi = cfg.moe_intermediate_size
+        return DeepseekMoe(
+            router_weight=self.take(f"{p}.router_weight"),
+            correction_bias=self.take(f"{p}.correction_bias"),
+            experts=self.experts(p, mi),
+            shared_experts=self.mlp(f"{p}.shared_experts",
+                                    mi * cfg.n_shared_experts),
+            top_k=cfg.num_experts_per_tok,
+            n_group=cfg.n_group,
+            topk_group=cfg.topk_group,
+            norm_topk_prob=cfg.norm_topk_prob,
+            routed_scaling_factor=cfg.routed_scaling_factor,
+            stacked=self.stacked(p, mi),
+        )
+
+    def attention(self, p):
+        if f"{p}.kv_a_norm" in self.raw:
+            return MlaAttention(
+                **{n: self.linear(f"{p}.{n}", self.widths[n]) for n in _MLA},
+                **{n: self.take(f"{p}.{n}") for n in _MLA_ARRAYS},
+            )
+        return Attention(**{n: self.linear(f"{p}.{n}", self.widths[n])
+                            for n in _ATTN})
+
+    def block(self, p: str) -> Block:
+        """The decoder block written under ``p`` (``blocks.{i}``)."""
+        return Block(
+            input_layernorm=self.take(f"{p}.input_layernorm"),
+            attn=self.attention(f"{p}.attn"),
+            post_attention_layernorm=self.take(
+                f"{p}.post_attention_layernorm"),
+            mlp=self.block_mlp(f"{p}.mlp"),
+        )
+
+
 def load_runtime_model(runtime_dir, device=None) -> Model:
     """Read a model written by :func:`export_runtime` (or by the JAX
     package's), on CUDA unless ``device`` says otherwise."""
@@ -219,144 +378,15 @@ def load_runtime_model(runtime_dir, device=None) -> Model:
     raw = _read_safetensors(root / "runtime.safetensors")
     for k in meta["bf16_keys"]:
         raw[k] = raw[k].view(torch.bfloat16)
-    used = set()
-
-    def take(name) -> Optional[torch.Tensor]:
-        t = raw.get(name)
-        if t is None:
-            return None
-        used.add(name)
-        return t.to(device)
-
-    def is_linear(prefix) -> bool:
-        return any(f"{prefix}.{keys[0][1]}" in raw for keys in _KEYS.values()
-                   ) or f"{prefix}.mix_cols" in raw
-
-    def linear(prefix, in_f: Optional[int]):
-        """The layer under ``prefix``, or None; ``in_f``: its logical
-        in_features (None: a mixed layer's side, whose width is its
-        columns')."""
-        if f"{prefix}.mix_cols" in raw:
-            cols = raw[f"{prefix}.mix_cols"]
-            if cols.numel() and not (
-                bool(torch.all(cols[1:] > cols[:-1]))
-                and 0 <= int(cols[0]) and int(cols[-1]) < in_f
-            ):
-                raise NotImplementedError(
-                    f"{prefix}: mixed columns not strictly increasing inside "
-                    f"{in_f}: a blocked (shards > 1) instance's shard-local "
-                    "ids; not ported"
-                )
-            kind = (Int2MixedLinear if f"{prefix}.mix2.wq2p" in raw
-                    else Int3MixedLinear)
-            return kind(
-                linear(f"{prefix}.{_MIXED[kind]}", in_f),
-                linear(f"{prefix}.mix8", None),
-                take(f"{prefix}.mix_cols"),
-                take(f"{prefix}.bias"),
-            )
-        for kind, keys in _KEYS.items():
-            if f"{prefix}.{keys[0][1]}" not in raw:
-                continue
-            layer = kind(*(take(f"{prefix}.{key}") for _, key in keys),
-                         bias=take(f"{prefix}.bias"))
-            if in_f is not None and kind is not DenseLinear:
-                _check_one_device(
-                    prefix, layer.in_padded,
-                    layer.group if kind is Int8Linear else _PAD_TO[kind],
-                    in_f,
-                )
-            return layer
-        return None
-
-    h, inter = cfg.hidden_size, cfg.intermediate_size
-    # the logical in_features of each projection
-    widths = dict(
-        q_proj=h, k_proj=h, v_proj=h, qkv_proj=h, kv_a_proj=h, q_a_proj=h,
-        q_b_proj=cfg.q_lora_rank,
-        o_proj=cfg.num_attention_heads * (
-            cfg.v_head_dim if cfg.is_mla else cfg.head_dim),
-        gate_proj=h, up_proj=h, gate_up_proj=h, down_proj=inter,
-    )
-
-    def mlp(prefix, down=inter) -> Mlp:
-        return Mlp(**{n: linear(f"{prefix}.{n}",
-                                down if n == "down_proj" else widths[n])
-                      for n in _MLP})
-
-    def stacked(prefix, down) -> Optional[StackedExperts]:
-        for fmt, (kind, per_byte) in dict(
-            int8=(Int8Linear, 1), int4=(Int4Linear, 2)
-        ).items():
-            p = f"{prefix}.stacked_{fmt}"
-            if f"{p}.gate_up_wq" not in raw:
-                continue
-            st = StackedExperts(
-                *(take(f"{p}.{name}") for name in _STACKED), fmt=fmt)
-            for name, in_f in (("gate_up", h), ("down", down)):
-                wq = getattr(st, f"{name}_wq")
-                in_p = wq.shape[2] * per_byte
-                group = in_p // getattr(st, f"{name}_scales").shape[1]
-                _check_one_device(
-                    f"{p}.{name}", in_p,
-                    group if kind is Int8Linear else _PAD_TO[kind], in_f,
-                )
-            return st
-        return None
-
-    def experts(prefix, down) -> list:
-        n = 0
-        while any(is_linear(f"{prefix}.experts.{n}.{m}") for m in _MLP):
-            n += 1
-        return [mlp(f"{prefix}.experts.{e}", down) for e in range(n)]
-
-    def block_mlp(p):
-        if is_linear(f"{p}.router"):
-            return MoeMlp(
-                router=linear(f"{p}.router", h),
-                experts=experts(p, inter),
-                num_experts_per_tok=cfg.num_experts_per_tok,
-                stacked=stacked(p, inter),
-            )
-        if f"{p}.router_weight" not in raw:
-            return mlp(p)
-        mi = cfg.moe_intermediate_size
-        return DeepseekMoe(
-            router_weight=take(f"{p}.router_weight"),
-            correction_bias=take(f"{p}.correction_bias"),
-            experts=experts(p, mi),
-            shared_experts=mlp(f"{p}.shared_experts",
-                               mi * cfg.n_shared_experts),
-            top_k=cfg.num_experts_per_tok,
-            n_group=cfg.n_group,
-            topk_group=cfg.topk_group,
-            norm_topk_prob=cfg.norm_topk_prob,
-            routed_scaling_factor=cfg.routed_scaling_factor,
-            stacked=stacked(p, mi),
-        )
-
-    def attention(p):
-        if f"{p}.kv_a_norm" in raw:
-            return MlaAttention(
-                **{n: linear(f"{p}.{n}", widths[n]) for n in _MLA},
-                **{n: take(f"{p}.{n}") for n in _MLA_ARRAYS},
-            )
-        return Attention(**{n: linear(f"{p}.{n}", widths[n]) for n in _ATTN})
-
-    blocks = []
-    for i in range(cfg.num_hidden_layers):
-        p = f"blocks.{i}"
-        blocks.append(Block(
-            input_layernorm=take(f"{p}.input_layernorm"),
-            attn=attention(f"{p}.attn"),
-            post_attention_layernorm=take(f"{p}.post_attention_layernorm"),
-            mlp=block_mlp(f"{p}.mlp"),
-        ))
+    reader = _Reader(raw, cfg, device)
+    blocks = [reader.block(f"blocks.{i}")
+              for i in range(cfg.num_hidden_layers)]
     model = Model(
-        embed_tokens=take("embed_tokens"), blocks=blocks,
-        norm=take("norm"), lm_head=linear("lm_head", h), cfg=cfg,
+        embed_tokens=reader.take("embed_tokens"), blocks=blocks,
+        norm=reader.take("norm"),
+        lm_head=reader.linear("lm_head", cfg.hidden_size), cfg=cfg,
     )
-    unused = sorted(set(raw) - used)
+    unused = sorted(set(raw) - reader.used)
     if unused:
         raise ValueError(f"tensors of no known layer: {unused[:4]}")
     return model
