@@ -199,7 +199,25 @@ without them, or when any phase fails. Phases:
    a mixed layer's side on its gathered columns, every expert on every
    token); written by ``export_runtime``, read back byte-equal, and
    served from what was read as phase 10 serves (int4-mixed: K2 on its
-   int4 sites, K1 on its int8 ones). Every phase prints its seconds
+   int4 sites, K1 on its int8 ones);
+13. the user entry points (``phase_entry_points``) on phase 5's
+   Llama-3.1-8B checkpoint (all 32 layers), before it is removed, with a
+   byte tokenizer of the smoke's own (``ByteTokenizer``: the card's
+   machine has no ``transformers``): the CLI (``cli._load`` in int8 at
+   ``max_seq`` 4096, ``eval_prompt`` on 128 tokens, ``chat_loop`` over a
+   turn, ``clear``, an empty line, a second turn and ``exit``; streamed
+   ids = returned ids = the eager loop's; ``--tp 2`` refused naming M16),
+   perplexity over two 4096-token windows (K1, and K8 once per layer a
+   window; the mean NLL within 1e-2 nats of the plain versions', a
+   window's NLL within 1e-5 of ``F.cross_entropy`` on its own logits,
+   K1's and K8's busy ms in one window), ``qa.main --tokenizer byte`` over 32 ARC-Easy items in
+   buckets 32 to 256 and their log-likelihoods against the plain
+   versions, the web app (JSON and SSE chats, ``/api/stats`` against the
+   weights and the card's memory, a switch to int4 that frees the int8
+   model, K2 in its chat, an unknown name refused while int4 answers)
+   and the reconstruction diagnostics of int8 and int4 against the
+   codebook model, layers 0 and 31 recomputed on the CPU; every launch of
+   it counted and held exact. Every phase prints its seconds
    (``seconds <phase>: N``).
 
 The line before the last is a JSON object with one record per kernel at
@@ -2411,6 +2429,527 @@ def phase_calibrated(device, path, fmt: str, vocab: int, calibration=None,
     return result
 
 
+# --------------------------------------------------------------------
+# The user entry points (M12's CLI and web app, M13's eval)
+# --------------------------------------------------------------------
+
+
+def _byte_level_bytes() -> list:
+    """The byte of each of the ids 3..258 of ``utils/synth_tokenizer.py``'s
+    directory: its vocabulary lists the ``ByteLevel`` alphabet (GPT-2's
+    byte-to-character table) sorted by character."""
+    printable = [*range(ord("!"), ord("~") + 1),
+                 *range(ord("¡"), ord("¬") + 1),
+                 *range(ord("®"), ord("ÿ") + 1)]
+    char = {b: b for b in printable}
+    for n, b in enumerate(b for b in range(256) if b not in char):
+        char[b] = 256 + n
+    return sorted(range(256), key=char.__getitem__)
+
+
+class ByteTokenizer:
+    """The byte tokenizer of ``utils/synth_tokenizer.py``'s directory
+    without ``transformers``, which the card's machine lacks: ids 0-2
+    ``<pad>``, ``<s>``, ``</s>`` (the EOS), each UTF-8 byte of the text at
+    its id from 3 on, no special tokens added, its chat template. Ids from
+    259 on decode to nothing. The smoke's checks are on ids."""
+
+    eos_token_id = 2
+
+    def __init__(self):
+        self.byte_of = _byte_level_bytes()
+        self.id_of = {b: 3 + i for i, b in enumerate(self.byte_of)}
+
+    def encode(self, text: str) -> list:
+        return [self.id_of[b] for b in text.encode("utf-8")]
+
+    def __call__(self, text, return_tensors=None, add_special_tokens=True):
+        return {"input_ids": self.encode(text)}
+
+    def decode(self, ids, skip_special_tokens=True) -> str:
+        """The text of ``ids``, the specials skipped (as the entry points
+        ask)."""
+        return bytes(self.byte_of[i - 3] for i in ids if 3 <= i < 259
+                     ).decode("utf-8", errors="replace")
+
+    def apply_chat_template(self, messages, add_generation_prompt=True):
+        text = "".join(f"{m['role']}: {m['content']}\n" for m in messages)
+        return self.encode(
+            text + ("assistant:" if add_generation_prompt else ""))
+
+
+class Recorder:
+    """A generator as the entry points call it, recording each
+    ``generate``: its prompt, the ids its stream callback got, the ids it
+    returned, TTFT and decode tok/s (host clock; the ids are read back
+    before ``generate`` returns). It holds ids and times only, so dropping
+    it drops the generator it wraps."""
+
+    def __init__(self, gen, calls: list):
+        self.gen, self.calls, self.device = gen, calls, gen.device
+
+    def generate(self, prompt, stream_callback=None, **kwargs):
+        streamed, stamps = [], []
+
+        def stream(tok):
+            stamps.append(time.perf_counter())
+            streamed.append(int(tok))
+            if stream_callback is not None:
+                stream_callback(tok)
+
+        t0 = time.perf_counter()
+        out = self.gen.generate(prompt, stream_callback=stream, **kwargs)
+        t1 = time.perf_counter()
+        self.calls.append(dict(
+            prompt=[int(t) for t in prompt], streamed=streamed,
+            returned=list(out), ttft_s=stamps[0] - t0,
+            decode_tok_s=(len(out) - 1) / max(t1 - stamps[0], 1e-9),
+        ))
+        return out
+
+
+def _call_summary(call) -> dict:
+    return dict(prompt=len(call["prompt"]), new=len(call["returned"]),
+                ttft_s=call["ttft_s"], decode_tok_s=call["decode_tok_s"])
+
+
+def _http(base, path, obj=None):
+    """GET (``obj`` None) or POST JSON; the response object."""
+    import urllib.request
+
+    data = None if obj is None else json.dumps(obj).encode()
+    return urllib.request.urlopen(urllib.request.Request(
+        base + path, data=data, headers={"Content-Type": "application/json"},
+    ), timeout=600)
+
+
+def _sse_events(resp) -> list:
+    return [json.loads(line[len("data: "):])
+            for line in resp.read().decode().split("\n\n")
+            if line.startswith("data: ")]
+
+
+def _stats_after(base, t: float, timeout: float = 10.0) -> dict:
+    """The memory series once it holds a sample taken after host time
+    ``t``."""
+    t_end = time.time() + timeout
+    while True:
+        stats = json.loads(_http(base, "/api/stats").read())
+        if stats["time"] and stats["time"][-1] > t:
+            return stats
+        if time.time() > t_end:
+            raise AssertionError("the memory poll took no sample")
+        time.sleep(0.1)
+
+
+def _qa_records(rng, n_items: int, context: tuple) -> list:
+    """ARC-Easy records of 4 choices whose questions run evenly from
+    ``context[0]`` to ``context[1]`` bytes: the byte tokenizer's pairs
+    fill buckets 32 to 256 at the smoke's (1, 200)."""
+    words = ["alpha", "beta", "gamma", "delta", "stone", "river", "light",
+             "seven", "north", "cloud", "sugar", "metal", "paper", "quiet"]
+    out = []
+    for i, n in enumerate(np.linspace(*context, n_items).astype(int)):
+        question = " ".join(rng.choice(words, size=n // 6 + 1))[:n]
+        # the first item's one-word choices keep its pairs in bucket 32
+        choices = [" ".join(rng.choice(words, size=1 if i == 0 else int(k)))
+                   for k in rng.integers(1, 4, 4)]
+        out.append(dict(question=question,
+                        choices=dict(text=choices, label=list("ABCD")),
+                        answerKey="ABCD"[i % 4]))
+    return out
+
+
+# the run whose checkpoint the entry points are driven on (full width, all
+# 32 layers)
+ENTRY_RUN = "Llama-3.1-8B"
+# a window's mean NLL through the kernels against the plain versions, nats
+PPL_NLL_TOL = 1e-2
+# a window's summed NLL against F.cross_entropy on its own logits
+PPL_CE_RTOL = 1e-5
+# one pair's summed log-likelihood through the kernels against the plain
+# versions: |ll - ll_plain| <= QA_RTOL * |ll_plain| + QA_ATOL
+QA_RTOL, QA_ATOL = 1e-3, 1e-2
+# a layer's diagnostics recomputed from CPU copies against the card's
+DIAG_RTOL = 1e-5
+
+
+def phase_entry_points(device, path, vocab: int, seed=0, prompt_len=128,
+                       new_tokens=32, max_seq=4096, ppl_seq=4096,
+                       ppl_windows=2, qa_items=32, qa_context=(1, 200)):
+    """The entry points a user runs (``python -m vptq_tpu_torch``, the web
+    app, ``eval.ppl``, ``eval.qa``, the diagnostics) on the checkpoint at
+    ``path``, with :class:`ByteTokenizer`:
+
+    1. CLI: ``cli._load`` (int8, ``max_seq``, greedy), ``eval_prompt`` on a
+       ``prompt_len``-token prompt and ``chat_loop`` over ``hello``,
+       ``clear``, an empty line, a second message and ``exit``; every
+       call's streamed ids are its returned ids and the eager loop's
+       (:func:`eager_tokens`); launches exact; ``--tp 2`` refused naming
+       M16.
+    2. Perplexity over ``ppl_windows`` windows of ``ppl_seq`` byte ids
+       from ``seed``: launches exact (K1 four a layer, K8 one a layer at
+       1024 tokens or more, a window); the mean NLL within PPL_NLL_TOL of
+       the plain versions' (``plain_versions``: K1 and K8 swapped); a
+       window's NLL within PPL_CE_RTOL of ``F.cross_entropy`` on its own
+       logits; on the card K1's and K8's busy ms in one window.
+    3. QA: an ARC-Easy file of ``qa_items`` items (4 choices) through
+       ``qa.main`` with ``--tokenizer byte`` (its own int8 load; launches
+       exact), then ``loglikelihoods`` on the same pairs through the
+       kernels and through the plain versions, each pair within
+       QA_RTOL · |plain| + QA_ATOL.
+    4. Web app on a thread, serving the CLI's generator, which the phase
+       then drops: ``/``, ``/api/models``, ``/api/stats`` (on the card in
+       use at least the int8 weights, the limit the card's memory), a
+       greedy chat as JSON and as SSE (the deltas are the content, the
+       ids equal), a switch to int4 (the int8 model freed: in use below
+       both models' weights), a chat on K2, an unknown name (500; int4
+       still answers).
+    5. Diagnostics: ``model_reconstruction_report`` of the int8 (a third
+       load) and the int4 model against the codebook model (``fuse=False``)
+       over every linear, int4's worst relative RMS above int8's, the
+       first and the last layer recomputed from CPU copies within
+       DIAG_RTOL.
+
+    Returns ``launches`` (the counted runs) and the phase's numbers."""
+    import copy
+    import io
+    import threading
+    import types
+    import urllib.error
+
+    import torch.nn.functional as F
+
+    from vptq_tpu_torch.eval import ppl as ppl_mod
+    from vptq_tpu_torch.eval import qa
+    from vptq_tpu_torch.eval.diagnostics import (
+        model_reconstruction_report,
+        summarize_report,
+    )
+    from vptq_tpu_torch.models.llama import forward
+    from vptq_tpu_torch.models.loader import load_model
+    from vptq_tpu_torch.serving import cli, webapp
+    from vptq_tpu_torch.serving.generate import Generator
+
+    fns = {k: kernel_fns(k)[0] for k in ALL_KERNELS}
+    cuda = torch.device(device).type == "cuda"
+    launches = dict.fromkeys(ALL_KERNELS, 0)
+    result = {}
+    tok = ByteTokenizer()
+    rng = np.random.default_rng(seed)
+
+    def counted(run, expected_of):
+        """``run()`` with every count set to 0 first; the counts after it
+        must be ``expected_of(its result)`` (zeros off the card); they add
+        to the phase's."""
+        for f in fns.values():
+            f.launches = 0
+        out = run()
+        _sync(device)
+        counts = {k: f.launches for k, f in fns.items()}
+        expected = dict.fromkeys(ALL_KERNELS, 0)
+        if cuda:
+            expected.update(expected_of(out))
+        if counts != expected:
+            raise AssertionError(f"launches {counts}, expected {expected}")
+        for k in launches:
+            launches[k] += counts[k]
+        return out
+
+    def requests_launches(calls, fmt="int8"):
+        out = dict.fromkeys(ALL_KERNELS, 0)
+        for call in calls:
+            for k, n in expected_launches(
+                    cfg, fmt, len(call["prompt"]), len(call["returned"]),
+                    buckets).items():
+                out[k] += n
+        return out
+
+    # 1. the CLI
+    argv = ["--model", path, "--runtime-format", "int8", "--max-seq",
+            str(max_seq), "--temperature", "0", "--max-new-tokens",
+            str(new_tokens), "--device", str(device)]
+    args = cli.build_parser().parse_args(argv)
+    t0 = time.perf_counter()
+    model, gen = cli._load(args)
+    _sync(device)
+    cli_out = dict(load_s=time.perf_counter() - t0)
+    cfg, buckets = model.cfg, gen.prompt_buckets
+    try:
+        cli._load(cli.build_parser().parse_args([*argv, "--tp", "2"]))
+        raise AssertionError("--tp 2 was not refused")
+    except SystemExit as e:
+        if "M16" not in str(e):
+            raise AssertionError(f"--tp 2 refused without M16: {e}") from e
+    calls = []
+    rec = Recorder(gen, calls)
+    args.prompt = "".join(map(chr, rng.integers(32, 127, prompt_len)))
+    second = "and what of the " + " ".join(["river"] * 6) + "?"
+    stdin = io.StringIO(f"hello\nclear\n\n{second}\nexit\n")
+    shown = io.StringIO()
+    with contextlib.redirect_stdout(shown), \
+            contextlib.redirect_stderr(io.StringIO()), \
+            mock.patch("sys.stdin", stdin):
+        counted(lambda: cli.eval_prompt(rec, tok, args),
+                lambda _: requests_launches(calls[-1:]))
+        counted(lambda: cli.chat_loop(rec, tok, args),
+                lambda _: requests_launches(calls[1:]))
+    want_prompts = [
+        tok(args.prompt)["input_ids"],
+        tok.apply_chat_template([{"role": "user", "content": "hello"}]),
+        tok.apply_chat_template([{"role": "user", "content": second}]),
+    ]
+    if [c["prompt"] for c in calls] != want_prompts:
+        raise AssertionError("the CLI sent other prompts")
+    if len(want_prompts[0]) != prompt_len or not (
+            shown.getvalue().startswith(args.prompt)
+            and shown.getvalue().count("Assistant: ") == 2):
+        raise AssertionError("the CLI's output lacks the prompt or a turn")
+    for call in calls:
+        if call["streamed"] != call["returned"]:
+            raise AssertionError("CLI: streamed ids differ from returned")
+        if eager_tokens(model, gen, call["prompt"],
+                        len(call["returned"])) != call["returned"]:
+            raise AssertionError("CLI: ids differ from the eager loop's")
+    cli_out["requests"] = [_call_summary(c) for c in calls]
+    result["cli"] = cli_out
+    print("entry cli " + json.dumps(cli_out), flush=True)
+
+    # 2. perplexity
+    ids = rng.integers(3, 259, ppl_seq * ppl_windows)
+    t0 = time.perf_counter()
+    ppl = counted(
+        lambda: ppl_mod.perplexity(model, ids, seq_len=ppl_seq),
+        lambda _: launches_of(cfg, "int8", [(1, ppl_seq, True)] * ppl_windows))
+    ppl_s = time.perf_counter() - t0
+    with plain_versions("int8"):
+        ppl_plain = ppl_mod.perplexity(model, ids, seq_len=ppl_seq)
+    nll_gap = abs(np.log(ppl) - np.log(ppl_plain))
+    if not nll_gap <= PPL_NLL_TOL:
+        raise AssertionError(f"ppl {ppl} vs plain {ppl_plain}")
+    window = torch.from_numpy(ids[:ppl_seq])[None].to(device)
+    seen = []
+
+    def spy(*a, **kw):
+        out = forward(*a, **kw)
+        seen.append(out[0])
+        return out
+
+    with mock.patch.object(ppl_mod, "forward", spy):
+        nll, count = ppl_mod.window_nll(model, window)
+    with torch.inference_mode():
+        ce = F.cross_entropy(seen[0][0, :-1], window[0, 1:],
+                             reduction="sum").item()
+    del seen
+    if not abs(nll - ce) <= PPL_CE_RTOL * abs(ce):
+        raise AssertionError(f"window NLL {nll} vs cross entropy {ce}")
+    ppl_out = dict(
+        ppl=ppl, ppl_plain=ppl_plain, mean_nll_gap=float(nll_gap),
+        window_nll=nll, cross_entropy=ce, windows=ppl_windows,
+        seq_len=ppl_seq, s_per_window=ppl_s / ppl_windows,
+        tok_s=ppl_seq * ppl_windows / ppl_s,
+    )
+    if cuda:
+        from torch.profiler import ProfilerActivity, profile
+
+        ppl_mod.window_nll(model, window)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            ppl_mod.window_nll(model, window)
+        events = _device_events(prof)
+        on_path = ["w8_matmul"] + (
+            [FLASH] if launches_of(cfg, "int8", [(1, ppl_seq, True)])[FLASH]
+            else [])
+        ppl_out["window_busy_ms"] = sum(
+            e.device_time_total for e in events) / 1e3
+        ppl_out["kernel_ms"] = _kernel_ms(
+            events, {k: fns[k].trace_tags for k in on_path}, "ppl window")
+    result["ppl"] = ppl_out
+    print("entry ppl " + json.dumps(ppl_out), flush=True)
+
+    # 3. QA
+    qa_dir = Path(tempfile.mkdtemp(prefix="vptq_smoke_qa_"))
+    try:
+        data = qa_dir / "arc_easy.jsonl"
+        data.write_text("".join(json.dumps(r) + "\n" for r in _qa_records(
+            rng, qa_items, qa_context)))
+        items = qa.load_task("arc_easy", str(data))
+        pairs, _ = qa._pairs(items, qa._byte_tokenizer)
+        batches = [S for S, _ in qa._batches(qa._prepared(pairs, 2048), 8)]
+        printed = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            rc = counted(lambda: qa.main([
+                "--model", path, "--task", "arc_easy", "--data", str(data),
+                "--tokenizer", "byte", "--device", str(device)]),
+                lambda _: launches_of(cfg, "int8",
+                                      [(8, S, True) for S in batches]))
+        qa_main_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(qa_dir, ignore_errors=True)
+    headline = printed.getvalue().splitlines()[-2]
+    if rc != 0 or not headline.startswith("arc_easy: acc"):
+        raise AssertionError(f"qa.main: {rc} {headline}")
+    t0 = time.perf_counter()
+    got = qa.loglikelihoods(model, pairs)
+    qa_s = time.perf_counter() - t0
+    with plain_versions("int8"):
+        want = qa.loglikelihoods(model, pairs)
+    gaps = np.abs(got - want) / (QA_RTOL * np.abs(want) + QA_ATOL)
+    if not (np.isfinite(got).all() and gaps.max() <= 1.0):
+        raise AssertionError(f"QA: a pair off the plain versions ({gaps})")
+    qa_out = dict(items=len(items), pairs=len(pairs),
+                  buckets=sorted(set(batches)), calls=len(batches),
+                  headline=headline, main_s=qa_main_s, scoring_s=qa_s,
+                  items_per_s=len(items) / qa_s,
+                  worst_of_bound=float(gaps.max()))
+    result["qa"] = qa_out
+    print("entry qa " + json.dumps(qa_out), flush=True)
+
+    # 4. the web app, serving the CLI's generator; the phase drops its own
+    # references, so that the switch frees the int8 model
+    int8_bytes = buffer_bytes(model)
+    web_calls = []
+
+    def load_fn(value):
+        where, fmt = value
+        m = load_model(where, dtype=torch.bfloat16, runtime_format=fmt,
+                       device=device)
+        return Recorder(Generator(m, max_seq=max_seq), web_calls), None
+
+    httpd = webapp.serve(
+        Recorder(gen, web_calls), tok, port=0,
+        gen_args={"max_new_tokens": new_tokens, "temperature": 0.0},
+        models={"int8": (path, "int8"), "int4": (path, "int4")},
+        current="int8", load_fn=load_fn,
+    )
+    del rec, gen, model
+    server = threading.Thread(target=httpd.serve_forever, daemon=True)
+    server.start()
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    web = {}
+    try:
+        page = _http(base, "/").read().decode()
+        models = json.loads(_http(base, "/api/models").read())
+        if "GPU memory" not in page or models != {
+                "models": ["int8", "int4"], "current": "int8"}:
+            raise AssertionError(f"web app: page or models {models}")
+        stats = _stats_after(base, 0.0)
+        web["int8_in_use_gb"] = stats["bytes_in_use"][-1] / 1e9
+        web["limit_gb"] = stats["bytes_limit"][-1] / 1e9
+        if cuda and not (
+                stats["bytes_in_use"][-1] >= int8_bytes
+                and stats["bytes_limit"][-1] == torch.cuda
+                .get_device_properties(device).total_memory):
+            raise AssertionError(f"web app stats {stats}")
+        msgs = [{"role": "user", "content": "tell me a story"}]
+        reply = counted(
+            lambda: json.loads(_http(base, "/api/chat",
+                                     {"messages": msgs}).read()),
+            lambda _: requests_launches(web_calls[-1:]))
+        events = counted(
+            lambda: _sse_events(_http(base, "/api/chat",
+                                      {"messages": msgs, "stream": True})),
+            lambda _: requests_launches(web_calls[-1:]))
+        done = events[-1]
+        if not (done.get("done") and done["content"] == reply["content"]
+                and "".join(e["delta"] for e in events[:-1])
+                == done["content"]
+                and web_calls[0]["returned"] == web_calls[1]["returned"]
+                and all(c["streamed"] == c["returned"] for c in web_calls)
+                and done["tokens_per_s"] > 0 and reply["tokens_per_s"] > 0):
+            raise AssertionError(f"web app chat: {reply} / {done}")
+        web["chat_int8"] = _call_summary(web_calls[1])
+        web["sse_tok_s"] = done["tokens_per_s"]
+        t0 = time.perf_counter()
+        switched = json.loads(_http(base, "/api/model",
+                                    {"name": "int4"}).read())
+        _sync(device)
+        web["switch_s"] = time.perf_counter() - t0
+        t_switched = time.time()
+        int4_bytes = buffer_bytes(httpd.state.generator.gen.model)
+        stats = _stats_after(base, t_switched)
+        web["int4_in_use_gb"] = stats["bytes_in_use"][-1] / 1e9
+        if switched != {"current": "int4"} or (
+                cuda and stats["bytes_in_use"][-1] >= int8_bytes + int4_bytes):
+            raise AssertionError(
+                f"switch {switched}: in use {stats['bytes_in_use'][-1]}, "
+                f"weights {int8_bytes} + {int4_bytes}")
+        reply4 = counted(
+            lambda: json.loads(_http(base, "/api/chat",
+                                     {"messages": msgs}).read()),
+            lambda _: requests_launches(web_calls[-1:], "int4"))
+        if cuda and launches["w4_matmul"] <= 0:
+            raise AssertionError("the int4 chat launched no K2")
+        web["chat_int4"] = _call_summary(web_calls[-1])
+        try:
+            _http(base, "/api/model", {"name": "int3-from-nowhere"})
+            raise AssertionError("an unknown model was switched to")
+        except urllib.error.HTTPError as e:
+            if e.code != 500:
+                raise
+        again = counted(
+            lambda: json.loads(_http(base, "/api/chat",
+                                     {"messages": msgs}).read()),
+            lambda _: requests_launches(web_calls[-1:], "int4"))
+        if (again["content"] != reply4["content"]
+                or httpd.state.current != "int4"):
+            raise AssertionError("the int4 model did not survive a bad name")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        server.join(timeout=30)
+    result["web"] = web
+    print("entry web " + json.dumps(web), flush=True)
+
+    # 5. diagnostics: the int4 model the web app switched to, the int8
+    # model loaded once more, both against the codebook model
+    int4_model = httpd.state.generator.gen.model
+    del httpd
+    t0 = time.perf_counter()
+    reference = load_model(path, dtype=torch.bfloat16,
+                           runtime_format="codebook", fuse=False,
+                           device=device)
+    int8_model = load_model(path, dtype=torch.bfloat16,
+                            runtime_format="int8", device=device)
+    _sync(device)
+    diag = dict(load_s=time.perf_counter() - t0)
+    last = cfg.num_hidden_layers - 1
+    cpu_ref = {i: copy.deepcopy(reference.blocks[i]).cpu()
+               for i in (0, last)}
+    for fmt, m in (("int8", int8_model), ("int4", int4_model)):
+        t0 = time.perf_counter()
+        report = model_reconstruction_report(m, reference)
+        _sync(device)
+        seconds = time.perf_counter() - t0
+        summary = summarize_report(report)
+        if summary["n_layers"] != 4 * cfg.num_hidden_layers + 1:
+            raise AssertionError(f"diagnostics {fmt}: {summary}")
+        worst = 0.0
+        for i in (0, last):
+            here = model_reconstruction_report(
+                types.SimpleNamespace(
+                    blocks=[copy.deepcopy(m.blocks[i]).cpu()],
+                    lm_head=None),
+                types.SimpleNamespace(blocks=[cpu_ref[i]], lm_head=None))
+            for name, r in here.items():
+                card = report[name.replace("layers.0.", f"layers.{i}.", 1)]
+                for k in ("rel_rms", "max_abs_err", "ref_rms"):
+                    gap = abs(r[k] - card[k]) / max(abs(card[k]), 1e-30)
+                    worst = max(worst, gap)
+        if not worst <= DIAG_RTOL:
+            raise AssertionError(f"diagnostics {fmt}: CPU recompute {worst}")
+        diag[fmt] = dict(summary, seconds=seconds, cpu_recompute_gap=worst)
+    if not diag["int4"]["worst_rel_rms"] > diag["int8"]["worst_rel_rms"]:
+        raise AssertionError(f"diagnostics: int4 not above int8 {diag}")
+    result["diagnostics"] = diag
+    print("entry diagnostics " + json.dumps(diag), flush=True)
+    del int4_model, int8_model, reference, cpu_ref
+    if cuda:
+        torch.cuda.empty_cache()
+    result["launches"] = {k: n for k, n in launches.items() if n}
+    return dict(entry_points=result, launches=launches)
+
+
 def _device_events(prof):
     return [
         e for e in prof.events()
@@ -2968,6 +3507,12 @@ def main() -> int:
             for fmt in trips:
                 with timed(f"round trip {label} {fmt}"):
                     phase_round_trip(device, path, fmt, cfg["vocab_size"])
+            if label == ENTRY_RUN:
+                with timed("entry points"):
+                    e2e = phase_entry_points(device, path, cfg["vocab_size"])
+                print(f"e2e {label} entry points "
+                      + json.dumps(e2e["entry_points"]))
+                count(e2e)
             for fmt, (layers, tokens) in calibrated.items():
                 cut = cut_checkpoint(path, layers)
                 try:

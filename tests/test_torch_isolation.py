@@ -13,6 +13,7 @@ import re
 import shutil
 import subprocess
 import sys
+import threading
 from pathlib import Path
 from unittest import mock
 
@@ -99,19 +100,26 @@ import vptq_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(vptq_tpu_torch.__path__, "vptq_tpu_torch.")]
 assert {"vptq_tpu_torch.ops.flash_attention", "vptq_tpu_torch.ops.bf16_matmul",
         "vptq_tpu_torch.ops.vq_smallk_matmul",
-        "vptq_tpu_torch.examples.w4_wall_candidates"} <= set(names)
+        "vptq_tpu_torch.examples.w4_wall_candidates",
+        "vptq_tpu_torch.__main__", "vptq_tpu_torch.serving.webapp",
+        "vptq_tpu_torch.eval.qa", "vptq_tpu_torch.eval.datasets"} <= set(names)
 for name in names:
     importlib.import_module(name)
 import chip_smoke
 bad = sorted(
     m for m in sys.modules
-    if m.split(".")[0] in ("jax", "jaxlib", "flax", "ml_dtypes", "safetensors", "vptq_tpu")
+    if m.split(".")[0] in ("jax", "jaxlib", "flax", "ml_dtypes", "safetensors", "vptq_tpu",
+                           "transformers", "tokenizers", "datasets")
 )
 print(len(names), bad)
 """
 
 
 def test_port_imports_no_jax_and_no_vptq_tpu():
+    """Nor ``transformers``, ``tokenizers`` or ``datasets``, which the
+    card's machine lacks: the entry points import them inside the
+    functions that read a tokenizer or a corpus. Importing
+    ``vptq_tpu_torch.__main__`` runs nothing."""
     env = {k: v for k, v in os.environ.items() if not k.startswith("JAX")}
     out = subprocess.run(
         [sys.executable, "-c", _IMPORT_ALL], cwd=ROOT, env=env,
@@ -273,6 +281,142 @@ def test_chip_smoke_long_prompts_on_cpu(window):
         assert e2e["kernels"] == ["w8_matmul", "flash_attention"]
         assert e2e["long_prefill_logits_max_abs_diff"] == 0.0
     assert set(e2e["launches"].values()) == {0}  # the CPU launches nothing
+
+
+def test_chip_smoke_entry_points_on_cpu(capsys):
+    """The smoke's entry-points phase at a tiny size with the plain
+    versions: the CLI (one-shot and chat, streamed = returned = eager
+    ids), perplexity against the plain versions and the cross entropy,
+    ``qa.main`` and the pairs, the web app (JSON and SSE, the switch to
+    int4, a bad name), the diagnostics and their CPU recompute."""
+    cfg = dict(TINY, vocab_size=272, tie_word_embeddings=False)
+    path, _ = chip_smoke.write_checkpoint(cfg, VQ)
+    try:
+        out = chip_smoke.phase_entry_points(
+            "cpu", path, cfg["vocab_size"], prompt_len=12, new_tokens=4,
+            max_seq=256, ppl_seq=24, qa_items=8, qa_context=(1, 60))
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
+    got = out["entry_points"]
+    assert set(out["launches"].values()) == {0}  # the CPU launches nothing
+    assert [r["prompt"] for r in got["cli"]["requests"]] == [12, 22, 69]
+    assert got["ppl"]["mean_nll_gap"] == 0.0 and got["ppl"]["windows"] == 2
+    assert got["qa"]["buckets"] == [32, 64, 128] and got["qa"]["pairs"] == 32
+    assert got["qa"]["worst_of_bound"] == 0.0
+    assert got["web"]["chat_int4"]["new"] == 4
+    diag = got["diagnostics"]
+    assert diag["int8"]["n_layers"] == diag["int4"]["n_layers"] == 9
+    assert diag["int4"]["worst_rel_rms"] > diag["int8"]["worst_rel_rms"]
+    assert diag["int8"]["cpu_recompute_gap"] == 0.0
+    lines = capsys.readouterr().out.splitlines()
+    assert [ln.split()[1] for ln in lines if ln.startswith("entry ")] == [
+        "cli", "ppl", "qa", "web", "diagnostics"]
+
+
+@pytest.mark.parametrize("text", [
+    "hello", "The quick brown fox, 42 times!\n", "héllo wörld ✓ 😀", "",
+    "\x00\x01 \x7f\xa0\xad",
+])
+def test_smoke_byte_tokenizer_gives_the_directory_ids(tmp_path, text):
+    """The smoke's tokenizer (the card has no transformers) gives the ids
+    of ``utils/synth_tokenizer.py``'s directory as ``AutoTokenizer`` reads
+    it: the text, the chat template with and without the generation
+    prompt, and decodes them back."""
+    transformers = pytest.importorskip("transformers")
+    from vptq_tpu_torch.utils.synth_tokenizer import write_byte_tokenizer
+
+    write_byte_tokenizer(str(tmp_path), vocab_size=300)
+    hf = transformers.AutoTokenizer.from_pretrained(str(tmp_path))
+    tok = chip_smoke.ByteTokenizer()
+    assert tok.eos_token_id == hf.eos_token_id
+    assert tok(text)["input_ids"] == hf(text)["input_ids"]
+    messages = [{"role": "system", "content": "be brief"},
+                {"role": "user", "content": text}]
+    for gen_prompt in (True, False):
+        assert tok.apply_chat_template(
+            messages, add_generation_prompt=gen_prompt
+        ) == hf.apply_chat_template(messages,
+                                    add_generation_prompt=gen_prompt)
+    ids = tok(text)["input_ids"]
+    assert tok.decode(ids) == hf.decode(ids, skip_special_tokens=True)
+    assert tok.decode([2, *ids, 270]) == hf.decode(
+        [2, *ids, 270], skip_special_tokens=True)
+    assert sorted(tok.id_of.values()) == list(range(3, 259))
+
+
+@pytest.mark.parametrize("entry,argv", [
+    ("cli", ["--model", "d", "--prompt", "hi"]),
+    ("webapp", ["--model", "d"]),
+    ("ppl", ["--model", "d", "--text", "t"]),
+    ("qa", ["--model", "d", "--task", "arc_easy", "--data", "t"]),
+])
+def test_entry_points_exit_nonzero_without_a_card(entry, argv, monkeypatch):
+    """Every new ``main`` runs on the card unless given ``--device cpu``:
+    without a card it exits non-zero before it reads anything."""
+    module = importlib.import_module({
+        "cli": "vptq_tpu_torch.serving.cli",
+        "webapp": "vptq_tpu_torch.serving.webapp",
+        "ppl": "vptq_tpu_torch.eval.ppl",
+        "qa": "vptq_tpu_torch.eval.qa",
+    }[entry])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit) as exc:
+        module.main(argv)
+    assert exc.value.code not in (0, None)
+    assert "--device cpu" in str(exc.value.code)
+    # --tp above 1 is refused before anything else, naming M16
+    if entry in ("cli", "webapp"):
+        with pytest.raises(SystemExit, match="M16"):
+            (module._load(module.build_parser().parse_args(
+                [*argv, "--tp", "2"])) if entry == "cli"
+             else module.main([*argv, "--tp", "2"]))
+
+
+def test_device_monitor_poll_asks_the_runtime_nothing(monkeypatch):
+    """The web app's memory poll runs beside a handler thread that may be
+    capturing a CUDA graph in the global mode, so it reads the allocator's
+    counters (``memory_stats``) and never ``mem_get_info``; the card's
+    total memory is read once, when the monitor is made."""
+    import types
+
+    from vptq_tpu_torch.utils.device_monitor import DeviceMonitor
+
+    asked = []
+
+    def forbidden(*a, **k):
+        raise AssertionError("the poll called the CUDA runtime")
+
+    def props(device):
+        asked.append(device)
+        return types.SimpleNamespace(total_memory=80 << 30)
+
+    stats = {"allocated_bytes.all.current": 5 << 30,
+             "allocated_bytes.all.peak": 7 << 30}
+    monkeypatch.setattr(torch.cuda, "mem_get_info", forbidden)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    monkeypatch.setattr(torch.cuda, "get_device_properties", props)
+    monkeypatch.setattr(torch.cuda, "memory_stats", lambda device: stats)
+    mon = DeviceMonitor("cuda", poll_interval=0.01)
+    assert mon.device == torch.device("cuda", 0) and len(asked) == 1
+    monkeypatch.setattr(torch.cuda, "current_device", forbidden)
+    monkeypatch.setattr(torch.cuda, "get_device_properties", forbidden)
+    mon.start()
+    try:
+        for _ in range(500):
+            if len(mon.series()["time"]) >= 3:
+                break
+            threading.Event().wait(0.01)
+    finally:
+        mon.stop()
+    assert not mon._thread.is_alive()
+    series = mon.series()
+    assert len(series["time"]) >= 3
+    assert set(series["bytes_in_use"]) == {5 << 30}
+    assert set(series["peak_bytes"]) == {7 << 30}
+    assert set(series["bytes_limit"]) == {80 << 30}
+    cpu = DeviceMonitor("cpu")
+    assert cpu.snapshot() == {"bytes_in_use": 0, "bytes_limit": 0,
+                              "peak_bytes": 0}
 
 
 # tests/test_torch_calibrate.py's spread: a well-conditioned tiny model
@@ -2617,7 +2761,8 @@ import sys
 from vptq_tpu_torch.tools import export_runtime
 bad = sorted(
     m for m in sys.modules
-    if m.split(".")[0] in ("jax", "jaxlib", "flax", "ml_dtypes", "safetensors", "vptq_tpu")
+    if m.split(".")[0] in ("jax", "jaxlib", "flax", "ml_dtypes", "safetensors", "vptq_tpu",
+                           "transformers", "tokenizers", "datasets")
 )
 print(export_runtime.__name__, bad)
 """

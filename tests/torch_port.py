@@ -73,3 +73,15 @@ def port_layer(planes, cfg) -> VQLinear:
         bias=tensor(planes["bias"]),
         cfg=tcfg,
     )
+
+
+def xla_cpu_silu(x):
+    """``jax.nn.silu`` as XLA's CPU backend lowers it: ``x * (1 / (1 +
+    exp(-x)))``, each op rounded to the input's dtype. In bf16 the port's
+    ``F.silu`` rounds once, so one down_proj input element in a few
+    differs by a bf16 ulp and a greedy token on a near tie can part; with
+    this in its place the port's bf16 logits equal those of vptq_tpu's
+    op-by-op forward bit for bit (``tests/test_torch_cli.py``). Tests that
+    hold bf16 text to the JAX package's swap it in with
+    ``monkeypatch.setattr(F, "silu", ...)``."""
+    return x * (1 / (1 + torch.exp(-x)))

@@ -28,6 +28,7 @@ import json
 import logging
 import mmap
 import os
+import sys
 from pathlib import Path
 from typing import Dict, Optional
 
@@ -66,6 +67,7 @@ __all__ = [
     "load_model",
     "load_state_dict",
     "normalize_vq_layer",
+    "entry_device",
     "resolve_device",
     "write_safetensors",
 ]
@@ -100,6 +102,19 @@ def resolve_device(device=None) -> torch.device:
             )
         return torch.device("cuda")
     return torch.device(device)
+
+
+def entry_device(device: str) -> torch.device:
+    """The device a command-line entry point runs on (its ``--device``,
+    ``cuda`` unless the caller asks for the CPU); exits non-zero when
+    CUDA is asked for and there is no card."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit(
+            f"{sys.argv[0]}: no CUDA device is available; pass --device cpu "
+            "to run on the CPU"
+        )
+    return resolve_device(dev)
 
 
 def _read_safetensors(path: Path) -> Dict[str, torch.Tensor]:
