@@ -217,7 +217,26 @@ without them, or when any phase fails. Phases:
    model, K2 in its chat, an unknown name refused while int4 answers)
    and the reconstruction diagnostics of int8 and int4 against the
    codebook model, layers 0 and 31 recomputed on the CPU; every launch of
-   it counted and held exact. Every phase prints its seconds
+   it counted and held exact;
+14. the offline tools and the planner (M14, ``phase_tools``) on the same
+   checkpoint: ``python -m vptq_tpu_torch.tools.pre_process`` on the card
+   (permutations absorbed), unpack then pack giving the original bytes,
+   the original and the processed checkpoint in int8 with byte-equal
+   codes and scales in every linear and identical tokens and bit-equal
+   prefill logits on four greedy requests (16 / 128 / 256 / 512 tokens,
+   32 new; K1's launches held exact and counted); the loaded int8 and
+   int4 models' bytes equal to ``utils/memory.py``'s estimates, the
+   cache's to ``kv_cache_bytes``, a load at ``hbm_gb=4`` refused before
+   the reader or the allocator is reached, the budget table against the
+   card's memory; ``requantize`` of layer 0's seven linears recovering
+   their ids; ``utils/profiling``'s ``device_time`` of K2 at T = 1 on
+   gate_up within 10% above the kernel phase's median, its ``roofline``
+   giving the kernel table's bound, a ``trace`` naming K2's kernel;
+   ``python -m vptq_tpu_torch.tools.plan`` for Llama-3-8B in int4 and
+   int8, and one decode step on the meta device at Llama-3-8B,
+   Mixtral-8x7B and DeepSeek-R1 geometry. At the end plan's predicted
+   tok/s stands beside the graphed steps of Llama-3.1-8B, Qwen2.5-7B and
+   Mistral-7B (``plan_against_measured``). Every phase prints its seconds
    (``seconds <phase>: N``).
 
 The line before the last is a JSON object with one record per kernel at
@@ -243,10 +262,13 @@ from unittest import mock
 import numpy as np
 import torch
 
-# Published peaks of one H100 SXM (NVIDIA data sheet, dense, at 700 W).
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_BF16_FLOPS = 989e12
-PEAK_INT8_OPS = 1979e12
+from vptq_tpu_torch.utils import profiling
+
+# Published peaks of one H100 SXM (NVIDIA data sheet, dense, at 700 W),
+# from the port's utils/profiling.py
+PEAK_BYTES_PER_S = profiling.H100_HBM_GBPS * 1e9
+PEAK_BF16_FLOPS = profiling.H100_BF16_TFLOPS * 1e12
+PEAK_INT8_OPS = profiling.H100_INT8_TOPS * 1e12
 
 # Meta's public Llama-3.1-8B config.json
 LLAMA31_8B = dict(
@@ -2950,6 +2972,354 @@ def phase_entry_points(device, path, vocab: int, seed=0, prompt_len=128,
     return dict(entry_points=result, launches=launches)
 
 
+# the pre-processed checkpoint's requests (phase_tools) and the bound on
+# device_time against the kernel phase's flushed median
+TOOLS_PROMPTS = (16, 128, 256, 512)
+DEVICE_TIME_TOL = 0.10
+# the geometries plan's meta step runs at full size, each in one format
+META_PLANS = (("llama3-8b", "int4"), ("mixtral-8x7b", "int8"),
+              ("deepseek-r1", "int8"))
+
+
+def _module(cmd, what: str) -> tuple:
+    """``python -m`` of a port module from the repo root; fails unless it
+    exits 0. Returns (stdout, seconds)."""
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", *cmd], cwd=Path(__file__).resolve().parent,
+        capture_output=True, text=True, timeout=600,
+    )
+    seconds = time.perf_counter() - t0
+    if out.returncode:
+        raise AssertionError(
+            f"{what}: exit {out.returncode}\n{out.stdout[-2000:]}\n"
+            f"{out.stderr[-2000:]}")
+    return out.stdout, seconds
+
+
+def _same_bytes(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return (a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8)))
+
+
+def phase_tools(device, path, vocab: int, rows, seed=0,
+                prompt_lens=TOOLS_PROMPTS, new_tokens=32, requant_layer=0,
+                refuse_gb=4.0, meta_plans=META_PLANS, trace_calls=1024):
+    """The offline tools and the planner (M14) on the checkpoint at
+    ``path``:
+
+    1. ``python -m vptq_tpu_torch.tools.pre_process`` on ``device``
+       (permutations absorbed) into a directory beside ``path``; the
+       original state unpacked then packed again (``checkpoint_tools``)
+       gives the original bytes; the original and the processed
+       checkpoint loaded in int8 hold byte-equal codes and scales in every
+       linear (``models/walk.py`` ``named_linears``) and give identical
+       tokens and bit-equal prefill logits on ``prompt_lens`` (greedy,
+       ``new_tokens`` new, through K1, its launches held exact).
+    2. Memory: ``estimate_model_bytes`` equal to ``model_bytes`` of the
+       int8 and the int4 model, ``kv_cache_bytes`` to the ``Generator``'s
+       cache; ``load_model(..., hbm_gb=refuse_gb)`` refused with
+       ``HBMBudgetError`` before the reader is called and before the
+       allocator hands out anything (its counters); the budget table
+       against the card's memory.
+    3. ``requantize`` of layer ``requant_layer``'s seven linears from their
+       exact pre-norm weights (f32) recovers the checkpoint's ids wherever
+       the centroid is unique (a checkpoint without residual codebooks:
+       random residual ids leave the main id no nearest centroid).
+    4. ``utils/profiling``: ``device_time`` of K2 at T = 1 on the int4
+       model's gate_up within DEVICE_TIME_TOL above the kernel phase's
+       flushed median (``rows``; a warm L2 may be faster), ``roofline`` of
+       that row giving the kernel table's bound, a ``trace`` of
+       ``trace_calls`` K2 calls naming K2's kernel (CUPTI drops the first
+       kernels of a session, a few more in each later session of a
+       process, so a trace this late in the smoke needs many calls; the
+       count it recorded is printed).
+    5. ``python -m vptq_tpu_torch.tools.plan --geometry llama3-8b`` in int4
+       and int8 (the card's memory), and ``validate_plan`` (one decode step
+       on the meta device) at each of ``meta_plans``.
+
+    Returns ``launches`` and the phase's numbers."""
+    from vptq_tpu_torch.api import Engine
+    from vptq_tpu_torch.config import QuantizationConfig
+    from vptq_tpu_torch.models import loader
+    from vptq_tpu_torch.models.llama import ModelConfig
+    from vptq_tpu_torch.models.walk import named_linears
+    from vptq_tpu_torch.ops.dequant import reconstruct_main
+    from vptq_tpu_torch.ops.packing import widen_index
+    from vptq_tpu_torch.ops.w4_matmul import w4_matmul
+    from vptq_tpu_torch.ops.w8_matmul import w8_matmul
+    from vptq_tpu_torch.tools import checkpoint_tools as ct
+    from vptq_tpu_torch.tools import plan
+    from vptq_tpu_torch.tools.requantize import requantize
+    from vptq_tpu_torch.utils import memory as hbm
+    from vptq_tpu_torch.utils import profiling
+
+    cuda = torch.device(device).type == "cuda"
+    result = {}
+    launches = dict.fromkeys(ALL_KERNELS, 0)
+
+    # 1. pre_process and the round trips
+    processed = f"{path}_processed"
+    disk_room(Path(path).parent, "pre_process",
+              sum(f.stat().st_size for f in Path(path).iterdir()))
+    try:
+        out, seconds = _module(
+            ["vptq_tpu_torch.tools.pre_process", "-m", path, "-o", processed,
+             "--device", torch.device(device).type], "pre_process")
+        pre = dict(seconds=seconds, printed=out.strip().splitlines()[-1])
+        state, config = ct.load_raw_state(path, device)
+        original = dict(state)
+        t0 = time.perf_counter()
+        state, _ = ct.unpack_checkpoint(state, config)
+        state, _ = ct.pack_checkpoint(state, config)
+        _sync(device)
+        pre["unpack_pack_s"] = time.perf_counter() - t0
+        if set(state) != set(original) or not all(
+                _same_bytes(state[k], original[k]) for k in original):
+            raise AssertionError("unpack then pack changed the checkpoint")
+        pre["round_trip_tensors"] = len(original)
+        del state, original
+
+        models, load_s = {}, {}
+        for name, src in (("original", path), ("processed", processed)):
+            t0 = time.perf_counter()
+            models[name] = loader.load_model(
+                src, runtime_format="int8", device=device)
+            _sync(device)
+            load_s[name] = time.perf_counter() - t0
+        pre["load_int8_s"] = load_s
+        walked = [dict(named_linears(m)) for m in models.values()]
+        if list(walked[0]) != list(walked[1]):
+            raise AssertionError("the processed model has other linears")
+        for name, lin in walked[0].items():
+            other = walked[1][name]
+            for buf, t in lin.named_buffers():
+                if not _same_bytes(t, getattr(other, buf)):
+                    raise AssertionError(f"{name}.{buf} differs after "
+                                         "pre_process")
+        pre["linears_byte_equal"] = len(walked[0])
+        del walked
+        rng = np.random.default_rng(seed)
+        prompts = [rng.integers(0, vocab, n).tolist() for n in prompt_lens]
+        tokens, logits, k1 = {}, {}, 0
+        for name, model in models.items():
+            engine = Engine(model, max_seq=2048)
+            gen = engine.generator
+            tokens[name] = []
+            for prompt in prompts:
+                w8_matmul.launches = 0
+                out_ids = engine.generate(prompt, max_new_tokens=new_tokens)
+                _sync(device)
+                want = expected_launches(model.cfg, "int8", len(prompt),
+                                         len(out_ids), gen.prompt_buckets,
+                                         gen.dtype)["w8_matmul"]
+                if w8_matmul.launches != (want if cuda else 0):
+                    raise AssertionError(
+                        f"K1 launched {w8_matmul.launches}, expected {want}")
+                k1 += w8_matmul.launches
+                tokens[name].append(out_ids)
+            with torch.inference_mode():
+                logits[name] = [prefill(model, gen, p).clone()
+                                for p in prompts]
+            del engine, gen
+        if tokens["original"] != tokens["processed"]:
+            raise AssertionError("the processed checkpoint's tokens differ")
+        if not all(torch.equal(a, b) for a, b in
+                   zip(logits["original"], logits["processed"])):
+            raise AssertionError("the processed checkpoint's logits differ")
+        pre["requests"] = [len(p) for p in prompts]
+        pre["tokens_identical"] = pre["logits_bit_equal"] = True
+        launches["w8_matmul"] += k1
+        pre["k1_launches"] = k1
+    finally:
+        shutil.rmtree(processed, ignore_errors=True)
+    result["pre_process"] = pre
+    print("tools pre_process " + json.dumps(pre), flush=True)
+
+    # 2. memory
+    with open(Path(path) / "config.json") as f:
+        hf = json.load(f)
+    cfg = ModelConfig.from_hf_dict(hf)
+    qcfg = QuantizationConfig.from_dict(hf["quantization_config"])
+    mem = {}
+    int8 = models.pop("original")
+    del models
+    t0 = time.perf_counter()
+    int4 = loader.load_model(path, runtime_format="int4", device=device)
+    _sync(device)
+    mem["load_int4_s"] = time.perf_counter() - t0
+    for fmt, model in (("int8", int8), ("int4", int4)):
+        est = hbm.estimate_model_bytes(cfg, fmt, qcfg)["total"]
+        got = hbm.model_bytes(model)
+        if est != got:
+            raise AssertionError(f"{fmt}: estimate {est} != loaded {got}")
+        mem[f"{fmt}_bytes"] = got
+    gen = Engine(int8, max_seq=2048).generator
+    kv = sum(t.numel() * t.element_size()
+             for t in (*gen.cache.k, *gen.cache.v))
+    if kv != hbm.kv_cache_bytes(cfg, 1, gen.max_seq):
+        raise AssertionError(f"cache {kv} != kv_cache_bytes")
+    mem["kv_bytes"] = kv
+    del gen, int8
+    calls = []
+    real_reader = loader.load_state_dict
+
+    def reader(*args, **kwargs):
+        calls.append(args)
+        return real_reader(*args, **kwargs)
+
+    if cuda:
+        torch.cuda.synchronize(device)
+        before = torch.cuda.memory_stats(device)["allocation.all.allocated"]
+    t0 = time.perf_counter()
+    try:
+        with mock.patch.object(loader, "load_state_dict", reader):
+            loader.load_model(path, runtime_format="int8", device=device,
+                              hbm_gb=refuse_gb)
+        raise AssertionError(f"int8 at hbm_gb={refuse_gb} was not refused")
+    except hbm.HBMBudgetError as e:
+        mem["refusal_s"] = time.perf_counter() - t0
+        mem["refusal"] = str(e)
+    if calls:
+        raise AssertionError("the refused load called the reader")
+    if cuda:
+        after = torch.cuda.memory_stats(device)["allocation.all.allocated"]
+        if after != before:
+            raise AssertionError(f"the refused load allocated {after - before}"
+                                 " times on the card")
+    card = hbm.detect_hbm_bytes(device)
+    if cuda != (card is not None):
+        raise AssertionError(f"detect_hbm_bytes on {device}: {card}")
+    mem["card_bytes"] = card
+    if card:
+        print("tools budget table\n" + hbm.format_budget_table(
+            hbm.budget_table(cfg, qcfg, hbm_bytes=card)))
+    result["memory"] = mem
+    print("tools memory " + json.dumps(mem), flush=True)
+
+    # 3. requantize layer requant_layer's linears from their exact weights
+    state, _ = ct.load_raw_state(path, device)
+    req = {}
+    for name in sorted(qcfg.config_for_layers):
+        if not name.startswith(f"model.layers.{requant_layer}."):
+            continue
+        lcfg = qcfg.config_for_layers[name]
+        layer = loader.normalize_vq_layer(name, state, lcfg, torch.float32,
+                                          device)
+        if lcfg.enable_residual:
+            # random residual ids leave a main id no nearest centroid
+            raise AssertionError(f"requantize {name}: a residual codebook")
+        w = reconstruct_main(layer.centroids, widen_index(layer.ids), None,
+                             None, lcfg)
+        _sync(device)
+        t0 = time.perf_counter()
+        got, res = requantize(w, layer.centroids, None, lcfg)
+        _sync(device)
+        seconds = time.perf_counter() - t0
+        want = widen_index(layer.ids)
+        diff = got != want
+        c = layer.centroids[0]
+        # a differing id must name a centroid equal to the checkpoint's
+        if res is not None or bool((c[got[diff]] != c[want[diff]]).any()):
+            raise AssertionError(f"requantize {name}: other centroids")
+        req[".".join(name.split(".")[-2:])] = dict(
+            shape=list(w.shape), seconds=seconds,
+            ids_differing=int(diff.sum()))
+        del layer, w, got, want, diff
+    del state
+    result["requantize"] = req
+    print("tools requantize " + json.dumps(req), flush=True)
+
+    # 4. profiling: K2 at T = 1 on the int4 model's gate_up
+    gate_up = int4.blocks[0].mlp.gate_up_proj
+    x = torch.randn((1, gate_up.wq.shape[1] * 2),
+                    generator=torch.Generator(device=device).manual_seed(seed),
+                    device=device).to(torch.bfloat16)
+    args = (x, gate_up.wq, gate_up.scales)
+    seconds = profiling.device_time(w4_matmul, *args)
+    row = next(r for r in rows if r["kernel"] == "w4_matmul" and r["T"] == 1
+               and r["shape"] == "gate_up" and r["in_record"])
+    prof = dict(device_time_ms=seconds * 1e3, kernel_phase_ms=row["ms"])
+    if cuda and not seconds * 1e3 <= row["ms"] * (1 + DEVICE_TIME_TOL):
+        raise AssertionError(f"device_time {prof}")
+    roof = profiling.roofline(row["ms"] / 1e3, row["bytes"], row["flops"])
+    bound_ms = row["ms"] * max(roof["hbm_utilization"],
+                               roof["mxu_utilization"])
+    if (roof["bound"] != {"bytes": "memory", "operations": "compute"}[
+            row["bound_by"]] or abs(bound_ms - row["bound_ms"])
+            > 1e-9 * row["bound_ms"]):
+        raise AssertionError(f"roofline {roof} against {row}")
+    prof["roofline"] = roof
+    with tempfile.TemporaryDirectory() as d:
+        with profiling.trace(d):
+            for _ in range(trace_calls):
+                w4_matmul(*args)
+        names = profiling.trace_kernel_names(d)
+    prof["trace_calls"] = trace_calls
+    prof["trace_k2_kernels"] = sum(
+        picks(w4_matmul.trace_tags, n) for n in names)
+    if cuda and not prof["trace_k2_kernels"]:
+        raise AssertionError(f"no K2 kernel in the trace: {set(names)}")
+    del int4, gate_up, args, x
+    result["profiling"] = prof
+    print("tools profiling " + json.dumps(prof), flush=True)
+
+    # 5. plan: the CLI on the card, the meta step at full geometry
+    plans = {}
+    for fmt in ("int4", "int8"):
+        argv = ["vptq_tpu_torch.tools.plan", "--geometry", "llama3-8b",
+                "--format", fmt]
+        if not cuda:
+            argv += ["--hbm-gb", "80"]
+        out, seconds = _module(argv, f"plan {fmt}")
+        lines = out.strip().splitlines()
+        if not any(ln.startswith("fits:") for ln in lines):
+            raise AssertionError(f"plan {fmt}: {out}")
+        plans[fmt] = dict(seconds=seconds, fits=next(
+            ln for ln in lines if ln.startswith("fits:")), predicted=next(
+            ln for ln in lines if ln.startswith("predicted")))
+    for geometry, fmt in meta_plans:
+        gcfg = ModelConfig(**{**dict(tie_word_embeddings=False),
+                              **plan.GEOMETRIES[geometry]})
+        t0 = time.perf_counter()
+        step = plan.validate_plan(gcfg, fmt)
+        step["seconds"] = time.perf_counter() - t0
+        if step["logits_shape"] != (1, 1, gcfg.vocab_size):
+            raise AssertionError(f"meta step {geometry}: {step}")
+        plans[f"meta {geometry} {fmt}"] = step
+    result["plan"] = plans
+    print("tools plan " + json.dumps(plans), flush=True)
+    if cuda:
+        torch.cuda.empty_cache()
+    return dict(tools=result, launches=launches)
+
+
+def plan_against_measured(steps: dict) -> dict:
+    """Plan's predicted batch-1 decode tok/s (its fitted rates, the lm_head
+    in bf16 as the smoke serves it) beside the graphed steps measured in
+    this run (``steps``: label → (config dict, format, max_seq, wall
+    ms)), and the rates that this run's Llama-3.1-8B steps fit. The gap is
+    recorded, not held to a bound."""
+    from vptq_tpu_torch.tools import plan
+    from vptq_tpu_torch.utils.synth_checkpoint import tiny_model_config
+
+    out, fit = {}, {}
+    for label, (cfg, fmt, max_seq, wall_ms) in steps.items():
+        mc = tiny_model_config(**cfg)
+        pred = plan.predict_decode_tok_s(mc, fmt, max_seq=max_seq,
+                                         quantize_lm_head=False)
+        out[label] = dict(predicted_tok_s=pred, measured_tok_s=1e3 / wall_ms,
+                          gap=pred * wall_ms / 1e3 - 1.0)
+        if cfg == LLAMA31_8B and max_seq == 2048:
+            fit[fmt] = wall_ms / 1e3
+    if {"int8", "int4", "int3", "int2"} <= set(fit):
+        out["fitted_rates_gbps"] = plan.fit_e2e_rates(
+            tiny_model_config(**LLAMA31_8B), fit)
+    out["rates_in_plan"] = dict(plan.E2E_GBPS, card=plan.E2E_CARD)
+    print("tools plan against measured " + json.dumps(out), flush=True)
+    return out
+
+
 def _device_events(prof):
     return [
         e for e in prof.events()
@@ -3490,6 +3860,10 @@ def main() -> int:
                                + served.get(name, 0)
                                + calibrated.get(name, 0))
 
+    # the graphed decode steps plan's prediction is set beside: every
+    # Llama-3.1-8B format at all 32 layers, Qwen2.5 and Mistral at their
+    # cut depth
+    measured_steps = {}
     for (label, cfg, formats, e2e_kwargs, writer_kwargs, trips, serve,
          calibrated) in runs:
         with timed(f"checkpoint write {label} "
@@ -3504,6 +3878,10 @@ def main() -> int:
                     )
                 print(f"e2e {label} " + json.dumps(e2e))
                 count(e2e)
+                if label in (ENTRY_RUN, "Qwen2.5-7B", "Mistral-7B"):
+                    measured_steps[f"{label} {fmt}"] = (
+                        cfg, fmt, e2e_kwargs.get("max_seq", 2048),
+                        e2e["graph_step"]["wall_ms"])
             for fmt in trips:
                 with timed(f"round trip {label} {fmt}"):
                     phase_round_trip(device, path, fmt, cfg["vocab_size"])
@@ -3512,6 +3890,9 @@ def main() -> int:
                     e2e = phase_entry_points(device, path, cfg["vocab_size"])
                 print(f"e2e {label} entry points "
                       + json.dumps(e2e["entry_points"]))
+                count(e2e)
+                with timed("tools"):
+                    e2e = phase_tools(device, path, cfg["vocab_size"], rows)
                 count(e2e)
             for fmt, (layers, tokens) in calibrated.items():
                 cut = cut_checkpoint(path, layers)
@@ -3557,6 +3938,7 @@ def main() -> int:
             shutil.rmtree(cut, ignore_errors=True)
     finally:
         shutil.rmtree(path, ignore_errors=True)
+    plan_against_measured(measured_steps)
     print(f"seconds smoke: {time.perf_counter() - t_start:.2f}")
     print(json.dumps({"kernels": kernel_records(rows, launches)}))
     print(json.dumps({

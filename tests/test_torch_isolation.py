@@ -102,7 +102,10 @@ assert {"vptq_tpu_torch.ops.flash_attention", "vptq_tpu_torch.ops.bf16_matmul",
         "vptq_tpu_torch.ops.vq_smallk_matmul",
         "vptq_tpu_torch.examples.w4_wall_candidates",
         "vptq_tpu_torch.__main__", "vptq_tpu_torch.serving.webapp",
-        "vptq_tpu_torch.eval.qa", "vptq_tpu_torch.eval.datasets"} <= set(names)
+        "vptq_tpu_torch.eval.qa", "vptq_tpu_torch.eval.datasets",
+        "vptq_tpu_torch.tools.plan", "vptq_tpu_torch.tools.pre_process",
+        "vptq_tpu_torch.utils.memory", "vptq_tpu_torch.utils.profiling",
+        "vptq_tpu_torch.models.walk"} <= set(names)
 for name in names:
     importlib.import_module(name)
 import chip_smoke
@@ -313,6 +316,62 @@ def test_chip_smoke_entry_points_on_cpu(capsys):
         "cli", "ppl", "qa", "web", "diagnostics"]
 
 
+def test_chip_smoke_tools_on_cpu(capsys):
+    """The smoke's tools phase at a tiny size with the plain versions (a
+    residual-free checkpoint, so requantize gets every id back; gate_up
+    wide enough for device_time's chain): pre_process in its own process,
+    unpack / pack, the processed checkpoint's linears, tokens and logits,
+    the estimates against the loaded bytes, the early refusal, requantize,
+    device_time / roofline / trace against a kernel-phase row, plan's CLI
+    and a meta step; then plan beside a measured step."""
+    cfg = dict(TINY, tie_word_embeddings=False, intermediate_size=1024)
+    path, _ = chip_smoke.write_checkpoint(
+        cfg, dict(VQ, num_res_centroids=-1))
+    rows = chip_smoke.phase_kernel(
+        "w4_matmul", "cpu", [("gate_up", 2048, cfg["hidden_size"])],
+        tokens=(1,), iters=1)
+    try:
+        out = chip_smoke.phase_tools(
+            "cpu", path, cfg["vocab_size"], rows, prompt_lens=(5, 20),
+            new_tokens=3, refuse_gb=0.0004,
+            meta_plans=(("llama2-7b", "int8"),), trace_calls=4)
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
+    assert not os.path.exists(f"{path}_processed")
+    assert set(out["launches"].values()) == {0}  # the CPU launches nothing
+    got = out["tools"]
+    pre = got["pre_process"]
+    assert pre["tokens_identical"] and pre["logits_bit_equal"]
+    assert pre["linears_byte_equal"] == 4 * cfg["num_hidden_layers"] + 1
+    assert pre["round_trip_tensors"] > 0
+    mem = got["memory"]
+    assert mem["card_bytes"] is None and "shard over" in mem["refusal"]
+    assert len(got["requantize"]) == 7
+    assert all(r["ids_differing"] == 0 for r in got["requantize"].values())
+    assert got["profiling"]["roofline"]["bound"] == "memory"
+    assert got["plan"]["meta llama2-7b int8"]["logits_shape"] == (1, 1, 32000)
+    cmp = chip_smoke.plan_against_measured({
+        "Llama-3.1-8B int8": (chip_smoke.LLAMA31_8B, "int8", 2048, 8.0)})
+    assert abs(cmp["Llama-3.1-8B int8"]["measured_tok_s"] - 125.0) < 1e-9
+    lines = capsys.readouterr().out.splitlines()
+    assert [ln.split()[1] for ln in lines if ln.startswith("tools ")] == [
+        "pre_process", "memory", "requantize", "profiling", "plan", "plan"]
+
+
+def test_smoke_bounds_read_the_peaks_of_profiling():
+    """The kernel table's bounds and plan's cost model take the card's
+    peaks from one place, ``utils/profiling.py``."""
+    from vptq_tpu_torch.tools import plan
+    from vptq_tpu_torch.utils import profiling
+
+    assert chip_smoke.profiling is profiling
+    assert chip_smoke.PEAK_BYTES_PER_S == profiling.H100_HBM_GBPS * 1e9
+    assert chip_smoke.PEAK_BF16_FLOPS == profiling.H100_BF16_TFLOPS * 1e12
+    assert chip_smoke.PEAK_INT8_OPS == profiling.H100_INT8_TOPS * 1e12
+    assert (plan.predict_decode_tok_s.__defaults__[-1]
+            == profiling.H100_HBM_GBPS)
+
+
 @pytest.mark.parametrize("text", [
     "hello", "The quick brown fox, 42 times!\n", "héllo wörld ✓ 😀", "",
     "\x00\x01 \x7f\xa0\xad",
@@ -349,21 +408,28 @@ def test_smoke_byte_tokenizer_gives_the_directory_ids(tmp_path, text):
     ("webapp", ["--model", "d"]),
     ("ppl", ["--model", "d", "--text", "t"]),
     ("qa", ["--model", "d", "--task", "arc_easy", "--data", "t"]),
+    ("pre_process", ["-m", "d", "-o", "o"]),
+    ("plan", ["--geometry", "llama3-8b"]),
 ])
 def test_entry_points_exit_nonzero_without_a_card(entry, argv, monkeypatch):
     """Every new ``main`` runs on the card unless given ``--device cpu``:
-    without a card it exits non-zero before it reads anything."""
+    without a card it exits non-zero before it reads anything. The
+    planner reads nothing but the card's memory, and asks for
+    ``--hbm-gb`` instead."""
     module = importlib.import_module({
         "cli": "vptq_tpu_torch.serving.cli",
         "webapp": "vptq_tpu_torch.serving.webapp",
         "ppl": "vptq_tpu_torch.eval.ppl",
         "qa": "vptq_tpu_torch.eval.qa",
+        "pre_process": "vptq_tpu_torch.tools.pre_process",
+        "plan": "vptq_tpu_torch.tools.plan",
     }[entry])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit) as exc:
         module.main(argv)
     assert exc.value.code not in (0, None)
-    assert "--device cpu" in str(exc.value.code)
+    hint = "--hbm-gb" if entry == "plan" else "--device cpu"
+    assert hint in str(exc.value.code)
     # --tp above 1 is refused before anything else, naming M16
     if entry in ("cli", "webapp"):
         with pytest.raises(SystemExit, match="M16"):

@@ -58,6 +58,8 @@ class AutoModelForCausalLM:
         max_seq: int = 2048,
         device=None,
         tp: int = 1,
+        hbm_gb=None,
+        hbm_utilization: float = 0.9,
         **_ignored,
     ) -> Engine:
         """Load a local checkpoint directory (dense Llama, Mistral, Qwen2,
@@ -71,7 +73,9 @@ class AutoModelForCausalLM:
         the checkpoint on 4096 synthetic tokens (GPTQ on ``device``,
         ``quant/calibrate.py``) and serve through the base format's
         kernel and K1 on the int8 side. ``tp`` > 1 (tensor parallelism)
-        raises: not ported.
+        raises: not ported. ``hbm_gb`` / ``hbm_utilization``: the
+        loader's memory budget (``load_model``), checked before any
+        weight is read.
         """
         if tp > 1:
             raise NotImplementedError(
@@ -83,5 +87,7 @@ class AutoModelForCausalLM:
             dtype=dtype,
             runtime_format=runtime_format,
             device=device,
+            hbm_gb=hbm_gb,
+            hbm_utilization=hbm_utilization,
         )
         return Engine(model, max_seq=max_seq, dtype=dtype)

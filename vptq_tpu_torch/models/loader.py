@@ -88,6 +88,14 @@ _SAFETENSORS_DTYPES = {
     "BOOL": torch.bool,
 }
 _SAFETENSORS_CODES = {v: k for k, v in _SAFETENSORS_DTYPES.items()}
+# the safetensors package's dtype order (its Rust enum), which orders the
+# tensors of a file it writes
+_SAFETENSORS_RANK = {
+    _SAFETENSORS_DTYPES[code]: rank for rank, code in enumerate((
+        "BOOL", "U8", "I8", "I16", "U16", "F16", "BF16", "I32", "U32",
+        "F32", "F64", "I64", "U64",
+    ))
+}
 # the formats that exist only calibrated (an int8 side: sites or columns)
 CALIBRATED_FORMATS = ("int4-mixed", "int3-mixed", "int2-mixed")
 
@@ -150,8 +158,10 @@ def write_safetensors(tensors: Dict[str, torch.Tensor], path) -> None:
         if isinstance(t, np.ndarray):
             t = torch.from_numpy(np.ascontiguousarray(t))
         items.append((name, t.detach().cpu().contiguous()))
-    # larger elements first keeps every tensor aligned to its itemsize
-    items.sort(key=lambda kv: (-kv[1].element_size(), kv[0]))
+    # the safetensors package's order (its dtype order, descending, then
+    # the name), so that the file is byte for byte the one it writes; the
+    # larger elements come first, which keeps every tensor aligned
+    items.sort(key=lambda kv: (-_SAFETENSORS_RANK[kv[1].dtype], kv[0]))
     header, offset = {}, 0
     for name, t in items:
         nbytes = t.numel() * t.element_size()
@@ -283,7 +293,10 @@ def normalize_vq_layer(
     perm_raw = pop("perm")
     inv_perm = None
     if perm_raw is not None and cfg.enable_perm:
-        inv_perm = torch.argsort(view_as_uint16(perm_raw).to(torch.int64))
+        # int32, as the JAX package holds it (utils/memory.py counts it so)
+        inv_perm = torch.argsort(
+            view_as_uint16(perm_raw).to(torch.int64)
+        ).to(torch.int32)
 
     return VQLinear(
         centroids=centroids,
@@ -342,6 +355,8 @@ def load_model(
     device=None,
     calibration=None,
     int8_fraction: Optional[float] = None,
+    hbm_gb: Optional[float] = None,
+    hbm_utilization: float = 0.9,
 ) -> Model:
     """Load a local VPTQ HF checkpoint directory into a :class:`Model`.
 
@@ -366,6 +381,16 @@ def load_model(
     side (``int8_fraction``: their share). ``calibration`` is a (B, S)
     token array, an int (that many synthetic tokens) or None (4096
     synthetic tokens).
+
+    ``hbm_gb`` / ``hbm_utilization``: the device's memory budget. The
+    loader predicts the model's bytes from the config's geometry BEFORE it
+    reads any weight (``utils/memory.py``), logs the format × devices
+    budget table and raises :class:`~vptq_tpu_torch.utils.memory.
+    HBMBudgetError` when the model and a 2048-token cache do not fit
+    ``hbm_utilization`` of it (the reference's ``gpu_utilization`` cap,
+    model_base.py:165-181). ``hbm_gb=None`` reads the card's memory, and
+    skips the check on the CPU. A calibrated load checks the exact
+    (codebook) model it calibrates from, as the JAX package does.
     """
     device = resolve_device(device)
     if runtime_format in CALIBRATED_FORMATS or (
@@ -374,7 +399,7 @@ def load_model(
     ):
         return _load_calibrated(
             checkpoint_dir, dtype, runtime_format, fuse, quantize_lm_head,
-            device, calibration, int8_fraction,
+            device, calibration, int8_fraction, hbm_gb, hbm_utilization,
         )
     if runtime_format not in RUNTIME_FORMATS:
         raise ValueError(f"unknown runtime format {runtime_format!r}")
@@ -386,6 +411,8 @@ def load_model(
     qcfg = QuantizationConfig.from_dict(
         hf_config.get("quantization_config", {})
     )
+    _check_budget(model_cfg, qcfg, runtime_format, quantize_lm_head, device,
+                  hbm_gb, hbm_utilization)
     state = load_state_dict(str(root))
 
     def lin(prefix):
@@ -535,8 +562,39 @@ def load_model(
     )
 
 
+def _check_budget(model_cfg, qcfg, runtime_format, quantize_lm_head, device,
+                  hbm_gb, hbm_utilization) -> None:
+    """The budget check of :func:`load_model`, from the geometry alone. On
+    one device: the weights and a 2048-token cache on it whole."""
+    from vptq_tpu_torch.utils import memory as hbm
+
+    hbm_bytes = (int(hbm_gb * hbm.GiB) if hbm_gb
+                 else hbm.detect_hbm_bytes(device))
+    if not hbm_bytes:
+        return
+    est = hbm.estimate_model_bytes(
+        model_cfg, runtime_format, qcfg, quantize_lm_head
+    )
+    table = hbm.budget_table(
+        model_cfg, qcfg, hbm_bytes=hbm_bytes, utilization=hbm_utilization
+    )
+    logger.info(
+        "HBM budget (per-chip, weights + 2048-token KV):\n%s",
+        hbm.format_budget_table(table),
+    )
+    hbm.check_budget(
+        est["total"] + hbm.kv_cache_bytes(model_cfg, 1, 2048),
+        1,
+        hbm_bytes,
+        hbm_utilization,
+        what=f"{runtime_format} model ({est['total'] / hbm.GiB:.2f}"
+        " GiB weights)",
+    )
+
+
 def _load_calibrated(checkpoint_dir, dtype, runtime_format, fuse,
-                     quantize_lm_head, device, calibration, int8_fraction):
+                     quantize_lm_head, device, calibration, int8_fraction,
+                     hbm_gb, hbm_utilization):
     """The calibrated branch of :func:`load_model`."""
     from vptq_tpu_torch.quant.calibrate import (
         quantize_model_calibrated,
@@ -544,7 +602,8 @@ def _load_calibrated(checkpoint_dir, dtype, runtime_format, fuse,
     )
 
     exact = load_model(checkpoint_dir, dtype=dtype, runtime_format="codebook",
-                       fuse=False, device=device)
+                       fuse=False, device=device, hbm_gb=hbm_gb,
+                       hbm_utilization=hbm_utilization)
     tokens = calibration
     if isinstance(tokens, (int, np.integer)):
         tokens = synthetic_calibration_tokens(
