@@ -123,7 +123,7 @@ without them, or when any phase fails. Phases:
    fire the first time takes its own second token of that run);
 6. end to end in int8 and in int4 on one synthetic checkpoint of
    Mixtral-8x7B-v0.1 geometry (full width, 8 experts, top-2; depth cut
-   to ``MIXTRAL_LAYERS`` = 16 of 32), the same four requests: per layer and forward
+   to ``MIXTRAL_LAYERS`` = 4 of 32), the same four requests: per layer and forward
    call 2 launches of K1 / K2 (qkv, o), per layer and decode step 2 of
    K5, per layer and prefill chunk 16 of K6, K8 as above, every other
    kernel 0; the
@@ -137,7 +137,7 @@ without them, or when any phase fails. Phases:
    layer and prefill call;
 7. end to end in int8 on one synthetic checkpoint of Qwen2.5-7B geometry
    (a bias on q, k and v; K1's first widths that pad; depth cut to
-   ``CUT_LAYERS`` = 8, as in phases 8, 9 and 11), the same four
+   ``CUT_LAYERS`` = 4, as in phases 8, 9 and 11), the same four
    requests, the long prompt's logits against the plain versions;
 8. end to end in int8 on one synthetic checkpoint of Mistral-7B-v0.1
    geometry (sliding window 4096) with ``max_seq`` 8192: prompts of 16,
@@ -166,7 +166,7 @@ without them, or when any phase fails. Phases:
    at one token), no device-to-host copy;
 11. end to end in int8 and in int4 on one synthetic checkpoint of
    Moonlight-16B-A3B geometry (DeepSeek-V3: layers of 2048, cut to
-   ``CUT_LAYERS`` = 8 of its 27, MLA with a latent cache of 576 + 512 per token, the first layer dense, then 64
+   ``CUT_LAYERS`` = 4 of its 27, MLA with a latent cache of 576 + 512 per token, the first layer dense, then 64
    routed experts of 1408, top 6 by sigmoid scores with a correction
    bias, and 2 shared experts; interleaved RoPE), written between
    Mixtral's run and Qwen's, the same four requests as phase 5: per
@@ -206,7 +206,8 @@ without them, or when any phase fails. Phases:
    machine has no ``transformers``): the CLI (``cli._load`` in int8 at
    ``max_seq`` 4096, ``eval_prompt`` on 128 tokens, ``chat_loop`` over a
    turn, ``clear``, an empty line, a second turn and ``exit``; streamed
-   ids = returned ids = the eager loop's; ``--tp 2`` refused naming M16),
+   ids = returned ids = the eager loop's; ``--chat --tp 2`` refused naming
+   M16),
    perplexity over two 4096-token windows (K1, and K8 once per layer a
    window; the mean NLL within 1e-2 nats of the plain versions', a
    window's NLL within 1e-5 of ``F.cross_entropy`` on its own logits,
@@ -237,7 +238,37 @@ without them, or when any phase fails. Phases:
    Mixtral-8x7B and DeepSeek-R1 geometry. At the end plan's predicted
    tok/s stands beside the graphed steps of Llama-3.1-8B, Qwen2.5-7B and
    Mistral-7B (``plan_against_measured``). Every phase prints its seconds
-   (``seconds <phase>: N``).
+   (``seconds <phase>: N``);
+15. tensor and expert parallelism (M16's first half, ``phase_tp``) on the
+   same Llama-3.1-8B checkpoint at full width and all 32 layers, after
+   the tools: the card's compute mode must let two processes share it;
+   one device's answers first (int8 and int4: the 512-token prompt's
+   last prefill rows, 16 greedy tokens of a 1536-token prompt, layer 0's
+   o_proj and down_proj codes), then two ranks of a gloo group on
+   ``cuda:0`` (``torch.multiprocessing.spawn``, a file store in a
+   temporary directory; NCCL refuses two ranks on one device), each
+   through ``from_pretrained(tp=2)`` in int8 and in int4: its placed
+   bytes against ``estimate_model_bytes(tp_shards=2)`` / 2, every kernel
+   launch of a 512-token prefill and 8 decode steps held against its
+   plain version on the same inputs (``held_kernels``; the held calls
+   must be the launches counted per family), the ranks' logits and tokens bit-equal (an all-gather), int8
+   within cosine 0.99 of one device and its first token, int4's codes
+   and scales one device's columns, its prefill logits within
+   ``LOGIT_TOL`` and its 16 greedy tokens (a fresh 2048-token chunk: K8
+   on the rank's 16 / 4 heads) equal to one device's; int4 then serves 8
+   requests (two of each length, every slot live) through
+   ``Scheduler(mesh=)``; then the NCCL path at world size 1 in this process (``load_model(mesh=Mesh(1, 1))``,
+   ``Generator(mesh=)``: the graphed decode steps, collectives inside,
+   bit-equal to eager over a block boundary). Every line of it says
+   "2 ranks sharing one H100 through gloo: no TP speed" beside the card.
+   Inside Mixtral's run, its checkpoint cut to ``TP_MIXTRAL_LAYERS`` = 4
+   at full width: int4 under expert parallelism over two gloo ranks (4
+   experts each), a 128-token prefill (K6b) and 8 decode steps (K5b),
+   every launch held, the ranks bit-equal (``phase_tp_moe``). The kernel
+   phase holds K1-K4 at one rank's four shapes (T = 1, 8, 128, 512; o and
+   down as the blocked encoding pads them: down's 7168 columns, K1's
+   group 1024) and K8 at 16 / 4 heads (S = 1024, 2048), rows outside
+   the records.
 
 The line before the last is a JSON object with one record per kernel at
 T=1 and T=512 (pairs kernels: P=2 and P=16; K8: S=1024 and S=2048; each
@@ -398,11 +429,13 @@ R1_EXPERTS = dict(hidden_size=7168, moe_intermediate_size=2048,
                   n_routed_experts=256, num_experts_per_tok=8)
 # the depth of the runs after Llama-3.1-8B's (full width): at full depth
 # every phase together took 1234 s of the smoke's 1200 on one H100 80GB
-# HBM3 at 700 W, the calibration phases included; Mixtral keeps half of
-# its 32 layers (~24 GB of int8 weights), Moonlight, Qwen2.5, Mistral and
-# Phi-3 keep 8
-MIXTRAL_LAYERS = 16
-CUT_LAYERS = 8
+# HBM3 at 700 W, the calibration phases included; Mixtral kept 16 of its
+# 32 layers until the tensor-parallel phases took 1031 s of the 1200
+# with it (one H100 80GB HBM3 at 700 W), then 8, as Moonlight, Qwen2.5,
+# Mistral and Phi-3 did, until the smoke took 1056 s on a slower host;
+# all five now keep 4
+MIXTRAL_LAYERS = 4
+CUT_LAYERS = 4
 # VPTQ-community v8-k65536-0 geometry
 V8_K65536 = dict(
     vector_len=8, num_centroids=65536, num_res_centroids=-1,
@@ -616,16 +649,21 @@ def kernel_fns(name):
     return getattr(mod, name), getattr(mod, f"{name}_reference")
 
 
-def make_layer(name, gen, out_f, in_f, device, group=None):
+def make_layer(name, gen, out_f, in_f, device, group=None, blocked=False):
     """The runtime layer that kernel ``name``'s format encoder makes from
     one random f32 (out, in) weight on ``device`` (K1 group from
     ``pick_group``, K3 group 64 unless ``group`` says otherwise, the
-    padding the encoders apply)."""
+    padding the encoders apply). ``blocked``: one rank's block of a
+    row-parallel layer under tensor parallelism, padded as the blocked
+    encoding pads a block (int4 to 512 columns, int3 and int2 to 1024)."""
     from vptq_tpu_torch.layers import runtime as rt
 
     fmt = next(f for f, k in FORMAT_KERNEL.items() if k == name)
     w = torch.randn((out_f, in_f), generator=gen, device=device) * SMOKE_STD
     kwargs = {} if group is None else dict(group=group)
+    if blocked and fmt in ("int4", "int3"):
+        kwargs["pad_to"] = {"int4": 512 if in_f >= 512 else 256,
+                            "int3": 1024}[fmt]
     return getattr(rt, f"_encode_{fmt}")(w, None, **kwargs)
 
 
@@ -707,8 +745,9 @@ def phase_kernel(name, device, shapes, tokens=(1, 128, 512), iters=20,
     gen = torch.Generator(device=device).manual_seed(seed)
     flush = flush_buffer(device)
     rows = []
-    for shape, out_f, in_f in shapes:
-        layer = make_layer(name, gen, out_f, in_f, device, group)
+    for shape, out_f, in_f, *blocked in shapes:
+        layer = make_layer(name, gen, out_f, in_f, device, group,
+                           blocked=bool(blocked and blocked[0]))
         args = tuple(layer.buffers())
         w_bf16 = linear_exact_weight(layer).to(torch.bfloat16)
         in_p = w_bf16.shape[1]
@@ -1352,7 +1391,7 @@ def prefill(model, gen, prompt):
         tokens[0, : len(chunk)] = torch.tensor(chunk)
         logits, _ = forward(
             model, tokens.to(device), cache, dtype=gen.dtype,
-            fresh_prefill=(done == 0),
+            fresh_prefill=(done == 0), tp=gen.tp,
         )
         cache.reset(done + len(chunk))
     return logits[0, : len(chunk)]
@@ -1367,7 +1406,7 @@ def eager_tokens(model, gen, prompt, new_tokens):
         first = torch.argmax(prefill(model, gen, prompt)[-1:], dim=-1)
         toks, _ = decode_loop(
             model, first, gen.cache, None, 0.0, steps=new_tokens - 1,
-            dtype=gen.dtype,
+            dtype=gen.dtype, tp=gen.tp,
         )
     return [int(first[0]), *toks[:, 0].tolist()]
 
@@ -1777,6 +1816,7 @@ def graph_against_eager(model, gen, prompt, steps, temperature=0.0, seed=5):
             model, first, gen.cache,
             torch.Generator(device=first.device).manual_seed(seed),
             temperature, steps=steps, dtype=gen.dtype, logits=want,
+            tp=gen.tp,
         )
     if got_toks != toks[:, 0].tolist():
         raise AssertionError(
@@ -2310,27 +2350,16 @@ def held_propagation(fmt: str, forward, held: list):
     from vptq_tpu_torch.quant import calibrate as cal
 
     def checking(i, name, kernel):
-        ref = kernel_fns(name)[1]
-
-        def call(x, *args):
-            y = kernel(x, *args)
-            yf, rf = y.float(), ref(x, *args).float()
-            err = (yf - rf).abs()
-            limit = RTOL * rf.abs() + ATOL_FRAC * rf.abs().max()
+        def record(args, err, share):
+            x = args[0]
             held.append(dict(
                 block=i, kernel=name, x=list(x.shape),
                 dtype=str(x.dtype).removeprefix("torch."),
-                max_abs_err=err.max().item(),
-                of_limit=(err / limit).nan_to_num(0.0).max().item(),
+                max_abs_err=err.max().item(), of_limit=share,
             ))
-            if not (y.dtype == x.dtype and bool(torch.all(err <= limit))
-                    and bool(torch.isfinite(yf).all())):
-                raise AssertionError(
-                    f"{fmt}: {name} in the propagation of block {i} "
-                    f"against its plain version: {held[-1]}")
-            return y
+            return f" in the propagation of block {i}"
 
-        return call
+        return against_plain(fmt, name, kernel, record)
 
     def checked(i, block, x, cos, sin, cache, cfg):
         if any(isinstance(m, cal._Rec) for m in block.modules()):
@@ -2607,8 +2636,8 @@ def phase_entry_points(device, path, vocab: int, seed=0, prompt_len=128,
        ``prompt_len``-token prompt and ``chat_loop`` over ``hello``,
        ``clear``, an empty line, a second message and ``exit``; every
        call's streamed ids are its returned ids and the eager loop's
-       (:func:`eager_tokens`); launches exact; ``--tp 2`` refused naming
-       M16.
+       (:func:`eager_tokens`); launches exact; ``--chat --tp 2`` refused
+       naming M16.
     2. Perplexity over ``ppl_windows`` windows of ``ppl_seq`` byte ids
        from ``seed``: launches exact (K1 four a layer, K8 one a layer at
        1024 tokens or more, a window); the mean NLL within PPL_NLL_TOL of
@@ -2697,12 +2726,16 @@ def phase_entry_points(device, path, vocab: int, seed=0, prompt_len=128,
     _sync(device)
     cli_out = dict(load_s=time.perf_counter() - t0)
     cfg, buckets = model.cfg, gen.prompt_buckets
+    # --tp serves one-shot (phase_tp); chat under --tp is refused, naming
+    # M16's second half (its input would reach rank 0 alone)
     try:
-        cli._load(cli.build_parser().parse_args([*argv, "--tp", "2"]))
-        raise AssertionError("--tp 2 was not refused")
+        cli._load(cli.build_parser().parse_args([*argv, "--chat", "--tp",
+                                                 "2"]))
+        raise AssertionError("--chat --tp 2 was not refused")
     except SystemExit as e:
         if "M16" not in str(e):
-            raise AssertionError(f"--tp 2 refused without M16: {e}") from e
+            raise AssertionError(
+                f"--chat --tp 2 refused without M16: {e}") from e
     calls = []
     rec = Recorder(gen, calls)
     args.prompt = "".join(map(chr, rng.integers(32, 127, prompt_len)))
@@ -3697,6 +3730,508 @@ def kernel_records(rows, launches, tokens=(1, 512), pairs=(2, 16),
     return out
 
 
+# ----------------------------------------------------------------------
+# Tensor and expert parallelism (ROADMAP M16, first half)
+# ----------------------------------------------------------------------
+
+# two ranks of a gloo group share the one card (NCCL refuses two ranks on
+# one device): the placement, the shards' kernels, the collectives and
+# the ranks' agreement, and no speed of tensor parallelism
+TP_RANKS = 2
+TP_LABEL = "2 ranks sharing one H100 through gloo: no TP speed"
+TP_HELD_PROMPT = 512  # the prefill whose every launch is held
+TP_HELD_STEPS = 8  # and the decode steps after it
+TP_PROMPT = 1536  # the greedy request against one device: a fresh 2048
+TP_GREEDY = 16  # chunk (K8 on the local heads), then 16 tokens
+TP_COS = 0.99  # int8 against one device: JAX's tests/test_tp.py rule
+TP_MIXTRAL_LAYERS = 4  # Mixtral under EP: full width, depth cut
+TP_MIXTRAL_PROMPT = 128  # K6b on the local experts (more than 64 tokens)
+TP_SERVE_LENS = (16, 128, 512, 1536)  # the served prompts' lengths
+TP_SERVE_PER_LEN = 2  # and the requests of each: all 8 slots live
+TP_TIMEOUT_S = 300.0  # a rank that hangs fails the others' collective
+
+
+def tp_shapes(cfg: dict, n: int = TP_RANKS):
+    """(name, out, in, blocked) of one layer's four linears on one rank of
+    ``n``: q|k|v and gate|up over their out axis, o and down the rank's
+    column block of the blocked encoding."""
+    h, inter = cfg["hidden_size"], cfg["intermediate_size"]
+    nh, hd = cfg["num_attention_heads"], cfg["head_dim"]
+    heads = nh + 2 * cfg["num_key_value_heads"]
+    return [
+        (f"qkv / {n}", heads * hd // n, h, False),
+        (f"o, block of {n}", h, nh * hd // n, True),
+        (f"gate_up / {n}", 2 * inter // n, h, False),
+        (f"down, block of {n}", h, inter // n, True),
+    ]
+
+
+def tp_flash_cases(cfg: dict, n: int = TP_RANKS):
+    """K8 at one rank's heads (Llama-3.1-8B over 2: 16 over 4 KV heads)."""
+    nh, nkv = cfg["num_attention_heads"] // n, cfg["num_key_value_heads"] // n
+    return tuple(
+        (f"one rank's heads of {n}", 1, s, nh, nkv, cfg["head_dim"], 1.0,
+         False) for s in (1024, 2048)
+    )
+
+
+def against_plain(fmt: str, name: str, kernel, record):
+    """``kernel`` holding each call against its plain version on the same
+    inputs: K1-K6 |err| <= RTOL * |plain| + ATOL_FRAC * max|plain|, K8
+    FLASH_TOL * max|plain|; the output finite and of the input's dtype.
+    ``record(args, err, share)`` takes each call's numbers (``share``: the
+    worst share of the limit) and returns where the call was, for the
+    message; the plain calls launch nothing."""
+    ref = kernel_fns(name)[1]
+
+    def call(*args):
+        y = kernel(*args)
+        yf, rf = y.float(), ref(*args).float()
+        err = (yf - rf).abs()
+        if name == FLASH:
+            limit = FLASH_TOL * rf.abs().max() + 0 * rf
+        else:
+            limit = RTOL * rf.abs() + ATOL_FRAC * rf.abs().max()
+        share = (err / limit).nan_to_num(0.0).max().item()
+        where = record(args, err, share)
+        if not (y.dtype == args[0].dtype and bool(torch.all(err <= limit))
+                and bool(torch.isfinite(yf).all())):
+            raise AssertionError(
+                f"{fmt}: {name} {tuple(args[0].shape)}{where} against its "
+                f"plain version: max |err| {err.max().item():.4g}, "
+                f"{share:.3g} of the limit, {y.dtype} out")
+        return y
+
+    return call
+
+
+@contextlib.contextmanager
+def held_kernels(fmt: str, held: dict):
+    """Every kernel launch of the forward calls inside held against its
+    plain version on the same inputs (:func:`against_plain`); ``held``
+    gathers, per kernel, the calls, the worst share of the limit and the
+    largest error."""
+    from vptq_tpu_torch.layers import runtime
+    from vptq_tpu_torch.models import llama
+
+    def checking(name, kernel):
+        def record(args, err, share):
+            row = held.setdefault(name, dict(calls=0, of_limit=0.0,
+                                             max_abs_err=0.0))
+            row["calls"] += 1
+            row["of_limit"] = max(row["of_limit"], share)
+            row["max_abs_err"] = max(row["max_abs_err"], err.max().item())
+            return ""
+
+        return against_plain(fmt, name, kernel, record)
+
+    with contextlib.ExitStack() as stack:
+        for name in format_kernels(fmt):
+            stack.enter_context(mock.patch.object(
+                runtime, name, checking(name, getattr(runtime, name))))
+        stack.enter_context(mock.patch.object(
+            llama, FLASH, checking(FLASH, getattr(llama, FLASH))))
+        if fmt in MOE_KERNELS:
+            expert, pairs = MOE_KERNELS[fmt]
+            stack.enter_context(mock.patch.dict(llama._EXPERT_MATMUL, {
+                fmt: checking(expert, llama._EXPERT_MATMUL[fmt])}))
+            stack.enter_context(mock.patch.dict(llama._PAIRS_MATMUL, {
+                fmt: checking(pairs, llama._PAIRS_MATMUL[fmt])}))
+        yield
+
+
+def _counts() -> dict:
+    return {name: kernel_fns(name)[0].launches for name in ALL_KERNELS}
+
+
+def _zero_counts() -> None:
+    for name in ALL_KERNELS:
+        kernel_fns(name)[0].launches = 0
+
+
+def _tp_prompt(vocab: int, n: int, seed: int) -> list:
+    return np.random.default_rng(seed).integers(0, vocab, n).tolist()
+
+
+def ranks_agree(what: str, x: torch.Tensor) -> None:
+    """``x`` (of one shape on every rank) bit-equal on every rank, or fail:
+    an all-gather through the default group."""
+    import torch.distributed as dist
+
+    parts = [torch.empty_like(x) for _ in range(dist.get_world_size())]
+    dist.all_gather(parts, x.contiguous())
+    for r, part in enumerate(parts[1:], 1):
+        if not torch.equal(part, parts[0]):
+            raise AssertionError(
+                f"{what}: rank {r} differs from rank 0 by "
+                f"{(part.float() - parts[0].float()).abs().max().item()}")
+
+
+def _rank_decode_ms(model, gen, first, steps: int) -> float:
+    """Host wall ms a decode step, eager, over ``steps`` from the cache's
+    state (the ranks step in lockstep)."""
+    from vptq_tpu_torch.serving.generate import decode_loop
+
+    dev = first.device
+    _sync(dev)
+    t0 = time.perf_counter()
+    decode_loop(model, first, gen.cache, None, 0.0, steps=steps,
+                dtype=gen.dtype, tp=gen.tp)
+    _sync(dev)
+    return (time.perf_counter() - t0) * 1e3 / steps
+
+
+def tp_rank_job(job: dict, rank: int, world: int) -> dict:
+    """One format on one rank: ``from_pretrained(tp=world)``, its placed
+    bytes against the estimate, the held prefill and decode steps with
+    their launches, the ranks' agreement, the comparison with one device
+    where a reference is given, the decode step's wall, and the serving
+    run where asked. ``job["device"]``: None, the rank's card."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from vptq_tpu_torch.api import AutoModelForCausalLM
+    from vptq_tpu_torch.config import QuantizationConfig
+    from vptq_tpu_torch.serving.generate import decode_loop
+    from vptq_tpu_torch.serving.scheduler import Scheduler
+    from vptq_tpu_torch.utils import memory as hbm
+
+    fmt, path, vocab = job["fmt"], job["path"], job["vocab"]
+    out = dict(fmt=fmt, label=job["label"], rank=rank)
+    dist.barrier()
+    t0 = time.perf_counter()
+    engine = AutoModelForCausalLM.from_pretrained(
+        path, runtime_format=fmt, tp=world, max_seq=2048,
+        device=job.get("device"))
+    out["load_s"] = time.perf_counter() - t0
+    model, gen = engine.model, engine.generator
+    cfg = model.cfg
+    out["decode_mode"] = gen.decode_mode
+    out["backend"] = dist.get_backend()
+    out["world"] = world
+    with open(Path(path) / "config.json") as f:
+        qcfg = QuantizationConfig.from_dict(
+            json.load(f).get("quantization_config", {}))
+    est = hbm.estimate_model_bytes(cfg, fmt, qcfg, tp_shards=world)["total"]
+    out["placed_bytes"] = hbm.model_bytes(model)
+    out["estimate_bytes_per_rank"] = est / world
+    ranks_agree(f"{fmt} placed bytes",
+                torch.tensor([out["placed_bytes"]], device=model.norm.device))
+
+    # held: a prefill and decode steps, every launch against its plain
+    # version, the launches counted per family
+    prompt = _tp_prompt(vocab, job["held_prompt"], 3)
+    held = {}
+    _zero_counts()
+    with held_kernels(fmt, held), torch.inference_mode():
+        logits = prefill(model, gen, prompt)
+        first = torch.argmax(logits[-1:], dim=-1)
+        toks, _ = decode_loop(model, first, gen.cache, None, 0.0,
+                              steps=TP_HELD_STEPS, dtype=gen.dtype, tp=gen.tp)
+    _sync(model.norm.device)
+    counts = _counts()
+    local = cfg
+    if cfg.num_local_experts:  # the rank's experts
+        local = dataclasses.replace(
+            cfg, num_local_experts=cfg.num_local_experts // world)
+    want = launches_of(local, fmt, [(1, len(prompt), True)]
+                       + [(1, 1, False)] * TP_HELD_STEPS)
+    cuda = model.norm.device.type == "cuda"
+    if not cuda:  # the plain versions launch nothing
+        want = dict.fromkeys(ALL_KERNELS, 0)
+    if counts != want:
+        raise AssertionError(f"{fmt} rank {rank}: launches {counts}, "
+                             f"expected {want}")
+    # every launch went through a held binding
+    calls = {k: v["calls"] for k, v in held.items()}
+    if cuda and calls != {k: v for k, v in counts.items() if v}:
+        raise AssertionError(f"{fmt} rank {rank}: held {calls} of the "
+                             f"launches {counts}")
+    out["held"] = held
+    out["launches"] = counts
+    held_tokens = [int(first[0]), *toks[:, 0].tolist()]
+    out["held_tokens"] = held_tokens
+    ranks_agree(f"{fmt} prefill logits", logits)
+    ranks_agree(f"{fmt} held tokens",
+                torch.tensor(held_tokens, device=logits.device))
+    out["decode_step_ms"] = _rank_decode_ms(model, gen, toks[-1],
+                                            TP_HELD_STEPS)
+
+    ref = job.get("reference")
+    if ref is not None:
+        ref = torch.load(ref)
+        tail = logits[-ref["logits"].shape[0]:].float().cpu()
+        gap = (tail - ref["logits"]).abs().max().item()
+        out["logits_gap"] = gap
+        out["logits_gap_of_max"] = gap / ref["logits"].abs().max().item()
+        cos = torch.nn.functional.cosine_similarity(
+            tail.flatten(), ref["logits"].flatten(), dim=0).item()
+        out["logits_cos"] = cos
+        # at Llama-3.1-8B's widths every int4 block of 2 is the one-device
+        # layer's columns (``job["strict"]``; a tiny rehearsal's blocks pad)
+        strict = job.get("strict", True)
+        if strict and int(tail[-1].argmax()) != int(ref["logits"][-1].argmax()):
+            raise AssertionError(f"{fmt}: the first token differs from one "
+                                 "device's")
+        if strict and fmt == "int8" and cos <= TP_COS:
+            raise AssertionError(f"int8: cosine {cos} to one device")
+        if strict and fmt == "int4":
+            if out["logits_gap_of_max"] > LOGIT_TOL:
+                raise AssertionError(
+                    f"int4: prefill logits {gap} from one device's")
+            _same_codes_as_one_device(model, ref, rank, world)
+        # a fresh 2048-token chunk (K8 on the local heads), then greedy
+        # tokens, against one device's
+        _zero_counts()
+        long_prompt = _tp_prompt(vocab, job["prompt"], 4)
+        t0 = time.perf_counter()
+        got = engine.generate(long_prompt, max_new_tokens=TP_GREEDY)
+        out["greedy_s"] = time.perf_counter() - t0
+        out["greedy_launches"] = _counts()
+        want = expected_launches(cfg, fmt, job["prompt"], TP_GREEDY,
+                                 gen.prompt_buckets)
+        if not cuda:
+            want = dict.fromkeys(ALL_KERNELS, 0)
+        if out["greedy_launches"] != want:
+            raise AssertionError(f"{fmt}: greedy run's launches "
+                                 f"{out['greedy_launches']}, expected {want}")
+        out["greedy_tokens"] = got
+        ranks_agree(f"{fmt} greedy tokens",
+                    torch.tensor(got, device=logits.device))
+        if strict and fmt == "int4" and got != ref["tokens"]:
+            raise AssertionError(f"int4: TP tokens {got} != one device's "
+                                 f"{ref['tokens']}")
+        out["greedy_equal_one_device"] = got == ref["tokens"]
+        out["launches"] = {k: v + out["greedy_launches"][k]
+                           for k, v in out["launches"].items()}
+
+    serve = job.get("serve")
+    if serve:
+        sched = Scheduler(model, dtype=torch.bfloat16, mesh=engine.mesh,
+                          **serve["scheduler"])
+        reqs = serving_requests(gen, vocab, serve["lens"], serve["per_len"])
+        _zero_counts()
+        ids, outs, streamed, wall_s, _, device_s = served_run(sched, reqs)
+        out["served_launches"] = _counts()
+        out["launches"] = {k: v + out["served_launches"][k]
+                           for k, v in out["launches"].items()}
+        eos = served_outputs(ids, reqs, outs, streamed, vocab)
+        flat = [t for i in ids for t in outs[i]]
+        ranks_agree(f"{fmt} served tokens",
+                    torch.tensor(flat, device=logits.device))
+        out["serving"] = dict(
+            requests=len(reqs), tokens=len(flat), wall_s=wall_s,
+            eos_fired=eos, decode_mode="graphed" if sched.decode.graphed
+            else "eager", device_s=device_s, stats=sched.stats,
+        )
+    del engine, model, gen
+    torch.cuda.empty_cache()
+    return out
+
+
+def _same_codes_as_one_device(model, ref, rank: int, world: int) -> None:
+    """int4 at 2 shards: layer 0's o_proj and down_proj blocks start on
+    128-column group edges and need no padding at Llama-3.1-8B's widths,
+    so each rank's codes (unpacked: the nibbles pair columns within a
+    layer) and scales are the one-device layer's columns."""
+    from vptq_tpu_torch.ops.packing import unpack_int4
+
+    block = model.blocks[0]
+    for name, layer in (("o_proj", block.attn.o_proj),
+                        ("down_proj", block.mlp.down_proj)):
+        codes = unpack_int4(ref[f"{name}.wq"])
+        cols = codes.shape[1] // world
+        groups = ref[f"{name}.scales"].shape[0] // world
+        for part, got, want in (
+            ("codes", unpack_int4(layer.wq.cpu()),
+             codes[:, rank * cols: (rank + 1) * cols]),
+            ("scales", layer.scales.cpu(),
+             ref[f"{name}.scales"][rank * groups: (rank + 1) * groups]),
+        ):
+            if not torch.equal(got.contiguous().view(torch.uint8),
+                               want.contiguous().view(torch.uint8)):
+                raise AssertionError(
+                    f"int4 {name} {part} of rank {rank} are not the "
+                    "one-device layer's block")
+
+
+def tp_rank(rank: int, world: int, store: str, spec: str, out_dir: str):
+    """A rank of the smoke's gloo group (``torch.multiprocessing.spawn``):
+    each job of ``spec`` in turn, its results to ``out_dir``."""
+    import torch.distributed as dist
+
+    from vptq_tpu_torch.parallel import distributed
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    distributed.initialize("gloo", f"file://{store}", rank, world,
+                           timeout_s=TP_TIMEOUT_S)
+    try:
+        jobs = json.loads(Path(spec).read_text())
+        results = [tp_rank_job(job, rank, world) for job in jobs]
+        Path(out_dir, f"rank{rank}.json").write_text(json.dumps(results))
+    finally:
+        dist.destroy_process_group()
+
+
+def tp_reference(device, path, fmt: str, vocab: int, out: Path,
+                 prompt: int = TP_PROMPT, held: int = TP_HELD_PROMPT) -> str:
+    """One device's answers the ranks are held to: the held prompt's last
+    prefill rows, the greedy tokens of the long prompt, and (int4) layer
+    0's o_proj and down_proj codes and scales; written to ``out``."""
+    from vptq_tpu_torch.api import AutoModelForCausalLM
+
+    engine = AutoModelForCausalLM.from_pretrained(
+        path, runtime_format=fmt, device=device, max_seq=2048)
+    model, gen = engine.model, engine.generator
+    with torch.inference_mode():
+        logits = prefill(model, gen, _tp_prompt(vocab, held, 3))
+    ref = dict(logits=logits[-8:].float().cpu(),
+               tokens=engine.generate(_tp_prompt(vocab, prompt, 4),
+                                      max_new_tokens=TP_GREEDY))
+    block = model.blocks[0]
+    for name, layer in (("o_proj", block.attn.o_proj),
+                        ("down_proj", block.mlp.down_proj)):
+        for part in ("wq", "scales"):
+            ref[f"{name}.{part}"] = getattr(layer, part).cpu()
+    torch.save(ref, out)
+    del engine, model, gen
+    torch.cuda.empty_cache()
+    return str(out)
+
+
+def run_ranks(jobs: list, world: int = TP_RANKS) -> list:
+    """``jobs`` on ``world`` spawned ranks of a gloo group sharing the card,
+    rendezvousing through a file store in a temporary directory; returns
+    each rank's results. A rank that fails fails the phase."""
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory(prefix="vptq_tp_") as tmp:
+        spec = Path(tmp, "jobs.json")
+        spec.write_text(json.dumps(jobs))
+        torch.cuda.empty_cache()
+        mp.spawn(tp_rank, args=(world, str(Path(tmp, "store")), str(spec),
+                                tmp), nprocs=world, join=True)
+        return [json.loads(Path(tmp, f"rank{r}.json").read_text())
+                for r in range(world)]
+
+
+def report_tp(results: list, card: str) -> dict:
+    """Print each rank's run with the card's line and the label; returns
+    the launches summed over the ranks."""
+    launches = dict.fromkeys(ALL_KERNELS, 0)
+    for rank_results in results:
+        for r in rank_results:
+            for k, v in r["launches"].items():
+                launches[k] += v
+            shown = {k: ({n: c for n, c in v.items() if c}
+                         if k.endswith("launches") else v)
+                     for k, v in r.items()}
+            print(f"tp {r['label']} {r['fmt']} rank {r['rank']} [{TP_LABEL}; "
+                  f"{card}] " + json.dumps(shown))
+    return launches
+
+
+def check_compute_mode() -> str:
+    """Two processes on one card need its default compute mode."""
+    mode = _sh(["nvidia-smi", "--query-gpu=compute_mode",
+                "--format=csv,noheader"])
+    print(f"compute mode: {mode}")
+    if "Exclusive" in mode or "Prohibited" in mode:
+        raise AssertionError(
+            f"the card's compute mode is {mode}: two ranks cannot share it")
+    return mode
+
+
+def phase_tp(device, path, vocab: int, card: str) -> dict:
+    """Llama-3.1-8B at full width and depth as two gloo ranks on the card:
+    int8 and int4 through ``from_pretrained(tp=2)`` (placed bytes, held
+    launches, ranks bit-equal, against one device), int4 served through
+    ``Scheduler(mesh=)``; then the NCCL path at world size 1."""
+    check_compute_mode()
+    jobs = []
+    with tempfile.TemporaryDirectory(prefix="vptq_tp_ref_") as tmp:
+        for fmt in ("int8", "int4"):
+            with timed(f"tp one-device reference {fmt}"):
+                ref = tp_reference(device, path, fmt, vocab,
+                                   Path(tmp, f"{fmt}.pt"))
+            jobs.append(dict(
+                label="Llama-3.1-8B", fmt=fmt, path=path, vocab=vocab,
+                held_prompt=TP_HELD_PROMPT, prompt=TP_PROMPT, reference=ref,
+                serve=dict(scheduler=SERVE, lens=TP_SERVE_LENS,
+                           per_len=TP_SERVE_PER_LEN) if fmt == "int4"
+                else None))
+        with timed("tp Llama-3.1-8B ranks"):
+            results = run_ranks(jobs)
+    launches = report_tp(results, card)
+    with timed("tp nccl world 1"):
+        nccl = phase_tp_nccl(device, path, vocab)
+    print(f"tp nccl world 1 [{card}] " + json.dumps(nccl))
+    for k, v in nccl.pop("launches").items():
+        launches[k] += v
+    return dict(launches=launches, nccl=nccl)
+
+
+def phase_tp_moe(path, vocab: int, card: str,
+                 prompt: int = TP_MIXTRAL_PROMPT, fmt: str = "int4") -> dict:
+    """Mixtral-8x7B at full width (depth ``TP_MIXTRAL_LAYERS``) in int4
+    under expert parallelism over two gloo ranks: a prefill of more than
+    64 tokens (K6b on each rank's 4 experts) and decode steps (K5b),
+    every launch held, the ranks bit-equal."""
+    job = dict(label="Mixtral-8x7B", fmt=fmt, path=path, vocab=vocab,
+               held_prompt=prompt)
+    with timed("tp Mixtral-8x7B ranks"):
+        results = run_ranks([job])
+    return dict(launches=report_tp(results, card))
+
+
+def phase_tp_nccl(device, path, vocab: int) -> dict:
+    """The path of a user with a card per rank, at world size 1 (the one
+    card takes one NCCL rank): ``load_model(mesh=Mesh(1, 1))`` in int4 on
+    an NCCL group, served by ``Generator(mesh=)``, whose decode step holds
+    the collectives inside its CUDA graphs; the graphed steps bit-equal to
+    the eager ones (``graph_against_eager``), the graphed step's wall."""
+    import torch.distributed as dist
+
+    from vptq_tpu_torch.models.loader import load_model
+    from vptq_tpu_torch.parallel import distributed
+    from vptq_tpu_torch.parallel.mesh import make_mesh
+    from vptq_tpu_torch.serving.generate import Generator
+
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="vptq_nccl_") as tmp:
+        distributed.initialize("nccl", f"file://{tmp}/store", 0, 1,
+                               timeout_s=TP_TIMEOUT_S)
+        try:
+            mesh = make_mesh(data=1, model=1, device=device)
+            model = load_model(path, runtime_format="int4", mesh=mesh)
+            gen = Generator(model, max_seq=2048, mesh=mesh)
+            out.update(backend=dist.get_backend(mesh.model_group), world=1,
+                       decode_mode=gen.decode_mode)
+            if gen.decode_mode != "graphed":
+                raise AssertionError("NCCL's decode step is not graphed")
+            _zero_counts()
+            prompt = _tp_prompt(vocab, 250, 5)
+            out["graph_vs_eager_blocks"] = graph_against_eager(
+                model, gen, prompt, 12)
+            first = torch.argmax(prefill(model, gen, prompt)[-1:], dim=-1)
+            graphs = gen.graphs
+            graphs.begin(first, 0.0, 0)
+            graphs.step()
+            _sync(device)
+            t0 = time.perf_counter()
+            for _ in range(8):
+                graphs.step()
+            _sync(device)
+            out["graph_step_ms"] = (time.perf_counter() - t0) * 1e3 / 8
+            out["launches"] = _counts()
+            del gen, model
+            torch.cuda.empty_cache()
+        finally:
+            dist.destroy_process_group()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3706,10 +4241,11 @@ def main() -> int:
     t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    print(_sh([
+    card = _sh([
         "nvidia-smi", "--query-gpu=name,power.limit",
         "--format=csv,noheader",
-    ]))
+    ])
+    print(card)
     from vptq_tpu_torch.ops import _build
 
     print(_sh([_build.nvcc_path(), "--version"]))
@@ -3772,8 +4308,14 @@ def main() -> int:
         "w8_matmul", device, list(sides), SIDE_TOKENS, in_record=False,
         group=128, routes=routes,
     )
+    # K1–K4 at one rank's shapes of Llama-3.1-8B under TP = 2 (o and down
+    # in the blocked encoding: down's 7168 columns, K1's group 1024 there)
+    for name in FORMAT_KERNEL.values():
+        rows += phase_kernel(name, device, tp_shapes(LLAMA31_8B),
+                             (1, 8, 128, 512), in_record=False, routes=routes)
     rows += phase_bf16(device, k1_shapes(LLAMA31_8B), TOKENS)
     rows += phase_flash(device)
+    rows += phase_flash(device, tp_flash_cases(LLAMA31_8B))
     # K5b also at one pair and at the pairs of the longest call a MoE
     # block sends through the pairs kernel (64 tokens' top-2: 128); its
     # calls must run the decode GEMV
@@ -3893,6 +4435,18 @@ def main() -> int:
                 count(e2e)
                 with timed("tools"):
                     e2e = phase_tools(device, path, cfg["vocab_size"], rows)
+                count(e2e)
+                with timed("tp Llama-3.1-8B"):
+                    e2e = phase_tp(device, path, cfg["vocab_size"], card)
+                count(e2e)
+            if label == "Mixtral-8x7B":
+                cut = cut_checkpoint(path, TP_MIXTRAL_LAYERS)
+                try:
+                    with timed(f"tp Mixtral-8x7B ({TP_MIXTRAL_LAYERS} "
+                               "layers)"):
+                        e2e = phase_tp_moe(str(cut), cfg["vocab_size"], card)
+                finally:
+                    shutil.rmtree(cut, ignore_errors=True)
                 count(e2e)
             for fmt, (layers, tokens) in calibrated.items():
                 cut = cut_checkpoint(path, layers)

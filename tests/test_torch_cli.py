@@ -1,7 +1,7 @@
 """The port's CLI (``python -m vptq_tpu_torch``) against vptq_tpu's.
 
 Every case of tests/test_cli.py on the port (``--device cpu``), with
-``--tp`` refused instead of served; then one-shot and chat at
+``--tp 2`` served as two ranks of a gloo group; then one-shot and chat at
 temperature 0 with stdout identical, byte for byte, to the JAX CLI's on
 the same checkpoint and byte tokenizer (the JAX side runs the Pallas
 kernels in interpret mode, as a TPU would, so that activations are
@@ -26,7 +26,7 @@ import numpy as np
 import pytest
 import torch
 import torch.nn.functional as F
-from torch_port import TINY, VQ, xla_cpu_silu
+from torch_port import TINY, VQ, spawn_ranks, tp_rank_cli, xla_cpu_silu
 
 from vptq_tpu import native
 from vptq_tpu.models import load_model as j_load_model
@@ -123,14 +123,27 @@ def test_cli_rejects_unknown_runtime_format(ckpt_dir):
 
 
 @pytest.mark.parametrize("fmt", ["int8", "codebook"])
-def test_cli_tp_is_refused(ckpt_dir, fmt):
-    """``--tp 2`` serves sharded in vptq_tpu; the port runs on one device
-    and refuses it, naming the milestone that would bring it."""
-    with pytest.raises(SystemExit, match="M16"):
-        _port([
-            "--model", ckpt_dir, "--prompt", "hi", "--runtime-format", fmt,
-            "--tp", "2",
-        ])
+def test_cli_tp_is_refused(ckpt_dir, fmt, tmp_path):
+    """``--tp 2`` one-shot as two ranks of a gloo group on the CPU: rank 0
+    prints the prompt and the streamed completion of the sharded model's
+    tokens, rank 1 prints nothing; the codebook format is refused (the JAX
+    CLI's message), and ``--chat`` under ``--tp`` names M16's second half
+    (its input would reach rank 0 alone)."""
+    argv = ["--model", ckpt_dir, "--prompt", "hi", "--runtime-format", fmt,
+            "--tp", "2", "--device", "cpu", *GREEDY]
+    if fmt == "codebook":
+        with pytest.raises(SystemExit, match="codebook"):
+            cli._load(cli.build_parser().parse_args(argv))
+        with pytest.raises(SystemExit, match="M16"):
+            cli._load(cli.build_parser().parse_args([*argv, "--chat"]))
+        return
+    spawn_ranks(tp_rank_cli, 2, tmp_path, argv, str(tmp_path))
+    ranks = [torch.load(tmp_path / f"cli{r}.pt") for r in range(2)]
+    assert [r["rc"] for r in ranks] == [0, 0]
+    assert ranks[0]["tokens"] == ranks[1]["tokens"]
+    assert 1 <= len(ranks[0]["tokens"]) <= 6
+    assert ranks[0]["out"] == "hi" + ranks[0]["text"] + "\n"
+    assert ranks[1]["out"] == ""
 
 
 def test_byte_tokenizer_directory_equals_jax(tmp_path):

@@ -19,7 +19,7 @@ from unittest import mock
 
 import pytest
 import torch
-from torch_port import LLAMA3_SCALING, TINY, VQ
+from torch_port import LLAMA3_SCALING, TINY, VQ, spawn_ranks, tp_rank_engine
 
 import chip_smoke
 from vptq_tpu_torch import AutoModelForCausalLM
@@ -105,7 +105,9 @@ assert {"vptq_tpu_torch.ops.flash_attention", "vptq_tpu_torch.ops.bf16_matmul",
         "vptq_tpu_torch.eval.qa", "vptq_tpu_torch.eval.datasets",
         "vptq_tpu_torch.tools.plan", "vptq_tpu_torch.tools.pre_process",
         "vptq_tpu_torch.utils.memory", "vptq_tpu_torch.utils.profiling",
-        "vptq_tpu_torch.models.walk"} <= set(names)
+        "vptq_tpu_torch.models.walk", "vptq_tpu_torch.parallel.distributed",
+        "vptq_tpu_torch.parallel.mesh", "vptq_tpu_torch.parallel.tp",
+        "vptq_tpu_torch.parallel.expert_parallel"} <= set(names)
 for name in names:
     importlib.import_module(name)
 import chip_smoke
@@ -430,11 +432,12 @@ def test_entry_points_exit_nonzero_without_a_card(entry, argv, monkeypatch):
     assert exc.value.code not in (0, None)
     hint = "--hbm-gb" if entry == "plan" else "--device cpu"
     assert hint in str(exc.value.code)
-    # --tp above 1 is refused before anything else, naming M16
+    # --tp above 1 is refused for chat and the web app before anything
+    # else, naming M16's second half (their input reaches rank 0 alone)
     if entry in ("cli", "webapp"):
         with pytest.raises(SystemExit, match="M16"):
             (module._load(module.build_parser().parse_args(
-                [*argv, "--tp", "2"])) if entry == "cli"
+                [*argv, "--chat", "--tp", "2"])) if entry == "cli"
              else module.main([*argv, "--tp", "2"]))
 
 
@@ -2857,12 +2860,39 @@ def test_export_runtime_cli_exits_nonzero_without_a_card(monkeypatch,
     assert not (tmp_path / "rt").exists()
 
 
-def test_from_pretrained_refuses_tensor_parallelism(checkpoint):
-    with pytest.raises(NotImplementedError, match="M16"):
+def test_from_pretrained_refuses_tensor_parallelism(checkpoint, tmp_path):
+    """``tp=2`` serves (once refused): two gloo ranks on the CPU, each its
+    shard of a ``Mesh(data=1, model=2)``, the same tokens; with no
+    ``device`` and no CUDA every rank raises instead of taking the CPU;
+    outside a process group it asks for one; ``tp=1`` stays on one
+    device."""
+    spawn_ranks(tp_rank_engine, 2, tmp_path, checkpoint, str(tmp_path))
+    ranks = [torch.load(tmp_path / f"engine{r}.pt") for r in range(2)]
+    for res in ranks:
+        assert "no CUDA device" in res["no_card"], res["no_card"]
+    assert ranks[0]["tokens"] == ranks[1]["tokens"]
+    assert len(ranks[0]["tokens"]) == 4
+    assert ranks[0]["mesh"] == (1, 2) and ranks[0]["decode_mode"] == "eager"
+    with pytest.raises(RuntimeError, match="process group"):
         AutoModelForCausalLM.from_pretrained(checkpoint, device="cpu", tp=2)
     engine = AutoModelForCausalLM.from_pretrained(
         checkpoint, device="cpu", tp=1, dtype=torch.float32, max_seq=32)
     assert len(engine.generate([1, 2, 3], max_new_tokens=2)) == 2
+    assert engine.mesh is None
+
+
+def test_a_rank_without_cuda_asks_for_the_cpu():
+    """``local_device`` raises without CUDA, whatever the backend: a rank
+    takes the CPU only when its caller passes ``device="cpu"``;
+    ``default_backend`` picks gloo there."""
+    from vptq_tpu_torch.parallel import distributed
+
+    with mock.patch("torch.cuda.is_available", return_value=False):
+        with pytest.raises(RuntimeError, match="pass device='cpu'"):
+            distributed.local_device()
+        with pytest.raises(RuntimeError, match="pass device='cpu'"):
+            distributed.local_device("gloo")
+        assert distributed.default_backend() == "gloo"
 
 
 def test_side_shapes_of_llama31_8b():
@@ -3146,3 +3176,95 @@ def test_gptq_replay_equals_the_eager_loop(cuda, monkeypatch, bits, group):
     want = gptq.gptq_quantize(w, h, bits=bits, group=group)
     for q, s in (alone, *shared):
         assert torch.equal(q, want[0]) and torch.equal(s, want[1])
+
+
+# ------------------------------------------ tensor parallelism (M16, half)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tokens", [1, 8, 128, 512])
+@pytest.mark.parametrize("shape", chip_smoke.tp_shapes(chip_smoke.LLAMA31_8B),
+                         ids=lambda s: s[0] if isinstance(s, tuple) else s)
+@pytest.mark.parametrize("name", list(chip_smoke.FORMAT_KERNEL.values()))
+def test_kernels_at_one_ranks_shapes(cuda, name, shape, tokens):
+    """K1–K4 at one rank's four linears of Llama-3.1-8B under TP = 2 (q|k|v
+    and gate|up halved; o's and down's column blocks as the blocked
+    encoding pads them: down's 7168 columns, K1's group 1024 there), one
+    launch a call, within the smoke's bound of the plain version."""
+    label, out_f, in_f, blocked = shape
+    fn, ref = chip_smoke.kernel_fns(name)
+    gen = torch.Generator(device=cuda).manual_seed(out_f + in_f + tokens)
+    layer = chip_smoke.make_layer(name, gen, out_f, in_f, cuda,
+                                  blocked=blocked)
+    args = tuple(layer.buffers())
+    x = torch.randn((tokens, layer.in_padded), generator=gen,
+                    device=cuda).to(torch.bfloat16)
+    before = fn.launches
+    got = fn(x, *args)
+    want = ref(x, *args)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    assert got.shape == (tokens, out_f)
+    _assert_smoke_close(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seq", [1024, 1100, 2048])
+def test_flash_at_one_ranks_heads(cuda, seq):
+    """K8 at one rank's heads of Llama-3.1-8B under TP = 2: 16 over 4 KV
+    heads of 128."""
+    gen = torch.Generator(device=cuda).manual_seed(seq)
+    q, k, v = _flash_case(gen, cuda, 1, seq, 16, 4, 128, 1.0)
+    got = flash_attention(q, k, v, 128 ** -0.5)
+    want = flash_attention_reference(q, k, v, 128 ** -0.5)
+    torch.cuda.synchronize()
+    _assert_flash_close(got, want)
+
+
+def test_chip_smoke_tp_on_cpu(capsys, monkeypatch):
+    """The smoke's tensor-parallel phase at a tiny size with the plain
+    versions: two gloo ranks on the CPU load Llama and Mixtral (int8, both
+    expert paths) through ``from_pretrained(tp=2)``, hold every kernel
+    call against its plain version, agree bit for bit, stand beside one
+    device (printed; the smoke's checks of it need Llama-3.1-8B's widths)
+    and serve through ``Scheduler(mesh=)``."""
+    cfg = dict(TINY, tie_word_embeddings=False)
+    mcfg = dict(cfg, model_type="mixtral", num_local_experts=4,
+                num_experts_per_tok=2)
+    vq = dict(VQ, num_centroids=256, num_res_centroids=-1)
+    path, _ = chip_smoke.write_checkpoint(cfg, vq)
+    mpath, _ = chip_smoke.write_checkpoint(mcfg, vq)
+    try:
+        ref = chip_smoke.tp_reference("cpu", path, "int8", 256,
+                                      Path(path, "ref.pt"), prompt=40, held=24)
+        jobs = [
+            dict(label="tiny", fmt="int8", path=path, vocab=256,
+                 device="cpu", held_prompt=24, prompt=40, reference=ref,
+                 strict=False,
+                 serve=dict(scheduler=dict(max_batch=2, max_seq=128, chunk=4,
+                                           depth=2, admit_parallel=2,
+                                           prompt_buckets=(16, 32)),
+                            lens=(8, 20), per_len=1)),
+            dict(label="tiny Mixtral", fmt="int8", path=mpath, vocab=256,
+                 device="cpu", held_prompt=70),
+        ]
+        # one thread a rank, as torch_port sets it in this process
+        monkeypatch.setenv("OMP_NUM_THREADS", "1")
+        results = chip_smoke.run_ranks(jobs)
+        launches = chip_smoke.report_tp(results, "cpu")
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
+        shutil.rmtree(mpath, ignore_errors=True)
+    assert set(launches.values()) == {0}  # the CPU launches nothing
+    for rank, runs in enumerate(results):
+        llama, mixtral = runs
+        assert llama["rank"] == rank and llama["backend"] == "gloo"
+        assert llama["decode_mode"] == "eager"
+        assert llama["held"]["w8_matmul"]["calls"] == 4 * 2 * 9
+        assert llama["greedy_tokens"] == results[0][0]["greedy_tokens"]
+        assert llama["serving"]["requests"] == 2
+        assert set(mixtral["held"]) == {"w8_matmul", "w8_matmul_expert",
+                                        "w8_matmul_pairs"}
+    lines = capsys.readouterr().out.splitlines()
+    assert sum(ln.startswith("tp ") and chip_smoke.TP_LABEL in ln
+               for ln in lines) == 4

@@ -203,9 +203,13 @@ def test_encode_int2_group_128(numpy_encoder):
 
 
 @pytest.mark.parametrize("fmt", FORMATS)
-def test_blocked_encodings_raise(fmt):
-    with pytest.raises(NotImplementedError, match="shards"):
-        _encode(trt, fmt, torch.zeros(8, 2048), shards=2)
+def test_blocked_encodings_raise(numpy_encoder, fmt):
+    """The blocked (``shards > 1``) encodings of tensor parallelism, once
+    refused, give the JAX package's bytes (``tests/test_torch_tp_encodings
+    .py`` holds every format at 2 and 4 shards and every pad)."""
+    w = _weight(24, 3000, 7)
+    _assert_same_layer(_encode(trt, fmt, torch.from_numpy(w), shards=2),
+                       _encode(jrt, fmt, w, shards=2))
 
 
 @pytest.mark.parametrize("fmt", FORMATS)

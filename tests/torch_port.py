@@ -85,3 +85,196 @@ def xla_cpu_silu(x):
     hold bf16 text to the JAX package's swap it in with
     ``monkeypatch.setattr(F, "silu", ...)``."""
     return x * (1 / (1 + torch.exp(-x)))
+
+
+# ---------------------------------------------------------------- ranks
+# The tensor-parallel tests run the port as ranks of a gloo group on the
+# CPU, each a process started by ``torch.multiprocessing.spawn``; the
+# functions those processes run live here, in a module that imports no
+# JAX, so that no rank loads it.
+
+
+def spawn_ranks(fn, world: int, tmp, *args) -> None:
+    """``fn(rank, world, store, *args)`` on ``world`` spawned ranks that
+    rendezvous through a file store under ``tmp`` (no port to collide
+    with another test process's)."""
+    import torch.multiprocessing as mp
+
+    mp.spawn(fn, args=(world, str(tmp / f"store{world}"), *args),
+             nprocs=world, join=True)
+
+
+def _join(rank: int, world: int, store: str) -> None:
+    from vptq_tpu_torch.parallel import distributed
+
+    distributed.initialize("gloo", f"file://{store}", rank, world,
+                           timeout_s=120.0)
+
+
+def _bytes_of(model) -> dict:
+    return {k: v.contiguous().view(torch.uint8).clone()
+            for k, v in model.state_dict().items()}
+
+
+def tp_rank_cases(rank: int, world: int, store: str, spec: str,
+                  out_dir: str) -> None:
+    """Every case of ``spec`` (a ``torch.save``d list of dicts) on this
+    rank: the sharded load (``load_model(mesh=)``), its bytes, the
+    placement of a one-device load (``tp_place_model``), ``forward_tp``'s
+    logits over a prefill and a decode step, and where asked the
+    ``Generator(mesh=)`` (greedy, and sampled twice) and the
+    ``Scheduler(mesh=)``; the results to ``out_dir/<rank>.pt``."""
+    import torch.distributed as dist
+
+    from vptq_tpu_torch.models.loader import load_model
+    from vptq_tpu_torch.parallel.mesh import make_mesh
+    from vptq_tpu_torch.parallel.tp import (
+        forward_tp,
+        init_cache_tp,
+        tp_place_model,
+    )
+    from vptq_tpu_torch.serving.generate import Generator
+    from vptq_tpu_torch.serving.scheduler import Scheduler
+    from vptq_tpu_torch.utils import memory as hbm
+
+    _join(rank, world, store)
+    results = {}
+    try:
+        for case in torch.load(spec):
+            mesh = make_mesh(data=case["data"], model=world // case["data"],
+                             device="cpu")
+            kw = dict(dtype=torch.float32, runtime_format=case["fmt"])
+            model = load_model(case["ckpt"], mesh=mesh, **kw)
+            out = {"bytes": _bytes_of(model)}
+            if case.get("estimate"):
+                # the loader's own dtype, which the estimate counts
+                out["model_bytes"] = hbm.model_bytes(load_model(
+                    case["ckpt"], mesh=mesh, runtime_format=case["fmt"]))
+            if case.get("place"):
+                one = load_model(case["ckpt"], device="cpu", **kw)
+                out["placed"] = _bytes_of(tp_place_model(one, mesh))
+            tokens = torch.tensor(case["tokens"])
+            cache = init_cache_tp(model.cfg, tokens.shape[0], 128,
+                                  torch.float32, mesh)
+            with torch.inference_mode():
+                out["logits"], _ = forward_tp(model, tokens, cache, mesh,
+                                              torch.float32, True)
+                nxt = torch.tensor(case["next"])
+                out["step"], _ = forward_tp(model, nxt, cache, mesh,
+                                            torch.float32)
+            if case.get("ep"):
+                out["ep_gap"] = _ep_gap(case, mesh, kw)
+            if case.get("generate"):
+                gen = Generator(model, max_seq=64, dtype=torch.float32,
+                                prompt_buckets=(16, 32), mesh=mesh)
+                prompt = case["generate"]
+                out["greedy"] = gen.generate(prompt, max_new_tokens=8,
+                                             chunk_size=4)
+                out["sampled"] = [
+                    gen.generate(prompt, max_new_tokens=8, temperature=0.7,
+                                 seed=5, chunk_size=4) for _ in range(2)]
+                out["decode_mode"] = gen.decode_mode
+            if case.get("schedule"):
+                sched = Scheduler(model, max_batch=2, max_seq=64,
+                                  dtype=torch.float32, chunk=4,
+                                  prompt_buckets=(16, 32), mesh=mesh)
+                ids = [sched.submit(p, max_new_tokens=n)
+                       for p, n in case["schedule"]]
+                outs = sched.run()
+                out["served"] = [outs[i] for i in ids]
+            results[case["name"]] = out
+            dist.barrier()
+        torch.save(results, f"{out_dir}/{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def tp_rank_cli(rank: int, world: int, store: str, argv: list,
+                out_dir: str) -> None:
+    """``python -m vptq_tpu_torch ... --tp world`` on this rank, its stdout
+    and the tokens of the same request through its ``Generator`` to
+    ``out_dir/cli<rank>.pt``."""
+    import contextlib
+    import io
+
+    import torch.distributed as dist
+
+    from vptq_tpu_torch.serving import cli
+
+    _join(rank, world, store)
+    try:
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(argv)
+        args = cli.build_parser().parse_args(argv)
+        tokenizer = cli._tokenizer(args)
+        _, gen = cli._load(args)
+        ids = tokenizer(args.prompt, return_tensors=None)["input_ids"]
+        toks = gen.generate(ids, max_new_tokens=args.max_new_tokens,
+                            eos_token_id=tokenizer.eos_token_id,
+                            temperature=args.temperature, seed=args.seed)
+        # the completion as the CLI streams it, a token at a time
+        text = "".join(tokenizer.decode([t], skip_special_tokens=True)
+                       for t in toks)
+        torch.save(dict(rc=rc, out=buf.getvalue(), tokens=toks, text=text),
+                   f"{out_dir}/cli{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def tp_rank_engine(rank: int, world: int, store: str, ckpt: str,
+                   out_dir: str) -> None:
+    """``from_pretrained(tp=world)`` on this rank serving one request; its
+    tokens, and what ``from_pretrained(tp=world)`` with no ``device``
+    raises when CUDA is missing, to ``out_dir/engine<rank>.pt``."""
+    from unittest import mock
+
+    import torch.distributed as dist
+
+    from vptq_tpu_torch import AutoModelForCausalLM
+
+    _join(rank, world, store)
+    try:
+        with mock.patch("torch.cuda.is_available", return_value=False):
+            try:
+                AutoModelForCausalLM.from_pretrained(ckpt, tp=world)
+                no_card = None
+            except RuntimeError as e:
+                no_card = str(e)
+        engine = AutoModelForCausalLM.from_pretrained(
+            ckpt, device="cpu", tp=world, dtype=torch.float32, max_seq=32)
+        torch.save(dict(tokens=engine.generate([1, 2, 3], max_new_tokens=4),
+                        mesh=(engine.mesh.data, engine.mesh.model),
+                        decode_mode=engine.generator.decode_mode,
+                        no_card=no_card),
+                   f"{out_dir}/engine{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def _ep_gap(case, mesh, kw) -> float:
+    """``moe_forward_ep`` on this rank's experts (``shard_stacked_experts``
+    of a one-device load's first MoE block) against the one-device routed
+    experts on the same tokens, both MoE paths: the largest gap."""
+    from vptq_tpu_torch.models import llama
+    from vptq_tpu_torch.models.loader import load_model
+    from vptq_tpu_torch.parallel.expert_parallel import (
+        moe_forward_ep,
+        shard_stacked_experts,
+    )
+
+    moe = load_model(case["ckpt"], device="cpu", **kw).blocks[0].mlp
+    local = shard_stacked_experts(moe.stacked, mesh)
+    n_exp = moe.stacked.gate_up_wq.shape[0]
+    gen = torch.Generator().manual_seed(3)
+    gap = 0.0
+    for tokens in (3, 70):  # the pairs path, every local expert
+        x = torch.randn((1, tokens, moe.stacked.down_wq.shape[1]),
+                        generator=gen)
+        logits = moe.router(x).to(torch.float32)
+        top_w, top_ids = llama._top_k(logits, moe.num_experts_per_tok)
+        top_w = torch.softmax(top_w, dim=-1)
+        got = moe_forward_ep(local, x, top_ids, top_w, n_exp, mesh)
+        want = llama._route_moe(x, top_ids, top_w, n_exp, [], moe.stacked)
+        gap = max(gap, (got - want.to(torch.float32)).abs().max().item())
+    return gap

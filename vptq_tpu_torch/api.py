@@ -1,7 +1,9 @@
 """Entry point mirroring the reference's ``from_pretrained``.
 
 Port of ``vptq_tpu/api.py``: a loaded model plus its :class:`Generator`,
-on one device (CUDA unless ``device="cpu"`` is passed).
+on one device (CUDA unless ``device="cpu"`` is passed), or with ``tp=n``
+one rank's shard of it inside an initialized process group of ``n``
+ranks (``parallel/distributed.py``), every rank making the same calls.
 """
 
 from __future__ import annotations
@@ -18,14 +20,18 @@ __all__ = ["AutoModelForCausalLM", "Engine"]
 
 
 class Engine:
-    """A loaded model and its :class:`Generator`."""
+    """A loaded model (under ``mesh``, this rank's shard) and its
+    :class:`Generator`."""
 
     def __init__(
-        self, model: Model, max_seq: int = 2048, dtype=torch.bfloat16
+        self, model: Model, max_seq: int = 2048, dtype=torch.bfloat16,
+        mesh=None,
     ):
         self.model = model
         self.config = model.cfg
-        self.generator = Generator(model, max_seq=max_seq, dtype=dtype)
+        self.mesh = mesh
+        self.generator = Generator(model, max_seq=max_seq, dtype=dtype,
+                                   mesh=mesh)
 
     def generate(
         self,
@@ -72,16 +78,26 @@ class AutoModelForCausalLM:
         layers; "int4-mixed", "int3-mixed" and "int2-mixed" calibrate
         the checkpoint on 4096 synthetic tokens (GPTQ on ``device``,
         ``quant/calibrate.py``) and serve through the base format's
-        kernel and K1 on the int8 side. ``tp`` > 1 (tensor parallelism)
-        raises: not ported. ``hbm_gb`` / ``hbm_utilization``: the
-        loader's memory budget (``load_model``), checked before any
-        weight is read.
+        kernel and K1 on the int8 side. ``tp`` > 1: tensor (and expert)
+        parallelism over the ``tp`` ranks of the initialized process
+        group (every rank calls this alike; ``device`` None: the rank's
+        own, ``parallel.distributed.local_device``): a ``Mesh(data=1,
+        model=tp)``, each rank loading and serving its shard; the
+        codebook and the calibrated formats are refused then.
+        ``hbm_gb`` / ``hbm_utilization``: the loader's memory budget
+        (``load_model``), checked before any weight is read.
         """
-        if tp > 1:
-            raise NotImplementedError(
-                f"tp={tp}: tensor parallelism (ROADMAP M16) is not ported; "
-                "the port runs on one device"
-            )
+        mesh = None
+        if tp and tp > 1:
+            from vptq_tpu_torch.parallel.mesh import make_mesh
+
+            if runtime_format == "codebook":
+                raise ValueError(
+                    "tp>1 requires runtime_format int8/int4/bf16 "
+                    "(codebook does not run the shard_map path)"
+                )
+            mesh = make_mesh(data=1, model=tp, device=device)
+            device = None
         model = load_model(
             pretrained_model_name_or_path,
             dtype=dtype,
@@ -89,5 +105,6 @@ class AutoModelForCausalLM:
             device=device,
             hbm_gb=hbm_gb,
             hbm_utilization=hbm_utilization,
+            mesh=mesh,
         )
-        return Engine(model, max_seq=max_seq, dtype=dtype)
+        return Engine(model, max_seq=max_seq, dtype=dtype, mesh=mesh)

@@ -19,11 +19,17 @@ DeepSeek block's ``attn`` holds ``kv_a_proj``, ``kv_a_norm``, ``o_proj``,
 ``router_weight``, ``correction_bias``, ``experts.<e>`` or ``stacked``,
 and ``shared_experts``.
 bf16 arrays are taken by bit pattern.
+
+:func:`convert_shard` carries one rank's shard of a model the JAX package
+placed for tensor parallelism (``tp_place_model``): each leaf given as
+its per-device arrays in the mesh's device order, it builds the port's
+local :class:`Model` from those of one device, the shard that
+``parallel/tp.py`` ``tp_place_model`` places on that rank.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -54,7 +60,7 @@ from vptq_tpu_torch.models.loader import resolve_device
 from vptq_tpu_torch.ops.packing import INT4_GROUP, to_index_plane
 from vptq_tpu_torch.ops.w2_matmul import W2_GROUPS
 
-__all__ = ["convert_params"]
+__all__ = ["convert_params", "convert_shard"]
 
 
 # the JAX Mlp's fields and their names in a dense and in a Mixtral
@@ -307,4 +313,19 @@ def convert_params(
         norm=get("norm"),
         lm_head=linear("lm_head", "lm_head"),
         cfg=cfg,
+    )
+
+
+def convert_shard(
+    shards: Dict[str, Sequence[np.ndarray]], hf_config: dict, rank: int,
+    device=None,
+) -> Model:
+    """Rank ``rank``'s shard of a model the JAX package placed over a mesh:
+    ``shards`` maps each tree path to the leaf's per-device arrays in the
+    mesh's device order (a replicated leaf: the same array on each);
+    returns the port's local Model of device ``rank``'s arrays (the
+    config stays the whole model's)."""
+    return convert_params(
+        {name: parts[rank] for name, parts in shards.items()}, hf_config,
+        device,
     )

@@ -28,8 +28,10 @@ Every encoding is byte-equal to the JAX package's numpy encoder.
 DeepSeek MoE block (:func:`stack_experts`) for the expert and pairs
 kernels K6 and K5; :func:`absorb_mla` turns an MLA layer's kv_b_proj
 into the latent-space products uk / uv.
-Blocked (``shards > 1``) encodings for tensor parallelism are not
-ported: on one device they would compute wrong outputs, so they raise.
+The blocked (``shards > 1``) encodings of tensor parallelism split the
+in axis into ``shards`` contiguous column blocks and encode each alone,
+so that each block is a standard layer for one rank's kernel
+(``parallel/tp.py`` places them; ``to_runtime(row_shards=)``).
 """
 
 from __future__ import annotations
@@ -52,6 +54,7 @@ from vptq_tpu_torch.ops.packing import (
     INT4_GROUP,
     W2_BLOCK,
     W2_GROUP,
+    W3_BLOCK,
     pack_int2,
     pack_int3,
     pack_int4,
@@ -288,8 +291,9 @@ class _MixedLinear(nn.Module):
 
     The gather stays on the device (one ``index_select``), the base runs
     its format's kernel and the side K1, both in ``x.dtype``. A blocked
-    (``shards > 1``) instance, whose ``col_idx`` holds shard-local ids,
-    is not ported: the runtime reader refuses it.
+    (``shards > 1``) instance, whose ``col_idx`` holds shard-local ids, is
+    made only by the JAX package's calibration; the runtime reader
+    refuses it.
     """
 
     _BASE = ""
@@ -362,15 +366,33 @@ def _pad_columns(w: torch.Tensor, pad_to: int) -> torch.Tensor:
     return nn.functional.pad(w, (0, pad)) if pad else w
 
 
+def _blocks(w: torch.Tensor, shards: int):
+    """The in axis zero-padded to a multiple of ``shards``, cut into that
+    many contiguous column blocks."""
+    w = _pad_columns(w, shards)
+    blk = w.shape[1] // shards
+    return [w[:, s * blk: (s + 1) * blk] for s in range(shards)]
+
+
 def _encode_int8(
-    w: torch.Tensor, bias: Optional[torch.Tensor], group: Optional[int] = None
+    w: torch.Tensor, bias: Optional[torch.Tensor], group: Optional[int] = None,
+    shards: int = 1,
 ) -> Int8Linear:
     """f32 (out, in) weight → :class:`Int8Linear` on the same device.
 
     Symmetric per-(row, group) scale ``absmax / 127`` (1 for an all-zero
     group); ``q = round(w / scale)`` rounds half to even after an f32
     divide, as ``np.round`` does in the JAX package's encoder.
+    ``shards > 1``: the blocked layout, each block with its own group
+    (``pick_group`` of its width) and padding.
     """
+    if shards > 1:
+        parts = [_encode_int8(b, None, group) for b in _blocks(w, shards)]
+        return Int8Linear(
+            wq=torch.cat([p.wq for p in parts], dim=1),
+            scales=torch.cat([p.scales for p in parts], dim=0),
+            bias=bias,
+        )
     group = group or pick_group(w.shape[1])
     w = _pad_columns(w, group)
     out_f, in_p = w.shape
@@ -401,21 +423,24 @@ def dense_to_int8(
     return _encode_int8(layer.weight.to(torch.float32), layer.bias, group)
 
 
-def _no_blocks(shards: int) -> None:
-    if shards > 1:
-        raise NotImplementedError(
-            "blocked (shards > 1) encodings only mean something after "
-            "tensor-parallel placement, which is not ported"
-        )
-
-
 def _encode_int4(
-    w: torch.Tensor, bias: Optional[torch.Tensor], shards: int = 1
+    w: torch.Tensor, bias: Optional[torch.Tensor], shards: int = 1,
+    pad_to: int = 2048,
 ) -> Int4Linear:
     """f32 (out, in) weight → :class:`Int4Linear` on the same device,
-    in_features zero-padded to a multiple of 2048."""
-    _no_blocks(shards)
-    q, scale = quantize_int4(_pad_columns(w, 2048))
+    in_features zero-padded to a multiple of ``pad_to``. ``shards > 1``:
+    the blocked layout, each block padded to 512 columns (256 below 512)."""
+    if shards > 1:
+        parts = [
+            _encode_int4(b, None, pad_to=512 if b.shape[1] >= 512 else 256)
+            for b in _blocks(w, shards)
+        ]
+        return Int4Linear(
+            wq=torch.cat([p.wq for p in parts], dim=1),
+            scales=torch.cat([p.scales for p in parts], dim=0),
+            bias=bias,
+        )
+    q, scale = quantize_int4(_pad_columns(w, pad_to))
     return Int4Linear(
         wq=pack_int4(q),
         scales=scale.t().contiguous().to(torch.bfloat16),
@@ -424,12 +449,22 @@ def _encode_int4(
 
 
 def _encode_int3(
-    w: torch.Tensor, bias: Optional[torch.Tensor], shards: int = 1
+    w: torch.Tensor, bias: Optional[torch.Tensor], shards: int = 1,
+    pad_to: int = 2048,
 ) -> Int3Linear:
     """f32 (out, in) weight → :class:`Int3Linear` on the same device,
-    in_features zero-padded to a multiple of 2048."""
-    _no_blocks(shards)
-    q, scale = quantize_int3(_pad_columns(w, 2048))
+    in_features zero-padded to a multiple of ``pad_to``. ``shards > 1``:
+    the blocked layout, each block padded to ``W3_BLOCK`` (1024)."""
+    if shards > 1:
+        parts = [_encode_int3(b, None, pad_to=W3_BLOCK)
+                 for b in _blocks(w, shards)]
+        return Int3Linear(
+            wq2=torch.cat([p.wq2 for p in parts], dim=1),
+            wq1=torch.cat([p.wq1 for p in parts], dim=1),
+            scales=torch.cat([p.scales for p in parts], dim=1),
+            bias=bias,
+        )
+    q, scale = quantize_int3(_pad_columns(w, pad_to))
     wq2, wq1 = pack_int3(q)
     return Int3Linear(
         wq2=wq2, wq1=wq1, scales=scale.to(torch.bfloat16), bias=bias
@@ -441,8 +476,16 @@ def _encode_int2(
     group: int = W2_GROUP,
 ) -> Int2Linear:
     """f32 (out, in) weight → :class:`Int2Linear` on the same device,
-    in_features zero-padded to a multiple of 1024."""
-    _no_blocks(shards)
+    in_features zero-padded to a multiple of 1024 (``shards > 1``: the
+    blocked layout, each block padded to 1024)."""
+    if shards > 1:
+        parts = [_encode_int2(b, None, group=group)
+                 for b in _blocks(w, shards)]
+        return Int2Linear(
+            wq=torch.cat([p.wq for p in parts], dim=1),
+            scales=torch.cat([p.scales for p in parts], dim=1),
+            bias=bias,
+        )
     q, scale = quantize_int2(_pad_columns(w, W2_BLOCK), group=group)
     return Int2Linear(
         wq=pack_int2(q), scales=scale.to(torch.bfloat16), bias=bias
@@ -606,18 +649,38 @@ def to_bf16(layer: VQLinear) -> DenseLinear:
     )
 
 
-def to_runtime(layer, fmt: str):
-    """Convert any linear to the requested runtime format."""
+def to_runtime(layer, fmt: str, row_shards: int = 1):
+    """Convert any linear to the requested runtime format.
+
+    ``row_shards > 1``: the in axis in the blocked layout of tensor
+    parallelism, each block encoded once straight from the exact weight
+    (the loader's row-parallel layers: o_proj, down_proj). bf16 has no
+    blocks: its placement slices the columns.
+    """
     if fmt not in RUNTIME_FORMATS:
         raise ValueError(f"unknown runtime format {fmt!r}")
-    if not isinstance(layer, VQLinear) or fmt == "codebook":
+    if not isinstance(layer, VQLinear):
         return layer  # dense stays dense
+    if fmt == "codebook":
+        if row_shards > 1:
+            raise NotImplementedError(
+                "codebook format under tensor parallelism: use a runtime "
+                "format (int8/int4/int3/int2/bf16)"
+            )
+        return layer
+    if row_shards > 1 and fmt in _ENCODE:
+        return _ENCODE[fmt](_exact_weight(layer), layer.bias,
+                            shards=row_shards)
     return _TO_FORMAT[fmt](layer)
 
 
 _TO_FORMAT = {
     "int8": to_int8, "int4": to_int4, "int3": to_int3, "int2": to_int2,
     "bf16": to_bf16,
+}
+_ENCODE = {
+    "int8": _encode_int8, "int4": _encode_int4, "int3": _encode_int3,
+    "int2": _encode_int2,
 }
 
 

@@ -16,6 +16,14 @@ with shared experts, whose routed experts take the same two paths.
 Modules hold the weights; :func:`forward` is the function the JAX
 package jits. There is no autograd on this path.
 
+Under tensor parallelism (``parallel/tp.py``) a rank's modules are its
+shard and :func:`forward` takes ``tp``, the model axis: it runs the
+rank's local heads, experts and vocabulary range, and joins the ranks
+where the JAX package's forward does inside ``shard_map``: one sum after
+each row-parallel projection (o_proj, down_proj) and MoE combine, one
+after the vocabulary-range embedding lookup, and one gather of the
+vocabulary-sharded logits.
+
 The KV cache is updated in place (JAX's is functional). Its lengths
 live on the device, one per sequence, and :func:`forward` advances them
 in place, so a decode step captured as a CUDA graph reads and writes
@@ -41,6 +49,7 @@ from vptq_tpu_torch.ops.w4_matmul_expert import w4_matmul_expert
 from vptq_tpu_torch.ops.w4_matmul_pairs import w4_matmul_pairs
 from vptq_tpu_torch.ops.w8_matmul_expert import w8_matmul_expert
 from vptq_tpu_torch.ops.w8_matmul_pairs import w8_matmul_pairs
+from vptq_tpu_torch.parallel.distributed import all_gather_last, all_reduce
 
 __all__ = [
     "Attention",
@@ -500,11 +509,14 @@ class KVCache:
 
 
 def init_cache(
-    cfg: ModelConfig, batch: int, max_seq: int, dtype: torch.dtype, device
+    cfg: ModelConfig, batch: int, max_seq: int, dtype: torch.dtype, device,
+    tp_size: int = 1,
 ) -> KVCache:
+    """``tp_size``: a rank's cache under tensor parallelism, its local KV
+    heads (``parallel/tp.py`` ``init_cache_tp``)."""
     # MLA caches one shared latent "head" (cfg.cache_k_dim): K and V are
-    # of different widths then
-    kv_heads = 1 if cfg.is_mla else cfg.num_key_value_heads
+    # of different widths then; the latent is not sharded
+    kv_heads = 1 if cfg.is_mla else cfg.num_key_value_heads // tp_size
     base = (batch, max_seq, kv_heads)
     layers = range(cfg.num_hidden_layers)
     return KVCache(
@@ -532,10 +544,15 @@ def _attention(
     cfg: ModelConfig,
     live: int,  # cache positions read, from attended()
     fresh_prefill: bool = False,
+    tp=None,
 ) -> torch.Tensor:
     batch, seq, _ = x.shape
     nh, nkv = cfg.num_attention_heads, cfg.num_key_value_heads
     hd = cfg.head_dim
+    if tp is not None:
+        # this rank's heads; o_proj is row-parallel, summed below
+        nh //= tp.size
+        nkv //= tp.size
     if attn.qkv_proj is not None:
         q, k, v = torch.split(
             attn.qkv_proj(x), [nh * hd, nkv * hd, nkv * hd], dim=-1
@@ -554,7 +571,18 @@ def _attention(
         out = _cache_and_attend(
             block_idx, q, k, v, cache, offsets, cfg, live, scale=hd ** -0.5
         )
-    return attn.o_proj(out.to(x.dtype))
+    return _row_parallel_out(attn.o_proj, out, x.dtype, tp)
+
+
+def _row_parallel_out(proj, out, dtype, tp):
+    """A row-parallel projection; under tensor parallelism its partial
+    products summed over the model axis in the activation dtype, as the
+    JAX package's ``psum`` sums them (a row-parallel bias is refused at
+    placement, ``parallel/tp.py``)."""
+    y = proj(out.to(dtype))
+    if tp is not None:
+        y = all_reduce(y, tp)
+    return y
 
 
 def takes_flash(cfg: ModelConfig, seq: int, dtype: torch.dtype) -> bool:
@@ -756,15 +784,21 @@ def _mla_attention(
     offsets: torch.Tensor,
     cfg: ModelConfig,
     live: int,
+    tp=None,
 ) -> torch.Tensor:
     """DeepSeek MLA in the latent space: the cache holds the normed
     compressed kv and the rotated shared key (one "head" of kv_lora + dr),
     q's nope part is carried into that space by uk and the attended
     latent out of it by uv (f32 products of the cast operands, as the JAX
     package's ``preferred_element_type``), through
-    :func:`_cache_and_attend` (never K8)."""
+    :func:`_cache_and_attend` (never K8). Under tensor parallelism the
+    compressed projections (q_a, kv_a) are whole on every rank, the
+    per-head tensors (q / q_b, uk, uv) this rank's heads, the latent
+    cache whole, and o_proj row-parallel (``parallel/tp.py``)."""
     batch, seq, _ = x.shape
     nh = cfg.num_attention_heads
+    if tp is not None:
+        nh //= tp.size
     dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
     if attn.q_proj is not None:
         q = attn.q_proj(x)
@@ -795,7 +829,7 @@ def _mla_attention(
         "bsnl,lnv->bsnv", out_lat,
         attn.uv.to(out_lat.dtype).to(torch.float32),
     ).to(x.dtype).reshape(batch, seq, nh * dv)
-    return attn.o_proj(out)
+    return _row_parallel_out(attn.o_proj, out, x.dtype, tp)
 
 
 # The selected-experts path runs when a call holds at most this many
@@ -931,17 +965,23 @@ def _top_k(logits: torch.Tensor, k: int):
     return order.values[..., :k], order.indices[..., :k]
 
 
-def _moe_mlp(moe: MoeMlp, x: torch.Tensor) -> torch.Tensor:
+def _moe_mlp(moe: MoeMlp, x: torch.Tensor, tp=None) -> torch.Tensor:
     # router in f32 (HF MixtralSparseMoeBlock does the same)
     logits = moe.router(x).to(torch.float32)  # (..., E)
     top_w, top_ids = _top_k(logits, moe.num_experts_per_tok)
     top_w = torch.softmax(top_w, dim=-1)  # normalize over the top-k
+    if tp is not None:
+        # expert parallelism: the stacked experts are this rank's (placed
+        # by parallel/tp.py); the routing is every rank's
+        return _moe_local(moe.stacked, x, top_ids, top_w, logits.shape[-1],
+                          tp).to(x.dtype)
     return _route_moe(
         x, top_ids, top_w, logits.shape[-1], moe.experts, moe.stacked
     )
 
 
-def _deepseek_moe(moe: DeepseekMoe, x: torch.Tensor) -> torch.Tensor:
+def _deepseek_moe(moe: DeepseekMoe, x: torch.Tensor,
+                  tp=None) -> torch.Tensor:
     """Sigmoid scores plus the correction bias pick the experts, group
     by group (HF DeepseekV3TopkRouter.get_topk_indices): each group
     scores the sum of its top two, the ``topk_group`` best groups stay,
@@ -970,22 +1010,39 @@ def _deepseek_moe(moe: DeepseekMoe, x: torch.Tensor) -> torch.Tensor:
     if moe.norm_topk_prob:
         top_w = top_w / (top_w.sum(dim=-1, keepdim=True) + 1e-20)
     top_w = top_w * moe.routed_scaling_factor
+    if tp is not None:
+        # this rank's routed experts; the shared ones tensor-parallel
+        routed = _moe_local(moe.stacked, x, top_ids, top_w, num_experts,
+                            tp).to(x.dtype)
+        return routed + _mlp(moe.shared_experts, x, tp)
     routed = _route_moe(
         x, top_ids, top_w, num_experts, moe.experts, moe.stacked
     )
     return routed + _mlp(moe.shared_experts, x)
 
 
-def _mlp(mlp, x: torch.Tensor) -> torch.Tensor:
+def _moe_local(stacked, x, top_ids, top_w, num_experts, tp):
+    from vptq_tpu_torch.parallel.expert_parallel import moe_local
+
+    if stacked is None:
+        raise NotImplementedError(
+            "tensor-parallel MoE needs stacked experts (fuse_model)"
+        )
+    return moe_local(stacked, x, top_ids, top_w, num_experts, tp)
+
+
+def _mlp(mlp, x: torch.Tensor, tp=None) -> torch.Tensor:
     if isinstance(mlp, MoeMlp):
-        return _moe_mlp(mlp, x)
+        return _moe_mlp(mlp, x, tp)
     if isinstance(mlp, DeepseekMoe):
-        return _deepseek_moe(mlp, x)
+        return _deepseek_moe(mlp, x, tp)
+    # under tensor parallelism a fused gate|up holds [gate_d | up_d]
+    # (rows permuted at placement), so the split below is this rank's
     if mlp.gate_up_proj is not None:
         gate, up = mlp.gate_up_proj(x).chunk(2, dim=-1)
     else:
         gate, up = mlp.gate_proj(x), mlp.up_proj(x)
-    return mlp.down_proj(F.silu(gate) * up)
+    return _row_parallel_out(mlp.down_proj, F.silu(gate) * up, x.dtype, tp)
 
 
 def forward(
@@ -994,18 +1051,38 @@ def forward(
     cache: KVCache,
     dtype=torch.bfloat16,
     fresh_prefill: bool = False,
+    tp=None,
 ) -> Tuple[torch.Tensor, KVCache]:
     """Run the decoder over ``tokens`` starting at ``cache.lengths``.
 
     Returns (logits (B, S, vocab) f32, cache); the cache is updated in
     place and its lengths advanced by S on the device (``max_len`` on the
     host). Nothing is read back from the device.
+
+    ``tp`` (a ``parallel.mesh.TPAxis``): ``model`` and ``cache`` are this
+    rank's shard under tensor parallelism (``parallel/tp.py``); every rank
+    of the axis calls this with the same tokens, and gets the same
+    vocabulary-complete logits.
     """
     cfg = model.cfg
     batch, seq = tokens.shape
     device = model.embed_tokens.device
     ids = tokens.to(device=device, dtype=torch.int64)
-    x = model.embed_tokens[ids].to(dtype)
+    v_local = model.embed_tokens.shape[0]
+    if tp is not None and v_local < cfg.vocab_size:
+        # vocabulary-sharded embedding (untied): a lookup of this rank's
+        # range, zeros elsewhere, summed over the axis in the activation
+        # dtype
+        idx = ids - tp.rank * v_local
+        ok = (idx >= 0) & (idx < v_local)
+        x = torch.where(
+            ok[..., None],
+            model.embed_tokens[idx.clamp(0, v_local - 1)].to(dtype),
+            torch.zeros((), dtype=dtype, device=device),
+        )
+        x = all_reduce(x, tp)
+    else:
+        x = model.embed_tokens[ids].to(dtype)
     offsets = cache.lengths
     positions = offsets[:, None] + torch.arange(seq, device=device)[None, :]
     cos, sin = rope_cos_sin(positions, model.inv_freq, model.rope_scale)
@@ -1015,19 +1092,23 @@ def forward(
         h = rms_norm(x, block.input_layernorm, cfg.rms_norm_eps)
         if isinstance(block.attn, MlaAttention):
             x = x + _mla_attention(
-                i, block.attn, h, cos, sin, cache, offsets, cfg, live
+                i, block.attn, h, cos, sin, cache, offsets, cfg, live, tp
             )
         else:
             x = x + _attention(
                 i, block.attn, h, cos, sin, cache, offsets, cfg, live,
-                fresh_prefill=fresh_prefill,
+                fresh_prefill=fresh_prefill, tp=tp,
             )
         h = rms_norm(x, block.post_attention_layernorm, cfg.rms_norm_eps)
-        x = x + _mlp(block.mlp, h)
+        x = x + _mlp(block.mlp, h, tp)
 
     x = rms_norm(x, model.norm, cfg.rms_norm_eps)
     if model.lm_head is not None:
         logits = model.lm_head(x)
+        if tp is not None:
+            # the lm_head is column-parallel: the ranks' vocabulary shards
+            # gathered in rank order, in f32
+            logits = all_gather_last(logits.to(torch.float32), tp)
     else:
         logits = torch.matmul(
             x.to(torch.float32), model.embed_tokens.to(torch.float32).t()

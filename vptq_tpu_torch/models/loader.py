@@ -20,6 +20,12 @@ there:
     the f32 dequant, as the JAX package does,
 
 and re-encoded to the requested runtime format (``layers/runtime.py``).
+
+With a ``mesh`` (``parallel/mesh.py``) each rank loads its own shard of
+the model for tensor and expert parallelism: the row-parallel layers are
+encoded blocked straight from the exact weights, and each block is placed
+as it is built (``parallel/tp.py`` ``tp_place_block``), so that the rank
+keeps only its shard and no block but the one being built exists whole.
 """
 
 from __future__ import annotations
@@ -59,6 +65,11 @@ from vptq_tpu_torch.ops.packing import (
     to_index_plane,
     unpack_index,
     view_as_uint16,
+)
+from vptq_tpu_torch.parallel.tp import (
+    _col_parallel,
+    place_embedding,
+    tp_place_block,
 )
 
 logger = logging.getLogger("vptq_tpu_torch")
@@ -357,6 +368,7 @@ def load_model(
     int8_fraction: Optional[float] = None,
     hbm_gb: Optional[float] = None,
     hbm_utilization: float = 0.9,
+    mesh=None,
 ) -> Model:
     """Load a local VPTQ HF checkpoint directory into a :class:`Model`.
 
@@ -391,12 +403,24 @@ def load_model(
     model_base.py:165-181). ``hbm_gb=None`` reads the card's memory, and
     skips the check on the CPU. A calibrated load checks the exact
     (codebook) model it calibrates from, as the JAX package does.
+
+    ``mesh`` (a ``parallel.mesh.Mesh``; every rank calls this with the
+    same arguments): the rank's shard for tensor / expert parallelism
+    over the mesh's model axis, on ``mesh.device``: the JAX package's
+    ``parallel="tp"`` (its GSPMD placement has no counterpart). The
+    geometry is validated and the budget checked per device of the model
+    axis before anything is read. A calibrated format or the codebook
+    format under a mesh raises.
     """
-    device = resolve_device(device)
-    if runtime_format in CALIBRATED_FORMATS or (
+    calibrated = runtime_format in CALIBRATED_FORMATS or (
         calibration is not None
         and runtime_format in ("int2", "int3", "int4", "int8")
-    ):
+    )
+    if mesh is not None:
+        _check_mesh(runtime_format, calibrated)
+        device = mesh.device
+    device = resolve_device(device)
+    if calibrated:
         return _load_calibrated(
             checkpoint_dir, dtype, runtime_format, fuse, quantize_lm_head,
             device, calibration, int8_fraction, hbm_gb, hbm_utilization,
@@ -411,13 +435,21 @@ def load_model(
     qcfg = QuantizationConfig.from_dict(
         hf_config.get("quantization_config", {})
     )
+    tp_size = 1 if mesh is None else mesh.model
+    if mesh is not None:
+        from vptq_tpu_torch.parallel.tp import tp_validate
+
+        tp_validate(model_cfg, tp_size,
+                    sharded_lm_head=not model_cfg.tie_word_embeddings)
     _check_budget(model_cfg, qcfg, runtime_format, quantize_lm_head, device,
-                  hbm_gb, hbm_utilization)
+                  hbm_gb, hbm_utilization, tp_size)
     state = load_state_dict(str(root))
 
-    def lin(prefix):
+    def lin(prefix, row=False):
+        # row: a row-parallel layer, blocked under a mesh
         return to_runtime(
-            _linear(prefix, state, qcfg, dtype, device), runtime_format
+            _linear(prefix, state, qcfg, dtype, device), runtime_format,
+            row_shards=tp_size if row else 1,
         )
 
     def norm_weight(name):
@@ -442,11 +474,12 @@ def load_model(
             num_experts_per_tok=model_cfg.num_experts_per_tok,
         )
 
-    def mlp_at(prefix):
+    def mlp_at(prefix, row=True):
+        # row=False: a routed expert, whole on the rank that holds it
         return Mlp(
             gate_proj=lin(f"{prefix}.gate_proj"),
             up_proj=lin(f"{prefix}.up_proj"),
-            down_proj=lin(f"{prefix}.down_proj"),
+            down_proj=lin(f"{prefix}.down_proj", row=row),
         )
 
     def dense_mlp(p):
@@ -460,7 +493,7 @@ def load_model(
     def fused_mlp(p):
         return Mlp(
             gate_proj=None, up_proj=None,
-            down_proj=lin(f"{p}.mlp.down_proj"),
+            down_proj=lin(f"{p}.mlp.down_proj", row=True),
             gate_up_proj=lin(f"{p}.mlp.gate_up_proj"),
         )
 
@@ -468,14 +501,14 @@ def load_model(
         if fused_ckpt:
             return Attention(
                 q_proj=None, k_proj=None, v_proj=None,
-                o_proj=lin(f"{p}.self_attn.o_proj"),
+                o_proj=lin(f"{p}.self_attn.o_proj", row=True),
                 qkv_proj=lin(f"{p}.self_attn.qkv_proj"),
             )
         return Attention(
             q_proj=lin(f"{p}.self_attn.q_proj"),
             k_proj=lin(f"{p}.self_attn.k_proj"),
             v_proj=lin(f"{p}.self_attn.v_proj"),
-            o_proj=lin(f"{p}.self_attn.o_proj"),
+            o_proj=lin(f"{p}.self_attn.o_proj", row=True),
         )
 
     def mla_attention(p):
@@ -497,7 +530,7 @@ def load_model(
         return MlaAttention(
             kv_a_proj=lin(f"{p}.kv_a_proj_with_mqa"),
             kv_a_norm=norm_weight(f"{p}.kv_a_layernorm.weight"),
-            o_proj=lin(f"{p}.o_proj"), uk=uk, uv=uv, **q_kwargs,
+            o_proj=lin(f"{p}.o_proj", row=True), uk=uk, uv=uv, **q_kwargs,
         )
 
     def deepseek_moe(p, layer_idx):
@@ -510,7 +543,7 @@ def load_model(
                 f"{p}.mlp.gate.e_score_correction_bias"
             ),
             experts=[
-                mlp_at(f"{p}.mlp.experts.{e}")
+                mlp_at(f"{p}.mlp.experts.{e}", row=False)
                 for e in range(model_cfg.n_routed_experts)
             ],
             shared_experts=mlp_at(f"{p}.mlp.shared_experts"),
@@ -542,6 +575,10 @@ def load_model(
         )
         if fuse and runtime_format != "codebook":
             fuse_block(block)
+        if mesh is not None:
+            # the rank keeps its shard; the whole block goes
+            block = tp_place_block(block, mesh, model_cfg,
+                                   reencode_rows=False)
         blocks.append(block)
 
     embed = state.pop("model.embed_tokens.weight").to(device).to(dtype)
@@ -552,6 +589,10 @@ def load_model(
             lm_head = lin("lm_head")
     if quantize_lm_head and isinstance(lm_head, DenseLinear):
         lm_head = dense_to_int8(lm_head)
+    if mesh is not None:
+        embed = place_embedding(embed, lm_head, mesh)
+        if lm_head is not None:
+            lm_head = _col_parallel(lm_head, mesh)
 
     leftover = [k for k in state if "rotary" not in k]
     if leftover:
@@ -562,10 +603,28 @@ def load_model(
     )
 
 
+def _check_mesh(runtime_format, calibrated) -> None:
+    """What :func:`load_model` refuses under a mesh, before anything is
+    read."""
+    from vptq_tpu_torch.parallel.tp import M16_SECOND_HALF
+
+    if calibrated:
+        raise NotImplementedError(
+            f"a calibrated or mixed format ({runtime_format}) under a mesh: "
+            f"calibration's blocked encodings (tp_shards) are {M16_SECOND_HALF}"
+        )
+    if runtime_format == "codebook":
+        raise ValueError(
+            "tp>1 requires runtime_format int8/int4/bf16 "
+            "(codebook does not run the shard_map path)"
+        )
+
+
 def _check_budget(model_cfg, qcfg, runtime_format, quantize_lm_head, device,
-                  hbm_gb, hbm_utilization) -> None:
-    """The budget check of :func:`load_model`, from the geometry alone. On
-    one device: the weights and a 2048-token cache on it whole."""
+                  hbm_gb, hbm_utilization, tp_size: int = 1) -> None:
+    """The budget check of :func:`load_model`, from the geometry alone: the
+    weights (blocked over ``tp_size`` shards) and a 2048-token cache over
+    the devices of the model axis only (the data axis holds copies)."""
     from vptq_tpu_torch.utils import memory as hbm
 
     hbm_bytes = (int(hbm_gb * hbm.GiB) if hbm_gb
@@ -573,7 +632,7 @@ def _check_budget(model_cfg, qcfg, runtime_format, quantize_lm_head, device,
     if not hbm_bytes:
         return
     est = hbm.estimate_model_bytes(
-        model_cfg, runtime_format, qcfg, quantize_lm_head
+        model_cfg, runtime_format, qcfg, quantize_lm_head, tp_shards=tp_size
     )
     table = hbm.budget_table(
         model_cfg, qcfg, hbm_bytes=hbm_bytes, utilization=hbm_utilization
@@ -584,7 +643,7 @@ def _check_budget(model_cfg, qcfg, runtime_format, quantize_lm_head, device,
     )
     hbm.check_budget(
         est["total"] + hbm.kv_cache_bytes(model_cfg, 1, 2048),
-        1,
+        tp_size,
         hbm_bytes,
         hbm_utilization,
         what=f"{runtime_format} model ({est['total'] / hbm.GiB:.2f}"

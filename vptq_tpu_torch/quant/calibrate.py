@@ -584,8 +584,8 @@ def quantize_model_calibrated(
             of columns on the int8 side.
         fuse: fuse q|k|v and gate|up and stack the experts afterwards
             (``runtime.fuse_model``).
-        tp_shards: must be 1: the blocked encodings of tensor parallelism
-            (ROADMAP M16) are not ported.
+        tp_shards: must be 1: calibration's blocked encodings for tensor
+            parallelism are the second half of ROADMAP M16.
         resume_dir: checkpoint each finished block and the carried
             activations there; a run started again with the same
             directory resumes at the first unfinished block.
@@ -602,9 +602,9 @@ def quantize_model_calibrated(
     del site_workers
     if tp_shards > 1:
         raise NotImplementedError(
-            f"tp_shards={tp_shards}: the blocked encodings of tensor "
-            "parallelism (ROADMAP M16) are not ported; the port runs on one "
-            "device"
+            f"tp_shards={tp_shards}: calibration's blocked encodings for "
+            "tensor parallelism are the second half of ROADMAP M16; "
+            "calibrate on one device"
         )
     if fmt not in _FORMATS:
         raise ValueError(f"unsupported calibrated format {fmt!r}")

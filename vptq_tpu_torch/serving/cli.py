@@ -8,6 +8,14 @@ only when the tokenizer is read.
 
     python -m vptq_tpu_torch --model DIR --prompt "..." [--device cpu]
     python -m vptq_tpu_torch --model DIR --chat
+    torchrun --nproc-per-node 2 -m vptq_tpu_torch --model DIR --prompt "..." \
+        --tp 2
+
+``--tp n`` runs one-shot generation as ``n`` ranks of a process group
+(``parallel/distributed.py`` ``initialize`` reads torchrun's environment;
+NCCL when every rank owns a card, gloo when they share one or on the
+CPU), each loading and serving its shard of the model; every rank gets
+the same arguments and only rank 0 prints.
 """
 
 from __future__ import annotations
@@ -17,10 +25,14 @@ import os
 import sys
 
 import torch
+import torch.distributed as dist
 
+# chat and the web app read their input on one rank, which would have to
+# hand it to the others
 TP_REFUSAL = (
-    "tensor parallelism (ROADMAP M16) is not ported; the port runs on one "
-    "device"
+    "interactive input under tensor parallelism reaches rank 0 alone; "
+    "handing it to the other ranks is the second half of ROADMAP M16 "
+    "(one-shot --prompt runs under --tp)"
 )
 
 
@@ -83,8 +95,9 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument(
         "--tp", type=int, default=0,
-        help="tensor parallelism over this many devices: not ported, "
-        "values above 1 are refused",
+        help="tensor parallelism over this many ranks of a process group "
+        "(launch under torchrun --nproc-per-node N; one-shot --prompt "
+        "only)",
     )
     p.add_argument(
         "--device", type=str, default="cuda",
@@ -97,15 +110,15 @@ def _load(args):
     from vptq_tpu_torch.models.loader import load_model
     from vptq_tpu_torch.serving.generate import Generator
 
-    if args.tp and args.tp > 1:
-        raise SystemExit(f"--tp {args.tp}: {TP_REFUSAL}")
+    mesh = _tp_mesh(args)
     model = load_model(
         args.model,
         dtype=torch.bfloat16,
         runtime_format=args.runtime_format,
         quantize_lm_head=args.quantize_lm_head,
-        device=args.device,
+        device=None if mesh is not None else args.device,
         calibration=args.calibration_tokens or None,
+        mesh=mesh,
     )
     pc = None
     if args.prefix_cache_mb > 0:
@@ -114,8 +127,43 @@ def _load(args):
         pc = PrefixCache(capacity_bytes=args.prefix_cache_mb * (1 << 20))
     gen = Generator(
         model, max_seq=args.max_seq, dtype=torch.bfloat16, prefix_cache=pc,
+        mesh=mesh,
     )
     return model, gen
+
+
+def _tp_mesh(args):
+    """The ``Mesh(data=1, model=--tp)`` of this rank (joining the process
+    group first), or None for ``--tp`` 0 or 1."""
+    if not args.tp or args.tp <= 1:
+        return None
+    if args.chat:
+        raise SystemExit(f"--chat with --tp {args.tp}: {TP_REFUSAL}")
+    if args.runtime_format == "codebook":
+        raise SystemExit(
+            "--tp serves through the shard_map kernel path, which the "
+            "codebook format does not support — use --runtime-format "
+            "int8/int4/bf16"
+        )
+    from vptq_tpu_torch.parallel import distributed
+    from vptq_tpu_torch.parallel.mesh import make_mesh
+
+    distributed.initialize(
+        backend="gloo" if args.device == "cpu" else None)
+    if dist.get_world_size() != args.tp:
+        raise SystemExit(
+            f"--tp {args.tp} but {dist.get_world_size()} ranks in the group "
+            f"(launch with torchrun --nproc-per-node {args.tp})"
+        )
+    return make_mesh(data=1, model=args.tp,
+                     device="cpu" if args.device == "cpu" else None)
+
+
+def _write(text: str) -> None:
+    """stdout, on rank 0 only under a process group."""
+    if not dist.is_initialized() or dist.get_rank() == 0:
+        sys.stdout.write(text)
+        sys.stdout.flush()
 
 
 def _tokenizer(args):
@@ -132,11 +180,9 @@ def eval_prompt(gen, tokenizer, args) -> None:
     ids = tokenizer(args.prompt, return_tensors=None)["input_ids"]
 
     def stream(tok_id):
-        text = tokenizer.decode([tok_id], skip_special_tokens=True)
-        sys.stdout.write(text)
-        sys.stdout.flush()
+        _write(tokenizer.decode([tok_id], skip_special_tokens=True))
 
-    sys.stdout.write(args.prompt)
+    _write(args.prompt)
     gen.generate(
         ids,
         max_new_tokens=args.max_new_tokens,
@@ -145,7 +191,7 @@ def eval_prompt(gen, tokenizer, args) -> None:
         seed=args.seed,
         stream_callback=stream,
     )
-    sys.stdout.write("\n")
+    _write("\n")
 
 
 def chat_loop(gen, tokenizer, args) -> None:

@@ -1,15 +1,20 @@
 """Generation: bucketed prefill, then chunked decode on the device.
 
-Port of ``vptq_tpu/serving/generate.py`` for one sequence on one device
-(no mesh), with its prefix cache, and the batched decode step of its
-scheduler (:class:`BatchedDecode`). The JAX package runs each decode
+Port of ``vptq_tpu/serving/generate.py`` for one sequence, with its
+prefix cache, and the batched decode step of its scheduler
+(:class:`BatchedDecode`); on one device, or as one rank of a
+tensor-parallel mesh (``mesh=``: every rank runs the same calls on its
+shard, ``parallel/tp.py``). The JAX package runs each decode
 chunk as one ``lax.scan`` inside one jit. Here, on a CUDA device, each
 decode step is captured once as a CUDA graph (:class:`DecodeGraphs`, one
 graph per number of live cache blocks and per greedy or sampled step)
 and replayed for the chunk: the host enqueues one graph a token, and
 reads the chunk's tokens once, at its end. On the CPU, which the caller
 asks for explicitly, a chunk is :func:`decode_loop`, the eager loop of
-``forward`` calls that the graphs are held against.
+``forward`` calls that the graphs are held against. Under a mesh the
+step holds the model axis's collectives: it is captured when the group's
+backend can be (NCCL), and runs eagerly on gloo, whose collectives run on
+the host; ``decode_mode`` says which.
 """
 
 from __future__ import annotations
@@ -78,15 +83,18 @@ def decode_loop(
     steps: int,
     dtype=torch.bfloat16,
     logits: Optional[List[torch.Tensor]] = None,
+    tp=None,
 ):
     """Generate ``steps`` tokens on the device, one eager ``forward`` a
     step. Returns ((steps, B), cache); each step's (B, V) logits are
-    appended to ``logits`` when it is given."""
+    appended to ``logits`` when it is given. ``tp``: this rank's shard
+    (``forward``'s)."""
     temp = _temperature(temperature, first_token.device)
     tok = first_token
     out = []
     for _ in range(steps):
-        step_logits, cache = forward(model, tok[:, None], cache, dtype=dtype)
+        step_logits, cache = forward(model, tok[:, None], cache, dtype=dtype,
+                                     tp=tp)
         tok = sample_next(step_logits[:, 0], generator, temp)
         out.append(tok)
         if logits is not None:
@@ -133,13 +141,18 @@ class _Graphs:
     each, re-seeded for every chunk. A replay runs no Python, so the
     kernel wrappers' launch counts are recorded at capture and added on
     every replay. A capture or a replay that fails raises: nothing falls
-    back to the eager loop.
+    back to the eager loop. Under tensor parallelism (``tp``) the step
+    holds the model axis's collectives, which every rank captures and
+    replays in the same order; only a group whose collectives can be
+    captured (NCCL, ``parallel.distributed.capturable``) takes graphs.
     """
 
-    def __init__(self, model: Model, cache: KVCache, dtype, rows: int):
+    def __init__(self, model: Model, cache: KVCache, dtype, rows: int,
+                 tp=None):
         device = cache.lengths.device
         batch, max_seq = cache.k[0].shape[:2]
         self.model, self.cache, self.dtype = model, cache, dtype
+        self.tp = tp
         self.max_seq = max_seq
         self.tok = torch.zeros(batch, dtype=torch.int64, device=device)
         # the chunk's tokens, row = step of the chunk
@@ -230,12 +243,13 @@ class DecodeGraphs(_Graphs):
     count and per greedy or sampled step. The temperature is a device
     scalar; the step counter and the token buffer are the chunk's."""
 
-    def __init__(self, model: Model, cache: KVCache, dtype):
+    def __init__(self, model: Model, cache: KVCache, dtype, tp=None):
         device = cache.lengths.device
         if device.type != "cuda":
             raise ValueError(f"CUDA graphs need a CUDA cache, not {device}")
         # a chunk is shorter than max_seq
-        super().__init__(model, cache, dtype, rows=cache.k[0].shape[1])
+        super().__init__(model, cache, dtype, rows=cache.k[0].shape[1],
+                         tp=tp)
         self.temperature = torch.ones((), dtype=torch.float32, device=device)
         self.sampled = False
 
@@ -257,7 +271,8 @@ class DecodeGraphs(_Graphs):
 
     def _step(self) -> torch.Tensor:
         logits, _ = forward(
-            self.model, self.tok[:, None], self.cache, dtype=self.dtype
+            self.model, self.tok[:, None], self.cache, dtype=self.dtype,
+            tp=self.tp,
         )
         nxt = sample_next(
             logits[:, 0], self.generator,
@@ -315,14 +330,16 @@ class BatchedDecode(_Graphs):
     buffer sit at fixed addresses. On a CUDA device each step is a graph
     per live block count, keyed on the host's ``cache.max_len``, which
     the caller sets to the longest active slot before a chunk; on the
-    CPU, the same step runs eagerly.
+    CPU, and under a tensor-parallel group whose collectives cannot be
+    captured (:func:`graphs_for`), the same step runs eagerly.
     """
 
-    def __init__(self, model: Model, cache: KVCache, dtype, chunk: int):
-        super().__init__(model, cache, dtype, rows=chunk)
+    def __init__(self, model: Model, cache: KVCache, dtype, chunk: int,
+                 tp=None):
+        super().__init__(model, cache, dtype, rows=chunk, tp=tp)
         device = cache.lengths.device
         batch = cache.k[0].shape[0]
-        self.graphed = device.type == "cuda"
+        self.graphed = graphs_for(device, tp)
         self.active = torch.zeros(batch, dtype=torch.bool, device=device)
         self.temps = torch.zeros(batch, dtype=torch.float32, device=device)
         self._active_host = [False] * batch
@@ -354,7 +371,8 @@ class BatchedDecode(_Graphs):
     def _step(self) -> torch.Tensor:
         cache = self.cache
         logits, _ = forward(
-            self.model, self.tok[:, None], cache, dtype=self.dtype
+            self.model, self.tok[:, None], cache, dtype=self.dtype,
+            tp=self.tp,
         )
         # forward advanced every slot by one
         cache.lengths.sub_((~self.active).to(torch.int64))
@@ -433,6 +451,33 @@ def _generator(device: torch.device, seed: int) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(seed)
 
 
+def serving_tp(mesh):
+    """The model axis a server's forward calls take under ``mesh`` (None
+    without one). A data axis above 1 raises: the JAX package's servers
+    turn it into context-parallel prefill (a ring over the data axis),
+    whose port is the second half of ROADMAP M16."""
+    if mesh is None:
+        return None
+    if mesh.data > 1:
+        raise NotImplementedError(
+            f"a data axis of {mesh.data} in serving: the JAX package runs "
+            "it as context-parallel prefill (ring attention), which is the "
+            "second half of ROADMAP M16; serve on a mesh of data=1"
+        )
+    return mesh.tp
+
+
+def graphs_for(device: torch.device, tp) -> bool:
+    """Whether decode steps run as CUDA graphs: on a CUDA device, and
+    under a model axis ``tp`` only when its collectives can be captured
+    (NCCL); gloo's step runs eagerly."""
+    from vptq_tpu_torch.parallel.distributed import capturable
+
+    if device.type != "cuda":
+        return False
+    return tp is None or capturable(tp.group)
+
+
 class Generator:
     """Generation for one sequence at a time, on one persistent cache
     (allocated once at ``max_seq``; each request resets its lengths). On
@@ -440,7 +485,18 @@ class Generator:
     With a ``prefix_cache`` (``serving.prefix_cache.PrefixCache``) the
     longest cached prefix of a prompt is copied into the cache (one copy
     per layer) and only the rest is prefilled; every prompt's full blocks
-    are cached after its prefill."""
+    are cached after its prefill.
+
+    ``mesh`` (``parallel/mesh.py``): ``model`` is this rank's shard
+    (``load_model(mesh=)``), and every rank of the mesh calls
+    :meth:`generate` with the same arguments: the same gathered logits and
+    the same seeds give every rank the same tokens, so that each takes the
+    same host decisions (buckets, EOS, budget) and none waits alone in a
+    collective. A data axis above 1 raises: the JAX package serves it with
+    its context-parallel prefill, which is not ported. ``decode_mode``:
+    "graphed" (:class:`DecodeGraphs`: a CUDA device, and under a mesh a
+    group whose collectives can be captured) or "eager"
+    (:func:`decode_loop`)."""
 
     def __init__(
         self,
@@ -449,21 +505,26 @@ class Generator:
         dtype=torch.bfloat16,
         prompt_buckets: Sequence[int] = (128, 512, 2048),
         prefix_cache=None,
+        mesh=None,
     ):
         self.model = model
         self.max_seq = max_seq
         self.dtype = dtype
         self.prefix_cache = prefix_cache
+        self.tp = serving_tp(mesh)
         self.device = model.embed_tokens.device
         self.prompt_buckets = [b for b in prompt_buckets if b <= max_seq]
         if not self.prompt_buckets:
             self.prompt_buckets = [max_seq]
         self.cache = init_cache(
-            model.cfg, 1, max_seq, dtype, self.device
+            model.cfg, 1, max_seq, dtype, self.device,
+            tp_size=1 if mesh is None else mesh.model,
         )
+        graphed = graphs_for(self.device, self.tp)
+        self.decode_mode = "graphed" if graphed else "eager"
         self.graphs = (
-            DecodeGraphs(model, self.cache, dtype)
-            if self.device.type == "cuda" else None
+            DecodeGraphs(model, self.cache, dtype, tp=self.tp)
+            if graphed else None
         )
 
     @torch.inference_mode()
@@ -514,6 +575,7 @@ class Generator:
                 cache,
                 dtype=self.dtype,
                 fresh_prefill=(done == 0),
+                tp=self.tp,
             )
             done += last_len
             cache.reset(done)
@@ -549,6 +611,7 @@ class Generator:
                     temperature,
                     steps=steps,
                     dtype=self.dtype,
+                    tp=self.tp,
                 )
             arr = toks[:, 0].tolist()
             stop = None

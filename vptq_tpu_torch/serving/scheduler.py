@@ -1,23 +1,27 @@
 """Continuous-batching scheduler.
 
-Port of ``vptq_tpu/serving/scheduler.py`` on one device (its tensor-
-parallel mesh is not ported). A fixed batch of sequence slots shares one
-KV cache, each slot advancing on its own length, and a finished slot is
-refilled from the queue:
+Port of ``vptq_tpu/serving/scheduler.py``, on one device or as one rank
+of a tensor-parallel mesh of data axis 1 (``mesh=``: every rank submits
+the same requests in the same order and steps in lockstep; each decision
+is a function of the requests and of the tokens, which every rank
+samples alike from the gathered logits). A fixed batch of sequence slots
+shares one KV cache, each slot advancing on its own length, and a
+finished slot is refilled from the queue:
 
   * admission is chunked and interleaved with decode: each ``step()``
     advances at most ``admit_parallel`` in-flight admissions by one
     prefill bucket. Fresh prompts that fit one bucket are prefilled
     together, one row each, on the first rows of a bucket-length scratch
-    cache; the others on a batch-1 cache from a small pool. A
-    finished prefill is written into its slot (one copy per layer);
+    cache (under a mesh too: each rank its KV heads); the others on a
+    batch-1 cache from a small pool. A finished prefill is written into
+    its slot (one copy per layer);
     with every slot taken, requests still prefill ahead and wait ready
     for a slot, which a known-budget handoff gives them as soon as the
     old occupant's last token has been dispatched;
   * decode advances all slots together in chunks of ``chunk`` steps
     (:class:`~vptq_tpu_torch.serving.generate.BatchedDecode`: on a CUDA
-    device each step a replayed CUDA graph, on the CPU the same step
-    eagerly);
+    device each step a replayed CUDA graph, on the CPU, or under a gloo
+    group, the same step eagerly);
   * chunks are pipelined ``depth`` deep: chunk N+1 is dispatched from
     the tokens and cache left on the device before the host consumes
     chunk N, whose tokens come back through a pinned host buffer and a
@@ -45,6 +49,7 @@ from vptq_tpu_torch.serving.generate import (
     _temperature,
     cache_rows,
     sample_next,
+    serving_tp,
     write_rows,
 )
 
@@ -118,11 +123,7 @@ class Scheduler:
         depth: int = 2,  # decode chunks in flight (1 = synchronous)
         admit_parallel: int = 4,  # admissions advanced per step
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "a tensor-parallel mesh (ROADMAP M16) is not ported; the "
-                "scheduler runs on one device"
-            )
+        self.tp = serving_tp(mesh)
         self.model = model
         self.max_batch = max_batch
         self.max_seq = max_seq
@@ -134,9 +135,10 @@ class Scheduler:
         if not self.prompt_buckets:
             self.prompt_buckets = [max_seq]
 
-        self.cache = init_cache(model.cfg, max_batch, max_seq, dtype,
-                                self.device)
-        self.decode = BatchedDecode(model, self.cache, dtype, chunk)
+        self._tp_size = 1 if mesh is None else mesh.model
+        self.cache = self._new_cache(max_batch, max_seq)
+        self.decode = BatchedDecode(model, self.cache, dtype, chunk,
+                                    tp=self.tp)
         self.slots: List[Optional[Request]] = [None] * max_batch
         # each slot's cached length as the host knows it (prompt plus the
         # steps dispatched, capped as the device caps it): the longest
@@ -207,11 +209,15 @@ class Scheduler:
 
     # ------------------------------------------------------ device state
 
+    def _new_cache(self, batch: int, max_seq: int) -> KVCache:
+        # this rank's KV heads under a mesh
+        return init_cache(self.model.cfg, batch, max_seq, self.dtype,
+                          self.device, tp_size=self._tp_size)
+
     def _take_cache(self) -> KVCache:
         if self._free_caches:
             return self._free_caches.pop()
-        return init_cache(self.model.cfg, 1, self.max_seq, self.dtype,
-                          self.device)
+        return self._new_cache(1, self.max_seq)
 
     def _is_scratch(self, cache1: KVCache) -> bool:
         return any(cache1 is c for c in self._scratch.values())
@@ -257,7 +263,7 @@ class Scheduler:
         """One bucket of one prompt on its batch-1 cache, from ``start``."""
         cache1.reset(start)
         logits, _ = forward(self.model, tokens, cache1, dtype=self.dtype,
-                            fresh_prefill=fresh)
+                            fresh_prefill=fresh, tp=self.tp)
         return logits, cache1
 
     def _prefill_fresh_batch(self, tokens: torch.Tensor):
@@ -270,15 +276,14 @@ class Scheduler:
         rows, bucket = tokens.shape
         scratch = self._scratch.get(bucket)
         if scratch is None:
-            scratch = self._scratch[bucket] = init_cache(
-                self.model.cfg, self.admit_parallel, bucket, self.dtype,
-                self.device)
+            scratch = self._scratch[bucket] = self._new_cache(
+                self.admit_parallel, bucket)
         used = KVCache(k=[t[:rows] for t in scratch.k],
                        v=[t[:rows] for t in scratch.v],
                        lengths=scratch.lengths[:rows])
         used.reset(0)
         logits, _ = forward(self.model, tokens, used, dtype=self.dtype,
-                            fresh_prefill=True)
+                            fresh_prefill=True, tp=self.tp)
         return logits, scratch
 
     # -------------------------------------------------------- admission

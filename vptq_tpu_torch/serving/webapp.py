@@ -350,8 +350,8 @@ def main(argv=None) -> int:
     )
     p.add_argument(
         "--tp", type=int, default=0,
-        help="tensor parallelism over this many devices: not ported, "
-        "values above 1 are refused",
+        help="tensor parallelism over this many devices: values above 1 "
+        "are refused (the second half of ROADMAP M16)",
     )
     p.add_argument("--device", default="cuda",
                    help="where the model runs (cuda or cpu)")

@@ -22,9 +22,10 @@ both directions:
     tensors to view back as bf16.
 
 The reader maps the file and copies each tensor to the device as it lies.
-It refuses what the port does not run: another ``format_version``, and
-blocked (``shards > 1``) encodings, which the JAX
-package writes without a marker: a plane whose padded width is not the
+It refuses another ``format_version``, and blocked (``shards > 1``)
+encodings, which the JAX package writes without a marker (a marker, and
+with it the export of blocked layers, is the second half of ROADMAP
+M16): a plane whose padded width is not the
 one a one-device encoder gives the layer's logical width (int8: a whole
 scale group; int4 and int3: 2048; int2: 1024), or mixed columns that are
 not strictly increasing inside that width. A blocked layer whose every
@@ -205,8 +206,8 @@ def _check_one_device(prefix: str, in_p: int, pad_to: int, in_f: int):
         raise NotImplementedError(
             f"{prefix}: padded width {in_p} is not the one-device width of "
             f"{in_f} columns (a multiple of {pad_to}): a blocked (shards > "
-            "1) encoding, which only tensor-parallel placement runs; not "
-            "ported"
+            "1) encoding, which the file marks nowhere; the marker that "
+            "would let a reader place it is the second half of ROADMAP M16"
         )
 
 
@@ -256,7 +257,8 @@ class _Reader:
                 raise NotImplementedError(
                     f"{prefix}: mixed columns not strictly increasing inside "
                     f"{in_f}: a blocked (shards > 1) instance's shard-local "
-                    "ids; not ported"
+                    "ids, which the file marks nowhere (the second half of "
+                    "ROADMAP M16)"
                 )
             kind = (Int2MixedLinear if f"{prefix}.mix2.wq2p" in raw
                     else Int3MixedLinear)

@@ -12,8 +12,9 @@ package's runtime layouts, so every estimate is the JAX package's integer:
 exact for the dense runtime formats (the encoders' padding rules in
 ``layers/runtime.py``) and for ``codebook`` (the checkpoint's own
 ``VQLinearConfig`` geometry). ``row_shards`` / ``tp_shards`` are the
-blocked tensor-parallel encodings' arithmetic; the port places no model
-over several devices yet (ROADMAP M16). There is no default card size:
+blocked tensor-parallel encodings' arithmetic (``parallel/tp.py``; the
+loader checks the budget over the model axis's devices). There is no
+default card size:
 :func:`detect_hbm_bytes` reads the card.
 """
 
