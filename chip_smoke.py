@@ -187,8 +187,9 @@ without them, or when any phase fails. Phases:
    codes in range, the first half of the columns alike but for
    ``GPTQ_HALF_SHARE``, error ratios within ``GPTQ_RATIO_TOL`` of each
    other and below RTN's; the share of codes that part, by eighths);
-   then ``from_pretrained(runtime_format="int2-mixed")`` at all 32
-   layers on 4096 synthetic tokens, and int3-mixed and int4-mixed on the
+   then ``from_pretrained(runtime_format="int2-mixed")`` at
+   ``CALIBRATED_LAYERS`` = 8 layers (32 until the phases of 16 came) on
+   4096 synthetic tokens, and int3-mixed and int4-mixed on the
    checkpoint cut to 4 layers (``phase_calibrated``): the report's
    seconds (ranking, capture, GPTQ, propagation; per block), each site
    kind's formats, error ratios and int8 columns, int4-mixed's int8
@@ -268,7 +269,35 @@ without them, or when any phase fails. Phases:
    phase holds K1-K4 at one rank's four shapes (T = 1, 8, 128, 512; o and
    down as the blocked encoding pads them: down's 7168 columns, K1's
    group 1024) and K8 at 16 / 4 heads (S = 1024, 2048), rows outside
-   the records.
+   the records;
+16. pipeline and context parallelism (M16's second half). Inside phase
+   5's int8 and int4 runs of Llama-3.1-8B (32 layers, ``phase_pp``):
+   ``PipelineRunner`` over the loaded model with 2 and 4 stages, every
+   one on ``cuda:0``: the 1536-token request (a fresh 2048-token chunk,
+   K8 in every stage) and its 32 greedy tokens equal to the
+   ``Generator``'s, the gap of its last prefill row to one device's
+   printed (0 expected: the same kernels on the same inputs), the eager
+   stage step's wall beside ``forward``'s eager step; ``forward_pipelined``
+   with two 1-row microbatches of 128 tokens and a decode step, bit-equal
+   to ``forward`` on each row alone, the stage caches untouched; every
+   launch counted and held to ``launches_of``. After phase 15
+   (``phase_cp``), the checkpoint cut to ``CP_LAYERS`` = 8 at full width
+   in int4, one device's answers first (a 2048-token prompt's last
+   prefill row, 16 greedy tokens of the 1536-token prompt), then four
+   gloo ranks on ``cuda:0`` (``cp_rank_job``): on a data 2 × model 2
+   mesh ``prefill_cp`` of the 2048 tokens (1024 a data rank, the ring
+   over the data axis, K8 never) whose last row is within ``LOGIT_TOL``
+   of one device's and gives its first token, ``Generator(mesh=)``'s 16
+   greedy tokens equal to one device's, ``Scheduler(mesh=)`` serving
+   four requests (16 / 128 / 512 / 1536 tokens, 16 new; 4 slots a data
+   rank); then ``TPPipelineRunner`` over 2 stages × TP 2 (4 layers a
+   stage, K8 on the fresh chunk): a prefill and 16 greedy tokens equal to
+   one device's, the next token broadcast back to the first stage by the
+   job. Every launch held against its plain version, held calls = counted
+   launches, exact launches of the prefill, the Generator and the stage,
+   the ranks agreeing; each part's seconds and its transfers by kind.
+   Every line says "4 ranks sharing one H100 through gloo: no PP, CP or
+   TP speed" beside the card.
 
 The line before the last is a JSON object with one record per kernel at
 T=1 and T=512 (pairs kernels: P=2 and P=16; K8: S=1024 and S=2048; each
@@ -436,6 +465,11 @@ R1_EXPERTS = dict(hidden_size=7168, moe_intermediate_size=2048,
 # all five now keep 4
 MIXTRAL_LAYERS = 4
 CUT_LAYERS = 4
+# the calibrated int2-mixed Llama-3.1-8B: 32 layers until the pipeline and
+# context-parallel phases came (its write and calibration took 200 s of
+# the smoke at 32 on one H100 80GB HBM3 at 700 W; PERF.md keeps its
+# 32-layer figures)
+CALIBRATED_LAYERS = 8
 # VPTQ-community v8-k65536-0 geometry
 V8_K65536 = dict(
     vector_len=8, num_centroids=65536, num_res_centroids=-1,
@@ -1831,7 +1865,8 @@ def graph_against_eager(model, gen, prompt, steps, temperature=0.0, seed=5):
 
 def phase_e2e(device, source, fmt: str, vocab: int,
               prompt_lens=(16, 128, 512, 1536), new_tokens=32, max_seq=2048,
-              seed=0, load_s=None, sensitivity=False, serve=None):
+              seed=0, load_s=None, sensitivity=False, serve=None,
+              pp=False):
     """from_pretrained(runtime_format=fmt) → one greedy request per prompt
     length, each decode chunk through the generator's CUDA graphs on the
     card; launch counts (replays included), logits, a decode step and,
@@ -1847,8 +1882,10 @@ def phase_e2e(device, source, fmt: str, vocab: int,
     conditioning, the plain prefill logits again on an embedding whose
     entries each move by at most one bf16 ulp (times 1 ± 2^-8).
     ``serve``: then :func:`phase_serving` on the same model, with these
-    arguments. int4-mixed counts each kernel's launches from the model's
-    layers (:func:`linear_launches`)."""
+    arguments. ``pp``: then :func:`phase_pp` on the same model, its
+    longest prompt against the tokens the ``Generator`` gave it.
+    int4-mixed counts each kernel's launches from the model's layers
+    (:func:`linear_launches`)."""
     from vptq_tpu_torch import AutoModelForCausalLM
     from vptq_tpu_torch.api import Engine
     from vptq_tpu_torch.models.llama import forward
@@ -2019,6 +2056,11 @@ def phase_e2e(device, source, fmt: str, vocab: int,
             )
     if serve is not None:
         result["serving"] = phase_serving(model, gen, fmt, vocab, **serve)
+    if pp:
+        result["pp"] = phase_pp(model, gen, fmt, vocab, prompts[-1], outs[-1])
+        step = result.get("decode_step", {}).get("wall_ms")
+        result["pp"]["one_device_eager_step_ms"] = step
+        print(f"pp {fmt} " + json.dumps(result["pp"]))
     del engine, model, gen
     if cuda:
         torch.cuda.empty_cache()
@@ -2727,7 +2769,7 @@ def phase_entry_points(device, path, vocab: int, seed=0, prompt_len=128,
     cli_out = dict(load_s=time.perf_counter() - t0)
     cfg, buckets = model.cfg, gen.prompt_buckets
     # --tp serves one-shot (phase_tp); chat under --tp is refused, naming
-    # M16's second half (its input would reach rank 0 alone)
+    # M16 item 2f (its input would reach rank 0 alone)
     try:
         cli._load(cli.build_parser().parse_args([*argv, "--chat", "--tp",
                                                  "2"]))
@@ -4068,7 +4110,8 @@ def tp_rank(rank: int, world: int, store: str, spec: str, out_dir: str):
                            timeout_s=TP_TIMEOUT_S)
     try:
         jobs = json.loads(Path(spec).read_text())
-        results = [tp_rank_job(job, rank, world) for job in jobs]
+        results = [(cp_rank_job if job.get("cp") else tp_rank_job)(
+            job, rank, world) for job in jobs]
         Path(out_dir, f"rank{rank}.json").write_text(json.dumps(results))
     finally:
         dist.destroy_process_group()
@@ -4116,7 +4159,8 @@ def run_ranks(jobs: list, world: int = TP_RANKS) -> list:
                 for r in range(world)]
 
 
-def report_tp(results: list, card: str) -> dict:
+def report_tp(results: list, card: str, what: str = "tp",
+              label: str = TP_LABEL) -> dict:
     """Print each rank's run with the card's line and the label; returns
     the launches summed over the ranks."""
     launches = dict.fromkeys(ALL_KERNELS, 0)
@@ -4127,8 +4171,8 @@ def report_tp(results: list, card: str) -> dict:
             shown = {k: ({n: c for n, c in v.items() if c}
                          if k.endswith("launches") else v)
                      for k, v in r.items()}
-            print(f"tp {r['label']} {r['fmt']} rank {r['rank']} [{TP_LABEL}; "
-                  f"{card}] " + json.dumps(shown))
+            print(f"{what} {r['label']} {r['fmt']} rank {r['rank']} "
+                  f"[{label}; {card}] " + json.dumps(shown))
     return launches
 
 
@@ -4230,6 +4274,409 @@ def phase_tp_nccl(device, path, vocab: int) -> dict:
         finally:
             dist.destroy_process_group()
     return out
+
+
+# ------------------------------------------- pipeline and context parallelism
+
+PP_STAGES = (2, 4)  # PipelineRunner's stages, every one on the one card
+PP_FORMATS = ("int8", "int4")  # the Llama-3.1-8B formats run through them
+PP_MICRO_PROMPT = 128  # each of forward_pipelined's two 1-row microbatches
+CP_LAYERS = 8  # the 4-rank job's Llama-3.1-8B: full width, depth cut
+CP_RANKS = 4  # data 2 x model 2, and 2 stages x TP 2
+CP_LABEL = "4 ranks sharing one H100 through gloo: no PP, CP or TP speed"
+CP_PROMPT = 2048  # prefill_cp's prompt: 1024 tokens a data rank
+CP_GREEDY = 16  # Generator's and TPPipelineRunner's greedy tokens
+CP_BUCKETS = (128, 512, 2048)  # the Generator's, as one device's
+CP_SERVE = dict(max_batch=8, max_seq=2048, chunk=16, depth=2,
+                admit_parallel=4, prompt_buckets=(128, 512, 2048))
+CP_SERVE_LENS = (16, 128, 512, 1536)  # one request each
+
+
+def pp_greedy(pp, prompt, new_tokens: int, buckets) -> tuple:
+    """One greedy request through a ``PipelineRunner`` as
+    ``Generator.generate`` runs it: the prompt padded into its bucket, one
+    fresh prefill (K8 in every stage at 1024 tokens or more), the stages'
+    lengths rewound to the prompt's, then one ``forward`` a token. Returns
+    (the tokens, the last prompt row's logits, the host wall ms of a decode
+    step over the request's steps)."""
+    from vptq_tpu_torch.serving.generate import _pad_bucket
+
+    device = pp.devices[0]
+    tokens = torch.zeros((1, _pad_bucket(len(prompt), buckets)),
+                         dtype=torch.int64)
+    tokens[0, : len(prompt)] = torch.tensor(prompt)
+    with torch.inference_mode():
+        logits = pp.forward(tokens.to(device), fresh=True)
+        for cache in pp.caches:
+            cache.reset(len(prompt))
+        row = logits[0, len(prompt) - 1].clone()
+        del logits
+        tok = torch.argmax(row)[None, None]
+        out = [tok[0]]
+        _sync(device)
+        t0 = time.perf_counter()
+        for _ in range(new_tokens - 1):
+            tok = torch.argmax(pp.forward(tok)[:, -1:], dim=-1)
+            out.append(tok[0])
+        _sync(device)
+    step_ms = (time.perf_counter() - t0) * 1e3 / max(1, new_tokens - 1)
+    return [int(t) for t in torch.cat(out).tolist()], row, step_ms
+
+
+def phase_pp(model, gen, fmt: str, vocab: int, prompt, want,
+             stages=PP_STAGES, micro=PP_MICRO_PROMPT, seed=0) -> dict:
+    """``PipelineRunner`` over the loaded model, every stage on its card:
+    for each stage count one greedy request of ``prompt`` whose tokens must
+    be ``want`` (the one-device ``Generator``'s), the gap of its last
+    prefill row to one device's (expected 0: the same kernels on the same
+    inputs), the eager stage step's wall; then ``forward_pipelined`` with
+    two 1-row microbatches (a fresh prefill and a decode step) bit-equal
+    to ``forward`` on each row alone, and the stage caches untouched by
+    it. Every launch of the phase counted and held to
+    :func:`launches_of`."""
+    from vptq_tpu_torch.parallel.pipeline import PipelineRunner
+    from vptq_tpu_torch.serving.generate import _pad_bucket
+
+    device = model.embed_tokens.device
+    cfg, buckets = model.cfg, gen.prompt_buckets
+    with torch.inference_mode():
+        ref_row = prefill(model, gen, prompt)[-1].float()
+    out = dict(format=fmt, layers=cfg.num_hidden_layers, runs={})
+    calls = []
+    _zero_counts()
+    t_phase = time.perf_counter()
+    for n in stages:
+        t0 = time.perf_counter()
+        pp = PipelineRunner(model, [device] * n, max_seq=gen.max_seq,
+                            dtype=gen.dtype)
+        got, row, step_ms = pp_greedy(pp, prompt, len(want), buckets)
+        calls += ([(1, _pad_bucket(len(prompt), buckets), True)]
+                  + [(1, 1, False)] * (len(want) - 1))
+        gap = (row.float() - ref_row).abs().max().item()
+        out["runs"][n] = dict(
+            stages=n, blocks=[len(st.blocks) for st in pp.stages],
+            seconds=time.perf_counter() - t0, step_ms=step_ms,
+            logits_gap=gap, logits_max=ref_row.abs().max().item(),
+            tokens_equal_one_device=got == want,
+        )
+        if got != want:
+            raise AssertionError(f"{fmt}: {n} stages' tokens {got} != the "
+                                 f"one-device Generator's {want}")
+        if gap > LOGIT_TOL * ref_row.abs().max().item():
+            raise AssertionError(f"{fmt}: {n} stages' logits {gap} from one "
+                                 "device's")
+        del pp
+    # two 1-row microbatches through the 1F schedule against each row alone
+    rng = np.random.default_rng(seed)
+    rows = torch.tensor(rng.integers(0, vocab, (2, micro)), device=device)
+    nxt = torch.tensor(rng.integers(0, vocab, (2, 1)), device=device)
+    with torch.inference_mode():
+        pp = PipelineRunner(model, [device] * stages[0], max_seq=gen.max_seq,
+                            batch=2, dtype=gen.dtype)
+        before = [c.k[0].clone() for c in pp.caches]
+        mb = [pp.forward_pipelined([rows[0:1], rows[1:2]], fresh=True),
+              pp.forward_pipelined([nxt[0:1], nxt[1:2]])]
+        untouched = (all(torch.equal(b, c.k[0]) for b, c in
+                         zip(before, pp.caches))
+                     and all(int(c.lengths.sum()) == 0 for c in pp.caches))
+        alone = []
+        for i in range(2):
+            one = PipelineRunner(model, [device] * stages[0],
+                                 max_seq=gen.max_seq, dtype=gen.dtype)
+            alone.append([one.forward(rows[i: i + 1], fresh=True),
+                          one.forward(nxt[i: i + 1])])
+        _sync(device)
+    calls += [(1, micro, True), (1, micro, True), (1, 1, False),
+              (1, 1, False)] * 2
+    equal = all(torch.equal(mb[k][i], alone[i][k])
+                for i in range(2) for k in range(2))
+    out["pipelined"] = dict(
+        microbatches=2, stages=stages[0], bit_equal_to_each_row=equal,
+        stage_caches_untouched=untouched,
+        max_abs_gap=max((mb[k][i] - alone[i][k]).abs().max().item()
+                        for i in range(2) for k in range(2)),
+    )
+    if not (equal and untouched):
+        raise AssertionError(f"{fmt}: forward_pipelined {out['pipelined']}")
+    out["seconds"] = time.perf_counter() - t_phase
+    out["launches"] = _counts()
+    want_launches = launches_of(cfg, fmt, calls, gen.dtype)
+    if device.type != "cuda":
+        want_launches = dict.fromkeys(ALL_KERNELS, 0)
+    if out["launches"] != want_launches:
+        raise AssertionError(f"{fmt} pipeline: launches {out['launches']}, "
+                             f"expected {want_launches}")
+    return out
+
+
+@contextlib.contextmanager
+def counted_transfers(counts: dict):
+    """Every ``torch.distributed`` transfer inside counted by kind: the
+    collectives (all-reduce, all-gather, broadcast) and each send and
+    receive of the point-to-point calls."""
+    import torch.distributed as dist
+
+    def counting(name, fn):
+        def call(*args, **kwargs):
+            counts[name] = counts.get(name, 0) + 1
+            return fn(*args, **kwargs)
+        return call
+
+    with contextlib.ExitStack() as stack:
+        for name in ("all_reduce", "all_gather", "broadcast", "isend",
+                     "irecv"):
+            stack.enter_context(mock.patch.object(
+                dist, name, counting(name, getattr(dist, name))))
+        yield
+
+
+def cp_rank_job(job: dict, rank: int, world: int) -> dict:
+    """This rank of the 4-rank job on ``job["path"]`` (int4): the
+    one-device load placed on a data 2 × model 2 mesh, ``prefill_cp`` of a
+    ``CP_PROMPT``-token prompt (its last row against one device's, its
+    first token equal), ``Generator(mesh=)`` greedy tokens against one
+    device's, ``Scheduler(mesh=)`` serving ``CP_SERVE_LENS``, then
+    ``TPPipelineRunner`` over 2 stages × TP 2 (a prefill and greedy tokens
+    against one device's; the next token sent back to the first stage by
+    this job). Every kernel launch held against its plain version, the
+    ranks agreeing, the transfers of each part counted."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from vptq_tpu_torch.models.llama import init_cache
+    from vptq_tpu_torch.models.loader import load_model
+    from vptq_tpu_torch.parallel.mesh import make_mesh
+    from vptq_tpu_torch.parallel.pipeline import TPPipelineRunner
+    from vptq_tpu_torch.parallel.tp import (
+        cp_logits_row,
+        prefill_cp,
+        tp_place_model,
+    )
+    from vptq_tpu_torch.serving.generate import Generator, _pad_bucket
+    from vptq_tpu_torch.serving.scheduler import Scheduler
+
+    fmt, path, vocab = job["fmt"], job["path"], job["vocab"]
+    device = torch.device(job.get("device") or "cuda:0")
+    cuda = device.type == "cuda"
+    ref = torch.load(job["reference"])
+    out = dict(fmt=fmt, label=job["label"], rank=rank, world=world,
+               backend=dist.get_backend())
+    held, parts = {}, {}
+    dist.barrier()
+    t0 = time.perf_counter()
+    model = load_model(path, runtime_format=fmt, device=device)
+    mesh = make_mesh(data=2, model=world // 2, device=device)
+    model_tp = tp_place_model(model, mesh)
+    out["load_s"] = time.perf_counter() - t0
+    cfg = model.cfg
+    _zero_counts()
+
+    def part(name, fn, calls: int):
+        """``fn`` with its seconds, transfers (in all and per forward call:
+        ``calls`` prefill chunks and decode steps) and launches; returns
+        what it returns."""
+        before = _counts()
+        transfers = {}
+        _sync(device)
+        t = time.perf_counter()
+        with counted_transfers(transfers), torch.inference_mode():
+            res = fn()
+        _sync(device)
+        parts[name] = dict(seconds=time.perf_counter() - t,
+                           transfers=transfers, forward_calls=calls,
+                           transfers_per_call={k: v / calls for k, v in
+                                               transfers.items()},
+                           launches={k: v - before[k]
+                                     for k, v in _counts().items()
+                                     if v > before[k]})
+        return res
+
+    with held_kernels(fmt, held):
+        # prefill_cp: the 2048 tokens, 1024 a data rank, the ring over the
+        # data axis; the last row from the rank whose chunk holds it
+        prompt = _tp_prompt(vocab, job["prompt"], 6)
+
+        def cp_prefill():
+            cache = init_cache(cfg, 1, job["prompt"], torch.bfloat16, device,
+                               tp_size=mesh.model)
+            logits, cache = prefill_cp(
+                model_tp, torch.tensor([prompt], device=device), cache, mesh)
+            return (cp_logits_row(logits, len(prompt) - 1, mesh)[0],
+                    int(cache.lengths[0]))
+
+        row, length = part("prefill_cp", cp_prefill, 1)
+        gap = (row.float().cpu() - ref["cp_row"]).abs().max().item()
+        out["cp"] = dict(prompt=len(prompt), cache_length=length,
+                         logits_gap=gap,
+                         logits_gap_of_max=gap / ref["cp_row"].abs().max()
+                         .item(),
+                         first_token=int(row.argmax()),
+                         first_token_equal=int(row.argmax()) == int(
+                             ref["cp_row"].argmax()))
+        ranks_agree("prefill_cp row", row)
+        if length != len(prompt):
+            raise AssertionError(f"prefill_cp cache length {length}")
+        if job.get("strict", True):
+            if out["cp"]["logits_gap_of_max"] > LOGIT_TOL:
+                raise AssertionError(f"prefill_cp logits {gap} from one "
+                                     "device's")
+            if not out["cp"]["first_token_equal"]:
+                raise AssertionError("prefill_cp's first token differs from "
+                                     "one device's")
+
+        gen = Generator(model_tp, max_seq=2048, prompt_buckets=CP_BUCKETS,
+                        mesh=mesh)
+        out["decode_mode"] = gen.decode_mode
+        long_prompt = _tp_prompt(vocab, job["greedy_prompt"], 4)
+        got = part("generator", lambda: gen.generate(
+            long_prompt, max_new_tokens=job["greedy"]), job["greedy"])
+        ranks_agree("Generator tokens", torch.tensor(got, device=device))
+        out["greedy_tokens"] = got
+        out["greedy_equal_one_device"] = got == ref["tokens"]
+        if job.get("strict", True) and got != ref["tokens"]:
+            raise AssertionError(f"Generator(mesh=) tokens {got} != one "
+                                 f"device's {ref['tokens']}")
+        del gen
+
+        sched = Scheduler(model_tp, dtype=torch.bfloat16, mesh=mesh,
+                          **job["serve"])
+        for i, n in enumerate(job["serve_lens"]):
+            sched.submit(_tp_prompt(vocab, n, 10 + i),
+                         max_new_tokens=job["greedy"])
+        served = part("scheduler", sched.run, 1)
+        # its forward calls: a bucket a prompt, and the chunks' steps
+        calls = len(job["serve_lens"]) + sched.stats["chunks"] * sched.chunk
+        parts["scheduler"].update(
+            forward_calls=calls,
+            transfers_per_call={k: v / calls for k, v in
+                                parts["scheduler"]["transfers"].items()})
+        flat = [t for i in sorted(served) for t in served[i]]
+        if not (len(flat) == job["greedy"] * len(job["serve_lens"])
+                and all(0 <= t < vocab for t in flat)):
+            raise AssertionError(f"served tokens {served}")
+        ranks_agree("served tokens", torch.tensor(flat, device=device))
+        out["serving"] = dict(requests=len(served), tokens=len(flat),
+                              slots_here=sched._rows,
+                              decode_mode="graphed" if sched.decode.graphed
+                              else "eager", stats=sched.stats)
+        del sched, model_tp
+
+        # 2 stages x TP 2: rank (s, m) sends to (s + 1, m); the last
+        # stage's token goes back to the first by this job's broadcast
+        pp = TPPipelineRunner(model, tp=world // 2, max_seq=2048,
+                              device=device)
+        del model
+
+        def pp_run():
+            n = len(long_prompt)
+            tokens = torch.zeros((1, _pad_bucket(n, CP_BUCKETS)),
+                                 dtype=torch.int64)
+            tokens[0, :n] = torch.tensor(long_prompt)
+            logits = pp.forward(tokens.to(device), fresh=True)
+            for c in pp.caches.values():
+                c.reset(n)
+            toks = []
+            for i in range(job["greedy"]):
+                tok = torch.zeros(1, dtype=torch.int64)
+                if logits is not None:
+                    tok[0] = int(torch.argmax(logits[0, -1 if i else n - 1]))
+                dist.broadcast(tok, src=world - world // 2)
+                toks.append(int(tok[0]))
+                if i + 1 < job["greedy"]:
+                    logits = pp.forward(tok[None].to(device))
+            return toks
+
+        got = part("tp_pipeline", pp_run, job["greedy"])
+        ranks_agree("TPPipelineRunner tokens", torch.tensor(got,
+                                                            device=device))
+        out["tp_pipeline"] = dict(stage=pp.stage, tp=pp.tp,
+                                  blocks=len(pp.stages[pp.stage].blocks),
+                                  tokens=got,
+                                  equal_one_device=got == ref["tokens"])
+        if job.get("strict", True) and got != ref["tokens"]:
+            raise AssertionError(f"TPPipelineRunner tokens {got} != one "
+                                 f"device's {ref['tokens']}")
+        del pp
+    counts = _counts()
+    calls = {k: v["calls"] for k, v in held.items()}
+    if cuda and calls != {k: v for k, v in counts.items() if v}:
+        raise AssertionError(f"rank {rank}: held {calls} of the launches "
+                             f"{counts}")
+    # the exact launches of the parts whose calls are fixed: prefill_cp
+    # (1024 tokens a rank, never K8), the Generator (its CP prefill, then
+    # one token a step), the pipeline stage (its 4 layers, K8 on the
+    # fresh 2048 chunk)
+    bucket = _pad_bucket(job["greedy_prompt"], CP_BUCKETS)
+    stage_cfg = dataclasses.replace(
+        cfg, num_hidden_layers=cfg.num_hidden_layers // 2)
+    decode = [(1, 1, False)] * (job["greedy"] - 1)
+    want = {
+        "prefill_cp": launches_of(cfg, fmt, [(1, job["prompt"] // 2, False)]),
+        "generator": launches_of(cfg, fmt, [(1, bucket // 2, False)] + decode),
+        "tp_pipeline": launches_of(stage_cfg, fmt, [(1, bucket, True)]
+                                   + decode),
+    }
+    for name, w in want.items():
+        w = {k: v for k, v in w.items() if v and cuda}
+        if parts[name]["launches"] != w:
+            raise AssertionError(f"rank {rank} {name}: launches "
+                                 f"{parts[name]['launches']}, expected {w}")
+    out["parts"] = parts
+    out["held"] = held
+    out["launches"] = counts
+    torch.cuda.empty_cache() if cuda else None
+    return out
+
+
+def cp_reference(device, path, fmt: str, vocab: int, out: Path,
+                 prompt: int = CP_PROMPT, greedy_prompt: int = TP_PROMPT,
+                 greedy: int = CP_GREEDY) -> str:
+    """One device's answers the 4-rank job is held to: the last row of
+    ``prompt`` tokens' fresh prefill (K8), and the greedy tokens of the
+    ``greedy_prompt``-token request; written to ``out``."""
+    from vptq_tpu_torch.api import AutoModelForCausalLM
+    from vptq_tpu_torch.models.llama import forward, init_cache
+
+    engine = AutoModelForCausalLM.from_pretrained(
+        path, runtime_format=fmt, device=device, max_seq=2048)
+    model = engine.model
+    with torch.inference_mode():
+        cache = init_cache(model.cfg, 1, prompt, torch.bfloat16, device)
+        tokens = torch.tensor([_tp_prompt(vocab, prompt, 6)], device=device)
+        logits, _ = forward(model, tokens, cache, fresh_prefill=True)
+        ref = dict(cp_row=logits[0, -1].float().cpu())
+        del logits
+    ref["tokens"] = engine.generate(_tp_prompt(vocab, greedy_prompt, 4),
+                                    max_new_tokens=greedy)
+    torch.save(ref, out)
+    del engine, model
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    return str(out)
+
+
+def phase_cp(device, path, vocab: int, card: str, layers: int = CP_LAYERS,
+             fmt: str = "int4") -> dict:
+    """Llama-3.1-8B at full width, depth cut to ``layers``, as four gloo
+    ranks sharing the card (:func:`cp_rank_job`), held to one device's
+    answers (:func:`cp_reference`)."""
+    cut = cut_checkpoint(path, layers)
+    try:
+        with tempfile.TemporaryDirectory(prefix="vptq_cp_ref_") as tmp:
+            with timed(f"cp one-device reference {fmt}"):
+                ref = cp_reference(device, str(cut), fmt, vocab,
+                                   Path(tmp, "ref.pt"))
+            job = dict(label=f"Llama-3.1-8B ({layers} layers)", fmt=fmt,
+                       path=str(cut), vocab=vocab, reference=ref,
+                       prompt=CP_PROMPT, greedy_prompt=TP_PROMPT,
+                       greedy=CP_GREEDY, serve=CP_SERVE,
+                       serve_lens=CP_SERVE_LENS, cp=True)
+            with timed("cp Llama-3.1-8B ranks"):
+                results = run_ranks([job], world=CP_RANKS)
+    finally:
+        shutil.rmtree(cut, ignore_errors=True)
+    return dict(launches=report_tp(results, card, "cp", CP_LABEL))
 
 
 def main() -> int:
@@ -4397,10 +4844,12 @@ def main() -> int:
         served = e2e.get("serving", {}).get("launches", {})
         calibrated = e2e.get("calibration", {}).get(
             "calibration_launches", {})
+        piped = e2e.get("pp", {}).get("launches", {})
         for name in launches:
             launches[name] += (e2e["launches"].get(name, 0)
                                + served.get(name, 0)
-                               + calibrated.get(name, 0))
+                               + calibrated.get(name, 0)
+                               + piped.get(name, 0))
 
     # the graphed decode steps plan's prediction is set beside: every
     # Llama-3.1-8B format at all 32 layers, Qwen2.5 and Mistral at their
@@ -4417,6 +4866,7 @@ def main() -> int:
                     e2e = phase_e2e(
                         device, path, fmt, cfg["vocab_size"], **e2e_kwargs,
                         serve=serve.get(fmt),
+                        pp=label == ENTRY_RUN and fmt in PP_FORMATS,
                     )
                 print(f"e2e {label} " + json.dumps(e2e))
                 count(e2e)
@@ -4438,6 +4888,10 @@ def main() -> int:
                 count(e2e)
                 with timed("tp Llama-3.1-8B"):
                     e2e = phase_tp(device, path, cfg["vocab_size"], card)
+                count(e2e)
+                with timed(f"cp and tp pipeline Llama-3.1-8B ({CP_LAYERS} "
+                           "layers)"):
+                    e2e = phase_cp(device, path, cfg["vocab_size"], card)
                 count(e2e)
             if label == "Mixtral-8x7B":
                 cut = cut_checkpoint(path, TP_MIXTRAL_LAYERS)
@@ -4462,7 +4916,7 @@ def main() -> int:
             shutil.rmtree(path, ignore_errors=True)
     # the mixed formats from random codes, served from the port's own
     # runtime checkpoint at full width, depth cut to 4 (the calibrated run
-    # below shows that path at all 32 layers)
+    # below shows that path at CALIBRATED_LAYERS)
     for fmt in MIXED_KERNELS:
         with timed(f"mixed {fmt} from random codes (4 layers)"):
             e2e = phase_mixed(device, dict(LLAMA31_8B, num_hidden_layers=4),
@@ -4470,13 +4924,17 @@ def main() -> int:
         print("e2e Llama-3.1-8B " + json.dumps(e2e))
         count(e2e)
     # the calibrated formats (M15): GPTQ on the card at Llama-3.1-8B's full
-    # width, int2-mixed at all 32 layers through from_pretrained (layer 0's
-    # GPTQ held against the CPU's first), int3-mixed and int4-mixed at 4
-    with timed("checkpoint write Llama-3.1-8B calibration (32 layers)"):
-        path, _ = write_checkpoint(LLAMA31_8B, V8_K65536, std=MIXED_STD)
+    # width, int2-mixed at CALIBRATED_LAYERS through from_pretrained (layer
+    # 0's GPTQ held against the CPU's first), int3-mixed and int4-mixed at 4
+    with timed("checkpoint write Llama-3.1-8B calibration "
+               f"({CALIBRATED_LAYERS} layers)"):
+        path, _ = write_checkpoint(
+            dict(LLAMA31_8B, num_hidden_layers=CALIBRATED_LAYERS), V8_K65536,
+            std=MIXED_STD)
     vocab = LLAMA31_8B["vocab_size"]
     try:
-        with timed("calibrated Llama-3.1-8B int2-mixed (32 layers)"):
+        with timed("calibrated Llama-3.1-8B int2-mixed "
+                   f"({CALIBRATED_LAYERS} layers)"):
             e2e = phase_calibrated(device, path, "int2-mixed", vocab,
                                    gptq=True)
         print("e2e Llama-3.1-8B calibrated " + json.dumps(e2e))

@@ -127,7 +127,7 @@ def test_cli_tp_is_refused(ckpt_dir, fmt, tmp_path):
     """``--tp 2`` one-shot as two ranks of a gloo group on the CPU: rank 0
     prints the prompt and the streamed completion of the sharded model's
     tokens, rank 1 prints nothing; the codebook format is refused (the JAX
-    CLI's message), and ``--chat`` under ``--tp`` names M16's second half
+    CLI's message), and ``--chat`` under ``--tp`` names M16 (item 2f)
     (its input would reach rank 0 alone)."""
     argv = ["--model", ckpt_dir, "--prompt", "hi", "--runtime-format", fmt,
             "--tp", "2", "--device", "cpu", *GREEDY]

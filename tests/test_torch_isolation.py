@@ -433,7 +433,7 @@ def test_entry_points_exit_nonzero_without_a_card(entry, argv, monkeypatch):
     hint = "--hbm-gb" if entry == "plan" else "--device cpu"
     assert hint in str(exc.value.code)
     # --tp above 1 is refused for chat and the web app before anything
-    # else, naming M16's second half (their input reaches rank 0 alone)
+    # else, naming M16 item 2f (their input reaches rank 0 alone)
     if entry in ("cli", "webapp"):
         with pytest.raises(SystemExit, match="M16"):
             (module._load(module.build_parser().parse_args(

@@ -369,16 +369,6 @@ def test_scheduler_prefix_cache_exact(models):
     assert got == _singles(tmodel, requests, buckets=(16, 32))
 
 
-def test_scheduler_refuses_a_mesh(models):
-    """A mesh serves (``tests/test_torch_tp.py``) but for a data axis above
-    1, which the JAX package runs as context-parallel prefill (the second
-    half of M16)."""
-    from vptq_tpu_torch.parallel.mesh import Mesh
-
-    with pytest.raises(NotImplementedError, match="M16"):
-        Scheduler(models[1], mesh=Mesh(data=2, model=1))
-
-
 def test_batched_step_advances_only_active_slots(models):
     """Two requests admitted in one batched prefill into three slots, then
     one chunk: each active slot's length on the device is its prompt plus

@@ -26,8 +26,9 @@ interpret mode and its numpy encoders, as the other port tests run it.
 * Serving: ``Generator(mesh=)`` and ``Scheduler(mesh=)`` give JAX's greedy
   tokens; sampling is the same on every rank and in every run.
 * Refusals: JAX's messages for divisibility, a row-parallel bias and the
-  codebook format; M16's second half for a data axis in serving, the
-  mixed formats and a row-parallel mixed layer to re-encode.
+  codebook format; M16 item 2c for the mixed formats and a row-parallel
+  mixed layer to re-encode (a data axis in serving is
+  ``tests/test_torch_ring.py``'s).
 """
 
 import json
@@ -55,8 +56,6 @@ from vptq_tpu_torch.layers import runtime as trt
 from vptq_tpu_torch.models.loader import load_model
 from vptq_tpu_torch.parallel import tp
 from vptq_tpu_torch.parallel.mesh import Mesh
-from vptq_tpu_torch.serving.generate import Generator
-from vptq_tpu_torch.serving.scheduler import Scheduler
 from vptq_tpu_torch.utils import memory as thbm
 
 LLAMA = dict(TINY, tie_word_embeddings=False)
@@ -469,12 +468,3 @@ def test_a_row_parallel_mixed_layer_to_reencode_is_refused():
                                                          dtype=torch.int32))
     with pytest.raises(NotImplementedError, match="M16"):
         tp._row_parallel(layer, Mesh(data=1, model=2), 256)
-
-
-def test_a_data_axis_in_serving_names_m16(tmp_path):
-    _, model = _one_device(tmp_path)
-    mesh = Mesh(data=2, model=1)
-    with pytest.raises(NotImplementedError, match="M16"):
-        Generator(model, max_seq=32, mesh=mesh)
-    with pytest.raises(NotImplementedError, match="M16"):
-        Scheduler(model, max_seq=32, mesh=mesh)

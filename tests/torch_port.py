@@ -278,3 +278,138 @@ def _ep_gap(case, mesh, kw) -> float:
         want = llama._route_moe(x, top_ids, top_w, n_exp, [], moe.stacked)
         gap = max(gap, (got - want.to(torch.float32)).abs().max().item())
     return gap
+
+
+def cp_rank_cases(rank: int, world: int, store: str, spec: str,
+                  out_dir: str) -> None:
+    """Context parallelism on this rank (``spec``: a ``torch.save``d dict):
+    ``ring_attention`` over the whole world as the data axis on this
+    rank's chunk of each case's q / k / v; then each model case on its
+    data × model mesh: ``prefill_cp``'s chunk of logits and the cache it
+    leaves, the row ``cp_logits_row`` hands every rank, a decode step by
+    ``forward_tp`` from that cache, and where asked the ``Generator(mesh=)``
+    and the ``Scheduler(mesh=)``; the results to ``out_dir/cp<rank>.pt``."""
+    import torch.distributed as dist
+
+    from vptq_tpu_torch.models.llama import init_cache
+    from vptq_tpu_torch.models.loader import load_model
+    from vptq_tpu_torch.parallel.mesh import make_mesh
+    from vptq_tpu_torch.parallel.ring import ring_attention
+    from vptq_tpu_torch.parallel.tp import (
+        cp_logits_row,
+        forward_tp,
+        prefill_cp,
+    )
+    from vptq_tpu_torch.serving.generate import Generator
+    from vptq_tpu_torch.serving.scheduler import Scheduler
+
+    _join(rank, world, store)
+    spec = torch.load(spec)
+    results = {"ring": {}}
+    try:
+        axis = make_mesh(data=world, model=1, device="cpu").cp
+        for name, (q, k, v) in spec["ring"].items():
+            c = q.shape[1] // world
+            part = slice(rank * c, (rank + 1) * c)
+            results["ring"][name] = ring_attention(
+                q[:, part], k[:, part], v[:, part], axis, q.shape[-1] ** -0.5)
+        for case in spec["cases"]:
+            mesh = make_mesh(data=case["data"], model=world // case["data"],
+                             device="cpu")
+            model = load_model(case["ckpt"], mesh=mesh, dtype=torch.float32,
+                               runtime_format=case["fmt"])
+            tokens = torch.tensor(case["tokens"])
+            n = tokens.shape[1]
+            cache = init_cache(model.cfg, 1, 32, torch.float32, "cpu",
+                               tp_size=mesh.model)
+            out = {}
+            with torch.inference_mode():
+                out["logits"], cache = prefill_cp(model, tokens, cache, mesh,
+                                                  torch.float32)
+                out["row"] = cp_logits_row(out["logits"], n - 1, mesh)
+                out["k"] = [t[:, :n].clone() for t in cache.k]
+                out["v"] = [t[:, :n].clone() for t in cache.v]
+                out["lengths"] = cache.lengths.clone()
+                out["max_len"] = cache.max_len
+                out["step"], _ = forward_tp(model, torch.tensor(case["next"]),
+                                            cache, mesh, torch.float32)
+            if case.get("generate"):
+                gen = Generator(model, max_seq=64, dtype=torch.float32,
+                                prompt_buckets=(16,), mesh=mesh)
+                out["greedy"] = gen.generate(case["generate"],
+                                             max_new_tokens=10)
+                out["singles"] = [gen.generate(p, max_new_tokens=6)
+                                  for p in case["schedule"]]
+            if case.get("schedule"):
+                sched = Scheduler(model, max_batch=2, max_seq=64,
+                                  dtype=torch.float32, chunk=4,
+                                  prompt_buckets=(16,), mesh=mesh)
+                ids = [sched.submit(p, max_new_tokens=6)
+                       for p in case["schedule"]]
+                outs = sched.run()
+                out["served"] = [outs[i] for i in ids]
+                out["slots_here"] = sched._rows
+            results[case["name"]] = out
+            dist.barrier()
+        torch.save(results, f"{out_dir}/cp{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def pp_rank_cases(rank: int, world: int, store: str, spec: str,
+                  out_dir: str) -> None:
+    """``TPPipelineRunner`` on this rank for each case of ``spec`` (a
+    ``torch.save``d dict): a fresh prefill and a decode step, and where
+    asked ``forward_pipelined`` over microbatches with the stage steps
+    this rank ran; then what each refused construction raises. The
+    results to ``out_dir/pp<rank>.pt``."""
+    import torch.distributed as dist
+
+    from vptq_tpu_torch.models.loader import load_model
+    from vptq_tpu_torch.parallel.pipeline import TPPipelineRunner
+
+    _join(rank, world, store)
+    spec = torch.load(spec)
+    results = {}
+    try:
+        with torch.inference_mode():
+            for case in spec["cases"]:
+                model = load_model(case["ckpt"], dtype=torch.float32,
+                                   runtime_format=case["fmt"], device="cpu")
+                runner = TPPipelineRunner(model, tp=case["tp"], max_seq=16,
+                                          dtype=torch.float32, device="cpu")
+                out = dict(stage=runner.stage, n_stages=runner.n_stages)
+                out["logits"] = runner.forward(torch.tensor(case["tokens"]),
+                                               fresh=True)
+                out["step"] = runner.forward(torch.tensor(case["next"]))
+                chunks = case.get("chunks")
+                if chunks:
+                    piped = TPPipelineRunner(
+                        model, tp=case["tp"], max_seq=16,
+                        batch=len(chunks), dtype=torch.float32, device="cpu")
+                    calls = []
+                    inner = piped._run_stage
+
+                    def spy(s, *args, inner=inner, calls=calls):
+                        calls.append(s)
+                        return inner(s, *args)
+
+                    piped._run_stage = spy
+                    out["piped"] = piped.forward_pipelined(
+                        [torch.tensor(c) for c in chunks], fresh=True)
+                    out["piped_calls"] = calls
+                results[case["name"]] = out
+                dist.barrier()
+        refused = {}
+        for name, (ckpt, tp) in spec["refusals"].items():
+            model = load_model(ckpt, dtype=torch.float32,
+                               runtime_format="int8", device="cpu")
+            try:
+                TPPipelineRunner(model, tp=tp, device="cpu")
+                refused[name] = None
+            except (ValueError, NotImplementedError) as e:
+                refused[name] = (type(e).__name__, str(e))
+        results["refusals"] = refused
+        torch.save(results, f"{out_dir}/pp{rank}.pt")
+    finally:
+        dist.destroy_process_group()

@@ -22,7 +22,12 @@ rank's local heads, experts and vocabulary range, and joins the ranks
 where the JAX package's forward does inside ``shard_map``: one sum after
 each row-parallel projection (o_proj, down_proj) and MoE combine, one
 after the vocabulary-range embedding lookup, and one gather of the
-vocabulary-sharded logits.
+vocabulary-sharded logits. Under context parallelism (``cp``, a fresh
+prefill split over the data axis, ``parallel.tp.prefill_cp``) attention
+is a ring over the ranks' K/V chunks (``parallel/ring.py``). The pieces
+of :func:`forward` (:func:`embed`, :func:`decoder`, :func:`head`,
+:func:`advance`) are what a pipeline stage runs of it
+(``parallel/pipeline.py``).
 
 The KV cache is updated in place (JAX's is functional). Its lengths
 live on the device, one per sequence, and :func:`forward` advances them
@@ -49,7 +54,12 @@ from vptq_tpu_torch.ops.w4_matmul_expert import w4_matmul_expert
 from vptq_tpu_torch.ops.w4_matmul_pairs import w4_matmul_pairs
 from vptq_tpu_torch.ops.w8_matmul_expert import w8_matmul_expert
 from vptq_tpu_torch.ops.w8_matmul_pairs import w8_matmul_pairs
-from vptq_tpu_torch.parallel.distributed import all_gather_last, all_reduce
+from vptq_tpu_torch.parallel.distributed import (
+    all_gather_dim,
+    all_gather_last,
+    all_reduce,
+)
+from vptq_tpu_torch.parallel.ring import ring_attention
 
 __all__ = [
     "Attention",
@@ -62,8 +72,12 @@ __all__ = [
     "ModelConfig",
     "MoeMlp",
     "StackedExperts",
+    "advance",
     "attended",
+    "decoder",
+    "embed",
     "forward",
+    "head",
     "init_cache",
     "takes_flash",
 ]
@@ -545,6 +559,7 @@ def _attention(
     live: int,  # cache positions read, from attended()
     fresh_prefill: bool = False,
     tp=None,
+    cp=None,
 ) -> torch.Tensor:
     batch, seq, _ = x.shape
     nh, nkv = cfg.num_attention_heads, cfg.num_key_value_heads
@@ -562,6 +577,20 @@ def _attention(
     q = apply_rope(q.reshape(batch, seq, nh, hd), cos, sin)
     k = apply_rope(k.reshape(batch, seq, nkv, hd), cos, sin)
     v = v.reshape(batch, seq, nkv, hd)
+    if cp is not None:
+        # context parallelism (a fresh prefill): the sequence is split over
+        # the data axis; attention runs as a ring over the K/V chunks
+        # (parallel/ring.py, never K8), and the gathered prefix is written
+        # once into the cache, which every data rank holds whole
+        if cfg.sliding_window is not None:
+            raise NotImplementedError(
+                "sliding-window attention under context parallelism"
+            )
+        out = ring_attention(q, k, v, cp, hd ** -0.5)
+        _insert_kv(block_idx, all_gather_dim(k, cp, 1),
+                   all_gather_dim(v, cp, 1), cache)
+        out = out.reshape(batch, seq, nh * hd)
+        return _row_parallel_out(attn.o_proj, out, x.dtype, tp)
     if fresh_prefill and takes_flash(cfg, seq, q.dtype):
         # fused causal attention over the fresh chunk only (offset 0), in
         # the activation dtype; v stays a view into the fused q|k|v row
@@ -1045,6 +1074,95 @@ def _mlp(mlp, x: torch.Tensor, tp=None) -> torch.Tensor:
     return _row_parallel_out(mlp.down_proj, F.silu(gate) * up, x.dtype, tp)
 
 
+def embed(embed_tokens: torch.Tensor, tokens: torch.Tensor, cfg: ModelConfig,
+          dtype, tp=None) -> torch.Tensor:
+    """(B, S) token ids → (B, S, hidden) activations in ``dtype``, on the
+    embedding's device. Under tensor parallelism an embedding narrower
+    than the vocabulary is this rank's range (untied): a lookup of the
+    range, zeros elsewhere, summed over the model axis in the activation
+    dtype."""
+    device = embed_tokens.device
+    ids = tokens.to(device=device, dtype=torch.int64)
+    v_local = embed_tokens.shape[0]
+    if tp is not None and v_local < cfg.vocab_size:
+        idx = ids - tp.rank * v_local
+        ok = (idx >= 0) & (idx < v_local)
+        x = torch.where(
+            ok[..., None],
+            embed_tokens[idx.clamp(0, v_local - 1)].to(dtype),
+            torch.zeros((), dtype=dtype, device=device),
+        )
+        return all_reduce(x, tp)
+    return embed_tokens[ids].to(dtype)
+
+
+def decoder(
+    blocks,
+    x: torch.Tensor,  # (B, S, hidden)
+    cache: KVCache,  # the blocks' layers, in order
+    cfg: ModelConfig,
+    inv_freq: torch.Tensor,
+    rope_scale: float,
+    fresh_prefill: bool = False,
+    tp=None,
+    cp=None,
+) -> torch.Tensor:
+    """``blocks`` over ``x`` from ``cache.lengths``; block ``j`` reads and
+    writes layer ``j`` of ``cache``, whose lengths it leaves to the caller
+    (:func:`advance`). ``cp`` (the data axis): ``x`` is this rank's
+    contiguous chunk of a fresh prompt, at positions offset by its index
+    times the chunk."""
+    seq = x.shape[1]
+    offsets = cache.lengths
+    positions = offsets[:, None] + torch.arange(seq, device=x.device)[None, :]
+    if cp is not None:
+        positions = positions + cp.rank * seq
+    cos, sin = rope_cos_sin(positions, inv_freq, rope_scale)
+    live = attended(cache.max_len, seq, cache.k[0].shape[1])
+    for i, block in enumerate(blocks):
+        h = rms_norm(x, block.input_layernorm, cfg.rms_norm_eps)
+        if isinstance(block.attn, MlaAttention):
+            if cp is not None:
+                raise NotImplementedError("MLA under context parallelism")
+            x = x + _mla_attention(
+                i, block.attn, h, cos, sin, cache, offsets, cfg, live, tp
+            )
+        else:
+            x = x + _attention(
+                i, block.attn, h, cos, sin, cache, offsets, cfg, live,
+                fresh_prefill=fresh_prefill, tp=tp, cp=cp,
+            )
+        h = rms_norm(x, block.post_attention_layernorm, cfg.rms_norm_eps)
+        x = x + _mlp(block.mlp, h, tp)
+    return x
+
+
+def head(x: torch.Tensor, norm: torch.Tensor, lm_head,
+         embed_tokens: Optional[torch.Tensor], cfg: ModelConfig,
+         tp=None) -> torch.Tensor:
+    """The final norm and the vocabulary projection: (B, S, vocab) f32
+    logits. ``lm_head`` None: tied to ``embed_tokens``. Under tensor
+    parallelism a column-parallel lm_head's vocabulary shards are
+    gathered in rank order, in f32."""
+    x = rms_norm(x, norm, cfg.rms_norm_eps)
+    if lm_head is not None:
+        logits = lm_head(x)
+        if tp is not None:
+            logits = all_gather_last(logits.to(torch.float32), tp)
+    else:
+        logits = torch.matmul(
+            x.to(torch.float32), embed_tokens.to(torch.float32).t()
+        )
+    return logits.to(torch.float32)
+
+
+def advance(cache: KVCache, n: int) -> None:
+    """Every sequence of ``cache`` ``n`` tokens further: its lengths on
+    the device (in place), its longest on the host."""
+    cache.lengths.add_(n)
+    cache.max_len += n
+
+
 def forward(
     model: Model,
     tokens: torch.Tensor,  # (B, S) int
@@ -1052,6 +1170,7 @@ def forward(
     dtype=torch.bfloat16,
     fresh_prefill: bool = False,
     tp=None,
+    cp=None,
 ) -> Tuple[torch.Tensor, KVCache]:
     """Run the decoder over ``tokens`` starting at ``cache.lengths``.
 
@@ -1063,56 +1182,21 @@ def forward(
     rank's shard under tensor parallelism (``parallel/tp.py``); every rank
     of the axis calls this with the same tokens, and gets the same
     vocabulary-complete logits.
+
+    ``cp`` (the data axis, ``Mesh.cp``): context parallelism for a fresh
+    prefill. ``tokens`` is this rank's contiguous chunk of the prompt;
+    every per-token op is chunk-local, attention runs as a K/V ring
+    (``parallel/ring.py``), the cache (whole on every data rank) takes
+    the whole prompt and its lengths advance by S times the axis size.
+    The logits are this chunk's. Use ``parallel.tp.prefill_cp``.
     """
     cfg = model.cfg
-    batch, seq = tokens.shape
-    device = model.embed_tokens.device
-    ids = tokens.to(device=device, dtype=torch.int64)
-    v_local = model.embed_tokens.shape[0]
-    if tp is not None and v_local < cfg.vocab_size:
-        # vocabulary-sharded embedding (untied): a lookup of this rank's
-        # range, zeros elsewhere, summed over the axis in the activation
-        # dtype
-        idx = ids - tp.rank * v_local
-        ok = (idx >= 0) & (idx < v_local)
-        x = torch.where(
-            ok[..., None],
-            model.embed_tokens[idx.clamp(0, v_local - 1)].to(dtype),
-            torch.zeros((), dtype=dtype, device=device),
-        )
-        x = all_reduce(x, tp)
-    else:
-        x = model.embed_tokens[ids].to(dtype)
-    offsets = cache.lengths
-    positions = offsets[:, None] + torch.arange(seq, device=device)[None, :]
-    cos, sin = rope_cos_sin(positions, model.inv_freq, model.rope_scale)
-    live = attended(cache.max_len, seq, cache.k[0].shape[1])
-
-    for i, block in enumerate(model.blocks):
-        h = rms_norm(x, block.input_layernorm, cfg.rms_norm_eps)
-        if isinstance(block.attn, MlaAttention):
-            x = x + _mla_attention(
-                i, block.attn, h, cos, sin, cache, offsets, cfg, live, tp
-            )
-        else:
-            x = x + _attention(
-                i, block.attn, h, cos, sin, cache, offsets, cfg, live,
-                fresh_prefill=fresh_prefill, tp=tp,
-            )
-        h = rms_norm(x, block.post_attention_layernorm, cfg.rms_norm_eps)
-        x = x + _mlp(block.mlp, h, tp)
-
-    x = rms_norm(x, model.norm, cfg.rms_norm_eps)
-    if model.lm_head is not None:
-        logits = model.lm_head(x)
-        if tp is not None:
-            # the lm_head is column-parallel: the ranks' vocabulary shards
-            # gathered in rank order, in f32
-            logits = all_gather_last(logits.to(torch.float32), tp)
-    else:
-        logits = torch.matmul(
-            x.to(torch.float32), model.embed_tokens.to(torch.float32).t()
-        )
-    cache.lengths.add_(seq)
-    cache.max_len += seq
-    return logits.to(torch.float32), cache
+    seq = tokens.shape[1]
+    x = embed(model.embed_tokens, tokens, cfg, dtype, tp)
+    if cp is not None and not fresh_prefill:
+        raise ValueError("context parallelism needs fresh_prefill")
+    x = decoder(model.blocks, x, cache, cfg, model.inv_freq,
+                model.rope_scale, fresh_prefill, tp, cp)
+    logits = head(x, model.norm, model.lm_head, model.embed_tokens, cfg, tp)
+    advance(cache, seq * (cp.size if cp is not None else 1))
+    return logits, cache

@@ -606,12 +606,13 @@ def load_model(
 def _check_mesh(runtime_format, calibrated) -> None:
     """What :func:`load_model` refuses under a mesh, before anything is
     read."""
-    from vptq_tpu_torch.parallel.tp import M16_SECOND_HALF
+    from vptq_tpu_torch.parallel.tp import M16_BLOCKED_GPTQ
 
     if calibrated:
         raise NotImplementedError(
             f"a calibrated or mixed format ({runtime_format}) under a mesh: "
-            f"calibration's blocked encodings (tp_shards) are {M16_SECOND_HALF}"
+            "calibration's blocked encodings (tp_shards) are "
+            f"{M16_BLOCKED_GPTQ}"
         )
     if runtime_format == "codebook":
         raise ValueError(

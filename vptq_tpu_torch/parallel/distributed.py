@@ -15,8 +15,15 @@ timeout, so that a rank that stops answering fails the others' next
 collective instead of hanging them.
 
 The forward's collectives are :func:`all_reduce` (JAX's ``psum``) and
-:func:`all_gather_last` (JAX's tiled ``all_gather`` on the last axis);
-both run outside the kernels, on the tensors the kernels return.
+:func:`all_gather_dim` (JAX's tiled ``all_gather``); both run outside the
+kernels, on the tensors the kernels return. The point-to-point half is
+:func:`ppermute` (JAX's ``lax.ppermute``, the ring of context
+parallelism), :func:`send` / :func:`recv` (a pipeline stage's activations
+to the next stage's rank) and :func:`broadcast` (one rank's tensor to an
+axis). Gloo documents no send or receive of a CUDA tensor, and NCCL
+refuses two ranks on one card, so by the same open rule as
+:func:`default_backend` a CUDA tensor on a gloo group is staged through
+host memory and NCCL moves it on the device (:func:`via_host`).
 """
 
 from __future__ import annotations
@@ -30,14 +37,20 @@ import torch.distributed as dist
 
 __all__ = [
     "DEFAULT_TIMEOUT_S",
+    "all_gather_dim",
     "all_gather_last",
     "all_reduce",
+    "broadcast",
     "capturable",
     "default_backend",
     "global_mesh",
     "initialize",
     "is_multi_host",
     "local_device",
+    "ppermute",
+    "recv",
+    "send",
+    "via_host",
 ]
 
 # long enough for a rank that builds a kernel library or encodes a block
@@ -145,12 +158,117 @@ def all_reduce(x: torch.Tensor, tp) -> torch.Tensor:
     return x
 
 
-def all_gather_last(x: torch.Tensor, tp) -> torch.Tensor:
-    """The model axis's ``x`` concatenated on the last dim, rank order
-    (JAX's ``all_gather(..., tiled=True)``). ``dist.all_gather`` into a
-    list: the call both torch versions the port runs on have, on both
-    backends."""
+def all_gather_dim(x: torch.Tensor, axis, dim: int) -> torch.Tensor:
+    """The axis's ``x`` concatenated on ``dim``, rank order (JAX's
+    ``all_gather(..., tiled=True)``). ``dist.all_gather`` into a list: the
+    call both torch versions the port runs on have, on both backends."""
     x = x.contiguous()
-    parts = [torch.empty_like(x) for _ in range(tp.size)]
-    dist.all_gather(parts, x, group=tp.group)
-    return torch.cat(parts, dim=-1)
+    parts = [torch.empty_like(x) for _ in range(axis.size)]
+    dist.all_gather(parts, x, group=axis.group)
+    return torch.cat(parts, dim=dim)
+
+
+def all_gather_last(x: torch.Tensor, tp) -> torch.Tensor:
+    """The model axis's ``x`` concatenated on the last dim, rank order."""
+    return all_gather_dim(x, tp, -1)
+
+
+# ------------------------------------------------------- point to point
+
+
+def via_host(x: torch.Tensor, group=None) -> bool:
+    """Whether ``x`` crosses ``group`` through host memory: a CUDA tensor
+    on a gloo group (gloo documents no send or receive of one)."""
+    return x.is_cuda and dist.get_backend(group) == "gloo"
+
+
+class Pending:
+    """Sends and receives in flight: :meth:`wait` ends them, then copies
+    each host-staged receive onto its device tensor. The host copies of
+    staged sends live here until then."""
+
+    def __init__(self, works, staged_sends, staged_recvs):
+        self.works = works
+        self.staged_sends = staged_sends
+        self.staged_recvs = staged_recvs  # (host buffer, device tensor)
+
+    def wait(self) -> None:
+        for w in self.works:
+            w.wait()
+        for host, out in self.staged_recvs:
+            out.copy_(host)
+        self.works, self.staged_sends, self.staged_recvs = [], [], []
+
+
+def _post(ops, group) -> Pending:
+    """Post ``ops`` ((isend or irecv, tensor, global peer rank, tag), ...;
+    a send and its receive carry one tag) together: one
+    ``batch_isend_irecv`` on NCCL, so that a ring of sends cannot
+    deadlock; each on its own on gloo, whose sends and receives
+    are asynchronous already. Every tensor is staged through the host
+    where :func:`via_host` says so."""
+    staged_sends, staged_recvs, posted = [], [], []
+    for fn, t, peer, tag in ops:
+        if via_host(t, group):
+            if fn is dist.isend:
+                t = t.cpu()
+                staged_sends.append(t)
+            else:
+                host = torch.empty(t.shape, dtype=t.dtype)
+                staged_recvs.append((host, t))
+                t = host
+        posted.append((fn, t, peer, tag))
+    if dist.get_backend(group) == "nccl":
+        works = dist.batch_isend_irecv([
+            dist.P2POp(fn, t, peer, group, tag) for fn, t, peer, tag in posted
+        ])
+    else:
+        works = [fn(t, peer, group=group, tag=tag)
+                 for fn, t, peer, tag in posted]
+    return Pending(works, staged_sends, staged_recvs)
+
+
+def send(x: torch.Tensor, peer: int, group=None) -> Pending:
+    """Start sending ``x`` to global rank ``peer``; ``wait()`` the result
+    before ``x`` is written again."""
+    return _post([(dist.isend, x.contiguous(), peer, 0)], group)
+
+
+def recv(out: torch.Tensor, peer: int, group=None) -> torch.Tensor:
+    """Receive into ``out`` from global rank ``peer``; returns it."""
+    _post([(dist.irecv, out, peer, 0)], group).wait()
+    return out
+
+
+def ppermute(xs, axis, perm):
+    """JAX's ``lax.ppermute`` over ``axis`` (a ``mesh.TPAxis``): each
+    tensor of ``xs`` goes from axis index ``i`` to ``j`` for every ``(i,
+    j)`` of ``perm``, all sends and receives posted together. A rank that
+    no pair sends to gets zeros, as in JAX. Returns the received tensors,
+    one for each of ``xs``."""
+    me = axis.rank
+    dst = [j for i, j in perm if i == me]
+    src = [i for i, j in perm if j == me]
+    outs = [torch.zeros_like(x) for x in xs]
+    ops = []
+    for tag, (x, out) in enumerate(zip(xs, outs)):
+        if dst:
+            ops.append((dist.isend, x.contiguous(),
+                        dist.get_global_rank(axis.group, dst[0]), tag))
+        if src:
+            ops.append((dist.irecv, out,
+                        dist.get_global_rank(axis.group, src[0]), tag))
+    _post(ops, axis.group).wait()
+    return outs
+
+
+def broadcast(x: torch.Tensor, axis, src: int) -> torch.Tensor:
+    """``x`` of axis index ``src`` on every rank of ``axis``, in place
+    (staged through the host as :func:`via_host` says); returns it."""
+    peer = dist.get_global_rank(axis.group, src)
+    if via_host(x, axis.group):
+        host = x.cpu()
+        dist.broadcast(host, src=peer, group=axis.group)
+        return x.copy_(host)
+    dist.broadcast(x, src=peer, group=axis.group)
+    return x

@@ -28,9 +28,9 @@ __all__ = ["Mesh", "TPAxis", "make_mesh"]
 
 @dataclasses.dataclass(frozen=True)
 class TPAxis:
-    """The model axis as ``models.llama.forward`` sees it (JAX's ``tp=
-    (axis_name, size)``): the group its collectives run over, its size
-    and this rank's index along it."""
+    """An axis of the mesh as ``models.llama.forward`` sees it (JAX's
+    ``tp=(axis_name, size)``, and ``cp=`` for the data axis): the group
+    its collectives run over, its size and this rank's index along it."""
 
     group: Any
     size: int
@@ -61,6 +61,12 @@ class Mesh:
     @property
     def tp(self) -> TPAxis:
         return TPAxis(self.model_group, self.model, self.model_rank)
+
+    @property
+    def cp(self) -> TPAxis:
+        """The data axis, over which a context-parallel prefill splits the
+        prompt (JAX's ``cp_axis="data"``)."""
+        return TPAxis(self.data_group, self.data, self.data_rank)
 
 
 def make_mesh(

@@ -1,15 +1,16 @@
 """Megatron tensor parallelism: a rank's shard of a model, and the
 sharded forward.
 
-Port of ``vptq_tpu/parallel/tp.py`` but its context-parallel prefill
-(``prefill_cp``, which needs the ring of ``parallel/ring.py``). JAX runs
-the whole step in ``shard_map`` over a placed pytree; here each rank holds
+Port of ``vptq_tpu/parallel/tp.py``. JAX runs the whole step in
+``shard_map`` over a placed pytree; here each rank holds
 only its own shard, a plain :class:`~vptq_tpu_torch.models.llama.Model`
 of local modules on its own device, and runs ``models.llama.forward``
 with ``tp=mesh.tp``: every kernel call sees a local shard, and the only
 collectives are one sum after each row-parallel projection and MoE
 combine (activation-sized), one after the vocabulary-range embedding
-lookup, and one gather of the vocabulary-sharded logits.
+lookup, and one gather of the vocabulary-sharded logits. A fresh prefill
+may also split its prompt over the data axis (:func:`prefill_cp`, ring
+attention between the chunks).
 
 Placement (:func:`tp_place_model`: the device-``d`` shard of what the JAX
 package's ``tp_place_model`` puts on the mesh, byte for byte), per role:
@@ -63,21 +64,25 @@ from vptq_tpu_torch.models.llama import (
     forward,
     init_cache,
 )
+from vptq_tpu_torch.parallel.distributed import broadcast
 from vptq_tpu_torch.parallel.expert_parallel import shard_stacked_experts
 
 __all__ = [
-    "M16_SECOND_HALF",
+    "M16_BLOCKED_GPTQ",
     "batch_axis",
+    "cp_logits_row",
     "forward_tp",
     "init_cache_tp",
+    "prefill_cp",
     "shard_cache_tp",
     "tp_place_block",
     "tp_place_model",
     "tp_validate",
 ]
 
-# what the port of parallelism leaves to the second half of ROADMAP M16
-M16_SECOND_HALF = "the second half of ROADMAP M16"
+# what the port of parallelism still leaves to ROADMAP M16: calibration's
+# blocked encodings (Queue 1 item 2c)
+M16_BLOCKED_GPTQ = "ROADMAP M16 item 2c, calibration's blocked GPTQ"
 
 
 def tp_validate(cfg, size: int, sharded_lm_head: bool = True) -> None:
@@ -252,7 +257,7 @@ def _row_parallel(layer, mesh, logical_in: int, reencode: bool = True):
             raise NotImplementedError(
                 "a row-parallel int3-/int2-mixed layer must come blocked "
                 "from calibration (tp_shards), whose port is "
-                f"{M16_SECOND_HALF}: a re-encode would discard the "
+                f"{M16_BLOCKED_GPTQ}: a re-encode would discard the "
                 "calibrated column selection"
             )
         # calibrated blocked form: the base's in axis and the side's
@@ -514,3 +519,49 @@ def forward_tp(
     return forward(model_tp, tokens, cache, dtype=dtype,
                    fresh_prefill=fresh_prefill, tp=mesh.tp)
 
+
+
+def prefill_cp(
+    model_tp: Model,
+    tokens: torch.Tensor,  # (B, S), the whole prompt, the same on every rank
+    cache: KVCache,  # this rank's heads of every row (not split over data)
+    mesh,
+    dtype=torch.bfloat16,
+):
+    """Context-parallel fresh prefill: the prompt's sequence is split over
+    the data axis in contiguous chunks, and each data rank runs the whole
+    decoder on its chunk (``forward(tp=mesh.tp, cp=mesh.cp)``) while
+    attention runs as a K/V ring (``parallel/ring.py``) and tensor
+    parallelism over the model axis as usual. The cache comes back whole
+    on every data rank with the full prefix written, ready for
+    :func:`forward_tp` to decode. S must divide the data axis.
+
+    Returns (this rank's chunk of the logits, (B, S / data, vocab) f32,
+    positions ``data_rank * S / data`` on; cache). JAX returns the global
+    (B, S, vocab) array, sharded over the data axis; here no rank gathers
+    it (at a 128256 vocabulary and 2048 tokens it is 1.05 GB a rank): a
+    caller that wants a row takes it from the rank whose chunk holds it
+    (:func:`cp_logits_row`)."""
+    cp = mesh.data
+    if tokens.shape[1] % cp:
+        raise ValueError(
+            f"prompt length {tokens.shape[1]} must divide cp={cp} chunks"
+        )
+    c = tokens.shape[1] // cp
+    chunk = tokens[:, mesh.data_rank * c: (mesh.data_rank + 1) * c]
+    return forward(model_tp, chunk, cache, dtype=dtype, fresh_prefill=True,
+                   tp=mesh.tp, cp=mesh.cp)
+
+
+def cp_logits_row(logits: torch.Tensor, pos: int, mesh) -> torch.Tensor:
+    """The (B, vocab) logits of global position ``pos`` of a
+    :func:`prefill_cp` on every data rank: the rank whose chunk holds it
+    broadcasts the row over the data axis (one row, not the chunks)."""
+    chunk = logits.shape[1]
+    owner = pos // chunk
+    if mesh.data_rank == owner:
+        row = logits[:, pos % chunk].contiguous()
+    else:
+        row = torch.empty((logits.shape[0], logits.shape[2]),
+                          dtype=logits.dtype, device=logits.device)
+    return broadcast(row, mesh.cp, owner)

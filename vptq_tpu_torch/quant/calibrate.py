@@ -585,7 +585,7 @@ def quantize_model_calibrated(
         fuse: fuse q|k|v and gate|up and stack the experts afterwards
             (``runtime.fuse_model``).
         tp_shards: must be 1: calibration's blocked encodings for tensor
-            parallelism are the second half of ROADMAP M16.
+            parallelism are ROADMAP M16 item 2c.
         resume_dir: checkpoint each finished block and the carried
             activations there; a run started again with the same
             directory resumes at the first unfinished block.
@@ -603,7 +603,7 @@ def quantize_model_calibrated(
     if tp_shards > 1:
         raise NotImplementedError(
             f"tp_shards={tp_shards}: calibration's blocked encodings for "
-            "tensor parallelism are the second half of ROADMAP M16; "
+            "tensor parallelism are ROADMAP M16 item 2c; "
             "calibrate on one device"
         )
     if fmt not in _FORMATS:

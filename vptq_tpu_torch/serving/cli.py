@@ -31,7 +31,7 @@ import torch.distributed as dist
 # hand it to the others
 TP_REFUSAL = (
     "interactive input under tensor parallelism reaches rank 0 alone; "
-    "handing it to the other ranks is the second half of ROADMAP M16 "
+    "handing it to the other ranks is ROADMAP M16 item 2f "
     "(one-shot --prompt runs under --tp)"
 )
 

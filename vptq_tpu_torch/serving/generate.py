@@ -2,9 +2,10 @@
 
 Port of ``vptq_tpu/serving/generate.py`` for one sequence, with its
 prefix cache, and the batched decode step of its scheduler
-(:class:`BatchedDecode`); on one device, or as one rank of a
-tensor-parallel mesh (``mesh=``: every rank runs the same calls on its
-shard, ``parallel/tp.py``). The JAX package runs each decode
+(:class:`BatchedDecode`); on one device, or as one rank of a mesh
+(``mesh=``: every rank runs the same calls on its shard,
+``parallel/tp.py``; a fresh prefill on a data axis above 1 splits its
+prompt over it, ``prefill_cp``). The JAX package runs each decode
 chunk as one ``lax.scan`` inside one jit. Here, on a CUDA device, each
 decode step is captured once as a CUDA graph (:class:`DecodeGraphs`, one
 graph per number of live cache blocks and per greedy or sampled step)
@@ -35,10 +36,11 @@ from vptq_tpu_torch.models.llama import (
     init_cache,
 )
 from vptq_tpu_torch.ops import _build
+from vptq_tpu_torch.parallel.tp import cp_logits_row, prefill_cp
 
 __all__ = [
     "BatchedDecode", "DecodeGraphs", "Generator", "decode_loop",
-    "decode_plan", "sample_next", "sample_slots",
+    "decode_plan", "sample_next", "sample_slots", "takes_cp",
 ]
 
 
@@ -453,18 +455,17 @@ def _generator(device: torch.device, seed: int) -> torch.Generator:
 
 def serving_tp(mesh):
     """The model axis a server's forward calls take under ``mesh`` (None
-    without one). A data axis above 1 raises: the JAX package's servers
-    turn it into context-parallel prefill (a ring over the data axis),
-    whose port is the second half of ROADMAP M16."""
-    if mesh is None:
-        return None
-    if mesh.data > 1:
-        raise NotImplementedError(
-            f"a data axis of {mesh.data} in serving: the JAX package runs "
-            "it as context-parallel prefill (ring attention), which is the "
-            "second half of ROADMAP M16; serve on a mesh of data=1"
-        )
-    return mesh.tp
+    without one)."""
+    return None if mesh is None else mesh.tp
+
+
+def takes_cp(mesh, bucket: int, fresh: bool) -> bool:
+    """The JAX package's rule for a server's prefill under ``mesh``: a
+    fresh chunk whose padded length divides the data axis (above 1) runs
+    context-parallel (``parallel.tp.prefill_cp``); every other chunk runs
+    on the model axis alone, every data rank the whole chunk."""
+    return (fresh and mesh is not None and mesh.data > 1
+            and bucket % mesh.data == 0)
 
 
 def graphs_for(device: torch.device, tp) -> bool:
@@ -492,8 +493,12 @@ class Generator:
     :meth:`generate` with the same arguments: the same gathered logits and
     the same seeds give every rank the same tokens, so that each takes the
     same host decisions (buckets, EOS, budget) and none waits alone in a
-    collective. A data axis above 1 raises: the JAX package serves it with
-    its context-parallel prefill, which is not ported. ``decode_mode``:
+    collective. On a data axis above 1 a fresh prompt whose padded bucket
+    divides it is prefilled context-parallel (:func:`takes_cp`), and the
+    row that samples the first token comes from the data rank whose chunk
+    holds it; the cache of the one sequence is whole on every data rank,
+    each of which then decodes it (JAX's ``batch_axis`` is None at batch
+    1). ``decode_mode``:
     "graphed" (:class:`DecodeGraphs`: a CUDA device, and under a mesh a
     group whose collectives can be captured) or "eager"
     (:func:`decode_loop`)."""
@@ -511,6 +516,7 @@ class Generator:
         self.max_seq = max_seq
         self.dtype = dtype
         self.prefix_cache = prefix_cache
+        self.mesh = mesh
         self.tp = serving_tp(mesh)
         self.device = model.embed_tokens.device
         self.prompt_buckets = [b for b in prompt_buckets if b <= max_seq]
@@ -558,6 +564,7 @@ class Generator:
         done = 0
         last_len = 0
         logits = None
+        cp = False
         if self.prefix_cache is not None:
             done = self.prefix_cache.match(prompt)
             if done:
@@ -569,17 +576,20 @@ class Generator:
             bucket = _pad_bucket(last_len, self.prompt_buckets)
             padded = np.zeros(bucket, np.int64)
             padded[:last_len] = chunk
-            logits, cache = forward(
-                self.model,
-                torch.from_numpy(padded)[None, :].to(self.device),
-                cache,
-                dtype=self.dtype,
-                fresh_prefill=(done == 0),
-                tp=self.tp,
-            )
+            tokens = torch.from_numpy(padded)[None, :].to(self.device)
+            cp = takes_cp(self.mesh, bucket, done == 0)
+            if cp:
+                logits, cache = prefill_cp(self.model, tokens, cache,
+                                           self.mesh, self.dtype)
+            else:
+                logits, cache = forward(
+                    self.model, tokens, cache, dtype=self.dtype,
+                    fresh_prefill=(done == 0), tp=self.tp,
+                )
             done += last_len
             cache.reset(done)
-        last_logits = logits[:, last_len - 1]
+        last_logits = (cp_logits_row(logits, last_len - 1, self.mesh) if cp
+                       else logits[:, last_len - 1])
         if self.prefix_cache is not None:
             self.prefix_cache.insert(prompt, *cache_rows(cache, 0, plen), plen)
 

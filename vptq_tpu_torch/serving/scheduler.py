@@ -1,19 +1,25 @@
 """Continuous-batching scheduler.
 
 Port of ``vptq_tpu/serving/scheduler.py``, on one device or as one rank
-of a tensor-parallel mesh of data axis 1 (``mesh=``: every rank submits
-the same requests in the same order and steps in lockstep; each decision
-is a function of the requests and of the tokens, which every rank
-samples alike from the gathered logits). A fixed batch of sequence slots
-shares one KV cache, each slot advancing on its own length, and a
-finished slot is refilled from the queue:
+of a mesh (``mesh=``: every rank submits the same requests in the same
+order and steps in lockstep; each decision is a function of the requests
+and of the tokens, which every rank holds alike). A fixed batch of
+sequence slots shares one KV cache, each slot advancing on its own
+length, and a finished slot is refilled from the queue. On a data axis
+above 1 that divides the slots, each data rank holds and steps its
+slots' rows (JAX's ``batch_axis``), and the tokens of every slot reach
+every rank by one gather over the data axis a chunk; an admission is
+prefilled on every data rank, context-parallel where the JAX package's
+rule says so (``generate.takes_cp``), and written into its slot's rows by
+the data rank that holds them:
 
   * admission is chunked and interleaved with decode: each ``step()``
     advances at most ``admit_parallel`` in-flight admissions by one
     prefill bucket. Fresh prompts that fit one bucket are prefilled
     together, one row each, on the first rows of a bucket-length scratch
-    cache (under a mesh too: each rank its KV heads); the others on a
-    batch-1 cache from a small pool. A finished prefill is written into
+    cache (under a mesh of data axis 1 too: each rank its KV heads); the
+    others, and every prompt on a data axis above 1, on a batch-1 cache
+    from a small pool. A finished prefill is written into
     its slot (one copy per layer);
     with every slot taken, requests still prefill ahead and wait ready
     for a slot, which a known-budget handoff gives them as soon as the
@@ -43,6 +49,8 @@ import numpy as np
 import torch
 
 from vptq_tpu_torch.models.llama import KVCache, Model, forward, init_cache
+from vptq_tpu_torch.parallel.distributed import all_gather_dim
+from vptq_tpu_torch.parallel.tp import batch_axis, cp_logits_row, prefill_cp
 from vptq_tpu_torch.serving.generate import (
     BatchedDecode,
     _generator,
@@ -50,6 +58,7 @@ from vptq_tpu_torch.serving.generate import (
     cache_rows,
     sample_next,
     serving_tp,
+    takes_cp,
     write_rows,
 )
 
@@ -123,6 +132,7 @@ class Scheduler:
         depth: int = 2,  # decode chunks in flight (1 = synchronous)
         admit_parallel: int = 4,  # admissions advanced per step
     ):
+        self.mesh = mesh
         self.tp = serving_tp(mesh)
         self.model = model
         self.max_batch = max_batch
@@ -136,7 +146,12 @@ class Scheduler:
             self.prompt_buckets = [max_seq]
 
         self._tp_size = 1 if mesh is None else mesh.model
-        self.cache = self._new_cache(max_batch, max_seq)
+        # the slots this rank holds and steps: [row0, row0 + rows), all of
+        # them unless they ride the data axis
+        self._split = mesh is not None and bool(batch_axis(mesh, max_batch))
+        self._rows = max_batch // mesh.data if self._split else max_batch
+        self._row0 = mesh.data_rank * self._rows if self._split else 0
+        self.cache = self._new_cache(self._rows, max_seq)
         self.decode = BatchedDecode(model, self.cache, dtype, chunk,
                                     tp=self.tp)
         self.slots: List[Optional[Request]] = [None] * max_batch
@@ -247,23 +262,38 @@ class Scheduler:
         event.record()
         return _InflightChunk(host, event, list(self.slots))
 
+    def _local(self, slot: int) -> Optional[int]:
+        """``slot``'s row in this rank's cache, None where another data
+        rank holds it."""
+        row = slot - self._row0
+        return row if 0 <= row < self._rows else None
+
     def _insert_slot(self, cache1: KVCache, row: int, slot: int,
                      plen: int) -> None:
         """The prompt's rows of ``cache1`` into the shared cache at
         ``slot`` (one copy per layer), and the slot's length on the
-        device (a fill)."""
+        device (a fill); on the data rank that holds the slot."""
+        local = self._local(slot)
+        if local is None:
+            return
         for dst, src in zip(self.cache.k + self.cache.v, cache1.k + cache1.v):
-            dst[slot, :plen].copy_(src[row, :plen])
-        self.cache.lengths[slot].fill_(plen)
+            dst[local, :plen].copy_(src[row, :plen])
+        self.cache.lengths[local].fill_(plen)
 
     # ---------------------------------------------------------- prefill
 
     def _prefill_one(self, tokens: torch.Tensor, cache1: KVCache, start: int,
                      fresh: bool = False):
-        """One bucket of one prompt on its batch-1 cache, from ``start``."""
+        """One bucket of one prompt on its batch-1 cache, from ``start``
+        (context-parallel where :func:`takes_cp` says so: the logits are
+        then this data rank's chunk)."""
         cache1.reset(start)
-        logits, _ = forward(self.model, tokens, cache1, dtype=self.dtype,
-                            fresh_prefill=fresh, tp=self.tp)
+        if takes_cp(self.mesh, tokens.shape[1], fresh):
+            logits, _ = prefill_cp(self.model, tokens, cache1, self.mesh,
+                                   self.dtype)
+        else:
+            logits, _ = forward(self.model, tokens, cache1, dtype=self.dtype,
+                                fresh_prefill=fresh, tp=self.tp)
         return logits, cache1
 
     def _prefill_fresh_batch(self, tokens: torch.Tensor):
@@ -332,9 +362,13 @@ class Scheduler:
         through one batched prefill per bucket."""
         batch = self._admissions[: self.admit_parallel]
         grouped: Dict[int, List[_Admission]] = {}
+        # on a data axis above 1 every admission runs alone, a fresh one
+        # context-parallel where its bucket divides the axis (the JAX
+        # package's rule under a mesh)
+        batched = self.mesh is None or self.mesh.data == 1
         for adm in batch:
             n = len(adm.req.prompt)
-            if adm.done == 0 and adm.cache1 is None and (
+            if batched and adm.done == 0 and adm.cache1 is None and (
                     n <= self.prompt_buckets[-1]):
                 bucket = next(b for b in self.prompt_buckets if n <= b)
                 grouped.setdefault(bucket, []).append(adm)
@@ -378,8 +412,13 @@ class Scheduler:
             self._to_device(padded), adm.cache1, adm.done,
             fresh=(adm.done == 0),
         )
-        # a copy: the bucket's logits need not live until the last bucket
-        adm.last_logits = logits[0, adm.last_len - 1].clone()
+        if takes_cp(self.mesh, bucket, adm.done == 0):
+            # the row lies on the data rank whose chunk holds it
+            adm.last_logits = cp_logits_row(logits, adm.last_len - 1,
+                                            self.mesh)[0]
+        else:
+            # a copy: the bucket's logits need not live until the last one
+            adm.last_logits = logits[0, adm.last_len - 1].clone()
         adm.done += adm.last_len
         if adm.done < len(req.prompt):
             return False  # more buckets to go; decode runs in between
@@ -434,7 +473,9 @@ class Scheduler:
         self.slots[slot] = req
         self._len[slot] = plen
         self._dispatched[slot] = 1  # the first token, sampled at prefill
-        self.decode.set_slot(slot, first, req.temperature)
+        local = self._local(slot)
+        if local is not None:
+            self.decode.set_slot(local, first, req.temperature)
         # the first token stays on the device: it travels to the host as a
         # 1-token chunk, consumed in order with the decode chunks (the slot
         # may decode speculatively until then)
@@ -476,12 +517,25 @@ class Scheduler:
                 self.stats["handoffs"] += 1
 
     def _dispatch_chunk(self) -> None:
-        """Enqueue one decode chunk on the device, with no wait for it."""
+        """Enqueue one decode chunk on the device, with no wait for it (but
+        on a data axis that the slots ride, the gather of every slot's
+        tokens)."""
         active = [s is not None for s in self.slots]
+        rows = slice(self._row0, self._row0 + self._rows)
+        mine = active[rows]
+        # a rank whose slots are all empty still steps: the gather below
+        # waits for every data rank
         self.cache.max_len = max(
-            n for n, on in zip(self._len, active) if on)
-        self.decode.set_active(active)
-        toks = self.decode.run(self.chunk, self._chunk_idx)
+            (n for n, on in zip(self._len[rows], mine) if on), default=0)
+        self.decode.set_active(mine)
+        seed = self._chunk_idx
+        if self._split:
+            # each data rank draws its own slots' noise (JAX folds the
+            # data index into the key)
+            seed = seed * self.mesh.data + self.mesh.data_rank
+        toks = self.decode.run(self.chunk, seed)
+        if self._split:
+            toks = all_gather_dim(toks, self.mesh.cp, 1)
         self._chunk_idx += 1
         for slot in range(self.max_batch):
             if active[slot]:

@@ -351,7 +351,8 @@ def main(argv=None) -> int:
     p.add_argument(
         "--tp", type=int, default=0,
         help="tensor parallelism over this many devices: values above 1 "
-        "are refused (the second half of ROADMAP M16)",
+        "are refused (ROADMAP M16 item 2f: the prompt must reach every "
+        "rank)",
     )
     p.add_argument("--device", default="cuda",
                    help="where the model runs (cuda or cpu)")

@@ -24,13 +24,12 @@ both directions:
 The reader maps the file and copies each tensor to the device as it lies.
 It refuses another ``format_version``, and blocked (``shards > 1``)
 encodings, which the JAX package writes without a marker (a marker, and
-with it the export of blocked layers, is the second half of ROADMAP
-M16): a plane whose padded width is not the
-one a one-device encoder gives the layer's logical width (int8: a whole
-scale group; int4 and int3: 2048; int2: 1024), or mixed columns that are
-not strictly increasing inside that width. A blocked layer whose every
-shard already has the one-device width has the one-device shape and
-cannot be told apart.
+with it the export of blocked layers, is ROADMAP M16 item 2d): a plane
+whose padded width is not the one a one-device encoder gives the
+layer's logical width (int8: a whole scale group; int4 and int3: 2048;
+int2: 1024), or mixed columns that are not strictly increasing inside
+that width. A blocked layer whose every shard already has the
+one-device width has the one-device shape and cannot be told apart.
 
 CLI (a VPTQ checkpoint re-encoded on the card, then written):
 
@@ -207,7 +206,7 @@ def _check_one_device(prefix: str, in_p: int, pad_to: int, in_f: int):
             f"{prefix}: padded width {in_p} is not the one-device width of "
             f"{in_f} columns (a multiple of {pad_to}): a blocked (shards > "
             "1) encoding, which the file marks nowhere; the marker that "
-            "would let a reader place it is the second half of ROADMAP M16"
+            "would let a reader place it is ROADMAP M16 item 2d"
         )
 
 
@@ -257,8 +256,8 @@ class _Reader:
                 raise NotImplementedError(
                     f"{prefix}: mixed columns not strictly increasing inside "
                     f"{in_f}: a blocked (shards > 1) instance's shard-local "
-                    "ids, which the file marks nowhere (the second half of "
-                    "ROADMAP M16)"
+                    "ids, which the file marks nowhere (ROADMAP M16 item "
+                    "2d)"
                 )
             kind = (Int2MixedLinear if f"{prefix}.mix2.wq2p" in raw
                     else Int3MixedLinear)

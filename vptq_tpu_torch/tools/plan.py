@@ -21,8 +21,8 @@ plan their base format (the per-column int8 sides are a calibration
 output), as the JAX package does.
 
 A plan across devices (tensor / pipeline parallelism, several hosts,
-the collective term of the cost model) is the second half of ROADMAP M16
-and raises; the budget table's 1 / 2 / 4 / 8-device columns are
+the collective term of the cost model) is ROADMAP M16 item 2e and
+raises; the budget table's 1 / 2 / 4 / 8-device columns are
 arithmetic.
 
 CLI::
@@ -159,8 +159,8 @@ E2E_GBPS = {
 # int8 side matrices at the int8 rate (predict_decode_tok_s)
 _MIXED_BASE = {"int3-mixed": "int3", "int2-mixed": "int2"}
 
-_M16 = ("is the second half of ROADMAP M16 (parallelism); the port plans "
-        "one device")
+_M16 = ("is ROADMAP M16 item 2e (a plan over several devices); the port "
+        "plans one device")
 
 
 def _stream_terms(cfg: ModelConfig, fmt: str, batch: int, max_seq: int,
@@ -220,7 +220,7 @@ def predict_decode_tok_s(
 
     ``rates``: GB/s per format, :data:`E2E_GBPS` (fitted on
     :data:`E2E_CARD`) by default. ``chips`` > 1 (and with it ``ici_us``,
-    the collective term) is the second half of M16.
+    the collective term) is M16 item 2e.
     """
     if chips > 1:
         raise NotImplementedError(f"a plan over {chips} devices {_M16}")
@@ -351,8 +351,7 @@ def abstract_runtime_model(
     ``fmt="codebook"``: unfused blocks of VQLinear at the ``vq=(v, k,
     kres)`` geometry (the loader never fuses codebook layers); MoE
     geometries need int8 / int4 (stacked experts). ``tp_shards`` > 1
-    (a plan of the blocked tensor-parallel layout) is the second half of
-    M16.
+    (a plan of the blocked tensor-parallel layout) is M16 item 2e.
     """
     if tp_shards > 1:
         raise NotImplementedError(f"tp_shards={tp_shards}: {_M16}")
@@ -572,8 +571,7 @@ def main(argv=None) -> int:
     )
     ap.add_argument(
         "--hosts", type=int, default=1,
-        help="data-parallel slices over several hosts (the second half "
-        "of M16)",
+        help="data-parallel slices over several hosts (M16 item 2e)",
     )
     ap.add_argument(
         "--vq", default="v8-k65536-256",
@@ -581,12 +579,12 @@ def main(argv=None) -> int:
         "(model-name convention, e.g. v8-k65536-256)",
     )
     ap.add_argument("--chips", type=int, default=1,
-                    help="devices (more than one: the second half of M16)")
+                    help="devices (more than one: M16 item 2e)")
     ap.add_argument("--batch", type=int, default=1)
     ap.add_argument("--max-seq", type=int, default=2048)
     ap.add_argument(
         "--parallel", default="tp", choices=("tp", "gspmd"),
-        help="placement over several devices (the second half of M16)",
+        help="placement over several devices (M16 item 2e)",
     )
     ap.add_argument(
         "--hbm-gb", type=float, default=None,
@@ -599,7 +597,7 @@ def main(argv=None) -> int:
     ap.add_argument(
         "--ici-us", type=float, default=10.0,
         help="per-collective latency of a plan over several devices "
-        "(the second half of M16)",
+        "(M16 item 2e)",
     )
     args = ap.parse_args(argv)
 
