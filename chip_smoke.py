@@ -123,7 +123,7 @@ without them, or when any phase fails. Phases:
    fire the first time takes its own second token of that run);
 6. end to end in int8 and in int4 on one synthetic checkpoint of
    Mixtral-8x7B-v0.1 geometry (full width, 8 experts, top-2; depth cut
-   to ``MIXTRAL_LAYERS`` = 4 of 32), the same four requests: per layer and forward
+   to ``MIXTRAL_LAYERS`` = 2 of 32), the same four requests: per layer and forward
    call 2 launches of K1 / K2 (qkv, o), per layer and decode step 2 of
    K5, per layer and prefill chunk 16 of K6, K8 as above, every other
    kernel 0; the
@@ -131,13 +131,13 @@ without them, or when any phase fails. Phases:
    kernels against the plain versions; the profiled decode steps and the
    profiled long prefill must hold no device-to-host copy (the expert ids
    stay on the card); then the runtime checkpoint's round trip in int4
-   (the stacked experts), 4 layers, as in phase 5; and in int4 the serving
+   (the stacked experts), 2 layers; and in int4 the serving
    of phase 5 with 8 requests (two of each length): K5b 2 per layer and
    batched step at P=16, its decode-GEMV kernel in the trace, K6 16 per
    layer and prefill call;
 7. end to end in int8 on one synthetic checkpoint of Qwen2.5-7B geometry
    (a bias on q, k and v; K1's first widths that pad; depth cut to
-   ``CUT_LAYERS`` = 4, as in phases 8, 9 and 11), the same four
+   ``CUT_LAYERS`` = 2, as in phases 8, 9 and 11), the same four
    requests, the long prompt's logits against the plain versions;
 8. end to end in int8 on one synthetic checkpoint of Mistral-7B-v0.1
    geometry (sliding window 4096) with ``max_seq`` 8192: prompts of 16,
@@ -166,7 +166,7 @@ without them, or when any phase fails. Phases:
    at one token), no device-to-host copy;
 11. end to end in int8 and in int4 on one synthetic checkpoint of
    Moonlight-16B-A3B geometry (DeepSeek-V3: layers of 2048, cut to
-   ``CUT_LAYERS`` = 4 of its 27, MLA with a latent cache of 576 + 512 per token, the first layer dense, then 64
+   ``CUT_LAYERS`` = 2 of its 27, MLA with a latent cache of 576 + 512 per token, the first layer dense, then 64
    routed experts of 1408, top 6 by sigmoid scores with a correction
    bias, and 2 shared experts; interleaved RoPE), written between
    Mixtral's run and Qwen's, the same four requests as phase 5: per
@@ -188,9 +188,10 @@ without them, or when any phase fails. Phases:
    ``GPTQ_HALF_SHARE``, error ratios within ``GPTQ_RATIO_TOL`` of each
    other and below RTN's; the share of codes that part, by eighths);
    then ``from_pretrained(runtime_format="int2-mixed")`` at
-   ``CALIBRATED_LAYERS`` = 8 layers (32 until the phases of 16 came) on
-   4096 synthetic tokens, and int3-mixed and int4-mixed on the
-   checkpoint cut to 4 layers (``phase_calibrated``): the report's
+   ``CALIBRATED_LAYERS`` = 4 layers (32 until the phases of 16 came, 8
+   until those of 17) on
+   4096 synthetic tokens, and int3-mixed and int4-mixed on the same
+   checkpoint (``phase_calibrated``): the report's
    seconds (ranking, capture, GPTQ, propagation; per block), each site
    kind's formats, error ratios and int8 columns, int4-mixed's int8
    sites, the peak memory, the propagation forwards' launches (a
@@ -207,8 +208,8 @@ without them, or when any phase fails. Phases:
    machine has no ``transformers``): the CLI (``cli._load`` in int8 at
    ``max_seq`` 4096, ``eval_prompt`` on 128 tokens, ``chat_loop`` over a
    turn, ``clear``, an empty line, a second turn and ``exit``; streamed
-   ids = returned ids = the eager loop's; ``--chat --tp 2`` refused naming
-   M16),
+   ids = returned ids = the eager loop's; chat under ``--tp`` is phase
+   17's),
    perplexity over two 4096-token windows (K1, and K8 once per layer a
    window; the mean NLL within 1e-2 nats of the plain versions', a
    window's NLL within 1e-5 of ``F.cross_entropy`` on its own logits,
@@ -241,7 +242,8 @@ without them, or when any phase fails. Phases:
    Mistral-7B (``plan_against_measured``). Every phase prints its seconds
    (``seconds <phase>: N``);
 15. tensor and expert parallelism (M16's first half, ``phase_tp``) on the
-   same Llama-3.1-8B checkpoint at full width and all 32 layers, after
+   same Llama-3.1-8B checkpoint at full width, int4 at all 32 layers and
+   int8 cut to ``TP_INT8_LAYERS`` = 8 (32 until phase 17 came), after
    the tools: the card's compute mode must let two processes share it;
    one device's answers first (int8 and int4: the 512-token prompt's
    last prefill rows, 16 greedy tokens of a 1536-token prompt, layer 0's
@@ -258,11 +260,14 @@ without them, or when any phase fails. Phases:
    ``LOGIT_TOL`` and its 16 greedy tokens (a fresh 2048-token chunk: K8
    on the rank's 16 / 4 heads) equal to one device's; int4 then serves 8
    requests (two of each length, every slot live) through
-   ``Scheduler(mesh=)``; then the NCCL path at world size 1 in this process (``load_model(mesh=Mesh(1, 1))``,
+   ``Scheduler(mesh=)``; ``python -m vptq_tpu_torch.tools.plan
+   --geometry llama3-8b --format int4 --chips 2 --compile`` gives a
+   device the int4 rank's placed bytes and half a 2048-token cache within
+   2% (``plan_against_placed``); then the NCCL path at world size 1 in this process (``load_model(mesh=Mesh(1, 1))``,
    ``Generator(mesh=)``: the graphed decode steps, collectives inside,
    bit-equal to eager over a block boundary). Every line of it says
    "2 ranks sharing one H100 through gloo: no TP speed" beside the card.
-   Inside Mixtral's run, its checkpoint cut to ``TP_MIXTRAL_LAYERS`` = 4
+   Inside Mixtral's run, its checkpoint cut to ``TP_MIXTRAL_LAYERS`` = 2
    at full width: int4 under expert parallelism over two gloo ranks (4
    experts each), a 128-token prefill (K6b) and 8 decode steps (K5b),
    every launch held, the ranks bit-equal (``phase_tp_moe``). The kernel
@@ -281,7 +286,7 @@ without them, or when any phase fails. Phases:
    with two 1-row microbatches of 128 tokens and a decode step, bit-equal
    to ``forward`` on each row alone, the stage caches untouched; every
    launch counted and held to ``launches_of``. After phase 15
-   (``phase_cp``), the checkpoint cut to ``CP_LAYERS`` = 8 at full width
+   (``phase_cp``), the checkpoint cut to ``CP_LAYERS`` = 4 at full width
    in int4, one device's answers first (a 2048-token prompt's last
    prefill row, 16 greedy tokens of the 1536-token prompt), then four
    gloo ranks on ``cuda:0`` (``cp_rank_job``): on a data 2 × model 2
@@ -290,14 +295,34 @@ without them, or when any phase fails. Phases:
    of one device's and gives its first token, ``Generator(mesh=)``'s 16
    greedy tokens equal to one device's, ``Scheduler(mesh=)`` serving
    four requests (16 / 128 / 512 / 1536 tokens, 16 new; 4 slots a data
-   rank); then ``TPPipelineRunner`` over 2 stages × TP 2 (4 layers a
+   rank); then ``TPPipelineRunner`` over 2 stages × TP 2 (2 layers a
    stage, K8 on the fresh chunk): a prefill and 16 greedy tokens equal to
    one device's, the next token broadcast back to the first stage by the
    job. Every launch held against its plain version, held calls = counted
    launches, exact launches of the prefill, the Generator and the stage,
    the ranks agreeing; each part's seconds and its transfers by kind.
    Every line says "4 ranks sharing one H100 through gloo: no PP, CP or
-   TP speed" beside the card.
+   TP speed" beside the card;
+17. calibration, chat and the web app under TP (``phase_tp_calibrated``),
+   after phase 12's int3- and int4-mixed runs, on the calibration
+   checkpoint (``CALIBRATED_LAYERS``, Llama-3.1-8B's width): layer 0's
+   blocked GPTQ of o on the card against the CPU's, shard by shard
+   (``gptq_against_cpu(shards=2)``); then two gloo ranks on ``cuda:0``
+   (``tp_calibrated_rank_job``) load int2-mixed through
+   ``from_pretrained(tp=2)``: rank 0 calibrates with o and down blocked
+   (the propagation's launches, each blocked layer once a shard, held
+   against the plain versions; its seconds; each site's err ratio beside
+   the one-device calibration's of the same checkpoint), rank 1 waits for
+   each block (its arrival times printed); each rank's placed bytes
+   within 2% of ``estimate_model_bytes(tp_shards=2)`` / 2; a held
+   512-token prefill and 16 greedy tokens (K3 and K1 launches counted and
+   held); chat under ``--tp`` (two turns and ``exit`` fed to rank 0's
+   ``input()``, rank 1 never reading) and one web request over HTTP on
+   localhost (rank 0 serves, rank 1 follows ``webapp.follow``), the ranks
+   agreeing on every token; then on rank 0 the one-device model of the
+   same blocked encoding, each blocked layer the sum of its shards
+   (``tp.shards_summed``): the prefill's last rows within ``LOGIT_TOL``
+   and every token of the prefill's, the chat's and the web's equal.
 
 The line before the last is a JSON object with one record per kernel at
 T=1 and T=512 (pairs kernels: P=2 and P=16; K8: S=1024 and S=2048; each
@@ -462,14 +487,17 @@ R1_EXPERTS = dict(hidden_size=7168, moe_intermediate_size=2048,
 # 32 layers until the tensor-parallel phases took 1031 s of the 1200
 # with it (one H100 80GB HBM3 at 700 W), then 8, as Moonlight, Qwen2.5,
 # Mistral and Phi-3 did, until the smoke took 1056 s on a slower host;
-# all five now keep 4
-MIXTRAL_LAYERS = 4
-CUT_LAYERS = 4
+# all five kept 4 until the phases of calibration and chat under TP took
+# the smoke to 1111 s on a slower host (one H100 80GB HBM3 at 700 W,
+# kernel phases 70.7 s against 54.9 on the host that read 809.6 s): now 2
+MIXTRAL_LAYERS = 2
+CUT_LAYERS = 2
 # the calibrated int2-mixed Llama-3.1-8B: 32 layers until the pipeline and
 # context-parallel phases came (its write and calibration took 200 s of
 # the smoke at 32 on one H100 80GB HBM3 at 700 W; PERF.md keeps its
-# 32-layer figures)
-CALIBRATED_LAYERS = 8
+# 32-layer figures), then 8, and 4 since the phases under TP came (as the
+# int3- and int4-mixed runs)
+CALIBRATED_LAYERS = 4
 # VPTQ-community v8-k65536-0 geometry
 V8_K65536 = dict(
     vector_len=8, num_centroids=65536, num_res_centroids=-1,
@@ -2294,7 +2322,7 @@ def calibration_launches(report, fmt: str) -> dict:
 
 
 def gptq_against_cpu(device, path, vocab: int, sites=GPTQ_SITES, bits=2,
-                     group=64) -> dict:
+                     group=64, shards=1) -> dict:
     """``gptq_quantize`` on the card against its plain version on the CPU,
     on the same weight and Hessian: layer 0's ``sites`` of the checkpoint
     at ``path``, its exact weights, and the Hessians its capture forward
@@ -2304,7 +2332,10 @@ def gptq_against_cpu(device, path, vocab: int, sites=GPTQ_SITES, bits=2,
     ``GPTQ_RATIO_TOL`` of each other and both below RTN's /
     ``GPTQ_GAIN``. Printed: seconds each, the share of codes (by eighths
     of the columns) and of scales that differ, the largest code
-    difference."""
+    difference. ``shards > 1``: the blocked GPTQ of tensor parallelism,
+    each contiguous column shard of w against its diagonal block of H
+    (the widths of Llama-3.1-8B's o and down divide the shards and pad
+    nothing), held shard by shard."""
     from vptq_tpu_torch.models.loader import load_model
     from vptq_tpu_torch.quant import calibrate as cal
     from vptq_tpu_torch.quant.gptq import (
@@ -2329,9 +2360,18 @@ def gptq_against_cpu(device, path, vocab: int, sites=GPTQ_SITES, bits=2,
                                          cos, sin, cache, exact.cfg)
         del x, cache
         offset = 0.5 if bits == 2 else 0.0
+        parts = []
         for site, p in sites:
             w = cal._exact_weight(block.get_submodule(p))
             h = hess[site].h
+            blk = w.shape[1] // shards
+            for s in range(shards):
+                cols = slice(s * blk, (s + 1) * blk)
+                parts.append((site if shards == 1 else f"{site} shard {s}",
+                              w[:, cols].contiguous(),
+                              h[cols, cols].contiguous()))
+        del hess
+        for site, w, h in parts:
             _sync(device)
             t0 = time.perf_counter()
             q, sc = gptq_quantize(w, h, bits=bits, group=group)
@@ -2483,6 +2523,8 @@ def phase_calibrated(device, path, fmt: str, vocab: int, calibration=None,
         peak_gb=(torch.cuda.max_memory_allocated(device) / 1e9 if cuda
                  else None),
         calibration_launches=counts, **calibration_report(report),
+        err_ratio_by_site={k: v["err_ratio"] for k, v in report.items()
+                           if "err_ratio" in v},
         propagation_vs_plain=dict(
             calls={k: sum(h["kernel"] == k for h in held)
                    for k in sorted({h["kernel"] for h in held})},
@@ -2678,8 +2720,8 @@ def phase_entry_points(device, path, vocab: int, seed=0, prompt_len=128,
        ``prompt_len``-token prompt and ``chat_loop`` over ``hello``,
        ``clear``, an empty line, a second message and ``exit``; every
        call's streamed ids are its returned ids and the eager loop's
-       (:func:`eager_tokens`); launches exact; ``--chat --tp 2`` refused
-       naming M16.
+       (:func:`eager_tokens`); launches exact (chat under ``--tp`` is
+       :func:`phase_tp_calibrated`'s).
     2. Perplexity over ``ppl_windows`` windows of ``ppl_seq`` byte ids
        from ``seed``: launches exact (K1 four a layer, K8 one a layer at
        1024 tokens or more, a window); the mean NLL within PPL_NLL_TOL of
@@ -2768,16 +2810,6 @@ def phase_entry_points(device, path, vocab: int, seed=0, prompt_len=128,
     _sync(device)
     cli_out = dict(load_s=time.perf_counter() - t0)
     cfg, buckets = model.cfg, gen.prompt_buckets
-    # --tp serves one-shot (phase_tp); chat under --tp is refused, naming
-    # M16 item 2f (its input would reach rank 0 alone)
-    try:
-        cli._load(cli.build_parser().parse_args([*argv, "--chat", "--tp",
-                                                 "2"]))
-        raise AssertionError("--chat --tp 2 was not refused")
-    except SystemExit as e:
-        if "M16" not in str(e):
-            raise AssertionError(
-                f"--chat --tp 2 refused without M16: {e}") from e
     calls = []
     rec = Recorder(gen, calls)
     args.prompt = "".join(map(chr, rng.integers(32, 127, prompt_len)))
@@ -3786,10 +3818,11 @@ TP_HELD_STEPS = 8  # and the decode steps after it
 TP_PROMPT = 1536  # the greedy request against one device: a fresh 2048
 TP_GREEDY = 16  # chunk (K8 on the local heads), then 16 tokens
 TP_COS = 0.99  # int8 against one device: JAX's tests/test_tp.py rule
-TP_MIXTRAL_LAYERS = 4  # Mixtral under EP: full width, depth cut
+TP_MIXTRAL_LAYERS = 2  # Mixtral under EP: full width, depth cut
 TP_MIXTRAL_PROMPT = 128  # K6b on the local experts (more than 64 tokens)
 TP_SERVE_LENS = (16, 128, 512, 1536)  # the served prompts' lengths
 TP_SERVE_PER_LEN = 2  # and the requests of each: all 8 slots live
+TP_INT8_LAYERS = 8  # the int8 job's depth (32 until phase 17 came)
 TP_TIMEOUT_S = 300.0  # a rank that hangs fails the others' collective
 
 
@@ -4110,8 +4143,9 @@ def tp_rank(rank: int, world: int, store: str, spec: str, out_dir: str):
                            timeout_s=TP_TIMEOUT_S)
     try:
         jobs = json.loads(Path(spec).read_text())
-        results = [(cp_rank_job if job.get("cp") else tp_rank_job)(
-            job, rank, world) for job in jobs]
+        results = [(cp_rank_job if job.get("cp")
+                    else tp_calibrated_rank_job if job.get("calibrated")
+                    else tp_rank_job)(job, rank, world) for job in jobs]
         Path(out_dir, f"rank{rank}.json").write_text(json.dumps(results))
     finally:
         dist.destroy_process_group()
@@ -4188,32 +4222,82 @@ def check_compute_mode() -> str:
 
 
 def phase_tp(device, path, vocab: int, card: str) -> dict:
-    """Llama-3.1-8B at full width and depth as two gloo ranks on the card:
-    int8 and int4 through ``from_pretrained(tp=2)`` (placed bytes, held
-    launches, ranks bit-equal, against one device), int4 served through
+    """Llama-3.1-8B at full width as two gloo ranks on the card: int8 (cut
+    to ``TP_INT8_LAYERS``) and int4 (all its layers) through
+    ``from_pretrained(tp=2)`` (placed bytes, held launches, ranks
+    bit-equal, against one device), int4 served through
     ``Scheduler(mesh=)``; then the NCCL path at world size 1."""
     check_compute_mode()
     jobs = []
+    cut = cut_checkpoint(path, TP_INT8_LAYERS)
     with tempfile.TemporaryDirectory(prefix="vptq_tp_ref_") as tmp:
-        for fmt in ("int8", "int4"):
+        for fmt, src in (("int8", str(cut)), ("int4", path)):
             with timed(f"tp one-device reference {fmt}"):
-                ref = tp_reference(device, path, fmt, vocab,
+                ref = tp_reference(device, src, fmt, vocab,
                                    Path(tmp, f"{fmt}.pt"))
             jobs.append(dict(
-                label="Llama-3.1-8B", fmt=fmt, path=path, vocab=vocab,
+                label="Llama-3.1-8B", fmt=fmt, path=src, vocab=vocab,
                 held_prompt=TP_HELD_PROMPT, prompt=TP_PROMPT, reference=ref,
                 serve=dict(scheduler=SERVE, lens=TP_SERVE_LENS,
                            per_len=TP_SERVE_PER_LEN) if fmt == "int4"
                 else None))
-        with timed("tp Llama-3.1-8B ranks"):
-            results = run_ranks(jobs)
+        try:
+            with timed("tp Llama-3.1-8B ranks"):
+                results = run_ranks(jobs)
+        finally:
+            shutil.rmtree(cut, ignore_errors=True)
     launches = report_tp(results, card)
+    with timed("tp plan --chips 2"):
+        plan_tp = plan_against_placed(
+            next(r for r in results[0] if r["fmt"] == "int4"), device)
+    print(f"tp plan against placed [{card}] " + json.dumps(plan_tp))
     with timed("tp nccl world 1"):
         nccl = phase_tp_nccl(device, path, vocab)
     print(f"tp nccl world 1 [{card}] " + json.dumps(nccl))
     for k, v in nccl.pop("launches").items():
         launches[k] += v
     return dict(launches=launches, nccl=nccl)
+
+
+def plan_against_placed(placed: dict, device) -> dict:
+    """``python -m vptq_tpu_torch.tools.plan --geometry llama3-8b --format
+    int4 --chips 2 --compile`` (its ``main``, in this process) against
+    rank 0's placed bytes of the TP job
+    (``placed``): its GiB per device (a rank's weights and its half of a
+    2048-token cache) within TP_CAL_BYTES_TOL of the placed bytes and that
+    cache."""
+    from vptq_tpu_torch.models.llama import ModelConfig
+    from vptq_tpu_torch.tools import plan
+    from vptq_tpu_torch.utils import memory as hbm
+
+    import io
+
+    argv = ["--geometry", "llama3-8b", "--format", "int4", "--chips",
+            str(TP_RANKS), "--compile"]
+    if torch.device(device).type != "cuda":
+        argv += ["--hbm-gb", "80"]
+    shown = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(shown):
+        if plan.main(argv):
+            raise AssertionError(f"plan {argv}: {shown.getvalue()}")
+    seconds = time.perf_counter() - t0
+    out = shown.getvalue()
+    lines = out.strip().splitlines()
+    fits = next(ln for ln in lines if ln.startswith("fits:"))
+    per_device = float(re.match(r"fits: ([\d.]+) GiB/device", fits).group(1))
+    cfg = ModelConfig(**{**dict(tie_word_embeddings=False),
+                         **plan.GEOMETRIES["llama3-8b"]})
+    want = (placed["placed_bytes"] + hbm.kv_cache_bytes(cfg, 1, 2048)
+            / TP_RANKS) / hbm.GiB
+    res = dict(seconds=seconds, fits=fits, placed_and_cache_gib=want,
+               meta=next(ln for ln in lines if ln.startswith("meta decode")),
+               predicted=next(ln for ln in lines
+                              if ln.startswith("predicted")))
+    if abs(per_device / want - 1) > TP_CAL_BYTES_TOL:
+        raise AssertionError(f"plan --chips 2: {per_device} GiB a device "
+                             f"against {want} placed: {out}")
+    return res
 
 
 def phase_tp_moe(path, vocab: int, card: str,
@@ -4276,12 +4360,288 @@ def phase_tp_nccl(device, path, vocab: int) -> dict:
     return out
 
 
+# ------------------------------ calibration, chat and the web app under TP
+
+TP_CAL_FMT = "int2-mixed"  # calibrated under the mesh: K3 and K1 on the ranks
+TP_CAL_PROMPT = 512  # the held prefill against the shard-summed one device
+TP_CAL_GREEDY = 16  # its greedy tokens
+TP_CAL_CHAT = ("hello", "and what of the river?")  # two chat turns, then exit
+TP_CAL_NEW = 16  # new tokens a chat turn and a web request
+TP_CAL_BYTES_TOL = 2e-2  # placed bytes against estimate_model_bytes / world
+
+
+def tp_calibrated_rank_job(job: dict, rank: int, world: int) -> dict:
+    """Calibration under the mesh on one rank: ``from_pretrained(tp=world,
+    runtime_format="int2-mixed")`` (rank 0 calibrates with the row-parallel
+    sites blocked and hands each block on; the propagation's launches
+    counted and held, its report and seconds, and each rank's wait for its
+    first block), the placed bytes against the estimate, a held prefill of
+    ``TP_CAL_PROMPT`` tokens and ``TP_CAL_GREEDY`` greedy tokens; then
+    chat under ``--tp`` (two turns and ``exit`` fed to rank 0's
+    ``input()``) and one web request over HTTP on localhost (rank 0 serves,
+    the other rank follows), with :class:`ByteTokenizer`. Rank 0 then runs
+    the one-device model of the same blocked encoding, each blocked layer
+    the sum of its shards (``tp.shards_summed``; its launches are no part
+    of the counts), and holds the prefill's logits to it within
+    ``LOGIT_TOL`` and every token to it exactly."""
+    import io
+    import threading
+    import urllib.request
+
+    import torch.distributed as dist
+
+    from vptq_tpu_torch.api import AutoModelForCausalLM
+    from vptq_tpu_torch.config import QuantizationConfig
+    from vptq_tpu_torch.layers.runtime import fuse_model
+    from vptq_tpu_torch.models.loader import _calibrated_lm_head
+    from vptq_tpu_torch.parallel import distributed
+    from vptq_tpu_torch.parallel.tp import shards_summed
+    from vptq_tpu_torch.quant import calibrate as cal
+    from vptq_tpu_torch.serving import cli, webapp
+    from vptq_tpu_torch.serving.generate import Generator, decode_loop
+    from vptq_tpu_torch.utils import memory as hbm
+
+    fmt, path, vocab = TP_CAL_FMT, job["path"], job["vocab"]
+    out = dict(fmt=fmt, label=job["label"], rank=rank)
+    device = job.get("device")
+    caught, arrivals, held_cal = [], [], []
+    real_cal, real_bt = cal.quantize_model_calibrated, \
+        distributed.broadcast_tensors
+
+    def calibrating(*args, **kwargs):
+        t = time.perf_counter()
+        model, report = real_cal(*args, **kwargs)
+        caught.append((model, report, time.perf_counter() - t))
+        return model, report
+
+    def arriving(*args, **kwargs):
+        got = real_bt(*args, **kwargs)
+        arrivals.append(time.perf_counter())
+        return got
+
+    dist.barrier()
+    _zero_counts()
+    t0 = time.perf_counter()
+    with mock.patch.object(cal, "quantize_model_calibrated", calibrating), \
+            mock.patch.object(distributed, "broadcast_tensors", arriving), \
+            mock.patch.object(cal, "_block_forward", held_propagation(
+                fmt, cal._block_forward, held_cal)):
+        engine = AutoModelForCausalLM.from_pretrained(
+            path, runtime_format=fmt, tp=world, max_seq=2048, device=device)
+    model, gen = engine.model, engine.generator
+    dev = model.norm.device
+    _sync(dev)
+    cuda = dev.type == "cuda"
+    out["load_s"] = time.perf_counter() - t0
+    # the first block's wait, then each later one's, from the load's start
+    out["block_arrivals_s"] = [t - t0 for t in arrivals]
+    cal_counts = {k: v for k, v in _counts().items() if v}
+    out["calibration_launches"] = cal_counts
+    if rank == 0:
+        whole, report, cal_s = caught[0]
+        out["calibration_s"] = cal_s
+        out["calibration_summary"] = report["summary"]
+        blocked = {k: v["err_ratio"] for k, v in report.items()
+                   if "err_ratio" in v}
+        one = job.get("one_device_err", {})
+        out["err_ratio_one_device_vs_tp"] = {
+            k: [one.get(k), v] for k, v in blocked.items()}
+        # a row-parallel site's members launch once a shard
+        want = {}
+        for key, rep in report.items():
+            if "format" not in rep:
+                continue
+            kind = site_kind(key)
+            n = SITE_MEMBERS.get(kind, 1) * (
+                world if kind in cal._ROW_PARALLEL_SITES else 1)
+            for k in MIXED_KERNELS.get(rep["format"]) or (
+                    FORMAT_KERNEL[rep["format"]],):
+                want[k] = want.get(k, 0) + n
+        held_calls = {k: sum(h["kernel"] == k for h in held_cal)
+                      for k in {h["kernel"] for h in held_cal}}
+        out["propagation_vs_plain"] = dict(
+            calls=held_calls,
+            max_abs_err=max((h["max_abs_err"] for h in held_cal),
+                            default=0.0),
+            of_limit=max((h["of_limit"] for h in held_cal), default=0.0))
+        if cuda and (cal_counts != want or held_calls != want):
+            raise AssertionError(
+                f"tp calibration launches {cal_counts}, held {held_calls}, "
+                f"expected {want}")
+    elif cal_counts:
+        raise AssertionError(f"rank {rank} launched {cal_counts} while "
+                             "rank 0 calibrated")
+    out["launches"] = dict(cal_counts)
+
+    with open(Path(path) / "config.json") as f:
+        qcfg = QuantizationConfig.from_dict(
+            json.load(f).get("quantization_config", {}))
+    cfg = model.cfg
+    est = hbm.estimate_model_bytes(cfg, fmt, qcfg, tp_shards=world)["total"]
+    out["placed_bytes"] = hbm.model_bytes(model)
+    out["estimate_bytes_per_rank"] = est / world
+    # at Llama-3.1-8B's widths (``job["strict"]``; a tiny rehearsal's
+    # shards put every column on the int8 side, which the estimate's rule
+    # for real widths does not count)
+    if job.get("strict", True) and abs(
+            out["placed_bytes"] / (est / world) - 1) > TP_CAL_BYTES_TOL:
+        raise AssertionError(f"{fmt} rank {rank}: placed "
+                             f"{out['placed_bytes']} against {est / world}")
+
+    # the held prefill and greedy tokens
+    prompt = _tp_prompt(vocab, job["prompt"], 7)
+    held = {}
+    _zero_counts()
+    with held_kernels(fmt, held), torch.inference_mode():
+        logits = prefill(model, gen, prompt)
+        first = torch.argmax(logits[-1:], dim=-1)
+        toks, _ = decode_loop(model, first, gen.cache, None, 0.0,
+                              steps=job["greedy"] - 1, dtype=gen.dtype,
+                              tp=gen.tp)
+    _sync(dev)
+    counts = _counts()
+    want = launches_of(cfg, fmt, [(1, len(prompt), True)]
+                       + [(1, 1, False)] * (job["greedy"] - 1))
+    if not cuda:
+        want = dict.fromkeys(ALL_KERNELS, 0)
+    calls = {k: v["calls"] for k, v in held.items()}
+    if counts != want or (cuda and calls != {
+            k: v for k, v in counts.items() if v}):
+        raise AssertionError(f"{fmt} rank {rank}: launches {counts}, held "
+                             f"{calls}, expected {want}")
+    out["held"] = held
+    greedy = [int(first[0]), *toks[:, 0].tolist()]
+    ranks_agree(f"{fmt} tp prefill logits", logits)
+    ranks_agree(f"{fmt} tp greedy", torch.tensor(greedy, device=dev))
+    out["greedy_tokens"] = greedy
+
+    # chat under --tp: rank 0 alone reads the terminal
+    tok = ByteTokenizer()
+    args = cli.build_parser().parse_args([
+        "--model", path, "--chat", "--tp", str(world), "--temperature", "0",
+        "--max-new-tokens", str(job["new_tokens"]), "--max-seq", "2048"])
+    lines = iter([*job["chat"], "exit"])
+
+    def typed(prompt=""):
+        if rank:
+            raise AssertionError("a rank other than 0 read the terminal")
+        return next(lines)
+
+    chat_calls, shown = [], io.StringIO()
+    t1 = time.perf_counter()
+    with mock.patch("builtins.input", typed), \
+            contextlib.redirect_stdout(shown), \
+            contextlib.redirect_stderr(io.StringIO()):
+        cli.chat_loop(Recorder(gen, chat_calls), tok, args)
+    out["chat_s"] = time.perf_counter() - t1
+    out["chat_printed"] = len(shown.getvalue())
+    if (rank == 0) != bool(shown.getvalue()) or len(chat_calls) != 2:
+        raise AssertionError(f"chat under --tp on rank {rank}: "
+                             f"{len(chat_calls)} turns, printed "
+                             f"{shown.getvalue()!r}")
+
+    # the web app under --tp: rank 0 serves one request, the other follows
+    web_calls = []
+    web_gen = Recorder(gen, web_calls)
+    t1 = time.perf_counter()
+    if rank == 0:
+        httpd = webapp.serve(web_gen, tok, port=0, gen_args=dict(
+            max_new_tokens=job["new_tokens"], temperature=0.0),
+            followers=True)
+        thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+        thread.start()
+        try:
+            req = urllib.request.Request(
+                f"http://127.0.0.1:{httpd.server_address[1]}/api/chat",
+                data=json.dumps({"messages": [
+                    {"role": "user", "content": "a web hello"}]}).encode(),
+                headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=TP_TIMEOUT_S) as resp:
+                out["web_content"] = json.loads(resp.read())["content"]
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+            thread.join(timeout=30)
+    else:
+        webapp.follow(web_gen, None)
+    out["web_s"] = time.perf_counter() - t1
+    if len(web_calls) != 1:
+        raise AssertionError(f"web under --tp on rank {rank}: "
+                             f"{len(web_calls)} generations")
+    served = [c["returned"] for c in chat_calls + web_calls]
+    for i, ids in enumerate(served):
+        ranks_agree(f"{fmt} served request {i}",
+                    torch.tensor(ids, device=dev))
+    out["served_tokens"] = served
+    out["launches"] = {k: out["launches"].get(k, 0) + v
+                       for k, v in _counts().items()}
+    out["after_load_launches"] = {k: v for k, v in _counts().items() if v}
+
+    # one device, the same blocked encoding, shard by shard (rank 0)
+    dist.barrier()
+    if rank == 0:
+        fuse_model(whole)
+        whole.lm_head = _calibrated_lm_head(whole.lm_head, fmt, False)
+        summed = shards_summed(whole)
+        one = Generator(summed, max_seq=2048)
+        with torch.inference_mode():
+            ref = prefill(summed, one, prompt)
+            first1 = torch.argmax(ref[-1:], dim=-1)
+            toks1, _ = decode_loop(summed, first1, one.cache, None, 0.0,
+                                   steps=job["greedy"] - 1, dtype=one.dtype)
+        tail, ref_tail = logits[-8:].float(), ref[-8:].float()
+        gap = (tail - ref_tail).abs().max().item()
+        out["logits_gap_of_max"] = gap / ref_tail.abs().max().item()
+        ref_greedy = [int(first1[0]), *toks1[:, 0].tolist()]
+        ref_served = [one.generate(c["prompt"], max_new_tokens=len(
+            c["returned"]), temperature=0.0, eos_token_id=tok.eos_token_id)
+            for c in chat_calls + web_calls]
+        out["one_device_equal"] = dict(greedy=greedy == ref_greedy,
+                                       served=served == ref_served)
+        if (out["logits_gap_of_max"] > LOGIT_TOL or greedy != ref_greedy
+                or served != ref_served):
+            raise AssertionError(
+                f"{fmt} under TP against one device's shard sums: gap "
+                f"{out['logits_gap_of_max']}, greedy {greedy} / "
+                f"{ref_greedy}, served {served} / {ref_served}")
+        del whole, summed, one
+    dist.barrier()
+    del engine, model, gen
+    if cuda:
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_tp_calibrated(device, path, vocab: int, card: str,
+                        one_device_err: dict, strict: bool = True) -> dict:
+    """Llama-3.1-8B at full width, depth cut (the calibration checkpoint's
+    4 layers), calibrated under TP 2 by two gloo ranks sharing the card:
+    layer 0's blocked GPTQ of o on the card against the CPU's, shard by
+    shard (:func:`gptq_against_cpu`); then :func:`tp_calibrated_rank_job`,
+    its err ratios beside ``one_device_err`` (the one-device calibration
+    of the same checkpoint). ``strict``: hold the placed bytes to the
+    estimate (real widths only)."""
+    with timed("tp calibrated gptq card vs cpu, blocked o"):
+        gptq = gptq_against_cpu(device, path, vocab,
+                                sites=(("o", "attn.o_proj"),), shards=TP_RANKS)
+    job = dict(label="Llama-3.1-8B", calibrated=True, path=path, vocab=vocab,
+               prompt=TP_CAL_PROMPT, greedy=TP_CAL_GREEDY,
+               chat=list(TP_CAL_CHAT), new_tokens=TP_CAL_NEW,
+               one_device_err=one_device_err, strict=strict)
+    if torch.device(device).type != "cuda":
+        job["device"] = str(device)
+    with timed("tp calibrated ranks"):
+        results = run_ranks([job])
+    launches = report_tp(results, card, what="tp calibrated")
+    return dict(launches=launches, gptq_blocked=gptq)
+
+
 # ------------------------------------------- pipeline and context parallelism
 
 PP_STAGES = (2, 4)  # PipelineRunner's stages, every one on the one card
 PP_FORMATS = ("int8", "int4")  # the Llama-3.1-8B formats run through them
 PP_MICRO_PROMPT = 128  # each of forward_pipelined's two 1-row microbatches
-CP_LAYERS = 8  # the 4-rank job's Llama-3.1-8B: full width, depth cut
+CP_LAYERS = 4  # the 4-rank job's Llama-3.1-8B: full width, depth cut
 CP_RANKS = 4  # data 2 x model 2, and 2 stages x TP 2
 CP_LABEL = "4 ranks sharing one H100 through gloo: no PP, CP or TP speed"
 CP_PROMPT = 2048  # prefill_cp's prompt: 1024 tokens a data rank
@@ -4876,7 +5236,8 @@ def main() -> int:
                         e2e["graph_step"]["wall_ms"])
             for fmt in trips:
                 with timed(f"round trip {label} {fmt}"):
-                    phase_round_trip(device, path, fmt, cfg["vocab_size"])
+                    phase_round_trip(device, path, fmt, cfg["vocab_size"],
+                                     layers=min(4, cfg["num_hidden_layers"]))
             if label == ENTRY_RUN:
                 with timed("entry points"):
                     e2e = phase_entry_points(device, path, cfg["vocab_size"])
@@ -4939,15 +5300,18 @@ def main() -> int:
                                    gptq=True)
         print("e2e Llama-3.1-8B calibrated " + json.dumps(e2e))
         count(e2e)
-        cut = cut_checkpoint(path, 4)
-        try:
-            for fmt in ("int3-mixed", "int4-mixed"):
-                with timed(f"calibrated Llama-3.1-8B {fmt} (4 layers)"):
-                    e2e = phase_calibrated(device, str(cut), fmt, vocab)
-                print("e2e Llama-3.1-8B calibrated " + json.dumps(e2e))
-                count(e2e)
-        finally:
-            shutil.rmtree(cut, ignore_errors=True)
+        one_device_err = e2e["calibration"]["err_ratio_by_site"]
+        for fmt in ("int3-mixed", "int4-mixed"):
+            with timed(f"calibrated Llama-3.1-8B {fmt} "
+                       f"({CALIBRATED_LAYERS} layers)"):
+                e2e = phase_calibrated(device, path, fmt, vocab)
+            print("e2e Llama-3.1-8B calibrated " + json.dumps(e2e))
+            count(e2e)
+        with timed("tp calibrated Llama-3.1-8B int2-mixed, chat and web "
+                   f"({CALIBRATED_LAYERS} layers)"):
+            e2e = phase_tp_calibrated(device, path, vocab, card,
+                                      one_device_err)
+        count(e2e)
     finally:
         shutil.rmtree(path, ignore_errors=True)
     plan_against_measured(measured_steps)

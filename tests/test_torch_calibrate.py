@@ -18,7 +18,8 @@ vptq_tpu's.
   (its Pallas interpret mode costs ~10 s a MoE model, and the port's
   forward is held to JAX's for every family by the other test files).
 * ``resume_dir``: stopped inside the main pass and run again, the model
-  is the uninterrupted run's, byte for byte; ``tp_shards=2`` raises.
+  is the uninterrupted run's, byte for byte (``tp_shards`` is
+  ``tests/test_torch_tp_calibrate.py``'s).
 
 The checkpoints are written at weight spread 0.05: at the writer's
 default (0.02) these tiny random models are so ill-conditioned that a
@@ -362,10 +363,8 @@ def test_resume_gives_the_uninterrupted_bytes(workdir, tmp_path, monkeypatch,
         assert torch.equal(v, before[k]), k
 
 
-def test_tensor_parallel_shards_raise(workdir):
+def test_int8_threshold_is_refused_for_column_mixing(workdir):
     _, exact = _exact(workdir, "llama")
-    with pytest.raises(NotImplementedError, match="M16"):
-        tcal.quantize_model_calibrated(exact, None, "int4", tp_shards=2)
     with pytest.raises(ValueError, match="column"):
         tcal.quantize_model_calibrated(exact, None, "int2-mixed",
                                        int8_threshold=0.1)

@@ -432,13 +432,6 @@ def test_entry_points_exit_nonzero_without_a_card(entry, argv, monkeypatch):
     assert exc.value.code not in (0, None)
     hint = "--hbm-gb" if entry == "plan" else "--device cpu"
     assert hint in str(exc.value.code)
-    # --tp above 1 is refused for chat and the web app before anything
-    # else, naming M16 item 2f (their input reaches rank 0 alone)
-    if entry in ("cli", "webapp"):
-        with pytest.raises(SystemExit, match="M16"):
-            (module._load(module.build_parser().parse_args(
-                [*argv, "--chat", "--tp", "2"])) if entry == "cli"
-             else module.main([*argv, "--tp", "2"]))
 
 
 def test_device_monitor_poll_asks_the_runtime_nothing(monkeypatch):
@@ -3219,6 +3212,43 @@ def test_flash_at_one_ranks_heads(cuda, seq):
     want = flash_attention_reference(q, k, v, 128 ** -0.5)
     torch.cuda.synchronize()
     _assert_flash_close(got, want)
+
+
+def test_chip_smoke_tp_calibrated_on_cpu(capsys, monkeypatch):
+    """The smoke's calibration, chat and web phase under TP at a tiny size
+    with the plain versions: layer 0's blocked GPTQ of o shard by shard,
+    then two gloo ranks on the CPU load int2-mixed through
+    ``from_pretrained(tp=2)`` (rank 0 calibrates, the other waits for its
+    blocks), hold the prefill and every served request to the one-device
+    model of the same blocked encoding, chat (rank 0 reads the input) and
+    serve one web request (rank 0 serves, the other follows)."""
+    # the byte tokenizer's ids run to 258
+    path, _ = chip_smoke.write_checkpoint(
+        dict(TINY, vocab_size=272, tie_word_embeddings=False), VQ,
+        std=CALIBRATION_STD)
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    monkeypatch.setattr(chip_smoke, "TP_CAL_PROMPT", 24)
+    monkeypatch.setattr(chip_smoke, "TP_CAL_NEW", 4)
+    try:
+        out = chip_smoke.phase_tp_calibrated(
+            "cpu", path, 272, "cpu", {"layers.0.o": 0.5}, strict=False)
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
+    assert set(out["launches"].values()) == {0}  # the CPU launches nothing
+    assert sorted(out["gptq_blocked"]) == ["o shard 0", "o shard 1"]
+    lines = [ln for ln in capsys.readouterr().out.splitlines()
+             if ln.startswith("tp calibrated ")]
+    assert len(lines) == 2
+    rank0 = json.loads(lines[0].split("] ", 1)[1])
+    assert rank0["one_device_equal"] == dict(greedy=True, served=True)
+    assert rank0["logits_gap_of_max"] <= chip_smoke.LOGIT_TOL
+    assert rank0["err_ratio_one_device_vs_tp"]["layers.0.o"][0] == 0.5
+    assert len(rank0["served_tokens"]) == 3
+    assert rank0["calibration_summary"]["calib_tokens"] == 4096
+    rank1 = json.loads(lines[1].split("] ", 1)[1])
+    assert len(rank1["block_arrivals_s"]) == TINY["num_hidden_layers"] + 1
+    assert rank1["chat_printed"] == 0 and rank0["chat_printed"] > 0
+    assert rank1["served_tokens"] == rank0["served_tokens"]
 
 
 def test_chip_smoke_tp_on_cpu(capsys, monkeypatch):

@@ -1,9 +1,13 @@
 """vptq_tpu_torch's planner (``tools/plan.py``) and ``utils/profiling.py``
 against vptq_tpu's: the geometries and the VQ spec parser, the abstract
-model against the real encoders' shapes and dtypes, one decode step on
-the meta device at full geometry, the cost model with vptq_tpu's rates,
-the CLI's exit codes; the roofline with the same peaks, device_time and
-trace on the CPU."""
+model against the real encoders' shapes and dtypes (blocked over 2 and 4
+shards too), one decode step on the meta device at full geometry (one
+rank's under TP 2 and 8), the cost model with vptq_tpu's rates over one
+device and several, the CLI's exit codes and its placement, budget and
+prediction lines over several devices and hosts; the roofline with the
+same peaks, device_time and trace on the CPU."""
+
+import re
 
 import json
 
@@ -143,10 +147,51 @@ def test_meta_decode_step_at_full_geometry(geometry, fmt):
 def test_meta_step_refuses_what_it_cannot_plan():
     with pytest.raises(ValueError, match="int8/int4"):
         plan.abstract_runtime_model(_cfg("mixtral-8x7b"), "int3")
-    with pytest.raises(NotImplementedError, match="M16"):
-        plan.abstract_runtime_model(_cfg("llama2-70b"), "int4", tp_shards=8)
     with pytest.raises(ValueError, match="plan supports"):
         plan._abs_linear(64, 64, "int5")
+    # the codebook format has no blocked layout: JAX's message
+    with pytest.raises(ValueError) as want:
+        jplan.abstract_runtime_model(_cfg("llama2-70b", JModelConfig),
+                                     "codebook", tp_shards=8)
+    with pytest.raises(ValueError) as got:
+        plan.abstract_runtime_model(_cfg("llama2-70b"), "codebook",
+                                    tp_shards=8)
+    assert str(got.value) == str(want.value)
+
+
+TP_FAMILIES = [("llama", "int8"), ("llama", "int4"), ("llama", "int3"),
+               ("llama", "int2"), ("mixtral", "int4"), ("deepseek", "int8")]
+
+
+@pytest.mark.parametrize("shards", [2, 4])
+@pytest.mark.parametrize("family,fmt", TP_FAMILIES)
+def test_abstract_blocked_model_is_jax(family, fmt, shards):
+    """``abstract_runtime_model(tp_shards=n)``: vptq_tpu's abstract model's
+    leaves, shape and dtype, leaf for leaf (o_proj and the dense and
+    shared down_proj blocked); a dense model's bytes are
+    ``estimate_model_bytes(tp_shards=n)``'s."""
+    import jax
+
+    cfg = jsc.tiny_model_config(**FAMILIES[family])
+    jabstract = jplan.abstract_runtime_model(cfg, fmt, tp_shards=shards)
+    want = sorted((tuple(a.shape), str(a.dtype).replace("uint16", "int16"))
+                  for a in jax.tree_util.tree_leaves(jabstract))
+    tcfg = ModelConfig(**{k: getattr(cfg, k) for k in (
+        "vocab_size", "hidden_size", "intermediate_size",
+        "num_hidden_layers", "num_attention_heads", "num_key_value_heads",
+        "head_dim", "tie_word_embeddings", "model_type")},
+        **{k: v for k, v in FAMILIES[family].items() if k not in (
+            "vocab_size", "hidden_size", "intermediate_size",
+            "num_hidden_layers", "num_attention_heads",
+            "num_key_value_heads", "head_dim", "tie_word_embeddings",
+            "model_type")})
+    abstract = plan.abstract_runtime_model(tcfg, fmt, tp_shards=shards)
+    got = sorted((s, str(d).removeprefix("torch."))
+                 for _, s, d in _state(abstract))
+    assert got == want
+    if family == "llama":
+        assert tm.model_bytes(abstract) == tm.estimate_model_bytes(
+            tcfg, fmt, quantize_lm_head=True, tp_shards=shards)["total"]
 
 
 PREDICT_CASES = [
@@ -186,11 +231,25 @@ def test_fitted_rates_give_back_the_steps():
     assert set(plan.E2E_GBPS) == set(rates)
 
 
-def test_predict_refuses_more_devices_and_unmeasured_formats():
-    with pytest.raises(NotImplementedError, match="M16"):
-        plan.predict_decode_tok_s(_cfg("llama2-70b"), "int4", chips=2)
+def test_predict_refuses_unmeasured_formats():
     with pytest.raises(ValueError, match="no rate measured"):
         plan.predict_decode_tok_s(_cfg("llama2-7b"), "codebook")
+
+
+@pytest.mark.parametrize("chips", [2, 4, 8])
+@pytest.mark.parametrize("geometry,fmt,batch,max_seq", PREDICT_CASES[::3])
+def test_predict_over_devices_is_jax(geometry, fmt, batch, max_seq, chips):
+    """Over several devices the cost model is vptq_tpu's too: every stream
+    term over the devices (the blocks blocked), plus ``(2L + 1) ·
+    ici_us``; with its rates, its tok/s to 1e-9, at two latencies."""
+    for ici in (plan.ICI_US, 3.0):
+        want = jplan.predict_decode_tok_s(
+            _cfg(geometry, JModelConfig), fmt, chips, batch, max_seq,
+            ici_us=ici)
+        got = plan.predict_decode_tok_s(
+            _cfg(geometry), fmt, chips, batch, max_seq, ici_us=ici,
+            rates=jplan.E2E_GBPS, hbm_gbps=jplan._V5E_HBM_GBPS)
+        assert abs(got - want) <= 1e-9 * want
 
 
 @pytest.mark.parametrize("argv,rc", [
@@ -224,14 +283,114 @@ def test_cli_runs_the_meta_step(capsys):
     assert "decode step runs on the meta device: OK" in out
 
 
+def _placement_numbers(lines, port: bool) -> dict:
+    """The numbers of the placement, budget, prediction and aggregate
+    lines, by label."""
+    out = {}
+    for ln in lines:
+        if ln.startswith("# ") and "pp=" in ln:
+            out["placement"] = re.search(r"pp=(\d+) x tp=(\d+)", ln).groups()
+        elif ln.startswith("fits:"):
+            out["fits"] = re.match(r"fits: ([\d.]+) GiB/", ln).group(1)
+        elif ln.startswith("OVER"):
+            out["over"] = True
+        elif ln.startswith("predicted decode:"):
+            m = re.match(r"predicted decode: ([\d.]+) tok/s [^\[(]*"
+                         r"(?:\[([\d.]+)\.\.([\d.]+))?", ln)
+            out["predicted"] = m.groups()
+        elif ln.startswith("aggregate throughput:"):
+            out["aggregate"] = re.search(
+                r"(\d+) \w+\(s\) x (\d+) pipelined .* up to ([\d.]+) tok/s "
+                r"at batch >= (\d+)", ln).groups()
+    return out
+
+
+@pytest.mark.parametrize("argv", [
+    ["--geometry", "llama2-70b", "--format", "int4", "--chips", "8"],
+    ["--geometry", "llama2-70b", "--format", "int2-mixed", "--chips", "8",
+     "--hosts", "2", "--batch", "4"],
+    # 8 KV heads cap TP at 8: two pipeline stages
+    ["--geometry", "llama3-70b", "--format", "int8", "--chips", "16",
+     "--max-seq", "4096"],
+    ["--geometry", "mixtral-8x7b", "--format", "int4", "--chips", "4",
+     "--hosts", "2"],
+    ["--geometry", "llama3-405b", "--format", "int4", "--chips", "8"],
+    ["--geometry", "llama2-70b", "--format", "int4", "--chips", "6",
+     "--hosts", "4"],
+])
+def test_cli_placement_is_jax(argv, capsys, monkeypatch):
+    """Over several devices and hosts the CLI prints vptq_tpu's placement
+    (pp × tp), budget per device, prediction per host with its ici_us
+    range, and aggregate, number for number, given its rates and the same
+    memory; the exit code is its."""
+    argv = [*argv, "--hbm-gb", "16"]
+    rc = jplan.main(argv)
+    want = _placement_numbers(capsys.readouterr().out.splitlines(), False)
+    monkeypatch.setattr(plan, "E2E_GBPS", jplan.E2E_GBPS)
+    monkeypatch.setattr(plan, "H100_HBM_GBPS", jplan._V5E_HBM_GBPS)
+    assert plan.main(argv) == rc
+    got = _placement_numbers(capsys.readouterr().out.splitlines(), True)
+    assert got == want and want
+
+
+@pytest.mark.parametrize("tp_size", [2, 8])
+def test_meta_step_under_tensor_parallelism(tp_size, capsys):
+    """One rank's decode step on the meta device under TP: the logits of
+    the whole vocabulary (gathered), the rank's weights as
+    ``tp_place_model`` places the blocked model, its share of the cache;
+    the CLI runs it, and one pipeline stage's layers when TP cannot take
+    every device."""
+    from vptq_tpu_torch.parallel.mesh import Mesh
+    from vptq_tpu_torch.parallel.tp import tp_place_model
+
+    cfg = _cfg("llama3-8b")
+    step = plan.validate_plan(cfg, "int4", max_seq=512, tp=tp_size)
+    assert step["logits_shape"] == (1, 1, cfg.vocab_size)
+    placed = tp_place_model(
+        plan.abstract_runtime_model(cfg, "int4", tp_shards=tp_size),
+        Mesh(data=1, model=tp_size, rank=0, device="meta"),
+        reencode_rows=False)
+    assert step["weights_bytes"] == tm.model_bytes(placed)
+    assert step["kv_bytes"] == tm.kv_cache_bytes(cfg, 1, 512) // tp_size
+    argv = ["--geometry", "llama3-8b", "--format", "int4", "--hbm-gb", "80",
+            "--max-seq", "256", "--compile",
+            "--chips", str(2 * tp_size if tp_size == 8 else tp_size)]
+    assert plan.main(argv) == 0
+    out = capsys.readouterr().out
+    stages = 2 if tp_size == 8 else 1
+    assert f"(pp={stages} x tp={tp_size})" in out
+    assert (f"one of 2 pipeline stages (16 layers, tp=8)" in out) == (
+        stages == 2)
+    assert (f"meta decode step of one rank of tp={tp_size}: logits "
+            f"(1, 1, 128256)") in out
+
+
+def test_a_real_tensor_never_takes_the_meta_collectives():
+    """The collectives give a meta tensor its result's shape and call no
+    group; a real tensor goes to ``torch.distributed`` (with no process
+    group here, which raises)."""
+    from vptq_tpu_torch.parallel import distributed
+    from vptq_tpu_torch.parallel.mesh import TPAxis
+
+    axis = TPAxis(None, 4, 0)
+    meta = torch.empty((2, 3), device="meta")
+    assert distributed.all_reduce(meta, axis) is meta
+    assert distributed.all_gather_dim(meta, axis, 1).shape == (2, 12)
+    with pytest.raises((RuntimeError, ValueError)):
+        distributed.all_reduce(torch.ones(2, 3), axis)
+    with pytest.raises((RuntimeError, ValueError)):
+        distributed.all_gather_dim(torch.ones(2, 3), axis, 1)
+
+
 @pytest.mark.parametrize("argv,needle", [
-    (["--chips", "2"], "M16"),
-    (["--chips", "8", "--parallel", "gspmd"], "M16"),
-    (["--hosts", "2"], "M16"), ([], "--hbm-gb"),
+    (["--chips", "8", "--parallel", "gspmd"], "2h"),
+    (["--format", "codebook", "--chips", "2", "--hbm-gb", "80"], "2h"),
+    ([], "--hbm-gb"),
 ])
 def test_cli_refuses_what_it_cannot_plan(argv, needle, monkeypatch):
-    """Placement over several devices or hosts is not ported (M16); without
-    a card the device's memory must be given."""
+    """GSPMD placement has no counterpart (ROADMAP Queue 1 item 2h), nor
+    has the codebook format over several devices; without a card the
+    device's memory must be given."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit) as exc:
         plan.main(["--geometry", "llama3-8b", *argv])

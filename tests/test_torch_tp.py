@@ -25,10 +25,10 @@ interpret mode and its numpy encoders, as the other port tests run it.
   tp_shards=n)`` (JAX's own rule, within 2%).
 * Serving: ``Generator(mesh=)`` and ``Scheduler(mesh=)`` give JAX's greedy
   tokens; sampling is the same on every rank and in every run.
-* Refusals: JAX's messages for divisibility, a row-parallel bias and the
-  codebook format; M16 item 2c for the mixed formats and a row-parallel
-  mixed layer to re-encode (a data axis in serving is
-  ``tests/test_torch_ring.py``'s).
+* Refusals: JAX's messages for divisibility, a row-parallel bias, the
+  codebook format and a row-parallel mixed layer to re-encode (the mixed
+  formats under a mesh are ``tests/test_torch_tp_calibrate.py``'s, a data
+  axis in serving ``tests/test_torch_ring.py``'s).
 """
 
 import json
@@ -447,11 +447,6 @@ def test_codebook_and_mixed_formats_are_refused_under_a_mesh(tmp_path):
     with pytest.raises(ValueError, match="codebook does not run the "
                        "shard_map path"):
         load_model(ckpt, runtime_format="codebook", mesh=mesh)
-    for fmt in ("int2-mixed", "int3-mixed", "int4-mixed"):
-        with pytest.raises(NotImplementedError, match="M16"):
-            load_model(ckpt, runtime_format=fmt, mesh=mesh)
-    with pytest.raises(NotImplementedError, match="M16"):
-        load_model(ckpt, runtime_format="int8", calibration=64, mesh=mesh)
     from vptq_tpu_torch.api import AutoModelForCausalLM
 
     with pytest.raises(ValueError, match="codebook"):
@@ -460,11 +455,22 @@ def test_codebook_and_mixed_formats_are_refused_under_a_mesh(tmp_path):
 
 
 def test_a_row_parallel_mixed_layer_to_reencode_is_refused():
+    """JAX's message: a mixed layer comes blocked from calibration."""
     w = torch.randn(8, 256)
     base = trt._encode_int2(w, None)
     side = trt.int8_from_q(torch.ones(8, 128, dtype=torch.int8),
                            torch.ones(8, 1))
     layer = trt.Int2MixedLinear(base, side, torch.arange(128,
                                                          dtype=torch.int32))
-    with pytest.raises(NotImplementedError, match="M16"):
-        tp._row_parallel(layer, Mesh(data=1, model=2), 256)
+    got = _message(lambda: tp._row_parallel(layer, Mesh(data=1, model=2),
+                                            256))
+    from vptq_tpu.layers import runtime as jrt
+
+    jbase = jrt._encode_int2(np.zeros((8, 256), np.float32), None)
+    jside = jrt.int8_from_q(np.ones((8, 128), np.int8),
+                            np.ones((8, 1), np.float32), None)
+    jlayer = jrt.Int2MixedLinear(int2=jbase, int8=jside,
+                                 col_idx=jnp.arange(128, dtype=jnp.int32),
+                                 bias=None)
+    want = _message(lambda: jtp._row_parallel(jlayer, None, "model", 2, 256))
+    assert got == want

@@ -94,14 +94,27 @@ def xla_cpu_silu(x):
 # JAX, so that no rank loads it.
 
 
-def spawn_ranks(fn, world: int, tmp, *args) -> None:
+def start_ranks(fn, world: int, tmp, *args):
     """``fn(rank, world, store, *args)`` on ``world`` spawned ranks that
     rendezvous through a file store under ``tmp`` (no port to collide
-    with another test process's)."""
+    with another test process's); returns at once with their context,
+    for :func:`join_ranks`."""
     import torch.multiprocessing as mp
 
-    mp.spawn(fn, args=(world, str(tmp / f"store{world}"), *args),
-             nprocs=world, join=True)
+    return mp.spawn(fn, args=(world, str(tmp / f"store{world}"), *args),
+                    nprocs=world, join=False)
+
+
+def join_ranks(ctx) -> None:
+    """Wait for every rank of :func:`start_ranks`; a rank that failed
+    raises here."""
+    while not ctx.join():
+        pass
+
+
+def spawn_ranks(fn, world: int, tmp, *args) -> None:
+    """:func:`start_ranks`, then :func:`join_ranks`."""
+    join_ranks(start_ranks(fn, world, tmp, *args))
 
 
 def _join(rank: int, world: int, store: str) -> None:
@@ -411,5 +424,113 @@ def pp_rank_cases(rank: int, world: int, store: str, spec: str,
                 refused[name] = (type(e).__name__, str(e))
         results["refusals"] = refused
         torch.save(results, f"{out_dir}/pp{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def tp_rank_calibrated(rank: int, world: int, store: str, spec: str,
+                       out_dir: str) -> None:
+    """Calibration under a mesh and the interactive entry points under
+    ``--tp`` on this rank (``spec``: a ``torch.save``d dict): each
+    calibrated case's sharded load (``load_model(mesh=, calibration=)``),
+    its bytes and ``forward_tp``'s logits over a prefill and a decode
+    step, the ``Generator(mesh=)``'s greedy tokens; then the CLI's chat
+    (rank 0's ``input()`` fed ``spec["chat"]``, the other ranks' never
+    read) and the web app (rank 0 serving ``spec["web"]``'s requests over
+    HTTP, the other ranks following: a refused one, a streaming one whose
+    client has gone, a model switch), with their stdout and contents (a
+    stream's as its events); the results to ``out_dir/cal<rank>.pt``."""
+    import contextlib
+    import io
+    import json
+    import threading
+    import urllib.error
+    import urllib.request
+    from unittest import mock
+
+    import torch.distributed as dist
+
+    from vptq_tpu_torch.models.loader import load_model
+    from vptq_tpu_torch.parallel.mesh import make_mesh
+    from vptq_tpu_torch.parallel.tp import forward_tp, init_cache_tp
+    from vptq_tpu_torch.serving import cli, webapp
+    from vptq_tpu_torch.serving.generate import Generator
+
+    _join(rank, world, store)
+    spec = torch.load(spec)
+    results = {}
+    try:
+        mesh = make_mesh(data=1, model=world, device="cpu")
+        for case in spec["cases"]:
+            model = load_model(case["ckpt"], mesh=mesh, dtype=torch.float32,
+                               runtime_format=case["fmt"],
+                               calibration=case["calibration"])
+            out = {"bytes": _bytes_of(model)}
+            tokens = torch.tensor(case["tokens"])
+            cache = init_cache_tp(model.cfg, 1, 64, torch.float32, mesh)
+            with torch.inference_mode():
+                out["logits"], _ = forward_tp(model, tokens, cache, mesh,
+                                              torch.float32, True)
+                out["step"], _ = forward_tp(model, torch.tensor(case["next"]),
+                                            cache, mesh, torch.float32)
+            gen = Generator(model, max_seq=64, dtype=torch.float32,
+                            prompt_buckets=(16, 32), mesh=mesh)
+            out["greedy"] = gen.generate(case["tokens"][0], max_new_tokens=8)
+            results[case["name"]] = out
+            dist.barrier()
+
+        lines = iter(spec["chat"])
+
+        def typed(prompt=""):
+            if rank:
+                raise AssertionError("a rank other than 0 read the input")
+            try:
+                return next(lines)
+            except StopIteration:
+                raise EOFError from None
+
+        buf = io.StringIO()
+        with mock.patch("builtins.input", typed), \
+                contextlib.redirect_stdout(buf):
+            results["chat_rc"] = cli.main(spec["chat_argv"])
+        results["chat_out"] = buf.getvalue()
+
+        httpd = webapp.start(webapp.build_parser().parse_args(
+            spec["web_argv"]))
+        if httpd is not None:
+            thread = threading.Thread(target=httpd.serve_forever,
+                                      daemon=True)
+            thread.start()
+            base = f"http://127.0.0.1:{httpd.server_address[1]}"
+            real_sse = webapp.Handler._sse_event
+
+            def gone(handler, obj):
+                # a streaming client that has gone: every delta's write
+                # fails, as a closed socket's does
+                if "delta" in obj:
+                    raise BrokenPipeError("client gone")
+                real_sse(handler, obj)
+
+            contents = []
+            with mock.patch.object(webapp.Handler, "_sse_event", gone):
+                for path, obj in spec["web"]:
+                    req = urllib.request.Request(
+                        base + path, data=json.dumps(obj).encode(),
+                        headers={"Content-Type": "application/json"})
+                    try:
+                        with urllib.request.urlopen(req) as resp:
+                            body = resp.read().decode()
+                    except urllib.error.HTTPError as e:
+                        body = e.read().decode()
+                    contents.append(
+                        [json.loads(ev[6:]) for ev in body.split("\n\n")
+                         if ev.startswith("data: ")]
+                        if obj.get("stream") else json.loads(body))
+            httpd.shutdown()
+            httpd.server_close()
+            thread.join(timeout=30)
+            results["web"] = contents
+        results["web_rank0"] = httpd is not None
+        torch.save(results, f"{out_dir}/cal{rank}.pt")
     finally:
         dist.destroy_process_group()

@@ -82,8 +82,10 @@ class AutoModelForCausalLM:
         parallelism over the ``tp`` ranks of the initialized process
         group (every rank calls this alike; ``device`` None: the rank's
         own, ``parallel.distributed.local_device``): a ``Mesh(data=1,
-        model=tp)``, each rank loading and serving its shard; the
-        codebook and the calibrated formats are refused then.
+        model=tp)``, each rank loading and serving its shard (a calibrated
+        format is calibrated once, on rank 0's device, with the
+        row-parallel sites blocked, ``load_model``); the codebook format
+        is refused then.
         ``hbm_gb`` / ``hbm_utilization``: the loader's memory budget
         (``load_model``), checked before any weight is read.
         """

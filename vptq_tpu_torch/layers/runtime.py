@@ -374,6 +374,49 @@ def _blocks(w: torch.Tensor, shards: int):
     return [w[:, s * blk: (s + 1) * blk] for s in range(shards)]
 
 
+def _blocked(layer: nn.Module, shards: int) -> nn.Module:
+    """``layer`` tagged with the shard count of its blocked layout (a
+    placement artifact: ``tools/export_runtime.py`` refuses to write it,
+    ``parallel/tp.py`` ``shards_summed`` runs it on one device)."""
+    layer.shards = shards
+    return layer
+
+
+def blocked_pad(bits: int, blk: int):
+    """(scale group, padded width multiple) of one shard of ``blk``
+    columns in the blocked layout of ``bits``-bit codes: int4 pads to 512
+    (256 below 512), int3 to ``W3_BLOCK``, int2 to ``W2_BLOCK``, int8 to
+    its own group (``pick_group`` of the shard's width)."""
+    if bits == 4:
+        return INT4_GROUP, 512 if blk >= 512 else 256
+    if bits == 3:
+        return INT4_GROUP, W3_BLOCK
+    if bits == 2:
+        return W2_GROUP, W2_BLOCK
+    group = pick_group(blk)
+    return group, group
+
+
+# each array's in axis (int8 / int4 scales are stored (groups, out))
+BLOCKED_IN_AXES = {
+    Int8Linear: {"wq": 1, "scales": 0},
+    Int4Linear: {"wq": 1, "scales": 0},
+    Int3Linear: {"wq2": 1, "wq1": 1, "scales": 1},
+    Int2Linear: {"wq": 1, "scales": 1},
+}
+
+
+def concat_blocked(parts, shards: int, bias=None) -> nn.Module:
+    """The blocked layer of ``shards`` one-shard layers of one kind,
+    side by side on the in axis, tagged (:func:`_blocked`)."""
+    kind = type(parts[0])
+    return _blocked(kind(
+        **{name: torch.cat([getattr(p, name) for p in parts], dim=dim)
+           for name, dim in BLOCKED_IN_AXES[kind].items()},
+        bias=bias,
+    ), shards)
+
+
 def _encode_int8(
     w: torch.Tensor, bias: Optional[torch.Tensor], group: Optional[int] = None,
     shards: int = 1,
@@ -387,12 +430,8 @@ def _encode_int8(
     (``pick_group`` of its width) and padding.
     """
     if shards > 1:
-        parts = [_encode_int8(b, None, group) for b in _blocks(w, shards)]
-        return Int8Linear(
-            wq=torch.cat([p.wq for p in parts], dim=1),
-            scales=torch.cat([p.scales for p in parts], dim=0),
-            bias=bias,
-        )
+        return concat_blocked([_encode_int8(b, None, group)
+                               for b in _blocks(w, shards)], shards, bias)
     group = group or pick_group(w.shape[1])
     w = _pad_columns(w, group)
     out_f, in_p = w.shape
@@ -429,17 +468,12 @@ def _encode_int4(
 ) -> Int4Linear:
     """f32 (out, in) weight → :class:`Int4Linear` on the same device,
     in_features zero-padded to a multiple of ``pad_to``. ``shards > 1``:
-    the blocked layout, each block padded to 512 columns (256 below 512)."""
+    the blocked layout, each block padded as :func:`blocked_pad` says."""
     if shards > 1:
-        parts = [
-            _encode_int4(b, None, pad_to=512 if b.shape[1] >= 512 else 256)
+        return concat_blocked([
+            _encode_int4(b, None, pad_to=blocked_pad(4, b.shape[1])[1])
             for b in _blocks(w, shards)
-        ]
-        return Int4Linear(
-            wq=torch.cat([p.wq for p in parts], dim=1),
-            scales=torch.cat([p.scales for p in parts], dim=0),
-            bias=bias,
-        )
+        ], shards, bias)
     q, scale = quantize_int4(_pad_columns(w, pad_to))
     return Int4Linear(
         wq=pack_int4(q),
@@ -454,16 +488,12 @@ def _encode_int3(
 ) -> Int3Linear:
     """f32 (out, in) weight → :class:`Int3Linear` on the same device,
     in_features zero-padded to a multiple of ``pad_to``. ``shards > 1``:
-    the blocked layout, each block padded to ``W3_BLOCK`` (1024)."""
+    the blocked layout, each block padded as :func:`blocked_pad` says."""
     if shards > 1:
-        parts = [_encode_int3(b, None, pad_to=W3_BLOCK)
-                 for b in _blocks(w, shards)]
-        return Int3Linear(
-            wq2=torch.cat([p.wq2 for p in parts], dim=1),
-            wq1=torch.cat([p.wq1 for p in parts], dim=1),
-            scales=torch.cat([p.scales for p in parts], dim=1),
-            bias=bias,
-        )
+        return concat_blocked([
+            _encode_int3(b, None, pad_to=blocked_pad(3, b.shape[1])[1])
+            for b in _blocks(w, shards)
+        ], shards, bias)
     q, scale = quantize_int3(_pad_columns(w, pad_to))
     wq2, wq1 = pack_int3(q)
     return Int3Linear(
@@ -479,13 +509,8 @@ def _encode_int2(
     in_features zero-padded to a multiple of 1024 (``shards > 1``: the
     blocked layout, each block padded to 1024)."""
     if shards > 1:
-        parts = [_encode_int2(b, None, group=group)
-                 for b in _blocks(w, shards)]
-        return Int2Linear(
-            wq=torch.cat([p.wq for p in parts], dim=1),
-            scales=torch.cat([p.scales for p in parts], dim=1),
-            bias=bias,
-        )
+        return concat_blocked([_encode_int2(b, None, group=group)
+                               for b in _blocks(w, shards)], shards, bias)
     q, scale = quantize_int2(_pad_columns(w, W2_BLOCK), group=group)
     return Int2Linear(
         wq=pack_int2(q), scales=scale.to(torch.bfloat16), bias=bias

@@ -409,18 +409,29 @@ def load_model(
     over the mesh's model axis, on ``mesh.device``: the JAX package's
     ``parallel="tp"`` (its GSPMD placement has no counterpart). The
     geometry is validated and the budget checked per device of the model
-    axis before anything is read. A calibrated format or the codebook
-    format under a mesh raises.
+    axis before anything is read. The codebook format under a mesh
+    raises. A calibrated format is calibrated once for the job, on global
+    rank 0's device, with the row-parallel sites blocked
+    (``quantize_model_calibrated(tp_shards=mesh.model)``); each finished
+    block goes to every rank (``distributed.broadcast_tensors``) as soon
+    as GPTQ is done with it, and each rank keeps its shard of it
+    (``tp_place_block(reencode_rows=False)``), so no rank waits longer
+    than one block (the ranking pass of "int4-mixed" before the first).
     """
     calibrated = runtime_format in CALIBRATED_FORMATS or (
         calibration is not None
         and runtime_format in ("int2", "int3", "int4", "int8")
     )
     if mesh is not None:
-        _check_mesh(runtime_format, calibrated)
+        _check_mesh(runtime_format)
         device = mesh.device
     device = resolve_device(device)
     if calibrated:
+        if mesh is not None:
+            return _load_calibrated_tp(
+                checkpoint_dir, dtype, runtime_format, fuse,
+                quantize_lm_head, device, calibration, int8_fraction, hbm_gb,
+                hbm_utilization, mesh)
         return _load_calibrated(
             checkpoint_dir, dtype, runtime_format, fuse, quantize_lm_head,
             device, calibration, int8_fraction, hbm_gb, hbm_utilization,
@@ -603,17 +614,9 @@ def load_model(
     )
 
 
-def _check_mesh(runtime_format, calibrated) -> None:
+def _check_mesh(runtime_format) -> None:
     """What :func:`load_model` refuses under a mesh, before anything is
     read."""
-    from vptq_tpu_torch.parallel.tp import M16_BLOCKED_GPTQ
-
-    if calibrated:
-        raise NotImplementedError(
-            f"a calibrated or mixed format ({runtime_format}) under a mesh: "
-            "calibration's blocked encodings (tp_shards) are "
-            f"{M16_BLOCKED_GPTQ}"
-        )
     if runtime_format == "codebook":
         raise ValueError(
             "tp>1 requires runtime_format int8/int4/bf16 "
@@ -652,32 +655,118 @@ def _check_budget(model_cfg, qcfg, runtime_format, quantize_lm_head, device,
     )
 
 
+def _calibration_tokens(calibration, vocab_size: int):
+    """``load_model``'s ``calibration``: token ids as given, or that many
+    synthetic tokens for an int (None: the calibration's default)."""
+    from vptq_tpu_torch.quant.calibrate import synthetic_calibration_tokens
+
+    if isinstance(calibration, (int, np.integer)):
+        return synthetic_calibration_tokens(vocab_size,
+                                            n_tokens=int(calibration))
+    return calibration
+
+
 def _load_calibrated(checkpoint_dir, dtype, runtime_format, fuse,
                      quantize_lm_head, device, calibration, int8_fraction,
                      hbm_gb, hbm_utilization):
     """The calibrated branch of :func:`load_model`."""
-    from vptq_tpu_torch.quant.calibrate import (
-        quantize_model_calibrated,
-        synthetic_calibration_tokens,
-    )
+    from vptq_tpu_torch.quant.calibrate import quantize_model_calibrated
 
     exact = load_model(checkpoint_dir, dtype=dtype, runtime_format="codebook",
                        fuse=False, device=device, hbm_gb=hbm_gb,
                        hbm_utilization=hbm_utilization)
-    tokens = calibration
-    if isinstance(tokens, (int, np.integer)):
-        tokens = synthetic_calibration_tokens(
-            exact.cfg.vocab_size, n_tokens=int(tokens))
     model, _report = quantize_model_calibrated(
-        exact, tokens, fmt=runtime_format, int8_fraction=int8_fraction,
-        fuse=fuse,
+        exact, _calibration_tokens(calibration, exact.cfg.vocab_size),
+        fmt=runtime_format, int8_fraction=int8_fraction, fuse=fuse,
     )
-    # only the decoder blocks are re-encoded: a VPTQ-quantized lm_head is
-    # converted to the base format here, as the plain path would
-    lm = model.lm_head
+    model.lm_head = _calibrated_lm_head(model.lm_head, runtime_format,
+                                        quantize_lm_head)
+    return model
+
+
+def _calibrated_lm_head(lm, runtime_format, quantize_lm_head):
+    """Only the decoder blocks are re-encoded by calibration: a
+    VPTQ-quantized lm_head is converted to the base format here, as the
+    plain path would, and a dense one to int8 when asked."""
     if isinstance(lm, VQLinear):
         lm = to_runtime(lm, runtime_format.split("-")[0])
     if quantize_lm_head and isinstance(lm, DenseLinear):
         lm = dense_to_int8(lm)
-    model.lm_head = lm
-    return model
+    return lm
+
+
+def _load_calibrated_tp(checkpoint_dir, dtype, runtime_format, fuse,
+                        quantize_lm_head, device, calibration, int8_fraction,
+                        hbm_gb, hbm_utilization, mesh):
+    """The calibrated branch under a mesh: global rank 0 calibrates with
+    the row-parallel sites blocked over the model axis and hands each
+    finished block, then the embedding, the norm and the lm_head, to
+    every rank; each rank rebuilds it from the bytes it got (rank 0 too),
+    fuses it and keeps its shard."""
+    import torch.distributed as dist
+
+    from vptq_tpu_torch.parallel.distributed import broadcast_tensors
+    from vptq_tpu_torch.parallel.tp import tp_validate
+    from vptq_tpu_torch.quant.calibrate import quantize_model_calibrated
+    from vptq_tpu_torch.tools.export_runtime import (
+        _flatten_block,
+        _put,
+        _put_linear,
+        _Reader,
+    )
+
+    root = Path(checkpoint_dir)
+    with open(root / "config.json") as f:
+        hf_config = json.load(f)
+    model_cfg = ModelConfig.from_hf_dict(hf_config)
+    _check_supported(model_cfg)
+    qcfg = QuantizationConfig.from_dict(
+        hf_config.get("quantization_config", {}))
+    n = mesh.model
+    tp_validate(model_cfg, n,
+                sharded_lm_head=not model_cfg.tie_word_embeddings)
+    # int4-mixed's int8 sites are a calibration output: its int4 planes
+    # are the part the geometry can tell
+    _check_budget(model_cfg, qcfg, {"int4-mixed": "int4"}.get(
+        runtime_format, runtime_format), quantize_lm_head, device, hbm_gb,
+        hbm_utilization, n)
+    blocks = []
+
+    def keep(i, flat):
+        block = _Reader(flat, model_cfg, device, shards=n).block(
+            f"blocks.{i}")
+        if fuse:
+            fuse_block(block)
+        blocks.append(tp_place_block(block, mesh, model_cfg,
+                                     reencode_rows=False))
+
+    if dist.get_rank() == 0:
+        exact = load_model(checkpoint_dir, dtype=dtype,
+                           runtime_format="codebook", fuse=False,
+                           device=device, hbm_gb=hbm_gb,
+                           hbm_utilization=hbm_utilization)
+        whole, _report = quantize_model_calibrated(
+            exact, _calibration_tokens(calibration, exact.cfg.vocab_size),
+            fmt=runtime_format, int8_fraction=int8_fraction,
+            fuse=False, tp_shards=n,
+            on_block=lambda i, b: keep(i, broadcast_tensors(
+                _flatten_block({}, f"blocks.{i}", b), device)),
+        )
+        rest = {}
+        _put(rest, "embed_tokens", whole.embed_tokens)
+        _put(rest, "norm", whole.norm)
+        _put_linear(rest, "lm_head", _calibrated_lm_head(
+            whole.lm_head, runtime_format, quantize_lm_head))
+        del exact, whole
+        rest = broadcast_tensors(rest, device)
+    else:
+        for i in range(model_cfg.num_hidden_layers):
+            keep(i, broadcast_tensors(None, device))
+        rest = broadcast_tensors(None, device)
+    reader = _Reader(rest, model_cfg, device)
+    lm_head = reader.linear("lm_head", model_cfg.hidden_size)
+    embed = place_embedding(reader.take("embed_tokens"), lm_head, mesh)
+    if lm_head is not None:
+        lm_head = _col_parallel(lm_head, mesh)
+    return Model(embed_tokens=embed, blocks=blocks,
+                 norm=reader.take("norm"), lm_head=lm_head, cfg=model_cfg)

@@ -16,7 +16,12 @@ collective instead of hanging them.
 
 The forward's collectives are :func:`all_reduce` (JAX's ``psum``) and
 :func:`all_gather_dim` (JAX's tiled ``all_gather``); both run outside the
-kernels, on the tensors the kernels return. The point-to-point half is
+kernels, on the tensors the kernels return. On a tensor of the ``meta``
+device (the planner's step, ``tools/plan.py``, which runs one rank's
+forward with no data and no group) each returns the result's shape and
+dtype and calls no group, as JAX compiles a sharded step on an abstract
+mesh: a meta tensor has nothing to move. A real tensor never takes that
+branch. The point-to-point half is
 :func:`ppermute` (JAX's ``lax.ppermute``, the ring of context
 parallelism), :func:`send` / :func:`recv` (a pipeline stage's activations
 to the next stage's rank) and :func:`broadcast` (one rank's tensor to an
@@ -41,6 +46,8 @@ __all__ = [
     "all_gather_last",
     "all_reduce",
     "broadcast",
+    "broadcast_object",
+    "broadcast_tensors",
     "capturable",
     "default_backend",
     "global_mesh",
@@ -153,7 +160,10 @@ def all_reduce(x: torch.Tensor, tp) -> torch.Tensor:
     JAX's ``psum`` reduces). Above two ranks the backend's order of the
     sum is its own (a ring adds in another order in each chunk), so the
     bits may differ from the JAX package's by the rounding of that order.
+    A meta tensor is its own sum (no data, no group).
     """
+    if x.is_meta:
+        return x
     dist.all_reduce(x, group=tp.group)
     return x
 
@@ -161,7 +171,10 @@ def all_reduce(x: torch.Tensor, tp) -> torch.Tensor:
 def all_gather_dim(x: torch.Tensor, axis, dim: int) -> torch.Tensor:
     """The axis's ``x`` concatenated on ``dim``, rank order (JAX's
     ``all_gather(..., tiled=True)``). ``dist.all_gather`` into a list: the
-    call both torch versions the port runs on have, on both backends."""
+    call both torch versions the port runs on have, on both backends. A
+    meta tensor gives the gathered shape (no data, no group)."""
+    if x.is_meta:
+        return torch.cat([x] * axis.size, dim=dim)
     x = x.contiguous()
     parts = [torch.empty_like(x) for _ in range(axis.size)]
     dist.all_gather(parts, x, group=axis.group)
@@ -272,3 +285,43 @@ def broadcast(x: torch.Tensor, axis, src: int) -> torch.Tensor:
         return x.copy_(host)
     dist.broadcast(x, src=peer, group=axis.group)
     return x
+
+
+def broadcast_object(obj, src: int = 0):
+    """A picklable ``obj`` of global rank ``src`` on every rank of the job
+    (the default group); the other ranks pass anything, and every rank
+    gets ``src``'s object back."""
+    box = [obj]
+    dist.broadcast_object_list(box, src=src)
+    return box[0]
+
+
+def broadcast_tensors(tensors: Optional[dict], device,
+                      src: int = 0) -> dict:
+    """``tensors`` ({name: tensor}) of global rank ``src`` on every rank of
+    the job, on ``device``: one header (names, dtypes, shapes) and the
+    bytes of all of them in one buffer, which crosses the default group
+    as :func:`broadcast` moves a tensor. The other ranks pass None. Every
+    rank, ``src`` too, gets its tensors from the buffer, so all hold the
+    same bytes."""
+    from vptq_tpu_torch.parallel.mesh import TPAxis
+
+    me = dist.get_rank()
+    header = broadcast_object(None if me != src else [
+        (k, str(t.dtype).removeprefix("torch."), tuple(t.shape))
+        for k, t in tensors.items()], src)
+    sizes = [torch.empty((), dtype=getattr(torch, d)).element_size()
+             * torch.Size(shape).numel() for _, d, shape in header]
+    if me == src and tensors:
+        buf = torch.cat([t.detach().contiguous().reshape(-1)
+                         .view(torch.uint8).to(device)
+                         for t in tensors.values()])
+    else:
+        buf = torch.empty(sum(sizes), dtype=torch.uint8, device=device)
+    broadcast(buf, TPAxis(dist.group.WORLD, dist.get_world_size(), me), src)
+    out, off = {}, 0
+    for (name, d, shape), n in zip(header, sizes):
+        out[name] = buf[off: off + n].clone().view(
+            getattr(torch, d)).reshape(shape)
+        off += n
+    return out

@@ -37,9 +37,11 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch import nn
 
 from vptq_tpu_torch.layers.dense import DenseLinear
 from vptq_tpu_torch.layers.runtime import (
+    BLOCKED_IN_AXES,
     Int2Linear,
     Int3Linear,
     Int4Linear,
@@ -66,23 +68,21 @@ from vptq_tpu_torch.models.llama import (
 )
 from vptq_tpu_torch.parallel.distributed import broadcast
 from vptq_tpu_torch.parallel.expert_parallel import shard_stacked_experts
+from vptq_tpu_torch.parallel.mesh import Mesh
 
 __all__ = [
-    "M16_BLOCKED_GPTQ",
+    "ShardSum",
     "batch_axis",
     "cp_logits_row",
     "forward_tp",
     "init_cache_tp",
     "prefill_cp",
     "shard_cache_tp",
+    "shards_summed",
     "tp_place_block",
     "tp_place_model",
     "tp_validate",
 ]
-
-# what the port of parallelism still leaves to ROADMAP M16: calibration's
-# blocked encodings (Queue 1 item 2c)
-M16_BLOCKED_GPTQ = "ROADMAP M16 item 2c, calibration's blocked GPTQ"
 
 
 def tp_validate(cfg, size: int, sharded_lm_head: bool = True) -> None:
@@ -132,20 +132,14 @@ def _fused_perm(sections, size: int) -> torch.Tensor:
 
 
 # the arrays of each linear and the dim of each that runs along
-# out_features (int8 / int4 scales are stored transposed), and along
-# in_features
+# out_features (int8 / int4 scales are stored transposed); along
+# in_features: layers/runtime.py BLOCKED_IN_AXES
 _OUT_DIM = {
     Int8Linear: {"wq": 0, "scales": 1, "bias": 0},
     Int4Linear: {"wq": 0, "scales": 1, "bias": 0},
     Int3Linear: {"wq2": 0, "wq1": 0, "scales": 0, "bias": 0},
     Int2Linear: {"wq": 0, "scales": 0, "bias": 0},
     DenseLinear: {"weight": 0, "bias": 0},
-}
-_IN_DIM = {
-    Int8Linear: {"wq": 1, "scales": 0},
-    Int4Linear: {"wq": 1, "scales": 0},
-    Int3Linear: {"wq2": 1, "wq1": 1, "scales": 1},
-    Int2Linear: {"wq": 1, "scales": 1},
 }
 
 
@@ -217,7 +211,7 @@ def _in_slice(layer, mesh):
     (each of its in-axis arrays split in ``mesh.model`` equal parts)."""
     n, r = mesh.model, mesh.model_rank
     arrays = {}
-    for name, dim in _IN_DIM[type(layer)].items():
+    for name, dim in BLOCKED_IN_AXES[type(layer)].items():
         t = getattr(layer, name)
         size = t.shape[dim]
         if size % n:
@@ -255,10 +249,11 @@ def _row_parallel(layer, mesh, logical_in: int, reencode: bool = True):
     if isinstance(layer, _MixedLinear):
         if reencode:
             raise NotImplementedError(
-                "a row-parallel int3-/int2-mixed layer must come blocked "
-                "from calibration (tp_shards), whose port is "
-                f"{M16_BLOCKED_GPTQ}: a re-encode would discard the "
-                "calibrated column selection"
+                "row-parallel int3-/int2-mixed must come pre-blocked "
+                "from the calibrated encoder (load with calibration= "
+                "and a TP mesh, quant/calibrate.py tp_shards) — an "
+                "RTN re-encode would discard the calibrated column "
+                "selection"
             )
         # calibrated blocked form: the base's in axis and the side's
         # selected columns per shard, col_idx shard-local
@@ -287,6 +282,57 @@ def _row_parallel(layer, mesh, logical_in: int, reencode: bool = True):
         layer = encode(linear_exact_weight(layer, logical_in), None,
                        shards=n, **kwargs)
     return _in_slice(layer, mesh)
+
+
+class ShardSum(nn.Module):
+    """A blocked row-parallel linear (``shards`` > 1) run on one device as
+    tensor parallelism computes it: x zero-padded to a multiple of the
+    shards and cut into their column blocks, each block through its
+    shard's layer (:func:`_row_parallel`'s slice, the one rank ``s`` of
+    the mesh holds), the outputs summed in x's dtype, where the ranks'
+    ``all_reduce`` sums them. No collective: every shard lies here."""
+
+    def __init__(self, layer: nn.Module):
+        super().__init__()
+        n = layer.shards
+        device = next(iter(layer.buffers())).device
+        self.parts = nn.ModuleList(
+            _row_parallel(layer, Mesh(data=1, model=n, rank=s, device=device),
+                          None, reencode=False)
+            for s in range(n)
+        )
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        n = len(self.parts)
+        x = F.pad(x, (0, (-x.shape[-1]) % n))
+        blk = x.shape[-1] // n
+        out = self.parts[0](x[..., :blk].contiguous())
+        for s in range(1, n):
+            out = out + self.parts[s](
+                x[..., s * blk: (s + 1) * blk].contiguous())
+        return out
+
+
+def shards_summed(module: nn.Module) -> nn.Module:
+    """``module`` with every blocked layer in it (one that carries
+    ``shards`` > 1: calibration's ``tp_shards`` encodings) run as its
+    :class:`ShardSum`, so that the tree computes on one device what its
+    placement computes over the ranks. The tree is copied where it
+    changes and ``module`` is left as it was; a tree with no blocked
+    layer comes back as it is."""
+    if getattr(module, "shards", 1) > 1:
+        return ShardSum(module)
+    new = None
+    for name, child in module._modules.items():
+        if child is None:
+            continue
+        summed = shards_summed(child)
+        if summed is not child:
+            if new is None:
+                new = copy.copy(module)
+                new._modules = dict(module._modules)
+            new._modules[name] = summed
+    return module if new is None else new
 
 
 def _place_mlp(mlp: Mlp, mesh, reencode_rows: bool = True) -> Mlp:

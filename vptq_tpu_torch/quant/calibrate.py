@@ -37,7 +37,7 @@ import logging
 import os
 import time
 from pathlib import Path
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -49,7 +49,10 @@ from vptq_tpu_torch.layers.runtime import (
     INT3_MIXED_COL_FRACTION,
     Int2MixedLinear,
     Int3MixedLinear,
+    _blocked,
     _exact_weight,
+    blocked_pad,
+    concat_blocked,
     fuse_model,
     int2_from_q,
     int3_from_q,
@@ -326,10 +329,54 @@ def _gptq_layer(bits, w, bias, hess, damp, steps=None):
     return from_q(q, scales, bias), w_hat[:, :in_f]
 
 
+def _gptq_layer_blocked(bits, w, bias, hess, damp, shards, steps=None):
+    """GPTQ-encode one weight matrix in the blocked layout of tensor
+    parallelism; returns (layer, w_hat).
+
+    The in axis is zero-padded to a multiple of ``shards`` and cut into
+    that many contiguous column shards; each gets its own GPTQ pass
+    against the matching diagonal block of H (the shards quantize apart,
+    so no error feeds back across a shard), padded as the blocked RTN
+    encoders pad it, so that ``tp_place_block(reencode_rows=False)``
+    slices the calibrated codes as they are. ``w_hat`` is the shards'
+    dequantized weights side by side, cut to the logical width. The
+    layer carries ``shards``: it is a placement artifact, which computes
+    its product only shard by shard (``parallel/tp.py`` ``ShardSum``)."""
+    n = w.shape[1]
+    pad = (-n) % shards
+    wp = nn.functional.pad(w, (0, pad)) if pad else w
+    hp = hess
+    if hess is not None and pad:
+        hp = _pad_hessian(hess, n + pad)
+    blk = wp.shape[1] // shards
+    group, shard_pad = blocked_pad(bits, blk)
+    from_q = {2: int2_from_q, 3: int3_from_q, 4: int4_from_q}.get(bits)
+    parts, hats = [], []
+    for s in range(shards):
+        ws = wp[:, s * blk: (s + 1) * blk]
+        hs = None if hp is None else hp[s * blk: (s + 1) * blk,
+                                        s * blk: (s + 1) * blk]
+        spad = (-blk) % shard_pad
+        if spad:
+            ws = nn.functional.pad(ws, (0, spad))
+            if hs is not None:
+                hs = _pad_hessian(hs, blk + spad)
+        q, scales = gptq_quantize(ws.contiguous(), None if hs is None
+                                  else hs.contiguous(), bits=bits,
+                                  group=group, damp=damp, steps=steps)
+        hats.append(dequant_groups(
+            q, scales, group_spans(ws.shape[1], group),
+            0.5 if bits == 2 else 0.0)[:, :blk])
+        parts.append(int8_from_q(q, scales) if from_q is None
+                     else from_q(q, scales, pad_to=shard_pad))
+    return concat_blocked(parts, shards, bias), torch.cat(hats, dim=1)[:, :n]
+
+
 def _select_cols(
     weights: List[torch.Tensor],
     hess: Optional[torch.Tensor],
     col_frac: float,
+    shards: int = 1,
 ) -> torch.Tensor:
     """The most sensitive input COLUMNS of one site, joint over its
     members (so q|k|v share one selection and stay fusable), in order.
@@ -337,10 +384,13 @@ def _select_cols(
     A column's sensitivity is ``diag(H)[c] * sum_r w[r, c]^2``, the
     first-order output energy it carries, in f64; the top ones are taken
     by numpy's argsort on the host, as the JAX package takes them, so
-    ties fall the same way. The count is ``col_frac`` of the columns, at
-    least 128 and a multiple of 128 (a kernel-shaped int8 side), at most
-    the columns' largest multiple of 128; a site narrower than 128 takes
-    every column.
+    ties fall the same way. The count, per contiguous column shard of
+    ``shards`` (one for a site that is not row-parallel under tensor
+    parallelism), is ``col_frac`` of the shard's columns, at least 128
+    and a multiple of 128 (a kernel-shaped int8 side), at most the
+    shard's largest multiple of 128; a shard narrower than 128 gives
+    every column. Every shard gives the same count, so each rank's side
+    has one shape. Returns global column ids, shard by shard.
     """
     in_f = weights[0].shape[1]
     col_e = torch.zeros(in_f, dtype=torch.float64, device=weights[0].device)
@@ -348,17 +398,26 @@ def _select_cols(
         col_e += (w.to(torch.float64) ** 2).sum(dim=0)
     if hess is not None:
         col_e *= torch.diagonal(hess).to(torch.float64)[:in_f]
-    k = max(128, int(round(in_f * col_frac)))
+    if in_f % shards:
+        raise ValueError(
+            f"in_features {in_f} does not divide {shards} TP shards")
+    blk = in_f // shards
+    k = max(128, int(round(blk * col_frac)))
     k = ((k + 127) // 128) * 128
-    if in_f < 128:
-        k = in_f
+    if blk < 128:
+        k = blk
     else:
-        k = min(k, in_f - in_f % 128 if in_f % 128 else in_f)
-    cols = np.sort(np.argsort(col_e.cpu().numpy())[::-1][:k])
+        k = min(k, blk - blk % 128 if blk % 128 else blk)
+    e = col_e.cpu().numpy()
+    cols = np.concatenate([
+        s * blk + np.sort(np.argsort(e[s * blk: (s + 1) * blk])[::-1][:k])
+        for s in range(shards)
+    ])
     return torch.from_numpy(cols.astype(np.int64)).to(col_e.device)
 
 
-def _gptq_layer_mixed(base_bits, w, bias, hess, damp, cols, steps=None):
+def _gptq_layer_mixed(base_bits, w, bias, hess, damp, cols, steps=None,
+                      shards=1):
     """Column-block mixed encode: int8 on ``cols``, int3 / int2 planes
     elsewhere.
 
@@ -368,6 +427,14 @@ def _gptq_layer_mixed(base_bits, w, bias, hess, damp, cols, steps=None):
     dequant the zeroed positions to 0 exactly, but the int2 half-offset
     grid dequants them to ±0.5·s, and the residual absorbs that, which
     keeps ``y = base(x) + int8(x[cols])``.
+
+    ``shards > 1`` (a row-parallel site under tensor parallelism):
+    ``cols`` holds one count per contiguous column shard
+    (:func:`_select_cols`); the base encodes blocked
+    (:func:`_gptq_layer_blocked`), the side shard by shard (its scale
+    groups never straddle a shard), and ``col_idx`` holds SHARD-LOCAL
+    ids, which index each rank's slice of x: a placement artifact like
+    the blocked planes.
     """
     wb = w.clone()
     wb[:, cols] = 0.0
@@ -376,26 +443,43 @@ def _gptq_layer_mixed(base_bits, w, bias, hess, damp, cols, steps=None):
         hb = hess.clone()
         hb[cols, :] = 0.0
         hb[:, cols] = 0.0
-    lin_b, w_hat = _gptq_layer(base_bits, wb, None, hb, damp, steps)
+    if shards > 1:
+        lin_b, w_hat = _gptq_layer_blocked(base_bits, wb, None, hb, damp,
+                                           shards, steps)
+    else:
+        lin_b, w_hat = _gptq_layer(base_bits, wb, None, hb, damp, steps)
     del wb, hb
 
-    # the side at group 128: real widths select a multiple of 128, toy
-    # widths below 128 zero-pad their one group
-    k = cols.numel()
-    w8 = w[:, cols] - w_hat[:, cols]
-    h8 = None if hess is None else hess[cols][:, cols]
-    pad = (-k) % 128
-    if pad:
-        w8 = nn.functional.pad(w8, (0, pad))
-        if h8 is not None:
-            h8 = _pad_hessian(h8, k + pad)
-    q8, s8 = gptq_quantize(w8, h8, bits=8, group=128, damp=damp,
-                           steps=steps)
-    hat8 = dequant_groups(q8, s8, group_spans(w8.shape[1], 128))[:, :k]
-    lin8 = int8_from_q(q8, s8, None)
-    w_hat[:, cols] = w_hat[:, cols] + hat8
+    # the side at group 128, shard by shard: real widths select a
+    # multiple of 128, toy widths below 128 zero-pad their one group
+    k = cols.numel() // shards
+    q8s, s8s, hat8s = [], [], []
+    for s in range(shards):
+        cs = cols[s * k: (s + 1) * k]
+        w8 = w[:, cs] - w_hat[:, cs]
+        h8 = None if hess is None else hess[cs][:, cs]
+        pad = (-k) % 128
+        if pad:
+            w8 = nn.functional.pad(w8, (0, pad))
+            if h8 is not None:
+                h8 = _pad_hessian(h8, k + pad)
+        q8, s8 = gptq_quantize(w8, h8, bits=8, group=128, damp=damp,
+                               steps=steps)
+        q8s.append(q8)
+        s8s.append(s8)
+        hat8s.append(
+            dequant_groups(q8, s8, group_spans(w8.shape[1], 128))[:, :k])
+    lin8 = int8_from_q(torch.cat(q8s, dim=1), torch.cat(s8s, dim=1), None)
+    w_hat[:, cols] = w_hat[:, cols] + torch.cat(hat8s, dim=1)
+    col_idx = cols
+    if shards > 1:
+        # each rank's slice of col_idx indexes its own block of x
+        col_idx = cols - torch.arange(
+            shards, device=cols.device).repeat_interleave(k) * (
+                w.shape[1] // shards)
     cls = Int2MixedLinear if base_bits == 2 else Int3MixedLinear
-    return cls(lin_b, lin8, cols.to(torch.int32), bias), w_hat
+    lin = cls(lin_b, lin8, col_idx.to(torch.int32), bias)
+    return (_blocked(lin, shards) if shards > 1 else lin), w_hat
 
 
 def _quantize_site(
@@ -407,10 +491,12 @@ def _quantize_site(
     force_int8: bool = False,
     col_frac: Optional[float] = None,
     steps: Optional[dict] = None,
+    row_shards: int = 1,
 ):
     """GPTQ-encode the linears of one site; returns
     ([(path, new layer)], site report). ``steps``: GPTQ's group steps,
-    kept across calls (``gptq_quantize``)."""
+    kept across calls (``gptq_quantize``). ``row_shards > 1``: the
+    blocked layout of tensor parallelism, GPTQ shard by shard."""
     weights = [(p, _exact_weight(lin), lin.bias) for p, lin in members]
 
     # the H-weighted error ratio costs an (out, in) x (in, in) product per
@@ -421,11 +507,12 @@ def _quantize_site(
     if col_frac is not None:
         # column-block mixed int3 / int2: one joint selection per site
         base_bits = 2 if fmt == "int2-mixed" else 3
-        cols = _select_cols([w for _p, w, _b in weights], hess, col_frac)
+        cols = _select_cols([w for _p, w, _b in weights], hess, col_frac,
+                            shards=row_shards)
         out, errs = [], []
         for path, w, bias in weights:
             lin, w_hat = _gptq_layer_mixed(base_bits, w, bias, hess, damp,
-                                           cols, steps)
+                                           cols, steps, shards=row_shards)
             errs.append(output_error_ratio(w, w_hat, err_hess))
             out.append((path, lin))
         return out, {
@@ -437,7 +524,11 @@ def _quantize_site(
     def encode(bits: int):
         out, errs = [], []
         for path, w, bias in weights:
-            lin, w_hat = _gptq_layer(bits, w, bias, hess, damp, steps)
+            if row_shards > 1:
+                lin, w_hat = _gptq_layer_blocked(bits, w, bias, hess, damp,
+                                                 row_shards, steps)
+            else:
+                lin, w_hat = _gptq_layer(bits, w, bias, hess, damp, steps)
             errs.append(output_error_ratio(w, w_hat, err_hess))
             out.append((path, lin))
         return out, errs
@@ -501,21 +592,31 @@ def _sync(device: torch.device) -> None:
 
 class _Resume:
     """A calibration's progress in ``root``: ``manifest.json`` (phase,
-    next block, the ranking's sensitivities), the carried activations
-    (``state.safetensors``) and each finished block
-    (``block_NNNN.safetensors`` under the runtime checkpoint's names, its
-    report in ``block_NNNN.json``). Every file is written whole to a
-    temporary name and moved into place, the manifest last, so a run
-    killed at any point leaves a manifest whose files are complete."""
+    next block, the ranking's sensitivities, the shard count of the
+    blocked layout), the carried activations (``state.safetensors``) and
+    each finished block (``block_NNNN.safetensors`` under the runtime
+    checkpoint's names, its report in ``block_NNNN.json``). Every file is
+    written whole to a temporary name and moved into place, the manifest
+    last, so a run killed at any point leaves a manifest whose files are
+    complete. A run resumed with another ``tp_shards`` raises: its
+    finished blocks are in another layout."""
 
-    def __init__(self, root, cfg, device):
+    def __init__(self, root, cfg, device, tp_shards: int = 1):
         self.root, self.cfg, self.device = Path(root), cfg, device
+        self.tp_shards = tp_shards
         self.root.mkdir(parents=True, exist_ok=True)
         self.manifest = {"phase": "rank", "next_block": 0, "sens": {}}
         path = self.root / "manifest.json"
         if path.exists():
             with open(path) as f:
                 self.manifest = json.load(f)
+            was = self.manifest.get("tp_shards", 1)
+            if was != tp_shards:
+                raise ValueError(
+                    f"{root} holds a calibration at tp_shards={was}; "
+                    f"resuming it at tp_shards={tp_shards} would mix two "
+                    "layouts (start again in another directory)"
+                )
             logger.info("resuming calibration: phase=%s block=%d",
                         self.manifest["phase"], self.manifest["next_block"])
 
@@ -529,7 +630,8 @@ class _Resume:
              sens: dict) -> None:
         write_safetensors({"x": x}, self.root / "state.safetensors")
         self._write_json(
-            {"phase": phase, "next_block": next_block, "sens": sens},
+            {"phase": phase, "next_block": next_block, "sens": sens,
+             "tp_shards": self.tp_shards},
             "manifest.json",
         )
 
@@ -544,9 +646,17 @@ class _Resume:
 
     def load_block(self, i: int):
         raw = _read_safetensors(self.root / f"block_{i:04d}.safetensors")
-        block = _Reader(raw, self.cfg, self.device).block(f"blocks.{i}")
+        block = _Reader(raw, self.cfg, self.device,
+                        shards=self.tp_shards).block(f"blocks.{i}")
         with open(self.root / f"block_{i:04d}.json") as f:
             return block, json.load(f)
+
+
+# the sites whose linears are row-parallel under tensor parallelism (the
+# in axis sharded, parallel/tp.py): the attention output and the dense
+# and shared-expert down projections. Routed experts' down projections
+# ("e{k}.down") are placed whole by expert parallelism and stay unblocked.
+_ROW_PARALLEL_SITES = ("o", "down", "shared.down")
 
 
 def quantize_model_calibrated(
@@ -561,6 +671,7 @@ def quantize_model_calibrated(
     tp_shards: int = 1,
     resume_dir: Optional[str] = None,
     site_workers: int = 2,
+    on_block: Optional[Callable[[int, nn.Module], None]] = None,
 ) -> Tuple[Model, Dict[str, dict]]:
     """Calibrated re-encode of a codebook-format model, on its device.
 
@@ -584,14 +695,32 @@ def quantize_model_calibrated(
             of columns on the int8 side.
         fuse: fuse q|k|v and gate|up and stack the experts afterwards
             (``runtime.fuse_model``).
-        tp_shards: must be 1: calibration's blocked encodings for tensor
-            parallelism are ROADMAP M16 item 2c.
+        tp_shards: above 1, the row-parallel sites (``o``, ``down``,
+            ``shared.down``) encode in the blocked layout of tensor
+            parallelism over that many shards, GPTQ shard by shard
+            (:func:`_gptq_layer_blocked`), so that ``tp_place_block(
+            reencode_rows=False)`` places the calibrated codes as they are.
+            The activations carried to the next block are what the placed
+            model computes: each blocked layer runs as the sum over its
+            shards of each shard's layer on its slice of x
+            (``parallel/tp.py`` ``shards_summed``). Here the port departs
+            from the JAX package on purpose: its blocked calibration
+            carries them through the blocked layers as if they were
+            one-device layers (``vptq_tpu/quant/calibrate.py:1016-1020``),
+            which they are not, so its Hessians from block 1 on come from
+            wrong activations (ROADMAP Queue 3, "Recorded"). Block 0 is
+            the same in both.
         resume_dir: checkpoint each finished block and the carried
             activations there; a run started again with the same
-            directory resumes at the first unfinished block.
+            directory (and ``tp_shards``) resumes at the first unfinished
+            block.
         site_workers: accepted for the JAX package's signature; on one
             device the sites of a block encode one after another, and the
             result does not depend on it.
+        on_block: called as ``on_block(i, block)`` with each finished,
+            still unfused block in order (a resumed run's saved blocks
+            too): the loader hands each block to the other ranks of a
+            mesh as soon as it is done.
 
     Returns:
         (the quantized Model, a per-site report with an extra "summary"
@@ -599,13 +728,9 @@ def quantize_model_calibrated(
         all and per stage: ranking, capture, GPTQ, propagation, and per
         block of the main pass).
     """
+    from vptq_tpu_torch.parallel.tp import shards_summed
+
     del site_workers
-    if tp_shards > 1:
-        raise NotImplementedError(
-            f"tp_shards={tp_shards}: calibration's blocked encodings for "
-            "tensor parallelism are ROADMAP M16 item 2c; "
-            "calibrate on one device"
-        )
     if fmt not in _FORMATS:
         raise ValueError(f"unsupported calibrated format {fmt!r}")
     col_frac = None
@@ -646,7 +771,8 @@ def quantize_model_calibrated(
 
     # with resume_dir: only x is carried between blocks, as capture runs
     # fresh-prefill attention and never reads an earlier layer's cache
-    resume = None if resume_dir is None else _Resume(resume_dir, cfg, device)
+    resume = None if resume_dir is None else _Resume(resume_dir, cfg, device,
+                                                     tp_shards)
     manifest = resume.manifest if resume else {"phase": "rank", "sens": {}}
 
     # GPTQ's group steps, kept for the whole run: one recorded column
@@ -709,6 +835,8 @@ def quantize_model_calibrated(
                     new_blocks.append(qb)
                     for k, v in rep_b.items():
                         report.setdefault(k, {}).update(v)
+                    if on_block is not None:
+                        on_block(bi, qb)
         for i, block in enumerate(blocks):
             if i < main_start:
                 continue
@@ -730,6 +858,8 @@ def quantize_model_calibrated(
                     members, h.h if h.count else None, fmt, int8_threshold,
                     damp, force_int8=key in forced_int8, col_frac=col_frac,
                     steps=steps,
+                    row_shards=(tp_shards if site in _ROW_PARALLEL_SITES
+                                else 1),
                 )
                 for path, new_lin in encoded:
                     _set(qblock, path, new_lin)
@@ -738,8 +868,11 @@ def quantize_model_calibrated(
             del hessians
             t0 = clock("gptq_s", t0)
             if rep_block:
-                # propagate the QUANTIZED activations to later blocks
-                x = _block_forward(i, qblock, x, cos, sin, cache, cfg)
+                # propagate the QUANTIZED activations to later blocks, as
+                # the placed model computes them (blocked layers shard by
+                # shard, summed)
+                x = _block_forward(i, shards_summed(qblock), x, cos, sin,
+                                   cache, cfg)
             else:
                 x = x_cap
             del x_cap
@@ -748,6 +881,8 @@ def quantize_model_calibrated(
             if resume is not None:
                 resume.save_block(i, qblock, rep_block)
                 resume.save("main", i + 1, x, manifest.get("sens", {}))
+            if on_block is not None:
+                on_block(i, qblock)
             block_s.append(time.perf_counter() - t_blk)
             logger.info(
                 "calibrated block %d/%d (%.1fs): %s", i + 1, len(blocks),

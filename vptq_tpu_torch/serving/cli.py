@@ -10,12 +10,16 @@ only when the tokenizer is read.
     python -m vptq_tpu_torch --model DIR --chat
     torchrun --nproc-per-node 2 -m vptq_tpu_torch --model DIR --prompt "..." \
         --tp 2
+    torchrun --nproc-per-node 2 -m vptq_tpu_torch --model DIR --chat --tp 2
 
-``--tp n`` runs one-shot generation as ``n`` ranks of a process group
+``--tp n`` runs as ``n`` ranks of a process group
 (``parallel/distributed.py`` ``initialize`` reads torchrun's environment;
 NCCL when every rank owns a card, gloo when they share one or on the
 CPU), each loading and serving its shard of the model; every rank gets
-the same arguments and only rank 0 prints.
+the same arguments and only rank 0 prints. In chat, rank 0 alone reads
+the terminal: it hands each turn's decision (the turn's token ids,
+``clear`` or ``exit``) to every rank before any rank acts on it, and
+every rank then runs the same ``Generator`` call.
 """
 
 from __future__ import annotations
@@ -26,14 +30,6 @@ import sys
 
 import torch
 import torch.distributed as dist
-
-# chat and the web app read their input on one rank, which would have to
-# hand it to the others
-TP_REFUSAL = (
-    "interactive input under tensor parallelism reaches rank 0 alone; "
-    "handing it to the other ranks is ROADMAP M16 item 2f "
-    "(one-shot --prompt runs under --tp)"
-)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -96,8 +92,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument(
         "--tp", type=int, default=0,
         help="tensor parallelism over this many ranks of a process group "
-        "(launch under torchrun --nproc-per-node N; one-shot --prompt "
-        "only)",
+        "(launch under torchrun --nproc-per-node N)",
     )
     p.add_argument(
         "--device", type=str, default="cuda",
@@ -137,8 +132,6 @@ def _tp_mesh(args):
     group first), or None for ``--tp`` 0 or 1."""
     if not args.tp or args.tp <= 1:
         return None
-    if args.chat:
-        raise SystemExit(f"--chat with --tp {args.tp}: {TP_REFUSAL}")
     if args.runtime_format == "codebook":
         raise SystemExit(
             "--tp serves through the shard_map kernel path, which the "
@@ -159,9 +152,15 @@ def _tp_mesh(args):
                      device="cpu" if args.device == "cpu" else None)
 
 
+def _lead() -> bool:
+    """Whether this process reads the input and prints: rank 0 under a
+    process group, else the only one."""
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
 def _write(text: str) -> None:
     """stdout, on rank 0 only under a process group."""
-    if not dist.is_initialized() or dist.get_rank() == 0:
+    if _lead():
         sys.stdout.write(text)
         sys.stdout.flush()
 
@@ -194,51 +193,67 @@ def eval_prompt(gen, tokenizer, args) -> None:
     _write("\n")
 
 
+def _read_turn(tokenizer, args, messages) -> tuple:
+    """Rank 0's next decision from the terminal: ("exit",), ("clear",) or
+    ("ids", the turn's token ids); an empty line asks again."""
+    while True:
+        try:
+            user = input("You: ")
+        except EOFError:
+            return ("exit",)
+        if user.strip().lower() == "exit":
+            return ("exit",)
+        if user.strip().lower() == "clear":
+            return ("clear",)
+        if user.strip():
+            messages.append({"role": "user", "content": user})
+            return ("ids", tokenizer.apply_chat_template(
+                messages, add_generation_prompt=True))
+
+
 def chat_loop(gen, tokenizer, args) -> None:
-    """Interactive chat (reference app_utils.py:63-105)."""
-    print(
-        "chat mode; 'exit' to quit, 'clear' to reset history",
-        file=sys.stderr,
-    )
+    """Interactive chat (reference app_utils.py:63-105). Under a process
+    group rank 0 reads each turn and broadcasts its decision before any
+    rank acts, so that every rank makes the same ``Generator`` call."""
+    lead = _lead()
+    if lead:
+        print(
+            "chat mode; 'exit' to quit, 'clear' to reset history",
+            file=sys.stderr,
+        )
     messages = []
     if args.chat_system_prompt:
         messages.append(
             {"role": "system", "content": args.chat_system_prompt}
         )
     while True:
-        try:
-            user = input("You: ")
-        except EOFError:
+        turn = _read_turn(tokenizer, args, messages) if lead else None
+        if dist.is_initialized():
+            from vptq_tpu_torch.parallel.distributed import broadcast_object
+
+            turn = broadcast_object(turn)
+        if turn[0] == "exit":
             break
-        if user.strip().lower() == "exit":
-            break
-        if user.strip().lower() == "clear":
+        if turn[0] == "clear":
             messages = messages[:1] if args.chat_system_prompt else []
             continue
-        if not user.strip():
-            continue
-        messages.append({"role": "user", "content": user})
-        ids = tokenizer.apply_chat_template(
-            messages, add_generation_prompt=True
-        )
         pieces = []
 
         def stream(tok_id):
             text = tokenizer.decode([tok_id], skip_special_tokens=True)
             pieces.append(text)
-            sys.stdout.write(text)
-            sys.stdout.flush()
+            _write(text)
 
-        sys.stdout.write("Assistant: ")
+        _write("Assistant: ")
         gen.generate(
-            ids,
+            turn[1],
             max_new_tokens=args.max_new_tokens,
             eos_token_id=tokenizer.eos_token_id,
             temperature=args.temperature,
             seed=args.seed,
             stream_callback=stream,
         )
-        sys.stdout.write("\n")
+        _write("\n")
         messages.append(
             {"role": "assistant", "content": "".join(pieces)}
         )

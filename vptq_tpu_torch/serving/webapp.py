@@ -24,6 +24,14 @@ break such a capture.
 
 Run: python -m vptq_tpu_torch.serving.webapp --model DIR [--port 7860]
      [--device cuda|cpu]
+     torchrun --nproc-per-node 2 -m vptq_tpu_torch.serving.webapp \
+         --model DIR --tp 2
+
+Under ``--tp n`` (``n`` ranks of a process group, as the CLI's) rank 0
+runs the HTTP server and the telemetry; the other ranks follow
+(:func:`follow`): rank 0 hands each request's token ids and generation
+arguments, each model switch, and the shutdown to every rank before it
+acts, and every rank makes the same ``Generator`` call or load.
 """
 
 from __future__ import annotations
@@ -127,7 +135,7 @@ class ChatState:
     lock orders generations and model switches."""
 
     def __init__(self, generator, tokenizer, gen_args, models, current,
-                 load_fn, monitor):
+                 load_fn, monitor, followers=False):
         self.generator = generator
         self.tokenizer = tokenizer
         self.gen_args = gen_args
@@ -137,6 +145,15 @@ class ChatState:
         self.monitor = monitor
         self.tokens_per_s = 0.0
         self.lock = threading.Lock()
+        # other ranks follow this server's every generation and load
+        self.followers = followers
+
+    def tell(self, *op) -> None:
+        """Hand ``op`` to the following ranks (under the lock)."""
+        if self.followers:
+            from vptq_tpu_torch.parallel.distributed import broadcast_object
+
+            broadcast_object(op)
 
 
 def _switch_model(st: ChatState, name: str) -> None:
@@ -147,6 +164,7 @@ def _switch_model(st: ChatState, name: str) -> None:
     if st.load_fn is None:
         raise ValueError("model switching not configured")
     with st.lock:
+        st.tell("switch", st.models[name])
         # a failed load (a bad path, a hub id the loader cannot fetch)
         # restores the old generator: it must not brick the server
         old_gen, old_name = st.generator, st.current
@@ -172,19 +190,28 @@ def _switch_model(st: ChatState, name: str) -> None:
 def _generate(st: ChatState, messages, stream_callback=None):
     """Run one chat completion; returns (text, tokens_per_s).
 
-    ``stream_callback(delta_text)`` is invoked per decoded token.
+    ``stream_callback(delta_text)`` is invoked per decoded token. Where
+    ranks follow, a failing callback (a streaming client gone) stops the
+    stream but not the generation, whose collectives the other ranks are
+    in: the error is raised once every rank has finished it.
     """
     out_ids = []
     text_so_far = [""]
+    lost = []
 
     def on_token(tok):
         out_ids.append(int(tok))
-        if stream_callback is not None:
+        if stream_callback is not None and not lost:
             full = st.tokenizer.decode(out_ids, skip_special_tokens=True)
             delta = full[len(text_so_far[0]):]
             text_so_far[0] = full
             if delta:
-                stream_callback(delta)
+                try:
+                    stream_callback(delta)
+                except Exception as e:
+                    if not st.followers:
+                        raise
+                    lost.append(e)
 
     with st.lock:  # one generation at a time; tokenize inside the lock
         # so a concurrent model switch cannot pair the old tokenizer's
@@ -192,14 +219,13 @@ def _generate(st: ChatState, messages, stream_callback=None):
         ids = st.tokenizer.apply_chat_template(
             messages, add_generation_prompt=True
         )
+        kwargs = dict(eos_token_id=st.tokenizer.eos_token_id, **st.gen_args)
+        st.tell("generate", ids, kwargs)
         start = time.perf_counter()
-        out = st.generator.generate(
-            ids,
-            eos_token_id=st.tokenizer.eos_token_id,
-            stream_callback=on_token,
-            **st.gen_args,
-        )
+        out = st.generator.generate(ids, stream_callback=on_token, **kwargs)
         elapsed = time.perf_counter() - start
+    if lost:
+        raise lost[0]
     text = st.tokenizer.decode(out, skip_special_tokens=True)
     tok_s = len(out) / max(elapsed, 1e-9)
     st.tokens_per_s = tok_s
@@ -291,7 +317,7 @@ class Handler(BaseHTTPRequestHandler):
 
 class ChatServer(ThreadingHTTPServer):
     """The HTTP server and its :class:`ChatState`; ``server_close`` also
-    stops the memory poll."""
+    stops the memory poll and the following ranks."""
 
     def __init__(self, address, state: ChatState):
         self.state = state
@@ -300,17 +326,24 @@ class ChatServer(ThreadingHTTPServer):
     def server_close(self):
         super().server_close()
         self.state.monitor.stop()
+        with self.state.lock:
+            self.state.tell("stop")
+            self.state.followers = False
 
 
 def serve(generator, tokenizer, port=7860, gen_args=None,
-          models=None, current="", load_fn=None) -> ChatServer:
+          models=None, current="", load_fn=None,
+          followers=False) -> ChatServer:
     """A server (not yet serving: call ``serve_forever``) for
-    ``generator``, whose ``device`` the memory telemetry watches."""
+    ``generator``, whose ``device`` the memory telemetry watches.
+    ``followers``: rank 0 of a process group whose other ranks run
+    :func:`follow`."""
     state = ChatState(
         generator, tokenizer,
         gen_args=gen_args or {"max_new_tokens": 256, "temperature": 0.7},
         models=dict(models or {}), current=current, load_fn=load_fn,
         monitor=DeviceMonitor(generator.device).start(),
+        followers=followers,
     )
     httpd = ChatServer(("0.0.0.0", port), state)
     print(f"serving on http://0.0.0.0:{httpd.server_address[1]}",
@@ -318,11 +351,36 @@ def serve(generator, tokenizer, port=7860, gen_args=None,
     return httpd
 
 
-def main(argv=None) -> int:
-    from vptq_tpu_torch.models.loader import entry_device, load_model
-    from vptq_tpu_torch.serving.cli import TP_REFUSAL
-    from vptq_tpu_torch.serving.generate import Generator
+def follow(generator, load_fn) -> None:
+    """A rank other than 0 under ``--tp``: take each operation rank 0's
+    server hands out, in its order, until the server stops: a
+    generation (the same ``Generator`` call, its tokens left to rank 0;
+    one that rank 0 refuses to the client, such as a prompt longer than
+    the cache, this rank refuses alike and goes on) or a model switch (a
+    failed load keeps the current model, as rank 0's does)."""
+    from vptq_tpu_torch.parallel.distributed import broadcast_object
 
+    while True:
+        op = broadcast_object(None)
+        if op[0] == "stop":
+            return
+        if op[0] == "generate":
+            try:
+                generator.generate(op[1], **op[2])
+            except ValueError:
+                pass
+        elif op[0] == "switch":
+            old, generator = generator, None
+            try:
+                generator = load_fn(op[1])[0]
+            except Exception:
+                generator = old
+            else:
+                del old
+                gc.collect()
+
+
+def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument(
         "--model", action="append", required=True,
@@ -350,25 +408,35 @@ def main(argv=None) -> int:
     )
     p.add_argument(
         "--tp", type=int, default=0,
-        help="tensor parallelism over this many devices: values above 1 "
-        "are refused (ROADMAP M16 item 2f: the prompt must reach every "
-        "rank)",
+        help="tensor parallelism over this many ranks of a process group "
+        "(launch under torchrun --nproc-per-node N): rank 0 serves HTTP, "
+        "the others follow",
     )
     p.add_argument("--device", default="cuda",
                    help="where the model runs (cuda or cpu)")
-    args = p.parse_args(argv)
-    if args.tp and args.tp > 1:
-        raise SystemExit(f"--tp {args.tp}: {TP_REFUSAL}")
+    return p
+
+
+def start(args) -> ChatServer:
+    """The loaded model's server on rank 0 (not yet serving), or, on a
+    following rank under ``--tp``, :func:`follow` until rank 0's server
+    closes, then None."""
+    from vptq_tpu_torch.models.loader import entry_device, load_model
+    from vptq_tpu_torch.serving.cli import _tp_mesh
+    from vptq_tpu_torch.serving.generate import Generator
+
     device = entry_device(args.device)
+    mesh = _tp_mesh(args)
 
     from transformers import AutoTokenizer
 
     def load_fn(path):
         model = load_model(
             path, dtype=torch.bfloat16,
-            runtime_format=args.runtime_format, device=device,
+            runtime_format=args.runtime_format,
+            device=None if mesh is not None else device, mesh=mesh,
         )
-        gen = Generator(model, max_seq=args.max_seq)
+        gen = Generator(model, max_seq=args.max_seq, mesh=mesh)
         try:
             tok = AutoTokenizer.from_pretrained(path)
         except Exception:  # a checkpoint without one keeps the current
@@ -384,14 +452,24 @@ def main(argv=None) -> int:
     first = args.model[0]
     tokenizer = AutoTokenizer.from_pretrained(args.tokenizer or first)
     gen, _ = load_fn(first)
-    httpd = serve(
+    if mesh is not None and mesh.rank != 0:
+        follow(gen, load_fn)
+        return None
+    return serve(
         gen, tokenizer, port=args.port,
         gen_args={
             "max_new_tokens": args.max_new_tokens,
             "temperature": args.temperature,
         },
         models=models, current=first, load_fn=load_fn,
+        followers=mesh is not None,
     )
+
+
+def main(argv=None) -> int:
+    httpd = start(build_parser().parse_args(argv))
+    if httpd is None:
+        return 0
     try:
         httpd.serve_forever()
     finally:

@@ -23,13 +23,15 @@ both directions:
 
 The reader maps the file and copies each tensor to the device as it lies.
 It refuses another ``format_version``, and blocked (``shards > 1``)
-encodings, which the JAX package writes without a marker (a marker, and
-with it the export of blocked layers, is ROADMAP M16 item 2d): a plane
-whose padded width is not the one a one-device encoder gives the
-layer's logical width (int8: a whole scale group; int4 and int3: 2048;
-int2: 1024), or mixed columns that are not strictly increasing inside
-that width. A blocked layer whose every shard already has the
-one-device width has the one-device shape and cannot be told apart.
+encodings, which the JAX package writes without a marker and reads with
+no mesh: a plane whose padded width is not the one a one-device encoder
+gives the layer's logical width (int8: a whole scale group; int4 and
+int3: 2048; int2: 1024), or mixed columns that are not strictly
+increasing inside that width. A blocked layer whose every shard already
+has the one-device width has the one-device shape and cannot be told
+apart, so the writer refuses a model that carries a blocked layer (one
+tagged ``shards`` > 1 by its encoder): such a model is a placement
+artifact of tensor parallelism, not a one-device file.
 
 CLI (a VPTQ checkpoint re-encoded on the card, then written):
 
@@ -59,6 +61,7 @@ from vptq_tpu_torch.layers.runtime import (
     Int3MixedLinear,
     Int4Linear,
     Int8Linear,
+    _blocked,
 )
 from vptq_tpu_torch.models.llama import (
     Attention,
@@ -177,8 +180,24 @@ def _flatten_model(model: Model) -> Dict[str, torch.Tensor]:
     return out
 
 
+def _refuse_blocked(model: Model) -> None:
+    """Refuse a model that carries a blocked (``shards`` > 1) layer."""
+    for name, m in model.named_modules():
+        shards = getattr(m, "shards", 1)
+        if shards > 1:
+            raise ValueError(
+                f"{name}: a blocked encoding over {shards} shards is a "
+                "placement artifact of tensor parallelism (its columns "
+                "padded shard by shard, a mixed layer's ids shard-local), "
+                "not a one-device layer; a runtime file holds one-device "
+                "layers only (calibrate with tp_shards=1 to write one)"
+            )
+
+
 def export_runtime(model: Model, out_dir) -> Path:
-    """Write ``model``'s runtime tensors and config to ``out_dir``."""
+    """Write ``model``'s runtime tensors and config to ``out_dir``; a model
+    with a blocked layer is refused."""
+    _refuse_blocked(model)
     out = Path(out_dir)
     out.mkdir(parents=True, exist_ok=True)
     tensors = _flatten_model(model)
@@ -205,19 +224,26 @@ def _check_one_device(prefix: str, in_p: int, pad_to: int, in_f: int):
         raise NotImplementedError(
             f"{prefix}: padded width {in_p} is not the one-device width of "
             f"{in_f} columns (a multiple of {pad_to}): a blocked (shards > "
-            "1) encoding, which the file marks nowhere; the marker that "
-            "would let a reader place it is ROADMAP M16 item 2d"
+            "1) encoding, a placement artifact that the file marks nowhere "
+            "and a one-device reader cannot place"
         )
 
 
 class _Reader:
     """Layers and blocks built from a runtime file's tensors (``raw``, CPU
     views), each copied to ``device`` as it lies; ``used`` names the
-    tensors taken."""
+    tensors taken.
+
+    ``shards > 1``: the tensors are a calibration's own blocks in the
+    blocked layout of that many shards (a resumed calibration's, or a
+    block handed from rank to rank), not a file's: the row-parallel
+    layers (``o_proj``, a dense or shared ``down_proj``) are taken
+    blocked and tagged so, unchecked."""
 
     def __init__(self, raw: Dict[str, torch.Tensor], cfg: ModelConfig,
-                 device):
+                 device, shards: int = 1):
         self.raw, self.cfg, self.device = raw, cfg, device
+        self.shards = shards
         self.used = set()
         h = cfg.hidden_size
         # the logical in_features of each projection
@@ -242,50 +268,60 @@ class _Reader:
                    for keys in _KEYS.values()
                    ) or f"{prefix}.mix_cols" in self.raw
 
-    def linear(self, prefix, in_f: Optional[int]):
+    def linear(self, prefix, in_f: Optional[int], row: bool = False):
         """The layer under ``prefix``, or None; ``in_f``: its logical
         in_features (None: a mixed layer's side, whose width is its
-        columns')."""
+        columns'); ``row``: a row-parallel layer, blocked when
+        ``shards > 1``."""
         raw = self.raw
+        blocked = row and self.shards > 1
         if f"{prefix}.mix_cols" in raw:
             cols = raw[f"{prefix}.mix_cols"]
-            if cols.numel() and not (
+            if not blocked and cols.numel() and not (
                 bool(torch.all(cols[1:] > cols[:-1]))
                 and 0 <= int(cols[0]) and int(cols[-1]) < in_f
             ):
                 raise NotImplementedError(
                     f"{prefix}: mixed columns not strictly increasing inside "
                     f"{in_f}: a blocked (shards > 1) instance's shard-local "
-                    "ids, which the file marks nowhere (ROADMAP M16 item "
-                    "2d)"
+                    "ids, which the file marks nowhere"
                 )
             kind = (Int2MixedLinear if f"{prefix}.mix2.wq2p" in raw
                     else Int3MixedLinear)
-            return kind(
-                self.linear(f"{prefix}.{_MIXED[kind]}", in_f),
+            layer = kind(
+                self.linear(f"{prefix}.{_MIXED[kind]}", in_f, row),
                 self.linear(f"{prefix}.mix8", None),
                 self.take(f"{prefix}.mix_cols"),
                 self.take(f"{prefix}.bias"),
             )
-        for kind, keys in _KEYS.items():
-            if f"{prefix}.{keys[0][1]}" not in raw:
-                continue
-            layer = kind(*(self.take(f"{prefix}.{key}") for _, key in keys),
-                         bias=self.take(f"{prefix}.bias"))
-            if in_f is not None and kind is not DenseLinear:
-                _check_one_device(
-                    prefix, layer.in_padded,
-                    layer.group if kind is Int8Linear else _PAD_TO[kind],
-                    in_f,
-                )
-            return layer
-        return None
+        else:
+            layer = None
+            for kind, keys in _KEYS.items():
+                if f"{prefix}.{keys[0][1]}" not in raw:
+                    continue
+                layer = kind(*(self.take(f"{prefix}.{key}")
+                               for _, key in keys),
+                             bias=self.take(f"{prefix}.bias"))
+                if not blocked and in_f is not None and (
+                        kind is not DenseLinear):
+                    _check_one_device(
+                        prefix, layer.in_padded,
+                        layer.group if kind is Int8Linear else _PAD_TO[kind],
+                        in_f,
+                    )
+                break
+        if blocked and layer is not None:
+            _blocked(layer, self.shards)
+        return layer
 
-    def mlp(self, prefix, down=None) -> Mlp:
+    def mlp(self, prefix, down=None, row: bool = True) -> Mlp:
+        """``row``: its down_proj is row-parallel (not a routed
+        expert's)."""
         down = self.cfg.intermediate_size if down is None else down
         return Mlp(**{n: self.linear(f"{prefix}.{n}",
                                      down if n == "down_proj"
-                                     else self.widths[n])
+                                     else self.widths[n],
+                                     row and n == "down_proj")
                       for n in _MLP})
 
     def stacked(self, prefix, down) -> Optional[StackedExperts]:
@@ -313,7 +349,8 @@ class _Reader:
         n = 0
         while any(self.is_linear(f"{prefix}.experts.{n}.{m}") for m in _MLP):
             n += 1
-        return [self.mlp(f"{prefix}.experts.{e}", down) for e in range(n)]
+        return [self.mlp(f"{prefix}.experts.{e}", down, row=False)
+                for e in range(n)]
 
     def block_mlp(self, p):
         cfg = self.cfg
@@ -345,10 +382,12 @@ class _Reader:
     def attention(self, p):
         if f"{p}.kv_a_norm" in self.raw:
             return MlaAttention(
-                **{n: self.linear(f"{p}.{n}", self.widths[n]) for n in _MLA},
+                **{n: self.linear(f"{p}.{n}", self.widths[n], n == "o_proj")
+                   for n in _MLA},
                 **{n: self.take(f"{p}.{n}") for n in _MLA_ARRAYS},
             )
-        return Attention(**{n: self.linear(f"{p}.{n}", self.widths[n])
+        return Attention(**{n: self.linear(f"{p}.{n}", self.widths[n],
+                                           n == "o_proj")
                             for n in _ATTN})
 
     def block(self, p: str) -> Block:

@@ -20,21 +20,37 @@ reads a value on the host or builds a shape from data. The mixed formats
 plan their base format (the per-column int8 sides are a calibration
 output), as the JAX package does.
 
-A plan across devices (tensor / pipeline parallelism, several hosts,
-the collective term of the cost model) is ROADMAP M16 item 2e and
-raises; the budget table's 1 / 2 / 4 / 8-device columns are
-arithmetic.
+Over several devices (``--chips``, the total, over ``--hosts``): each
+host's devices hold one replica, placed with the largest tensor-parallel
+degree that divides them and passes ``tp.tp_validate`` (GQA geometries
+cap it at their KV heads), pipeline stages taking the rest; the hosts
+are data-parallel replicas. The budget is per device of a host, the
+prediction per host (``predict_decode_tok_s`` over the TP degree, plus a
+hop a stage boundary), and ``--compile`` runs one rank's decode step on
+the meta device: the blocked model (:func:`abstract_runtime_model` with
+``tp_shards``), its shard as ``tp.tp_place_model`` places it, the cache
+as ``tp.shard_cache_tp`` cuts it, and ``forward(tp=)``, whose
+collectives on meta tensors return their shapes and call no group
+(``parallel/distributed.py``), as the JAX package compiles its sharded
+step on a forced CPU mesh. With stages, one stage's layers. The
+per-collective latency ``--ici-us`` (default 10 µs, the range printed
+1–20 µs) is the JAX package's assumption, not a measurement: no
+collective between cards has been timed for the port. GSPMD placement
+(``--parallel gspmd``, the codebook format over several devices) has no
+counterpart (ROADMAP Queue 1 item 2h).
 
 CLI::
 
     python -m vptq_tpu_torch.tools.plan --geometry llama3-8b \
-        --format int4 [--batch 1] [--max-seq 2048] [--hbm-gb 80] [--compile]
+        --format int4 [--chips 8 [--hosts 2]] [--batch 1] [--max-seq 2048] \
+        [--hbm-gb 80] [--compile]
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import re
 import sys
 from typing import Dict, Optional
@@ -47,6 +63,8 @@ from vptq_tpu_torch.layers.runtime import (
     Int3Linear,
     Int4Linear,
     Int8Linear,
+    blocked_pad,
+    concat_blocked,
     pick_group,
 )
 from vptq_tpu_torch.models.llama import (
@@ -159,19 +177,28 @@ E2E_GBPS = {
 # int8 side matrices at the int8 rate (predict_decode_tok_s)
 _MIXED_BASE = {"int3-mixed": "int3", "int2-mixed": "int2"}
 
-_M16 = ("is ROADMAP M16 item 2e (a plan over several devices); the port "
-        "plans one device")
+# the per-collective latency of a plan over several devices: the JAX
+# package's assumption (its ici_us), never measured between cards for the
+# port, and the range the CLI prints around it
+ICI_US = 10.0
+ICI_US_RANGE = (20.0, 1.0)
+# GSPMD placement (the codebook format over several devices) is not ported
+_GSPMD = ("GSPMD placement has no counterpart in the port (ROADMAP Queue 1 "
+          "item 2h: a codebook model under a mesh); plan --parallel tp "
+          "with a runtime format")
 
 
 def _stream_terms(cfg: ModelConfig, fmt: str, batch: int, max_seq: int,
-                  quantize_lm_head: bool) -> Dict[str, float]:
+                  quantize_lm_head: bool, tp_shards: int = 1
+                  ) -> Dict[str, float]:
     """The bytes a decode step streams, by the rate they stream at: the
     blocks in the base format (MoE experts by the routed fraction
     ``min(1, batch * top_k / E)``) with the norms, the mixed formats'
-    int8 sides, the lm_head, the KV cache read (half full on average)."""
+    int8 sides, the lm_head, the KV cache read (half full on average).
+    ``tp_shards``: the row-parallel layers blocked over that many."""
     base_fmt = _MIXED_BASE.get(fmt, fmt)
     est = hbm.estimate_model_bytes(
-        cfg, base_fmt, quantize_lm_head=quantize_lm_head
+        cfg, base_fmt, quantize_lm_head=quantize_lm_head, tp_shards=tp_shards
     )
     L = cfg.num_hidden_layers
     n_exp = cfg.n_routed_experts or cfg.num_local_experts
@@ -179,7 +206,7 @@ def _stream_terms(cfg: ModelConfig, fmt: str, batch: int, max_seq: int,
     side = 0
     if fmt in _MIXED_BASE:
         side = hbm.estimate_model_bytes(
-            cfg, fmt, quantize_lm_head=quantize_lm_head
+            cfg, fmt, quantize_lm_head=quantize_lm_head, tp_shards=tp_shards
         )["blocks"] - stream
     if n_exp:
         expert_bytes = sum(
@@ -204,7 +231,7 @@ def predict_decode_tok_s(
     batch: int = 1,
     max_seq: int = 2048,
     quantize_lm_head: bool = True,
-    ici_us: float = 10.0,
+    ici_us: float = ICI_US,
     rates: Optional[Dict[str, float]] = None,
     hbm_gbps: float = H100_HBM_GBPS,
 ) -> float:
@@ -213,29 +240,34 @@ def predict_decode_tok_s(
     The decode step is weight-stream bound, so the model is bytes over a
     measured rate (the JAX package's formula):
 
-      t_step = blocks_bytes / rates[fmt]
-             + side_bytes / rates["int8"]          (mixed formats)
-             + lm_head_bytes / rate(lm_head format)
-             + kv_read_bytes / HBM peak            (half full on average)
+      t_step = blocks_bytes / chips / rates[fmt]
+             + side_bytes / chips / rates["int8"]          (mixed formats)
+             + lm_head_bytes / chips / rate(lm_head format)
+             + kv_read_bytes / chips / HBM peak     (half full on average)
+             + (2L + 1) * ici_us                           (chips > 1)
 
     ``rates``: GB/s per format, :data:`E2E_GBPS` (fitted on
-    :data:`E2E_CARD`) by default. ``chips`` > 1 (and with it ``ici_us``,
-    the collective term) is M16 item 2e.
+    :data:`E2E_CARD`) by default. ``chips`` > 1: tensor parallelism over
+    that many devices, the blocks' bytes in the blocked layout, and a
+    collective term of two all-reduces a layer and the logits' gather,
+    ``ici_us`` each: an assumption (:data:`ICI_US`, the JAX package's),
+    not a measurement.
     """
-    if chips > 1:
-        raise NotImplementedError(f"a plan over {chips} devices {_M16}")
     rates = E2E_GBPS if rates is None else rates
     base_fmt = _MIXED_BASE.get(fmt, fmt)
     if base_fmt not in rates:
         raise ValueError(f"no rate measured on the card for format {fmt!r}")
-    terms = _stream_terms(cfg, fmt, batch, max_seq, quantize_lm_head)
+    tp = chips if chips > 1 else 1
+    terms = _stream_terms(cfg, fmt, batch, max_seq, quantize_lm_head, tp)
     lm_rate = rates["int8" if quantize_lm_head else "bf16"]
     t = (
-        terms["base"] / (rates[base_fmt] * 1e9)
-        + terms["side"] / (rates["int8"] * 1e9)
-        + terms["lm_head"] / (lm_rate * 1e9)
-        + terms["kv"] / (hbm_gbps * 1e9)
+        terms["base"] / chips / (rates[base_fmt] * 1e9)
+        + terms["side"] / chips / (rates["int8"] * 1e9)
+        + terms["lm_head"] / chips / (lm_rate * 1e9)
+        + terms["kv"] / chips / (hbm_gbps * 1e9)
     )
+    if chips > 1:
+        t += (2 * cfg.num_hidden_layers + 1) * ici_us * 1e-6
     return batch / t
 
 
@@ -282,11 +314,29 @@ def _abs(shape, dtype) -> torch.Tensor:
                        device=_META)
 
 
-def _abs_linear(in_f: int, out_f: int, fmt: str, vq=None):
+def _abs_linear(in_f: int, out_f: int, fmt: str, vq=None,
+                row_shards: int = 1):
     """A runtime linear on the meta device with the encoders' exact shapes
     and dtypes (``layers/runtime.py`` ``to_int8`` / ``_encode_int4`` /
     ``_encode_int3`` / ``_encode_int2`` / ``to_bf16``; the loader's
-    ``normalize_vq_layer`` for "codebook", at ``vq=(v, k, kres)``)."""
+    ``normalize_vq_layer`` for "codebook", at ``vq=(v, k, kres)``).
+    ``row_shards > 1``: the blocked layout of a row-parallel layer
+    (``_encode_*(shards=n)``): ``row_shards`` shards of ``ceil(in_f /
+    row_shards)`` columns side by side, each padded on its own; bf16 has
+    no blocks (its placement slices the columns)."""
+    bits = {"int8": 8, "int4": 4, "int3": 3, "int2": 2}.get(fmt)
+    if row_shards > 1 and bits is not None:
+        blk = (in_f + row_shards - 1) // row_shards
+        one = _one_linear(blk, out_f, fmt,
+                          pad_to=blocked_pad(bits, blk)[1])
+        return concat_blocked([one] * row_shards, row_shards)
+    return _one_linear(in_f, out_f, fmt, vq)
+
+
+def _one_linear(in_f: int, out_f: int, fmt: str, vq=None,
+                pad_to: Optional[int] = None):
+    """:func:`_abs_linear` on one device; ``pad_to``: the in axis's
+    multiple (None: the one-device encoder's)."""
     if fmt == "codebook":
         from vptq_tpu_torch.layers.vqlinear import VQLinear
         from vptq_tpu_torch.ops.packing import index_plane_dtype
@@ -307,26 +357,26 @@ def _abs_linear(in_f: int, out_f: int, fmt: str, vq=None):
         )
     if fmt == "int8":
         g = pick_group(in_f)
-        in_p = in_f + ((-in_f) % g)
+        in_p = in_f + ((-in_f) % (pad_to or g))
         return Int8Linear(
             wq=_abs((out_f, in_p), torch.int8),
             scales=_abs((in_p // g, out_f), torch.float32),
         )
     if fmt == "int4":
-        in_p = in_f + ((-in_f) % 2048)
+        in_p = in_f + ((-in_f) % (pad_to or 2048))
         return Int4Linear(
             wq=_abs((out_f, in_p // 2), torch.int8),
             scales=_abs((in_p // 128, out_f), torch.bfloat16),
         )
     if fmt == "int3":
-        in_p = in_f + ((-in_f) % 2048)
+        in_p = in_f + ((-in_f) % (pad_to or 2048))
         return Int3Linear(
             wq2=_abs((out_f, in_p // 4), torch.int8),
             wq1=_abs((out_f, in_p // 8), torch.int8),
             scales=_abs((out_f, in_p // 128), torch.bfloat16),
         )
     if fmt == "int2":
-        in_p = in_f + ((-in_f) % 1024)
+        in_p = in_f + ((-in_f) % (pad_to or 1024))
         return Int2Linear(
             wq=_abs((out_f, in_p // 4), torch.int8),
             scales=_abs((out_f, in_p // 64), torch.bfloat16),
@@ -350,11 +400,15 @@ def abstract_runtime_model(
 
     ``fmt="codebook"``: unfused blocks of VQLinear at the ``vq=(v, k,
     kres)`` geometry (the loader never fuses codebook layers); MoE
-    geometries need int8 / int4 (stacked experts). ``tp_shards`` > 1
-    (a plan of the blocked tensor-parallel layout) is M16 item 2e.
+    geometries need int8 / int4 (stacked experts). ``tp_shards`` > 1:
+    the loader's model under a mesh of that many model ranks before
+    placement, its row-parallel layers (o_proj, the dense and shared
+    down_proj) in the blocked layout (the codebook format has none).
     """
-    if tp_shards > 1:
-        raise NotImplementedError(f"tp_shards={tp_shards}: {_M16}")
+    if fmt == "codebook" and tp_shards > 1:
+        raise ValueError(
+            "codebook format plans under GSPMD, not shard_map TP"
+        )
     h = cfg.hidden_size
     nh, nkv, hd = (
         cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim,
@@ -383,7 +437,7 @@ def abstract_runtime_model(
         return Mlp(
             gate_proj=None,
             up_proj=None,
-            down_proj=_abs_linear(width, h, fmt),
+            down_proj=_abs_linear(width, h, fmt, row_shards=tp_shards),
             gate_up_proj=_abs_linear(h, 2 * width, fmt),
         )
 
@@ -405,7 +459,7 @@ def abstract_runtime_model(
             return MlaAttention(
                 kv_a_proj=_abs_linear(h, kv_lora + dr, fmt),
                 kv_a_norm=norm(kv_lora),
-                o_proj=_abs_linear(nh * dv, h, fmt),
+                o_proj=_abs_linear(nh * dv, h, fmt, row_shards=tp_shards),
                 uk=_abs((kv_lora, nh, dn), torch.bfloat16),
                 uv=_abs((kv_lora, nh, dv), torch.bfloat16),
                 **q_kwargs,
@@ -461,7 +515,7 @@ def abstract_runtime_model(
                 )
             return Attention(
                 q_proj=None, k_proj=None, v_proj=None,
-                o_proj=_abs_linear(nh * hd, h, fmt),
+                o_proj=_abs_linear(nh * hd, h, fmt, row_shards=tp_shards),
                 qkv_proj=_abs_linear(h, (nh + 2 * nkv) * hd, fmt),
             )
 
@@ -537,19 +591,41 @@ def validate_plan(
     max_seq: int = 2048,
     quantize_lm_head: bool = True,
     vq=None,
+    tp: int = 1,
 ) -> Dict:
     """One decode step of ``forward`` at full geometry on the meta device:
     a token for each of ``batch`` sequences whose cache holds ``max_seq -
     1`` tokens (every live block attended). Raises where the model the
     plan describes cannot run its step: the failure a real load would hit,
-    with zero weight bytes. Returns the logits' shape and dtype, and the
-    weights' and the cache's bytes."""
-    model = abstract_runtime_model(cfg, fmt, quantize_lm_head, vq=vq)
+    with zero weight bytes. ``tp > 1``: the step of one rank (rank 0) of
+    a tensor-parallel group of ``tp``: the blocked model placed by
+    ``tp.tp_place_model``, the cache cut by ``tp.shard_cache_tp``, and
+    ``forward(tp=)``, whose collectives on meta tensors give their shapes
+    and call no group. Returns the logits' shape and dtype, and the
+    rank's weights' and cache's bytes."""
+    from vptq_tpu_torch.parallel.mesh import Mesh
+    from vptq_tpu_torch.parallel.tp import (
+        shard_cache_tp,
+        tp_place_model,
+        tp_validate,
+    )
+
+    if tp > 1:
+        tp_validate(cfg, tp, sharded_lm_head=not cfg.tie_word_embeddings)
+    model = abstract_runtime_model(cfg, fmt, quantize_lm_head, tp_shards=tp,
+                                   vq=vq)
     cache = init_cache(cfg, batch, max_seq, torch.bfloat16, _META)
     cache.reset(max_seq - 1)
+    axis = None
+    if tp > 1:
+        mesh = Mesh(data=1, model=tp, rank=0, device=_META)
+        model = tp_place_model(model, mesh, reencode_rows=False)
+        cache = shard_cache_tp(cache, mesh)
+        axis = mesh.tp
     tokens = _abs((batch, 1), torch.int64)
     with torch.inference_mode(), _plain_versions():
-        logits, _ = forward(model, tokens, cache, dtype=torch.bfloat16)
+        logits, _ = forward(model, tokens, cache, dtype=torch.bfloat16,
+                            tp=axis)
     return dict(
         logits_shape=tuple(logits.shape),
         logits_dtype=str(logits.dtype),
@@ -557,6 +633,26 @@ def validate_plan(
         kv_bytes=sum(t.numel() * t.element_size()
                      for t in (*cache.k, *cache.v)),
     )
+
+
+def _placement(cfg: ModelConfig, per_slice: int) -> tuple:
+    """(tp, pp) of one host's ``per_slice`` devices: the largest TP degree
+    that divides them and that the geometry shards (``tp_validate``;
+    GQA caps it at the KV heads), pipeline stages for the rest (stages
+    may be uneven: ``ceil(L / pp)`` layers at most)."""
+    from vptq_tpu_torch.parallel.tp import tp_validate
+
+    tp = 1
+    for cand in range(per_slice, 0, -1):
+        if per_slice % cand:
+            continue
+        try:
+            tp_validate(cfg, cand)
+        except ValueError:
+            continue
+        tp = cand
+        break
+    return tp, per_slice // tp
 
 
 def main(argv=None) -> int:
@@ -571,7 +667,9 @@ def main(argv=None) -> int:
     )
     ap.add_argument(
         "--hosts", type=int, default=1,
-        help="data-parallel slices over several hosts (M16 item 2e)",
+        help="hosts, each a data-parallel replica: --chips is the TOTAL "
+        "device count, each host gets chips / hosts devices, whose "
+        "tensor-parallel and pipeline ranks never cross hosts",
     )
     ap.add_argument(
         "--vq", default="v8-k65536-256",
@@ -579,12 +677,13 @@ def main(argv=None) -> int:
         "(model-name convention, e.g. v8-k65536-256)",
     )
     ap.add_argument("--chips", type=int, default=1,
-                    help="devices (more than one: M16 item 2e)")
+                    help="devices in all")
     ap.add_argument("--batch", type=int, default=1)
     ap.add_argument("--max-seq", type=int, default=2048)
     ap.add_argument(
         "--parallel", default="tp", choices=("tp", "gspmd"),
-        help="placement over several devices (M16 item 2e)",
+        help="placement over several devices: tp, tensor parallelism and "
+        "pipeline stages (gspmd has no counterpart in the port)",
     )
     ap.add_argument(
         "--hbm-gb", type=float, default=None,
@@ -592,21 +691,17 @@ def main(argv=None) -> int:
     )
     ap.add_argument(
         "--compile", action="store_true",
-        help="also run one decode step on the meta device",
+        help="also run one rank's decode step on the meta device",
     )
     ap.add_argument(
-        "--ici-us", type=float, default=10.0,
-        help="per-collective latency of a plan over several devices "
-        "(M16 item 2e)",
+        "--ici-us", type=float, default=ICI_US,
+        help="per-collective latency of the decode cost model, µs: an "
+        "assumption (the JAX package's), not measured between cards",
     )
     args = ap.parse_args(argv)
 
-    if args.hosts > 1:
-        raise SystemExit(f"--hosts {args.hosts}: a plan over several hosts "
-                         f"{_M16}")
-    if args.chips > 1:
-        raise SystemExit(f"--chips {args.chips} (--parallel {args.parallel}):"
-                         f" a plan over several devices {_M16}")
+    if args.parallel == "gspmd":
+        raise SystemExit(f"--parallel gspmd: {_GSPMD}")
     hbm_bytes = (int(args.hbm_gb * hbm.GiB) if args.hbm_gb
                  else hbm.detect_hbm_bytes())
     if not hbm_bytes:
@@ -619,8 +714,17 @@ def main(argv=None) -> int:
         **GEOMETRIES[args.geometry],
     })
     vq = parse_vq(args.vq)
+    if args.chips % args.hosts:
+        print(f"OVER: chips {args.chips} % hosts {args.hosts} != 0")
+        return 1
+    per_slice = args.chips // args.hosts
+    if args.format == "codebook" and per_slice > 1:
+        raise SystemExit(f"--format codebook over {per_slice} devices: "
+                         f"{_GSPMD}")
+    tp, pp = _placement(cfg, per_slice)
 
-    est = hbm.estimate_model_bytes(cfg, args.format, default_vq=vq)
+    est = hbm.estimate_model_bytes(cfg, args.format, tp_shards=tp,
+                                   default_vq=vq)
     kv = hbm.kv_cache_bytes(cfg, args.batch, args.max_seq)
     table = hbm.budget_table(
         cfg, hbm_bytes=hbm_bytes, batch=args.batch, max_seq=args.max_seq,
@@ -630,34 +734,65 @@ def main(argv=None) -> int:
         ),
         default_vq=vq,
     )
-    print(f"# {args.geometry} @ {args.format}, 1 device of "
-          f"{hbm_bytes / hbm.GiB:.1f} GiB")
+    print(f"# {args.geometry} @ {args.format}, {args.chips} device(s) of "
+          f"{hbm_bytes / hbm.GiB:.1f} GiB = {args.hosts} host(s) x "
+          f"(pp={pp} x tp={tp})")
     print(hbm.format_budget_table(table))
     try:
         hbm.check_budget(
-            est["total"] + kv, 1, hbm_bytes,
+            est["total"] + kv, per_slice, hbm_bytes,
             what=f"{args.geometry} ({args.format})",
         )
     except hbm.HBMBudgetError as e:
         print(f"OVER BUDGET: {e}")
         return 1
-    print(f"fits: {(est['total'] + kv) / hbm.GiB:.2f} GiB of "
-          f"{hbm_bytes / hbm.GiB:.1f}")
+    print(f"fits: {(est['total'] + kv) / per_slice / hbm.GiB:.2f} GiB/device "
+          f"of {hbm_bytes / hbm.GiB:.1f} (the weights live once per host)")
+
+    def host_tok_s(ici):
+        # one host's replica: the stages stream one after another, each
+        # tp wide (the weights' time is the model's over tp whatever pp),
+        # plus a hop a stage boundary a step
+        pred = predict_decode_tok_s(
+            cfg, args.format, tp, args.batch, args.max_seq, ici_us=ici,
+            rates=E2E_GBPS, hbm_gbps=H100_HBM_GBPS)
+        return args.batch / (args.batch / pred + (pp - 1) * ici * 1e-6)
+
     try:
-        tok_s = predict_decode_tok_s(cfg, args.format, 1, args.batch,
-                                     args.max_seq)
-        print(f"predicted decode: {tok_s:.1f} tok/s @ batch {args.batch} "
-              f"(rates fitted on {E2E_CARD})")
+        tok_s = host_tok_s(args.ici_us)
     except ValueError as e:
         print(f"predicted decode: none ({e})")
+    else:
+        bar = ""
+        if per_slice > 1:
+            lo, hi = (host_tok_s(u) for u in ICI_US_RANGE)
+            bar = (f" [{lo:.1f}..{hi:.1f} over an assumed ici_us "
+                   f"{ICI_US_RANGE[0]:g}..{ICI_US_RANGE[1]:g} a collective, "
+                   "not measured between cards]")
+        print(f"predicted decode: {tok_s:.1f} tok/s per host @ batch "
+              f"{args.batch}{bar} (rates fitted on {E2E_CARD})")
+        if args.hosts > 1 or pp > 1:
+            print(f"aggregate throughput: {args.hosts} host(s) x {pp} "
+                  f"pipelined microbatch(es) -> up to "
+                  f"{args.hosts * pp * tok_s:.1f} tok/s at batch >= "
+                  f"{pp * args.batch} per host (1F schedule, "
+                  "parallel/pipeline.py)")
 
     if args.compile:
         fmt = _MIXED_BASE.get(args.format, args.format)
         if fmt != args.format:
             print(f"# the meta step runs the {fmt} base plan (the "
                   "calibrated int8 sides are a calibration output)")
-        step = validate_plan(cfg, fmt, args.batch, args.max_seq, vq=vq)
-        print(f"meta decode step: logits {step['logits_shape']} "
+        cfg_c = cfg
+        if pp > 1:
+            cfg_c = dataclasses.replace(
+                cfg, num_hidden_layers=-(-cfg.num_hidden_layers // pp))
+            print(f"# the meta step runs one of {pp} pipeline stages "
+                  f"({cfg_c.num_hidden_layers} layers, tp={tp})")
+        step = validate_plan(cfg_c, fmt, args.batch, args.max_seq, vq=vq,
+                             tp=tp)
+        rank = f" of one rank of tp={tp}" if tp > 1 else ""
+        print(f"meta decode step{rank}: logits {step['logits_shape']} "
               f"{step['logits_dtype']}, weights "
               f"{step['weights_bytes'] / hbm.GiB:.2f} GiB, cache "
               f"{step['kv_bytes'] / hbm.GiB:.2f} GiB")
