@@ -15,7 +15,8 @@ without them, or when any phase fails. Phases:
    ``vq_smallk_matmul``), one ``nvcc`` each, all at once; the
    ``-Xptxas -v`` lines of the prefill tile (``lowbit_tile.cuh``) in K1,
    K2, K3, K4, K6a, K6b and K7, of K8's kernel at each head size and of
-   the decode GEMV (``decode_gemv.cuh``) in K1, K2, K3, K4 and K5b, every
+   the decode GEMV (``decode_gemv.cuh``) in K1, K2, K3, K4 and K5b and of
+   the probes' ring GEMV (``ring_gemv.cuh``) in P1c and P3, every
    instance of which must show no spill;
 2. each of K1-K4 at the four linear shapes of Llama-3.1-8B, on layers its
    format's encoder makes on the card from a random weight (K1 group
@@ -62,11 +63,13 @@ without them, or when any phase fails. Phases:
    shift28, fma16, fma16f32, t8, g256; i32x8; s8dot, cvtonly) with K2
    beside them at the probe scripts' four Llama-2-7B decode shapes (T=1),
    P3 at 22016 x 4096 (v 4 and 8, fused and onehot-only, k 256 and k 200,
-   where the ids past the codebook must add 0), each against its
-   plain version and timed like phase 2 (yardstick ``torch.matmul`` on the
-   dequantized or gathered bf16 weight), and the scripts' own checks at
-   T=3 (fma16, shift28, P3's ``--check`` and the same with k 200) against
-   the plain versions and the scripts' f32 products;
+   where the ids past the codebook must add 0), P1c and P3 also at T=8
+   and 16, each against its plain version and timed like phase 2
+   (yardstick ``torch.matmul`` on the dequantized or gathered bf16
+   weight), the scripts' own checks at T=3 (fma16, shift28, P3's
+   ``--check`` and the same with k 200) against the plain versions and the
+   scripts' f32 products, and every P1c / P3 call of bf16 inputs held to
+   its ring GEMV's kernel name from one trace;
 4. the int4, int3 and int2 encoders on the card against the same
    encoders on the CPU, byte for byte, on one 4096 x 4096 synthetic
    weight (the CPU encoders are held to the JAX package's numpy bytes by
@@ -569,6 +572,11 @@ FLASH_INSTANCES = {"flash_attention": 3}
 DECODE_KERNEL = "decode_gemv"
 DECODE_INSTANCES = {"w8_matmul": 4, "w4_matmul": 4, "w3_matmul": 4,
                     "w2_matmul": 8, "w4_matmul_pairs": 2}
+# the probes' asynchronous ring GEMV (ring_gemv.cuh): P3's instances per
+# vector length (4, 8), mode (fused, onehot-only), token tile (N = 8, 16)
+# and output type (bf16, f32); P1c's per token tile and output type
+RING_KERNEL = "ring_gemv"
+RING_INSTANCES = {"vq_smallk_matmul": 16, "w4_i32x8_matmul": 4}
 # the token counts of the kernel phases: decode, two prefill buckets and
 # the long-prefill chunk (every T > 16 runs the tile)
 TOKENS = (1, 128, 512, 2048)
@@ -642,8 +650,9 @@ def ptxas_entries(log: str) -> dict:
 def phase_build() -> float:
     """Build every kernel source of the port; returns wall seconds. Each
     library must hold its ``TILE_INSTANCES`` instances of the prefill tile
-    (``lowbit_tile.cuh``), its ``FLASH_INSTANCES`` of K8's kernel and its
-    ``DECODE_INSTANCES`` of the decode GEMV (``decode_gemv.cuh``), none
+    (``lowbit_tile.cuh``), its ``FLASH_INSTANCES`` of K8's kernel, its
+    ``DECODE_INSTANCES`` of the decode GEMV (``decode_gemv.cuh``) and its
+    ``RING_INSTANCES`` of the probes' ring GEMV (``ring_gemv.cuh``), none
     elsewhere, and each must report no spill."""
     from vptq_tpu_torch.ops import _build
 
@@ -659,7 +668,8 @@ def phase_build() -> float:
         entries = ptxas_entries(log)
         for word, instances in ((TILE_KERNEL, TILE_INSTANCES),
                                 (FLASH_KERNEL, FLASH_INSTANCES),
-                                (DECODE_KERNEL, DECODE_INSTANCES)):
+                                (DECODE_KERNEL, DECODE_INSTANCES),
+                                (RING_KERNEL, RING_INSTANCES)):
             clean = 0
             for entry, lines in entries.items():
                 if word not in entry:
@@ -1092,6 +1102,11 @@ PROBE_SHAPES = (
 )
 
 
+# the token counts of the probe phase: decode (T = 1, the records) and the
+# ring GEMV's two token tiles full (P1c and P3 only)
+PROBE_TOKENS = (1, 8, 16)
+
+
 def phase_probes(device, shapes=PROBE_SHAPES, iters=20, seed=0,
                  cases=True):
     """P1, P2 and P3 at decode (T = 1) on random codes made on ``device``:
@@ -1099,11 +1114,13 @@ def phase_probes(device, shapes=PROBE_SHAPES, iters=20, seed=0,
     ``w4_i32x8_matmul``, both ``w4_raw_probe`` modes and K2 ``w4_matmul``
     beside them at each shape; ``vq_smallk_matmul`` at the first shape, v 4
     and 8, fused and onehot-only, k 256 (the records) and k 200 (ids past
-    the codebook, which must add 0). Each against its plain version and
+    the codebook, which must add 0). P1c and P3 also at the other
+    ``PROBE_TOKENS`` (outside the records). Each against its plain version and
     timed beside its bound; the yardstick is ``torch.matmul`` on the
     dequantized (P3: gathered) bf16 weight of the same function, which the
-    port never calls. ``cases``: also the scripts' own checks at T = 3
-    (:func:`probe_cases`)."""
+    port never calls. On the card the ring GEMV's calls are held to its
+    kernels' names in a trace (:func:`launched_kernels`). ``cases``: also
+    the scripts' own checks at T = 3 (:func:`probe_cases`)."""
     from vptq_tpu_torch.examples.kernel_bench import flush_buffer
     from vptq_tpu_torch.ops.packing import unpack_int4
     from vptq_tpu_torch.ops.vq_smallk_matmul import vq_smallk_weight
@@ -1114,6 +1131,7 @@ def phase_probes(device, shapes=PROBE_SHAPES, iters=20, seed=0,
     flush = flush_buffer(device)
     bf16 = torch.bfloat16
     rows = []
+    ring_calls = []  # (kernel, label, call) of the ring GEMV
 
     def add(name, mode, shape, x, out_f, in_f, call, plain, library, flops,
             in_record, reads, extra=(), y_size=2, **kw):
@@ -1133,6 +1151,10 @@ def phase_probes(device, shapes=PROBE_SHAPES, iters=20, seed=0,
                              flush, **kw),
         ))
         print(f"{name} " + json.dumps(rows[-1]))
+        if name in RING_INSTANCES and not extra:
+            # the scripts' checks (extra) hand over f32 tensors, whose
+            # casts are kernels of their own
+            ring_calls.append((name, f"{mode} {shape} T={x.shape[0]}", call))
 
     for shape, out_f, in_f in shapes:
         first = shape == shapes[0][0]
@@ -1142,7 +1164,9 @@ def phase_probes(device, shapes=PROBE_SHAPES, iters=20, seed=0,
                              generator=gen, device=device, dtype=torch.int32)
         scales = (0.005 * (1 + torch.rand((in_f // 128, out_f), generator=gen,
                                           device=device))).to(bf16)
-        x = torch.randn((1, in_f), generator=gen, device=device).to(bf16)
+        xs = torch.randn((max(PROBE_TOKENS), in_f), generator=gen,
+                         device=device).to(bf16)
+        x = xs[:1]
         flops = 2 * out_f * in_f
         w = _dequant(unpack_int4(wq8), scales)
         for mode in (*W4_PROBE_MODES, "w4_matmul"):
@@ -1159,9 +1183,15 @@ def phase_probes(device, shapes=PROBE_SHAPES, iters=20, seed=0,
                 first and name != "w4_matmul", (xm, wq8, s_read))
         fn, ref = kernel_fns("w4_i32x8_matmul")
         w = _dequant(i32x8_levels(wq32), scales)
-        add("w4_i32x8_matmul", "i32x8", shape, x, out_f, in_f,
-            lambda: fn(x, wq32, scales), lambda: ref(x, wq32, scales),
-            lambda: torch.matmul(x, w.t()), flops, first, (x, wq32, scales))
+        for t in PROBE_TOKENS:
+            xt = xs[:t]
+            # bound now: the route check below calls the kernel's lambdas
+            # again after the loop
+            add("w4_i32x8_matmul", "i32x8", shape, xt, out_f, in_f,
+                lambda a=xt, f=fn, q=wq32, s=scales: f(a, q, s),
+                lambda a=xt: ref(a, wq32, scales),
+                lambda a=xt: torch.matmul(a, w.t()), t * flops,
+                first and t == 1, (xt, wq32, scales))
         fn, ref = kernel_fns("w4_raw_probe")
         # the raw bytes times scale row 0, against columns [0, in/2) of x
         w = (wq8.to(torch.float32) * scales[0].to(torch.float32)[:, None]
@@ -1178,7 +1208,8 @@ def phase_probes(device, shapes=PROBE_SHAPES, iters=20, seed=0,
 
     fn, ref = kernel_fns("vq_smallk_matmul")
     shape, out_f, in_f = shapes[0]
-    x = torch.randn((1, in_f), generator=gen, device=device).to(bf16)
+    xs = torch.randn((max(PROBE_TOKENS), in_f), generator=gen,
+                     device=device).to(bf16)
     for v in (4, 8):
         ids = torch.randint(0, 256, (out_f, in_f // v), generator=gen,
                             device=device, dtype=torch.uint8)
@@ -1191,24 +1222,42 @@ def phase_probes(device, shapes=PROBE_SHAPES, iters=20, seed=0,
                 if onehot:
                     # the same function in one call: the first column of
                     # each v-vector of x against the ids that hit the codebook
-                    xl = x[:, ::v].contiguous()
                     w = (ids.to(torch.int64) < k).to(bf16)
-                    reads, flops = (xl, ids), 2 * out_f * in_f // v
+                    flops = 2 * out_f * in_f // v
                 else:
-                    xl, w = x, vq_smallk_weight(ids, cb).to(bf16)
-                    reads, flops = (x, ids, cb), 2 * out_f * in_f
-                add("vq_smallk_matmul",
-                    f"v{v} {'' if k == 256 else f'k{k} '}"
-                    f"{'onehot_only' if onehot else 'fused'}", shape, x,
-                    out_f, in_f,
-                    lambda i=ids, c=cb, vv=v, oh=onehot: fn(x, i, c, vv, oh),
-                    lambda i=ids, c=cb, vv=v, oh=onehot: ref(x, i, c, vv, oh),
-                    lambda a=xl, b=w: torch.matmul(a, b.t()), flops,
-                    k == 256, reads)
+                    w = vq_smallk_weight(ids, cb).to(bf16)
+                    flops = 2 * out_f * in_f
+                for t in PROBE_TOKENS:
+                    x = xs[:t]
+                    xl = x[:, ::v].contiguous() if onehot else x
+                    reads = (xl, ids) if onehot else (x, ids, cb)
+                    add("vq_smallk_matmul",
+                        f"v{v} {'' if k == 256 else f'k{k} '}"
+                        f"{'onehot_only' if onehot else 'fused'}", shape, x,
+                        out_f, in_f,
+                        lambda a=x, f=fn, i=ids, c=cb, vv=v, oh=onehot:
+                            f(a, i, c, vv, oh),
+                        lambda a=x, i=ids, c=cb, vv=v, oh=onehot:
+                            ref(a, i, c, vv, oh),
+                        lambda a=xl, b=w: torch.matmul(a, b.t()), t * flops,
+                        k == 256 and t == 1, reads)
                 del w
         del ids, cb, cb256
     if cases:
         probe_cases(device, add)
+    # every ring GEMV call again, after the loops: on the card each ran one
+    # kernel of its own ring_gemv family (on the CPU the calls alone)
+    calls = [c for _, _, c in ring_calls]
+    if torch.device(device).type == "cuda":
+        names = launched_kernels(calls, device)
+        for (name, label, _), kname in zip(ring_calls, names):
+            if not picks(kernel_fns(name)[0].trace_tags, kname):
+                raise AssertionError(
+                    f"{name} {label} ran {kname}, not its ring GEMV")
+        print(f"ring GEMV routes: {len(names)} calls, each its own kernel")
+    else:
+        for call in calls:
+            call()
     return rows
 
 

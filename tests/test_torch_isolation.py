@@ -606,13 +606,14 @@ def test_chip_smoke_probe_phase_on_cpu():
     """The probe phase at a tiny size with the plain versions: every mode
     of P1 / P2 with K2 beside it, P3 at v 4 and 8 fused and onehot-only,
     and the same at k 200 (outside the records), and the scripts' own
-    checks; one record per probe mode."""
+    checks; one record per probe mode. P1c and every P3 mode also at 8 and
+    16 tokens, outside the records."""
     shapes = (("a", 40, 2048), ("b", 24, 1024))
     rows = chip_smoke.phase_probes("cpu", shapes=shapes, iters=1)
     assert all(r["max_abs_err"] == 0.0 for r in rows)
     probe_modes = [
         (r["kernel"], r["mode"]) for r in rows
-        if r["shape"] == "a" and r["kernel"] != "w4_matmul"]
+        if r["shape"] == "a" and r["kernel"] != "w4_matmul" and r["T"] == 1]
     assert probe_modes == [
         *(("w4_probe_matmul", m) for m in W4_PROBE_MODES),
         ("w4_i32x8_matmul", "i32x8"), ("w4_raw_probe", "s8dot"),
@@ -622,6 +623,27 @@ def test_chip_smoke_probe_phase_on_cpu():
     ]
     assert [r["mode"] for r in rows if r["kernel"] == "w4_matmul"] == [
         "w4_matmul"] * 2
+    # the ring GEMV's token tiles: P1c at every shape, each P3 mode, at 8
+    # and 16 tokens, none in the records, the bytes and flops of T tokens
+    more = [r for r in rows if r["T"] in (8, 16)]
+    assert [(r["kernel"], r["shape"], r["T"]) for r in more
+            if r["kernel"] == "w4_i32x8_matmul"] == [
+        ("w4_i32x8_matmul", s, t) for s in ("a", "b") for t in (8, 16)]
+    assert sorted((r["mode"], r["T"]) for r in more
+                  if r["kernel"] == "vq_smallk_matmul") == sorted(
+        (f"v{v} {k}{m}", t) for v in (4, 8) for k in ("", "k200 ")
+        for m in ("fused", "onehot_only") for t in (8, 16))
+    assert not any(r["in_record"] for r in more)
+    one = {(r["kernel"], r["mode"], r["shape"]): r for r in rows
+           if r["T"] == 1 and "script_err" not in r}
+    for r in more:
+        r1 = one[(r["kernel"], r["mode"], r["shape"])]
+        assert r["flops"] == r["T"] * r1["flops"]
+        # a token's x (onehot: one position of each v-vector) and y
+        x_bytes = 2 * r["in_p"] // (int(r["mode"][1])
+                                    if "onehot" in r["mode"] else 1)
+        assert r["bytes"] - r1["bytes"] == (r["T"] - 1) * (
+            x_bytes + 2 * r["out"])
     checks = [r for r in rows if "script_err" in r]
     assert [(r["shape"], r["mode"]) for r in checks] == [
         ("check_fma16_exact", "fma16"), ("check_fma16_exact", "fma16f32"),
@@ -632,7 +654,7 @@ def test_chip_smoke_probe_phase_on_cpu():
     assert all(r["script_err"] <= r["script_limit"] for r in checks
                if r["script_limit"] is not None)
     # bytes: x, the bytes and the scale rows each mode reads, y in bf16
-    by_mode = {r["mode"]: r for r in rows if r["shape"] == "a"}
+    by_mode = {r["mode"]: r for r in rows if r["shape"] == "a" and r["T"] == 1}
     assert by_mode["prod"]["bytes"] == 2 * 2048 + 40 * 1024 + 16 * 40 * 2 + 80
     assert by_mode["g256"]["bytes"] == by_mode["prod"]["bytes"] - 8 * 40 * 2
     assert by_mode["t8"]["bytes"] == by_mode["prod"]["bytes"] + 2 * 2048
@@ -802,6 +824,11 @@ def _ptxas_log(entry: str, spill: int) -> str:
     ("decode:w4_matmul_pairs", -1, 0, False),  # K5b lost an out type's one
     ("decode:w4_matmul_pairs", 0, 8, False),   # K5b's decode GEMV spills
     ("decode:w8_matmul_expert", 1, 0, False),  # one where none belongs
+    ("ring:vq_smallk_matmul", -1, 0, False),   # P3 lost a ring instance
+    ("ring:vq_smallk_matmul", 0, 8, False),    # P3's ring GEMV spills
+    ("ring:w4_i32x8_matmul", -1, 0, False),    # P1c lost a ring instance
+    ("ring:w4_i32x8_matmul", 0, 8, False),     # P1c's ring GEMV spills
+    ("ring:w4_raw_probe", 1, 0, False),        # one where none belongs
 ])
 def test_build_phase_requires_every_tile_instance_spill_free(
     monkeypatch, where, extra, spill, ok
@@ -811,12 +838,15 @@ def test_build_phase_requires_every_tile_instance_spill_free(
     K8's library its instances of the attention kernel, K1's, K2's and
     K4's their four instances of the decode GEMV, K3's its eight (two
     scale groups) and K5b's its two (one token a pair, two output types),
+    P3's its sixteen instances of the probes' ring GEMV (v 4 / 8, fused /
+    onehot-only, two token tiles, two output types) and P1c's its four,
     each with 0 spill bytes, and
     the other libraries none. ``where``: every table of one library, or
-    (``decode:<library>``) its decode GEMV alone."""
-    def tiles(name, instances, decode=False):
+    (``decode:<library>``, ``ring:<library>``) its decode GEMV or its ring
+    GEMV alone."""
+    def tiles(name, instances, family=None):
         want = instances.get(name, 0)
-        hit = where in ("all", name) or (decode and where == f"decode:{name}")
+        hit = where in ("all", name) or (family and where == f"{family}:{name}")
         if not hit:
             return want, 0
         return (0 if extra is None else want + extra), spill
@@ -824,8 +854,12 @@ def test_build_phase_requires_every_tile_instance_spill_free(
     def log(name):
         n, spilled = tiles(name, chip_smoke.TILE_INSTANCES)
         m, flash_spilled = tiles(name, chip_smoke.FLASH_INSTANCES)
-        k, decode_spilled = tiles(name, chip_smoke.DECODE_INSTANCES, True)
+        k, decode_spilled = tiles(name, chip_smoke.DECODE_INSTANCES, "decode")
+        r, ring_spilled = tiles(name, chip_smoke.RING_INSTANCES, "ring")
         return "".join(
+            _ptxas_log(f"_ZN5probe9ring_gemvI{name}{i}EEvv", ring_spilled)
+            for i in range(r)
+        ) + "".join(
             _ptxas_log(f"_ZN6lowbit4tile7wg_tileI{name}{i}EEvv", spilled)
             for i in range(n)
         ) + "".join(
@@ -910,7 +944,22 @@ _DECODE = ("void dgemv::decode_gemv<{p}, sel::{sel}, {n}, {g}, {o}, {s}>("
 _ANON = "(anonymous namespace)::W{b}"
 _LOWBIT_GEMV = _GEMV.replace("w4::W4", "{p}").replace(", 4, 128,", ", {g},")
 _TILE_G = _TILE.replace(", 128, float", ", {g}, float")
+# the probes' ring GEMV (ring_gemv.cuh): P3 per vector length, mode, token
+# tile and output type; P1c per token tile and output type
+_VQ_RING = ("void vq_smallk::ring_gemv<{v}, {oh}, {n}, {o}>(__nv_bfloat16 "
+            "const*, unsigned char const*, __nv_bfloat16 const*, int, {o}*, "
+            "int, int, int)")
+_I32X8_RING = ("void i32x8::ring_gemv<{n}, {o}>(__nv_bfloat16 const*, "
+               "unsigned int const*, __nv_bfloat16 const*, {o}*, int, int, "
+               "int)")
 KERNEL_NAMES = {
+    "vq_smallk_matmul": [
+        _VQ_RING.format(v=v, oh=oh, n=n, o=o) for v in (4, 8)
+        for oh in ("false", "true") for n in (1, 2)
+        for o in ("float", "__nv_bfloat16")],
+    "w4_i32x8_matmul": [
+        _I32X8_RING.format(n=n, o=o) for n in (1, 2)
+        for o in ("float", "__nv_bfloat16")],
     "bf16_matmul": [_BF16_GEMV.format(t=1), _BF16_GEMV.format(t=16),
                     _TILE.format(p="bf16mm::BF16", sel="Whole", s="float")],
     "flash_attention": [
@@ -971,7 +1020,8 @@ def test_trace_tags_pick_each_kernel_family_and_no_other(name):
     policies lie in an anonymous namespace), K5b's its lowbit.cuh GEMV's
     and its decode GEMV's (sel::Pairs), K3's and K4's their
     lowbit.cuh GEMV's and their tile's, K7's its GEMV's and its SS tile's,
-    K8's its kernel's at each head size, and no name of another kernel
+    K8's its kernel's at each head size, P3's and P1c's their ring GEMV's
+    (each instance), and no name of another kernel
     here (K2, K6b, K5a, K5b among them); no other kernel's tags pick
     theirs. ``kernel@family``: that kernel's tags of one family (the set
     ``check_decode_routes`` takes) pick its own decode GEMV instances and
@@ -2505,7 +2555,7 @@ def test_w4_probe_kernel_matches_plain_version(cuda, mode, tokens, out_dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("tokens", [1, 3, 8, 9, 40])
+@pytest.mark.parametrize("tokens", [1, 3, 8, 9, 16, 17, 40])
 def test_i32x8_kernel_matches_plain_version(cuda, tokens, out_dtype):
     """Words drawn over all of int32 (plane 7 of a negative word too)."""
     gen = torch.Generator(device=cuda).manual_seed(tokens)
@@ -2552,7 +2602,7 @@ def test_raw_probe_kernel_matches_plain_version(cuda, mode, tokens,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("tokens", [1, 3, 9, 40])
+@pytest.mark.parametrize("tokens", [1, 3, 9, 16, 17, 40])
 @pytest.mark.parametrize("k", [200, 256])
 @pytest.mark.parametrize("onehot_only", [False, True])
 @pytest.mark.parametrize("v", [4, 8])
@@ -2571,6 +2621,43 @@ def test_vq_smallk_kernel_matches_plain_version(cuda, v, onehot_only, k,
     torch.cuda.synchronize()
     assert vq_smallk_matmul.launches == before + 1
     assert got.shape == (tokens, 200) and got.dtype == torch.float32
+    _assert_kernel_close(got, want, torch.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile,tokens", [(8, 17), (16, 3)])
+@pytest.mark.parametrize("kernel", ["w4_i32x8_matmul", "vq_smallk_matmul"])
+def test_ring_kernels_take_either_token_tile(cuda, monkeypatch, kernel, tile,
+                                             tokens):
+    """The ring GEMV at a token tile its plan would not pick here: three
+    8-token tiles at 17 tokens (the plan takes them where 16-token tiles
+    leave SMs idle) and one 16-token tile at 3 tokens; each against its
+    plain version, f32 out."""
+    import importlib
+
+    mod = importlib.import_module(f"vptq_tpu_torch.ops.{kernel}")
+    name = "i32x8_plan" if kernel == "w4_i32x8_matmul" else "vq_smallk_plan"
+    plan = getattr(mod, name)
+    monkeypatch.setattr(mod, name, lambda *a: (tile, plan(*a)[1]))
+    gen = torch.Generator(device=cuda).manual_seed(tokens)
+    x = torch.randn((tokens, 2048), generator=gen, device=cuda)
+    if kernel == "w4_i32x8_matmul":
+        wq = torch.randint(-2 ** 31, 2 ** 31 - 1, (200, 256), generator=gen,
+                           device=cuda, dtype=torch.int32)
+        scales = (torch.rand((16, 200), generator=gen, device=cuda) * 1e-2
+                  ).to(torch.bfloat16)
+        args = (x, wq, scales)
+    else:
+        ids = torch.randint(0, 256, (200, 256), generator=gen, device=cuda,
+                            dtype=torch.uint8)
+        args = (x, ids, torch.randn((200, 8), generator=gen, device=cuda)
+                * 0.02, 8)
+    fn = getattr(mod, kernel)
+    before = fn.launches
+    got = fn(*args, out_dtype=torch.float32)
+    want = getattr(mod, f"{kernel}_reference")(*args, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
     _assert_kernel_close(got, want, torch.float32)
 
 

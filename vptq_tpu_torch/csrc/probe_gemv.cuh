@@ -1,6 +1,5 @@
-// The frame of the probe GEMVs that do not fit lowbit.cuh's split-half
-// skeleton: P1c w4_i32x8_matmul.cu, P1d/P1e w4_raw_probe.cu and P3
-// vq_smallk_matmul.cu.
+// The frame of the raw probe GEMVs P1d / P1e w4_raw_probe.cu (P1c and P3
+// run on ring_gemv.cuh's asynchronous ring).
 //
 // A block is 8 warps; each warp owns kRows rows of y for a tile of TP
 // tokens, and its lanes stream each row with 16-byte loads, 32 lanes side

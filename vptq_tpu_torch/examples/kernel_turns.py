@@ -10,18 +10,21 @@ Llama-3.1-8B layer, the MoE kernels K6b ``w4_matmul_expert``, K5b
 at a Mixtral-8x7B expert's two shapes on stacks of 8, T = 1, 128, 512
 and 2048 (K1–K4 also T = 4 and 16; K5: P = 2 and 16); and K8
 ``flash_attention`` at every case of
-the tree's ``chip_smoke.FLASH_CASES`` (``phase_flash``). Each kernel is
-held against its plain version, as the smoke holds it. The card's name
-and power limit come first; then one line per (turn, kernel, scale group,
-T) with ms, bound, plain and ``torch.matmul`` ms summed over the shapes
-(K8: one line per case, its yardstick ``scaled_dot_product_attention``),
-and the device-to-host copies of two launches each of K6b and K6a (T =
-512, 2048) in the ``torch.profiler`` trace, with the names of their
-kernels.
+the tree's ``chip_smoke.FLASH_CASES`` (``phase_flash``); and the probe
+phase (``phase_probes``: P1, P2, P3 and K2 beside them at the probe
+scripts' Llama-2-7B shapes, T = 1, and P1c and P3 at the other token
+counts the tree's phase takes). Each kernel is held against its plain
+version, as the smoke holds it. The card's name and power limit come
+first; then one line per (turn, kernel, scale group, T) with ms, bound,
+plain and ``torch.matmul`` ms summed over the shapes (K8: one line per
+case, its yardstick ``scaled_dot_product_attention``; a probe: one line
+per mode and shape), and the device-to-host copies of two launches each
+of K6b and K6a (T = 512, 2048) in the ``torch.profiler`` trace, with the
+names of their kernels. ``--probes-only`` runs the probe phase alone.
 
     python -m vptq_tpu_torch.examples.kernel_turns \\
         --tree P=build/tree/parent --tree C=. --order P C C P \\
-        [--out DIR] [--device cuda]
+        [--out DIR] [--device cuda] [--probes-only]
 
 Without ``--tree`` and ``--order`` it runs one turn in the current
 directory. ``--out`` keeps every row of each turn as
@@ -43,33 +46,40 @@ __all__ = ["main"]
 
 # the kernels a turn runs: the smoke's phase_kernel for the four formats,
 # phase_moe_kernels("int4") and ("int8") for the MoE pairs, phase_bf16,
-# phase_flash
+# phase_flash; then phase_probes (K2 beside the probes)
 KERNELS = ("w2_matmul", "w4_matmul", "w3_matmul", "w8_matmul",
            "w4_matmul_expert", "w4_matmul_pairs", "w8_matmul_expert",
            "w8_matmul_pairs", "bf16_matmul", "flash_attention")
+PROBES = ("w4_probe_matmul", "w4_i32x8_matmul", "w4_raw_probe",
+          "vq_smallk_matmul", "w4_matmul")
 
 # One turn, run with ``python -c`` from the root of its tree so that the
 # tree's own chip_smoke and vptq_tpu_torch are the ones imported:
-# argv = label, device, out file ("" for none)
+# argv = label, device, out file ("" for none), "1" for the probe phase
+# alone
 _TURN = r'''
 import json, sys, time
 import torch
 import chip_smoke as cs
 from vptq_tpu_torch.ops import _build
 
-label, dev, out = sys.argv[1:4]
-KERNELS = %(kernels)r
+label, dev, out, probes_only = sys.argv[1:5]
+probes_only = probes_only == "1"
+KERNELS = () if probes_only else %(kernels)r
+PROBES = %(probes)r
 torch.backends.cuda.matmul.allow_tf32 = False
 t0 = time.perf_counter()
 if dev == "cuda":
-    _build.build(KERNELS)
+    _build.build(tuple(dict.fromkeys(KERNELS + PROBES)))
 print(f"[{label}] build {time.perf_counter() - t0:.1f} s", flush=True)
 shapes = cs.k1_shapes(cs.LLAMA31_8B)
 moe_shapes = cs.moe_shapes(cs.MIXTRAL_8X7B)
+probe_shapes = cs.PROBE_SHAPES
 tokens, iters = (1, 128, 512, 2048), 20
 flash_cases = cs.FLASH_CASES
 if dev == "cpu":
     shapes = moe_shapes = [("a", 40, 1024), ("b", 24, 2048)]
+    probe_shapes = (("a", 40, 2048), ("b", 24, 1024))
     tokens, iters = (1, 20), 1
     flash_cases = (("heads", 1, 40, 4, 2, 16, 1.0, True),)
 rows = []
@@ -78,12 +88,14 @@ for name in KERNELS:
         # K1–K4 also at T = 4 and 16: their decode GEMV's two instances
         toks = (tokens[0], 4, 16) + tokens[1:]
         rows += cs.phase_kernel(name, dev, shapes, toks, iters=iters)
-for fmt in ("int4", "int8"):
-    rows += cs.phase_moe_kernels(fmt, dev, moe_shapes, tokens=tokens,
-                                 iters=iters)
-rows += cs.phase_bf16(dev, shapes, tokens, iters=iters)
-rows += cs.phase_flash(dev, flash_cases, iters=iters)
-if dev == "cuda":
+if not probes_only:
+    for fmt in ("int4", "int8"):
+        rows += cs.phase_moe_kernels(fmt, dev, moe_shapes, tokens=tokens,
+                                     iters=iters)
+    rows += cs.phase_bf16(dev, shapes, tokens, iters=iters)
+    rows += cs.phase_flash(dev, flash_cases, iters=iters)
+rows += cs.phase_probes(dev, shapes=probe_shapes, iters=iters, cases=False)
+if dev == "cuda" and not probes_only:
     # device-to-host copies of two launches of each expert kernel at
     # Mixtral's down shape: the id stays on the card
     from torch.profiler import ProfilerActivity, profile
@@ -116,6 +128,8 @@ for r in rows:
     if r["unit"] == "S":  # one line per attention case
         key += f" B={r['batch']} {r['heads']}/{r['kv_heads']}x{r['head_dim']}"
         key += f" {r['shape']}"
+    if "mode" in r:  # a probe: one line per mode and shape
+        key += f" {r['mode']} {r['shape']}"
     s = summary.setdefault(key, dict(ms=0.0, bound_ms=0.0, plain_ms=0.0,
                                      library_ms=0.0, max_abs_err=0.0))
     for k in ("ms", "bound_ms", "plain_ms", "library_ms"):
@@ -137,6 +151,8 @@ def main(argv=None) -> None:
                         help="labels in the order of the turns")
     parser.add_argument("--out", default="")
     parser.add_argument("--device", default="cuda")
+    parser.add_argument("--probes-only", action="store_true",
+                        help="the probe phase alone")
     args = parser.parse_args(argv)
     device = pick_device(args.device)
     trees = dict(t.split("=", 1) for t in args.tree or ["C=."])
@@ -146,12 +162,13 @@ def main(argv=None) -> None:
     print(card_line(device), flush=True)
     if args.out:
         Path(args.out).mkdir(parents=True, exist_ok=True)
-    code = _TURN % dict(kernels=KERNELS)
+    code = _TURN % dict(kernels=KERNELS, probes=PROBES)
     for n, label in enumerate(args.order):
         out = (str(Path(args.out).resolve() / f"turn_{n}_{label}.json")
                if args.out else "")
         run = subprocess.run(
-            [sys.executable, "-c", code, label, device.type, out],
+            [sys.executable, "-c", code, label, device.type, out,
+             "1" if args.probes_only else "0"],
             cwd=trees[label], capture_output=True, text=True,
         )
         for line in run.stdout.splitlines():

@@ -11,7 +11,9 @@ K7, whose mbarrier, TMA and ``wgmma`` helpers K8 takes;
 ``w8.cuh`` and ``w4.cuh``, the loops the MoE kernels share with K1 and
 K2, and the fragment helpers K7 takes from ``w8.cuh``;
 ``expert_select.cuh``), is
-newer (``probe_gemv.cuh`` is the frame of three of the probe GEMVs).
+newer (``ring_gemv.cuh`` is the asynchronous ring of the probes P1c and
+P3 on ``decode_gemv.cuh``'s helpers; ``probe_gemv.cuh`` the synchronous
+frame of the raw probes P1d / P1e).
 Nothing is built when a module is imported: the first launch builds.
 """
 

@@ -28,7 +28,7 @@ __all__ = [
     "DECODE_FORMATS", "DECODE_SPLITS", "DECODE_STAGE", "check_pairs",
     "decode_blocks", "decode_route", "decode_rows", "decode_smem",
     "decode_split", "grouped_reference", "launch", "pick_expert",
-    "sm_count",
+    "ring_plan", "ring_tile", "sm_count",
 ]
 
 # The Hopper decode GEMV of K1–K4 (csrc/decode_gemv.cuh) at T <= 16, and
@@ -104,6 +104,52 @@ def decode_split(out_f: int, positions: int, parts: int, tokens: int,
                 and (tokens > 8 or pair)):
             return s
     return fits[-1] if fits else 0
+
+
+def ring_tile(tokens: int) -> int:
+    """Tokens of one token tile of the probes' ring GEMV
+    (``csrc/ring_gemv.cuh``) by default: 8 up to 8 tokens, else 16."""
+    return 8 if tokens <= 8 else 16
+
+
+def _ring_split(row_blocks: int, units: int, tokens: int, tile: int,
+                n_sm: int, smem_of) -> tuple:
+    """(split, whether it makes two blocks an SM that two at a time fit an
+    SM's shared memory) of :func:`ring_plan` at one token tile."""
+    t = min(tokens, tile)
+    blocks = row_blocks * -(-tokens // tile)
+    smem = {s: smem_of(t, -(-units // s))
+            for s in DECODE_SPLITS if s <= units}
+    fits = [s for s, b in smem.items() if b <= _BLOCK_SMEM]
+    for s in fits:
+        if (blocks * s >= 2 * n_sm
+                and 2 * (smem[s] + _BLOCK_RESERVED) <= _SM_SMEM):
+            return s, True
+    return (fits[-1] if fits else 0), False
+
+
+def ring_plan(out_f: int, units: int, tokens: int, n_sm: int, smem_of,
+              rows_of) -> tuple:
+    """(token tile, cluster size) of a probe's ring GEMV: how many tokens a
+    block takes (8 or 16) and how many blocks split the ``units`` of a row
+    (P1c: superblocks, P3: stages of 128 ids), where ``smem_of(tokens,
+    units)`` is one block's shared memory and ``rows_of(tile)`` its rows,
+    on a card of ``n_sm`` SMs.
+
+    Per tile (:func:`ring_tile`'s first, then 8), the smallest split of 1,
+    2, 4, 8 whose blocks (the row blocks of every token tile, times the
+    split) are two or more for each SM and two of which fit an SM's shared
+    memory; failing that at every tile, the default tile's largest split
+    whose block fits (most blocks, least x each). The split is 0 where no
+    block fits."""
+    first = None
+    for tile in dict.fromkeys((ring_tile(tokens), 8)):
+        split, ok = _ring_split(-(-out_f // rows_of(tile)), units, tokens,
+                                tile, n_sm, smem_of)
+        if ok:
+            return tile, split
+        first = first or (tile, split)
+    return first
 
 
 def decode_route(out_f: int, positions: int, fmt: str, x: torch.Tensor,
