@@ -15,7 +15,8 @@ without them, or when any phase fails. Phases:
    ``vq_smallk_matmul``), one ``nvcc`` each, all at once; the
    ``-Xptxas -v`` lines of the prefill tile (``lowbit_tile.cuh``) in K1,
    K2, K3, K4, K6a, K6b and K7, of K8's kernel at each head size and of
-   the decode GEMV (``decode_gemv.cuh``) in K1, K2, K3, K4 and K5b and of
+   the decode GEMV (``decode_gemv.cuh``) in K1, K2, K3, K4, K5b and K5a
+   (its grouped instances) and of
    the probes' ring GEMV (``ring_gemv.cuh``) in P1c and P3, every
    instance of which must show no spill;
 2. each of K1-K4 at the four linear shapes of Llama-3.1-8B, on layers its
@@ -129,7 +130,9 @@ without them, or when any phase fails. Phases:
    to ``MIXTRAL_LAYERS`` = 2 of 32), the same four requests: per layer and forward
    call 2 launches of K1 / K2 (qkv, o), per layer and decode step 2 of
    K5, per layer and prefill chunk 16 of K6, K8 as above, every other
-   kernel 0; the
+   kernel 0; in int8 also the batched step of 8 slots (K5a at P=16) on
+   the loaded model, its graphs bit-equal to its eager step and its
+   replay profiled (``phase_batched_step``); the
    first prompt's prefill logits, and one decode step's, through the
    kernels against the plain versions; the profiled decode steps and the
    profiled long prefill must hold no device-to-host copy (the expert ids
@@ -568,10 +571,13 @@ FLASH_INSTANCES = {"flash_attention": 3}
 # the Hopper decode GEMV of K1–K4 at T <= 16 (decode_gemv.cuh): one
 # instance per token tile (N = 8, 16) and output type (bf16, f32), and in
 # K3 per scale group (64, 128) too; K5b's pairs run one token a block (N =
-# 8), one instance per output type
+# 8), one instance per output type; K5a's pairs grouped by expert
+# (decode_gemv_grouped) one per token tile of a pass's columns, block of
+# 32 or 64 rows and output type
 DECODE_KERNEL = "decode_gemv"
 DECODE_INSTANCES = {"w8_matmul": 4, "w4_matmul": 4, "w3_matmul": 4,
-                    "w2_matmul": 8, "w4_matmul_pairs": 2}
+                    "w2_matmul": 8, "w4_matmul_pairs": 2,
+                    "w8_matmul_pairs": 8}
 # the probes' asynchronous ring GEMV (ring_gemv.cuh): P3's instances per
 # vector length (4, 8), mode (fused, onehot-only), token tile (N = 8, 16)
 # and output type (bf16, f32); P1c's per token tile and output type
@@ -1088,6 +1094,108 @@ def phase_moe_kernels(fmt, device, shapes, n_experts=8, tokens=(1, 128, 512),
                 routes.append((rows[-1], lambda x=x, w=wq, s=scales, i=ids:
                                p_fn(x, w, s, i)))
         del wq, scales, w_bf16, w_last
+    return rows
+
+
+# K5a's id patterns beyond the top-k of a few tokens, on int8 stacks of
+# random codes: (model, E, (out, in_p, group), [(pattern, P)]); the
+# grouped kernel must serve every pair once whatever the ids
+PAIRS_PATTERNS = (
+    ("Mixtral-8x7B", 8, (28672, 4096, 2048),
+     [("one expert", 16), ("distinct", 8), ("one pair", 1),
+      ("more pairs than experts", 128), ("expert parallel", 16)]),
+    ("Moonlight-16B-A3B", 64, (2816, 2048, 2048),
+     [("one expert", 384), ("distinct", 64), ("one pair", 1),
+      ("more pairs than experts", 512), ("expert parallel", 48)]),
+)
+# pair counts at which each pair's row must not change when its batch
+# mates' ids do (model -> P)
+PAIRS_MATES = {"Mixtral-8x7B": (2, 16), "Moonlight-16B-A3B": (6, 48, 384)}
+
+
+def pattern_ids(gen, pattern: str, pairs: int, n_experts: int):
+    """Expert ids of one pattern, from a CPU generator: every pair on one
+    expert, every pair on another, random ids (P may pass E), or moe_local's
+    remap under expert parallelism: the pairs of other ranks' experts on
+    local expert 0."""
+    if pattern == "one expert":
+        return torch.full((pairs,), n_experts - 1, dtype=torch.int64)
+    if pattern == "distinct":
+        return torch.randperm(n_experts, generator=gen)[:pairs]
+    if pattern == "expert parallel":
+        ids = torch.randint(0, n_experts, (pairs,), generator=gen)
+        return torch.where(torch.rand(pairs, generator=gen) < 0.75, 0, ids)
+    return torch.randint(0, n_experts, (pairs,), generator=gen)
+
+
+def phase_pairs_ids(device, seed=0, trials=3, patterns=PAIRS_PATTERNS,
+                    mates=PAIRS_MATES) -> list:
+    """K5a at the id patterns of ``patterns`` against its plain version
+    (RTOL, ATOL_FRAC), and its batch-mates' invariance: at each P of
+    ``mates``, the top-k ids of P / k tokens and then, ``trials`` times,
+    the ids of a random part of the pairs redrawn; every pair whose id
+    stayed gets its row bit for bit. Returns one row per check."""
+    fn, ref = kernel_fns("w8_matmul_pairs")
+    cuda = torch.device(device).type == "cuda"
+    gen = torch.Generator(device=device).manual_seed(seed)
+    cpu = torch.Generator().manual_seed(seed)
+    top = {"Mixtral-8x7B": MIXTRAL_8X7B["num_experts_per_tok"],
+           "Moonlight-16B-A3B": MOONLIGHT_16B["num_experts_per_tok"]}
+    rows = []
+    for label, n_experts, (out_f, in_p, group), cases in patterns:
+        wq = torch.randint(-128, 128, (n_experts, out_f, in_p),
+                           generator=gen, device=device, dtype=torch.int8)
+        scales = torch.rand((n_experts, in_p // group, out_f), generator=gen,
+                            device=device) * 1e-2
+        for pattern, pairs in cases:
+            ids = pattern_ids(cpu, pattern, pairs, n_experts).to(
+                device=device, dtype=torch.int32)
+            x = torch.randn((pairs, in_p), generator=gen,
+                            device=device).to(torch.bfloat16)
+            launches = fn.launches
+            got, want = fn(x, wq, scales, ids), ref(x, wq, scales, ids)
+            _sync(device)
+            if fn.launches != launches + (1 if cuda else 0):
+                raise AssertionError("w8_matmul_pairs did not count its launch")
+            g, w = got.float(), want.float()
+            err = (g - w).abs()
+            if not (bool(torch.all(err <= RTOL * w.abs()
+                                   + ATOL_FRAC * w.abs().max()))
+                    and bool(torch.isfinite(g).all())):
+                raise AssertionError(
+                    f"w8_matmul_pairs {label} {pattern} P={pairs}: max |err| "
+                    f"{err.max().item():.4g} outside the tolerance")
+            rows.append(dict(model=label, pattern=pattern, P=pairs,
+                             distinct=len(set(ids.tolist())),
+                             max_abs_err=err.max().item()))
+            print("w8_matmul_pairs ids " + json.dumps(rows[-1]))
+        for pairs in mates.get(label, ()):
+            k = top[label]
+            ids = torch.cat([torch.randperm(n_experts, generator=cpu)[:k]
+                             for _ in range(-(-pairs // k))])[:pairs]
+            x = torch.randn((pairs, in_p), generator=gen,
+                            device=device).to(torch.bfloat16)
+            base = fn(x, wq, scales, ids.to(device=device, dtype=torch.int32))
+            kept = 0
+            for _ in range(trials):
+                keep = torch.rand(pairs, generator=cpu) < 0.5
+                redrawn = torch.where(
+                    keep, ids, torch.randint(0, n_experts, (pairs,),
+                                             generator=cpu))
+                got = fn(x, wq, scales,
+                         redrawn.to(device=device, dtype=torch.int32))
+                same = (got == base).all(dim=1).cpu()
+                if not bool(same[keep].all()):
+                    raise AssertionError(
+                        f"w8_matmul_pairs {label} P={pairs}: a pair's row "
+                        "changed with its batch mates' ids")
+                kept += int(keep.sum())
+            rows.append(dict(model=label, pattern="batch mates redrawn",
+                             P=pairs, trials=trials, rows_bit_equal=kept))
+            print("w8_matmul_pairs ids " + json.dumps(rows[-1]))
+        del wq, scales
+        if cuda:
+            torch.cuda.empty_cache()
     return rows
 
 
@@ -1907,6 +2015,30 @@ def phase_serving(model, gen, fmt: str, vocab: int, prompt_lens=(16, 128,
     return result
 
 
+def phase_batched_step(model, gen, fmt: str) -> dict:
+    """The batched decode step of ``SERVE``'s 8 slots on a loaded model,
+    without requests (slots of :func:`phase_serving`'s lengths, greedy and
+    sampled): its graphs against its eager step bit for bit over 12 steps
+    across a block boundary (:func:`batched_graph_against_eager`), then
+    the replayed step's wall, busy, each decode kernel's device ms and
+    routes (:func:`batched_breakdown`: a MoE model's pairs kernel at P = 8
+    slots × top-k, K5a's grouped decode GEMV)."""
+    from vptq_tpu_torch.serving.scheduler import Scheduler
+
+    sched = Scheduler(model, dtype=gen.dtype, **SERVE)
+    lengths = [1014, 3, 250, 600, 17, 900, 1009, 128][: sched.max_batch]
+    result = dict(blocks=batched_graph_against_eager(sched, lengths))
+    pairs = MOE_KERNELS.get(fmt, (None, None))[1]
+    in_decode = [k for k in (*format_kernels(fmt), pairs) if k]
+    result.update(batched_breakdown(
+        sched, lengths, {k: kernel_fns(k)[0].trace_tags for k in in_decode},
+        fmt))
+    print(f"batched step {fmt} " + json.dumps(result))
+    del sched
+    torch.cuda.empty_cache()
+    return result
+
+
 def graph_against_eager(model, gen, prompt, steps, temperature=0.0, seed=5):
     """``steps`` decode steps after ``prompt`` through the generator's
     CUDA graphs and then again through ``decode_loop`` from the same
@@ -1943,7 +2075,7 @@ def graph_against_eager(model, gen, prompt, steps, temperature=0.0, seed=5):
 def phase_e2e(device, source, fmt: str, vocab: int,
               prompt_lens=(16, 128, 512, 1536), new_tokens=32, max_seq=2048,
               seed=0, load_s=None, sensitivity=False, serve=None,
-              pp=False):
+              pp=False, batched_step=False):
     """from_pretrained(runtime_format=fmt) → one greedy request per prompt
     length, each decode chunk through the generator's CUDA graphs on the
     card; launch counts (replays included), logits, a decode step and,
@@ -1961,6 +2093,8 @@ def phase_e2e(device, source, fmt: str, vocab: int,
     ``serve``: then :func:`phase_serving` on the same model, with these
     arguments. ``pp``: then :func:`phase_pp` on the same model, its
     longest prompt against the tokens the ``Generator`` gave it.
+    ``batched_step``: on the card, then :func:`phase_batched_step` on the
+    same model (a MoE model's pairs kernel at P = 8 slots × top-k).
     int4-mixed counts each kernel's launches from the model's layers
     (:func:`linear_launches`)."""
     from vptq_tpu_torch import AutoModelForCausalLM
@@ -2133,6 +2267,8 @@ def phase_e2e(device, source, fmt: str, vocab: int,
             )
     if serve is not None:
         result["serving"] = phase_serving(model, gen, fmt, vocab, **serve)
+    if batched_step and cuda:
+        result["batched_step"] = phase_batched_step(model, gen, fmt)
     if pp:
         result["pp"] = phase_pp(model, gen, fmt, vocab, prompts[-1], outs[-1])
         step = result.get("decode_step", {}).get("wall_ms")
@@ -3680,17 +3816,21 @@ def step_routes(events, model, fmt: str, what: str, tokens: int = 1) -> dict:
     """The route check of one decode step's trace at ``tokens`` tokens (1,
     or a batched step's slots): each kernel's CUDA kernels fall in the
     families its wrapper routes that many tokens to (K2, K3, K5b: the
-    decode GEMV, ``decode_gemv`` with ``Whole`` or ``Pairs``; K1 and K4:
-    their ``takes_decode_gemv`` per linear; the rest their only family),
+    decode GEMV, ``decode_gemv`` with ``Whole`` or ``Pairs``; K1, K4 and
+    K5a: their ``takes_decode_gemv`` per call (K5a's ``Grouped`` past two
+    pairs); the rest their only family),
     every such family present and no other. Returns {kernel: families
-    seen}."""
+    seen}. A pairs kernel's rule (K5a's) counts pairs: the tokens times
+    the model's top-k."""
     want = {}
+    top_k = getattr(model.cfg, "num_experts_per_tok", None) or 1
     for kernel, out_f, in_p in decode_calls(model, fmt):
         families = tag_sets(kernel_fns(kernel)[0].trace_tags)
         decode = [t for t in families if "decode_gemv" in t]
         rule = getattr(importlib.import_module(
             f"vptq_tpu_torch.ops.{kernel}"), "takes_decode_gemv", None)
-        if decode and (rule is None or rule(tokens, out_f, in_p)):
+        count = tokens * top_k if kernel.endswith("_pairs") else tokens
+        if decode and (rule is None or rule(count, out_f, in_p)):
             picked = decode[0]
         else:
             picked = next(t for t in families if "decode_gemv" not in t)
@@ -5208,6 +5348,9 @@ def main() -> int:
             top_k=R1_EXPERTS["num_experts_per_tok"], tokens=(1, 128),
             pairs=(8, 64), routes=routes, in_record=False,
         )
+    # K5a at the id patterns the grouping must take, and its batch mates
+    with timed("pairs ids"):
+        phase_pairs_ids(device)
     # every decode call in one profiler session, the process's first: a
     # second session, for the eight K5b calls alone, recorded seven
     # kernels, three times running (alone in a process it records eight)
@@ -5276,6 +5419,8 @@ def main() -> int:
                         device, path, fmt, cfg["vocab_size"], **e2e_kwargs,
                         serve=serve.get(fmt),
                         pp=label == ENTRY_RUN and fmt in PP_FORMATS,
+                        batched_step=(label, fmt) == ("Mixtral-8x7B",
+                                                      "int8"),
                     )
                 print(f"e2e {label} " + json.dumps(e2e))
                 count(e2e)

@@ -940,6 +940,12 @@ _BF16_GEMV = ("void bf16mm::bf16_gemv<{t}, float>(__nv_bfloat16 const*, "
 _DECODE = ("void dgemv::decode_gemv<{p}, sel::{sel}, {n}, {g}, {o}, {s}>("
            "__nv_bfloat16 const*, lowbit::Planes, lowbit::ScalesOf<{s}>, "
            "{o}*, int, int, int, int, lowbit::Ids)")
+# K5a's: the decode GEMV grouped by expert, per token tile, consumer warps
+# and output type
+_GROUPED = ("void dgemv::decode_gemv_grouped<w8::W8, sel::Grouped, {n}, {c}, "
+            "{o}>("
+            "__nv_bfloat16 const*, unsigned char const*, float const*, {o}*, "
+            "int, int, int, int, int, lowbit::Ids)")
 # K3's and K4's: their policies (anonymous namespace), scale group g
 _ANON = "(anonymous namespace)::W{b}"
 _LOWBIT_GEMV = _GEMV.replace("w4::W4", "{p}").replace(", 4, 128,", ", {g},")
@@ -974,7 +980,10 @@ KERNEL_NAMES = {
     "w8_matmul_expert": [_W8.format(k="gemv", sel="Expert", t="16, "),
                          _W8.format(k="gemm", sel="Expert", t=""),
                          _TILE.format(p="w8::W8", sel="Expert", s="float")],
-    "w8_matmul_pairs": [_W8.format(k="gemv", sel="Pairs", t="1, ")],
+    "w8_matmul_pairs": [
+        _W8.format(k="gemv", sel="Pairs", t="1, "),
+        *(_GROUPED.format(n=n, c=c, o=o) for n in (1, 2) for c in (2, 4)
+          for o in ("float", "__nv_bfloat16"))],
     "w4_matmul": [_GEMV.format(sel="Whole"),
                   _TILE.format(p="w4::W4", sel="Whole", s="__nv_bfloat16"),
                   *(_DECODE.format(p="w4::W4", sel="Whole", n=n, g=128, o=o,
@@ -1012,13 +1021,16 @@ KERNEL_NAMES = {
     # one family alone: the decode GEMV's instances of K2 (sel::Whole) and
     # of K5b (sel::Pairs), the same kernel template with another policy
     "w4_matmul@decode_gemv", "w4_matmul_pairs@decode_gemv",
+    "w8_matmul_pairs@decode_gemv",
 ])
 def test_trace_tags_pick_each_kernel_family_and_no_other(name):
     """K1's and K6a's tags pick their GEMV's, their mma.sync tile's and
     their Hopper tile's names, K1's, K2's, K3's and K4's also their decode
     GEMV's (each instance; K3's and K4's at each scale group, whose
     policies lie in an anonymous namespace), K5b's its lowbit.cuh GEMV's
-    and its decode GEMV's (sel::Pairs), K3's and K4's their
+    and its decode GEMV's (sel::Pairs), K5a's its w8.cuh GEMV's
+    (sel::Pairs) and its grouped decode GEMV's (sel::Grouped, each
+    instance), K3's and K4's their
     lowbit.cuh GEMV's and their tile's, K7's its GEMV's and its SS tile's,
     K8's its kernel's at each head size, P3's and P1c's their ring GEMV's
     (each instance), and no name of another kernel
@@ -1491,6 +1503,32 @@ TINY_DEEPSEEK = dict(
     n_shared_experts=2, routed_scaling_factor=2.446,
     first_k_dense_replace=1, tie_word_embeddings=False,
 )
+
+
+def test_chip_smoke_pairs_ids_on_cpu():
+    """The smoke's ``phase_pairs_ids`` at a tiny size on the plain
+    versions: every pattern held (one expert, distinct, one pair, P past
+    E, expert parallelism's), and each pair's row bit-equal under redrawn
+    batch mates."""
+    patterns = (
+        ("Mixtral-8x7B", 8, (40, 256, 128),
+         [(p, n) for p, n in chip_smoke.PAIRS_PATTERNS[0][3]]),
+        ("Moonlight-16B-A3B", 64, (24, 256, 128),
+         [("one expert", 20), ("distinct", 64), ("one pair", 1),
+          ("more pairs than experts", 70), ("expert parallel", 12)]),
+    )
+    rows = chip_smoke.phase_pairs_ids(
+        "cpu", trials=2, patterns=patterns,
+        mates={"Mixtral-8x7B": (2, 16), "Moonlight-16B-A3B": (6,)})
+    held = [r for r in rows if "max_abs_err" in r]
+    assert [r["pattern"] for r in held] == [
+        "one expert", "distinct", "one pair", "more pairs than experts",
+        "expert parallel"] * 2
+    assert all(r["max_abs_err"] == 0.0 for r in held)
+    assert [r["distinct"] for r in held][:3] == [1, 8, 1]
+    mates = [r for r in rows if r["pattern"] == "batch mates redrawn"]
+    assert [r["P"] for r in mates] == [2, 16, 6]
+    assert all(r["rows_bit_equal"] > 0 for r in mates)
 
 
 def test_chip_smoke_deepseek_on_cpu():

@@ -161,15 +161,28 @@ def test_expert_plain_version_matches_pallas(jax_pallas, fmt, out_f, in_f,
         )
 
 
-@pytest.mark.parametrize("ids", [[2, 2, 0, 3, 1, 3], [3], [0, 1, 2, 3]])
+# the ids of the pairs cases; the stack holds max(4, max id + 1) experts.
+# After the first three, the patterns that share experts among pairs, as
+# K5a's kernel groups them: 8 tokens' distinct top-2 over 8 experts (P =
+# 16), 8 tokens' top-6 over 64 (P = 48), every pair on one expert
+PAIRS_IDS = [
+    [2, 2, 0, 3, 1, 3], [3], [0, 1, 2, 3],
+    sum(([t % 8, (3 * t + 5) % 8] for t in range(8)), []),
+    [(9 * t + 13 * k + 7) % 64 for t in range(8) for k in range(6)] + [63],
+    [2] * 12,
+]
+
+
+@pytest.mark.parametrize("ids", PAIRS_IDS)
 @pytest.mark.parametrize("fmt,out_f,in_f", [
     ("int8", 320, 1024), ("int4", 264, 2048),
 ])
 def test_pairs_plain_version_matches_pallas(jax_pallas, fmt, out_f, in_f, ids):
     """K5a / K5b's plain versions against the Pallas kernels (interpret
-    mode): repeated ids, one pair, and all experts once."""
+    mode): repeated ids, one pair, all experts once, and pairs sharing
+    experts: 16 over 8, 49 over 64, 12 on one."""
     rng = np.random.default_rng(out_f + len(ids))
-    wq, scales = _stack(rng, fmt, 4, out_f, in_f)
+    wq, scales = _stack(rng, fmt, max(4, max(ids) + 1), out_f, in_f)
     x = rng.standard_normal((len(ids), in_f)).astype(np.float32)
     fn, jfn = {
         "int8": (w8_matmul_pairs, jpg.w8_matmul_pairs),

@@ -85,7 +85,8 @@
 // columns read token 0 and are never stored). Pairs that pick one expert
 // each read its slab, as the TPU kernel does.
 // The policy's name is part of every instance's demangled name, so a
-// trace tells K2's decode GEMV from K5b's.
+// trace tells K2's decode GEMV from K5b's. K5a's pairs grouped by expert
+// (sel::Grouped) run decode_gemv_grouped, at the end of this file.
 //
 // A format policy P gives kPlanes, kParts and the tile hooks (w8::W8,
 // w4::W4, w2_matmul.cu W2, w3_matmul.cu W3). The weight comes as a
@@ -723,6 +724,507 @@ cudaError_t launch(const __nv_bfloat16* x, const lowbit::Planes& pl,
     return launch_n<P, Sel, 2, G, OutT, ST>(x, pl, sc, y, T, out, L, gs,
                                             split, ids, 1, stream);
   }
+}
+
+// ---------------------------------------------------------------------
+// K5a w8_matmul_pairs: the pairs grouped by expert (sel::Grouped).
+//
+// A grid of (split, row blocks, S), S = min(P, E) expert slots, clusters
+// of `split` blocks along x as above: it depends on P, E and the shapes
+// alone, so that a CUDA graph can hold the launch.
+//  * Grouping on the card. The blocks of slot s find the s-th distinct
+//    expert the ids pick (expert_select.cuh: a bitmap of the clamped ids,
+//    its s-th set bit; a slot past the distinct experts exits at once, its
+//    whole cluster with it) and stream that expert's rows of the stack
+//    once for all of its pairs: the pairs are the product's N columns, in
+//    ascending p, at most `cols` (8·NT at most) a pass, which one consumer
+//    warp's ballots over the ids collect. An expert with more pairs than a
+//    pass takes several, each reading its rows again. Column t of a pass
+//    reads x row list[t] (a column past the pass's pairs reads its last
+//    one and is never stored) and writes y row list[t].
+//  * One ring for all a stage needs. The producer warp copies, into one
+//    slot, the block's rows of the stage (as decode_gemv), the stage's 128
+//    positions of each of the pass's x rows (256 bytes a column, 16-byte
+//    chunk q of column t at q ^ (t & 1): the B-fragment loads of a quarter
+//    warp hit 8 bank groups) and, where the stage ends a scale group in
+//    the block's range, the rows' f32 scales. Nothing is staged before
+//    the loop: the first product waits only for the first stage (staging
+//    x and the scales of the whole range first took 3.5 to 8.6 µs of
+//    blocks of 10 to 47 µs on an H100, PERF.md). Blocks of 32 rows take a
+//    ring of 8 slots, of 64 rows 4: 32 KB of weight stages a block.
+//  * x lies as it comes; each B fragment pairs its positions (0, 2), (1,
+//    3) with two byte permutes, to match the weight words' bytes.
+// The arithmetic is decode_gemv's for one part and one plane (int8):
+// column n of a product depends on column n of B alone, so a pair's row
+// of y is the same bits whichever pairs share its block and its columns;
+// with the plan fixed (P, E), the other pairs' ids cannot change it.
+// Shared memory: barriers, the ring, the partials the cluster's ranks
+// push, the grouping (the bitmap, the expert and its count of pairs, the
+// pass's pairs).
+
+// Timeline hooks of the grouped kernel, empty unless a build defines
+// DG_STAMP_IF (examples/pairs_timeline.py stamps %globaltimer there).
+#ifndef DG_STAMP_IF
+#define DG_STAMP_IF(cond, i)
+#endif
+
+constexpr int kMaxCols = 16;      // the columns of a pass: two tiles
+constexpr int kGroupBytes = 128;  // bitmap, expert, count, kMaxCols pairs
+
+// A grouped block of kCons consumer warps of 16 rows (2 or 4) and one
+// producer warp.
+template <int kCons>
+struct GroupedBlock {
+  static constexpr int kConsumers = kCons;
+  static constexpr int kRows = 16 * kCons;
+  static constexpr int kThreads = 32 * (kCons + 1);
+  static constexpr int kRing = kCons == 2 ? 8 : 4;
+};
+
+// The blocks an SM the registers must allow (a stage's B fragments take
+// 16 registers a thread a token tile): six of 32 rows at one tile, five
+// at two, three of 64 rows (at four one tile's spilled 12 bytes)
+template <int NT, int kCons>
+constexpr int kGroupedBlocks = kCons == 2 ? (NT == 1 ? 6 : 5) : 3;
+
+// the bytes of one slot: the rows' stage, the pass's x, the rows' scales
+__host__ __device__ constexpr int grouped_slot_bytes(int rows, int cols) {
+  return rows * kStage + cols * kStage * 2 + rows * 4;
+}
+
+inline size_t grouped_smem_bytes(int rows, int cols) {
+  const int ring = rows == 32 ? GroupedBlock<2>::kRing : GroupedBlock<4>::kRing;
+  return 128 + kBars + (size_t)ring * grouped_slot_bytes(rows, cols) +
+         (size_t)3 * rows * cols * 4 + kGroupBytes;
+}
+
+// 4 bytes from global to shared memory
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(dst),
+               "l"(reinterpret_cast<uint64_t>(src))
+               : "memory");
+}
+
+// x: (P, L) bf16; wq: (E, out, L) bytes of format P; scales: (E, groups,
+// out) f32, a group gs stages; y: (P, out); ids: the P expert ids and E.
+template <class P, class Sel, int NT, int kCons, typename OutT>
+__global__ void __launch_bounds__(GroupedBlock<kCons>::kThreads,
+                                  kGroupedBlocks<NT, kCons>)
+    decode_gemv_grouped(const __nv_bfloat16* __restrict__ x,
+                        const uint8_t* __restrict__ wq,
+                        const float* __restrict__ scales,
+                        OutT* __restrict__ y, int pairs, int out, int L,
+                        int gs, int cols, lowbit::Ids ids) {
+  static_assert(P::kPlanes == 1 && P::kParts == 1 && P::kTileSlots == 1,
+                "one plane and one part of one byte a level (int8)");
+  static_assert(Sel::kIds && Sel::kPairs &&
+                    Sel::kWords * 32 == Sel::kMaxExperts,
+                "the pairs grouped by expert");
+  using B = GroupedBlock<kCons>;
+  constexpr int kRing = B::kRing;
+  constexpr int kConsumers = B::kConsumers;
+  constexpr int kRows = B::kRows;
+  constexpr int kThreads = B::kThreads;
+  static_assert(16 * kRing <= kBars && (kRing & (kRing - 1)) == 0,
+                "the ring's barriers fit their area");
+  extern __shared__ __align__(16) unsigned char dg_smem[];
+  unsigned char* sm = dg_smem + ((128 - (smem_u32(dg_smem) & 127)) & 127);
+  const uint32_t full = smem_u32(sm), empty = full + 8 * kRing;
+  unsigned char* ring = sm + kBars;
+  const uint32_t ring_u32 = smem_u32(ring);
+  // a slot: the rows' stage, then x of the pass's pairs, then the scales
+  const int slot_bytes = grouped_slot_bytes(kRows, cols);
+  const int x_off = kRows * kStage;
+  const int s_off = x_off + cols * kStage * 2;
+  // the partials the cluster's ranks push: [rank][kind][row][column] f32
+  float* rx = reinterpret_cast<float*>(ring + (size_t)kRing * slot_bytes);
+  unsigned* bits = reinterpret_cast<unsigned*>(rx + (size_t)3 * kRows * cols);
+  int* info = reinterpret_cast<int*>(bits + Sel::kWords);  // expert, count
+  int* list = info + 2;  // the pass's pairs
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int split = (int)gridDim.x;
+  const int rank = (int)cluster.block_rank();
+  const int n = L / kStage;  // stages of a row
+  int a, b;
+  range_of(rank, split, n, a, b);
+  const int nl = b - a;
+  const int n0 = blockIdx.y * kRows;
+  const int rows = min(kRows, out - n0);
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+
+  // the block's expert: the blockIdx.z-th distinct one of the ids
+  if (threadIdx.x < Sel::kWords) bits[threadIdx.x] = 0u;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kRing; ++i) {
+      bar_init(full + 8 * i, 32);
+      bar_init(empty + 8 * i, kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  DG_STAMP_IF(true, 0);
+  sel::mark_experts(ids.ids, ids.n_experts, pairs, bits);
+  __syncthreads();
+  if (warp == 0) {
+    const int ex = sel::nth_expert(bits, (int)blockIdx.z);
+    if (lane == 0) info[0] = ex;
+  }
+  __syncthreads();
+  const int ex = info[0];
+  if (ex < 0) return;  // no expert for this slot (nor for its cluster)
+  DG_STAMP_IF(true, 1);
+  wq += (size_t)ex * (size_t)out * (size_t)L;
+  scales += (size_t)ex * (size_t)(n / gs) * (size_t)out;
+
+  if (warp == kConsumers) {
+    // the producer: a pass's stages once its pairs are collected (barrier
+    // 2), each into the slot the consumers freed: the rows as decode_gemv
+    // copies them, the pass's x chunks, the scales where a group ends
+    constexpr int kPerRow = kStage / 16;
+    constexpr int kRowsAtOnce = 32 / kPerRow;
+    const int c = lane % kPerRow;
+    const int row0 = lane / kPerRow;
+    const uint8_t* src =
+        wq + (size_t)(n0 + row0) * L + (size_t)a * kStage + c * 16;
+    const uint32_t dst0 = ring_u32 + row0 * kStage + (wswz(c, row0) << 4);
+    // the rows of the first stages need only the expert: out before the
+    // pass's pairs are known (their slots start free)
+    const int early = min(nl, kRing);
+    for (int i = 0; i < early; ++i)
+#pragma unroll
+      for (int r = 0; r < kRows / kRowsAtOnce; ++r)
+        if (row0 + r * kRowsAtOnce < rows)
+          cp_async16(dst0 + i * slot_bytes + r * kRowsAtOnce * kStage,
+                     src + (size_t)i * kStage + (size_t)r * kRowsAtOnce * L);
+    int passes = 1, it = 0;
+    for (int k = 0; k < passes; ++k) {
+      asm volatile("bar.sync 2, %0;" ::"n"(kThreads) : "memory");
+      const int count = info[1];
+      passes = (count + cols - 1) / cols;
+      const int T = min(cols, count - k * cols);
+      int g = a / gs, in_group = a - g * gs;
+      for (int i = 0; i < nl; ++i, ++it) {
+        const int slot = it % kRing;
+        const uint32_t at = ring_u32 + slot * slot_bytes;
+        if (k > 0 || i >= early) {
+          if (lane == 0) bar_wait(empty + 8 * slot, ((it / kRing) & 1) ^ 1);
+          __syncwarp();
+          const uint32_t dst = dst0 + slot * slot_bytes;
+          const uint8_t* from = src + (size_t)i * kStage;
+#pragma unroll
+          for (int r = 0; r < kRows / kRowsAtOnce; ++r)
+            if (row0 + r * kRowsAtOnce < rows)
+              cp_async16(dst + r * kRowsAtOnce * kStage,
+                         from + (size_t)r * kRowsAtOnce * L);
+        }
+        for (int q = lane; q < T * (kStage / 8); q += 32) {
+          const int t = q / (kStage / 8);
+          const int ch = q - t * (kStage / 8);
+          cp_async16(at + x_off + t * (kStage * 2) + (xswz(ch, t) << 4),
+                     x + (size_t)list[t] * L + (size_t)(a + i) * kStage +
+                         ch * 8);
+        }
+        if (in_group == gs - 1 || i == nl - 1)
+          for (int r = lane; r < rows; r += 32)
+            cp_async4(at + s_off + r * 4, scales + (size_t)g * out + n0 + r);
+        cp_async_arrive(full + 8 * slot);
+        if (++in_group == gs) {
+          in_group = 0;
+          ++g;
+        }
+      }
+      if (split > 1) {
+        // the pass's two cluster phases: every rank's loop is done, every
+        // rank's partials are in
+        __syncwarp();
+        cluster_arrive_relaxed();
+        cluster_wait();
+        cluster_arrive_release();
+        cluster_wait();
+      }
+    }
+    asm volatile("cp.async.wait_all;" ::: "memory");
+    return;
+  }
+
+  constexpr int kStride = 32 * kConsumers;
+  const int gid = lane >> 2;
+  const int tig = lane & 3;
+  const int r0 = warp * 16 + gid;  // rows r0 and r0 + 8 of the block
+  const int par = gid & 1;         // of r0, r0 + 8 and columns 8j + gid
+  const int xe = 16 - 32 * par;    // from chunk e = 0 to e = 1
+  int passes = 1;
+  for (int k = 0, it0 = 0; k < passes; ++k, it0 += nl) {
+    // the pass's pairs (once the last pass's are written), then the
+    // producer may stream the pass
+    if (k > 0) asm volatile("bar.sync 1, %0;" ::"n"(kStride) : "memory");
+    if (warp == 0) {
+      const int count = sel::collect_pairs(ids.ids, ids.n_experts, pairs,
+                                           ex, k * cols, cols, list);
+      if (lane == 0 && k == 0) info[1] = count;
+    }
+    asm volatile("bar.sync 1, %0;" ::"n"(kStride) : "memory");
+    asm volatile("barrier.cta.arrive 2, %0;" ::"n"(kThreads) : "memory");
+    const int count = info[1];
+    passes = (count + cols - 1) / cols;
+    const int T = min(cols, count - k * cols);
+    DG_STAMP_IF(k == 0, 2);
+
+    // this thread's chunk h of rows r0 and r0 + 8 and its x chunks 2·tig +
+    // 8h + e of column 8j + gid in a slot
+    const unsigned char* wrow[kH];
+#pragma unroll
+    for (int h = 0; h < kH; ++h)
+      wrow[h] = ring + r0 * kStage + 16 * tig + 64 * (h ^ par);
+    const unsigned char* xrow[NT];
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+      xrow[j] = ring + x_off + min(8 * j + gid, T - 1) * (kStage * 2) +
+                32 * tig + 16 * par;
+    float tot[NT][4], cut[2][NT][4], acc[NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        tot[j][e] = cut[0][j][e] = cut[1][j][e] = acc[j][e] = 0.f;
+    int g = a / gs, in_group = a - g * gs;
+    const int first_group = g;
+    for (int i = 0; i < nl; ++i) {
+      const int it = it0 + i;
+      const int slot = it & (kRing - 1);
+      const int at = slot * slot_bytes;
+      const bool group_end = in_group == gs - 1 || i == nl - 1;
+      bar_wait(full + 8 * slot, (it / kRing) & 1);
+      DG_STAMP_IF(k == 0 && i == 0, 3);
+      // this thread's words of rows r0 and r0 + 8, its B fragments of the
+      // stage (positions (0, 2), (1, 3) of each four, by byte permutes)
+      // and, where the group ends, its rows' scales; then the slot is free
+      uint32_t wd[2][kH][4], bx[kH][NT][4][2];
+#pragma unroll
+      for (int h = 0; h < kH; ++h) {
+        const unsigned char* w = wrow[h] + at;
+        const uint4 v0 = *reinterpret_cast<const uint4*>(w);
+        const uint4 v1 = *reinterpret_cast<const uint4*>(w + 8 * kStage);
+        wd[0][h][0] = v0.x;
+        wd[0][h][1] = v0.y;
+        wd[0][h][2] = v0.z;
+        wd[0][h][3] = v0.w;
+        wd[1][h][0] = v1.x;
+        wd[1][h][1] = v1.y;
+        wd[1][h][2] = v1.z;
+        wd[1][h][3] = v1.w;
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const uint4 v = *reinterpret_cast<const uint4*>(
+                xrow[j] + at + 128 * h + e * xe);
+            bx[h][j][2 * e][0] = __byte_perm(v.x, v.y, 0x5410u);
+            bx[h][j][2 * e][1] = __byte_perm(v.x, v.y, 0x7632u);
+            bx[h][j][2 * e + 1][0] = __byte_perm(v.z, v.w, 0x5410u);
+            bx[h][j][2 * e + 1][1] = __byte_perm(v.z, v.w, 0x7632u);
+          }
+      }
+      float s0 = 0.f, s1 = 0.f;
+      if (group_end) {
+        const float* sp = reinterpret_cast<const float*>(ring + at + s_off);
+        s0 = sp[r0];
+        s1 = sp[r0 + 8];
+      }
+      __syncwarp();
+      if (lane == 0) bar_arrive(empty + 8 * slot);
+
+#pragma unroll
+      for (int h = 0; h < kH; ++h)
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const uint32_t t[4][1] = {{wd[0][h][u]},
+                                    {wd[1][h][u]},
+                                    {wd[0][h][u] >> 8},
+                                    {wd[1][h][u] >> 8}};
+          const uint32_t af[4] = {
+              level_pair<P>(t[0], 0), level_pair<P>(t[1], 0),
+              level_pair<P>(t[2], 0), level_pair<P>(t[3], 0)};
+#pragma unroll
+          for (int j = 0; j < NT; ++j) mma_bf16(acc[j], af, bx[h][j][u]);
+        }
+      if (group_end) {
+        // the group ends: scaled here when it lies inside the range,
+        // kept unscaled for the cluster's sum when the range cuts it
+        const bool whole = g * gs >= a && (g + 1) * gs <= b;
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          if (whole) {
+            tot[j][0] += acc[j][0] * s0;
+            tot[j][1] += acc[j][1] * s0;
+            tot[j][2] += acc[j][2] * s1;
+            tot[j][3] += acc[j][3] * s1;
+          } else if (g == first_group) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) cut[0][j][e] = acc[j][e];
+          } else {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) cut[1][j][e] = acc[j][e];
+          }
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+        }
+      }
+      if (++in_group == gs) {
+        in_group = 0;
+        ++g;
+      }
+    }
+    DG_STAMP_IF(k + 1 == passes, 4);
+
+    if (split == 1) {
+      // no cluster: every group was whole, the totals are the pairs' y
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int tok = 8 * j + 2 * tig + (e & 1);
+          const int o = n0 + r0 + 8 * (e >> 1);
+          if (tok < T && o < out)
+            y[(size_t)list[tok] * out + o] = lowbit::cvt_out<OutT>(tot[j][e]);
+        }
+      DG_STAMP_IF(k + 1 == passes, 5);
+      continue;
+    }
+    // every rank's loop is done: push this block's [body, cut 0, cut 1] of
+    // each row to the rank that writes it (rank q: rows q·kRows/split ..),
+    // at [this rank][kind][row][column]
+    __syncwarp();
+    cluster_arrive_release();
+    cluster_wait();
+    const int per = kRows / split;
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int tok = 8 * j + 2 * tig + (e & 1);
+        const int row = r0 + 8 * (e >> 1);
+        if (tok < T) {
+          const int q = row / per;
+          float* theirs = cluster.map_shared_rank(rx, q);
+          const int at = ((rank * 3) * per + row - q * per) * T + tok;
+          theirs[at] = tot[j][e];
+          theirs[at + per * T] = cut[0][j][e];
+          theirs[at + 2 * per * T] = cut[1][j][e];
+        }
+      }
+    __syncwarp();
+    cluster_arrive_release();
+    cluster_wait();
+    // this rank's rows: the ranks' partials summed in rank order; a cut
+    // group's unscaled partials summed before its scale
+    for (int e = threadIdx.x; e < per * T; e += kStride) {
+      const int t = e / per;
+      const int row = e - t * per;
+      const int o = n0 + rank * per + row;
+      if (o >= out) continue;
+      float total = 0.f, open = 0.f;
+      int open_g = -1;
+      for (int r = 0; r < split; ++r) {
+        const float* part = rx + ((r * 3) * per + row) * T + t;
+        total += part[0];
+        int cuts[2];
+        cuts_of(r, split, n, gs, cuts);
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          if (cuts[q] < 0) continue;
+          if (cuts[q] != open_g) {
+            if (open_g >= 0) total += open * scales[(size_t)open_g * out + o];
+            open = 0.f;
+            open_g = cuts[q];
+          }
+          open += part[(1 + q) * per * T];
+        }
+      }
+      if (open_g >= 0) total += open * scales[(size_t)open_g * out + o];
+      y[(size_t)list[t] * out + o] = lowbit::cvt_out<OutT>(total);
+    }
+    DG_STAMP_IF(k + 1 == passes, 5);
+  }
+}
+
+// One launch of the grouped kernel (see launch_grouped).
+template <class P, class Sel, int NT, int kCons, typename OutT>
+cudaError_t launch_grouped_n(const __nv_bfloat16* x, const uint8_t* wq,
+                             const float* scales, OutT* y, int pairs,
+                             int out, int L, int gs, int cols, int split,
+                             const lowbit::Ids& ids, cudaStream_t stream) {
+  using B = GroupedBlock<kCons>;
+  static std::atomic<uint64_t> done{0};
+  const int slots = pairs < ids.n_experts ? pairs : ids.n_experts;
+  const size_t smem = grouped_smem_bytes(B::kRows, cols);
+  if (smem > (size_t)kMaxSmem || out > 65535 * B::kRows || slots > 65535)
+    return cudaErrorInvalidValue;
+  auto kernel = decode_gemv_grouped<P, Sel, NT, kCons, OutT>;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  const uint64_t bit = 1ull << (dev & 63);
+  if (!(done.load(std::memory_order_relaxed) & bit)) {
+    e = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kMaxSmem);
+    if (e != cudaSuccess) return e;
+    done.fetch_or(bit, std::memory_order_relaxed);
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(split, (out + B::kRows - 1) / B::kRows, slots);
+  cfg.blockDim = dim3(B::kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = split;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t l = cudaLaunchKernelEx(&cfg, kernel, x, wq, scales, y,
+                                           pairs, out, L, gs, cols, ids);
+  return l != cudaSuccess ? l : cudaGetLastError();
+}
+
+// The grouped pairs GEMV of format P (one plane, one part: int8) on
+// `pairs` rows of bf16 x, each through the expert its id picks in the
+// stack wq (E = ids.n_experts slabs of (out, L) bytes, at most
+// Sel::kMaxExperts) with f32 scales (E, L / 128 / gs, out): cols columns
+// a pass (1 to kMaxCols; up to 8 one token tile, past it two), rows the
+// rows of a block (32 or 64), split the cluster's blocks (1, 2, 4 or 8,
+// at most L / 128), all planned on the host from P, E and the shapes
+// (ops/scaled_matmul.py pairs_plan). Returns the CUDA error of the launch
+// (cudaErrorInvalidValue for what it does not take).
+template <class P, class Sel, typename OutT>
+cudaError_t launch_grouped(const __nv_bfloat16* x, const uint8_t* wq,
+                           const float* scales, OutT* y, int pairs, int out,
+                           int L, int gs, int cols, int rows, int split,
+                           const lowbit::Ids& ids, cudaStream_t stream) {
+  const int n = L / kStage;
+  if (pairs < 1 || out < 1 || L < kStage || L % kStage || gs < 1 ||
+      n % gs || cols < 1 || cols > kMaxCols || (rows != 32 && rows != 64) ||
+      split < 1 || split > kMaxSplit || (split & (split - 1)) || split > n ||
+      ids.ids == nullptr || ids.n_experts < 1 ||
+      ids.n_experts > Sel::kMaxExperts)
+    return cudaErrorInvalidValue;
+  if (rows == 32)
+    return cols <= 8 ? launch_grouped_n<P, Sel, 1, 2, OutT>(
+                           x, wq, scales, y, pairs, out, L, gs, cols, split,
+                           ids, stream)
+                     : launch_grouped_n<P, Sel, 2, 2, OutT>(
+                           x, wq, scales, y, pairs, out, L, gs, cols, split,
+                           ids, stream);
+  return cols <= 8 ? launch_grouped_n<P, Sel, 1, 4, OutT>(
+                         x, wq, scales, y, pairs, out, L, gs, cols, split,
+                         ids, stream)
+                   : launch_grouped_n<P, Sel, 2, 4, OutT>(
+                         x, wq, scales, y, pairs, out, L, gs, cols, split,
+                         ids, stream);
 }
 
 }  // namespace dgemv

@@ -30,7 +30,8 @@
 //    (ops/scaled_matmul.py decode_split): the Hopper decode GEMV of
 //    decode_gemv.cuh with the policy W8 below (a cp.async weight ring,
 //    a cluster that splits in_p, the tile's unpack into mma.sync).
-//  * w8_gemv (T <= 16 otherwise: one expert (K6a), the pairs (K5a), and a
+//  * w8_gemv (T <= 16 otherwise: one expert (K6a), the pairs of K5a up to
+//    two (past them K5a runs decode_gemv.cuh's grouped GEMV), and a
 //    group that is no multiple of 128 or a plan of 0, routed by shape,
 //    never after a failed launch): each warp owns kRows weight rows and streams
 //    them with 16-byte loads, four loads per row in flight; x for the

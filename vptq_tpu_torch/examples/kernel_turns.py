@@ -20,11 +20,22 @@ plain and ``torch.matmul`` ms summed over the shapes (K8: one line per
 case, its yardstick ``scaled_dot_product_attention``; a probe: one line
 per mode and shape), and the device-to-host copies of two launches each
 of K6b and K6a (T = 512, 2048) in the ``torch.profiler`` trace, with the
-names of their kernels. ``--probes-only`` runs the probe phase alone.
+names of their kernels. ``--probes-only`` runs the probe phase alone;
+``--pairs-only`` K5a alone, at the tree's ``phase_moe_kernels`` on int8
+stacks: Mixtral-8x7B's two expert shapes over 8 experts at P = 2 and 16
+(a line sums a layer's gate_up and down) and Moonlight-16B-A3B's over 64
+at P = 6, 48 and 384 (a line per shape: gate_up's group 2048, down's
+512). ``--moe-steps DIR`` runs no kernel phase: on synthetic int8
+checkpoints of Mixtral-8x7B (32 layers) and Moonlight-16B-A3B (27),
+written once into DIR by the first turn and read by every turn, the
+tree's graphed batch-1 decode step (``graph_breakdown``) and its batched
+step of 8 slots (``batched_breakdown``: K5 at P = 8 × top-k), wall, busy
+and each decode kernel's device ms.
 
     python -m vptq_tpu_torch.examples.kernel_turns \\
         --tree P=build/tree/parent --tree C=. --order P C C P \\
-        [--out DIR] [--device cuda] [--probes-only]
+        [--out DIR] [--device cuda] \\
+        [--probes-only | --pairs-only | --moe-steps DIR]
 
 Without ``--tree`` and ``--order`` it runs one turn in the current
 directory. ``--out`` keeps every row of each turn as
@@ -56,17 +67,21 @@ PROBES = ("w4_probe_matmul", "w4_i32x8_matmul", "w4_raw_probe",
 # One turn, run with ``python -c`` from the root of its tree so that the
 # tree's own chip_smoke and vptq_tpu_torch are the ones imported:
 # argv = label, device, out file ("" for none), "1" for the probe phase
-# alone
+# alone, "1" for K5a alone, the MoE steps' checkpoint directory ("" for
+# none)
 _TURN = r'''
-import json, sys, time
+import json, shutil, sys, time
+from pathlib import Path
 import torch
 import chip_smoke as cs
 from vptq_tpu_torch.ops import _build
 
-label, dev, out, probes_only = sys.argv[1:5]
+label, dev, out, probes_only, pairs_only, moe_steps = sys.argv[1:7]
 probes_only = probes_only == "1"
-KERNELS = () if probes_only else %(kernels)r
-PROBES = %(probes)r
+pairs_only = pairs_only == "1" or bool(moe_steps)
+KERNELS = (() if probes_only else ("w8_matmul_pairs",) if pairs_only
+           else %(kernels)r)
+PROBES = () if pairs_only else %(probes)r
 torch.backends.cuda.matmul.allow_tf32 = False
 t0 = time.perf_counter()
 if dev == "cuda":
@@ -83,19 +98,68 @@ if dev == "cpu":
     tokens, iters = (1, 20), 1
     flash_cases = (("heads", 1, 40, 4, 2, 16, 1.0, True),)
 rows = []
+if moe_steps:
+    from vptq_tpu_torch import AutoModelForCausalLM
+    from vptq_tpu_torch.serving.scheduler import Scheduler
+
+    models = (("Mixtral-8x7B", cs.MIXTRAL_8X7B),
+              ("Moonlight-16B-A3B", cs.MOONLIGHT_16B))
+    if dev == "cpu":
+        models = tuple((n, dict(c, num_hidden_layers=1)) for n, c in models)
+    for name, cfg in models:
+        path = Path(moe_steps) / name
+        if not (path / "config.json").exists():
+            made, secs = cs.write_checkpoint(cfg, cs.V8_K65536)
+            shutil.move(made, path)
+            print(f"[{label}] {name} checkpoint written in {secs:.1f} s",
+                  flush=True)
+        engine = AutoModelForCausalLM.from_pretrained(
+            str(path), runtime_format="int8", device=dev, max_seq=2048)
+        model, gen = engine.model, engine.generator
+        prompt = list(range(1, 17))
+        with torch.inference_mode():
+            gen.generate(prompt, max_new_tokens=4)
+        if dev == "cuda":
+            tags = {k: cs.kernel_fns(k)[0].trace_tags
+                    for k in ("w8_matmul", "w8_matmul_pairs")}
+            one = cs.graph_breakdown(model, gen, prompt, tags, "int8")
+            sched = Scheduler(model, dtype=gen.dtype, **cs.SERVE)
+            lengths = [1014, 3, 250, 600, 17, 900, 1009, 128]
+            eight = cs.batched_breakdown(sched, lengths, tags, "int8")
+            for what, r in (("batch 1", one), ("8 slots", eight)):
+                print(f"[{label}] {name} int8 {what} step: " + json.dumps(
+                    dict(wall_ms=r["wall_ms"], busy_ms=r["device_busy_ms"],
+                         kernels_per_step=r["kernels_per_step"],
+                         kernel_ms=r["kernel_ms"], routes=r["routes"])),
+                      flush=True)
+            del sched
+        del engine, model, gen
+        torch.cuda.empty_cache() if dev == "cuda" else None
+    KERNELS = ()
+if pairs_only and not moe_steps:
+    moon = cs.moe_shapes(cs.MOONLIGHT_16B) if dev == "cuda" else moe_shapes
+    rows += cs.phase_moe_kernels("int8", dev, moe_shapes, tokens=(),
+                                 pairs=(2, 16), iters=iters)
+    rows += cs.phase_moe_kernels(
+        "int8", dev, moon, n_experts=cs.MOONLIGHT_16B["n_routed_experts"],
+        top_k=cs.MOONLIGHT_16B["num_experts_per_tok"], tokens=(),
+        pairs=(6, 48, 384), iters=iters, in_record=False)
+    KERNELS = ()
 for name in KERNELS:
     if name in cs.FORMAT_KERNEL.values():
         # K1–K4 also at T = 4 and 16: their decode GEMV's two instances
         toks = (tokens[0], 4, 16) + tokens[1:]
         rows += cs.phase_kernel(name, dev, shapes, toks, iters=iters)
-if not probes_only:
+if KERNELS and not probes_only:
     for fmt in ("int4", "int8"):
         rows += cs.phase_moe_kernels(fmt, dev, moe_shapes, tokens=tokens,
                                      iters=iters)
     rows += cs.phase_bf16(dev, shapes, tokens, iters=iters)
     rows += cs.phase_flash(dev, flash_cases, iters=iters)
-rows += cs.phase_probes(dev, shapes=probe_shapes, iters=iters, cases=False)
-if dev == "cuda" and not probes_only:
+if PROBES:
+    rows += cs.phase_probes(dev, shapes=probe_shapes, iters=iters,
+                            cases=False)
+if dev == "cuda" and KERNELS and not probes_only:
     # device-to-host copies of two launches of each expert kernel at
     # Mixtral's down shape: the id stays on the card
     from torch.profiler import ProfilerActivity, profile
@@ -153,6 +217,12 @@ def main(argv=None) -> None:
     parser.add_argument("--device", default="cuda")
     parser.add_argument("--probes-only", action="store_true",
                         help="the probe phase alone")
+    parser.add_argument("--pairs-only", action="store_true",
+                        help="K5a alone, at Mixtral's and Moonlight's "
+                             "expert shapes")
+    parser.add_argument("--moe-steps", default="", metavar="DIR",
+                        help="Mixtral's and Moonlight's int8 decode steps "
+                             "at full depth, checkpoints kept in DIR")
     args = parser.parse_args(argv)
     device = pick_device(args.device)
     trees = dict(t.split("=", 1) for t in args.tree or ["C=."])
@@ -168,7 +238,9 @@ def main(argv=None) -> None:
                if args.out else "")
         run = subprocess.run(
             [sys.executable, "-c", code, label, device.type, out,
-             "1" if args.probes_only else "0"],
+             "1" if args.probes_only else "0",
+             "1" if args.pairs_only else "0",
+             str(Path(args.moe_steps).resolve()) if args.moe_steps else ""],
             cwd=trees[label], capture_output=True, text=True,
         )
         for line in run.stdout.splitlines():

@@ -27,8 +27,8 @@ from vptq_tpu_torch.ops import _build
 __all__ = [
     "DECODE_FORMATS", "DECODE_SPLITS", "DECODE_STAGE", "check_pairs",
     "decode_blocks", "decode_route", "decode_rows", "decode_smem",
-    "decode_split", "grouped_reference", "launch", "pick_expert",
-    "ring_plan", "ring_tile", "sm_count",
+    "decode_split", "grouped_reference", "launch", "pairs_plan",
+    "pairs_smem", "pick_expert", "ring_plan", "ring_tile", "sm_count",
 ]
 
 # The Hopper decode GEMV of K1–K4 (csrc/decode_gemv.cuh) at T <= 16, and
@@ -104,6 +104,62 @@ def decode_split(out_f: int, positions: int, parts: int, tokens: int,
                 and (tokens > 8 or pair)):
             return s
     return fits[-1] if fits else 0
+
+
+# K5a's grouped pairs GEMV (csrc/decode_gemv.cuh decode_gemv_grouped,
+# sel::Grouped in csrc/expert_select.cuh): a grid of (split, row blocks,
+# min(P, E) expert slots); the blocks of a slot stream one distinct
+# expert's rows once for all of its pairs, at most `cols` of them a pass
+# (the product's N: one 8-column tile up to 8, two past it), through a
+# ring whose slots hold a stage of the block's rows, of the pass's x rows
+# and of the rows' scales (8 slots of 32-row blocks, 4 of 64-row ones).
+# The bitmap's bits bound E.
+PAIRS_MAX_EXPERTS = 256
+PAIRS_MAX_COLS = 16
+PAIRS_RING = {32: 8, 64: 4}
+# up to this many pairs every expert has one (a token's top-k are
+# distinct) and w8.cuh's GEMV, one pair a grid row, is the faster: the
+# plan's split 0 routes there, by P alone
+PAIRS_GEMV_MAX = 2
+
+
+def pairs_smem(rows: int, cols: int) -> int:
+    """Shared memory of one grouped pairs block (bytes) of ``rows`` rows
+    and ``cols`` columns a pass: alignment and barriers, the ring (each
+    slot a stage of the rows, 128 positions of each column's x, the rows'
+    f32 scales), the partials the cluster's ranks push (3 f32 a row and
+    column) and the grouping (bitmap, expert, count, the pass's pairs)."""
+    slot = rows * DECODE_STAGE + cols * DECODE_STAGE * 2 + rows * 4
+    return 256 + PAIRS_RING[rows] * slot + 3 * rows * cols * 4 + 128
+
+
+@functools.lru_cache(maxsize=None)
+def pairs_plan(out_f: int, in_p: int, pairs: int, n_experts: int,
+               n_sm: int) -> tuple:
+    """(columns a pass, rows a block, cluster size) of K5a's grouped pairs
+    GEMV on ``pairs`` rows of x over a stack of ``n_experts`` (out_f,
+    in_p) int8 slabs, for a card of ``n_sm`` SMs: a function of P, E and
+    the shapes alone, never of the ids' values. Split 0 (P at most
+    :data:`PAIRS_GEMV_MAX`: by P alone) sends the launch to w8.cuh's
+    GEMV.
+
+    Columns: up to 8 while the pairs are at most four a slot on average
+    (every token's top-k picks distinct experts, so up to 8 tokens an
+    expert has at most 8 pairs), else up to 16; never more than P. Rows:
+    64 where min(P, E) slots' 64-row blocks are two or more an SM, else
+    32. Split: the smallest of 1, 2, 4, 8 (at most the row's stages) whose
+    blocks, times the split, are two or more an SM."""
+    slots = min(pairs, n_experts)
+    cols = min(pairs, 8 if pairs <= 4 * slots else PAIRS_MAX_COLS)
+    if pairs <= PAIRS_GEMV_MAX:
+        return cols, 32, 0
+    stages = max(in_p // DECODE_STAGE, 1)
+    rows = 64 if -(-out_f // 64) * slots >= 2 * n_sm else 32
+    blocks = -(-out_f // rows) * slots
+    split = next((s for s in DECODE_SPLITS
+                  if s <= stages and blocks * s >= 2 * n_sm),
+                 max(s for s in DECODE_SPLITS if s <= stages))
+    return cols, rows, split
 
 
 def ring_tile(tokens: int) -> int:
@@ -225,7 +281,7 @@ def check_pairs(x: torch.Tensor, experts: torch.Tensor) -> None:
             f"x must be (P, in_p) with one expert id per row, got x "
             f"{tuple(x.shape)} and experts {tuple(experts.shape)}"
         )
-    # pair p is blockIdx.y of the launch
+    # the pairs lie along a grid axis of the launch (K5b)
     if x.shape[0] > 65535:
         raise ValueError(f"at most 65535 pairs in a launch, got {x.shape[0]}")
 
