@@ -17,8 +17,8 @@ without them, or when any phase fails. Phases:
    K2, K3, K4, K6a, K6b and K7, of K8's kernel at each head size and of
    the decode GEMV (``decode_gemv.cuh``) in K1, K2, K3, K4, K5b and K5a
    (its grouped instances) and of
-   the probes' ring GEMV (``ring_gemv.cuh``) in P1c and P3, every
-   instance of which must show no spill;
+   the probes' ring GEMV (``ring_gemv.cuh``) in P1 / P2, P1c and P3,
+   every instance of which must show no spill;
 2. each of K1-K4 at the four linear shapes of Llama-3.1-8B, on layers its
    format's encoder makes on the card from a random weight (K1 group
    2048, K3 group 64, and 128 beside it), at T=1 (decode), T=128 and
@@ -64,13 +64,13 @@ without them, or when any phase fails. Phases:
    shift28, fma16, fma16f32, t8, g256; i32x8; s8dot, cvtonly) with K2
    beside them at the probe scripts' four Llama-2-7B decode shapes (T=1),
    P3 at 22016 x 4096 (v 4 and 8, fused and onehot-only, k 256 and k 200,
-   where the ids past the codebook must add 0), P1c and P3 also at T=8
-   and 16, each against its plain version and timed like phase 2
+   where the ids past the codebook must add 0), P1 / P2, P1c and P3 also
+   at T=8 and 16, each against its plain version and timed like phase 2
    (yardstick ``torch.matmul`` on the dequantized or gathered bf16
    weight), the scripts' own checks at T=3 (fma16, shift28, P3's
    ``--check`` and the same with k 200) against the plain versions and the
-   scripts' f32 products, and every P1c / P3 call of bf16 inputs held to
-   its ring GEMV's kernel name from one trace;
+   scripts' f32 products, and every P1 / P2, P1c and P3 call held to its
+   ring GEMV's kernel name from one trace;
 4. the int4, int3 and int2 encoders on the card against the same
    encoders on the CPU, byte for byte, on one 4096 x 4096 synthetic
    weight (the CPU encoders are held to the JAX package's numpy bytes by
@@ -580,9 +580,12 @@ DECODE_INSTANCES = {"w8_matmul": 4, "w4_matmul": 4, "w3_matmul": 4,
                     "w8_matmul_pairs": 8}
 # the probes' asynchronous ring GEMV (ring_gemv.cuh): P3's instances per
 # vector length (4, 8), mode (fused, onehot-only), token tile (N = 8, 16)
-# and output type (bf16, f32); P1c's per token tile and output type
+# and output type (bf16, f32); P1c's per token tile and output type; P1 /
+# P2's per mode (policy, x's type and scale group: six), token tile and
+# output type
 RING_KERNEL = "ring_gemv"
-RING_INSTANCES = {"vq_smallk_matmul": 16, "w4_i32x8_matmul": 4}
+RING_INSTANCES = {"vq_smallk_matmul": 16, "w4_i32x8_matmul": 4,
+                  "w4_probe_matmul": 24}
 # the token counts of the kernel phases: decode, two prefill buckets and
 # the long-prefill chunk (every T > 16 runs the tile)
 TOKENS = (1, 128, 512, 2048)
@@ -1211,7 +1214,7 @@ PROBE_SHAPES = (
 
 
 # the token counts of the probe phase: decode (T = 1, the records) and the
-# ring GEMV's two token tiles full (P1c and P3 only)
+# ring GEMV's two token tiles full (P1, P2, P1c and P3; not P1d / P1e)
 PROBE_TOKENS = (1, 8, 16)
 
 
@@ -1222,7 +1225,7 @@ def phase_probes(device, shapes=PROBE_SHAPES, iters=20, seed=0,
     ``w4_i32x8_matmul``, both ``w4_raw_probe`` modes and K2 ``w4_matmul``
     beside them at each shape; ``vq_smallk_matmul`` at the first shape, v 4
     and 8, fused and onehot-only, k 256 (the records) and k 200 (ids past
-    the codebook, which must add 0). P1c and P3 also at the other
+    the codebook, which must add 0). P1, P2, P1c and P3 also at the other
     ``PROBE_TOKENS`` (outside the records). Each against its plain version and
     timed beside its bound; the yardstick is ``torch.matmul`` on the
     dequantized (P3: gathered) bf16 weight of the same function, which the
@@ -1278,17 +1281,22 @@ def phase_probes(device, shapes=PROBE_SHAPES, iters=20, seed=0,
         flops = 2 * out_f * in_f
         w = _dequant(unpack_int4(wq8), scales)
         for mode in (*W4_PROBE_MODES, "w4_matmul"):
-            xm = x.float() if mode in F32_X_MODES else x
             name = "w4_matmul" if mode == "w4_matmul" else "w4_probe_matmul"
             fn, ref = kernel_fns(name)
-            args = (xm, wq8, scales) + ((mode,) if name != "w4_matmul" else ())
             # g256 reads every other scale row
             s_read = scales[::2] if mode == "g256" else scales
-            add(name, mode, shape, xm, out_f, in_f,
-                lambda f=fn, a=args: f(*a, out_dtype=bf16),
-                lambda f=ref, a=args: f(*a, out_dtype=bf16),
-                lambda: torch.matmul(x, w.t()), flops,
-                first and name != "w4_matmul", (xm, wq8, s_read))
+            # K2 beside them at decode only
+            for t in PROBE_TOKENS if name != "w4_matmul" else (1,):
+                xt = xs[:t]
+                xm = xt.float() if mode in F32_X_MODES else xt
+                args = (xm, wq8, scales) + (
+                    (mode,) if name != "w4_matmul" else ())
+                add(name, mode, shape, xm, out_f, in_f,
+                    lambda f=fn, a=args: f(*a, out_dtype=bf16),
+                    lambda f=ref, a=args: f(*a, out_dtype=bf16),
+                    lambda a=xt: torch.matmul(a, w.t()), t * flops,
+                    first and name != "w4_matmul" and t == 1,
+                    (xm, wq8, s_read))
         fn, ref = kernel_fns("w4_i32x8_matmul")
         w = _dequant(i32x8_levels(wq32), scales)
         for t in PROBE_TOKENS:

@@ -67,6 +67,7 @@ from vptq_tpu_torch.ops.w4_matmul_pairs import (
     w4_matmul_pairs_reference,
 )
 from vptq_tpu_torch.ops.w4_probe_matmul import (
+    F32_X_MODES,
     W4_PROBE_MODES,
     w4_probe_matmul,
     w4_probe_matmul_reference,
@@ -606,8 +607,8 @@ def test_chip_smoke_probe_phase_on_cpu():
     """The probe phase at a tiny size with the plain versions: every mode
     of P1 / P2 with K2 beside it, P3 at v 4 and 8 fused and onehot-only,
     and the same at k 200 (outside the records), and the scripts' own
-    checks; one record per probe mode. P1c and every P3 mode also at 8 and
-    16 tokens, outside the records."""
+    checks; one record per probe mode. Every P1 / P2 mode, P1c and every
+    P3 mode also at 8 and 16 tokens, outside the records."""
     shapes = (("a", 40, 2048), ("b", 24, 1024))
     rows = chip_smoke.phase_probes("cpu", shapes=shapes, iters=1)
     assert all(r["max_abs_err"] == 0.0 for r in rows)
@@ -633,15 +634,20 @@ def test_chip_smoke_probe_phase_on_cpu():
                   if r["kernel"] == "vq_smallk_matmul") == sorted(
         (f"v{v} {k}{m}", t) for v in (4, 8) for k in ("", "k200 ")
         for m in ("fused", "onehot_only") for t in (8, 16))
+    assert [(r["mode"], r["shape"], r["T"]) for r in more
+            if r["kernel"] == "w4_probe_matmul"] == [
+        (m, s, t) for s in ("a", "b") for m in W4_PROBE_MODES
+        for t in (8, 16)]
     assert not any(r["in_record"] for r in more)
     one = {(r["kernel"], r["mode"], r["shape"]): r for r in rows
            if r["T"] == 1 and "script_err" not in r}
     for r in more:
         r1 = one[(r["kernel"], r["mode"], r["shape"])]
         assert r["flops"] == r["T"] * r1["flops"]
-        # a token's x (onehot: one position of each v-vector) and y
-        x_bytes = 2 * r["in_p"] // (int(r["mode"][1])
-                                    if "onehot" in r["mode"] else 1)
+        # a token's x (onehot: one position of each v-vector; f32 where
+        # the mode reads it so) and y
+        x_bytes = (4 if r["mode"] in F32_X_MODES else 2) * r["in_p"] // (
+            int(r["mode"][1]) if "onehot" in r["mode"] else 1)
         assert r["bytes"] - r1["bytes"] == (r["T"] - 1) * (
             x_bytes + 2 * r["out"])
     checks = [r for r in rows if "script_err" in r]
@@ -828,6 +834,8 @@ def _ptxas_log(entry: str, spill: int) -> str:
     ("ring:vq_smallk_matmul", 0, 8, False),    # P3's ring GEMV spills
     ("ring:w4_i32x8_matmul", -1, 0, False),    # P1c lost a ring instance
     ("ring:w4_i32x8_matmul", 0, 8, False),     # P1c's ring GEMV spills
+    ("ring:w4_probe_matmul", -1, 0, False),    # P1 / P2 lost one
+    ("ring:w4_probe_matmul", 0, 8, False),     # P1 / P2's ring GEMV spills
     ("ring:w4_raw_probe", 1, 0, False),        # one where none belongs
 ])
 def test_build_phase_requires_every_tile_instance_spill_free(
@@ -839,8 +847,8 @@ def test_build_phase_requires_every_tile_instance_spill_free(
     K4's their four instances of the decode GEMV, K3's its eight (two
     scale groups) and K5b's its two (one token a pair, two output types),
     P3's its sixteen instances of the probes' ring GEMV (v 4 / 8, fused /
-    onehot-only, two token tiles, two output types) and P1c's its four,
-    each with 0 spill bytes, and
+    onehot-only, two token tiles, two output types), P1c's its four and
+    P1 / P2's its twenty-four (six modes), each with 0 spill bytes, and
     the other libraries none. ``where``: every table of one library, or
     (``decode:<library>``, ``ring:<library>``) its decode GEMV or its ring
     GEMV alone."""
@@ -931,8 +939,8 @@ _TILE = ("void lowbit::tile::wg_tile<{p}, sel::{sel}, 128, float, "
 _W8 = ("void w8::w8_{k}<sel::{sel}, {t}__nv_bfloat16>(__nv_bfloat16 const*, "
        "signed char const*, float const*, __nv_bfloat16*, int const*, int, "
        "int, int, int, int)")
-_GEMV = ("void lowbit::gemv<w4::W4, sel::{sel}, 16, 4, 128, float, "
-         "__nv_bfloat16>(__nv_bfloat16 const*, lowbit::Planes, "
+_GEMV = ("void lowbit::gemv<w4::W4, sel::{sel}, 16, 4, 128, float>("
+         "__nv_bfloat16 const*, lowbit::Planes, "
          "lowbit::ScalesOf<__nv_bfloat16>, lowbit::Ids, float*, int, int, "
          "int, int)")
 _BF16_GEMV = ("void bf16mm::bf16_gemv<{t}, float>(__nv_bfloat16 const*, "
@@ -958,7 +966,20 @@ _VQ_RING = ("void vq_smallk::ring_gemv<{v}, {oh}, {n}, {o}>(__nv_bfloat16 "
 _I32X8_RING = ("void i32x8::ring_gemv<{n}, {o}>(__nv_bfloat16 const*, "
                "unsigned int const*, __nv_bfloat16 const*, {o}*, int, int, "
                "int)")
+# P1 / P2's: per mode (policy, x's type, scale group), token tile and
+# output type
+_PROBE_RING = ("void unpack::ring_gemv<unpack::{p}, {x}, {g}, {n}, {o}>("
+               "{x} const*, unsigned char const*, __nv_bfloat16 const*, "
+               "{o}*, int, int, int)")
 KERNEL_NAMES = {
+    "w4_probe_matmul": [
+        _PROBE_RING.format(p=p, x=x, g=g, n=n, o=o)
+        for p, x, g in (("Prod", "__nv_bfloat16", 128),
+                        ("Shift28", "__nv_bfloat16", 128),
+                        ("Fma16", "__nv_bfloat16", 128),
+                        ("Fma16", "float", 128), ("Prod", "float", 128),
+                        ("Prod", "__nv_bfloat16", 256))
+        for n in (1, 2) for o in ("float", "__nv_bfloat16")],
     "vq_smallk_matmul": [
         _VQ_RING.format(v=v, oh=oh, n=n, o=o) for v in (4, 8)
         for oh in ("false", "true") for n in (1, 2)
@@ -1032,8 +1053,8 @@ def test_trace_tags_pick_each_kernel_family_and_no_other(name):
     (sel::Pairs) and its grouped decode GEMV's (sel::Grouped, each
     instance), K3's and K4's their
     lowbit.cuh GEMV's and their tile's, K7's its GEMV's and its SS tile's,
-    K8's its kernel's at each head size, P3's and P1c's their ring GEMV's
-    (each instance), and no name of another kernel
+    K8's its kernel's at each head size, P3's, P1c's and P1 / P2's their
+    ring GEMV's (each instance), and no name of another kernel
     here (K2, K6b, K5a, K5b among them); no other kernel's tags pick
     theirs. ``kernel@family``: that kernel's tags of one family (the set
     ``check_decode_routes`` takes) pick its own decode GEMV instances and
@@ -2571,11 +2592,12 @@ def test_long_prompts_in_f32_and_fp16_are_served(cuda, checkpoint, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("tokens", [1, 3, 16, 17, 40])
+@pytest.mark.parametrize("tokens", [1, 3, 8, 9, 16, 17, 40])
 @pytest.mark.parametrize("mode", sorted(W4_PROBE_MODES))
 def test_w4_probe_kernel_matches_plain_version(cuda, mode, tokens, out_dtype):
-    """Every unpack mode on the GEMV (T <= 16) and on the tile (T > 16),
-    x in f32 (rounded to bf16 by every mode), an odd number of rows."""
+    """Every unpack mode on its ring GEMV at either token tile and over
+    several tiles, x in f32 (rounded to bf16 by every mode), an odd
+    number of rows."""
     gen = torch.Generator(device=cuda).manual_seed(tokens)
     wq = torch.randint(-128, 128, (200, 1024), generator=gen, device=cuda,
                        dtype=torch.int8)
@@ -2589,6 +2611,32 @@ def test_w4_probe_kernel_matches_plain_version(cuda, mode, tokens, out_dtype):
     assert w4_probe_matmul.launches == before + 1
     assert got.shape == (tokens, 200) and got.dtype == out_dtype
     _assert_kernel_close(got, want, out_dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", [8, 16])
+@pytest.mark.parametrize("split", [1, 2, 4, 8])
+@pytest.mark.parametrize("mode", sorted(W4_PROBE_MODES))
+def test_w4_probe_kernel_at_every_split_and_tile(cuda, mode, split, tile):
+    """Each mode at every cluster size (in_p 4096: 16 groups of 128
+    positions a part, g256 8 of 256) and token tile, through the C entry
+    its wrapper calls, 20 tokens (a full tile and a part), f32 out."""
+    from vptq_tpu_torch.ops.scaled_matmul import launch
+
+    gen = torch.Generator(device=cuda).manual_seed(split * 10 + tile)
+    wq = torch.randint(-128, 128, (200, 2048), generator=gen, device=cuda,
+                       dtype=torch.int8)
+    scales = (torch.rand((32, 200), generator=gen, device=cuda) * 1e-2).to(
+        torch.bfloat16)
+    x = torch.randn((20, 4096), generator=gen, device=cuda)
+    xm = x if mode in F32_X_MODES else x.to(torch.bfloat16)
+    got = launch("w4_probe_matmul", "vptq_w4_probe_matmul", xm,
+                 (wq, scales), (W4_PROBE_MODES[mode], split, tile), 200,
+                 4096, torch.float32, x_dtype=xm.dtype)
+    want = w4_probe_matmul_reference(x, wq, scales, mode,
+                                     out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    _assert_kernel_close(got, want, torch.float32)
 
 
 @pytest.mark.cuda

@@ -1,8 +1,9 @@
 """The host plan of the probes' ring GEMV (``csrc/ring_gemv.cuh``): the
 token tile and cluster size that ``ops/scaled_matmul.py`` ``ring_plan``
-picks for P3 ``vq_smallk_matmul`` and P1c ``w4_i32x8_matmul`` on an H100
-(132 SMs), and the shared memory the host counts for a block against the
-kernels' frames, read from their sources."""
+picks for P3 ``vq_smallk_matmul``, P1c ``w4_i32x8_matmul`` and P1 / P2
+``w4_probe_matmul`` on an H100 (132 SMs), and the shared memory the host
+counts for a block against the kernels' frames, read from their
+sources."""
 
 import re
 from pathlib import Path
@@ -15,6 +16,9 @@ from vptq_tpu_torch.ops.vq_smallk_matmul import (
 )
 from vptq_tpu_torch.ops.w4_i32x8_matmul import (
     SUPERBLOCK, i32x8_plan, i32x8_rows, i32x8_smem,
+)
+from vptq_tpu_torch.ops.w4_probe_matmul import (
+    W4_PROBE_MODES, probe_plan, probe_rows, probe_smem,
 )
 
 CSRC = Path(__file__).resolve().parent.parent / "vptq_tpu_torch" / "csrc"
@@ -59,6 +63,38 @@ def test_p1c_plan_makes_two_blocks_an_sm(shape, tokens):
     assert _fills_the_card(blocks, smem), (tile, split, blocks, smem)
 
 
+@pytest.mark.parametrize("tokens", TOKENS)
+@pytest.mark.parametrize("shape", sorted(SHAPES))
+@pytest.mark.parametrize("mode", sorted(W4_PROBE_MODES))
+def test_p1_p2_plan_makes_two_blocks_an_sm(mode, shape, tokens):
+    """Every mode at every probe shape: a part's scale groups (128
+    positions, g256 256) split over 1, 2, 4 or 8 blocks, two blocks or
+    more an SM, two of which fit its shared memory."""
+    out_f, in_p = SHAPES[shape]
+    tile, split = probe_plan(out_f, in_p, tokens, H100_SMS, mode)
+    stages = 2 if mode == "g256" else 1
+    groups = in_p // 2 // (128 * stages)
+    assert tile in (8, 16) and split in sm.DECODE_SPLITS and split <= groups
+    # the block's rows are its token tile's, whatever the tokens
+    blocks = -(-out_f // probe_rows(tile)) * -(-tokens // tile) * split
+    smem = probe_smem(min(tokens, tile), -(-groups // split), stages, tile)
+    assert _fills_the_card(blocks, smem), (tile, split, blocks, smem)
+
+
+def test_probe_plan_takes_64_row_blocks_first():
+    """P1 / P2 take the 16-token tile's 64-row blocks (x staged once for
+    twice the rows) at every token count past one, and at one token where
+    a split of 1 or 2 fills the card (gate_up's 344 blocks, qkv's 192 at
+    split 2; down's and o's 64 would need a split of 8)."""
+    assert probe_plan(22016, 4096, 1, H100_SMS) == (16, 1)
+    assert probe_plan(12288, 4096, 1, H100_SMS) == (16, 2)
+    assert probe_plan(4096, 12288, 1, H100_SMS) == (8, 4)
+    assert probe_plan(4096, 4096, 1, H100_SMS) == (8, 4)
+    assert probe_plan(22016, 4096, 8, H100_SMS) == (16, 1)
+    assert probe_plan(4096, 12288, 8, H100_SMS) == (16, 8)
+    assert probe_plan(12288, 4096, 3, H100_SMS, "g256") == (16, 2)
+
+
 def test_plan_takes_eight_token_tiles_where_sixteen_leave_sms_idle():
     """o (4096 x 4096) at 16 tokens: 64-row blocks of 16 tokens make at
     most 64 x 4 blocks, fewer than two an SM, so the plan takes two tiles
@@ -76,6 +112,11 @@ def test_plan_refuses_what_no_block_holds():
     assert i32x8_plan(64, 1024 * SUPERBLOCK, 16, H100_SMS)[1] == 0
     assert vq_smallk_plan(64, 1 << 20, 16, 4, False, H100_SMS)[1] == 0
     assert i32x8_plan(200, 2048, 1, H100_SMS) == (8, 2)
+    assert probe_plan(64, 1 << 20, 16, H100_SMS)[1] == 0
+    assert probe_plan(64, 1 << 20, 16, H100_SMS, "g256")[1] == 0
+    # 8 groups of a part (4 of g256), 7 row blocks: the largest split
+    assert probe_plan(200, 2048, 1, H100_SMS) == (8, 8)
+    assert probe_plan(200, 2048, 1, H100_SMS, "g256") == (8, 4)
 
 
 def _frame(source: str) -> tuple:
@@ -105,3 +146,27 @@ def test_host_counts_the_kernels_frames():
         assert i32x8_smem(tokens, 1) == (
             256 + ring * rows * stage + tokens * SUPERBLOCK * 2
             + 8 * rows * 2 + rows * tokens * 4)
+
+
+def test_host_counts_the_probe_kernels_layout():
+    """P1 / P2: 32 rows a block of the 8-token tile, 64 of the 16-token
+    one (whatever its tokens), a ring of 4 stages of 128 bytes, x's row of
+    a stage of both parts at 2 · 34 places (32 units and 2 spare) rounded
+    up to 2 mod 16 places of 8 bytes, a bf16 scale a group, part and row,
+    one f32 partial a row and token."""
+    src = (CSRC / "w4_probe_matmul.cu").read_text()
+    w1, w2, stage, ring = _frame("w4_probe_matmul.cu")
+    assert (16 * w1, 16 * w2) == (probe_rows(8), probe_rows(16))
+    spare = int(re.search(r"kBlockUnits = kStageUnits \+ (\d+);", src)[1])
+    assert re.search(r"return used \+ \(\(2 - used % 16\) \+ 16\) % 16;",
+                     src)
+    for tokens, tile in ((1, 8), (1, 16), (8, 16), (16, 16)):
+        rows = probe_rows(tile)
+        for stages in (1, 2):
+            for groups in (1, 3, 8):
+                used = 2 * (stage // 4 + spare) * groups * stages
+                pitch = used + (2 - used) % 16
+                assert pitch % 16 == 2
+                assert probe_smem(tokens, groups, stages, tile) == (
+                    256 + ring * rows * stage + tokens * pitch * 8
+                    + groups * 2 * rows * 2 + rows * tokens * 4)

@@ -31,31 +31,18 @@
 //          scales e·out·(in_p / G) after s
 //   y      (T, out) bf16 / f32
 //
-// Two kernels, picked by T:
-//  * gemv (T <= 16; a pairs launch runs it at T = 1 on a grid of (row
-//    tiles, pairs), row p of x against expert ids[p]): each warp owns kRows rows; lane l streams positions
-//    16l … 16l+15 of a 512-position chunk with one 16-byte load per plane
-//    and row, while x for that chunk (all P parts) is staged in shared
-//    memory, never x whole (at the down shape and T = 16 it is 458 KB).
-//    Per part the lane's 16 products are summed in f32; the G/16 lanes of
-//    one group add their sums with shuffles, the first of them multiplies
-//    the group's scale in, and the rows' totals are summed across the warp
-//    at the end.
-//  * gemm (T > 16, only for the int4 unpack probes P1 / P2 of
-//    w4_probe_matmul.cu, whose scripts pad tokens to tiles of up to 512;
-//    K2, K3, K4 and K6b take lowbit_tile.cuh's Hopper tile instead):
-//    64 x 128 output tiles, 8 warps, bf16 mma.sync
-//    m16n8k16 with f32 accumulators (K1's tile). A block walks positions
-//    one group (G) at a time: each thread loads its 16 bytes of each plane
-//    for the group's G/32 slabs into registers once, then for each part
-//    unpacks them into exact bf16 levels in shared memory beside the x
-//    slab of that part and runs the MMAs; at the part's group edge the
-//    accumulators are scaled per column and added to the totals.
-//
-// Two hooks serve the int4 unpack probes (w4_probe_matmul.cu) and change
-// nothing for the formats that do not use them: x may lie in f32 (XT =
-// float; the kernels round it to bf16 as they stage it), and a format may
-// fold a constant into the scale of each part (kScaledParts, part_scale).
+// One kernel, gemv (T <= 16; a pairs launch runs it at T = 1 on a grid of
+// (row tiles, pairs), row p of x against expert ids[p]): each warp owns
+// kRows rows; lane l streams positions 16l … 16l+15 of a 512-position
+// chunk with one 16-byte load per plane and row, while x for that chunk
+// (all P parts) is staged in shared memory, never x whole (at the down
+// shape and T = 16 it is 458 KB). Per part the lane's 16 products are
+// summed in f32; the G/16 lanes of one group add their sums with shuffles,
+// the first of them multiplies the group's scale in, and the rows' totals
+// are summed across the warp at the end. Past 16 tokens K2, K3, K4 and
+// K6b take lowbit_tile.cuh's Hopper tile, and most launches up to 16
+// decode_gemv.cuh's GEMV; a launch of this header past 16 tokens is
+// refused.
 
 #pragma once
 
@@ -107,19 +94,10 @@ struct ScalesOf {
 };
 using Scales = ScalesOf<__nv_bfloat16>;
 
-// Whether format P multiplies part p's scales by P::part_scale(p).
-template <class P, class = void>
-struct ScaledParts : std::false_type {};
-template <class P>
-struct ScaledParts<P, std::void_t<decltype(P::kScaledParts)>>
-    : std::bool_constant<P::kScaledParts> {};
-
+// the scale of part p's group g of row o (every part's scales alike)
 template <class P, class S>
-__device__ __forceinline__ float scale_of(const S& sc, int o, int g, int p) {
-  if constexpr (ScaledParts<P>::value)
-    return sc.at(o, g) * P::part_scale(p);
-  else
-    return sc.at(o, g);
+__device__ __forceinline__ float scale_of(const S& sc, int o, int g, int) {
+  return sc.at(o, g);
 }
 
 // f32 with the integer v in its low mantissa bits: 2^23 + v
@@ -140,15 +118,9 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// 8 consecutive values of x as bf16: as they lie, or rounded from f32
+// 8 consecutive values of x
 __device__ __forceinline__ uint4 load_x8(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint4*>(p);
-}
-__device__ __forceinline__ uint4 load_x8(const float* p) {
-  const float4 a = *reinterpret_cast<const float4*>(p);
-  const float4 b = *reinterpret_cast<const float4*>(p + 4);
-  return make_uint4(pack_bf16x2(a.x, a.y), pack_bf16x2(a.z, a.w),
-                    pack_bf16x2(b.x, b.y), pack_bf16x2(b.z, b.w));
 }
 
 template <typename OutT>
@@ -194,10 +166,9 @@ __device__ __forceinline__ void select_expert(Planes& pl, Scales& sc,
 // --------------------------------------------------------------------
 // decode: T <= 16
 
-template <class P, class Sel, int TP, int kRows, int G, typename OutT,
-          typename XT>
+template <class P, class Sel, int TP, int kRows, int G, typename OutT>
 __global__ void __launch_bounds__(kThreads)
-    gemv(const XT* __restrict__ x, Planes pl, Scales sc, Ids ids,
+    gemv(const __nv_bfloat16* __restrict__ x, Planes pl, Scales sc, Ids ids,
          OutT* __restrict__ y, int T, int out, int in_p, int L) {
   constexpr int kParts = P::kParts;
   constexpr int kSet = G / 16;  // lanes that share one group
@@ -306,14 +277,8 @@ __global__ void __launch_bounds__(kThreads)
     }
 }
 
-// --------------------------------------------------------------------
-// prefill: T > 16
-
-constexpr int BM = 64;       // tokens per block tile
-constexpr int BN = 128;      // output rows per block tile
-constexpr int BK = 32;       // positions (columns of one part) per slab
-constexpr int LDS = BK + 8;  // padded smem row (bf16): conflict-free frags
-
+// the tensor-core product the Hopper GEMVs of decode_gemv.cuh and
+// ring_gemv.cuh take: d += a · b, m16n8k16, bf16 in, f32 out
 __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
                                          const uint32_t (&b)[2]) {
   asm volatile(
@@ -323,158 +288,12 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-__device__ __forceinline__ uint32_t lds32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-template <class P, class Sel, int G, typename OutT, typename XT>
-__global__ void __launch_bounds__(kThreads)
-    gemm(const XT* __restrict__ x, Planes pl, Scales sc, Ids ids,
-         OutT* __restrict__ y, int T, int out, int in_p, int L) {
-  static_assert(!Sel::kPairs, "a pairs launch runs the T = 1 gemv");
-  constexpr int kParts = P::kParts;
-  constexpr int kSlabs = G / BK;  // slabs per group
-  __shared__ __align__(16) __nv_bfloat16 xs[BM][LDS];
-  __shared__ __align__(16) __nv_bfloat16 ws[BN][LDS];
-  if (Sel::kIds) select_expert<P, G>(pl, sc, ids, 0, out, in_p);
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int wm = warp >> 2;  // 2 warps along tokens (32 each)
-  const int wn = warp & 3;   // 4 warps along out rows (32 each)
-  const int gid = lane >> 2;
-  const int tig = lane & 3;
-  const int m0 = blockIdx.y * BM;
-  const int n0 = blockIdx.x * BN;
-
-  // x staging: one 16 B load per thread per slab; w: 16 positions of one
-  // row per thread per slab
-  const int xr = tid >> 2, xc = (tid & 3) * 8;
-  const int wr = tid >> 1, wc = (tid & 1) * 16;
-  const bool x_ok = m0 + xr < T;
-  const bool w_ok = n0 + wr < out;
-  const XT* xp = x + (size_t)(x_ok ? m0 + xr : 0) * in_p + xc;
-
-  float acc[2][4][4];
-  float tot[2][4][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = tot[i][j][e] = 0.f;
-
-  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
-  // slabs run group by group, part by part within a group, slab by slab
-  // within a part; x column of slab (gpos, p, s) is p*L + gpos + s*BK
-  uint4 xreg = x_ok ? load_x8(xp) : zero;
-
-  for (int gpos = 0; gpos < L; gpos += G) {
-    uint32_t w[kSlabs][P::kPlanes][4];
-#pragma unroll
-    for (int s = 0; s < kSlabs; ++s)
-      load_planes<P>(w[s], pl, n0 + wr, gpos + s * BK + wc, w_ok);
-
-#pragma unroll
-    for (int p = 0; p < kParts; ++p) {
-#pragma unroll
-      for (int s = 0; s < kSlabs; ++s) {
-        *reinterpret_cast<uint4*>(&xs[xr][xc]) = xreg;
-        {
-          uint32_t h[8];
-#pragma unroll
-          for (int q = 0; q < 8; ++q)
-            h[q] = pack_bf16x2(P::level(w[s], p, 2 * q),
-                               P::level(w[s], p, 2 * q + 1));
-          *reinterpret_cast<uint4*>(&ws[wr][wc]) =
-              make_uint4(h[0], h[1], h[2], h[3]);
-          *reinterpret_cast<uint4*>(&ws[wr][wc + 8]) =
-              make_uint4(h[4], h[5], h[6], h[7]);
-        }
-        __syncthreads();
-        {
-          // prefetch the next slab's x
-          int next = -1;
-          if (s + 1 < kSlabs)
-            next = p * L + gpos + (s + 1) * BK;
-          else if (p + 1 < kParts)
-            next = (p + 1) * L + gpos;
-          else if (gpos + G < L)
-            next = gpos + G;
-          if (next >= 0 && x_ok) xreg = load_x8(xp + next);
-        }
-#pragma unroll
-        for (int kk = 0; kk < BK; kk += 16) {
-          uint32_t a[2][4];
-          uint32_t b[4][2];
-#pragma unroll
-          for (int i = 0; i < 2; ++i) {
-            const int r = wm * 32 + i * 16 + gid;
-            a[i][0] = lds32(&xs[r][kk + tig * 2]);
-            a[i][1] = lds32(&xs[r + 8][kk + tig * 2]);
-            a[i][2] = lds32(&xs[r][kk + tig * 2 + 8]);
-            a[i][3] = lds32(&xs[r + 8][kk + tig * 2 + 8]);
-          }
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const int n = wn * 32 + j * 8 + gid;
-            b[j][0] = lds32(&ws[n][kk + tig * 2]);
-            b[j][1] = lds32(&ws[n][kk + tig * 2 + 8]);
-          }
-#pragma unroll
-          for (int i = 0; i < 2; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j) mma_bf16(acc[i][j], a[i], b[j]);
-        }
-        __syncthreads();
-      }
-
-      // group edge of part p: scale each column's f32 partial
-      const int g = (p * L + gpos) / G;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = n0 + wn * 32 + j * 8 + tig * 2;
-        const float s0 = col < out ? scale_of<P>(sc, col, g, p) : 0.f;
-        const float s1 = col + 1 < out ? scale_of<P>(sc, col + 1, g, p) : 0.f;
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          tot[i][j][0] += acc[i][j][0] * s0;
-          tot[i][j][1] += acc[i][j][1] * s1;
-          tot[i][j][2] += acc[i][j][2] * s0;
-          tot[i][j][3] += acc[i][j][3] * s1;
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = m0 + wm * 32 + i * 16 + gid;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = n0 + wn * 32 + j * 8 + tig * 2;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int rr = row + 8 * h;
-        if (rr >= T) continue;
-        if (col < out)
-          y[(size_t)rr * out + col] = cvt_out<OutT>(tot[i][j][2 * h]);
-        if (col + 1 < out)
-          y[(size_t)rr * out + col + 1] = cvt_out<OutT>(tot[i][j][2 * h + 1]);
-      }
-    }
-  }
-}
-
 // --------------------------------------------------------------------
 // launch
 
 // pairs: the grid's second dimension (1 unless the launch is a pairs launch)
-template <class P, class Sel, int TP, int G, typename OutT, typename XT>
-cudaError_t launch_gemv(const XT* x, const Planes& pl,
+template <class P, class Sel, int TP, int G, typename OutT>
+cudaError_t launch_gemv(const __nv_bfloat16* x, const Planes& pl,
                         const Scales& sc, const Ids& ids, OutT* y, int T,
                         int pairs, int out, int in_p, int L,
                         cudaStream_t stream) {
@@ -482,7 +301,7 @@ cudaError_t launch_gemv(const XT* x, const Planes& pl,
   // spill registers
   constexpr int kRows =
       TP <= 2 ? (P::kPlanes == 1 ? 4 : 2) : (TP <= 8 && P::kPlanes == 1 ? 2 : 1);
-  auto kernel = gemv<P, Sel, TP, kRows, G, OutT, XT>;
+  auto kernel = gemv<P, Sel, TP, kRows, G, OutT>;
   const size_t smem =
       (size_t)TP * P::kParts * kChunk * sizeof(__nv_bfloat16);
   if (smem > 48 * 1024) {
@@ -497,36 +316,32 @@ cudaError_t launch_gemv(const XT* x, const Planes& pl,
 }
 
 // T <= 16 tokens: the gemv instantiated for the next power of two
-template <class P, class Sel, int G, typename OutT, typename XT>
-cudaError_t launch_decode(const XT* xb, const Planes& pl, const Scales& sc,
+template <class P, class Sel, int G, typename OutT>
+cudaError_t launch_decode(const __nv_bfloat16* xb, const Planes& pl, const Scales& sc,
                           const Ids& ids, OutT* yo, int T, int out, int in_p,
                           int L, cudaStream_t stream) {
-  if (T <= 1) return launch_gemv<P, Sel, 1, G, OutT, XT>(xb, pl, sc, ids, yo, T, 1, out, in_p, L, stream);
-  if (T <= 2) return launch_gemv<P, Sel, 2, G, OutT, XT>(xb, pl, sc, ids, yo, T, 1, out, in_p, L, stream);
-  if (T <= 4) return launch_gemv<P, Sel, 4, G, OutT, XT>(xb, pl, sc, ids, yo, T, 1, out, in_p, L, stream);
-  if (T <= 8) return launch_gemv<P, Sel, 8, G, OutT, XT>(xb, pl, sc, ids, yo, T, 1, out, in_p, L, stream);
-  return launch_gemv<P, Sel, 16, G, OutT, XT>(xb, pl, sc, ids, yo, T, 1, out, in_p, L, stream);
+  if (T <= 1) return launch_gemv<P, Sel, 1, G, OutT>(xb, pl, sc, ids, yo, T, 1, out, in_p, L, stream);
+  if (T <= 2) return launch_gemv<P, Sel, 2, G, OutT>(xb, pl, sc, ids, yo, T, 1, out, in_p, L, stream);
+  if (T <= 4) return launch_gemv<P, Sel, 4, G, OutT>(xb, pl, sc, ids, yo, T, 1, out, in_p, L, stream);
+  if (T <= 8) return launch_gemv<P, Sel, 8, G, OutT>(xb, pl, sc, ids, yo, T, 1, out, in_p, L, stream);
+  return launch_gemv<P, Sel, 16, G, OutT>(xb, pl, sc, ids, yo, T, 1, out, in_p, L, stream);
 }
 
-template <class P, class Sel, int G, typename OutT, typename XT>
+template <class P, class Sel, int G, typename OutT>
 cudaError_t launch_typed(const void* x, const Planes& pl, const Scales& sc,
                          const Ids& ids, void* y, int T, int out, int in_p,
                          cudaStream_t stream) {
-  const auto* xb = static_cast<const XT*>(x);
+  const auto* xb = static_cast<const __nv_bfloat16*>(x);
   auto* yo = static_cast<OutT*>(y);
   const int L = in_p / P::kParts;
   if (L % G || L % 16) return cudaErrorInvalidValue;
   if constexpr (Sel::kPairs) {
     // T pairs, each one row of x through its own expert
     if (T > 65535) return cudaErrorInvalidValue;
-    return launch_gemv<P, Sel, 1, G, OutT, XT>(xb, pl, sc, ids, yo, 1, T, out, in_p, L, stream);
+    return launch_gemv<P, Sel, 1, G, OutT>(xb, pl, sc, ids, yo, 1, T, out, in_p, L, stream);
   } else {
-    if (T <= 16)
-      return launch_decode<P, Sel, G, OutT, XT>(xb, pl, sc, ids, yo, T, out, in_p, L, stream);
-    dim3 grid((out + BN - 1) / BN, (T + BM - 1) / BM);
-    gemm<P, Sel, G, OutT, XT><<<grid, kThreads, 0, stream>>>(
-        xb, pl, sc, ids, yo, T, out, in_p, L);
-    return cudaGetLastError();
+    if (T > 16) return cudaErrorInvalidValue;
+    return launch_decode<P, Sel, G, OutT>(xb, pl, sc, ids, yo, T, out, in_p, L, stream);
   }
 }
 
@@ -544,16 +359,15 @@ int with_out_type(int out_dtype, F&& f) {
   }
 }
 
-// out_dtype: 0 = bf16, 1 = f32; XT: the type x lies in
-template <class P, int G, class Sel = sel::Whole,
-          typename XT = __nv_bfloat16>
+// out_dtype: 0 = bf16, 1 = f32; x bf16
+template <class P, int G, class Sel = sel::Whole>
 int launch(const void* x, const Planes& pl, const Scales& sc, void* y, int T,
            int out, int in_p, int out_dtype, void* stream,
            const Ids& ids = Ids{nullptr, 0}) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return with_out_type(out_dtype, [&](auto* tag) {
     using OutT = std::remove_pointer_t<decltype(tag)>;
-    return launch_typed<P, Sel, G, OutT, XT>(x, pl, sc, ids, y, T, out, in_p, s);
+    return launch_typed<P, Sel, G, OutT>(x, pl, sc, ids, y, T, out, in_p, s);
   });
 }
 

@@ -2,8 +2,8 @@
 // tokens: K1 w8_matmul, K2 w4_matmul, K3 w2_matmul, K4 w3_matmul, and K6a
 // w8_matmul_expert and K6b w4_matmul_expert on one expert of a stack; and
 // of K7 bf16_matmul's bf16 weights, in the SS form (last point below). It
-// computes what lowbit::gemm computes, y = x @ (s ⊙ L)^T over the split
-// layouts of lowbit.cuh: x is rounded to bf16, every level is exact in
+// computes y = x @ (s ⊙ L)^T over the split layouts of lowbit.cuh, as
+// lowbit.cuh's GEMV does: x is rounded to bf16, every level is exact in
 // bf16, the products of one (row, scale group) are summed in f32, that
 // f32 partial is multiplied by the group's scale (bf16; int8's f32), and
 // the scaled partials are summed in f32. No scale is folded into a bf16
@@ -41,7 +41,7 @@
 //  * One position group of bytes feeds kParts x slabs (int8 1, int4 2,
 //    int2 4, int3 8: x is kParts times wider than the bytes), so the bytes stay
 //    resident while the x slabs of part 0, 1, ... stream through the ring,
-//    in lowbit::gemm's order (group outer, part inner). Per part a
+//    group outer, part inner. Per part a
 //    warpgroup unpacks its fragments, issues the 8 k16 steps into acc,
 //    waits, and adds acc · s(row, group) into tot: two scales a thread,
 //    since rows are M. A scale group G of 64 (int2's default) holds half a
@@ -619,7 +619,7 @@ cudaError_t launch_typed(const void* x, const Planes& pl, const Scales& sc,
                          cudaStream_t stream) {
   if ((in_p / P::kParts) % kGroup) return cudaErrorInvalidValue;
   if (T <= kDecodeMax)
-    return launch_decode<P, Sel, G, OutT, __nv_bfloat16>(
+    return launch_decode<P, Sel, G, OutT>(
         static_cast<const __nv_bfloat16*>(x), pl, sc, ids, y, T, out, in_p,
         in_p / P::kParts, stream);
   return launch_tile<P, Sel, G, OutT>(x, pl, sc, ids, y, T, out, in_p, G,

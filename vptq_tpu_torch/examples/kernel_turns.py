@@ -12,15 +12,16 @@ and 2048 (K1–K4 also T = 4 and 16; K5: P = 2 and 16); and K8
 ``flash_attention`` at every case of
 the tree's ``chip_smoke.FLASH_CASES`` (``phase_flash``); and the probe
 phase (``phase_probes``: P1, P2, P3 and K2 beside them at the probe
-scripts' Llama-2-7B shapes, T = 1, and P1c and P3 at the other token
-counts the tree's phase takes). Each kernel is held against its plain
-version, as the smoke holds it. The card's name and power limit come
-first; then one line per (turn, kernel, scale group, T) with ms, bound,
-plain and ``torch.matmul`` ms summed over the shapes (K8: one line per
-case, its yardstick ``scaled_dot_product_attention``; a probe: one line
-per mode and shape), and the device-to-host copies of two launches each
-of K6b and K6a (T = 512, 2048) in the ``torch.profiler`` trace, with the
-names of their kernels. ``--probes-only`` runs the probe phase alone;
+scripts' Llama-2-7B shapes, T = 1, and P1, P2, P1c and P3 at the other
+token counts the tree's phase takes; P1 / P2 at T = 8 and 16 the turn
+times itself where the tree's phase does not). Each kernel is held
+against its plain version, as the smoke holds it. The card's name and
+power limit come first; then one line per (turn, kernel, scale group, T)
+with ms, bound, plain and ``torch.matmul`` ms summed over the shapes (K8:
+one line per case, its yardstick ``scaled_dot_product_attention``; a
+probe: one line per mode and shape), and the device-to-host copies of
+two launches each of K6b and K6a (T = 512, 2048) in the
+``torch.profiler`` trace, with the names of their kernels. ``--probes-only`` runs the probe phase alone;
 ``--pairs-only`` K5a alone, at the tree's ``phase_moe_kernels`` on int8
 stacks: Mixtral-8x7B's two expert shapes over 8 experts at P = 2 and 16
 (a line sums a layer's gate_up and down) and Moonlight-16B-A3B's over 64
@@ -159,6 +160,43 @@ if KERNELS and not probes_only:
 if PROBES:
     rows += cs.phase_probes(dev, shapes=probe_shapes, iters=iters,
                             cases=False)
+    # P1 / P2 at the token counts the tree's probe phase lacks (before
+    # their ring GEMV it took T = 1 alone), timed as the phase times them
+    from vptq_tpu_torch.examples.kernel_bench import flush_buffer
+    from vptq_tpu_torch.ops.packing import unpack_int4
+    from vptq_tpu_torch.ops.w4_probe_matmul import (
+        F32_X_MODES, W4_PROBE_MODES)
+
+    have = {(r["mode"], r["shape"], r["T"]) for r in rows
+            if r["kernel"] == "w4_probe_matmul"}
+    fn, ref = cs.kernel_fns("w4_probe_matmul")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    flush = flush_buffer(dev)
+    for shape, out_f, in_f in probe_shapes:
+        todo = [(m, t) for m in W4_PROBE_MODES for t in (8, 16)
+                if (m, shape, t) not in have]
+        if not todo:
+            continue
+        wq = torch.randint(-120, 120, (out_f, in_f // 2), generator=gen,
+                           device=dev, dtype=torch.int8)
+        sc = (0.005 * (1 + torch.rand((in_f // 128, out_f), generator=gen,
+                                      device=dev))).to(torch.bfloat16)
+        w = cs._dequant(unpack_int4(wq), sc)
+        xs = torch.randn((16, in_f), generator=gen, device=dev).to(
+            torch.bfloat16)
+        for mode, t in todo:
+            xm = xs[:t].float() if mode in F32_X_MODES else xs[:t]
+            reads = (xm, wq, sc[::2] if mode == "g256" else sc)
+            nbytes = (sum(a.numel() * a.element_size() for a in reads)
+                      + t * out_f * 2)
+            rows.append(dict(
+                kernel="w4_probe_matmul", mode=mode, shape=shape, unit="T",
+                T=t, out=out_f, in_p=in_f, **cs.check_and_time(
+                    "w4_probe_matmul", f"{mode} {shape} T={t}",
+                    lambda: fn(xm, wq, sc, mode, out_dtype=torch.bfloat16),
+                    lambda: ref(xm, wq, sc, mode, out_dtype=torch.bfloat16),
+                    lambda: torch.matmul(xs[:t], w.t()),
+                    nbytes, 2 * t * out_f * in_f, dev, iters, flush)))
 if dev == "cuda" and KERNELS and not probes_only:
     # device-to-host copies of two launches of each expert kernel at
     # Mixtral's down shape: the id stays on the card

@@ -28,7 +28,8 @@ __all__ = [
     "DECODE_FORMATS", "DECODE_SPLITS", "DECODE_STAGE", "check_pairs",
     "decode_blocks", "decode_route", "decode_rows", "decode_smem",
     "decode_split", "grouped_reference", "launch", "pairs_plan",
-    "pairs_smem", "pick_expert", "ring_plan", "ring_tile", "sm_count",
+    "pairs_smem", "pick_expert", "ring_plan", "ring_split", "ring_tile",
+    "sm_count",
 ]
 
 # The Hopper decode GEMV of K1–K4 (csrc/decode_gemv.cuh) at T <= 16, and
@@ -168,8 +169,8 @@ def ring_tile(tokens: int) -> int:
     return 8 if tokens <= 8 else 16
 
 
-def _ring_split(row_blocks: int, units: int, tokens: int, tile: int,
-                n_sm: int, smem_of) -> tuple:
+def ring_split(row_blocks: int, units: int, tokens: int, tile: int,
+               n_sm: int, smem_of) -> tuple:
     """(split, whether it makes two blocks an SM that two at a time fit an
     SM's shared memory) of :func:`ring_plan` at one token tile."""
     t = min(tokens, tile)
@@ -200,8 +201,8 @@ def ring_plan(out_f: int, units: int, tokens: int, n_sm: int, smem_of,
     block fits."""
     first = None
     for tile in dict.fromkeys((ring_tile(tokens), 8)):
-        split, ok = _ring_split(-(-out_f // rows_of(tile)), units, tokens,
-                                tile, n_sm, smem_of)
+        split, ok = ring_split(-(-out_f // rows_of(tile)), units, tokens,
+                               tile, n_sm, smem_of)
         if ok:
             return tile, split
         first = first or (tile, split)
