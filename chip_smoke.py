@@ -210,8 +210,8 @@ without them, or when any phase fails. Phases:
    int4 sites, K1 on its int8 ones);
 13. the user entry points (``phase_entry_points``) on phase 5's
    Llama-3.1-8B checkpoint (all 32 layers), before it is removed, with a
-   byte tokenizer of the smoke's own (``ByteTokenizer``: the card's
-   machine has no ``transformers``): the CLI (``cli._load`` in int8 at
+   byte tokenizer (``utils/synth_tokenizer.py`` ``ByteTokenizer``: the
+   card's machine has no ``transformers``): the CLI (``cli._load`` in int8 at
    ``max_seq`` 4096, ``eval_prompt`` on 128 tokens, ``chat_loop`` over a
    turn, ``clear``, an empty line, a second turn and ``exit``; streamed
    ids = returned ids = the eager loop's; chat under ``--tp`` is phase
@@ -249,7 +249,7 @@ without them, or when any phase fails. Phases:
    (``seconds <phase>: N``);
 15. tensor and expert parallelism (M16's first half, ``phase_tp``) on the
    same Llama-3.1-8B checkpoint at full width, int4 at all 32 layers and
-   int8 cut to ``TP_INT8_LAYERS`` = 8 (32 until phase 17 came), after
+   int8 cut to ``TP_INT8_LAYERS`` = 4 (32 until phase 17, 8 until 19), after
    the tools: the card's compute mode must let two processes share it;
    one device's answers first (int8 and int4: the 512-token prompt's
    last prefill rows, 16 greedy tokens of a 1536-token prompt, layer 0's
@@ -329,6 +329,27 @@ without them, or when any phase fails. Phases:
    same blocked encoding, each blocked layer the sum of its shards
    (``tp.shards_summed``): the prefill's last rows within ``LOGIT_TOL``
    and every token of the prefill's, the chat's and the web's equal.
+18. a codebook model under a mesh (``phase_tp_codebook``, after phase
+   16, on the Llama-3.1-8B checkpoint cut to ``CODEBOOK_TP_LAYERS``): two
+   gloo ranks on ``cuda:0`` load ``load_model(runtime_format="codebook",
+   mesh=)`` (each VQ layer's index planes split as the JAX package's
+   GSPMD placement splits them; the permutation's row-parallel layers
+   gather their activations first), their held prefill's last rows
+   within ``LOGIT_TOL`` of one device's and their greedy tokens equal.
+   The codebook format runs no kernel;
+19. the ported examples, after every model: the four sweeps
+   (``examples/autotune_w{8,4,3,2}``: every decode-GEMV plan of each 7B
+   shape at T = 1 held to the plain version and timed, beside the
+   wrapper's route), ``examples/quickstart.py`` (its synthetic
+   checkpoint in int8, 32 tokens sampled at 0.8 twice from one seed:
+   the same tokens, K1's launches those of one request),
+   ``examples/multichip_demo.py`` (its plan, then TP, DP x TP and CP on
+   4 gloo ranks sharing the card, then 2 pipeline stages on it; the
+   first microbatch's token the TP Generator's first) and
+   ``examples/fidelity_gauntlet.py`` at ``--hidden 4096 --layers 2``
+   (every rung's logit KL through the kernels and through their plain
+   versions on the same model within ``GAUNTLET_RTOL``, each rung's
+   kernel launched). Each prints its seconds.
 
 The line before the last is a JSON object with one record per kernel at
 T=1 and T=512 (pairs kernels: P=2 and P=16; K8: S=1024 and S=2048; each
@@ -354,6 +375,7 @@ import numpy as np
 import torch
 
 from vptq_tpu_torch.utils import profiling
+from vptq_tpu_torch.utils.synth_tokenizer import ByteTokenizer
 
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense, at 700 W),
 # from the port's utils/profiling.py
@@ -502,7 +524,10 @@ CUT_LAYERS = 2
 # context-parallel phases came (its write and calibration took 200 s of
 # the smoke at 32 on one H100 80GB HBM3 at 700 W; PERF.md keeps its
 # 32-layer figures), then 8, and 4 since the phases under TP came (as the
-# int3- and int4-mixed runs)
+# int3- and int4-mixed runs). At 2 the write and the int2-mixed
+# calibration took as long (the embedding and GPTQ against the CPU bind
+# them) and the TP job's greedy tokens parted from the shard-summed one
+# device's on a near tie (one H100 80GB HBM3 at 700 W)
 CALIBRATED_LAYERS = 4
 # VPTQ-community v8-k65536-0 geometry
 V8_K65536 = dict(
@@ -1728,8 +1753,6 @@ def batched_breakdown(sched, lengths, tags: dict, fmt: str, steps=8):
     same steps run again), the kernels per step, the routes at one token
     a slot (:func:`step_routes`: K2 at T = 8, K5b at P = 16), no
     device-to-host copy inside the chunk."""
-    from torch.profiler import ProfilerActivity, profile
-
     decode = sched.decode
     device = sched.cache.lengths.device
     batch = len(lengths)
@@ -1746,9 +1769,7 @@ def batched_breakdown(sched, lengths, tags: dict, fmt: str, steps=8):
         t0 = time.perf_counter()
         run(steps)
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            run(steps)
-    events = _device_events(prof)
+        events = traced(lambda: run(steps))
     busy_ms = sum(e.device_time_total for e in events) / 1e3 / steps
     out = dict(
         slots=batch, wall_ms=wall_ms, tok_s=batch * 1e3 / wall_ms,
@@ -2762,50 +2783,6 @@ def phase_calibrated(device, path, fmt: str, vocab: int, calibration=None,
 # --------------------------------------------------------------------
 
 
-def _byte_level_bytes() -> list:
-    """The byte of each of the ids 3..258 of ``utils/synth_tokenizer.py``'s
-    directory: its vocabulary lists the ``ByteLevel`` alphabet (GPT-2's
-    byte-to-character table) sorted by character."""
-    printable = [*range(ord("!"), ord("~") + 1),
-                 *range(ord("¡"), ord("¬") + 1),
-                 *range(ord("®"), ord("ÿ") + 1)]
-    char = {b: b for b in printable}
-    for n, b in enumerate(b for b in range(256) if b not in char):
-        char[b] = 256 + n
-    return sorted(range(256), key=char.__getitem__)
-
-
-class ByteTokenizer:
-    """The byte tokenizer of ``utils/synth_tokenizer.py``'s directory
-    without ``transformers``, which the card's machine lacks: ids 0-2
-    ``<pad>``, ``<s>``, ``</s>`` (the EOS), each UTF-8 byte of the text at
-    its id from 3 on, no special tokens added, its chat template. Ids from
-    259 on decode to nothing. The smoke's checks are on ids."""
-
-    eos_token_id = 2
-
-    def __init__(self):
-        self.byte_of = _byte_level_bytes()
-        self.id_of = {b: 3 + i for i, b in enumerate(self.byte_of)}
-
-    def encode(self, text: str) -> list:
-        return [self.id_of[b] for b in text.encode("utf-8")]
-
-    def __call__(self, text, return_tensors=None, add_special_tokens=True):
-        return {"input_ids": self.encode(text)}
-
-    def decode(self, ids, skip_special_tokens=True) -> str:
-        """The text of ``ids``, the specials skipped (as the entry points
-        ask)."""
-        return bytes(self.byte_of[i - 3] for i in ids if 3 <= i < 259
-                     ).decode("utf-8", errors="replace")
-
-    def apply_chat_template(self, messages, add_generation_prompt=True):
-        text = "".join(f"{m['role']}: {m['content']}\n" for m in messages)
-        return self.encode(
-            text + ("assistant:" if add_generation_prompt else ""))
-
-
 class Recorder:
     """A generator as the entry points call it, recording each
     ``generate``: its prompt, the ids its stream callback got, the ids it
@@ -3627,6 +3604,24 @@ def _device_events(prof):
     ]
 
 
+def traced(fn, tries: int = 3) -> list:
+    """The device events of ``fn()`` under ``torch.profiler``. Late in a
+    process that has run many sessions, one now and then records nothing
+    (CUPTI's; met in the Mixtral graphed step of a smoke whose earlier run
+    of the same tree had recorded it): ``fn`` is run again in a new
+    session, up to ``tries`` sessions, and an empty last one raises."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+        events = _device_events(prof)
+        if events:
+            return events
+    raise RuntimeError(f"torch.profiler recorded no device event in {tries} "
+                       "sessions")
+
+
 def tag_sets(trace_tags: tuple) -> tuple:
     """A wrapper's ``trace_tags`` as tuples of words: a kernel whose name
     holds every word of one of them is the wrapper's. A wrapper whose
@@ -3682,8 +3677,6 @@ def prefill_breakdown(model, gen, prompt, tags: dict):
     runs (``torch.profiler`` CUDA activity, the same call run again). The
     prefill reads nothing back: the trace must hold no device-to-host
     copy (a MoE layer's expert ids stay on the card)."""
-    from torch.profiler import ProfilerActivity, profile
-
     from vptq_tpu_torch.models.llama import forward, init_cache
     from vptq_tpu_torch.serving.generate import _pad_bucket
 
@@ -3705,9 +3698,7 @@ def prefill_breakdown(model, gen, prompt, tags: dict):
     with torch.inference_mode():
         run()
         wall_ms = run()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            run()
-    events = _device_events(prof)
+        events = traced(run)
     out = dict(
         tokens=tokens.shape[1], wall_ms=wall_ms,
         device_busy_ms=sum(e.device_time_total for e in events) / 1e3,
@@ -3726,8 +3717,6 @@ def decode_breakdown(model, gen, prompt, tags: dict, steps=8):
     its CUDA kernels by name. The steps read nothing back, so the trace
     must hold no device-to-host copy: a routing decision read on the host
     would be one."""
-    from torch.profiler import ProfilerActivity, profile
-
     from vptq_tpu_torch.models.llama import forward, init_cache
 
     device = model.embed_tokens.device
@@ -3747,9 +3736,7 @@ def decode_breakdown(model, gen, prompt, tags: dict, steps=8):
         t0 = time.perf_counter()
         run(steps)
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            run(steps)
-    events = _device_events(prof)
+        events = traced(lambda: run(steps))
     to_host = _device_to_host(events, f"{steps} decode steps")
     busy_ms = sum(e.device_time_total for e in events) / 1e3 / steps
     kernel_ms = _kernel_ms(events, tags, "decode", per=steps)
@@ -3881,8 +3868,6 @@ def graph_breakdown(model, gen, prompt, tags: dict, fmt: str, steps=8):
     (:func:`step_routes`: CUPTI records the kernels of a replay), no
     device-to-host copy inside the chunk, the seconds of each capture so
     far and the bytes of the graphs' pool."""
-    from torch.profiler import ProfilerActivity, profile
-
     device = model.embed_tokens.device
     graphs = gen.graphs
 
@@ -3898,9 +3883,7 @@ def graph_breakdown(model, gen, prompt, tags: dict, fmt: str, steps=8):
         t0 = time.perf_counter()
         run(steps)
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            run(steps)
-    events = _device_events(prof)
+        events = traced(lambda: run(steps))
     busy_ms = sum(e.device_time_total for e in events) / 1e3 / steps
     span_ms = (max(e.time_range.end for e in events)
                - min(e.time_range.start for e in events)) / 1e3 / steps
@@ -4019,7 +4002,10 @@ TP_MIXTRAL_LAYERS = 2  # Mixtral under EP: full width, depth cut
 TP_MIXTRAL_PROMPT = 128  # K6b on the local experts (more than 64 tokens)
 TP_SERVE_LENS = (16, 128, 512, 1536)  # the served prompts' lengths
 TP_SERVE_PER_LEN = 2  # and the requests of each: all 8 slots live
-TP_INT8_LAYERS = 8  # the int8 job's depth (32 until phase 17 came)
+# the int8 job's depth (32 until phase 17 came, 8 until phases 18 and
+# 19 came); its checks (placed bytes, held launches, ranks bit-equal,
+# cosine against one device) hold at any depth
+TP_INT8_LAYERS = 4
 TP_TIMEOUT_S = 300.0  # a rank that hangs fails the others' collective
 
 
@@ -4342,6 +4328,7 @@ def tp_rank(rank: int, world: int, store: str, spec: str, out_dir: str):
         jobs = json.loads(Path(spec).read_text())
         results = [(cp_rank_job if job.get("cp")
                     else tp_calibrated_rank_job if job.get("calibrated")
+                    else tp_codebook_rank_job if job.get("codebook")
                     else tp_rank_job)(job, rank, world) for job in jobs]
         Path(out_dir, f"rank{rank}.json").write_text(json.dumps(results))
     finally:
@@ -5236,6 +5223,219 @@ def phase_cp(device, path, vocab: int, card: str, layers: int = CP_LAYERS,
     return dict(launches=report_tp(results, card, "cp", CP_LABEL))
 
 
+# --------------------------------------------------------------------
+# The ported examples and a codebook model under a mesh: the fidelity
+# gauntlet, the autotune sweeps, quickstart, the multichip demo
+# --------------------------------------------------------------------
+
+# the gauntlet at the script's own flags, at Llama width: --hidden 4096
+# --layers 2 (vocab 1024, 8 heads, seed 23)
+GAUNTLET = dict(hidden=4096, layers=2, seed=23)
+# a row's logit KL through the kernels against through their plain
+# versions on the same model: |KL - KL_plain| <= GAUNTLET_RTOL * KL_plain
+GAUNTLET_RTOL = 5e-2
+SWEEP_ITERS = 10  # timed launches a plan (the sweeps' own default is 30)
+SWEEP_LIBS = {"w8": "w8_matmul", "w4": "w4_matmul", "w3": "w3_matmul",
+              "w2": "w2_matmul"}
+CODEBOOK_TP_LAYERS = 2  # the codebook model under a mesh: full width
+CODEBOOK_TP_PROMPT = 512  # its held prefill
+CODEBOOK_TP_GREEDY = 8  # and its greedy tokens against one device
+
+
+def _plain_of(fmt: str):
+    """The context in which a model of ``fmt`` runs its kernels' plain
+    versions (bf16 runs no kernel)."""
+    return contextlib.nullcontext() if fmt == "bf16" else plain_versions(fmt)
+
+
+def phase_gauntlet(device, card: str, hidden=GAUNTLET["hidden"],
+                   layers=GAUNTLET["layers"]) -> dict:
+    """``examples/fidelity_gauntlet.py`` on the card: every rung's logit
+    KL against the exact codebook model through the kernels, and through
+    their plain versions on the same loaded model, held within
+    ``GAUNTLET_RTOL``; each rung's kernel launched."""
+    from vptq_tpu_torch.examples import fidelity_gauntlet
+
+    _zero_counts()
+    out, held = fidelity_gauntlet.gauntlet(hidden, layers, GAUNTLET["seed"],
+                                           device, plain=_plain_of)
+    _sync(device)
+    launches = _counts()
+    rows = {}
+    for row in out["rows"]:
+        kl, kl_plain = held[row["format"]]
+        gap = abs(kl - kl_plain) / kl_plain
+        rows[row["format"]] = dict(row, logit_kl=kl, logit_kl_plain=kl_plain,
+                                   gap=gap)
+        print(f"gauntlet [{card}] " + json.dumps(rows[row["format"]]))
+        if not gap <= GAUNTLET_RTOL:
+            raise AssertionError(f"gauntlet {row['format']}: KL {kl} against "
+                                 f"{kl_plain} through the plain versions")
+    if torch.device(device).type == "cuda":
+        missing = [k for k in FORMAT_KERNEL.values() if not launches[k]]
+        if missing:
+            raise AssertionError(f"gauntlet: {missing} never launched")
+    return dict(launches=launches, rows=rows)
+
+
+def phase_sweeps(device, card: str, iters=SWEEP_ITERS) -> dict:
+    """The four ``examples/autotune_w*`` sweeps on the card: every plan of
+    every shape held to its plain version and timed, and the wrapper's own
+    route, whose launches are counted."""
+    from vptq_tpu_torch.examples import autotune
+
+    print(card, flush=True)
+    _zero_counts()
+    best = {}
+    for kernel in autotune.SWEEPS:
+        for rec in autotune.sweep(kernel, device, iters):
+            best[f"{kernel} {rec['shape']} g{rec['group']}"] = {
+                k: rec.get(k) for k in ("best", "route", "us", "bound_us")}
+    _sync(device)
+    launches = _counts()
+    if torch.device(device).type == "cuda":
+        missing = [k for k in SWEEP_LIBS.values() if not launches[k]]
+        if missing:
+            raise AssertionError(f"sweeps: {missing} never launched")
+    print(f"sweeps [{card}] " + json.dumps(best))
+    return dict(launches=launches, best=best)
+
+
+def phase_quickstart(device) -> dict:
+    """``examples/quickstart.py`` on its synthetic checkpoint: sampled at
+    0.8 from one seed twice (the same tokens), 32 tokens of the
+    vocabulary, and K1's launches those of one request."""
+    from vptq_tpu_torch.examples import quickstart
+    from vptq_tpu_torch.utils.synth_checkpoint import tiny_model_config
+
+    cfg = tiny_model_config(**quickstart.MODEL)
+    with tempfile.TemporaryDirectory(prefix="vptq_quickstart_") as tmp:
+        quickstart.write_quickstart_checkpoint(tmp)
+        argv = [tmp, "--tokenizer", "byte", "--device", str(device)]
+        _zero_counts()
+        tokens = quickstart.main(argv)
+        _sync(device)
+        launches = _counts()
+        again = quickstart.main(argv)
+    plen = len(ByteTokenizer()(quickstart.PROMPT)["input_ids"])
+    want = expected_launches(cfg, "int8", plen, quickstart.NEW_TOKENS,
+                             (128, 512, 2048))
+    if torch.device(device).type != "cuda":
+        want = dict.fromkeys(ALL_KERNELS, 0)
+    if launches != want:
+        raise AssertionError(f"quickstart: launches {launches}, want {want}")
+    if (tokens != again or len(tokens) != quickstart.NEW_TOKENS
+            or not all(0 <= t < cfg.vocab_size for t in tokens)):
+        raise AssertionError(f"quickstart: tokens {tokens}, then {again}")
+    return dict(launches=launches, tokens=tokens)
+
+
+def phase_demo(device) -> dict:
+    """``examples/multichip_demo.py``: the plan, then TP, DP x TP and CP
+    on 4 gloo ranks sharing the card, then 2 pipeline stages on it. The
+    first microbatch's next token is the TP Generator's first (one prompt,
+    greedy); the stages' K1 launches are counted here."""
+    from vptq_tpu_torch.examples import multichip_demo
+
+    _zero_counts()
+    steps = multichip_demo.main(["--device", str(device), "--hbm-gb", "80"])
+    _sync(device)
+    launches = _counts()
+    if steps["pp"][0] != steps["tp"][0]:
+        raise AssertionError(f"demo: PP's next token {steps['pp'][0]}, the "
+                             f"TP Generator's first {steps['tp'][0]}")
+    if torch.device(device).type == "cuda" and not launches["w8_matmul"]:
+        raise AssertionError("demo: K1 never launched")
+    return dict(launches=launches, steps=steps)
+
+
+def codebook_reference(device, path, vocab: int, out: Path) -> str:
+    """One device's codebook model: the held prompt's last prefill rows
+    and the greedy tokens, written to ``out``."""
+    from vptq_tpu_torch.models.loader import load_model
+    from vptq_tpu_torch.serving.generate import Generator
+
+    model = load_model(path, runtime_format="codebook", device=device)
+    gen = Generator(model, max_seq=2048)
+    with torch.inference_mode():
+        logits = prefill(model, gen, _tp_prompt(vocab, CODEBOOK_TP_PROMPT, 3))
+    torch.save(dict(
+        logits=logits[-8:].float().cpu(),
+        tokens=gen.generate(_tp_prompt(vocab, 16, 4),
+                            max_new_tokens=CODEBOOK_TP_GREEDY)), out)
+    del model, gen
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    return str(out)
+
+
+def tp_codebook_rank_job(job: dict, rank: int, world: int) -> dict:
+    """The codebook model under a data-1 mesh on one rank
+    (``load_model(runtime_format="codebook", mesh=)``): the held prefill's
+    last rows within ``LOGIT_TOL`` of one device's, the greedy tokens
+    equal, the ranks agreeing."""
+    import torch.distributed as dist
+
+    from vptq_tpu_torch.models.loader import load_model
+    from vptq_tpu_torch.parallel.mesh import make_mesh
+    from vptq_tpu_torch.serving.generate import Generator
+
+    device = torch.device(job.get("device") or "cuda:0")
+    ref = torch.load(job["reference"])
+    out = dict(rank=rank, world=world, backend=dist.get_backend())
+    dist.barrier()
+    t0 = time.perf_counter()
+    mesh = make_mesh(data=1, model=world, device=device)
+    model = load_model(job["path"], runtime_format="codebook", mesh=mesh)
+    out["load_s"] = time.perf_counter() - t0
+    out["placements"] = sorted({type(m).__name__ for m in model.modules()
+                                if "VQ" in type(m).__name__})
+    gen = Generator(model, max_seq=2048, mesh=mesh)
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        logits = prefill(model, gen,
+                         _tp_prompt(job["vocab"], CODEBOOK_TP_PROMPT, 3))
+    _sync(device)
+    out["prefill_s"] = time.perf_counter() - t0
+    rows = logits[-8:].float().cpu()
+    ranks_agree("codebook prefill", rows.to(device))
+    out["gap"] = float((rows - ref["logits"]).abs().max()
+                       / ref["logits"].abs().max())
+    out["tokens"] = gen.generate(_tp_prompt(job["vocab"], 16, 4),
+                                 max_new_tokens=CODEBOOK_TP_GREEDY)
+    out["tokens_equal"] = out["tokens"] == ref["tokens"]
+    return out
+
+
+def phase_tp_codebook(device, path, vocab: int, card: str,
+                      layers=CODEBOOK_TP_LAYERS) -> dict:
+    """A codebook model at the checkpoint's width, cut to ``layers``,
+    over 2 gloo ranks sharing the card (``tp_codebook_rank_job``) against
+    one device's. The codebook format runs no kernel (a gather and a
+    matmul a layer): its launches are 0."""
+    cut = cut_checkpoint(path, layers)
+    try:
+        with tempfile.TemporaryDirectory(prefix="vptq_cb_ref_") as tmp:
+            with timed("tp codebook one-device reference"):
+                ref = codebook_reference(device, str(cut), vocab,
+                                         Path(tmp, "ref.pt"))
+            _zero_counts()
+            results = run_ranks([dict(codebook=True, path=str(cut),
+                                      vocab=vocab, reference=ref,
+                                      device=str(device))])
+    finally:
+        shutil.rmtree(cut, ignore_errors=True)
+    for (res,) in results:
+        print(f"tp codebook [{card}; {TP_LABEL}] " + json.dumps(res))
+        if not (res["gap"] <= LOGIT_TOL and res["tokens_equal"]):
+            raise AssertionError(f"tp codebook rank {res['rank']}: gap "
+                                 f"{res['gap']}, tokens {res['tokens']}")
+        if "VQRowShard" not in res["placements"]:
+            raise AssertionError(f"tp codebook: placements "
+                                 f"{res['placements']}")
+    return dict(launches=_counts(), ranks=[r for (r,) in results])
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5456,6 +5656,11 @@ def main() -> int:
                            "layers)"):
                     e2e = phase_cp(device, path, cfg["vocab_size"], card)
                 count(e2e)
+                with timed("tp codebook Llama-3.1-8B "
+                           f"({CODEBOOK_TP_LAYERS} layers)"):
+                    e2e = phase_tp_codebook(device, path, cfg["vocab_size"],
+                                            card)
+                count(e2e)
             if label == "Mixtral-8x7B":
                 cut = cut_checkpoint(path, TP_MIXTRAL_LAYERS)
                 try:
@@ -5516,6 +5721,20 @@ def main() -> int:
         count(e2e)
     finally:
         shutil.rmtree(path, ignore_errors=True)
+    # the ported examples: each entry point as a user runs it
+    with timed("sweeps (autotune_w8, _w4, _w3, _w2)"):
+        count(phase_sweeps(device, card))
+    with timed("quickstart"):
+        e2e = phase_quickstart(device)
+    print("e2e quickstart " + json.dumps(e2e["tokens"]))
+    count(e2e)
+    with timed("multichip demo (4 gloo ranks sharing the card)"):
+        e2e = phase_demo(device)
+    print("e2e multichip demo " + json.dumps(e2e["steps"]))
+    count(e2e)
+    with timed(f"fidelity gauntlet (--hidden {GAUNTLET['hidden']} --layers "
+               f"{GAUNTLET['layers']})"):
+        count(phase_gauntlet(device, card))
     plan_against_measured(measured_steps)
     print(f"seconds smoke: {time.perf_counter() - t_start:.2f}")
     print(json.dumps({"kernels": kernel_records(rows, launches)}))

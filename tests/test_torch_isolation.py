@@ -25,10 +25,18 @@ import chip_smoke
 from vptq_tpu_torch import AutoModelForCausalLM
 from vptq_tpu_torch.convert import convert_params
 from vptq_tpu_torch.examples import (
+    autotune,
+    autotune_w2,
+    autotune_w3,
+    autotune_w4,
+    autotune_w8,
+    fidelity_gauntlet,
     kernel_bench,
     kernel_turns,
     mixed_sensitivity,
+    multichip_demo,
     profile_decode,
+    quickstart,
     vq_smallk_probe,
     w4_unpack_ablation,
     w4_wall_candidates,
@@ -108,7 +116,15 @@ assert {"vptq_tpu_torch.ops.flash_attention", "vptq_tpu_torch.ops.bf16_matmul",
         "vptq_tpu_torch.utils.memory", "vptq_tpu_torch.utils.profiling",
         "vptq_tpu_torch.models.walk", "vptq_tpu_torch.parallel.distributed",
         "vptq_tpu_torch.parallel.mesh", "vptq_tpu_torch.parallel.tp",
-        "vptq_tpu_torch.parallel.expert_parallel"} <= set(names)
+        "vptq_tpu_torch.parallel.expert_parallel",
+        "vptq_tpu_torch.examples.quickstart",
+        "vptq_tpu_torch.examples.multichip_demo",
+        "vptq_tpu_torch.examples.fidelity_gauntlet",
+        "vptq_tpu_torch.examples.autotune",
+        "vptq_tpu_torch.examples.autotune_w8",
+        "vptq_tpu_torch.examples.autotune_w4",
+        "vptq_tpu_torch.examples.autotune_w3",
+        "vptq_tpu_torch.examples.autotune_w2"} <= set(names)
 for name in names:
     importlib.import_module(name)
 import chip_smoke
@@ -688,7 +704,9 @@ def test_chip_smoke_probe_phase_on_cpu():
 
 @pytest.mark.parametrize("module", [
     kernel_bench, w4_wall_candidates, w4_unpack_ablation, vq_smallk_probe,
-    kernel_turns, profile_decode, mixed_sensitivity,
+    kernel_turns, profile_decode, mixed_sensitivity, quickstart,
+    multichip_demo, fidelity_gauntlet, autotune_w8, autotune_w4,
+    autotune_w3, autotune_w2,
 ])
 def test_examples_exit_nonzero_without_a_card(module, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -696,6 +714,46 @@ def test_examples_exit_nonzero_without_a_card(module, monkeypatch):
         module.main([])
     assert exc.value.code not in (0, None)
     assert "--device cpu" in str(exc.value.code)
+
+
+SWEEP_SHAPES = [(k, *shape) for k, shapes in autotune.SWEEPS.items()
+                for shape in shapes]
+
+
+@pytest.mark.parametrize("kernel,name,out_f,in_f,group", SWEEP_SHAPES)
+def test_sweep_plans_are_decode_splits(kernel, name, out_f, in_f, group):
+    """Each sweep's plans: split 0 and every split decode_split can pick
+    at that shape (over any SM count: the largest it falls back to with
+    many SMs, the smallest with few), no other; the route's split is the
+    wrapper's at one token (decode_split's, but 0 for K1 at one token and
+    K4 on o, which take the older GEMV)."""
+    plans = autotune.plans(kernel, out_f, in_f, group)
+    fmt = f"w2g{group}" if kernel == "w2" else kernel
+    parts, planes, scale_bytes = DECODE_FORMATS[fmt]
+    positions = in_f // {"w8": 1, "w4": 2, "w2": 4, "w3": 8}[kernel]
+    picked = {decode_split(out_f, positions, parts, 1, n_sm, planes,
+                           scale_bytes) for n_sm in range(1, 4096, 7)}
+    assert plans[0] == 0 and picked <= set(plans)
+    assert set(plans[1:]) <= set(DECODE_SPLITS)
+    assert max(plans) == max(picked) and min(plans[1:]) == min(picked)
+    # any split between the two that the shape admits is swept too
+    assert plans[1:] == [s for s in DECODE_SPLITS
+                         if min(picked) <= s <= max(picked)]
+    route = autotune.route_split(kernel, out_f, in_f, group)
+    if kernel == "w8":
+        want = (decode_split(out_f, positions, parts, 1, 132, planes,
+                             scale_bytes)
+                if w8_takes_decode_gemv(1, out_f, in_f) else 0)
+    elif kernel == "w3":
+        from vptq_tpu_torch.ops.w3_matmul import takes_decode_gemv
+
+        want = (decode_split(out_f, positions, parts, 1, 132, planes,
+                             scale_bytes)
+                if takes_decode_gemv(1, out_f, in_f) else 0)
+    else:
+        want = decode_split(out_f, positions, parts, 1, 132, planes,
+                            scale_bytes)
+    assert route == want and route in plans
 
 
 def test_expected_launches_of_a_request():

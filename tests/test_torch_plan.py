@@ -383,18 +383,61 @@ def test_a_real_tensor_never_takes_the_meta_collectives():
 
 
 @pytest.mark.parametrize("argv,needle", [
-    (["--chips", "8", "--parallel", "gspmd"], "2h"),
-    (["--format", "codebook", "--chips", "2", "--hbm-gb", "80"], "2h"),
+    (["--chips", "8", "--parallel", "gspmd"], "spec-annotation"),
+    (["--format", "int8", "--chips", "2", "--parallel", "gspmd",
+      "--hbm-gb", "80"], "spec-annotation"),
     ([], "--hbm-gb"),
 ])
 def test_cli_refuses_what_it_cannot_plan(argv, needle, monkeypatch):
-    """GSPMD placement has no counterpart (ROADMAP Queue 1 item 2h), nor
-    has the codebook format over several devices; without a card the
+    """GSPMD placement of a runtime format has no counterpart (the
+    codebook format plans under gspmd, below); without a card the
     device's memory must be given."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit) as exc:
         plan.main(["--geometry", "llama3-8b", *argv])
     assert exc.value.code not in (0, None) and needle in str(exc.value.code)
+
+
+@pytest.mark.parametrize("chips", ["2", "8"])
+@pytest.mark.parametrize("geometry", ["llama2-70b", "llama2-7b",
+                                      "mixtral-8x7b", "deepseek-r1"])
+def test_codebook_plans_under_gspmd_as_jax(geometry, chips, capsys):
+    """The codebook format over several devices: vptq_tpu's GSPMD
+    placement line (pp=1 x tp=1), its budget per device and its exit
+    code, number for number. Its prediction rests on a TPU rate for the
+    codebook gather, which the port has not measured: the port prints
+    none."""
+    argv = ["--geometry", geometry, "--format", "codebook", "--chips", chips,
+            "--hbm-gb", "16"]
+    rc = jplan.main(argv)
+    jlines = capsys.readouterr().out.splitlines()
+    assert plan.main(argv) == rc
+    lines = capsys.readouterr().out.splitlines()
+    def unpredicted(lines):
+        return [ln for ln in lines if not ln.startswith("predicted decode")]
+
+    want = _placement_numbers(unpredicted(jlines), False)
+    got = _placement_numbers(unpredicted(lines), True)
+    assert got == want and want
+    assert jlines[0] == lines[0] == (
+        "# codebook plans under GSPMD (no shard_map-TP path)")
+    assert any(ln.startswith("predicted decode: none") for ln in lines) == (
+        rc == 0)
+
+
+def test_codebook_meta_step_over_devices(capsys):
+    """``--compile`` under gspmd runs one rank's decode step of the
+    codebook placement on the meta device: the whole vocabulary's
+    logits, the rank's index planes."""
+    argv = ["--geometry", "llama2-7b", "--format", "codebook", "--chips", "2",
+            "--hbm-gb", "80", "--max-seq", "256", "--compile"]
+    assert plan.main(argv) == 0
+    out = capsys.readouterr().out
+    assert ("meta decode step of one rank of gspmd=2: logits (1, 1, 32000)"
+            in out)
+    one = plan.validate_plan(_cfg("llama2-7b"), "codebook", max_seq=256)
+    two = plan.validate_plan(_cfg("llama2-7b"), "codebook", max_seq=256, tp=2)
+    assert two["weights_bytes"] < 0.6 * one["weights_bytes"]
 
 
 # -------------------------------------------------------------- profiling

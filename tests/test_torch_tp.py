@@ -442,11 +442,22 @@ def test_row_parallel_bias_is_refused_with_jax_message():
 
 
 def test_codebook_and_mixed_formats_are_refused_under_a_mesh(tmp_path):
+    """``load_model(mesh=)`` places the codebook format as the JAX
+    package's GSPMD placement splits it (rank 0's shard here: its layers'
+    index planes halved; ``tests/test_torch_tp_codebook.py`` holds the
+    ranks' logits), while ``from_pretrained(tp=)`` keeps the JAX
+    package's refusal of it."""
     ckpt, _ = _one_device(tmp_path)
     mesh = Mesh(data=1, model=2)
-    with pytest.raises(ValueError, match="codebook does not run the "
-                       "shard_map path"):
-        load_model(ckpt, runtime_format="codebook", mesh=mesh)
+    one = load_model(ckpt, runtime_format="codebook", dtype=torch.float32,
+                     device="cpu")
+    placed = load_model(ckpt, runtime_format="codebook", mesh=mesh,
+                        dtype=torch.float32)
+    q, o = one.blocks[0].attn.q_proj, one.blocks[0].attn.o_proj
+    pq, po = placed.blocks[0].attn.q_proj, placed.blocks[0].attn.o_proj
+    assert pq.ids.shape[1] * 2 == q.ids.shape[1]
+    assert isinstance(po, tp.VQRowShard)
+    assert po.layer.ids.shape[2] * 2 == o.ids.shape[2]
     from vptq_tpu_torch.api import AutoModelForCausalLM
 
     with pytest.raises(ValueError, match="codebook"):

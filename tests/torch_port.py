@@ -202,6 +202,47 @@ def tp_rank_cases(rank: int, world: int, store: str, spec: str,
         dist.destroy_process_group()
 
 
+def tp_rank_codebook(rank: int, world: int, store: str, spec: str,
+                     out_dir: str) -> None:
+    """Every case of ``spec`` on this rank: the codebook model under a
+    data-1 mesh (``load_model(mesh=)``), ``forward_tp``'s logits over a
+    fresh prefill and one decode step, and ``Generator(mesh=)``'s greedy
+    tokens; the results to ``out_dir/<rank>.pt``."""
+    import torch.distributed as dist
+
+    from vptq_tpu_torch.models.loader import load_model
+    from vptq_tpu_torch.parallel.mesh import make_mesh
+    from vptq_tpu_torch.parallel.tp import forward_tp, init_cache_tp
+    from vptq_tpu_torch.serving.generate import Generator
+
+    _join(rank, world, store)
+    results = {}
+    try:
+        mesh = make_mesh(data=1, model=world, device="cpu")
+        for case in torch.load(spec):
+            model = load_model(case["ckpt"], mesh=mesh, dtype=torch.float32,
+                               runtime_format="codebook")
+            tokens = torch.tensor(case["tokens"])
+            cache = init_cache_tp(model.cfg, tokens.shape[0], 64,
+                                  torch.float32, mesh)
+            out = {"kinds": sorted({type(m).__name__
+                                    for m in model.modules()})}
+            with torch.inference_mode():
+                out["logits"], _ = forward_tp(model, tokens, cache, mesh,
+                                              torch.float32, True)
+                out["step"], _ = forward_tp(model, torch.tensor(
+                    case["next"]), cache, mesh, torch.float32)
+            gen = Generator(model, max_seq=64, dtype=torch.float32,
+                            prompt_buckets=(16,), mesh=mesh)
+            out["greedy"] = gen.generate(case["prompt"], max_new_tokens=8,
+                                         chunk_size=4)
+            results[case["name"]] = out
+            dist.barrier()
+        torch.save(results, f"{out_dir}/{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
 def tp_rank_cli(rank: int, world: int, store: str, argv: list,
                 out_dir: str) -> None:
     """``python -m vptq_tpu_torch ... --tp world`` on this rank, its stdout

@@ -407,11 +407,12 @@ def load_model(
     ``mesh`` (a ``parallel.mesh.Mesh``; every rank calls this with the
     same arguments): the rank's shard for tensor / expert parallelism
     over the mesh's model axis, on ``mesh.device``: the JAX package's
-    ``parallel="tp"`` (its GSPMD placement has no counterpart). The
-    geometry is validated and the budget checked per device of the model
-    axis before anything is read. The codebook format under a mesh
-    raises. A calibrated format is calibrated once for the job, on global
-    rank 0's device, with the row-parallel sites blocked
+    ``parallel="tp"``. The geometry is validated and the budget checked
+    per device of the model axis before anything is read. The codebook
+    format is placed as the JAX package's GSPMD placement splits it
+    (``parallel/tp.py``: each VQ layer's index planes over the model
+    axis; dense geometries). A calibrated format is calibrated once for
+    the job, on global rank 0's device, with the row-parallel sites blocked
     (``quantize_model_calibrated(tp_shards=mesh.model)``); each finished
     block goes to every rank (``distributed.broadcast_tensors``) as soon
     as GPTQ is done with it, and each rank keeps its shard of it
@@ -423,7 +424,6 @@ def load_model(
         and runtime_format in ("int2", "int3", "int4", "int8")
     )
     if mesh is not None:
-        _check_mesh(runtime_format)
         device = mesh.device
     device = resolve_device(device)
     if calibrated:
@@ -457,10 +457,12 @@ def load_model(
     state = load_state_dict(str(root))
 
     def lin(prefix, row=False):
-        # row: a row-parallel layer, blocked under a mesh
+        # row: a row-parallel layer, blocked under a mesh (a codebook
+        # layer has no blocked layout: its placement splits the planes)
+        blocked = row and runtime_format != "codebook"
         return to_runtime(
             _linear(prefix, state, qcfg, dtype, device), runtime_format,
-            row_shards=tp_size if row else 1,
+            row_shards=tp_size if blocked else 1,
         )
 
     def norm_weight(name):
@@ -612,16 +614,6 @@ def load_model(
         embed_tokens=embed, blocks=blocks, norm=norm, lm_head=lm_head,
         cfg=model_cfg,
     )
-
-
-def _check_mesh(runtime_format) -> None:
-    """What :func:`load_model` refuses under a mesh, before anything is
-    read."""
-    if runtime_format == "codebook":
-        raise ValueError(
-            "tp>1 requires runtime_format int8/int4/bf16 "
-            "(codebook does not run the shard_map path)"
-        )
 
 
 def _check_budget(model_cfg, qcfg, runtime_format, quantize_lm_head, device,

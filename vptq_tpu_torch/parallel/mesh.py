@@ -11,8 +11,8 @@ the model axis innermost, as in the JAX package.
 
 GSPMD's placement (``sharding.py`` ``shard_model``, ``shard_block``,
 ``shard_cache``, ``replicated``) has no counterpart: a rank's modules are
-its shard (``parallel/tp.py``), and the codebook format, which only
-GSPMD partitions in the JAX package, is refused under a mesh.
+its shard (``parallel/tp.py``), the codebook format's too, which only
+GSPMD partitions in the JAX package.
 """
 
 from __future__ import annotations

@@ -28,11 +28,22 @@ package's ``tp_place_model`` puts on the mesh, byte for byte), per role:
   tensors (q / q_b, uk, uv) over heads, o_proj row-parallel.
 - the embedding over the vocabulary when the lm_head is untied (whole
   when tied: it is the lm_head then); the norms whole.
+- a codebook layer (``VQLinear``; the JAX package places it by GSPMD,
+  ``parallel/sharding.py`` ``_shard_vq``): column-parallel, its index
+  planes split on the out axis (axis 1) with its bias; row-parallel, on
+  the group columns (axis 2), with ``weight_scale`` / ``weight_bias`` at
+  the rank's input columns (:class:`VQRowShard`); codebooks and the
+  permutation whole. A plane that the model axis does not divide stays
+  whole, as JAX's ``_put`` replicates it: the column-parallel layer then
+  computes every row and keeps its own (:class:`VQOutRows`), the
+  row-parallel one is held by model rank 0 alone, so that the sum counts
+  it once.
 """
 
 from __future__ import annotations
 
 import copy
+import dataclasses
 from typing import Optional
 
 import torch
@@ -53,6 +64,7 @@ from vptq_tpu_torch.layers.runtime import (
     _MixedLinear,
     linear_exact_weight,
 )
+from vptq_tpu_torch.layers.vqlinear import VQLinear
 from vptq_tpu_torch.models.llama import (
     Attention,
     Block,
@@ -66,12 +78,14 @@ from vptq_tpu_torch.models.llama import (
     forward,
     init_cache,
 )
-from vptq_tpu_torch.parallel.distributed import broadcast
+from vptq_tpu_torch.parallel.distributed import all_gather_last, broadcast
 from vptq_tpu_torch.parallel.expert_parallel import shard_stacked_experts
 from vptq_tpu_torch.parallel.mesh import Mesh
 
 __all__ = [
     "ShardSum",
+    "VQOutRows",
+    "VQRowShard",
     "batch_axis",
     "cp_logits_row",
     "forward_tp",
@@ -182,6 +196,8 @@ def _out_features(layer) -> int:
 
 def _col_parallel(layer, mesh, perm: Optional[torch.Tensor] = None):
     """This rank's slice of a column-parallel linear (out axis)."""
+    if isinstance(layer, VQLinear):
+        return _vq_col_parallel(layer, mesh, perm)
     if perm is not None:
         layer = _permute_out(layer, perm)
     n, r = mesh.model, mesh.model_rank
@@ -246,6 +262,8 @@ def _row_parallel(layer, mesh, logical_in: int, reencode: bool = True):
             "o_proj/down_proj are bias-free)"
         )
     n = mesh.model
+    if isinstance(layer, VQLinear):
+        return _vq_row_parallel(layer, mesh)
     if isinstance(layer, _MixedLinear):
         if reencode:
             raise NotImplementedError(
@@ -282,6 +300,146 @@ def _row_parallel(layer, mesh, logical_in: int, reencode: bool = True):
         layer = encode(linear_exact_weight(layer, logical_in), None,
                        shards=n, **kwargs)
     return _in_slice(layer, mesh)
+
+
+def _vq_planes(layer: VQLinear, device, **sliced) -> dict:
+    """Every plane of ``layer`` on ``device`` (a copy of each), those in
+    ``sliced`` replaced by the given tensors."""
+    planes = {name: _own(getattr(layer, name), device) for name in (
+        "centroids", "ids", "res_centroids", "res_ids", "outlier_centroids",
+        "outlier_ids", "inv_perm", "weight_scale", "weight_bias", "bias")}
+    planes.update({k: _own(v, device) for k, v in sliced.items()})
+    return planes
+
+
+class VQOutRows(nn.Module):
+    """A whole codebook layer of which this rank keeps the output rows
+    ``rows``: the column-parallel placement of a layer whose index planes
+    the model axis does not divide (JAX's ``_put`` replicates them), or
+    whose rows a fused projection permutes."""
+
+    def __init__(self, layer: VQLinear, rows: torch.Tensor):
+        super().__init__()
+        self.layer = layer
+        self.register_buffer("rows", rows)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.layer(x).index_select(-1, self.rows)
+
+    @property
+    def out_features(self) -> int:
+        return int(self.rows.shape[0])
+
+
+def _vq_col_parallel(layer: VQLinear, mesh, perm=None):
+    """This rank's rows of a column-parallel codebook layer: the index
+    planes (and outlier ids) split on axis 1 with the bias when the model
+    axis divides every one of them whole vectors, else the whole layer and
+    its rows (:class:`VQOutRows`)."""
+    n, r, dev = mesh.model, mesh.model_rank, mesh.device
+    cfg = layer.cfg
+    out_f = cfg.out_features
+    if out_f % n:
+        raise ValueError(f"out_features {out_f} does not divide TP size {n}")
+    lo, hi = r * out_f // n, (r + 1) * out_f // n
+    split = perm is None and cfg.padding == 0 and cfg.num_indices % n == 0
+    if cfg.enable_outlier:
+        split = split and (cfg.outlier_padding == 0
+                           and cfg.outlier_num_indices % n == 0)
+    if not split:
+        rows = (torch.arange(lo, hi) if perm is None else perm[lo:hi])
+        return VQOutRows(_whole(layer, dev), rows.to(dev))
+    ni, oi = cfg.num_indices // n, cfg.outlier_num_indices // n
+    sliced = {"ids": layer.ids[:, r * ni:(r + 1) * ni]}
+    if layer.res_ids is not None:
+        sliced["res_ids"] = layer.res_ids[:, r * ni:(r + 1) * ni]
+    if layer.outlier_ids is not None:
+        sliced["outlier_ids"] = layer.outlier_ids[:, r * oi:(r + 1) * oi]
+    if layer.bias is not None:
+        sliced["bias"] = layer.bias[lo:hi]
+    return VQLinear(**_vq_planes(layer, dev, **sliced),
+                    cfg=dataclasses.replace(cfg, out_features=hi - lo))
+
+
+class VQRowShard(nn.Module):
+    """This rank's block of a row-parallel codebook layer: the stored
+    columns its index planes hold (a slice of each codebook's group and of
+    the outliers), run on the input columns they stand for.
+
+    ``cols`` None and ``gather`` False: those are the rank's own block of
+    the activations (no permutation, one codebook, no outliers), which it
+    is given. ``gather``: the activations of every rank are gathered
+    first (the model axis's ``all_gather``; GSPMD placed that gather in
+    the JAX package), then ``cols`` picked from them, the input columns
+    of the rank's stored ones through the permutation, or, ``cols`` None,
+    all of them for a whole layer. ``layer`` None: this rank holds none
+    of the layer (the whole of it lies on model rank 0) and adds zeros to
+    the sum."""
+
+    def __init__(self, layer: Optional[VQLinear], cols, gather: bool, tp,
+                 out_features: int):
+        super().__init__()
+        self.layer = layer
+        self.register_buffer("cols", cols)
+        self.gather, self.tp, self._out = gather, tp, out_features
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.gather:
+            x = all_gather_last(x, self.tp)
+        if self.layer is None:
+            return x.new_zeros((*x.shape[:-1], self._out))
+        if self.cols is not None:
+            x = x.index_select(-1, self.cols)
+        return self.layer(x)
+
+    @property
+    def out_features(self) -> int:
+        return self._out
+
+
+def _vq_row_parallel(layer: VQLinear, mesh) -> VQRowShard:
+    """This rank's block of a row-parallel codebook layer (the group
+    columns, ids axis 2, with the norm's entries at them); the whole
+    layer on model rank 0 when the model axis does not divide a
+    codebook's group or the outliers."""
+    n, r, dev = mesh.model, mesh.model_rank, mesh.device
+    cfg = layer.cfg
+    gs = cfg.group_size
+    osz = cfg.outlier_size if cfg.enable_outlier else 0
+    if gs % n or osz % n:
+        whole = _whole(layer, dev) if r == 0 else None
+        return VQRowShard(whole, None, True, mesh.tp, cfg.out_features)
+    g, o = gs // n, osz // n
+    stored = [torch.arange(r * o, (r + 1) * o)] + [
+        osz + c * gs + torch.arange(r * g, (r + 1) * g)
+        for c in range(cfg.num_codebooks)]
+    stored = torch.cat(stored)
+    # the input column each stored one stands for: W[:, j] = Q[:, inv[j]]
+    # (on the meta device, a plan's step, only their count)
+    if layer.inv_perm is None:
+        cols = stored
+    elif layer.inv_perm.is_meta:
+        cols = torch.empty_like(stored, device="meta")
+    else:
+        cols = torch.argsort(layer.inv_perm.to("cpu", torch.int64))[stored]
+    sliced = {"ids": layer.ids[:, :, r * g:(r + 1) * g], "inv_perm": None}
+    if layer.res_ids is not None:
+        sliced["res_ids"] = layer.res_ids[:, :, r * g:(r + 1) * g]
+    if layer.outlier_ids is not None:
+        sliced["outlier_ids"] = layer.outlier_ids[:, :, r * o:(r + 1) * o]
+    if layer.weight_scale is not None:
+        at = cols.to(layer.weight_scale.device)
+        sliced["weight_scale"] = layer.weight_scale.index_select(0, at)
+        sliced["weight_bias"] = layer.weight_bias.index_select(0, at)
+    sub = VQLinear(**_vq_planes(layer, dev, **sliced), cfg=dataclasses.replace(
+        cfg, in_features=cfg.in_features // n, group_size=g,
+        outlier_size=o if cfg.enable_outlier else cfg.outlier_size,
+        enable_perm=False))
+    lo = r * cfg.in_features // n
+    if not cols.is_meta and torch.equal(
+            cols, torch.arange(lo, lo + cols.shape[0])):
+        return VQRowShard(sub, None, False, mesh.tp, cfg.out_features)
+    return VQRowShard(sub, cols.to(dev), True, mesh.tp, cfg.out_features)
 
 
 class ShardSum(nn.Module):

@@ -35,9 +35,14 @@ collectives on meta tensors return their shapes and call no group
 step on a forced CPU mesh. With stages, one stage's layers. The
 per-collective latency ``--ici-us`` (default 10 µs, the range printed
 1–20 µs) is the JAX package's assumption, not a measurement: no
-collective between cards has been timed for the port. GSPMD placement
-(``--parallel gspmd``, the codebook format over several devices) has no
-counterpart (ROADMAP Queue 1 item 2h).
+collective between cards has been timed for the port. The codebook
+format over several devices plans under ``gspmd``, as the JAX package's
+does: no pipeline stages, every weight over the whole host's devices
+(``parallel/tp.py`` splits each VQ layer's index planes as JAX's GSPMD
+placement does), and the meta step is one rank's of that placement.
+``--parallel gspmd`` with another format stays refused: the JAX
+package's spec-annotation placement of the kernel formats has no
+counterpart (tensor parallelism is the port's sharded path).
 
 CLI::
 
@@ -182,10 +187,11 @@ _MIXED_BASE = {"int3-mixed": "int3", "int2-mixed": "int2"}
 # port, and the range the CLI prints around it
 ICI_US = 10.0
 ICI_US_RANGE = (20.0, 1.0)
-# GSPMD placement (the codebook format over several devices) is not ported
-_GSPMD = ("GSPMD placement has no counterpart in the port (ROADMAP Queue 1 "
-          "item 2h: a codebook model under a mesh); plan --parallel tp "
-          "with a runtime format")
+# the spec-annotation placement of a runtime format over several devices
+# is not ported
+_GSPMD = ("the spec-annotation (GSPMD) placement of a runtime format has no "
+          "counterpart in the port; plan --parallel tp (the codebook "
+          "format plans under gspmd)")
 
 
 def _stream_terms(cfg: ModelConfig, fmt: str, batch: int, max_seq: int,
@@ -612,8 +618,11 @@ def validate_plan(
 
     if tp > 1:
         tp_validate(cfg, tp, sharded_lm_head=not cfg.tie_word_embeddings)
-    model = abstract_runtime_model(cfg, fmt, quantize_lm_head, tp_shards=tp,
-                                   vq=vq)
+    # a codebook layer has no blocked layout: its placement splits the
+    # index planes
+    model = abstract_runtime_model(
+        cfg, fmt, quantize_lm_head, tp_shards=1 if fmt == "codebook" else tp,
+        vq=vq)
     cache = init_cache(cfg, batch, max_seq, torch.bfloat16, _META)
     cache.reset(max_seq - 1)
     axis = None
@@ -683,7 +692,8 @@ def main(argv=None) -> int:
     ap.add_argument(
         "--parallel", default="tp", choices=("tp", "gspmd"),
         help="placement over several devices: tp, tensor parallelism and "
-        "pipeline stages (gspmd has no counterpart in the port)",
+        "pipeline stages; gspmd, the codebook format's (its index planes "
+        "split over every device of a host)",
     )
     ap.add_argument(
         "--hbm-gb", type=float, default=None,
@@ -700,7 +710,11 @@ def main(argv=None) -> int:
     )
     args = ap.parse_args(argv)
 
-    if args.parallel == "gspmd":
+    if args.format == "codebook" and args.parallel == "tp":
+        # the codebook format's only placement over devices is GSPMD's
+        print("# codebook plans under GSPMD (no shard_map-TP path)")
+        args.parallel = "gspmd"
+    if args.parallel == "gspmd" and args.format != "codebook":
         raise SystemExit(f"--parallel gspmd: {_GSPMD}")
     hbm_bytes = (int(args.hbm_gb * hbm.GiB) if args.hbm_gb
                  else hbm.detect_hbm_bytes())
@@ -718,10 +732,11 @@ def main(argv=None) -> int:
         print(f"OVER: chips {args.chips} % hosts {args.hosts} != 0")
         return 1
     per_slice = args.chips // args.hosts
-    if args.format == "codebook" and per_slice > 1:
-        raise SystemExit(f"--format codebook over {per_slice} devices: "
-                         f"{_GSPMD}")
-    tp, pp = _placement(cfg, per_slice)
+    gspmd = args.parallel == "gspmd"
+    tp, pp = (1, 1) if gspmd else _placement(cfg, per_slice)
+    # the width of the model axis: tp, or every device of the host under
+    # gspmd
+    model_chips = per_slice if gspmd else tp
 
     est = hbm.estimate_model_bytes(cfg, args.format, tp_shards=tp,
                                    default_vq=vq)
@@ -754,8 +769,8 @@ def main(argv=None) -> int:
         # tp wide (the weights' time is the model's over tp whatever pp),
         # plus a hop a stage boundary a step
         pred = predict_decode_tok_s(
-            cfg, args.format, tp, args.batch, args.max_seq, ici_us=ici,
-            rates=E2E_GBPS, hbm_gbps=H100_HBM_GBPS)
+            cfg, args.format, model_chips, args.batch, args.max_seq,
+            ici_us=ici, rates=E2E_GBPS, hbm_gbps=H100_HBM_GBPS)
         return args.batch / (args.batch / pred + (pp - 1) * ici * 1e-6)
 
     try:
@@ -790,8 +805,9 @@ def main(argv=None) -> int:
             print(f"# the meta step runs one of {pp} pipeline stages "
                   f"({cfg_c.num_hidden_layers} layers, tp={tp})")
         step = validate_plan(cfg_c, fmt, args.batch, args.max_seq, vq=vq,
-                             tp=tp)
-        rank = f" of one rank of tp={tp}" if tp > 1 else ""
+                             tp=model_chips)
+        rank = (f" of one rank of {'gspmd' if gspmd else 'tp'}="
+                f"{model_chips}" if model_chips > 1 else "")
         print(f"meta decode step{rank}: logits {step['logits_shape']} "
               f"{step['logits_dtype']}, weights "
               f"{step['weights_bytes'] / hbm.GiB:.2f} GiB, cache "

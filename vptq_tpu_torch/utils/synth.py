@@ -78,12 +78,23 @@ def make_numpy_planes(
     dtype=np.float32,
     mean: float = 2e-2,
     std: float = 0.5,
+    heavy_tailed: bool = False,
 ) -> Dict[str, Optional[np.ndarray]]:
     """Random normalized parameter planes for one layer (Gaussian
-    codebooks of the given ``mean`` and ``std``)."""
+    codebooks of the given ``mean`` and ``std``).
+
+    ``heavy_tailed``: statistics like a real LLM's instead: codebook
+    components from Student-t(4) rescaled by √2 (variance matched to the
+    Gaussian's), and a lognormal (σ 0.5) ``weight_scale`` whose
+    ``max(4, in / 128)`` randomly chosen channels are boosted 4–10×.
+    """
     rng = np.random.default_rng(seed)
 
     def normal(shape):
+        if heavy_tailed:
+            # t(4) has variance 2
+            t = rng.standard_t(4, size=shape) / np.sqrt(2.0)
+            return (mean + std * t).astype(dtype)
         return (mean + std * rng.standard_normal(shape)).astype(dtype)
 
     c, k, v = cfg.num_codebooks, cfg.num_main_centroids, cfg.vector_len
@@ -116,9 +127,16 @@ def make_numpy_planes(
     if cfg.enable_perm:
         planes["perm"] = rng.permutation(cfg.in_features).astype(np.uint16)
     if cfg.enable_norm:
-        planes["weight_scale"] = (
-            1.0 + 0.1 * rng.standard_normal(cfg.in_features)
-        ).astype(dtype)
+        if heavy_tailed:
+            ws = np.exp(0.5 * rng.standard_normal(cfg.in_features))
+            n_out = max(4, cfg.in_features // 128)
+            boosted = rng.choice(cfg.in_features, n_out, replace=False)
+            ws[boosted] *= rng.uniform(4.0, 10.0, n_out)
+            planes["weight_scale"] = ws.astype(dtype)
+        else:
+            planes["weight_scale"] = (
+                1.0 + 0.1 * rng.standard_normal(cfg.in_features)
+            ).astype(dtype)
         planes["weight_bias"] = (
             0.05 * rng.standard_normal(cfg.in_features)
         ).astype(dtype)

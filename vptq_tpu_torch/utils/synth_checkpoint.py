@@ -66,10 +66,12 @@ def tiny_model_config(**overrides) -> ModelConfig:
 
 
 def _layer_tensors(
-    prefix: str, cfg: VQLinearConfig, seed: int, dtype, std: float
+    prefix: str, cfg: VQLinearConfig, seed: int, dtype, std: float,
+    heavy_tailed: bool = False,
 ) -> Dict[str, np.ndarray]:
     """Tensors of one quantized linear, checkpoint-format."""
-    planes = make_numpy_planes(cfg, seed=seed, dtype=dtype, std=std)
+    planes = make_numpy_planes(cfg, seed=seed, dtype=dtype, std=std,
+                               heavy_tailed=heavy_tailed)
     c, k, v = cfg.num_codebooks, cfg.num_main_centroids, cfg.vector_len
     view = np.float16 if cfg.indices_as_float else np.int16
 
@@ -197,6 +199,8 @@ def write_synthetic_checkpoint(
     qkv_bias: bool = False,
     std: float = 0.5,
     bin_shards: int = 0,
+    vq_lm_head: bool = False,
+    heavy_tailed: bool = False,
 ) -> Path:
     """Create ``path`` with config.json + model.safetensors (or, with
     ``bin_shards`` n > 0, n ``pytorch_model*.bin`` pickles: one file, or n
@@ -209,6 +213,12 @@ def write_synthetic_checkpoint(
     so a deep full-width model passes a smaller one. A ``sliding_window``
     of ``model_cfg`` goes into config.json (the JAX package's writer
     leaves it out).
+
+    ``vq_lm_head``: the lm_head as a VQ layer (some community checkpoints
+    quantize the vocabulary projection too; Gaussian codebooks, as the
+    JAX package draws it); it needs untied embeddings. ``heavy_tailed``:
+    the decoder's linears with :func:`make_numpy_planes`'s heavy-tailed
+    statistics.
     """
     mc = model_cfg or tiny_model_config()
     moe = mc.num_local_experts > 0
@@ -221,6 +231,8 @@ def write_synthetic_checkpoint(
             "the port writes dense Llama, Mistral, Qwen2, Phi-3, Mixtral "
             "and DeepSeek-V3 checkpoints"
         )
+    if vq_lm_head and mc.tie_word_embeddings:
+        raise ValueError("vq_lm_head requires tie_word_embeddings=False")
     vq_kwargs = dict(vq_kwargs or {})
     root = Path(path)
     root.mkdir(parents=True, exist_ok=True)
@@ -271,7 +283,8 @@ def write_synthetic_checkpoint(
 
     tensors: Dict[str, np.ndarray] = {}
     config_for_layers: Dict[str, dict] = {}
-    linears = []  # (prefix, cfg, seed), in the order the seeds are drawn
+    # (prefix, cfg, seed, heavy-tailed), in the order the seeds are drawn
+    linears = []
     for i in range(mc.num_hidden_layers):
         layer_shapes = dict(proj_shapes)
         if mc.is_mla:
@@ -285,7 +298,8 @@ def write_synthetic_checkpoint(
                 in_features=in_f, out_features=out_f, bias=has_bias,
                 **vq_kwargs
             )
-            linears.append((prefix, cfg, int(rng.integers(1 << 31))))
+            linears.append(
+                (prefix, cfg, int(rng.integers(1 << 31)), heavy_tailed))
             config_for_layers[prefix] = cfg.to_dict()
         if moe:
             tensors[f"model.layers.{i}.block_sparse_moe.gate.weight"] = (
@@ -301,7 +315,12 @@ def write_synthetic_checkpoint(
         0.02 * rng.standard_normal((mc.vocab_size, h))
     ).astype(dtype)
     tensors["model.norm.weight"] = np.ones(h, dtype=dtype)
-    if not mc.tie_word_embeddings:
+    if vq_lm_head:
+        cfg = make_config(in_features=h, out_features=mc.vocab_size,
+                          **vq_kwargs)
+        linears.append(("lm_head", cfg, int(rng.integers(1 << 31)), False))
+        config_for_layers["lm_head"] = cfg.to_dict()
+    elif not mc.tie_word_embeddings:
         tensors["lm_head.weight"] = (
             0.02 * rng.standard_normal((mc.vocab_size, h))
         ).astype(dtype)
@@ -309,7 +328,8 @@ def write_synthetic_checkpoint(
     with ThreadPoolExecutor(max_workers=min(8, os.cpu_count() or 1)) as pool:
         for made in pool.map(
             lambda job: _layer_tensors(
-                job[0], job[1], seed=job[2], dtype=dtype, std=std
+                job[0], job[1], seed=job[2], dtype=dtype, std=std,
+                heavy_tailed=job[3],
             ),
             linears,
         ):
